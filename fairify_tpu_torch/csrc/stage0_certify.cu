@@ -27,21 +27,10 @@
 // the 2V stored forms, one thread per pair, and reduces the certificate
 // (any possible flip) and the margin (min) across the block.
 #include "common.cuh"
+#include "crown.cuh"
 
 #define KB_THREADS 256
 #define KB_FORM 10  // per-form scalars after the two d-vectors
-
-// Largest backward-pass coefficient matrix: layer k's pass starts from
-// W_k (in_k x out_k) and shrinks its row count to in_j at step j.
-static int max_a(const NetDesc& nd) {
-  int best = 1;
-  for (int k = 1; k < nd.L; ++k) {
-    int rows = 0;
-    for (int j = 0; j <= k; ++j) rows = rows > nd.in[j] ? rows : nd.in[j];
-    if (rows * nd.out[k] > best) best = rows * nd.out[k];
-  }
-  return best;
-}
 
 __global__ void __launch_bounds__(KB_THREADS)
 kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
@@ -53,24 +42,10 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
           const uint8_t* __restrict__ valid, const uint8_t* __restrict__ vpair,
           int V, uint8_t* __restrict__ cert, float* __restrict__ margin) {
   extern __shared__ float smem[];
-  const int d = nd.in[0], L = nd.L, FS = 2 * d + KB_FORM;
+  const int d = nd.in[0], FS = 2 * d + KB_FORM;
   float* P = smem;
-  float* wslb = P + nd.total;
-  float* wsub = wslb + nd.nsum;
-  float* rlo = wsub + nd.nsum;
-  float* rhi = rlo + nd.maxw;
-  float* zlo = rhi + nd.maxw;
-  float* zhi = zlo + nd.maxw;
-  float* US = zhi + nd.maxw;
-  float* UI = US + nd.maxw;
-  float* LS = UI + nd.maxw;
-  float* clo = LS + nd.maxw;
-  float* cup = clo + nd.maxw;
-  float* inlo = cup + nd.maxw;
-  float* inhi = inlo + d;
-  float* Alo[2] = {inhi + d, inhi + d + maxA};
-  float* Aup[2] = {Alo[1] + maxA, Alo[1] + 2 * maxA};
-  float* F = Aup[1] + maxA;  // 2V forms of FS floats
+  CrownWs ws;
+  float* F = crown_ws_carve(ws, P + nd.total, nd, maxA);  // 2V forms of FS floats
   float* bl = F + 2 * V * FS;
   float* bh = bl + d;
   float* absb = bh + d;
@@ -96,138 +71,12 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
     const float* slo = (role == 0 ? xlo : plo) + ((size_t)b * V + v) * d;
     const float* shi = (role == 0 ? xhi : phi) + ((size_t)b * V + v) * d;
     for (int i = tid; i < d; i += nt) {
-      inlo[i] = rlo[i] = slo[i];
-      inhi[i] = rhi[i] = shi[i];
+      ws.inlo[i] = slo[i];
+      ws.inhi[i] = shi[i];
     }
     __syncthreads();
-    int cur = 0;
-    for (int k = 0; k < L; ++k) {
-      const int nin = nd.in[k], nout = nd.out[k];
-      const float* Wk = P + nd.w[k];
-      const float* Bk = P + nd.b[k];
-      for (int j = tid; j < nout; j += nt) {  // IBP of layer k
-        float a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
-        for (int i = 0; i < nin; ++i) {
-          const float w = Wk[i * nout + j];
-          const float wp = fmaxf(w, 0.f), wn = fminf(w, 0.f);
-          a1 = fmaf(rlo[i], wp, a1);
-          a2 = fmaf(rhi[i], wn, a2);
-          a3 = fmaf(rhi[i], wp, a3);
-          a4 = fmaf(rlo[i], wn, a4);
-        }
-        zlo[j] = (a1 + a2) + Bk[j];
-        zhi[j] = (a3 + a4) + Bk[j];
-      }
-      if (k > 0) {
-        // Backward pass for layer k: A = W_k, c = b_k, then through layers
-        // k-1 .. 0.  A is (rows x cols) row-major, cols = out_k.
-        const int cols = nout;
-        int rows = nin;
-        cur = 0;
-        for (int i = tid; i < rows * cols; i += nt) Alo[0][i] = Aup[0][i] = Wk[i];
-        for (int c = tid; c < cols; c += nt) clo[c] = cup[c] = Bk[c];
-        __syncthreads();
-        for (int j = k - 1; j >= 0; --j) {
-          const float* Mj = P + nd.m[j];
-          for (int r = tid; r < rows; r += nt) {  // relaxation of layer j
-            const float lo = wslb[nd.n[j] + r], hi = wsub[nd.n[j] + r];
-            const bool unst = lo < 0.f && hi > 0.f;
-            const float den = unst ? hi - lo : 1.f;
-            const float us = unst ? hi / den : (lo >= 0.f ? 1.f : 0.f);
-            const float ui = unst ? -hi * lo / den : 0.f;
-            const float ls = unst ? (hi >= -lo ? 1.f : 0.f) : us;
-            US[r] = us * Mj[r];
-            UI[r] = ui * Mj[r];
-            LS[r] = ls * Mj[r];
-          }
-          __syncthreads();
-          const float* Bj = P + nd.b[j];
-          float* al = Alo[cur];
-          float* au = Aup[cur];
-          for (int c = tid; c < cols; c += nt) {
-            float s1 = 0.f, s2 = 0.f;
-            for (int r = 0; r < rows; ++r) {
-              const float a = al[r * cols + c], u = au[r * cols + c];
-              const float ap = fmaxf(a, 0.f), an = fminf(a, 0.f);
-              const float up = fmaxf(u, 0.f), un = fminf(u, 0.f);
-              s1 = fmaf(UI[r], an, s1);
-              s2 = fmaf(UI[r], up, s2);
-              al[r * cols + c] = ap * LS[r] + an * US[r];
-              au[r * cols + c] = up * US[r] + un * LS[r];
-            }
-            float t1 = 0.f, t2 = 0.f;
-            for (int r = 0; r < rows; ++r) {
-              t1 = fmaf(Bj[r], al[r * cols + c], t1);
-              t2 = fmaf(Bj[r], au[r * cols + c], t2);
-            }
-            clo[c] = (clo[c] + s1) + t1;
-            cup[c] = (cup[c] + s2) + t2;
-          }
-          __syncthreads();
-          const int nrows = nd.in[j];
-          const float* Wj = P + nd.w[j];
-          float* al2 = Alo[cur ^ 1];
-          float* au2 = Aup[cur ^ 1];
-          for (int idx = tid; idx < nrows * cols; idx += nt) {
-            const int i = idx / cols, c = idx - i * cols;
-            float sl = 0.f, su = 0.f;
-            for (int r = 0; r < rows; ++r) {
-              const float w = Wj[i * rows + r];
-              sl = fmaf(w, al[r * cols + c], sl);
-              su = fmaf(w, au[r * cols + c], su);
-            }
-            al2[idx] = sl;
-            au2[idx] = su;
-          }
-          __syncthreads();
-          cur ^= 1;
-          rows = nrows;
-        }
-        // Concretize over the role box and intersect with IBP.
-        const float* al = Alo[cur];
-        const float* au = Aup[cur];
-        for (int c = tid; c < cols; c += nt) {
-          float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
-          for (int i = 0; i < d; ++i) {
-            const float a = al[i * cols + c], u = au[i * cols + c];
-            s1 = fmaf(inlo[i], fmaxf(a, 0.f), s1);
-            s2 = fmaf(inhi[i], fminf(a, 0.f), s2);
-            s3 = fmaf(inhi[i], fmaxf(u, 0.f), s3);
-            s4 = fmaf(inlo[i], fminf(u, 0.f), s4);
-          }
-          zlo[c] = fmaxf(zlo[c], (s1 + s2) + clo[c]);
-          zhi[c] = fminf(zhi[c], (s3 + s4) + cup[c]);
-        }
-      }
-      __syncthreads();
-      const float* Mk = P + nd.m[k];
-      for (int j = tid; j < nout; j += nt) {  // widen, record, next input
-        const float slack = SLACK_REL * fmaxf(fabsf(zlo[j]), fabsf(zhi[j])) + SLACK_ABS;
-        const float lo = zlo[j] - slack, hi = zhi[j] + slack;
-        wslb[nd.n[k] + j] = lo;
-        wsub[nd.n[k] + j] = hi;
-        rlo[j] = fmaxf(lo, 0.f) * Mk[j];
-        rhi[j] = fmaxf(hi, 0.f) * Mk[j];
-      }
-      __syncthreads();
-    }
-    // Output forms of the last backward pass (one output unit).
-    float* f = F + rv * FS;
-    const float* al = L > 1 ? Alo[cur] : P + nd.w[0];
-    const float* au = L > 1 ? Aup[cur] : P + nd.w[0];
-    for (int i = tid; i < d; i += nt) {
-      f[i] = al[i];
-      f[d + i] = au[i];
-    }
-    if (tid == 0) {
-      f[2 * d + 0] = L > 1 ? clo[0] : P[nd.b[0]];
-      f[2 * d + 1] = L > 1 ? cup[0] : P[nd.b[0]];
-      f[2 * d + 2] = wslb[nd.n[L - 1]];
-      f[2 * d + 3] = wsub[nd.n[L - 1]];
-    }
-    __syncthreads();
+    crown_role_forms(nd, maxA, P, ws, F + rv * FS);
   }
-
   // ---- per-form sums: PA dot products, RA magnitudes, coefficient mags ----
   for (int rv = tid; rv < 2 * V; rv += nt) {
     float* f = F + rv * FS;
@@ -302,9 +151,9 @@ extern "C" int kb_stage0_certify(const void* params, const int* dims, int L,
                                  float eps, const void* valid, const void* vpair,
                                  int N, int V, void* cert, void* margin, void* stream) {
   const NetDesc nd = make_desc(dims, L);
-  const int maxA = max_a(nd), d = nd.in[0];
-  const size_t smem = sizeof(float) * (nd.total + 2 * nd.nsum + 9 * nd.maxw + 2 * d
-                                       + 4 * maxA + 2 * V * (2 * d + KB_FORM) + 4 * d + 32)
+  const int maxA = crown_max_a(nd), d = nd.in[0];
+  const size_t smem = sizeof(float) * (nd.total + crown_ws_floats(nd, maxA)
+                                       + 2 * V * (2 * d + KB_FORM) + 4 * d + 32)
                       + sizeof(int);
   cudaError_t err = set_smem(kb_kernel, smem);
   if (err != cudaSuccess) return (int)err;

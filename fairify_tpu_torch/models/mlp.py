@@ -110,6 +110,19 @@ def seeded_net(sizes, seed: int = 0, device=None) -> MLP:
     return from_numpy(ws, bs, device=device)
 
 
+def init_mlp(sizes, seed: int = 0, scale: float = 0.1, device=None) -> MLP:
+    """He-scaled (``scale · sqrt(2 / fan_in)``) normal weights and zero
+    biases from ``default_rng(seed)``: the same draws as the JAX package's
+    ``models.train.init_mlp``."""
+    rng = np.random.default_rng(seed)
+    ws, bs = [], []
+    for i in range(len(sizes) - 1):
+        std = scale * np.sqrt(2.0 / sizes[i])
+        ws.append(rng.normal(scale=std, size=(sizes[i], sizes[i + 1])).astype(np.float32))
+        bs.append(np.zeros(sizes[i + 1], dtype=np.float32))
+    return from_numpy(ws, bs, device=device)
+
+
 def forward_np(weights, biases, x: np.ndarray, dead=None) -> np.ndarray:
     """Host float64 logit replay; ``dead`` = per-hidden-layer dead masks."""
     h = np.asarray(x, dtype=np.float64)
@@ -122,6 +135,32 @@ def forward_np(weights, biases, x: np.ndarray, dead=None) -> np.ndarray:
                 z = z * (1.0 - np.asarray(dead[i], dtype=np.float64))
         h = z
     return h[..., 0]
+
+
+def local_affine_np(weights, biases, x):
+    """Exact local affine form of the logit at ``x``: ``(f(x), df/dx)`` in f64.
+
+    A ReLU MLP is affine within the activation region of ``x``, so the
+    gradient is the product of the weight matrices masked by the active
+    units (up to f64 rounding; no autodiff).  Used by the flip-slab search
+    (``verify.engine.slab_search``).
+    """
+    h = np.asarray(x, dtype=np.float64)
+    n = len(weights)
+    masks = []
+    f = 0.0
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        z = h @ np.asarray(w, dtype=np.float64) + np.asarray(b, dtype=np.float64)
+        if i < n - 1:
+            m = z > 0
+            masks.append(m)
+            h = z * m
+        else:
+            f = float(z[0])
+    g = np.asarray(weights[-1], dtype=np.float64)[:, 0]
+    for i in range(n - 2, -1, -1):
+        g = np.asarray(weights[i], dtype=np.float64) @ (g * masks[i])
+    return f, g
 
 
 def predict_np(weights, biases, x: np.ndarray, dead=None) -> np.ndarray:

@@ -31,8 +31,6 @@ Terminal states
                        ``EngineConfig.bab_frontier_cap``)
 ``unknown:frontier:hard``  the device BaB ran to a bound stall / exact-leaf
                        UNKNOWN with queue room to spare: genuinely hard
-``unknown:refinement_not_ported``  (port only) a stage-0 leftover; the
-                       refinement tail is not ported yet
 ``unknown:failure:<site>``  degraded by an exhausted fault site (the
                        ``<site>`` prefix of the failure record's reason,
                        e.g. ``launch.submit``)
@@ -56,7 +54,6 @@ STATES = (
     "unknown:frontier",
     "unknown:frontier:overflow",
     "unknown:frontier:hard",
-    "unknown:refinement_not_ported",
 )
 
 #: Engine ``Decision.reason`` values with a dedicated funnel state.  The
@@ -65,10 +62,7 @@ STATES = (
 #: vs 'frontier:hard' (bounds stalled at full budget — genuinely hard);
 #: bare 'frontier' remains the host-frontier / unrecognised-reason fallback.
 _ENGINE_REASONS = ("deadline", "budget", "frontier",
-                   "frontier:overflow", "frontier:hard",
-                   # Port-only: a stage-0 leftover the port cannot refine yet
-                   # (the BaB/PGD/LP/lattice/SMT tail is ROADMAP queue 1, 5).
-                   "refinement_not_ported")
+                   "frontier:overflow", "frontier:hard")
 
 # ---------------------------------------------------------------------------
 # Fixed-bucket histogram layout (margins and attack gaps share it)

@@ -1,24 +1,41 @@
-"""Batched CROWN backward linear-relaxation bounds, plain CROWN only.
+"""Batched CROWN backward linear-relaxation bounds, with α-CROWN.
 
-Port of the ``alpha_iters=0`` part of ``fairify_tpu/ops/crown.py``: the
-ReLU triangle relaxation (:func:`relu_relaxation`), the backward pass that
-expresses a layer's pre-activations as linear forms of the input
-(:func:`backward_linear`), their concretization over the input box, the
-full-network CROWN bounds intersected with IBP (:func:`crown_bounds`), and
-the output-logit linear forms the tied pair certificate consumes
-(:func:`crown_output_form_sets`).  α/β optimisation is not ported yet
-(ROADMAP queue 1, item 5).
+Port of ``fairify_tpu/ops/crown.py`` without β: the ReLU triangle
+relaxation (:func:`relu_relaxation`), the backward pass that expresses a
+layer's pre-activations as linear forms of the input, optionally with
+tuned lower slopes α (:func:`backward_linear`), their concretization over
+the input box, the full-network CROWN bounds intersected with IBP
+(:func:`crown_bounds`), the signed-gradient α optimiser
+(:func:`optimize_relaxation`), and the output-logit linear forms the tied
+pair certificate consumes (:func:`crown_output_form_sets`,
+:func:`output_form_stack`).  β (the split multipliers of
+``sign_constrained_output_bounds``) belongs to Phase S and is not ported
+(ROADMAP queue 2, K8).
+
+The α gradient follows JAX's tie rules, so the α iterates are JAX's:
+every positive/negative split is ``torch.maximum``/``torch.minimum``
+against 0 (½ of the gradient to each side at 0, like ``jnp.maximum``),
+never ``torch.clamp`` (which passes all of it).
 
 Every function takes arbitrary leading batch axes on the box tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fairify_tpu_torch.ops.interval import LayerBounds, affine_interval, widen
 
-ALPHA_NOT_PORTED = ("alpha_iters > 0 (α-CROWN) is not ported yet: ROADMAP "
-                    "queue 1, item 5 (the refinement tail, α/β of ops/crown.py)")
+BETA_NOT_PORTED = ("β multipliers (with_beta, sign-split constraints) are not "
+                   "ported yet: ROADMAP queue 2, K8 (Phase S)")
+
+
+def _pos(a):
+    return torch.maximum(a, a.new_zeros(()))
+
+
+def _neg(a):
+    return torch.minimum(a, a.new_zeros(()))
 
 
 def relu_relaxation(lo, hi, mask):
@@ -37,13 +54,17 @@ def relu_relaxation(lo, hi, mask):
     return us * mask, ui * mask, ls * mask
 
 
-def backward_linear(net, k: int, pre_lbs, pre_ubs, batch):
+def backward_linear(net, k: int, pre_lbs, pre_ubs, batch, alphas_low=None,
+                    alphas_up=None):
     """Linear forms of layer-k pre-activations in terms of the input.
 
     Returns ``(A_low, c_low, A_up, c_up)`` with ``A_*`` of shape
     ``batch + (d, n_k)`` and ``c_*`` of shape ``batch + (n_k,)`` such that
     ``x @ A_low + c_low <= z_k <= x @ A_up + c_up`` over the box the
-    ``pre_*`` bounds were computed for.
+    ``pre_*`` bounds were computed for.  ``alphas_low``/``alphas_up``:
+    optional per-hidden-layer (..., n_j) lower ReLU slopes in [0, 1] for
+    the unstable neurons of the lower / upper form (any value is sound);
+    None keeps the adaptive slope.
     """
     w_k = net.weights[k]
     n_k = w_k.shape[1]
@@ -53,15 +74,17 @@ def backward_linear(net, k: int, pre_lbs, pre_ubs, batch):
     c_up = c_low
     for j in range(k - 1, -1, -1):
         us, ui, ls = relu_relaxation(pre_lbs[j], pre_ubs[j], net.masks[j])
+        unstable = (pre_lbs[j] < 0.0) & (pre_ubs[j] > 0.0)
+        m = net.masks[j]
+        ls_low = ls if alphas_low is None else torch.where(unstable, alphas_low[j], ls) * m
+        ls_up = ls if alphas_up is None else torch.where(unstable, alphas_up[j], ls) * m
         # Through h_j = relu(z_j): pick the relaxation per coefficient sign.
-        Ap = torch.clamp(A_low, min=0.0)
-        An = torch.clamp(A_low, max=0.0)
+        Ap, An = _pos(A_low), _neg(A_low)
         c_low = c_low + (ui.unsqueeze(-2) @ An).squeeze(-2)
-        A_low = Ap * ls.unsqueeze(-1) + An * us.unsqueeze(-1)
-        Ap = torch.clamp(A_up, min=0.0)
-        An = torch.clamp(A_up, max=0.0)
+        A_low = Ap * ls_low.unsqueeze(-1) + An * us.unsqueeze(-1)
+        Ap, An = _pos(A_up), _neg(A_up)
         c_up = c_up + (ui.unsqueeze(-2) @ Ap).squeeze(-2)
-        A_up = Ap * us.unsqueeze(-1) + An * ls.unsqueeze(-1)
+        A_up = Ap * us.unsqueeze(-1) + An * ls_up.unsqueeze(-1)
         # Through z_j = h_{j-1} @ w_j + b_j.
         w_j, b_j = net.weights[j], net.biases[j]
         c_low = c_low + b_j @ A_low
@@ -74,11 +97,56 @@ def backward_linear(net, k: int, pre_lbs, pre_ubs, batch):
 def concretize(A_low, c_low, A_up, c_up, in_lb, in_ub):
     """Extreme values of the linear forms over the input box."""
     lb, ub = in_lb.unsqueeze(-2), in_ub.unsqueeze(-2)
-    lo = (lb @ torch.clamp(A_low, min=0.0)).squeeze(-2) \
-        + (ub @ torch.clamp(A_low, max=0.0)).squeeze(-2) + c_low
-    hi = (ub @ torch.clamp(A_up, min=0.0)).squeeze(-2) \
-        + (lb @ torch.clamp(A_up, max=0.0)).squeeze(-2) + c_up
+    lo = (lb @ _pos(A_low)).squeeze(-2) + (ub @ _neg(A_low)).squeeze(-2) + c_low
+    hi = (ub @ _pos(A_up)).squeeze(-2) + (lb @ _neg(A_up)).squeeze(-2) + c_up
     return lo, hi
+
+
+def backward_bounds(net, k: int, pre_lbs, pre_ubs, in_lb, in_ub,
+                    alphas_low=None, alphas_up=None):
+    """CROWN bounds ``(lo, hi)`` (..., n_k) of layer-k pre-activations."""
+    forms = backward_linear(net, k, pre_lbs, pre_ubs, in_lb.shape[:-1],
+                            alphas_low, alphas_up)
+    return concretize(*forms, in_lb, in_ub)
+
+
+def optimize_relaxation(width, init, iters: int, with_beta: bool = False,
+                        lr0: float = 0.5, decay: float = 0.7):
+    """Signed-gradient ascent on the α of a CROWN relaxation.
+
+    ``width(al, au) -> (summed_width, (lo, hi))``; ``init`` the per-layer
+    starting α (the adaptive slope).  Per iteration: evaluate, keep the
+    best (lo, hi) so far, step ``α ← clip(α − lr·sign(∂width/∂α), 0, 1)``,
+    ``lr ← lr·decay``; the final α is evaluated once more.  Every iterate
+    is a valid relaxation, so the kept bounds are sound.  Returns
+    ``(lo, hi, al, au)`` with the final α's.  The step size is carried in
+    f32 like the JAX package's ``lax.fori_loop`` carry.
+    """
+    if with_beta:
+        raise NotImplementedError(BETA_NOT_PORTED)
+    al = [a.detach() for a in init]
+    au = [a.detach() for a in init]
+    lr = np.float32(lr0)
+    best_lo = best_hi = None
+    for _ in range(iters):
+        al_g = [a.clone().requires_grad_(True) for a in al]
+        au_g = [a.clone().requires_grad_(True) for a in au]
+        with torch.enable_grad():
+            w, (lo, hi) = width(al_g, au_g)
+            grads = torch.autograd.grad(w, al_g + au_g, allow_unused=True)
+        lo, hi = lo.detach(), hi.detach()
+        best_lo = lo if best_lo is None else torch.maximum(best_lo, lo)
+        best_hi = hi if best_hi is None else torch.minimum(best_hi, hi)
+        step = lambda a, g: a if g is None else torch.clamp(
+            a - float(lr) * torch.sign(g), 0.0, 1.0)
+        al = [step(a, g) for a, g in zip(al, grads[:len(al)])]
+        au = [step(a, g) for a, g in zip(au, grads[len(al):])]
+        lr = np.float32(lr * np.float32(decay))
+    with torch.no_grad():
+        _, (lo, hi) = width(al, au)
+    best_lo = lo if best_lo is None else torch.maximum(best_lo, lo)
+    best_hi = hi if best_hi is None else torch.minimum(best_hi, hi)
+    return best_lo, best_hi, al, au
 
 
 def crown_bounds(net, lb, ub) -> LayerBounds:
@@ -112,16 +180,50 @@ def crown_bounds(net, lb, ub) -> LayerBounds:
 def crown_output_form_sets(net, lb, ub, alpha_iters: int = 0):
     """Output-logit linear forms over the box, for relational certificates.
 
-    Returns ``([(A_low, c_low, A_up, c_up)], lo, hi)`` with ``A_*`` of shape
-    (..., d) and ``c_*`` of shape (...,): the plain-CROWN form set, and the
-    concretized, widened output bounds.  The forms are unwidened; a
-    certificate built on them adds its own outward slack.
+    Returns ``(form_sets, lo, hi)``: ``form_sets`` a list of one or two
+    tuples ``(A_low, c_low, A_up, c_up)`` (``A_*`` (..., d), ``c_*``
+    (...,)), each satisfying ``x·A_low + c_low <= f(x) <= x·A_up + c_up``
+    over ``[lb, ub]``.  Set 0 is plain CROWN; with ``alpha_iters > 0`` a
+    second set carries the α-optimised slopes (final iterate).  ``lo``/
+    ``hi`` are the concretized, widened output bounds intersected across
+    sets.  The forms are unwidened; a certificate built on them adds its
+    own outward slack.
     """
-    if alpha_iters > 0:
-        raise NotImplementedError(ALPHA_NOT_PORTED)
     bounds = crown_bounds(net, lb, ub)
     k = net.depth - 1
-    A_l, c_l, A_u, c_u = backward_linear(net, k, bounds.ws_lb[:k],
-                                         bounds.ws_ub[:k], lb.shape[:-1])
+    pre_lbs, pre_ubs = bounds.ws_lb[:k], bounds.ws_ub[:k]
+    batch = lb.shape[:-1]
+    A_l, c_l, A_u, c_u = backward_linear(net, k, pre_lbs, pre_ubs, batch)
     plain = (A_l[..., 0], c_l[..., 0], A_u[..., 0], c_u[..., 0])
-    return [plain], bounds.ws_lb[-1][..., 0], bounds.ws_ub[-1][..., 0]
+    lo0, hi0 = bounds.ws_lb[-1][..., 0], bounds.ws_ub[-1][..., 0]
+    if k == 0 or alpha_iters <= 0:
+        return [plain], lo0, hi0
+
+    def width(al_, au_):
+        lo, hi = backward_bounds(net, k, pre_lbs, pre_ubs, lb, ub, al_, au_)
+        return (hi[..., 0] - lo[..., 0]).sum(), (lo[..., 0], hi[..., 0])
+
+    init = [(pre_ubs[j] >= -pre_lbs[j]).to(lb.dtype) for j in range(k)]
+    opt_lo, opt_hi, al, au = optimize_relaxation(width, init, alpha_iters)
+    A_l, c_l, A_u, c_u = backward_linear(net, k, pre_lbs, pre_ubs, batch, al, au)
+    tuned = (A_l[..., 0], c_l[..., 0], A_u[..., 0], c_u[..., 0])
+    lo1, hi1 = concretize(A_l, c_l, A_u, c_u, lb, ub)
+    opt_lo = torch.maximum(opt_lo, lo1[..., 0])
+    opt_hi = torch.minimum(opt_hi, hi1[..., 0])
+    opt_lo, opt_hi = widen(opt_lo, opt_hi)
+    return [plain, tuned], torch.maximum(opt_lo, lo0), torch.minimum(opt_hi, hi0)
+
+
+def output_form_stack(net, lb, ub, alpha_iters: int = 0, n_sets: int = 0):
+    """:func:`crown_output_form_sets` with the sets stacked on a leading
+    axis of length ``n_sets`` (default: as many as computed).  A shorter
+    list is padded by REPEATING its last set — every set is independently
+    sound, so a duplicate changes neither a min-over-sets bound nor an
+    intersect-over-sets keep hull.  Returns ``((A_low, c_low, A_up, c_up),
+    lo, hi)`` with ``A_*`` (n_sets, ..., d) and ``c_*`` (n_sets, ...)."""
+    sets_, lo, hi = crown_output_form_sets(net, lb, ub, alpha_iters)
+    want = int(n_sets) if n_sets else len(sets_)
+    if want < len(sets_):
+        raise ValueError(f"n_sets={want} < {len(sets_)} computed form sets")
+    sets_ = sets_ + [sets_[-1]] * (want - len(sets_))
+    return tuple(torch.stack([st[i] for st in sets_]) for i in range(4)), lo, hi

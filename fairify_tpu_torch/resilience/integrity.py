@@ -2,8 +2,9 @@
 
 Copy of the detection half of ``fairify_tpu/resilience/integrity.py``: the
 host mirror of the kernels' wrapping int32 fold (:func:`fold_host`), the
-known-answer canary check (:func:`check_canary`), their combination
-(:func:`verify_segment`), and the per-row ledger CRC (:func:`record_crc`,
+known-answer canary checks (:func:`check_canary` for stage-0 segments,
+:func:`check_bab_canary` for device-BaB segments), their combinations
+(:func:`verify_segment`, :func:`verify_bab_segment`), and the per-row ledger CRC (:func:`record_crc`,
 :func:`verify_records`).  Fault injection and the sampled recheck are not
 ported yet (ROADMAP queue 1, item 7).
 """
@@ -19,6 +20,14 @@ import numpy as np
 # The host mirror must walk them in the same order (int32 wraparound sums
 # commute, but keeping the order pinned keeps the contract obvious).
 FOLD_KEYS = ("cert", "wit", "reason", "stats")
+
+# Device-BaB segment payload keys (``verify.engine.bab_segment`` outputs), in
+# the kernel's fold order — the packed frontier queue plus the per-root
+# counters.  Floats fold through the same int32 truncation on both sides
+# (a C cast and torch's ``to(int32)`` both round toward zero), so equal
+# buffers fold equal on any backend.
+BAB_FOLD_KEYS = ("q_lo", "q_hi", "q_root", "q_live", "found",
+                 "wit_a", "wit_b", "wit_pt", "nodes", "splits", "overflow")
 
 
 def fold_host(payload: Dict[str, np.ndarray],
@@ -52,6 +61,35 @@ def check_canary(payload: Dict[str, np.ndarray]) -> bool:
     reason = np.asarray(payload["reason"])
     return (bool(np.all(cert[-1])) and bool(np.all(reason[-1] == 1))
             and bool(np.all(wit[-1] == 0)))
+
+
+def check_bab_canary(payload: Dict[str, np.ndarray]) -> bool:
+    """True iff the BaB queue's trailing canary slot holds its known answer.
+
+    The canary slot is never allocated (``slot_ok`` False): it enters the
+    segment dead and all-zero, the kernel's compaction can never scatter a
+    child into it, and its latch can never set — so it must come back
+    exactly as it went in: not live, not found, zero box, zero witness
+    point.
+    """
+    return (not bool(np.any(np.asarray(payload["q_live"])[-1]))
+            and not bool(np.any(np.asarray(payload["found"])[-1]))
+            and bool(np.all(np.asarray(payload["q_lo"])[-1] == 0))
+            and bool(np.all(np.asarray(payload["q_hi"])[-1] == 0))
+            and bool(np.all(np.asarray(payload["wit_pt"])[-1] == 0)))
+
+
+def verify_bab_segment(payload: Dict[str, np.ndarray]) -> Optional[str]:
+    """Integrity-check one fetched device-BaB segment payload: None when
+    clean, else ``"checksum"`` (host fold over :data:`BAB_FOLD_KEYS` !=
+    device fold) or ``"canary"`` (the never-allocated trailing slot came
+    back non-zero)."""
+    if "csum" in payload and \
+            fold_host(payload, keys=BAB_FOLD_KEYS) != int(payload["csum"]):
+        return "checksum"
+    if not check_bab_canary(payload):
+        return "canary"
+    return None
 
 
 def verify_segment(payload: Dict[str, np.ndarray]) -> Optional[str]:

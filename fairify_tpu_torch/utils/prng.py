@@ -16,6 +16,8 @@ than substituting a ``torch.Generator``:
 * ``randint(k, lo, hi)``   → two draws (``higher_bits``, ``lower_bits``) from
   the split keys, reduced modulo the span with JAX's ``2**32 mod span``
   multiplier (``jax/_src/random.py:_randint``).
+* ``uniform(k, shape, a, b)`` → the 23 high bits of each draw as the mantissa
+  of a float in [1, 2), minus 1, scaled to [a, b) (``_uniform``).
 
 Everything here is plain torch on int64 tensors holding 32-bit values (torch
 has no full uint32 arithmetic); every add is masked back to 32 bits.  The
@@ -51,7 +53,9 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def seed_key(seed: int, device="cpu") -> torch.Tensor:
-    """Raw key data of ``jax.random.key(seed)``: a (2,) int64 tensor."""
+    """Raw key data of ``jax.random.key(seed)`` (and of
+    ``jax.random.PRNGKey(seed)``, which holds the same bits): a (2,) int64
+    tensor."""
     seed = int(seed)
     return torch.tensor([(seed >> 32) & M32, seed & M32], dtype=torch.int64,
                         device=device)
@@ -110,6 +114,32 @@ def randint_rows(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     off = (off & M32) % span
     out = (minval[:, None, :] + off) & M32
     return torch.where(out >= 1 << 31, out - (1 << 32), out)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` of one (2,) key → (num, 2)."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    k0, k1 = threefry2x32(key[0], key[1], torch.zeros_like(idx), idx)
+    return torch.stack([k0, k1], dim=1)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit-equal.
+
+    JAX's ``floats * (maxval - minval) + minval`` is one fused multiply-add
+    under XLA; it is taken in float64 here, where the product of two f32
+    values is exact, and rounded to f32 once.
+    """
+    shape = tuple(int(n) for n in shape)
+    n = int(np.prod(shape)) if shape else 1
+    bits = random_bits(key, n).reshape(shape)
+    mant = (bits >> 9) | 0x3F800000
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    lo = float(np.float32(minval))
+    span = float(np.float32(np.float32(maxval) - np.float32(minval)))
+    out = (floats.to(torch.float64) * span + lo).to(torch.float32)
+    return torch.clamp_min(out, lo)
 
 
 def simulate_boxes(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,

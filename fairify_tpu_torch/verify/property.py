@@ -123,6 +123,25 @@ def encode(query: FairnessQuery, max_assignments: int = 1024) -> PairEncoding:
     )
 
 
+def shared_dims(enc: PairEncoding, d: int) -> np.ndarray:
+    """Non-PA dimensions: the coordinates a fair pair shares (the BaB's
+    branching universe)."""
+    mask = np.ones(d, dtype=bool)
+    if len(enc.pa_idx):
+        mask[np.asarray(enc.pa_idx)] = False
+    return np.where(mask)[0]
+
+
+def valid_assignments(enc: PairEncoding, lo: np.ndarray, hi: np.ndarray):
+    """PA assignments whose values lie inside the box (``engine.decide_leaf``'s
+    pair universe)."""
+    return [
+        a for a in range(enc.n_assign)
+        if all(lo[enc.pa_idx[k]] <= enc.assignments[a, k] <= hi[enc.pa_idx[k]]
+               for k in range(len(enc.pa_idx)))
+    ]
+
+
 def role_boxes(enc: PairEncoding, lo: np.ndarray, hi: np.ndarray):
     """Role boxes for a batch of partition boxes.
 

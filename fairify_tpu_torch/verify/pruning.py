@@ -109,14 +109,16 @@ sim_and_bounds.launches = 0
 
 
 def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
-                     seed: int, chunk: int, mega_chunks: int) -> PruneResult:
+                     seed: int, chunk: int, mega_chunks: int,
+                     index_offset: int = 0) -> PruneResult:
     """Sound pruning for a (P, d) box grid, one KA launch per segment.
 
     The JAX package's mega path without the exact pass
     (``exact_certify=False, keep_sim=False``).  Segments group
     ``mega_chunks`` chunks of ``chunk`` rows, as in the JAX package
     (``partition.grid.segment_spans``); each partition's key is
-    ``grid_keys(seed, global index)``, so masks are segment invariant.
+    ``grid_keys(seed, global index)`` (row index plus ``index_offset``,
+    the start of a partition span), so masks are segment invariant.
     Only real rows are launched: the JAX package's row and chunk-axis
     padding exists to reuse compiled executables and never changes a real
     row's result.
@@ -132,7 +134,7 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     loos = None
     for seg_s, seg_e, _chunks in segs:
         n = seg_e - seg_s
-        keys = grid_keys(seed, seg_s, n, device=dev)
+        keys = grid_keys(seed, index_offset + seg_s, n, device=dev)
         lo_t = torch.as_tensor(np.asarray(lo[seg_s:seg_e], np.float32), device=dev)
         hi_t = torch.as_tensor(np.asarray(hi[seg_s:seg_e], np.float32), device=dev)
         ok = torch.ones(n, dtype=torch.bool, device=dev)

@@ -1,8 +1,8 @@
-"""The partition sweep, stage-0 slice: grid → prune → certify + attack →
-parity → ledger.
+"""The partition sweep: grid → prune → certify + attack → parity → the
+refinement tail → ledger.
 
-Port of the stage-0 path of ``fairify_tpu/verify/sweep.py:verify_model``
-(the mega path: ``mega_chunks > 0``, CROWN certificates, no mesh):
+Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
+(``mega_chunks > 0``, CROWN certificates, no mesh):
 
 * **Prune pass** — :func:`verify.pruning.sound_prune_grid`, one KA launch
   per segment (``csrc/sim_and_bounds.cu``).
@@ -12,14 +12,26 @@ Port of the stage-0 path of ``fairify_tpu/verify/sweep.py:verify_model``
   chunks plus the integrity canary chunk; the host checks the fold and the
   canary, then replays every flip exactly before it counts as SAT.
 * **Parity pass** — one KD launch per segment (``csrc/parity.cu``).
-* **Reporting** — CRC-checked JSONL ledger, the 24-column CSV, the
-  counterexample CSV and the throughput JSON, as the JAX package writes
-  them.
+* **stage0_pgd** — the deep PGD attack (K5, ``csrc/pgd_attack.cu``) over
+  every stage-0 leftover, one launch per grid chunk, then the exact
+  flip-slab search from the near-zero seeds within a quarter of the
+  remaining hard budget.
+* **bab** — :func:`verify.engine.decide_many` on what is left: the device
+  BaB (K6, ``csrc/bab_segment.cu``; segment 0 plain CROWN, later segments
+  α-CROWN) under ``min(soft_timeout × leftovers, hard budget left)``.
+* **Heuristic retry** — each still-unknown partition is re-decided on its
+  heuristically pruned net (:func:`ops.heuristic.heuristic_prune`,
+  :func:`verify.engine.decide_box`); a SAT must replay on the original net,
+  and the partition's parity is taken again on its new masks from samples
+  regenerated on the card (K12's row generator, ``csrc/sim_rows.cu``).
+* **Reporting** — CRC-checked JSONL ledger (unknown rows carry the
+  engine's ``engine_reason``), the 24-column CSV, the counterexample CSV
+  and the throughput JSON with per-phase ``phases_s``.
 
 Launches run synchronously (the async pipeline, supervisor and obs spans
-are ROADMAP queue 1, item 7).  Partitions stage 0 leaves undecided are
-ledgered ``unknown`` with ``engine_reason: refinement_not_ported``: the
-refinement tail (PGD, BaB, lattice, LP, SMT) is not ported yet.
+are ROADMAP queue 1, item 7).  Engine phases the port does not run yet —
+S, L, P, E0/E, the host frontier, the SMT tier — raise
+``NotImplementedError`` naming their ROADMAP item where they would run.
 """
 from __future__ import annotations
 
@@ -28,7 +40,7 @@ import ctypes
 import json
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -36,6 +48,7 @@ import torch
 
 from fairify_tpu_torch.models.mlp import predict_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
+from fairify_tpu_torch.ops import heuristic as heur_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, mean_scale
 from fairify_tpu_torch.partition import grid as grid_mod
@@ -48,7 +61,8 @@ from fairify_tpu_torch.verify import csvio, engine, pruning
 from fairify_tpu_torch.verify.config import SweepConfig
 from fairify_tpu_torch.verify.property import PairEncoding, encode, role_boxes
 
-NOT_PORTED_REASON = "refinement_not_ported"
+SMT_NOT_PORTED = ("the SMT UNKNOWN-retry tier (smt_retry_timeouts_s) is not "
+                  "ported yet: ROADMAP queue 1, item 5")
 
 
 @dataclass
@@ -238,13 +252,14 @@ def integrity_failure(detector: str) -> dict:
 
 
 def stage0_certify_and_attack(net, enc: PairEncoding, lo, hi, cfg: SweepConfig,
-                              stats, failed):
+                              stats, failed, seed_offset: int = 0):
     """Root certificates + attack for the whole grid, one segment at a time.
 
     Returns ``(unsat (P,), sat (P,), witnesses {p: (x, x')})``; ``stats``
     (an ``obs.funnel.StageStats``) accumulates the device histograms;
     ``failed`` (dict) receives the failure record of every partition of a
-    segment whose fold or canary check trips.
+    segment whose fold or canary check trips.  ``seed_offset`` (a partition
+    span's start) offsets the attack streams, as in the JAX package.
     """
     P = lo.shape[0]
     step, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
@@ -253,7 +268,7 @@ def stage0_certify_and_attack(net, enc: PairEncoding, lo, hi, cfg: SweepConfig,
     sat = np.zeros(P, dtype=bool)
     witnesses: Dict[int, tuple] = {}
     for seg_s, seg_e, chunks in segs:
-        host, ctx = mega_segment(net, enc, lo, hi, cfg, chunks, step, 0)
+        host, ctx = mega_segment(net, enc, lo, hi, cfg, chunks, step, seed_offset)
         if cfg.integrity:
             tripped = integrity_mod.verify_segment(host)
             if tripped is not None:
@@ -315,11 +330,50 @@ def parity(net, keys, lo, hi, alive, sim_size: int):
 
 parity.launches = 0
 
+def sim_rows(keys, lo, hi, sim_size: int):
+    """K12's row generator: the ``sim_size`` simulation samples (N, S, d)
+    f32 of N partitions, regenerated from their keys (the rows of the
+    prune pass and of KD).  CPU tensors take
+    :func:`utils.prng.simulate_boxes`; CUDA tensors launch
+    ``csrc/sim_rows.cu``."""
+    if lo.device.type == "cpu":
+        return simulate_boxes(keys, lo, hi, sim_size)
+    k32 = cuda_build.u32_keys(keys)
+    lo, hi = lo.contiguous(), hi.contiguous()
+    cuda_build.require_cuda(k32, lo, hi)
+    N, d = lo.shape
+    if N > 65535:
+        raise ValueError("sim_rows: at most 65,535 partitions per launch")
+    out = torch.empty((N, sim_size, d), dtype=torch.float32, device=lo.device)
+    cuda_build.call("sim_rows", "k12_sim_rows", cuda_build.ptr(k32), cuda_build.ptr(lo),
+                    cuda_build.ptr(hi), ctypes.c_int(N), ctypes.c_int(d),
+                    ctypes.c_int(sim_size), cuda_build.ptr(out), cuda_build.stream())
+    sim_rows.launches += 1
+    return out
+
+
+sim_rows.launches = 0
+
+
+def parity_resim(weights, biases, dead, key, lo_p, hi_p, sim_size: int) -> float:
+    """Pruned-vs-original parity of ONE partition whose masks changed after
+    the parity pass (the heuristic retry): its ``sim_size`` samples (one
+    :func:`sim_rows` launch on ``key``'s device) through two host f64
+    forwards."""
+    box = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=key.device)[None]
+    sim = sim_rows(key[None], box(lo_p), box(hi_p), sim_size)[0].cpu().numpy()
+    return float((predict_np(weights, biases, sim)
+                  == predict_np(weights, biases, sim, dead=dead)).mean())
+
+
 KERNELS = {
     "sim_and_bounds": pruning.sim_and_bounds,
     "stage0_certify": engine.stage0_certify,
     "attack_flips": engine.attack_flips,
     "parity": parity,
+    "pgd_attack": engine.pgd_attack_kernel,
+    "bab_segment": engine.bab_segment,
+    "sim_rows": sim_rows,
 }
 
 
@@ -332,14 +386,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def parity_pass(net, prune, lo, hi, cfg: SweepConfig):
-    """The grid's parity column, one KD launch per segment."""
+def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0):
+    """The grid's parity column, one KD launch per segment (keys of the
+    global partition index: row plus ``index_offset``)."""
     P = lo.shape[0]
     dev = net.device
     out = np.zeros(P, dtype=np.float32)
     _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
     for seg_s, seg_e, _chunks in segs:
-        keys = grid_keys(cfg.seed, seg_s, seg_e - seg_s, device=dev)
+        keys = grid_keys(cfg.seed, index_offset + seg_s, seg_e - seg_s, device=dev)
         alive = [torch.as_tensor(1.0 - d[seg_s:seg_e], dtype=torch.float32,
                                  device=dev) for d in prune.st_deads[:-1]]
         as_f32 = lambda a: torch.as_tensor(np.asarray(a[seg_s:seg_e], np.float32),
@@ -419,48 +474,144 @@ def _write_ce(path: str, columns, pid: int, ce) -> None:
         wr.writerow([pid, "x'"] + [int(v) for v in ce[1]])
 
 
+def stage0_pgd(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, pending,
+               span_start: int, budget_left):
+    """The deep PGD attack over the stage-0 leftovers ``pending`` (grid row
+    indices), one K5 launch per ``grid_chunk`` of them, then the exact
+    flip-slab search from each box's near-zero PGD point, the box midpoint
+    and six seeded lattice points — within a quarter of the remaining hard
+    budget (``budget_left()`` seconds).  Returns ``(witnesses {row: (x,
+    x')}, covered_all)``: ``covered_all`` False when the hard budget cut the
+    launch loop, so the engine must not skip its own Phase A.
+    """
+    weights, biases = net.numpy_params()
+    pgd_wit: Dict[int, tuple] = {}
+    slab_budget = 0.25 * max(budget_left(), 0.0)
+    slab_spent = 0.0
+    covered_all = True
+    step = min(cfg.grid_chunk, len(pending)) if cfg.grid_chunk > 0 else len(pending)
+    for s in range(0, len(pending), step):
+        if budget_left() < 0.0:
+            covered_all = False
+            break
+        blk = pending[s:s + step]
+        w, near_zero, near_abs = engine.pgd_attack(
+            net, enc, lo[blk], hi[blk],
+            np.random.default_rng(cfg.engine.seed + 1 + span_start + s),
+            steps=cfg.engine.pgd_steps, restarts=cfg.engine.pgd_restarts,
+            return_points=True)
+        pgd_wit.update({blk[k]: v for k, v in w.items()})
+        seed_rng = np.random.default_rng(cfg.engine.seed + 77 + span_start + s)
+        for k, p_g in enumerate(blk):
+            if slab_spent > slab_budget:
+                break
+            if p_g in pgd_wit or near_abs[k] > 50.0:
+                continue
+            seeds = [near_zero[k], (lo[p_g] + hi[p_g]) / 2.0]
+            seeds += [seed_rng.integers(lo[p_g], hi[p_g] + 1) for _ in range(6)]
+            t_slab = time.perf_counter()
+            for seed_pt in seeds:
+                ce = engine.slab_search(weights, biases, enc, lo[p_g], hi[p_g], seed_pt)
+                if ce is not None:
+                    pgd_wit[p_g] = ce
+                    break
+            slab_spent += time.perf_counter() - t_slab
+    return pgd_wit, covered_all
+
+
 def verify_model(net, cfg: SweepConfig, model_name: str = "model",
-                 resume: bool = True, mesh=None, device=None) -> ModelReport:
-    """Run the stage-0 sweep for one model; write CSV + ledger rows.
+                 resume: bool = True, mesh=None, device=None,
+                 partition_span=None) -> ModelReport:
+    """Run the sweep for one model; write CSV + ledger rows.
 
     ``device`` defaults to ``cuda`` (``device="cpu"`` runs the plain PyTorch
-    versions of the kernels); the net is moved there.  Configurations the
-    slice does not run raise ``NotImplementedError`` (:func:`check_supported`).
+    versions of the kernels); the net is moved there.  ``partition_span``
+    ``(start, stop)`` runs a contiguous slice of the shuffled grid, with
+    global partition ids and keys, and sinks named ``model@start-stop``.
+    Configurations the port does not run raise ``NotImplementedError``
+    (:func:`check_supported`, and the engine where an unported phase would
+    run).
     """
     check_supported(cfg, mesh)
     dev = resolve_device(device)
     net = net.to(dev)
     t_run = time.perf_counter()
     phases: Dict[str, float] = {}
+    total = lambda: time.perf_counter() - t_run  # the hard budget's clock
     launches0 = launch_counts()
     enc = encode(cfg.query())
     p_list, lo, hi = build_partitions(cfg)
+    span_start, sink_name = 0, model_name
+    if partition_span is not None:
+        span_start, span_stop = partition_span
+        p_list = p_list[span_start:span_stop]
+        lo, hi = lo[span_start:span_stop], hi[span_start:span_stop]
+        sink_name = f"{model_name}@{span_start}-{span_stop}"
     P = len(p_list)
     os.makedirs(cfg.result_dir, exist_ok=True)
-    led_path = ledger_path(cfg, model_name)
+    led_path = ledger_path(cfg, sink_name)
     done, led_skipped = {}, 0
     if resume:
         done, _degraded_prev, led_skipped = merge_ledgers([led_path])
-    csv_path = os.path.join(cfg.result_dir, f"{model_name}.csv")
-    ce_path = os.path.join(cfg.result_dir, f"{model_name}-counterexamples.csv")
+    csv_path = os.path.join(cfg.result_dir, f"{sink_name}.csv")
+    ce_path = os.path.join(cfg.result_dir, f"{sink_name}-counterexamples.csv")
     stage_stats = funnel_mod.StageStats()
     funnel = funnel_mod.FunnelCounts()
     failed: Dict[int, dict] = {}
 
     t0 = time.perf_counter()
     prune = pruning.sound_prune_grid(net, lo, hi, cfg.sim_size, cfg.seed,
-                                     chunk=cfg.grid_chunk, mega_chunks=cfg.mega_chunks)
+                                     chunk=cfg.grid_chunk, mega_chunks=cfg.mega_chunks,
+                                     index_offset=span_start)
     phases["stage0_prune"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     unsat0, sat0, witnesses = stage0_certify_and_attack(
-        net, enc, lo, hi, cfg, stats=stage_stats, failed=failed)
+        net, enc, lo, hi, cfg, stats=stage_stats, failed=failed,
+        seed_offset=span_start)
     phases["stage0_decide"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    parity_col = parity_pass(net, prune, lo, hi, cfg)
+    parity_col = parity_pass(net, prune, lo, hi, cfg, index_offset=span_start)
     phases["stage0_parity"] = time.perf_counter() - t0
+
+    # The refinement tail: every stage-0 leftover goes through the deep PGD
+    # attack + slab search, then the engine's BaB.
+    pending = [p for p in range(P) if (span_start + p + 1) not in done
+               and not sat0[p] and not unsat0[p] and p not in failed]
+    pgd_covered_all = False
+    if pending:
+        t0 = time.perf_counter()
+        pgd_wit, pgd_covered_all = stage0_pgd(
+            net, enc, lo, hi, cfg, pending, span_start,
+            lambda: cfg.hard_timeout_s - total())
+        for p, ce in pgd_wit.items():
+            sat0[p] = True
+            witnesses[p] = ce
+        pending = [p for p in pending if not sat0[p]]
+        phases["stage0_pgd"] = time.perf_counter() - t0
+    stage0_per_part = sum(phases.get(k, 0.0) for k in (
+        "stage0_prune", "stage0_decide", "stage0_parity", "stage0_pgd")) / max(P, 1)
+    bab: Dict[int, engine.Decision] = {}
+    if pending:
+        hard_left = max(cfg.hard_timeout_s - total(), 1.0)
+        deadline = min(cfg.soft_timeout_s * len(pending), hard_left)
+        t0 = time.perf_counter()
+        decisions = engine.decide_many(
+            net, enc, lo[pending], hi[pending],
+            replace(cfg.engine, device_bab=cfg.device_bab and cfg.engine.device_bab,
+                    integrity=cfg.integrity and cfg.engine.integrity),
+            deadline_s=deadline, attacked=pgd_covered_all)
+        phases["bab"] = time.perf_counter() - t0
+        bab = dict(zip(pending, decisions))
+        for ph in ("t_attack", "t_sign", "t_lp", "t_bab", "t_pair", "t_lattice"):
+            tot = sum(dd.stats.get(ph, 0.0) for dd in decisions)
+            if tot > 0.0:
+                phases[f"engine_{ph[2:]}"] = tot
+    if cfg.smt_retry_timeouts_s and total() <= cfg.hard_timeout_s and any(
+            dd.verdict == "unknown" for dd in bab.values()):
+        raise NotImplementedError(SMT_NOT_PORTED)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    stage0_per_part = sum(phases.values()) / max(P, 1)
+    cumulative = total()
 
     t_report = time.perf_counter()
     weights, biases = net.numpy_params()
@@ -470,7 +621,7 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     ledger = JournalWriter(led_path, crc=cfg.integrity)
     try:
         for p in range(P):
-            pid = p + 1
+            pid = span_start + p + 1
             if pid in done:
                 rec = done[pid]
                 outcomes.append(PartitionOutcome(
@@ -485,8 +636,10 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
             t_part = time.perf_counter()
             fail_rec = failed.get(p)
             dead = pruning.partition_masks(prune, p)
+            h_attempt = h_success = 0
+            sv_time = hv_time = h_time = 0.0
             ce = None
-            engine_reason = None
+            nodes = 0
             if fail_rec is not None:
                 verdict = "unknown"
             elif sat0[p]:
@@ -494,10 +647,44 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
             elif unsat0[p]:
                 verdict = "unsat"
             else:
-                verdict, engine_reason = "unknown", NOT_PORTED_REASON
+                dec = bab[p]
+                sv_time, nodes = dec.elapsed_s, dec.nodes
+                verdict, ce = dec.verdict, dec.counterexample
+                if verdict == "unknown" and cumulative <= cfg.hard_timeout_s:
+                    # Heuristic retry: kill borderline-quiet neurons and
+                    # re-decide on the masked net (src/GC/Verify-GC.py:172-211).
+                    h_attempt = 1
+                    t_h = time.perf_counter()
+                    _h_dead, merged = heur_ops.heuristic_prune(
+                        [l[p] for l in prune.ws_lb], [l[p] for l in prune.ws_ub],
+                        [l[p] for l in prune.candidates],
+                        [l[p] for l in prune.surviving], dead,
+                        cfg.heuristic_threshold)
+                    dec2 = engine.decide_box(
+                        mask_ops.apply_dead_masks(net, merged), enc, lo[p], hi[p],
+                        replace(cfg.engine, soft_timeout_s=cfg.soft_timeout_s))
+                    hv_time = dec2.elapsed_s
+                    h_time = time.perf_counter() - t_h
+                    nodes += dec2.nodes
+                    if dec2.verdict != "unknown":
+                        h_success = 1
+                        verdict, ce = dec2.verdict, dec2.counterexample
+                        # A SAT of the pruned net counts only if it replays
+                        # on the original (the reference's V-accurate check).
+                        if verdict == "sat" and not engine.validate_pair(
+                                weights, biases, *ce):
+                            verdict, ce, h_success = "unknown", None, 0
+                    dead = merged
             c_check = v_accurate = 0
             if verdict == "sat":
                 c_check, v_accurate = c_check_np(weights, biases, dead, ce)
+            if h_attempt:  # masks changed after the parity pass
+                pruned_acc = parity_resim(weights, biases, dead,
+                                          grid_keys(cfg.seed, span_start + p, 1,
+                                                    device=dev)[0],
+                                          lo[p], hi[p], cfg.sim_size)
+            else:
+                pruned_acc = float(parity_col[p])
             counts[verdict] += 1
             via_stage0 = bool(sat0[p] or unsat0[p]) and fail_rec is None
             if verdict != "unknown":
@@ -505,30 +692,37 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
                 counter["stage0_decided"] += int(via_stage0)
             else:
                 counter["unknown"] += 1
-            via = "degraded" if fail_rec is not None else "stage0"
+            engine_reason = None
+            if verdict == "unknown" and fail_rec is None and p in bab:
+                engine_reason = bab[p].reason
+            via = ("degraded" if fail_rec is not None else "stage0" if via_stage0
+                   else "heuristic" if h_success else "bab")
             funnel.add(funnel_mod.classify(
                 verdict, via, failure=fail_rec["reason"] if fail_rec else None,
                 engine_reason=engine_reason))
-            total_time = stage0_per_part + (time.perf_counter() - t_part)
+            total_time = stage0_per_part + sv_time + (time.perf_counter() - t_part)
+            cumulative += time.perf_counter() - t_part
             comp = {
                 "b": mask_ops.compression_ratio([l[p] for l in prune.b_deads]),
                 "s": mask_ops.compression_ratio([l[p] for l in prune.s_deads]),
                 "st": mask_ops.compression_ratio([l[p] for l in prune.st_deads]),
-                "h": 0.0,
+                "h": mask_ops.compression_ratio(dead) if h_attempt else 0.0,
                 "t": mask_ops.compression_ratio(dead),
             }
-            pruned_acc = float(parity_col[p])
             outcomes.append(PartitionOutcome(
-                pid, verdict, ce, times={"sv": 0.0, "s": stage0_per_part, "hv": 0.0,
-                                         "h": 0.0, "total": total_time},
+                pid, verdict, ce, h_attempt, h_success, nodes,
+                times={"sv": sv_time, "s": stage0_per_part + sv_time, "hv": hv_time,
+                       "h": h_time, "total": total_time},
                 compressions=comp, c_check=c_check, v_accurate=v_accurate,
                 pruned_acc=pruned_acc))
             csvio.append_row(csv_path, csvio.PartitionRow(
                 partition_id=pid, verdict=verdict, sat_count=counts["sat"],
                 unsat_count=counts["unsat"], unk_count=counts["unknown"],
+                h_attempt=h_attempt, h_success=h_success,
                 b_compression=comp["b"], s_compression=comp["s"],
                 st_compression=comp["st"], h_compression=comp["h"],
-                t_compression=comp["t"], s_time=stage0_per_part,
+                t_compression=comp["t"], sv_time=sv_time,
+                s_time=stage0_per_part + sv_time, hv_time=hv_time, h_time=h_time,
                 total_time=total_time, c_check=c_check, v_accurate=v_accurate,
                 pruned_acc=pruned_acc, c1=ce[0] if ce else None,
                 c2=ce[1] if ce else None))
@@ -558,7 +752,8 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     pps = counter["decided"] / max(elapsed, 1e-9)
     thr = {
         "elapsed_s": round(elapsed, 3), "decided": counter["decided"],
-        "stage0_decided": counter["stage0_decided"], "bab_decided": 0,
+        "stage0_decided": counter["stage0_decided"],
+        "bab_decided": counter["decided"] - counter["stage0_decided"],
         "unknown": counter["unknown"], "partitions_per_sec": round(pps, 4),
         "partitions_per_sec_per_chip": round(pps, 4),
         "launches_per_model": sum(kernel_launches.values()),
@@ -574,14 +769,14 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
         thr["margin_hist"] = funnel_payload["margin_hist"]
     if funnel_payload["looseness"] is not None:
         thr["looseness"] = [round(v, 3) for v in funnel_payload["looseness"]]
-    degraded = sum(1 for p in failed if (p + 1) not in done)
+    degraded = sum(1 for p in failed if (span_start + p + 1) not in done)
     if degraded or led_skipped:
         thr["resilience"] = {"degraded": degraded, "ledger_skipped_lines": led_skipped}
     with open(os.path.join(cfg.result_dir,
-                           f"{cfg.name}-{model_name}.throughput.json"), "w") as fp:
+                           f"{cfg.name}-{sink_name}.throughput.json"), "w") as fp:
         json.dump(thr, fp, indent=1)
     return ModelReport(model=model_name, dataset=cfg.dataset, outcomes=outcomes,
                        total_time_s=elapsed, partitions_total=P,
-                       sink_name=model_name, ledger_skipped_lines=led_skipped,
+                       sink_name=sink_name, ledger_skipped_lines=led_skipped,
                        degraded=degraded, funnel=funnel_payload,
                        kernel_launches=kernel_launches)

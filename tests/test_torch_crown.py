@@ -65,7 +65,12 @@ def test_crown_bounds_match_jax_and_contain_samples():
 
 
 def test_alpha_crown_is_rejected_not_ignored():
+    # α-CROWN runs now (tests/test_torch_refine.py holds it against JAX); the
+    # β multipliers of Phase S are still rejected, never ignored.
     ws, bs, lo, hi = _case((4, 3, 1), seed=0)
+    net = tmlp.from_numpy(ws, bs, device="cpu")
+    sets, lb, ub = tcrown.crown_output_form_sets(net, torch.as_tensor(lo),
+                                                 torch.as_tensor(hi), 8)
+    assert len(sets) == 2 and (lb <= ub).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcrown.crown_output_form_sets(tmlp.from_numpy(ws, bs, device="cpu"),
-                                      torch.as_tensor(lo), torch.as_tensor(hi), 8)
+        tcrown.optimize_relaxation(lambda al, au: None, [], 1, with_beta=True)

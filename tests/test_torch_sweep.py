@@ -96,18 +96,35 @@ def test_resume_replays_the_ledger(tmp_path):
 
 
 def test_undecided_partitions_are_ledgered_not_ported(tmp_path):
-    # attack_samples=1 leaves some boxes to the (unported) refinement tail.
-    ws = [np.full((20, 4), 0.05, np.float32), np.ones((4, 1), np.float32)]
-    bs = [np.zeros(4, np.float32), np.full(1, -3.0, np.float32)]
-    cfg = tpresets.get("GC").with_(result_dir=str(tmp_path), exact_certify_masks=False,
-                                   engine=EngineConfig(attack_samples=1), sim_size=20)
-    rep = tsweep.verify_model(tmlp.from_numpy(ws, bs, device="cpu"), cfg,
-                              model_name="m", resume=False, device="cpu")
-    led = _ledger(tsweep.ledger_path(cfg, "m"))
-    unknown = [r for r in led if r["verdict"] == "unknown"]
-    assert len(unknown) == rep.counts["unknown"] > 0
-    assert all(r["engine_reason"] == "refinement_not_ported" for r in unknown)
-    assert rep.funnel["states"]["unknown:refinement_not_ported"] == len(unknown)
+    # bench.py's _bab_ladder world: stage 0 and the deep PGD decide none of
+    # its 8 partitions.  With the default engine they reach Phase S, which
+    # is not ported: the run raises, naming its ROADMAP item, instead of
+    # ledgering them.  In the slice's configuration every leftover goes
+    # through the device BaB and is decided.
+    from fairify_tpu_torch.data.domains import get_domain
+
+    ov = {c: (0, 0) for c in get_domain("german").columns}
+    ov.update(age=(0, 1), month=(0, 5), purpose=(0, 5), credit_amount=(0, 2))
+    cfg = tpresets.get("GC").with_(
+        result_dir=str(tmp_path), exact_certify_masks=False, sim_size=16, grid_chunk=8,
+        domain_overrides=ov, partition_threshold=2,
+        engine=EngineConfig(attack_samples=4, bab_frontier_cap=64))
+    net = tmlp.init_mlp((len(cfg.query().columns), 4, 1), seed=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="K8"):
+        tsweep.verify_model(net, cfg, model_name="m", resume=False, device="cpu",
+                            partition_span=(0, 8))
+    tail = EngineConfig(attack_samples=4, bab_frontier_cap=64, sign_bab=False,
+                        lp_sign=False, lp_pair=False, lattice_exhaustive=False)
+    cfg = cfg.with_(result_dir=str(tmp_path / "tail"), engine=tail)
+    rep = tsweep.verify_model(net, cfg, model_name="m", resume=False, device="cpu",
+                              partition_span=(0, 8))
+    led = _ledger(tsweep.ledger_path(cfg, "m@0-8"))
+    assert rep.counts == {"sat": 0, "unsat": 8, "unknown": 0} and len(led) == 8
+    assert not any("not_ported" in json.dumps(r) for r in led)
+    assert rep.funnel["states"] == {"certified:bab": 8}
+    with open(os.path.join(cfg.result_dir, "GC-m@0-8.throughput.json")) as fp:
+        thr = json.load(fp)
+    assert thr["bab_decided"] == 8 and "stage0_pgd" in thr["phases_s"]
 
 
 @pytest.mark.parametrize("sizes,P", [((20, 50, 1), 30), ((20, 16, 8, 1), 25)])
@@ -127,3 +144,29 @@ def test_parity_matches_jax(sizes, P):
                         [torch.as_tensor(a) for a in alive], 200)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want < 1.0).any()  # the random masks do change predictions
+
+
+@pytest.mark.parametrize("P,sim_size", [(1, 1000), (3, 37)])
+def test_sim_rows_and_parity_resim_match_jax(P, sim_size):
+    """K12's row generator (its plain version) is bit-equal to the JAX
+    package's ``_sim_rows``, row by row; the retry's parity on changed masks
+    equals ``_parity_resim`` exactly."""
+    _, lo, hi = jsweep.build_partitions(jpresets.get("GC"))
+    lo, hi = lo[5:5 + P], hi[5:5 + P]
+    got = tsweep.sim_rows(tprng.grid_keys(42, 5, P), torch.as_tensor(lo.astype(np.float32)),
+                          torch.as_tensor(hi.astype(np.float32)), sim_size).numpy()
+    jkeys = jprng.grid_keys(42, 5, P)
+    for p in range(P):
+        want = np.asarray(jsweep._sim_rows(jkeys[p], jnp.asarray(lo[p], jnp.float32),
+                                           jnp.asarray(hi[p], jnp.float32), sim_size))
+        np.testing.assert_array_equal(got[p], want)
+    rng = np.random.default_rng(P)
+    sizes = (20, 16, 8, 1)
+    ws = [rng.normal(scale=0.3, size=(a, b)).astype(np.float32)
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    bs = [rng.normal(scale=0.1, size=(b,)).astype(np.float32) for b in sizes[1:]]
+    dead = [rng.random(n) > 0.6 for n in sizes[1:-1]] + [np.zeros(1, bool)]
+    want = jsweep._parity_resim(ws, bs, dead, jkeys[0], lo[0], hi[0], sim_size)
+    got = tsweep.parity_resim(ws, bs, dead, tprng.grid_keys(42, 5, 1)[0], lo[0], hi[0],
+                              sim_size)
+    assert got == want
