@@ -28,19 +28,35 @@ Phases (any failure exits nonzero and prints no result line):
    kernels' outputs with one point, latch, counter or slot shifted by one
    must fail these checks.  A toy world through decide_many agrees with
    the brute-force oracle.
+   Phase-S/L/P kernels vs plain versions (2c) on 512 real AC-S1 stage-0
+   leftovers' sign boxes: K8a (sign_bound) at alpha_iters 8 and 0 on the
+   root pattern and on branches of depth 1-8 that one plain
+   ``uniform_sign_bab`` frontier over those roots bounded — its final
+   α/β must equal the plain version's on every box not excused (a box is
+   excused only where a gradient on the plain path has another sign in
+   f32 than in f64, and at most 1% may be), and there the bounds and
+   scores agree to tolerance, ``feasible`` and ``resolved`` are equal and
+   the bounds contain the f64 bounds of the same relaxations; K8b
+   (inter_bounds) at B = 512 and at one root's 2V = 4 role boxes; the
+   role logits at Phase S's shape.  The same on relaxed-AC (ε = 5) boxes.
+   Copies of the outputs with one resolved sign flipped, one lower bound
+   raised past its f64 bound, one K8b bound or one logit moved must fail.
 3. End to end, stage 0 only: ``verify_model`` on the GC-1 twin with the
    GC preset; requires sat=2 unsat=199 unknown=0, every ledger row
    CRC-valid, every SAT witness exact, KA–KD launched.
 4. bench.py's BaB ladder world on the card: verdicts equal to the port's
    plain run on the CPU (and with max_nodes=1, through the heuristic
-   retry).
+   retry), in the slice-2 and in the slice-3 configuration.
 5. Real size: ``verify_model`` over the whole AC grid (16,000 AC-S1
-   partitions, two mega-segments) in the slice configuration under a
-   30 s hard budget, then the slice's main path at depth —
-   ``verify_model`` on AC-S1 partitions 0-2,048 through stage 0, PGD, the
-   device BaB and the heuristic retry under a fixed node and time budget
-   — with every kernel launched, every partition ledgered, every SAT
-   replayed exactly and every unknown ledgered with the engine's reason.
+   partitions, two mega-segments) in the slice-2 configuration under a
+   30 s hard budget; ``verify_model`` on AC-S1 partitions 0-2,048 through
+   stage 0, PGD, the device BaB and the heuristic retry in the slice-2
+   configuration (Phases S, L, P, E0/E off); and this slice's main path,
+   the same partitions in the slice-3 configuration
+   (``EngineConfig(lattice_exhaustive=False)``: Phases S, L and P on) —
+   each under a fixed node and time budget, with every kernel of the path
+   launched, every partition ledgered, every SAT replayed exactly and
+   every unknown ledgered with the engine's reason.
 
 The next-to-last lines are the kernel table as one JSON object and the
 ``nvidia-smi`` name/power line; the last line is
@@ -69,7 +85,13 @@ REPLACES = {
     "pgd_attack": "fairify_tpu/verify/engine.py:668",
     "bab_segment": "fairify_tpu/verify/engine.py:593",
     "sim_rows": "fairify_tpu/verify/sweep.py:1420",
+    "sign_bound": "fairify_tpu/verify/engine.py:957",
+    "inter_bounds": "fairify_tpu/verify/engine.py:963",
+    "role_logits": "fairify_tpu/verify/engine.py:1035",
 }
+# Kernels of the slice-2 configuration's path (Phases S, L, P off).
+SLICE2 = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
+          "bab_segment", "sim_rows")
 SOURCES = {k: f"fairify_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 AC_SIZES = (13, 128, 64, 32, 16, 8, 1)  # models_scaled/adult/AC-S1.h5 widths
 
@@ -750,6 +772,359 @@ def check_sim_rows(name, net, cfg, lo, hi, reps: int):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: the Phase-S/L/P kernels (K8a, K8b, role logits) against their
+# plain versions
+# ---------------------------------------------------------------------------
+
+# Of K8a's boxes at most this share may be excused (their final α/β differ
+# from the plain version's after a gradient whose f32 sign differs from its
+# f64 sign on the plain path).
+SIGN_EXCUSE_SHARE = 0.01
+
+
+def sign_bound_flops(sizes, iters: int) -> int:
+    """fp32 flops of one box's K8a call, an FMA counted as 2.  Per layer
+    k >= 1 and per form: each evaluation (iters + 1) runs the steps j < k
+    (relaxation and constants, ~10 flops per coefficient; the product with
+    W_j, 2 * in_j flops per coefficient) and the concretization (8 per
+    input and column); each reverse pass (iters) the same product
+    transposed, ~12 flops per coefficient, and 4 per input and column.
+    Plus IBP, 8 flops per weight."""
+    d, outs = sizes[0], list(sizes[1:])
+    ins = list(sizes[:-1])
+    total = sum(8 * a * b for a, b in zip(ins, outs))
+    for k in range(1, len(outs)):
+        cols = outs[k]
+        step = sum((2 * ins[j] + 10) * outs[j] * cols for j in range(k))
+        back = sum((2 * ins[j] + 12) * outs[j] * cols for j in range(k))
+        total += 2 * ((iters + 1) * (step + 8 * d * cols) + iters * (back + 4 * d * cols))
+    return total
+
+
+def sign_bound_reference(net, lo, hi, signs, alpha_iters: int):
+    """K8a's plain version on the card, re-evaluated in float64 along its
+    own path.  Returns the plain outputs and α/β, ``excused`` (B,): boxes
+    where some gradient component of the path has another sign in f32 than
+    in f64 (a kernel that sums in another order may step it the other
+    way), the f64 output bounds of the same relaxations (IBP of the last
+    layer intersected with the best f64 CROWN iterate), and each hidden
+    neuron's bound magnitude (the scale of its score's rounding)."""
+    import copy
+
+    import torch
+
+    from fairify_tpu_torch.ops import crown as crown_ops
+    from fairify_tpu_torch.ops.interval import affine_interval
+    from fairify_tpu_torch.verify import engine
+
+    records = []
+    out, ab = engine.sign_bound_plain(net, lo, hi, signs, alpha_iters,
+                                      trace=lambda *a: records.append(a))
+    net64 = copy.deepcopy(net).double()
+    lo64, hi64 = lo.double(), hi.double()
+    excused = torch.zeros(lo.shape[0], dtype=torch.bool, device=lo.device)
+    best = {}
+    last = None
+    for k, pre, al, au, bl, bu, grads in records:
+        ws_lb, ws_ub, sgn = ([t.double() for t in x] for x in pre)
+        n = len(al)
+        ps = [t.double().clone().requires_grad_(grads is not None)
+              for t in al + au + bl + bu]
+        with torch.enable_grad():
+            zl, zh = crown_ops.backward_bounds(net64, k, ws_lb, ws_ub, lo64, hi64,
+                                               ps[:n], ps[n:2 * n], sgn, ps[2 * n:3 * n],
+                                               ps[3 * n:])
+            if grads is not None:
+                g64 = torch.autograd.grad((zh - zl).sum(), ps, allow_unused=True)
+        if grads is not None:
+            for g32, g in zip(grads, g64):
+                g = torch.zeros_like(g32, dtype=torch.float64) if g is None else g
+                both_zero = (g32 == 0) & (g == 0)
+                excused |= ((torch.sign(g32.double()) != torch.sign(g)) & ~both_zero).any(-1)
+        zl, zh = zl.detach(), zh.detach()
+        if k in best:
+            best[k] = (torch.maximum(best[k][0], zl), torch.minimum(best[k][1], zh))
+        else:
+            best[k] = (zl, zh)
+        last = (k, ws_lb, ws_ub)
+    k, ws_lb, ws_ub = last
+    m = net64.masks[k - 1]
+    ilo, ihi = affine_interval(net64.weights[k], net64.biases[k],
+                               torch.relu(ws_lb[k - 1]) * m, torch.relu(ws_ub[k - 1]) * m)
+    f64_lo = torch.maximum(ilo, best[k][0])[..., 0]
+    f64_hi = torch.minimum(ihi, best[k][1])[..., 0]
+    scale = [torch.maximum(a.abs(), b.abs()).float() for a, b in zip(ws_lb, ws_ub)]
+    return out, ab, excused, f64_lo, f64_hi, scale
+
+
+def sign_bound_verdict(k_out, k_ab, ref):
+    """Why K8a's outputs fail against :func:`sign_bound_reference`, or
+    None.  The final α/β must equal the plain version's on every box that
+    is not excused, and at most SIGN_EXCUSE_SHARE of the boxes may be; on
+    every other box the bounds and scores agree to the tolerance of their
+    magnitude, ``feasible`` and ``resolved`` are equal, and the bounds
+    contain the f64 bounds of the same relaxations."""
+    import torch
+
+    (p_lo, p_hi, p_feas, p_scores, p_res), p_ab, excused, f64_lo, f64_hi, scale = ref
+    out_lo, out_hi, feas, scores, res = k_out
+    B = out_lo.shape[0]
+    same = (k_ab == p_ab).all(-1) if p_ab.shape[-1] else torch.ones_like(excused)
+    if int((~same & ~excused).sum()):
+        return f"final α/β differ on {int((~same & ~excused).sum())} boxes without a " \
+               "gradient whose f32 and f64 signs differ"
+    if int(excused.sum()) > SIGN_EXCUSE_SHARE * B:
+        return f"{int(excused.sum())} of {B} boxes excused, more than {SIGN_EXCUSE_SHARE:g}"
+    ok = ~excused
+    mag = torch.maximum(p_lo.abs(), p_hi.abs())[ok]
+    err = max(tol_ratio(out_lo[ok], p_lo[ok], mag), tol_ratio(out_hi[ok], p_hi[ok], mag))
+    err_s = max(tol_ratio(a[ok], b[ok], s[ok]) for a, b, s in zip(scores, p_scores, scale))
+    if err > 1.0 or err_s > 1.0:
+        return f"bound error {err} / score error {err_s} x tolerance"
+    if not torch.equal(feas[ok], p_feas[ok]):
+        return f"feasible differs on {int((feas != p_feas)[ok].sum())} boxes"
+    n_res = sum(int((a != b)[ok].sum()) for a, b in zip(res, p_res))
+    if n_res:
+        return f"resolved signs differ on {n_res} neurons"
+    bad = int(((out_lo.double() > f64_lo) | (out_hi.double() < f64_hi))[ok].sum())
+    if bad:
+        return f"{bad} bounds do not contain the f64 bounds of their relaxations"
+    return None
+
+
+def sign_bound_mutants(k_out, ref):
+    """Copies of K8a's outputs with one resolved sign flipped and with one
+    lower bound raised past its f64 bound."""
+    import torch
+
+    out_lo, out_hi, feas, scores, res = k_out
+    ok = ~ref[2]
+    b = int(torch.nonzero(ok)[0, 0])
+    res_m = [r.clone() for r in res]
+    res_m[0][b, 0] = 1 if int(res_m[0][b, 0]) != 1 else -1
+    yield "a resolved sign flipped", (out_lo, out_hi, feas, scores, res_m)
+    lo_m = out_lo.clone()
+    f64_lo = ref[3]
+    lo_m[b] = float(f64_lo[b] + 1e-3 * (1.0 + f64_lo[b].abs()))
+    yield "a lower bound raised past its f64 bound", (lo_m, out_hi, feas, scores, res)
+
+
+def frontier_patterns(net, enc, lo, hi, n: int, deadline_s: float = 10.0):
+    """Sign boxes and patterns from one plain ``uniform_sign_bab`` frontier
+    over the roots ``lo``/``hi`` (int64): the frontier runs with K8a's
+    plain version in place of the kernel (alpha_iters 0, Phase L off, so
+    every candidate root branches), and every (box, pattern) it bounds is
+    recorded.  ``n`` distinct ones are taken round-robin over the depths
+    (split counts) 1-8, each depth's order drawn from ``default_rng(5)``.
+    Returns (lo, hi, per-layer patterns, depth histogram), or None when
+    the frontier never split (no root is a candidate, or every candidate
+    certifies at its root)."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+    from fairify_tpu_torch.verify.config import EngineConfig
+
+    recorded = []
+
+    def plain(net_, lo_, hi_, signs, alpha_iters, with_ab=False):
+        recorded.append(torch.cat([lo_, hi_] + list(signs), dim=1))
+        return engine.sign_bound_plain(net_, lo_, hi_, signs, alpha_iters)[0]
+
+    kernel, engine.sign_bound = engine.sign_bound, plain
+    try:
+        engine.uniform_sign_bab(net, enc, lo, hi, EngineConfig(lp_sign=False, alpha_iters=0),
+                                deadline_s=deadline_s)
+    finally:
+        engine.sign_bound = kernel
+    if not recorded:
+        return None
+    rows = torch.unique(torch.cat(recorded), dim=0)
+    d = lo.shape[1]
+    depth = (rows[:, 2 * d:] != 0).sum(dim=1).cpu().numpy()
+    rng = np.random.default_rng(5)
+    queues = [list(rng.permutation(np.nonzero(depth == k)[0])) for k in range(1, 9)]
+    chosen = []
+    while len(chosen) < n and any(queues):
+        for q in queues:
+            if q and len(chosen) < n:
+                chosen.append(q.pop(0))
+    if not chosen:
+        return None
+    sel = rows[torch.as_tensor(chosen, device=rows.device)]
+    hist = np.bincount(depth[chosen], minlength=9)[1:].tolist()
+    pats = list(sel[:, 2 * d:].split(list(net.layer_sizes[:-1]), dim=1))
+    return sel[:, :d].contiguous(), sel[:, d:2 * d].contiguous(), \
+        [p.contiguous() for p in pats], hist
+
+
+def check_sign_bound(name, net, lo, hi, pats, alpha_iters: int, reps: int,
+                     mutate: bool = False):
+    """K8a against :func:`sign_bound_reference` on one launch's boxes
+    (:func:`sign_bound_verdict`); with ``mutate`` every copy of
+    :func:`sign_bound_mutants` must fail.  Returns the kernel row."""
+    from fairify_tpu_torch.verify import engine
+
+    k_res, k_ms = timed(lambda: engine.sign_bound(net, lo, hi, pats, alpha_iters,
+                                                  with_ab=True), reps)
+    ref = sign_bound_reference(net, lo, hi, pats, alpha_iters)
+    _, plain_ms = timed(lambda: engine.sign_bound_plain(net, lo, hi, pats, alpha_iters), 1)
+    k_out, k_ab = k_res[:5], k_res[5]
+    why = sign_bound_verdict(k_out, k_ab, ref)
+    if why:
+        fail(f"K8a {name} alpha={alpha_iters}: {why}")
+    if mutate:
+        for what, mut in sign_bound_mutants(k_out, ref):
+            if sign_bound_verdict(mut, k_ab, ref) is None:
+                fail(f"K8a {name} alpha={alpha_iters}: a copy with {what} passes the check")
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    B, d = lo.shape
+    nh = sum(sizes[1:-1])
+    fl = B * sign_bound_flops(sizes, alpha_iters)
+    by = B * (2 * d * 4 + nh * 4 + 9 + 5 * nh) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    row = dict(max_abs_err=float(max((k_out[0] - ref[0][0]).abs().max(),
+                                     (k_out[1] - ref[0][1]).abs().max())),
+               ms=k_ms, plain_ms=plain_ms, flops=fl, bytes=by)
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    infeas = int((~ref[0][2]).sum())
+    print(f"[kernel {name}] sign_bound alpha={alpha_iters} B={B}: {k_ms:.3f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+          f"{infeas} infeasible branches; excused {int(ref[2].sum())}; α/β, feasible and "
+          f"resolved equal, bounds within tolerance and around the f64 bounds"
+          f"{'; every mutant fails' if mutate else ''})", flush=True)
+    return row
+
+
+def check_inter_bounds(name, net, lo, hi, reps: int, mutate: bool = False):
+    """K8b against its plain version (``crown_bounds``): every layer's
+    bounds to the tolerance of their magnitude; with ``mutate`` a copy
+    with one bound moved by 1e-3 of its magnitude must fail."""
+    import torch
+
+    from fairify_tpu_torch.ops import crown as crown_ops
+    from fairify_tpu_torch.verify import engine
+
+    (kl, ku), k_ms = timed(lambda: engine.inter_bounds(net, lo, hi), reps)
+    pb, p_ms = timed(lambda: crown_ops.crown_bounds(net, lo, hi), reps)
+    pl, pu = list(pb.ws_lb), list(pb.ws_ub)
+
+    def err(kl, ku):
+        return max(tol_ratio(a, b, torch.maximum(b.abs(), c.abs()))
+                   for a, b, c in zip(kl + ku, pl + pu, pu + pl))
+
+    e = err(kl, ku)
+    if e > 1.0:
+        fail(f"K8b {name} B={lo.shape[0]}: bound error {e} x tolerance")
+    if mutate:
+        km = [t.clone() for t in kl]
+        km[-1][0, 0] += 1e-3 * (1.0 + float(pl[-1][0, 0].abs()))
+        if err(km, ku) <= 1.0:
+            fail(f"K8b {name}: a copy with one bound moved passes the check")
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    B, d = lo.shape
+    fl = B * crown_flops(sizes)
+    by = B * (2 * d * 4 + 2 * sum(sizes[1:]) * 4) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    row = dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(kl + ku, pl + pu)),
+               ms=k_ms, plain_ms=p_ms, flops=fl, bytes=by)
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    print(f"[kernel {name}] inter_bounds B={B}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
+          f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}; every layer within "
+          f"tolerance{'; a moved bound fails' if mutate else ''})", flush=True)
+    return row
+
+
+def check_role_logits(name, net, enc, lo, hi, reps: int, mutate: bool = False):
+    """The role-logit forward at Phase S's shape (the roots' 32 sampled
+    points per assignment, the root axis padded to a power of two) against
+    the plain forward: logits to the tolerance of their rounding scale;
+    with ``mutate`` a copy with one logit moved must fail."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+
+    xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(3), lo, hi, 32)
+    r_pad = 1 << max(xr.shape[0] - 1, 0).bit_length()
+    on = lambda a: torch.as_tensor(engine._pad(a, r_pad), device=net.device)
+    x, xp = on(xr), on(pr)
+    (kx, kp), k_ms = timed(lambda: engine.sample_role_logits(net, x, xp), reps)
+    (px, pp), p_ms = timed(lambda: engine.attack_logits(net, x, xp), reps)
+    sx, sp = logit_scale(net, x), logit_scale(net, xp)
+
+    def err(kx, kp):
+        return max(tol_ratio(kx, px, sx), tol_ratio(kp, pp, sp))
+
+    e = err(kx, kp)
+    if e > 1.0:
+        fail(f"role_logits {name}: logit error {e} x tolerance")
+    if mutate:
+        km = kx.clone()
+        km.view(-1)[0] += 1e-3 * (1.0 + float(sx.view(-1)[0]))
+        if err(km, kp) <= 1.0:
+            fail(f"role_logits {name}: a copy with one logit moved passes the check")
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    rows = 2 * x.numel() // x.shape[-1]
+    fl = 2 * rows * macs(sizes)
+    by = rows * (x.shape[-1] + 1) * 4 + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    row = dict(max_abs_err=float(max((kx - px).abs().max(), (kp - pp).abs().max())),
+               ms=k_ms, plain_ms=p_ms, flops=fl, bytes=by)
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    print(f"[kernel {name}] role_logits {tuple(x.shape)} x 2: {k_ms:.4f} ms (plain "
+          f"{p_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
+          f"within tolerance{'; a moved logit fails' if mutate else ''})", flush=True)
+    return row
+
+
+def check_phase_s_kernels(name, net, enc, lo, hi, reps: int, mutate: bool = False,
+                          frontier: bool = True):
+    """K8a (the roots' sign boxes with the root pattern, and branches of
+    depth 1-8 from one plain sign frontier over them, at alpha_iters 8 and
+    0), K8b (the sign boxes, and one root's 2V role boxes) and the role
+    logits on one batch of stage-0 leftovers.  Returns the kernel rows
+    (K8a at alpha 8 on the frontier branches, its alpha-0 and root-pattern
+    times beside).  Without ``frontier`` (boxes whose candidates all
+    certify at the root, where the frontier never splits) K8a runs on the
+    root pattern alone."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+    from fairify_tpu_torch.verify.property import role_boxes
+
+    on = lambda a: torch.as_tensor(a, device=net.device)
+    slo, shi = (on(a.astype(np.float32)) for a in engine.sign_boxes(enc, lo, hi))
+    B = slo.shape[0]
+    root = [torch.zeros((B, n), device=net.device) for n in net.layer_sizes[:-1]]
+    branches = frontier_patterns(net, enc, lo, hi, B) if frontier else None
+    if frontier and branches is None:
+        fail(f"{name}: the plain sign frontier never split")
+    if branches is not None:
+        print(f"[frontier {name}] {branches[0].shape[0]} branches of one plain sign "
+              f"frontier, by depth 1-8: {branches[3]}", flush=True)
+    rows = {}
+    for alpha in (8, 0):
+        r_root = check_sign_bound(f"{name} root", net, slo, shi, root, alpha, reps,
+                                  mutate=mutate and alpha == 8 and branches is None)
+        rows[alpha] = dict(r_root)
+        if branches is not None:
+            r_deep = check_sign_bound(f"{name} frontier", net, *branches[:3], alpha, reps,
+                                      mutate=mutate and alpha == 8)
+            rows[alpha] = dict(r_deep, root={k: r_root[k] for k in
+                                             ("ms", "plain_ms", "bound_ms", "bound_by")})
+    sign_row = dict(rows[8], alpha0={k: rows[0][k] for k in
+                                     ("ms", "plain_ms", "bound_ms", "bound_by")})
+    inter_row = check_inter_bounds(name, net, slo, shi, reps, mutate=mutate)
+    x_lo, x_hi, xp_lo, xp_hi, _ = role_boxes(enc, lo[:1], hi[:1])
+    inter4 = check_inter_bounds(
+        f"{name} role boxes", net, on(np.concatenate([x_lo[0], xp_lo[0]])),
+        on(np.concatenate([x_hi[0], xp_hi[0]])), reps)
+    inter_row["role_boxes"] = {k: inter4[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                       "bound_by")}
+    logit_row = check_role_logits(name, net, enc, lo, hi, reps, mutate=mutate)
+    return {"sign_bound": sign_row, "inter_bounds": inter_row, "role_logits": logit_row}
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the sweep through the kernels
 # ---------------------------------------------------------------------------
 
@@ -814,15 +1189,18 @@ def check_outputs(rep, cfg, net, model_name: str, counts: dict) -> dict:
     return t
 
 
-# Slice configuration of the refinement tail: Phases S, L, P and E0/E off
-# (not ported), everything else at its default (pgd 60 x 96, alpha_iters 8,
-# a 512-slot queue, 8 rounds per segment, integrity on).
+# Slice-2 configuration of the refinement tail: Phases S, L, P and E0/E
+# off, everything else at its default (pgd 60 x 96, alpha_iters 8, a
+# 512-slot queue, 8 rounds per segment, integrity on).  The slice-3
+# configuration turns S, L and P back on (E0/E need K9).
 TAIL = dict(sign_bab=False, lp_sign=False, lp_pair=False, lattice_exhaustive=False)
+SLICE3 = dict(lattice_exhaustive=False)
 
 
-def ladder_world(work: str, device: str, **engine_kw):
+def ladder_world(work: str, device: str, phases=TAIL, **engine_kw):
     """bench.py's _bab_ladder world (8 German-derived partitions that all
-    reach the engine BaB) on ``device``: (counts, ledger rows)."""
+    reach the engine BaB) on ``device`` in the configuration ``phases``:
+    (report, ledger rows, net, config)."""
     from fairify_tpu_torch.data.domains import get_domain
     from fairify_tpu_torch.models.mlp import init_mlp
     from fairify_tpu_torch.verify import presets, sweep
@@ -830,11 +1208,11 @@ def ladder_world(work: str, device: str, **engine_kw):
 
     ov = {c: (0, 0) for c in get_domain("german").columns}
     ov.update(age=(0, 1), month=(0, 5), purpose=(0, 5), credit_amount=(0, 2))
-    eng = EngineConfig(pgd_phase=False, sign_bab=False, lp_sign=False, lp_pair=False,
-                       lattice_exhaustive=False, attack_samples=4, bab_attack_samples=4,
-                       bab_frontier_cap=64, bab_rounds_per_segment=8, **engine_kw)
+    eng = EngineConfig(pgd_phase=False, attack_samples=4, bab_attack_samples=4,
+                       bab_frontier_cap=64, bab_rounds_per_segment=8, **phases,
+                       **engine_kw)
     cfg = presets.get("GC").with_(
-        result_dir=os.path.join(work, f"ladder-{device}-{len(engine_kw)}"),
+        result_dir=os.path.join(work, f"ladder-{device}-{len(engine_kw)}-{len(phases)}"),
         soft_timeout_s=20.0,
         hard_timeout_s=120.0, sim_size=16, exact_certify_masks=False, grid_chunk=8,
         domain_overrides=ov, partition_threshold=2, engine=eng)
@@ -948,6 +1326,16 @@ def main() -> int:
     gc_rows["sim_rows"] = check_sim_rows("GC", gc_net, gc_cfg, glo, ghi, reps=5)
     print(f"[tiny] {tiny_oracle_case()} oracle roots agree through K5/K6", flush=True)
 
+    # --- phase 2c: the Phase-S/L/P kernels on real AC-S1 leftovers, then on
+    # relaxed-AC (ε = 5) leftovers for the RA widening
+    ac_rows.update(check_phase_s_kernels("AC", ac_net, enc, lo[:512], hi[:512],
+                                         reps=3, mutate=True))
+    # The GC-1 twin's sign candidates all certify at their root: K8a's GC
+    # times are the root pattern's.
+    gc_rows.update(check_phase_s_kernels("GC", gc_net, genc, glo[:128], ghi[:128],
+                                         reps=3, frontier=False))
+    check_phase_s_kernels("relaxed-AC", ac_net, renc, rlo, rhi, reps=1)
+
     # --- phase 3: the GC-1 main path (stage 0 decides every partition)
     rep, gc_launch, wall = run_sweep(gc_net, gc_cfg, "GC-1",
                                      required=("sim_and_bounds", "stage0_certify",
@@ -960,18 +1348,21 @@ def main() -> int:
           f"phases {thr['phases_s']}; launches {gc_launch}", flush=True)
 
     # --- phase 4: the bench's BaB ladder world on the card vs the CPU
-    rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda")
-    rep_c, rows_c, _, _ = ladder_world(work, "cpu")
-    if rows_d != rows_c or rep_d.counts != {"sat": 0, "unsat": 8, "unknown": 0}:
-        fail(f"ladder world: card {rows_d} vs CPU {rows_c}")
-    check_outputs(rep_d, lcfg, lnet, "BaB-1", rep_d.kernel_launches)
-    rep_h, rows_h, _, _ = ladder_world(work, "cuda", max_nodes=1)
-    rep_hc, rows_hc, _, _ = ladder_world(work, "cpu", max_nodes=1)
-    if rows_h != rows_hc:
-        fail(f"ladder world, max_nodes=1 (heuristic retry): card {rows_h} vs CPU {rows_hc}")
-    print(f"[ladder] card = CPU: {rep_d.counts}; launches {rep_d.kernel_launches}; "
-          f"max_nodes=1 (heuristic retry): {rep_h.counts}, h_attempt "
-          f"{sum(o.h_attempt for o in rep_h.outcomes)}", flush=True)
+    for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3)):
+        rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda", phases)
+        rep_c, rows_c, _, _ = ladder_world(work, "cpu", phases)
+        if rows_d != rows_c or rep_d.counts != {"sat": 0, "unsat": 8, "unknown": 0}:
+            fail(f"ladder world, {tag}: card {rows_d} vs CPU {rows_c}")
+        check_outputs(rep_d, lcfg, lnet, "BaB-1", rep_d.kernel_launches)
+        rep_h, rows_h, _, _ = ladder_world(work, "cuda", phases, max_nodes=1)
+        rep_hc, rows_hc, _, _ = ladder_world(work, "cpu", phases, max_nodes=1)
+        if rows_h != rows_hc:
+            fail(f"ladder world, {tag}, max_nodes=1 (heuristic retry): card {rows_h} "
+                 f"vs CPU {rows_hc}")
+        print(f"[ladder {tag}] card = CPU: {rep_d.counts}; launches "
+              f"{rep_d.kernel_launches}; max_nodes=1 (heuristic retry): {rep_h.counts}, "
+              f"h_attempt {sum(o.h_attempt for o in rep_h.outcomes)}, launches "
+              f"{rep_h.kernel_launches}", flush=True)
 
     # --- phase 5: real size.  The whole AC grid (16,000 partitions, two
     # mega-segments) through verify_model with a short hard budget, then
@@ -984,8 +1375,7 @@ def main() -> int:
     n_segs = len(grid_mod.segment_spans(n_grid, grid_cfg.grid_chunk,
                                         grid_cfg.mega_chunks)[1])
     rep_g, g_launch, wall_g = run_sweep(
-        ac_net, grid_cfg, "AC-S1-grid",
-        required=[k for k in REPLACES if k != "sim_rows"])
+        ac_net, grid_cfg, "AC-S1-grid", required=[k for k in SLICE2 if k != "sim_rows"])
     thr_g = check_outputs(rep_g, grid_cfg, ac_net, "AC-S1-grid", g_launch)
     if n_segs < 2 or sum(rep_g.counts.values()) != n_grid or any(
             g_launch[k] != n_segs for k in ("sim_and_bounds", "stage0_certify",
@@ -1000,25 +1390,45 @@ def main() -> int:
     tail_cfg = ac_cfg.with_(
         result_dir=os.path.join(work, "ac-tail"), soft_timeout_s=0.02,
         hard_timeout_s=60.0, engine=EngineConfig(**TAIL, max_nodes=1000))
-    rep_ac, ac_launch, wall_ac = run_sweep(ac_net, tail_cfg, "AC-S1-twin",
-                                           span=(0, 2048))
-    thr = check_outputs(rep_ac, tail_cfg, ac_net, "AC-S1-twin", ac_launch)
-    c = rep_ac.counts
-    h_try = sum(o.h_attempt for o in rep_ac.outcomes)
-    h_ok = sum(o.h_success for o in rep_ac.outcomes)
-    print(f"[AC-S1 tail] partitions 0-2048: sat {c['sat']} unsat {c['unsat']} unknown "
-          f"{c['unknown']} (stage 0 + PGD decided {thr['stage0_decided']}, BaB and "
-          f"retry decided {thr['bab_decided']}, of which the heuristic retry "
-          f"{h_ok} of {h_try} tried; decided_fraction {thr['decided_fraction']}) in "
-          f"{wall_ac:.3f} s; funnel {thr['funnel']}; phases {thr['phases_s']}; "
-          f"launches {ac_launch}", flush=True)
+    tail_launch = {}
+    for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3)):
+        tail_cfg = ac_cfg.with_(
+            result_dir=os.path.join(work, f"ac-tail-{len(phases)}"), soft_timeout_s=0.02,
+            hard_timeout_s=60.0, engine=EngineConfig(**phases, max_nodes=1000))
+        rep_ac, launch, wall_ac = run_sweep(
+            ac_net, tail_cfg, "AC-S1-twin", span=(0, 2048),
+            required=SLICE2 if phases is TAIL else tuple(REPLACES))
+        tail_launch[tag] = launch
+        thr = check_outputs(rep_ac, tail_cfg, ac_net, "AC-S1-twin", launch)
+        c = rep_ac.counts
+        h_try = sum(o.h_attempt for o in rep_ac.outcomes)
+        h_ok = sum(o.h_success for o in rep_ac.outcomes)
+        reasons = {}
+        with open(sweep.ledger_path(tail_cfg, rep_ac.sink_name)) as fp:
+            for rec in (json.loads(line) for line in fp if line.strip()):
+                if rec["verdict"] == "unknown":
+                    why = rec.get("engine_reason")
+                    reasons[why] = reasons.get(why, 0) + 1
+        print(f"[AC-S1 tail, {tag}] partitions 0-2048: sat {c['sat']} unsat "
+              f"{c['unsat']} unknown {c['unknown']} (stage 0 + PGD decided "
+              f"{thr['stage0_decided']}, the engine and the retry decided "
+              f"{thr['bab_decided']} (first pass by phase {thr['engine_decided']}), of "
+              f"which the heuristic retry {h_ok} of {h_try} tried; unknown reasons "
+              f"{reasons}; decided_fraction "
+              f"{thr['decided_fraction']}) in {wall_ac:.3f} s; t_sign "
+              f"{thr['phases_s'].get('engine_sign', 0.0):.3f} s, t_lp "
+              f"{thr['phases_s'].get('engine_lp', 0.0):.3f} s, t_pair "
+              f"{thr['phases_s'].get('engine_pair', 0.0):.3f} s; funnel {thr['funnel']}; "
+              f"phases {thr['phases_s']}; launches {launch}", flush=True)
+    ac_launch = tail_launch["slice 3"]
     shutil.rmtree(work, ignore_errors=True)
 
     table = []
     for name in REPLACES:
         r, g = ac_rows[name], gc_rows[name]
-        print(f"[summary] {name}: launches AC-S1 tail {ac_launch[name]} / AC grid "
-              f"{g_launch[name]} / GC-1 {gc_launch[name]}; AC median {r['ms']:.4f} ms, plain "
+        print(f"[summary] {name}: launches AC-S1 tail slice 3 {ac_launch[name]} / "
+              f"slice 2 {tail_launch['slice 2'][name]} / AC grid {g_launch[name]} / "
+              f"GC-1 {gc_launch[name]}; AC median {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
         row = {
@@ -1026,12 +1436,14 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": ac_launch[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "launches_slice2_tail": tail_launch["slice 2"][name],
             "launches_ac_grid": g_launch[name], "launches_gc1": gc_launch[name],
             "gc": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "max_abs_err")},
         }
-        if "alpha0" in r:
-            row["alpha0"] = r["alpha0"]
+        for extra in ("alpha0", "root", "role_boxes"):
+            if extra in r:
+                row[extra] = r[extra]
         table.append(row)
     print(json.dumps({"kernels": table}))
     print(smi)

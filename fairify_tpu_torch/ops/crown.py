@@ -1,18 +1,18 @@
-"""Batched CROWN backward linear-relaxation bounds, with α-CROWN.
+"""Batched CROWN backward linear-relaxation bounds, with α- and β-CROWN.
 
-Port of ``fairify_tpu/ops/crown.py`` without β: the ReLU triangle
-relaxation (:func:`relu_relaxation`), the backward pass that expresses a
-layer's pre-activations as linear forms of the input, optionally with
-tuned lower slopes α (:func:`backward_linear`), their concretization over
-the input box, the full-network CROWN bounds intersected with IBP
-(:func:`crown_bounds`), the signed-gradient α optimiser
-(:func:`optimize_relaxation`), and the output-logit linear forms the tied
-pair certificate consumes (:func:`crown_output_form_sets`,
-:func:`output_form_stack`).  β (the split multipliers of
-``sign_constrained_output_bounds``) belongs to Phase S and is not ported
-(ROADMAP queue 2, K8).
+Port of ``fairify_tpu/ops/crown.py``: the ReLU triangle relaxation
+(:func:`relu_relaxation`), the backward pass that expresses a layer's
+pre-activations as linear forms of the input, optionally with tuned lower
+slopes α and the β penalties of sign-split constraints
+(:func:`backward_linear`), their concretization over the input box, the
+full-network CROWN bounds intersected with IBP (:func:`crown_bounds`), the
+signed-gradient α/β optimiser (:func:`optimize_relaxation`), the output
+bounds under per-neuron sign splits that Phase S branches on
+(:func:`sign_constrained_output_bounds`), and the output-logit linear forms
+the tied pair certificate consumes (:func:`crown_output_form_sets`,
+:func:`output_form_stack`).
 
-The α gradient follows JAX's tie rules, so the α iterates are JAX's:
+The α/β gradient follows JAX's tie rules, so the iterates are JAX's:
 every positive/negative split is ``torch.maximum``/``torch.minimum``
 against 0 (½ of the gradient to each side at 0, like ``jnp.maximum``),
 never ``torch.clamp`` (which passes all of it).
@@ -25,10 +25,6 @@ import numpy as np
 import torch
 
 from fairify_tpu_torch.ops.interval import LayerBounds, affine_interval, widen
-
-BETA_NOT_PORTED = ("β multipliers (with_beta, sign-split constraints) are not "
-                   "ported yet: ROADMAP queue 2, K8 (Phase S)")
-
 
 def _pos(a):
     return torch.maximum(a, a.new_zeros(()))
@@ -55,7 +51,7 @@ def relu_relaxation(lo, hi, mask):
 
 
 def backward_linear(net, k: int, pre_lbs, pre_ubs, batch, alphas_low=None,
-                    alphas_up=None):
+                    alphas_up=None, beta_signs=None, betas_low=None, betas_up=None):
     """Linear forms of layer-k pre-activations in terms of the input.
 
     Returns ``(A_low, c_low, A_up, c_up)`` with ``A_*`` of shape
@@ -65,6 +61,13 @@ def backward_linear(net, k: int, pre_lbs, pre_ubs, batch, alphas_low=None,
     optional per-hidden-layer (..., n_j) lower ReLU slopes in [0, 1] for
     the unstable neurons of the lower / upper form (any value is sound);
     None keeps the adaptive slope.
+
+    ``beta_signs``/``betas_low``/``betas_up``: per-hidden-layer (..., n_j)
+    split constraints ``s_j · z_j >= 0`` (s in {-1, 0, +1}) and their
+    multipliers β >= 0.  By weak duality the constraint enters as the exact
+    linear penalty ``∓β·s`` on the z_j coefficients of the lower / upper
+    form, so the forms bound z_k over the box points that satisfy the
+    splits.
     """
     w_k = net.weights[k]
     n_k = w_k.shape[1]
@@ -85,6 +88,9 @@ def backward_linear(net, k: int, pre_lbs, pre_ubs, batch, alphas_low=None,
         Ap, An = _pos(A_up), _neg(A_up)
         c_up = c_up + (ui.unsqueeze(-2) @ Ap).squeeze(-2)
         A_up = Ap * us.unsqueeze(-1) + An * ls_up.unsqueeze(-1)
+        if beta_signs is not None:  # the split penalties on z_j
+            A_low = A_low - (betas_low[j] * beta_signs[j]).unsqueeze(-1)
+            A_up = A_up + (betas_up[j] * beta_signs[j]).unsqueeze(-1)
         # Through z_j = h_{j-1} @ w_j + b_j.
         w_j, b_j = net.weights[j], net.biases[j]
         c_low = c_low + b_j @ A_low
@@ -103,50 +109,71 @@ def concretize(A_low, c_low, A_up, c_up, in_lb, in_ub):
 
 
 def backward_bounds(net, k: int, pre_lbs, pre_ubs, in_lb, in_ub,
-                    alphas_low=None, alphas_up=None):
+                    alphas_low=None, alphas_up=None, beta_signs=None,
+                    betas_low=None, betas_up=None):
     """CROWN bounds ``(lo, hi)`` (..., n_k) of layer-k pre-activations."""
     forms = backward_linear(net, k, pre_lbs, pre_ubs, in_lb.shape[:-1],
-                            alphas_low, alphas_up)
+                            alphas_low, alphas_up, beta_signs, betas_low, betas_up)
     return concretize(*forms, in_lb, in_ub)
 
 
 def optimize_relaxation(width, init, iters: int, with_beta: bool = False,
-                        lr0: float = 0.5, decay: float = 0.7):
-    """Signed-gradient ascent on the α of a CROWN relaxation.
+                        lr0: float = 0.5, decay: float = 0.7, lr_b: float = 0.8,
+                        trace=None):
+    """Signed-gradient ascent on the α (and β) of a CROWN relaxation.
 
-    ``width(al, au) -> (summed_width, (lo, hi))``; ``init`` the per-layer
-    starting α (the adaptive slope).  Per iteration: evaluate, keep the
-    best (lo, hi) so far, step ``α ← clip(α − lr·sign(∂width/∂α), 0, 1)``,
-    ``lr ← lr·decay``; the final α is evaluated once more.  Every iterate
-    is a valid relaxation, so the kept bounds are sound.  Returns
-    ``(lo, hi, al, au)`` with the final α's.  The step size is carried in
-    f32 like the JAX package's ``lax.fori_loop`` carry.
+    ``width(al, au) -> (summed_width, (lo, hi))``, or ``width(al, au, bl,
+    bu)`` with ``with_beta``; ``init`` the per-layer starting α (the
+    adaptive slope); β starts at 0.  Per iteration: evaluate, keep the best
+    (lo, hi) so far, step ``α ← clip(α − lr·sign(∂width/∂α), 0, 1)`` and
+    ``β ← max(β − lr_b·sign(∂width/∂β), 0)``, ``lr ← lr·decay``; the final
+    parameters are evaluated once more.  Every iterate is a valid
+    relaxation, so the kept bounds are sound.  Returns ``(lo, hi, al,
+    au)`` with the final α's.  The step size is carried in f32 like the
+    JAX package's ``lax.fori_loop`` carry.
+
+    ``trace(al, au, bl, bu, grads)``, when given, sees every evaluated
+    iterate before its step (``grads`` the width's gradients in the order
+    al, au, bl, bu; None at the final evaluation; ``bl``/``bu`` empty
+    without β).
     """
-    if with_beta:
-        raise NotImplementedError(BETA_NOT_PORTED)
     al = [a.detach() for a in init]
     au = [a.detach() for a in init]
+    bl = [torch.zeros_like(a) for a in al] if with_beta else []
+    bu = [torch.zeros_like(a) for a in al] if with_beta else []
+    n = len(al)
     lr = np.float32(lr0)
     best_lo = best_hi = None
     for _ in range(iters):
-        al_g = [a.clone().requires_grad_(True) for a in al]
-        au_g = [a.clone().requires_grad_(True) for a in au]
+        params = [a.clone().requires_grad_(True) for a in al + au + bl + bu]
         with torch.enable_grad():
-            w, (lo, hi) = width(al_g, au_g)
-            grads = torch.autograd.grad(w, al_g + au_g, allow_unused=True)
+            w, (lo, hi) = width(*_groups(params, n, with_beta))
+            grads = torch.autograd.grad(w, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if trace is not None:
+            trace(al, au, bl, bu, grads)
         lo, hi = lo.detach(), hi.detach()
         best_lo = lo if best_lo is None else torch.maximum(best_lo, lo)
         best_hi = hi if best_hi is None else torch.minimum(best_hi, hi)
-        step = lambda a, g: a if g is None else torch.clamp(
-            a - float(lr) * torch.sign(g), 0.0, 1.0)
-        al = [step(a, g) for a, g in zip(al, grads[:len(al)])]
-        au = [step(a, g) for a, g in zip(au, grads[len(al):])]
+        sa = lambda a, g: torch.clamp(a - float(lr) * torch.sign(g), 0.0, 1.0)
+        sb = lambda b, g: torch.clamp(b - lr_b * torch.sign(g), min=0.0)
+        al = [sa(a, g) for a, g in zip(al, grads[:n])]
+        au = [sa(a, g) for a, g in zip(au, grads[n:2 * n])]
+        bl = [sb(b, g) for b, g in zip(bl, grads[2 * n:3 * n])]
+        bu = [sb(b, g) for b, g in zip(bu, grads[3 * n:])]
         lr = np.float32(lr * np.float32(decay))
     with torch.no_grad():
-        _, (lo, hi) = width(al, au)
+        _, (lo, hi) = width(*_groups(al + au + bl + bu, n, with_beta))
+    if trace is not None:
+        trace(al, au, bl, bu, None)
     best_lo = lo if best_lo is None else torch.maximum(best_lo, lo)
     best_hi = hi if best_hi is None else torch.minimum(best_hi, hi)
     return best_lo, best_hi, al, au
+
+
+def _groups(params, n: int, with_beta: bool):
+    """(al, au[, bl, bu]) lists out of one flat parameter list."""
+    return [params[i * n:(i + 1) * n] for i in range(4 if with_beta else 2)]
 
 
 def crown_bounds(net, lb, ub) -> LayerBounds:
@@ -175,6 +202,95 @@ def crown_bounds(net, lb, ub) -> LayerBounds:
         pl_ub.append(phi)
         lo_run, hi_run = plo, phi
     return LayerBounds(tuple(ws_lb), tuple(ws_ub), tuple(pl_lb), tuple(pl_ub))
+
+
+def sign_constrained_output_bounds(net, lb, ub, signs, alpha_iters: int = 0,
+                                   trace=None):
+    """Output bounds under per-neuron activation-sign branch constraints.
+
+    ``signs``: per-hidden-layer (..., n_j) tensors — +1 forces the neuron
+    active (pre-activation >= 0), -1 inactive (<= 0), 0 free — the splits
+    of the β-CROWN family, enforced by clamps (the constrained neuron's own
+    interval is clipped at 0, stabilising its relaxation for deeper layers)
+    and by β multipliers in every backward pass (the penalty that carries
+    the constraint into the concretized bound).  With ``alpha_iters > 0``
+    every layer k >= 1 has its own bounds α/β-optimised over its n_k
+    outputs (:func:`optimize_relaxation` on the summed width, β >= 0),
+    from the adaptive slopes and β = 0; with 0, one pass with β = 0.
+
+    Returns ``(out_lo, out_hi, feasible, scores, resolved)``: the widened
+    output-logit bounds (...,) over the box points that satisfy the
+    pattern; ``feasible`` (...,) False when a clamp emptied an interval;
+    per hidden layer the BaBSR scores ``ub·(−lb)/(ub−lb)`` of still-
+    unstable alive neurons (0 elsewhere) and the int8 signs every alive
+    neuron is known to have in the branch (0 = unstable).
+
+    ``trace(k, pre, al, au, bl, bu, grads)``, when given, sees every
+    relaxation layer k's bounds are taken from: each iterate of its
+    optimiser (see :func:`optimize_relaxation`), or with ``alpha_iters``
+    0 the one pass (the adaptive slopes as α, β = 0, ``grads`` None);
+    ``pre`` holds the layer's inputs ``(ws_lb, ws_ub, sgn)``: the clamped
+    bounds of the layers j < k and their β signs.
+    """
+    n = net.depth
+    ws_lb, ws_ub, feas = [], [], None
+    scores, resolved = [], []
+    lo_run, hi_run = lb, ub
+    sgn = None
+    zero = lb.new_zeros(())
+    for k in range(n):
+        zlo, zhi = affine_interval(net.weights[k], net.biases[k], lo_run, hi_run)
+        if k > 0:
+            pre = (tuple(ws_lb), tuple(ws_ub), tuple(sgn))
+            if alpha_iters <= 0:
+                betas = [torch.zeros_like(s) for s in sgn]
+                zlo_c, zhi_c = backward_bounds(net, k, ws_lb, ws_ub, lb, ub,
+                                               beta_signs=sgn, betas_low=betas,
+                                               betas_up=betas)
+                if trace is not None:  # the adaptive slopes are the α init
+                    init = [(ws_ub[j] >= -ws_lb[j]).to(lb.dtype) for j in range(k)]
+                    trace(k, pre, init, init, betas, betas, None)
+            else:
+                def width(al, au, bl, bu, k=k):
+                    lo_o, hi_o = backward_bounds(net, k, ws_lb, ws_ub, lb, ub, al, au,
+                                                 sgn, bl, bu)
+                    return (hi_o - lo_o).sum(), (lo_o, hi_o)
+
+                init = [(ws_ub[j] >= -ws_lb[j]).to(lb.dtype) for j in range(k)]
+                hook = None if trace is None else (
+                    lambda *a, k=k, pre=pre: trace(k, pre, *a))
+                zlo_c, zhi_c, _, _ = optimize_relaxation(width, init, alpha_iters,
+                                                         with_beta=True, trace=hook)
+            zlo = torch.maximum(zlo, zlo_c)
+            zhi = torch.minimum(zhi, zhi_c)
+        zlo, zhi = widen(zlo, zhi)
+        if k < n - 1:
+            s = signs[k]
+            zlo = torch.where(s > 0, torch.maximum(zlo, zero), zlo)
+            zhi = torch.where(s < 0, torch.minimum(zhi, zero), zhi)
+            bad = (zlo > zhi).any(dim=-1)
+            feas = bad if feas is None else feas | bad
+            # An empty interval collapses to a point so deeper layers stay
+            # finite; the feasible flag already excludes the branch.
+            zhi = torch.maximum(zhi, zlo)
+            m = net.masks[k]
+            unstable = (zlo < 0.0) & (zhi > 0.0)
+            denom = torch.where(unstable, zhi - zlo, torch.ones_like(zlo))
+            scores.append(torch.where(unstable, zhi * (-zlo) / denom,
+                                      torch.zeros_like(zlo)) * m)
+            res = torch.where(zlo >= 0.0, 1, torch.where(zhi <= 0.0, -1, 0))
+            resolved.append(res.to(torch.int8) * (m > 0.5))
+            sgn = [signs[j].to(lb.dtype) * net.masks[j] for j in range(k + 1)]
+        ws_lb.append(zlo)
+        ws_ub.append(zhi)
+        if k == n - 1:
+            break
+        m = net.masks[k]
+        lo_run, hi_run = torch.relu(zlo) * m, torch.relu(zhi) * m
+    out_lo, out_hi = ws_lb[-1][..., 0], ws_ub[-1][..., 0]
+    feasible = torch.ones(out_lo.shape, dtype=torch.bool, device=lb.device) \
+        if feas is None else ~feas
+    return out_lo, out_hi, feasible, scores, resolved
 
 
 def crown_output_form_sets(net, lb, ub, alpha_iters: int = 0):

@@ -14,27 +14,38 @@ Port of ``fairify_tpu/verify/engine.py`` for the phases the port runs:
   (:func:`attack_gap_impl`);
 * the gradient attack (:func:`pgd_attack`, Phase A and the sweep's
   ``stage0_pgd``) and the exact flip-slab search (:func:`slab_search`);
+* Phase S, the uniform-sign neuron-split BaB (:func:`uniform_sign_bab`:
+  the sign conjecture from sampled role logits, β-CROWN bounds under sign
+  splits, the exact-region leaf LP :func:`leaf_sign_lp`), with Phase L,
+  the host triangle-LP BaB (``ops.lp.sign_bab_lp``) fed by CROWN
+  pre-activation bounds, inside it;
 * the device-resident branch-and-bound: one segment of rounds over a
   slot queue (:func:`bab_segment`; certificate with domain clipping,
   :func:`certify_clip_impl`, α-CROWN after segment 0), driven by
   :func:`device_bab_phase`, with exact leaves (:func:`decide_leaf`);
+* Phase P, the relational pair LP BaB (:func:`pair_lp_phase`,
+  ``ops.lp.pair_bab_lp``);
 * :func:`decide_many` / :func:`decide_box`, which raise
-  ``NotImplementedError`` where an unported phase (S, P, E0/E, the host
+  ``NotImplementedError`` where an unported phase (E0/E, the host
   frontier) would run;
 * exact witness validation on the host (:func:`validate_pair`).
 
-Four device kernels carry it: KB :func:`stage0_certify`
+Seven device kernels carry it: KB :func:`stage0_certify`
 (``csrc/stage0_certify.cu``), KC :func:`attack_flips`
 (``csrc/attack_flips.cu``), K5 :func:`pgd_attack_kernel`
-(``csrc/pgd_attack.cu``) and K6 :func:`bab_segment`
-(``csrc/bab_segment.cu``), each beside its plain PyTorch version, which
-the CPU tests run.
+(``csrc/pgd_attack.cu``), K6 :func:`bab_segment`
+(``csrc/bab_segment.cu``), K8a :func:`sign_bound`
+(``csrc/sign_bound.cu``), K8b :func:`inter_bounds`
+(``csrc/inter_bounds.cu``) and the role-logit forward
+:func:`sample_role_logits` (``csrc/role_logits.cu``), each beside its
+plain PyTorch version, which the CPU tests run.
 """
 from __future__ import annotations
 
 import ctypes
 import itertools
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from fractions import Fraction
 from typing import Optional, Tuple
@@ -45,12 +56,13 @@ import torch
 from fairify_tpu_torch.models.mlp import forward_np, local_affine_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
 from fairify_tpu_torch.ops import crown as crown_ops
+from fairify_tpu_torch.ops import lp as lp_ops
 from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
 from fairify_tpu_torch.resilience import integrity as integrity_mod
 from fairify_tpu_torch.utils import cuda_build, prng
 from fairify_tpu_torch.verify.config import EngineConfig
-from fairify_tpu_torch.verify.property import (PairEncoding, shared_dims,
-                                               valid_assignments)
+from fairify_tpu_torch.verify.property import (PairEncoding, role_boxes,
+                                               shared_dims, valid_assignments)
 
 F32_MAX = float(np.finfo(np.float32).max)
 
@@ -967,14 +979,463 @@ bab_segment.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Phases S, L and P: role logits, pre-activation bounds (K8b) and
+# sign-constrained bounds (K8a) on the card; the LP BaBs on the host
+# ---------------------------------------------------------------------------
+
+
+def sample_role_logits(net, x_roles, xp_roles):
+    """Logits of the sign conjecture's sampled role points: two (..., d)
+    tensors → two (...) tensors, one launch.  CPU tensors take the plain
+    forward (:func:`attack_logits`); CUDA tensors launch
+    ``csrc/role_logits.cu``."""
+    if x_roles.device.type == "cpu":
+        return attack_logits(net, x_roles, xp_roles)
+    if net.layer_sizes[-1] != 1:
+        raise ValueError("sample_role_logits: the net must have one output logit")
+    if x_roles.shape != xp_roles.shape:
+        raise ValueError("sample_role_logits: both role tensors need one shape")
+    params, dims = cuda_build.pack_net(net)
+    x, xp = x_roles.contiguous(), xp_roles.contiguous()
+    cuda_build.require_cuda(params, x, xp)
+    n = x.numel() // x.shape[-1]
+    out = torch.empty(2 * n, dtype=torch.float32, device=x.device)
+    cuda_build.call("role_logits", "kr_role_logits", cuda_build.ptr(params), dims,
+                    ctypes.c_int(net.depth), cuda_build.ptr(x), cuda_build.ptr(xp),
+                    ctypes.c_int(n), cuda_build.ptr(out), cuda_build.stream())
+    sample_role_logits.launches += 1
+    shape = x.shape[:-1]
+    return out[:n].reshape(shape), out[n:].reshape(shape)
+
+
+sample_role_logits.launches = 0
+
+
+def inter_bounds(net, lo, hi):
+    """K8b: CROWN pre-activation bounds of every layer for B boxes (B, d):
+    lists ``(ws_lb, ws_ub)`` of (B, n_k) tensors, widened outward.  CPU
+    tensors take :func:`ops.crown.crown_bounds`; CUDA tensors launch
+    ``csrc/inter_bounds.cu``."""
+    if lo.device.type == "cpu":
+        b = crown_ops.crown_bounds(net, lo, hi)
+        return list(b.ws_lb), list(b.ws_ub)
+    params, dims = cuda_build.pack_net(net)
+    lo, hi = lo.contiguous(), hi.contiguous()
+    cuda_build.require_cuda(params, lo, hi)
+    B = lo.shape[0]
+    sizes = list(net.layer_sizes)
+    out_lb = torch.empty((B, sum(sizes)), dtype=torch.float32, device=lo.device)
+    out_ub = torch.empty_like(out_lb)
+    cuda_build.call("inter_bounds", "k8b_inter_bounds", cuda_build.ptr(params), dims,
+                    ctypes.c_int(net.depth), cuda_build.ptr(lo), cuda_build.ptr(hi),
+                    ctypes.c_int(B), cuda_build.ptr(out_lb), cuda_build.ptr(out_ub),
+                    cuda_build.stream())
+    inter_bounds.launches += 1
+    return list(out_lb.split(sizes, dim=1)), list(out_ub.split(sizes, dim=1))
+
+
+inter_bounds.launches = 0
+
+
+def sign_bound_plain(net, lo, hi, signs, alpha_iters: int, trace=None):
+    """K8a's plain version: ``(out_lo, out_hi, feasible, scores, resolved)``
+    of :func:`ops.crown.sign_constrained_output_bounds`, and the final α/β
+    of every layer's optimiser per box, flattened as the kernel exports
+    them (per layer k >= 1: al, au, bl, bu of the layers j < k; empty at
+    ``alpha_iters`` 0).  ``trace`` is passed on."""
+    finals = {}
+
+    def hook(k, pre, al, au, bl, bu, grads):
+        if trace is not None:
+            trace(k, pre, al, au, bl, bu, grads)
+        if grads is None and alpha_iters > 0:
+            finals[k] = al + au + bl + bu
+
+    out = crown_ops.sign_constrained_output_bounds(net, lo, hi, signs, alpha_iters,
+                                                   trace=hook)
+    ab = torch.cat([torch.cat(finals[k], dim=-1) for k in sorted(finals)], dim=-1) \
+        if finals else lo.new_zeros(lo.shape[:-1] + (0,))
+    return out, ab
+
+
+def sign_bound_ab_floats(sizes, alpha_iters: int) -> int:
+    """Per-box length of K8a's α/β export for layer widths ``(d, n_0, ...)``."""
+    if alpha_iters <= 0:
+        return 0
+    hidden = list(sizes[1:-1])
+    return sum(4 * sum(hidden[:k]) for k in range(1, len(sizes) - 1))
+
+
+def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False):
+    """K8a: β-CROWN output bounds of B boxes (B, d) under per-hidden-layer
+    sign patterns (B, n_j) in {-1, 0, +1}, one launch; see
+    :func:`ops.crown.sign_constrained_output_bounds` for the outputs.
+    ``with_ab`` also returns the final α/β (:func:`sign_bound_plain`'s
+    layout).  CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/sign_bound.cu``."""
+    if lo.device.type == "cpu":
+        out, ab = sign_bound_plain(net, lo, hi, signs, alpha_iters)
+        return out + (ab,) if with_ab else out
+    if net.layer_sizes[-1] != 1:
+        raise ValueError("sign_bound: the net must have one output logit")
+    params, dims = cuda_build.pack_net(net)
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    hidden = sizes[1:-1]
+    B = lo.shape[0]
+    lo, hi = lo.contiguous(), hi.contiguous()
+    sg = torch.cat([s.to(torch.float32) for s in signs], dim=1).contiguous() if hidden \
+        else lo.new_zeros((B, 0))
+    cuda_build.require_cuda(params, lo, hi, sg)
+    dev = lo.device
+    nh = sum(hidden)
+    ws_stride = sign_bound_ws_floats(sizes)
+    ws = torch.empty(max(B * ws_stride, 1), dtype=torch.float32, device=dev)
+    out_lo = torch.empty(B, dtype=torch.float32, device=dev)
+    out_hi = torch.empty_like(out_lo)
+    feasible = torch.empty(B, dtype=torch.uint8, device=dev)
+    scores = torch.empty((B, max(nh, 1)), dtype=torch.float32, device=dev)
+    resolved = torch.empty((B, max(nh, 1)), dtype=torch.int8, device=dev)
+    ab_stride = sign_bound_ab_floats(sizes, alpha_iters)
+    ab = torch.empty((B, ab_stride), dtype=torch.float32, device=dev) if with_ab else None
+    cuda_build.call("sign_bound", "k8a_sign_bound", cuda_build.ptr(params), dims,
+                    ctypes.c_int(net.depth), cuda_build.ptr(lo), cuda_build.ptr(hi),
+                    cuda_build.ptr(sg), ctypes.c_int(B), ctypes.c_int(int(alpha_iters)),
+                    cuda_build.ptr(ws), ctypes.c_int(ws_stride), cuda_build.ptr(out_lo),
+                    cuda_build.ptr(out_hi), cuda_build.ptr(feasible),
+                    cuda_build.ptr(scores), cuda_build.ptr(resolved),
+                    ctypes.c_void_p(ab.data_ptr() if ab is not None and ab.numel()
+                                    else 0),
+                    cuda_build.stream())
+    sign_bound.launches += 1
+    out = (out_lo, out_hi, feasible.bool(), list(scores[:, :nh].split(hidden, dim=1)),
+           list(resolved[:, :nh].split(hidden, dim=1)))
+    return out + (ab,) if with_ab else out
+
+
+sign_bound.launches = 0
+
+
+def sign_bound_ws_floats(sizes) -> int:
+    """Per-box floats of K8a's global workspace (``csrc/sign_bound.cu``):
+    for each form, the stack of layer k's backward-pass matrices (one per
+    layer j < k, n_j x n_k, then the input level, d x n_k) and two adjoint
+    buffers of max(d, n_j) x n_k, at the k that needs the most."""
+    d, hidden = sizes[0], list(sizes[1:])
+    stack = adj = 1
+    for k in range(1, len(hidden)):
+        stack = max(stack, hidden[k] * (sum(hidden[:k]) + d))
+        adj = max(adj, hidden[k] * max([d] + hidden[:k]))
+    return 2 * (stack + 2 * adj)
+
+
+def leaf_sign_lp(weights, biases, masks, pattern, lo, hi, want_positive: bool):
+    """LP endgame for a fully-resolved sign-BaB branch (an affine region).
+
+    With every alive neuron's sign resolved, the net is affine over
+    ``{x in box : s_j·z_j(x) >= 0}``, so the region's extremum is one small
+    LP (scipy's HiGHS).  Evidence class f64 with a margin: 'certified'
+    needs the extremum to clear 0 by ``1e-5 + 1e-7·scale``; borderline
+    extrema return 'mixed'.  Returns 'certified' | 'infeasible' (empty
+    region) | 'mixed'.
+    """
+    from scipy.optimize import linprog
+
+    d = len(lo)
+    A = np.eye(d)
+    c = np.zeros(d)
+    A_cons, b_cons = [], []
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        w = np.asarray(w, np.float64)
+        b = np.asarray(b, np.float64)
+        Az = A @ w
+        cz = c @ w + b
+        if i < len(weights) - 1:
+            s = np.asarray(pattern[i])
+            m = np.asarray(masks[i]) > 0.5
+            if ((s == 0) & m).any():
+                return "mixed"  # unresolved neuron: region not affine
+            for j in np.where(m)[0]:
+                sj = float(s[j])
+                A_cons.append(-sj * Az[:, j])
+                b_cons.append(sj * cz[j])
+            act = (m & (s > 0)).astype(np.float64)
+            A = Az * act[None, :]
+            c = cz * act
+        else:
+            A, c = Az, cz
+    g = A[:, 0]
+    c0 = float(c[0])
+    sense = 1.0 if want_positive else -1.0
+    res = linprog(sense * g,
+                  A_ub=np.stack(A_cons) if A_cons else None,
+                  b_ub=np.asarray(b_cons) if b_cons else None,
+                  bounds=list(zip(np.asarray(lo, float), np.asarray(hi, float))),
+                  method="highs")
+    if res.status == 2:
+        return "infeasible"
+    if res.status != 0 or res.fun is None:
+        return "mixed"
+    extremum = sense * res.fun + c0  # min f if want_positive else max f
+    scale = max(abs(c0), float(np.abs(g).sum()), 1.0)
+    margin = 1e-5 + 1e-7 * scale
+    if want_positive and extremum > margin:
+        return "certified"
+    if (not want_positive) and extremum < -margin:
+        return "certified"
+    return "mixed"
+
+
+def sign_boxes(enc: PairEncoding, lo, hi):
+    """Phase S's boxes (int64): the roots with RA dims widened by ε,
+    because x' may leave the box."""
+    slo = np.array(lo, dtype=np.int64)
+    shi = np.array(hi, dtype=np.int64)
+    if len(enc.ra_idx) and enc.eps:
+        slo[:, enc.ra_idx] -= enc.eps
+        shi[:, enc.ra_idx] += enc.eps
+    return slo, shi
+
+
+MESH_NOT_PORTED = "mesh-sharded engine phases are not ported yet: ROADMAP queue 1, item 8"
+
+
+def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
+                     deadline_s: float, mesh=None):
+    """Phase S (with Phase L inside): prove a uniform logit sign over each
+    root box by neuron-split BaB.
+
+    A uniform output sign over the RA-widened partition box forbids every
+    flip pair at once.  Per root the conjectured sign comes from the role
+    logits of 32 sampled points (:func:`sample_role_logits`, one launch
+    for all roots, the root axis padded to a power of two); a root with a
+    mixed sample is not a candidate.  Phase L: one :func:`inter_bounds`
+    launch per ``frontier_size`` block of candidates, then the host LP BaB
+    (:func:`ops.lp.sign_bab_lp`) on the roots with at most
+    ``lp_sign_max_unstable`` unstable neurons, fewest first; 'certified'
+    settles a root UNSAT, 'refuted' settles it 'mixed'.  The rest share one
+    device frontier of sign patterns, ``frontier_size`` per
+    :func:`sign_bound` launch (K8a), with BaBSR branching, the exact-region
+    leaf LP (:func:`leaf_sign_lp`) on fully resolved branches, the
+    per-root ``sign_max_nodes`` cap, and a root settled only after the
+    whole batch that popped its last branch (siblings may share a batch).
+
+    Returns ``(verdicts, nodes, cost_s, lp_cost_s)``: per-root 'unsat' |
+    'mixed', node counts (LP and device), attributed wall time (each
+    batch's time split evenly over its branches) and its Phase-L share.
+    """
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+    t0 = time.perf_counter()
+    R = roots_lo.shape[0]
+    n_hidden = net.depth - 1
+    if n_hidden == 0 or not len(enc.pa_idx):
+        return (["mixed"] * R, np.zeros(R, np.int64),
+                np.zeros(R, np.float64), np.zeros(R, np.float64))
+    F = cfg.frontier_size
+    dev = net.device
+    on = lambda a: torch.as_tensor(a, device=dev)
+    host_w, host_b = net.numpy_params()
+    host_m = [m.detach().cpu().numpy() for m in net.masks]
+
+    slo, shi = sign_boxes(enc, roots_lo, roots_hi)
+
+    # Sign conjecture: any mixed sample disqualifies the root.  The root
+    # axis is padded AFTER drawing, so the draws do not depend on it.
+    rng = np.random.default_rng(cfg.seed + 3)
+    xr, pr = build_attack_candidates(enc, rng, roots_lo, roots_hi, 32)
+    r_pad = 1 << max(xr.shape[0] - 1, 0).bit_length()
+    lx, lp = sample_role_logits(net, on(_pad(xr, r_pad)), on(_pad(pr, r_pad)))
+    lx, lp = lx.cpu().numpy()[:R], lp.cpu().numpy()[:R]
+    va = role_boxes(enc, np.asarray(roots_lo, np.float32),
+                    np.asarray(roots_hi, np.float32))[4]
+    allv_min = np.concatenate([
+        np.where(va[:, None, :], lx, np.inf).reshape(R, -1),
+        np.where(va[:, None, :], lp, np.inf).reshape(R, -1)], axis=1)
+    allv_max = np.concatenate([
+        np.where(va[:, None, :], lx, -np.inf).reshape(R, -1),
+        np.where(va[:, None, :], lp, -np.inf).reshape(R, -1)], axis=1)
+    has_valid = va.any(axis=-1)
+    want_pos = (allv_min.min(axis=1) > 0.0) & has_valid
+    want_neg = (allv_max.max(axis=1) < 0.0) & has_valid
+    candidate = want_pos | want_neg
+
+    hidden_sizes = list(net.layer_sizes[:n_hidden])
+    zero_signs = [np.zeros(n, dtype=np.int8) for n in hidden_sizes]
+    verdicts = ["mixed"] * R
+    settled = ~candidate
+    nodes = np.zeros(R, dtype=np.int64)
+    # Device splits only: Phase L's LP nodes do not count against
+    # sign_max_nodes.
+    dev_nodes = np.zeros(R, dtype=np.int64)
+    cost_s = np.zeros(R, dtype=np.float64)
+    lp_cost = np.zeros(R, dtype=np.float64)
+
+    if cfg.lp_sign and candidate.any():  # Phase L
+        cand = np.where(candidate)[0]
+        pre_lb = [np.zeros((R, n), np.float32) for n in net.layer_sizes]
+        pre_ub = [np.zeros((R, n), np.float32) for n in net.layer_sizes]
+        for s in range(0, len(cand), F):
+            blk = cand[s:s + F]
+            wl, wu = inter_bounds(net, on(_pad(slo[blk].astype(np.float32), F)),
+                                  on(_pad(shi[blk].astype(np.float32), F)))
+            for L, (a, b) in enumerate(zip(wl, wu)):
+                pre_lb[L][blk] = a.cpu().numpy()[:len(blk)]
+                pre_ub[L][blk] = b.cpu().numpy()[:len(blk)]
+        unstable = np.zeros(R, dtype=np.int64)
+        for L in range(n_hidden):
+            alive = host_m[L] > 0.5
+            unstable[cand] += ((pre_lb[L][cand] < 0.0) & (pre_ub[L][cand] > 0.0)
+                               & alive[None, :]).sum(axis=1)
+        for r in cand[np.argsort(unstable[cand], kind="stable")]:
+            r = int(r)
+            remaining = deadline_s - (time.perf_counter() - t0)
+            if remaining <= 0.0 or unstable[r] > cfg.lp_sign_max_unstable:
+                break  # sorted ascending: the rest are all larger
+            t_r = time.perf_counter()
+            outcome, n_lp = lp_ops.sign_bab_lp(
+                host_w, host_b, host_m, slo[r], shi[r],
+                [pre_lb[L][r] for L in range(n_hidden)],
+                [pre_ub[L][r] for L in range(n_hidden)], bool(want_pos[r]),
+                max_nodes=cfg.lp_sign_max_nodes,
+                deadline_s=min(cfg.soft_timeout_s, remaining))
+            nodes[r] += n_lp
+            dt_r = time.perf_counter() - t_r
+            cost_s[r] += dt_r
+            lp_cost[r] += dt_r
+            if outcome == "certified":
+                verdicts[r] = "unsat"
+                settled[r] = True
+            elif outcome == "refuted":
+                settled[r] = True  # verdict stays 'mixed'
+
+    frontier = deque((r, zero_signs) for r in range(R) if not settled[r])
+    open_n = (~settled).astype(np.int64)
+    while frontier:
+        if (time.perf_counter() - t0) > deadline_s:
+            break
+        t_iter = time.perf_counter()
+        items = []
+        while frontier and len(items) < F:
+            r, sgn = frontier.popleft()
+            if not settled[r]:
+                items.append((r, sgn))
+        if not items:
+            break
+        batch = len(items)
+        broot = np.array([r for r, _ in items])
+        bsigns = [on(_pad(np.stack([sgn[j] for _, sgn in items]).astype(np.float32), F))
+                  for j in range(n_hidden)]
+        # subtract.at, not fancy-index -=: a root's two children routinely
+        # share a batch, and x[idx] -= 1 decrements duplicates only once.
+        np.subtract.at(open_n, broot, 1)
+        np.add.at(nodes, broot, 1)
+        np.add.at(dev_nodes, broot, 1)
+        out_lo, out_hi, feasible, scores, resolved = sign_bound(
+            net, on(_pad(slo[broot].astype(np.float32), F)),
+            on(_pad(shi[broot].astype(np.float32), F)), bsigns, cfg.alpha_iters)
+        out_lo = out_lo.cpu().numpy()[:batch]
+        out_hi = out_hi.cpu().numpy()[:batch]
+        feasible = feasible.cpu().numpy()[:batch]
+        scores = [s.cpu().numpy()[:batch] for s in scores]
+        resolved = [s.cpu().numpy()[:batch] for s in resolved]
+        for k, (r, sgn) in enumerate(items):
+            if settled[r]:
+                continue
+            if not feasible[k]:
+                continue  # empty branch region: discharged
+            if (want_pos[r] and out_lo[k] > 0.0) or (want_neg[r] and out_hi[k] < 0.0):
+                continue  # branch certified
+            if dev_nodes[r] > cfg.sign_max_nodes or \
+                    (want_pos[r] and out_hi[k] < 0.0) or (want_neg[r] and out_lo[k] > 0.0):
+                settled[r] = True  # over budget, or the bound contradicts the
+                continue           # conjecture: verdict stays 'mixed'
+            best_layer, best_idx, best_val = -1, -1, 0.0
+            for j, s in enumerate(scores):
+                i = int(s[k].argmax())
+                if s[k][i] > best_val:
+                    best_layer, best_idx, best_val = j, i, float(s[k][i])
+            if best_layer < 0:
+                # Fully resolved: the region is affine — finish it exactly.
+                outcome = leaf_sign_lp(host_w, host_b, host_m,
+                                       [rv[k] for rv in resolved], slo[r], shi[r],
+                                       bool(want_pos[r]))
+                if outcome == "mixed":
+                    settled[r] = True
+                continue  # certified / infeasible: branch discharged
+            for forced in (1, -1):
+                child = list(sgn)
+                child[best_layer] = child[best_layer].copy()
+                child[best_layer][best_idx] = forced
+                frontier.append((r, child))
+            open_n[r] += 2
+        # Settle only after the whole batch: a root's popped sibling may
+        # still be in this very batch.
+        for r in set(int(x) for x in broot):
+            if not settled[r] and open_n[r] == 0:
+                verdicts[r] = "unsat"
+                settled[r] = True
+        np.add.at(cost_s, broot, (time.perf_counter() - t_iter) / batch)
+    return verdicts, nodes, cost_s, lp_cost
+
+
+def pair_lp_phase(net, enc: PairEncoding, roots_lo, roots_hi, verdicts, ces, nodes,
+                  cost_s, cfg: EngineConfig, t0: float, deadline_s: float) -> None:
+    """Phase P: the relational pair LP BaB over the roots still unknown.
+
+    Per root, while more than a second of the deadline is left: one
+    :func:`inter_bounds` launch on its 2V role boxes, then one
+    :func:`ops.lp.pair_bab_lp` per valid ordered assignment pair (both flip
+    directions when ε > 0).  Every direction killed → UNSAT; an exact
+    witness → SAT; a direction left open → the root stays unknown.
+    """
+    host_w, host_b = net.numpy_params()
+    host_m = [m.detach().cpu().numpy() for m in net.masks]
+    nh = net.depth - 1
+    V = enc.n_assign
+    on = lambda a: torch.as_tensor(a, device=net.device)
+    directions = (False,) if not enc.eps else (False, True)
+    for r in [r for r, v in enumerate(verdicts) if v == "unknown"]:
+        if deadline_s - (time.perf_counter() - t0) <= 1.0:
+            break
+        t_r = time.perf_counter()
+        lo_r = np.asarray(roots_lo[r], dtype=np.int64)
+        hi_r = np.asarray(roots_hi[r], dtype=np.int64)
+        x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(
+            enc, lo_r[None].astype(np.float32), hi_r[None].astype(np.float32))
+        wl, wu = inter_bounds(net, on(np.concatenate([x_lo[0], xp_lo[0]])),
+                              on(np.concatenate([x_hi[0], xp_hi[0]])))
+        wl = [w.cpu().numpy() for w in wl]
+        wu = [w.cpu().numpy() for w in wu]
+        bounds_of = lambda i: ([wl[k][i] for k in range(nh)], [wu[k][i] for k in range(nh)])
+        outcome, witness = "unsat", None
+        pairs = [(a, b) for a in range(V) if valid[0, a] for b in range(V)
+                 if valid[0, b] and enc.valid_pair[a, b]]
+        for (a, b), flip in itertools.product(pairs, directions):
+            rem = deadline_s - (time.perf_counter() - t0)
+            if rem <= 0.5:
+                outcome = "open"
+                break
+            status, n_lp, wit = lp_ops.pair_bab_lp(
+                host_w, host_b, host_m, enc, lo_r, hi_r, enc.assignments[a],
+                enc.assignments[b], bounds_of(a), bounds_of(V + b),
+                max_nodes=cfg.lp_pair_max_nodes,
+                deadline_s=min(cfg.soft_timeout_s, rem), flip=flip)
+            nodes[r] += n_lp
+            if status in ("sat", "open"):
+                outcome, witness = status, wit
+                break
+        cost_s[r] += time.perf_counter() - t_r
+        if outcome == "unsat":
+            verdicts[r] = "unsat"
+        elif outcome == "sat":
+            verdicts[r], ces[r] = "sat", witness
+
+
+# ---------------------------------------------------------------------------
 # The refinement engine: Phase A (PGD) and the device BaB
 # ---------------------------------------------------------------------------
 
 PHASE_NOT_PORTED = {
-    "sign_bab": "Phase S (the uniform-sign neuron-split BaB, sign_bab=True) is "
-                "not ported yet: ROADMAP queue 2, K8",
-    "lp_pair": "Phase P (the relational pair LP BaB, lp_pair=True) is not "
-               "ported yet: ROADMAP queue 2, K8",
     "lattice": "Phases E0/E (exhaustive lattice enumeration, "
                "lattice_exhaustive=True) are not ported yet: ROADMAP queue 2, K9",
     "host_frontier": "the host-frontier BaB loop (device_bab=False, "
@@ -996,6 +1457,9 @@ class Decision:
     # 'frontier:hard' (a stall with queue room, or an exact leaf that
     # returned unknown); legacy 'frontier' for a degraded segment.
     reason: Optional[str] = None
+    # The phase that decided the root: 'attack' (Phase A), 'lp' (Phase L),
+    # 'sign' (Phase S's device frontier), 'bab' or 'pair' (Phase P).
+    phase: Optional[str] = None
 
 
 def _branch_dims(enc: PairEncoding, d: int) -> np.ndarray:
@@ -1216,19 +1680,22 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
 def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 deadline_s: Optional[float] = None, mesh=None,
                 attacked: bool = False) -> list:
-    """Decide many root boxes: Phase A (PGD), then the device BaB.
+    """Decide many root boxes: Phases A, S (with L), the device BaB, P.
 
-    Port of the JAX package's ``decide_many`` for the phases the port has:
-    Phase A (one :func:`pgd_attack` launch per chunk of at most 1,024
-    roots, a quarter of the deadline; skipped when ``attacked``), and the
-    device-resident BaB (:func:`device_bab_phase`) on what is left, with
-    the deadline shares the JAX package reserves for its later phases.
-    Each unported phase — S (``sign_bab``), P (``lp_pair``), E0/E
-    (``lattice_exhaustive``) and the host-frontier loop — raises
-    ``NotImplementedError`` naming its ROADMAP item at the point where it
-    would run on an open root.  ``deadline_s`` defaults to
-    ``soft_timeout_s × n_roots``.  Returns one :class:`Decision` per root,
-    with per-root attributed ``t_attack``/``t_bab`` (the other phases' 0).
+    Port of the JAX package's ``decide_many`` for the phases the port has,
+    in its order: Phase A (one :func:`pgd_attack` launch per chunk of at
+    most 1,024 roots, a quarter of the deadline; skipped when
+    ``attacked``); Phase S, the uniform-sign BaB with the host LP Phase L
+    inside (:func:`uniform_sign_bab`, ``sign_bab_frac`` of the deadline);
+    the device-resident BaB (:func:`device_bab_phase`) on what is left
+    under ``main_deadline``; Phase P, the pair LP BaB
+    (:func:`pair_lp_phase`), on the roots still unknown under
+    ``pair_deadline``.  Phases E0/E (``lattice_exhaustive``) and the
+    host-frontier loop raise ``NotImplementedError`` naming their ROADMAP
+    item at the point where they would run on an open root.
+    ``deadline_s`` defaults to ``soft_timeout_s × n_roots``.  Returns one
+    :class:`Decision` per root, with per-root attributed ``t_attack``,
+    ``t_sign``, ``t_lp``, ``t_bab`` and ``t_pair``.
     """
     t0 = time.perf_counter()
     R = roots_lo.shape[0]
@@ -1236,6 +1703,7 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
         deadline_s = cfg.soft_timeout_s * max(R, 1)
     verdicts: list = [None] * R
     ces: list = [None] * R
+    decided_by: list = [None] * R
 
     attack_cost = np.zeros(R, dtype=np.float64)
     if cfg.pgd_phase and not attacked and len(enc.pa_idx) and R:
@@ -1253,11 +1721,31 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 if i < len(blk) and verdicts[s + i] is None:
                     verdicts[s + i] = "sat"
                     ces[s + i] = ce
+                    decided_by[s + i] = "attack"
         attack_cost[:] = (time.perf_counter() - t_a) / R
 
+    # Phase S (with L inside): the uniform-sign BaB under sign_bab_frac of
+    # the deadline.  Its nodes and time go into the Decisions, not into
+    # the pair BaB's max_nodes budget.
+    sign_nodes = np.zeros(R, dtype=np.int64)
+    sign_cost = np.zeros(R, dtype=np.float64)
+    sign_lp_cost = np.zeros(R, dtype=np.float64)
+    open_idx = np.array([r for r in range(R) if verdicts[r] is None], dtype=np.int64)
+    if cfg.sign_bab and cfg.use_crown and cfg.alpha_iters > 0 and open_idx.size:
+        sv, sn, sc, slp = uniform_sign_bab(
+            net, enc, np.asarray(roots_lo)[open_idx].astype(np.int64),
+            np.asarray(roots_hi)[open_idx].astype(np.int64), cfg,
+            deadline_s=cfg.sign_bab_frac * deadline_s, mesh=mesh)
+        sign_nodes[open_idx] = sn
+        sign_cost[open_idx] = sc
+        sign_lp_cost[open_idx] = slp
+        for k, v in enumerate(sv):
+            if v == "unsat":
+                r = int(open_idx[k])
+                verdicts[r] = "unsat"
+                # Phase L settles a root before the frontier sees it.
+                decided_by[r] = "lp" if sign_cost[r] == sign_lp_cost[r] else "sign"
     open_roots = [r for r in range(R) if verdicts[r] is None]
-    if cfg.sign_bab and cfg.use_crown and cfg.alpha_iters > 0 and open_roots:
-        raise NotImplementedError(PHASE_NOT_PORTED["sign_bab"])
     lat_sizes = _eligible_lattice_roots(enc, roots_lo, roots_hi, cfg)
     if cfg.lattice_exhaustive and any(
             lat_sizes.get(r, np.inf) <= cfg.lattice_first_max for r in open_roots):
@@ -1290,21 +1778,36 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
             raise NotImplementedError(PHASE_NOT_PORTED["host_frontier"])
         device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, main_deadline,
                          verdicts, settle, nodes, leaves, cost_s)
-    # Phases P and E take the roots still unknown while more than a second
-    # of their deadline is left (the JAX package's loop guards).
-    left = lambda dl: dl - (time.perf_counter() - t0) > 1.0
-    if use_pair and any(v == "unknown" for v in verdicts) and left(pair_deadline):
-        raise NotImplementedError(PHASE_NOT_PORTED["lp_pair"])
-    if any(verdicts[r] == "unknown" for r in lat_sizes) and left(deadline_s):
+    def mark(phase: str) -> None:
+        for r in range(R):
+            if decided_by[r] is None and verdicts[r] in ("sat", "unsat"):
+                decided_by[r] = phase
+
+    mark("bab")
+    pair_cost = np.zeros(R, dtype=np.float64)
+    if use_pair and any(v == "unknown" for v in verdicts):
+        pair_lp_phase(net, enc, roots_lo, roots_hi, verdicts, ces, nodes, pair_cost,
+                      cfg, t0, pair_deadline)
+        mark("pair")
+    # Phase E takes the roots still unknown while more than a second of the
+    # deadline is left (the JAX package's loop guard).
+    if any(verdicts[r] == "unknown" for r in lat_sizes) and \
+            deadline_s - (time.perf_counter() - t0) > 1.0:
         raise NotImplementedError(PHASE_NOT_PORTED["lattice"])
+    # Per-root attribution: A = PGD, S = the sign frontier, L = its host
+    # LP, bab = the device BaB, P = the pair LP; sums to elapsed_s.
     return [
-        Decision(verdicts[r], ces[r], nodes=int(nodes[r]), leaves=int(leaves[r]),
-                 elapsed_s=float(attack_cost[r] + cost_s[r]),
-                 stats={"t_attack": float(attack_cost[r]), "t_sign": 0.0,
-                        "t_lp": 0.0, "t_bab": float(cost_s[r]), "t_pair": 0.0,
-                        "t_lattice": 0.0},
+        Decision(verdicts[r], ces[r], nodes=int(nodes[r] + sign_nodes[r]),
+                 leaves=int(leaves[r]),
+                 elapsed_s=float(attack_cost[r] + cost_s[r] + sign_cost[r]
+                                 + pair_cost[r]),
+                 stats={"t_attack": float(attack_cost[r]),
+                        "t_sign": float(sign_cost[r] - sign_lp_cost[r]),
+                        "t_lp": float(sign_lp_cost[r]), "t_bab": float(cost_s[r]),
+                        "t_pair": float(pair_cost[r]), "t_lattice": 0.0},
                  reason=(unknown_reasons.get(r, "frontier")
-                         if verdicts[r] == "unknown" else None))
+                         if verdicts[r] == "unknown" else None),
+                 phase=decided_by[r])
         for r in range(R)
     ]
 

@@ -16,9 +16,13 @@ Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
   every stage-0 leftover, one launch per grid chunk, then the exact
   flip-slab search from the near-zero seeds within a quarter of the
   remaining hard budget.
-* **bab** — :func:`verify.engine.decide_many` on what is left: the device
-  BaB (K6, ``csrc/bab_segment.cu``; segment 0 plain CROWN, later segments
-  α-CROWN) under ``min(soft_timeout × leftovers, hard budget left)``.
+* **bab** — :func:`verify.engine.decide_many` on what is left, under
+  ``min(soft_timeout × leftovers, hard budget left)``: Phase S, the
+  uniform-sign BaB (role logits, ``csrc/role_logits.cu``; β-CROWN sign
+  bounds, K8a ``csrc/sign_bound.cu``) with Phase L, the host LP BaB on
+  CROWN pre-activation bounds (K8b ``csrc/inter_bounds.cu``), inside it;
+  the device BaB (K6, ``csrc/bab_segment.cu``; segment 0 plain CROWN,
+  later segments α-CROWN); Phase P, the pair LP BaB (K8b again).
 * **Heuristic retry** — each still-unknown partition is re-decided on its
   heuristically pruned net (:func:`ops.heuristic.heuristic_prune`,
   :func:`verify.engine.decide_box`); a SAT must replay on the original net,
@@ -26,12 +30,13 @@ Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
   regenerated on the card (K12's row generator, ``csrc/sim_rows.cu``).
 * **Reporting** — CRC-checked JSONL ledger (unknown rows carry the
   engine's ``engine_reason``), the 24-column CSV, the counterexample CSV
-  and the throughput JSON with per-phase ``phases_s``.
+  and the throughput JSON with per-phase ``phases_s`` and, per engine
+  phase, the partitions it decided on the first pass (``engine_decided``).
 
 Launches run synchronously (the async pipeline, supervisor and obs spans
 are ROADMAP queue 1, item 7).  Engine phases the port does not run yet —
-S, L, P, E0/E, the host frontier, the SMT tier — raise
-``NotImplementedError`` naming their ROADMAP item where they would run.
+E0/E, the host frontier, the SMT tier — raise ``NotImplementedError``
+naming their ROADMAP item where they would run.
 """
 from __future__ import annotations
 
@@ -374,6 +379,9 @@ KERNELS = {
     "pgd_attack": engine.pgd_attack_kernel,
     "bab_segment": engine.bab_segment,
     "sim_rows": sim_rows,
+    "sign_bound": engine.sign_bound,
+    "inter_bounds": engine.inter_bounds,
+    "role_logits": engine.sample_role_logits,
 }
 
 
@@ -591,6 +599,7 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     stage0_per_part = sum(phases.get(k, 0.0) for k in (
         "stage0_prune", "stage0_decide", "stage0_parity", "stage0_pgd")) / max(P, 1)
     bab: Dict[int, engine.Decision] = {}
+    engine_decided: Dict[str, int] = {}
     if pending:
         hard_left = max(cfg.hard_timeout_s - total(), 1.0)
         deadline = min(cfg.soft_timeout_s * len(pending), hard_left)
@@ -606,6 +615,9 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
             tot = sum(dd.stats.get(ph, 0.0) for dd in decisions)
             if tot > 0.0:
                 phases[f"engine_{ph[2:]}"] = tot
+        for dd in decisions:
+            if dd.phase is not None:
+                engine_decided[dd.phase] = engine_decided.get(dd.phase, 0) + 1
     if cfg.smt_retry_timeouts_s and total() <= cfg.hard_timeout_s and any(
             dd.verdict == "unknown" for dd in bab.values()):
         raise NotImplementedError(SMT_NOT_PORTED)
@@ -754,6 +766,7 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
         "elapsed_s": round(elapsed, 3), "decided": counter["decided"],
         "stage0_decided": counter["stage0_decided"],
         "bab_decided": counter["decided"] - counter["stage0_decided"],
+        "engine_decided": engine_decided,
         "unknown": counter["unknown"], "partitions_per_sec": round(pps, 4),
         "partitions_per_sec_per_chip": round(pps, 4),
         "launches_per_model": sum(kernel_launches.values()),

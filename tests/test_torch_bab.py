@@ -14,7 +14,8 @@ S, L, P, E0/E off).
   takes the heuristic-retry path and the rows still equal JAX's.
 * The BaB integrity detectors: fold checksum and canary slot.
 * Every unported engine phase raises ``NotImplementedError`` naming its
-  ROADMAP item where it would run, never skipped.
+  ROADMAP item where it would run, never skipped (Phases S and P, ported
+  since, pass the root on to Phase E).
 """
 import csv
 import json
@@ -273,8 +274,12 @@ def test_bab_integrity_detectors():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sign_bab=True, alpha_iters=2), "K8"),
-    (dict(lp_pair=True), "K8"),
+    # Phases S and P (K8) are ported: with either on, the root now runs
+    # through it and on to Phase E, which still raises naming K9.  (The
+    # ids are those these cases had when S and P raised themselves.)
+    pytest.param(dict(sign_bab=True, alpha_iters=2, lattice_exhaustive=True), "K9",
+                 id="kw0-K8"),
+    pytest.param(dict(lp_pair=True, lattice_exhaustive=True), "K9", id="kw1-K8"),
     (dict(lattice_exhaustive=True), "K9"),
     (dict(device_bab=False), "K10"),
 ])

@@ -65,12 +65,21 @@ def test_crown_bounds_match_jax_and_contain_samples():
 
 
 def test_alpha_crown_is_rejected_not_ignored():
-    # α-CROWN runs now (tests/test_torch_refine.py holds it against JAX); the
-    # β multipliers of Phase S are still rejected, never ignored.
+    # α-CROWN runs (tests/test_torch_refine.py holds it against JAX), and so
+    # do the β multipliers of Phase S (tests/test_torch_sign_bound.py): with
+    # β the optimiser hands the width four parameter groups, β from 0.
     ws, bs, lo, hi = _case((4, 3, 1), seed=0)
     net = tmlp.from_numpy(ws, bs, device="cpu")
     sets, lb, ub = tcrown.crown_output_form_sets(net, torch.as_tensor(lo),
                                                  torch.as_tensor(hi), 8)
     assert len(sets) == 2 and (lb <= ub).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcrown.optimize_relaxation(lambda al, au: None, [], 1, with_beta=True)
+    seen = []
+
+    def width(al, au, bl, bu):
+        seen.append([float(t.detach().sum()) for t in bl + bu])
+        v = bu[0].sum() - bl[0].sum() + 0.0 * (al[0].sum() + au[0].sum())
+        return v, (v.detach(), v.detach())
+
+    # ∂width/∂β_low = -1 steps β_low up by 0.8; β_up stays clipped at 0.
+    tcrown.optimize_relaxation(width, [torch.ones(2)], 1, with_beta=True)
+    assert seen == [[0.0, 0.0], [pytest.approx(1.6), 0.0]]

@@ -97,10 +97,10 @@ def test_resume_replays_the_ledger(tmp_path):
 
 def test_undecided_partitions_are_ledgered_not_ported(tmp_path):
     # bench.py's _bab_ladder world: stage 0 and the deep PGD decide none of
-    # its 8 partitions.  With the default engine they reach Phase S, which
-    # is not ported: the run raises, naming its ROADMAP item, instead of
-    # ledgering them.  In the slice's configuration every leftover goes
-    # through the device BaB and is decided.
+    # its 8 partitions.  With the default engine they pass Phase S and reach
+    # Phase E0, which is not ported: the run raises, naming its ROADMAP
+    # item (K9), instead of ledgering them.  In the slice-2 configuration
+    # every leftover goes through the device BaB and is decided.
     from fairify_tpu_torch.data.domains import get_domain
 
     ov = {c: (0, 0) for c in get_domain("german").columns}
@@ -110,7 +110,7 @@ def test_undecided_partitions_are_ledgered_not_ported(tmp_path):
         domain_overrides=ov, partition_threshold=2,
         engine=EngineConfig(attack_samples=4, bab_frontier_cap=64))
     net = tmlp.init_mlp((len(cfg.query().columns), 4, 1), seed=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(NotImplementedError, match="K9"):
         tsweep.verify_model(net, cfg, model_name="m", resume=False, device="cpu",
                             partition_span=(0, 8))
     tail = EngineConfig(attack_samples=4, bab_frontier_cap=64, sign_bab=False,
