@@ -10,6 +10,42 @@ Phases (any failure exits nonzero and prints no result line):
 1. Environment and build: the card's name and power limit, the TF32-off
    numeric policy, and the nvcc build of every kernel in
    ``fairify_tpu_torch/csrc`` (build seconds, ptxas register/spill report).
+1b. The lattice kernels vs plain versions, on the AC-S1 twin's stage-0
+   leftovers of stress-AC and relaxed-AC partitions 0-1,024: K9a
+   (lattice_scan) and K9b (lattice_signs) timed on the first full
+   2^18-point chunk of stress-AC's largest E0-eligible leftover (V = 2)
+   and on its tail chunk, K9c (lattice_scan_ra) on relaxed-AC's (V = 5,
+   eps = 5, one aligned chunk); then, per preset, the first two chunks of
+   every small leftover that card = CPU skips, the chunk that holds each
+   card = CPU SAT witness, the first chunk with a
+   sparse (2-512) and with a dense (> 512) margin count, and the crossing
+   twin's chunk: the twin's E0 leftovers hold no certain flip (their SAT
+   points sit inside the round-off bound, settled by the host ladder; on
+   stress-AC the bound of the stretched inputs exceeds what the protected
+   attribute moves the logit), so the same net with its protected columns'
+   first-layer weights scaled up and its output bias moved to a level
+   that a pair of certain logits straddles supplies one on a small
+   leftover's first chunk (on relaxed-AC a core point whose partner lies
+   in the ±eps window only; K9c again with its global-scratch dilation,
+   the path of RA tiles past shared memory, forced).  On every chunk: (a) no
+   opposite certain signs, (b) every kernel logit within its bound of a
+   float64 forward, (c) a certain-vs-0 difference only at the bound's
+   edge and on at most 0.1% of the points, (d) first flip, margin count,
+   the ordered margin indices and the sign columns equal to the plain
+   reductions of K9b's signs, and with nothing excused to the plain
+   version's; (e) on the margin and flip chunks, copies with one certain
+   sign flipped, one margin index dropped, two swapped or the flip lost
+   fail.  The run fails unless a flip, a sparse and a dense margin were
+   checked.  The overflow path: a net with a zero last layer (f = 0,
+   every point a margin point; narrow, since each point then takes the
+   exact rational forward) on a box of a few thousand points runs K9b and
+   decides unsat on the card and the CPU.  Card = CPU: decide_box_exhaustive
+   on the 8 smallest-lattice E0-eligible leftovers of each preset that the
+   card decides within 2 s (a smaller box over the cap is one whose margin
+   cells the host resolves exactly, the same work on both paths; its
+   chunks are checked above) and on the crossing twin's box (sat through
+   its first flip), the CPU plain path in a worker process beside the
+   rest of phase 1b, phases 2-2c and 4, verdicts and witnesses equal.
 2. Stage-0 kernels vs plain versions: KA (sim_and_bounds), KB
    (stage0_certify), KC (attack_flips) and KD (parity) at the shapes the
    main path gives them — the GC grid (201 partitions, GC-1 twin 20-50-1)
@@ -46,17 +82,29 @@ Phases (any failure exits nonzero and prints no result line):
    CRC-valid, every SAT witness exact, KA–KD launched.
 4. bench.py's BaB ladder world on the card: verdicts equal to the port's
    plain run on the CPU (and with max_nodes=1, through the heuristic
-   retry), in the slice-2 and in the slice-3 configuration.
+   retry), in the slice-2, the slice-3 and the default configuration.
 5. Real size: ``verify_model`` over the whole AC grid (16,000 AC-S1
    partitions, two mega-segments) in the slice-2 configuration under a
    30 s hard budget; ``verify_model`` on AC-S1 partitions 0-2,048 through
    stage 0, PGD, the device BaB and the heuristic retry in the slice-2
-   configuration (Phases S, L, P, E0/E off); and this slice's main path,
-   the same partitions in the slice-3 configuration
-   (``EngineConfig(lattice_exhaustive=False)``: Phases S, L and P on) —
-   each under a fixed node and time budget, with every kernel of the path
-   launched, every partition ledgered, every SAT replayed exactly and
-   every unknown ledgered with the engine's reason.
+   configuration (Phases S, L, P, E0/E off) and in the slice-3
+   configuration (``EngineConfig(lattice_exhaustive=False)``: Phases S, L
+   and P on), 45 s hard each — each under a fixed node and time budget,
+   with every kernel of the path launched, every partition ledgered,
+   every SAT replayed exactly and every unknown ledgered with the
+   engine's reason (phase 6 likewise).
+
+6. This slice's main path: ``verify_model`` on the AC-S1 twin over
+   stress-AC and relaxed-AC partitions 0-1,024 in the JAX engine's default
+   configuration (``EngineConfig(max_nodes=1000)``: Phases E0 and E on),
+   0.1 s soft per leftover, 75 s hard: K9a launched on stress-AC, K9c on
+   relaxed-AC, Phase E0 deciding partitions on both; counts,
+   decided_fraction, decisions by engine phase, engine phase seconds,
+   unknown reasons and launches per kernel printed.  Phase 4 also runs the
+   ladder world in the default configuration, card = CPU.
+
+Phase 4 runs before phase 3, and the run waits for the CPU worker before
+phase 3, so the timed end-to-end phases 3, 5 and 6 run without it.
 
 The next-to-last lines are the kernel table as one JSON object and the
 ``nvidia-smi`` name/power line; the last line is
@@ -88,11 +136,31 @@ REPLACES = {
     "sign_bound": "fairify_tpu/verify/engine.py:957",
     "inter_bounds": "fairify_tpu/verify/engine.py:963",
     "role_logits": "fairify_tpu/verify/engine.py:1035",
+    "lattice_scan": "fairify_tpu/ops/lattice.py:195",
+    "lattice_signs": "fairify_tpu/ops/lattice.py:238",
+    "lattice_scan_ra": "fairify_tpu/ops/lattice.py:246",
 }
 # Kernels of the slice-2 configuration's path (Phases S, L, P off).
 SLICE2 = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
           "bab_segment", "sim_rows")
-SOURCES = {k: f"fairify_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+# The three lattice kernels share one source; the preset whose default run
+# gives each its launch count, and the other one.
+LATTICE_KERNELS = {"lattice_scan": "stress-AC", "lattice_signs": "stress-AC",
+                   "lattice_scan_ra": "relaxed-AC"}
+LATTICE_OTHER = {"lattice_scan": "relaxed-AC", "lattice_signs": "relaxed-AC",
+                 "lattice_scan_ra": "stress-AC"}
+SOURCES = {k: f"fairify_tpu_torch/csrc/{'lattice_scan' if k in LATTICE_KERNELS else k}.cu"
+           for k in REPLACES}
+# Kernels every default-configuration run (phase 6) must launch, besides
+# its preset's lattice scan: stage 0, the PGD, Phase S and the retry's rows.
+DEFAULT_PATH = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
+                "sign_bound", "role_logits")
+DEFAULT_SOFT_S, DEFAULT_HARD_S = 0.1, 75.0
+# Hard budget of the AC-S1 tail runs in the slice-2 and slice-3
+# configurations (phase 5), short enough to leave room for phase 6.
+TAIL_HARD_S = 45.0
+# Kernels of the slice-3 configuration's path (lattice phases off).
+SLICE3_PATH = tuple(k for k in REPLACES if k not in LATTICE_KERNELS)
 AC_SIZES = (13, 128, 64, 32, 16, 8, 1)  # models_scaled/adult/AC-S1.h5 widths
 
 
@@ -433,10 +501,10 @@ def check_kernels(case, net, reps: int):
 # ---------------------------------------------------------------------------
 
 
-def leftovers(net, cfg, n: int, span: int):
-    """The first ``n`` boxes of the grid's first ``span`` partitions that
-    stage 0 (KB + KC, as the sweep runs them) leaves undecided: (enc, lo,
-    hi) int64."""
+def leftovers(net, cfg, n, span: int):
+    """The first ``n`` (None: all) boxes of the grid's first ``span``
+    partitions that stage 0 (KB + KC, as the sweep runs them) leaves
+    undecided: (enc, lo, hi) int64."""
     import numpy as np
 
     from fairify_tpu_torch.obs import funnel as funnel_mod
@@ -449,7 +517,7 @@ def leftovers(net, cfg, n: int, span: int):
     unsat, sat, _ = sweep.stage0_certify_and_attack(
         net, enc, lo, hi, cfg, stats=funnel_mod.StageStats(), failed={})
     left = np.where(~unsat & ~sat)[0][:n]
-    if len(left) < n:
+    if n is not None and len(left) < n:
         fail(f"{cfg.name}: only {len(left)} stage-0 leftovers in {span} partitions")
     return enc, lo[left], hi[left]
 
@@ -1125,11 +1193,652 @@ def check_phase_s_kernels(name, net, enc, lo, hi, reps: int, mutate: bool = Fals
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: the lattice kernels (K9a-c) on real stage-0 leftovers
+# ---------------------------------------------------------------------------
+
+LATTICE_PRESETS = ("stress-AC", "relaxed-AC")
+CPU_WORKER_THREADS = 7
+CARD_ROOT_CAP_S = 2.0
+# Roots per preset in card = CPU: the CPU plain path takes seconds per
+# AC-S1 stress-AC root (~4e6 points, V = 2) and tens of seconds per
+# relaxed-AC root (V = 5), and the timed phases wait for the worker.
+CARD_CPU_ROOTS = 8
+
+# Of a chunk's lattice points at most this share may have a certain sign in
+# one version and a 0 in the other (each only where the point's |f| lies
+# within the two versions' rounding difference of its bound).
+LAT_EXCUSE_SHARE = 1e-3
+
+
+def cpu_copy(net):
+    """A CPU copy of ``net`` (``Module.to`` would move the net itself)."""
+    from fairify_tpu_torch.models.mlp import from_numpy
+
+    ws, bs = net.numpy_params()
+    return from_numpy(ws, bs, [m.cpu().numpy() for m in net.masks], device="cpu")
+
+
+def small_box(enc, lo, hi, target: int):
+    """A sub-box of (lo, hi) with at least ``target`` lattice points where
+    the box has them: the PA dims keep their range, the shared dims open
+    one after another from their lower ends."""
+    import numpy as np
+
+    from fairify_tpu_torch.verify.property import shared_dims
+
+    hi2 = np.array(lo, dtype=np.int64)
+    pa = np.asarray(enc.pa_idx)
+    hi2[pa] = hi[pa]
+    n = 1
+    for k in shared_dims(enc, len(lo)):
+        w = min(int(hi[k] - lo[k]) + 1, max(1, -(-target // n)))
+        hi2[k] = lo[k] + w - 1
+        n *= w
+    return np.array(lo, dtype=np.int64), hi2
+
+
+def lattice_eligible(enc, lo, hi, cap: float):
+    """Indices of the boxes Phase E0 takes (scan size at most ``cap``),
+    with their sizes."""
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    sizes = [lattice_ops.enumerable_size(enc, lo[i], hi[i]) for i in range(len(lo))]
+    idx = [i for i, n in enumerate(sizes) if n is not None and n <= cap]
+    return idx, [sizes[i] for i in idx]
+
+
+def f64_forward(net, x):
+    """Float64 logits of f32 inputs ``x`` (..., d) under the net's masks."""
+    h = x.double()
+    for i, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        z = h @ w.double() + b.double()
+        h = z if i == net.depth - 1 else z.clamp_min(0.0) * m.double()
+    return h.squeeze(-1)
+
+
+def lattice_verdict(k_scan, k_sfe, p_scan, p_sfe, f64, own_scan):
+    """Checks (a)-(d) of one chunk: (failures, excused points).  (a) no
+    point has opposite certain signs in the kernel and the plain version;
+    (b) every kernel logit lies within its bound of the f64 logit; (c) a
+    certain-vs-0 difference only where the plain |f| lies within the two
+    versions' f and e differences of its bound, on at most
+    LAT_EXCUSE_SHARE of the points; (d) first_flip, margin_count,
+    margin_idx and sign_cols equal ``own_scan``, the plain reductions of
+    K9b's signs (the scan's own forward), and with nothing excused also
+    the plain version's."""
+    ks, kf, ke = k_sfe
+    ps, pf, pe = p_sfe
+    bad = []
+    if bool(((ks.int() * ps.int()) == -1).any()):
+        bad.append("(a) opposite certain signs")
+    if not bool(((kf.double() - f64).abs() <= ke.double()).all()):
+        bad.append("(b) a kernel logit outside its bound of the f64 logit")
+    diff = ks != ps
+    edge = ((pf.abs() - pe).abs() <= (kf - pf).abs() + (ke - pe).abs())
+    if bool((diff & ~edge).any()):
+        bad.append("(c) a certain-vs-0 difference away from the bound's edge")
+    excused = int(diff.any(dim=0).sum())
+    if excused > LAT_EXCUSE_SHARE * ks.shape[1]:
+        bad.append(f"(c) {excused} excused points")
+    names = ("first_flip", "margin_count", "margin_idx", "sign_cols")
+    for name, k, o in zip(names, k_scan, own_scan):
+        if not torch_equal(k, o):
+            bad.append(f"(d) {name} differs from the reductions of K9b's signs")
+    if excused == 0:
+        for name, k, p in zip(names, k_scan, p_scan):
+            if not torch_equal(k, p):
+                bad.append(f"(d) {name} differs from the plain version's")
+    return bad, excused
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def lattice_mutants(k_scan, k_sfe, p_scan, p_sfe, f64, own_scan):
+    """Copies of the kernel's outputs with one certain sign flipped, the
+    first margin index dropped, the first two margin indices swapped and
+    (in a chunk with a flip) the first flip lost: each must fail
+    :func:`lattice_verdict`."""
+    import torch
+
+    ks, kf, ke = k_sfe
+    ff, mc, midx, cols = k_scan
+    hit = torch.nonzero(ks != 0)
+    if hit.shape[0] == 0 or int(mc) < 2:
+        fail("lattice mutants need a chunk with a certain sign and two margin points")
+    v, j = int(hit[0, 0]), int(hit[0, 1])
+    flipped = ks.clone()
+    flipped[v, j] = -flipped[v, j]
+    dropped = torch.cat([midx[1:], midx.new_full((1,), -1)])
+    swapped = midx.clone()
+    swapped[0], swapped[1] = midx[1], midx[0]
+    copies = [("a certain sign flipped", k_scan, (flipped, kf, ke)),
+              ("a margin index dropped", (ff, mc, dropped, cols), k_sfe),
+              ("two margin indices swapped", (ff, mc, swapped, cols), k_sfe)]
+    if int(ff) >= 0:
+        copies.append(("the first flip lost", (torch.full_like(ff, -1), mc, midx, cols),
+                       k_sfe))
+    for what, scan, sfe in copies:
+        if not lattice_verdict(scan, sfe, p_scan, p_sfe, f64, own_scan)[0]:
+            fail(f"lattice check accepts a copy with {what}")
+
+
+def own_flip(col, vp) -> bool:
+    """True iff one point's sign column ``col`` (V,) holds a valid ordered
+    pair of opposite certain signs by itself (no dilated partner)."""
+    c = col.cpu().numpy().astype(int)
+    return bool(((c[:, None] * c[None, :] == -1) & vp).any())
+
+
+def scan_args(net, enc, lo, hi, c0: int, chunk: int):
+    """The box's ScanPlan, as ``decide_box_exhaustive`` lays it out, and
+    the arguments of its scan kernel for the chunk at ``c0`` (first
+    prefix), on the net's device."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    plan = lattice_ops.scan_plan(net, enc, lo, hi, chunk=chunk)
+    if isinstance(plan, str):
+        return plan, None
+    dev = net.device
+    valid = np.zeros(enc.n_assign, bool)
+    valid[plan.valid] = True
+    bases = torch.as_tensor(plan.bases(enc, ()), device=dev)
+    return plan, (net, c0, plan.n_suf, *plan.host_desc(), bases,
+                  torch.as_tensor(valid, device=dev),
+                  torch.as_tensor(plan.vp.astype(np.float32), device=dev), plan.chunk,
+                  plan.dims_tuple, int(bases.shape[1]))
+
+
+def scan_from_signs(plan, args, s):
+    """The plain reductions (K9a's, or K9c's for an RA plan) of the sign
+    tensor ``s`` of the chunk that ``args`` (:func:`scan_args`) names."""
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    _, c0, n_suf, _, _, _, _, valid, vp, _, _, _ = args
+    if plan.ra_mode:
+        return lattice_ops.scan_ra_from_signs(s, c0, n_suf, valid, vp, plan.ra_ws, plan.eps)
+    return lattice_ops.scan_from_signs(s, c0, n_suf, valid, vp)
+
+
+def check_lattice(name, net, enc, lo, hi, c0: int, reps: int, chunk: int = 1 << 18,
+                  mutate: bool = False):
+    """K9a (or K9c for an RA query) and K9b on the chunk at ``c0`` of one
+    box, as ``decide_box_exhaustive`` lays it out, against their plain
+    versions and a float64 forward of the same points.  Returns the row
+    of the scan kernel (with the chunk's first flip, margin count and,
+    in RA mode, whether the flip was found through a dilated partner
+    only) and of K9b."""
+    import torch
+
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+    from fairify_tpu_torch.utils import cuda_build
+
+    plan, args = scan_args(net, enc, lo, hi, c0, chunk)
+    if isinstance(plan, str) or len(plan.peel_dims):
+        fail(f"{name}: box not scannable in one prefix ({plan})")
+    packed = cuda_build.pack_net(net)
+    _, _, _, strides, widths, lo_sh, bases, _, _, _, _, d = args
+    ra = (plan.ra_ws, plan.eps) if plan.ra_mode else ()
+    kname = "lattice_scan_ra" if plan.ra_mode else "lattice_scan"
+    kern = getattr(lattice_ops, kname)
+    plain = getattr(lattice_ops, kname + "_plain")
+    k_scan, k_ms = timed(lambda: kern(*args, *ra, packed=packed), reps)
+    p_scan, p_ms = timed(lambda: plain(*args, *ra), 1)
+    sargs = (net, c0, strides, widths, lo_sh, bases, plan.chunk, plan.dims_tuple, d)
+    k_sfe, s_ms = timed(lambda: lattice_ops.lattice_signs(*sargs, packed=packed,
+                                                          with_fe=True), reps)
+    p_sfe, ps_ms = timed(lambda: lattice_ops.device_signs_plain(*sargs, with_fe=True), 1)
+    x = lattice_ops.lattice_inputs(c0, strides, widths, lo_sh, bases, plan.chunk,
+                                   plan.dims_tuple, d)
+    f64 = f64_forward(net, x)
+    del x
+    if not torch.equal(lattice_ops.lattice_signs(*sargs, packed=packed), k_sfe[0]):
+        fail(f"{name}: K9b's signs differ with and without f, e")
+    own = scan_from_signs(plan, args, k_sfe[0])
+    bad, excused = lattice_verdict(k_scan, k_sfe, p_scan, p_sfe, f64, own)
+    if bad:
+        fail(f"{name}: lattice chunk at {c0}: {bad}")
+    if mutate:
+        lattice_mutants(k_scan, k_sfe, p_scan, p_sfe, f64, own)
+    V = enc.n_assign
+    n_here = min(plan.chunk, plan.n_suf - c0)
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    # Three products per layer (z, |h||W|, e|W|) of 2 flops per MAC, less
+    # layer 0's e|W| (e = 0 at the exact inputs; the kernel skips it).
+    flops = (6 * macs(sizes) - 2 * sizes[0] * sizes[1]) * V * n_here
+    err = float((k_sfe[1] - p_sfe[1]).abs().max())
+    b_ms, b_by = bound(flops, 4 * V * d + 4 * (2 + lattice_ops.MARGIN_BUF)
+                       + V * (lattice_ops.MARGIN_BUF + 1))
+    bs_ms, bs_by = bound(flops, 4 * V * d + V * n_here)
+    ff, mc = int(k_scan[0]), int(k_scan[1])
+    dilated = plan.ra_mode and ff >= 0 and not own_flip(k_sfe[0][:, ff], plan.vp)
+    print(f"[kernel {name}] {kname} V={V} chunk={plan.chunk} at {c0} (n_total "
+          f"{plan.n_suf}{', RA tile ' + str(plan.tile) if plan.ra_mode else ''}): "
+          f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {b_ms:.4f} ms); lattice_signs "
+          f"{s_ms:.4f} ms (plain {ps_ms:.4f} ms); first_flip {ff}"
+          f"{' (through a dilated partner only)' if dilated else ''}, margin_count {mc}, "
+          f"excused {excused}, max |f - plain| {err:.3g}"
+          f"{', mutants caught' if mutate else ''}", flush=True)
+    row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               chunk=plan.chunk, V=V, excused=excused, first_flip=ff, margin_count=mc,
+               dilated=dilated)
+    srow = dict(ms=s_ms, plain_ms=ps_ms, bound_ms=bs_ms, bound_by=bs_by, max_abs_err=err,
+                chunk=plan.chunk, V=V)
+    return {kname: row, "lattice_signs": srow}
+
+
+def margin_chunks(net, enc, lo, hi, order):
+    """Scan the boxes of ``order`` chunk by chunk (the kernel) for the
+    first chunk whose margin count lies in [2, MARGIN_BUF] and the first
+    whose count passes MARGIN_BUF while some point is certain for every
+    valid assignment.  Returns ({"sparse" | "dense": (box, c0)}, chunks
+    scanned, scanned chunks with a flip)."""
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+    from fairify_tpu_torch.utils import cuda_build
+
+    packed = cuda_build.pack_net(net)
+    found, n, n_flip = {}, 0, 0
+    for i in order:
+        plan, args = scan_args(net, enc, lo[i], hi[i], 0, 1 << 18)
+        ra = (plan.ra_ws, plan.eps) if plan.ra_mode else ()
+        kern = lattice_ops.lattice_scan_ra if plan.ra_mode else lattice_ops.lattice_scan
+        for c0 in range(0, plan.n_suf, plan.chunk):
+            ff, mc = (int(t) for t in kern(args[0], c0, *args[2:], *ra, packed=packed)[:2])
+            n += 1
+            n_flip += ff >= 0
+            if 2 <= mc <= lattice_ops.MARGIN_BUF:
+                found.setdefault("sparse", (i, c0))
+            elif lattice_ops.MARGIN_BUF < mc < min(plan.chunk, plan.n_suf - c0):
+                found.setdefault("dense", (i, c0))
+            if len(found) == 2:
+                return found, n, n_flip
+    fail(f"no chunk with a sparse and a dense margin in {n} chunks ({found})")
+
+
+def crossing_twin(net, enc, scale: float, shift: float, device: str):
+    """``net`` with the first-layer weights of its protected columns
+    multiplied by ``scale`` and ``shift`` taken off its output bias (in
+    f32)."""
+    import numpy as np
+
+    from fairify_tpu_torch.models.mlp import from_numpy
+
+    ws, bs = net.numpy_params()
+    ws = [np.asarray(w, np.float32).copy() for w in ws]
+    bs = [np.asarray(b, np.float32).copy() for b in bs]
+    for p in np.asarray(enc.pa_idx):
+        ws[0][p] = (ws[0][p] * np.float32(scale)).astype(np.float32)
+    bs[-1] = (bs[-1] - np.float32(shift)).astype(np.float32)
+    return from_numpy(ws, bs, device=device)
+
+
+# Protected-column weight scales (ascending), boxes (smallest first) and
+# candidate shifts per box that the crossing twin's search tries.
+CROSS_SCALES, CROSS_BOXES, CROSS_SHIFTS = (1.0, 4.0, 16.0, 64.0, 256.0), 16, 64
+
+
+def flip_shifts(plan, f, e, n_here: int, k: int = CROSS_SHIFTS):
+    """Output-bias shifts ``t``, largest gap first, under which some point
+    x is certainly above ``t`` for an assignment a (f - e > t) and a
+    partner certainly below it for b (f + e < t), valid_pair[a, b]: the
+    partner is x itself (RA-free) or, for a core x, a cell up to eps away
+    along the innermost RA axis.  ``f``, ``e``: (V, chunk) plain logits
+    and bounds of the chunk."""
+    import torch
+
+    lo_, hi_ = (f - e).double(), (f + e).double()
+    lo_[:, n_here:] = float("-inf")
+    hi_[:, n_here:] = float("inf")
+    vp = torch.as_tensor(plan.vp, device=f.device)
+    best = []
+    V = f.shape[0]
+    for a in range(V):
+        for b in range(V):
+            if not bool(vp[a, b]):
+                continue
+            if not plan.ra_mode:
+                best.append(((lo_[a] - hi_[b]), (lo_[a] + hi_[b]) / 2))
+                continue
+            w, eps = plan.ra_ws[-1], plan.eps
+            la = lo_[a].reshape(-1, w)
+            hb = hi_[b].reshape(-1, w)
+            core = la[:, eps:w - eps]
+            for dl in range(-eps, eps + 1):
+                part = hb[:, eps + dl:w - eps + dl]
+                best.append(((core - part).flatten(), ((core + part) / 2).flatten()))
+    gap = torch.cat([g for g, _ in best])
+    mid = torch.cat([m for _, m in best])
+    top = torch.topk(gap, min(k, gap.numel()))
+    return [float(mid[i]) for g, i in zip(top.values, top.indices) if float(g) > 0]
+
+
+def crossing_net(net, enc, lo, hi, order):
+    """No E0 leftover of the AC-S1 twin holds a certain flip: its SAT
+    points sit inside the round-off bound (on stress-AC the bound of the
+    stretched inputs exceeds what the protected attribute moves the
+    logit) and the host ladder settles them.  The crossing twin (:func:`crossing_twin`) scales
+    the protected columns' first-layer weights by the first of
+    CROSS_SCALES that lets a pair of certain logits straddle some level
+    (:func:`flip_shifts`) on the first chunk of one of the CROSS_BOXES
+    smallest boxes of ``order``, and moves its output bias to that level:
+    the first shift whose plain scan of the chunk finds a flip and two
+    margin points (in RA mode a flip found through a dilated partner
+    only).  Returns (box, scale, shift, net)."""
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    for scale in CROSS_SCALES:
+        knet = crossing_twin(net, enc, scale, 0.0, "cuda")
+        for i in order[:CROSS_BOXES]:
+            plan, args = scan_args(knet, enc, lo[i], hi[i], 0, 1 << 18)
+            _, _, n_suf, strides, widths, lo_sh, bases, _, _, chunk, dims, d = args
+            _, f, e = lattice_ops.device_signs_plain(knet, 0, strides, widths, lo_sh, bases,
+                                                     chunk, dims, d, with_fe=True)
+            for shift in flip_shifts(plan, f, e, min(chunk, n_suf)):
+                xnet = crossing_twin(net, enc, scale, shift, "cuda")
+                s = lattice_ops.device_signs_plain(xnet, 0, strides, widths, lo_sh, bases,
+                                                   chunk, dims, d)
+                ff, mc = (int(t) for t in scan_from_signs(plan, (xnet,) + args[1:], s)[:2])
+                if ff >= 0 and mc >= 2 and not (plan.ra_mode
+                                                and own_flip(s[:, ff], plan.vp)):
+                    return i, scale, shift, xnet
+    fail(f"no crossing twin with a flip on the first chunk of {CROSS_BOXES} boxes")
+
+
+def lattice_overflow_case(net, enc, lo, hi):
+    """Zero the net's last layer (f = 0 everywhere, every point a margin
+    point) on a box of a few thousand points: the scan's margin count
+    passes MARGIN_BUF, K9b runs, and the card's decide_box_exhaustive
+    verdict equals the CPU's (unsat).  Every point then goes through the
+    exact rational forward on the host, so ``net`` is a narrow one.
+    Returns K9b's launches."""
+    import torch
+
+    from fairify_tpu_torch.models.mlp import from_numpy
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    ws, bs = net.numpy_params()
+    ws[-1] = ws[-1] * 0.0
+    bs[-1] = bs[-1] * 0.0
+    zero = from_numpy(ws, bs, device="cuda")
+    plan, args = scan_args(zero, enc, lo, hi, 0, 1 << 18)
+    k_scan = lattice_ops.lattice_scan(*args)
+    p_scan = lattice_ops.lattice_scan_plain(*args)
+    if int(k_scan[1]) <= lattice_ops.MARGIN_BUF or not all(
+            torch_equal(a, b) for a, b in zip(k_scan, p_scan)):
+        fail(f"overflow case: margin count {int(k_scan[1])}, kernel and plain differ")
+    dropped = torch.cat([k_scan[2][1:], k_scan[2].new_full((1,), -1)])
+    if torch_equal(dropped, p_scan[2]):
+        fail("overflow case: a dropped margin index goes unnoticed")
+    n0 = lattice_ops.lattice_signs.launches
+    card = lattice_ops.decide_box_exhaustive(zero, enc, lo, hi, chunk=1 << 18)
+    launched = lattice_ops.lattice_signs.launches - n0
+    cpu = lattice_ops.decide_box_exhaustive(cpu_copy(zero), enc, lo, hi, chunk=1 << 18)
+    if card != ("unsat", None) or cpu != ("unsat", None) or launched < 1:
+        fail(f"overflow case: card {card[0]}, CPU {cpu[0]}, K9b launched {launched}")
+    print(f"[overflow] {plan.n_suf} points x V={enc.n_assign}, margin count "
+          f"{int(k_scan[1])} > {lattice_ops.MARGIN_BUF}: K9b launched {launched}, card "
+          f"= CPU = unsat", flush=True)
+    return launched
+
+
+def decide_boxes(net, enc, lo, hi, pipeline_depth: int = 32):
+    """decide_box_exhaustive on each box: [(verdict, witness)], seconds."""
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    out, t = [], time.perf_counter()
+    for i in range(len(lo)):
+        v, ce = lattice_ops.decide_box_exhaustive(net, enc, lo[i], hi[i], chunk=1 << 18,
+                                                  pipeline_depth=pipeline_depth)
+        out.append([v, None if ce is None else [c.tolist() for c in ce]])
+    return out, time.perf_counter() - t
+
+
+def card_roots(net, enc, lo, hi, order, n: int = CARD_CPU_ROOTS):
+    """The first ``n`` boxes of ``order`` that decide_box_exhaustive
+    decides on the card within CARD_ROOT_CAP_S.  A box over the cap is
+    one whose margin cells the host resolves exactly (in RA mode each
+    through decide_leaf on up to (2 eps + 1)^k core points), the same work
+    on the CPU path; it is skipped (its first chunks' kernel outputs are
+    held against the plain version instead).  An unknown verdict before
+    the cap (an evidence mismatch) fails.  Returns (picked indices,
+    [(verdict, witness)], card seconds, skipped indices)."""
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    picked, out, skipped, t_all = [], [], [], 0.0
+    for i in order:
+        t = time.perf_counter()
+        v, ce = lattice_ops.decide_box_exhaustive(net, enc, lo[i], hi[i], chunk=1 << 18,
+                                                  deadline_s=CARD_ROOT_CAP_S)
+        dt = time.perf_counter() - t
+        if v == "unknown":
+            if dt < CARD_ROOT_CAP_S:
+                fail(f"box {i}: decide_box_exhaustive unknown after {dt:.3f} s on the card")
+            skipped.append(i)
+            continue
+        t_all += dt
+        picked.append(i)
+        out.append([v, None if ce is None else [c.tolist() for c in ce]])
+        if len(picked) == n:
+            break
+    if len(picked) < n:
+        fail(f"only {len(picked)} E0-eligible leftovers decide within {CARD_ROOT_CAP_S} s")
+    return picked, out, t_all, skipped
+
+
+def lattice_cpu_worker(path_in: str, path_out: str) -> int:
+    """``chip_smoke.py --lattice-cpu IN OUT``: the CPU plain path's
+    decide_box_exhaustive on the boxes of IN (the AC-S1 twin, per preset,
+    and the crossing twin on its box, one chunk in flight: it decides at
+    its first chunk) into OUT.  Runs in its own process beside the rest
+    of phase 1b, phases 2-2c and the ladder world."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.models.mlp import seeded_net
+    from fairify_tpu_torch.verify import presets
+    from fairify_tpu_torch.verify.property import encode
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    net = seeded_net(AC_SIZES, seed=0, device="cpu")
+    boxes = np.load(path_in)
+    res = {}
+    for name in LATTICE_PRESETS:
+        enc = encode(presets.get(name).query())
+        res[name] = decide_boxes(net, enc, boxes[f"{name}/lo"], boxes[f"{name}/hi"])
+        scale, shift = (float(v) for v in boxes[f"{name}/twin"])
+        xnet = crossing_twin(net, enc, scale, shift, "cpu")
+        res[f"{name}/crossing"] = decide_boxes(xnet, enc, boxes[f"{name}/xlo"][None],
+                                               boxes[f"{name}/xhi"][None], pipeline_depth=1)
+    with open(path_out, "w") as fp:
+        json.dump(res, fp)
+    return 0
+
+
+def lattice_card_side(net, engine_cfg, work: str) -> dict:
+    """Phase 1b, first part.  Per preset, the E0-eligible stage-0
+    leftovers of partitions 0-1,024 (smallest first), the card side of
+    card = CPU on the CARD_CPU_ROOTS smallest the card decides within
+    CARD_ROOT_CAP_S, and the crossing twin (:func:`crossing_net`), whose
+    box the card must decide sat through its first flip.  Then starts the
+    CPU side in a worker process.  Returns the presets' data with the
+    worker, the card results and the worker's output path."""
+    import numpy as np
+
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+    from fairify_tpu_torch.verify import presets
+
+    lat, boxes, card = {}, {}, {}
+    for name in LATTICE_PRESETS:
+        cfg = presets.get(name).with_(exact_certify_masks=False, engine=engine_cfg)
+        enc, lo, hi = leftovers(net, cfg, None, 1024)
+        idx, sizes = lattice_eligible(enc, lo, hi, 6.4e7)
+        print(f"[lattice {name}] {len(lo)} stage-0 leftovers of partitions 0-1,024, "
+              f"{len(idx)} E0-eligible ({sum(sizes)} scan points, V = {enc.n_assign}, "
+              f"eps = {enc.eps})", flush=True)
+        order = [idx[k] for k in np.argsort(sizes, kind="stable")]
+        pick, got, t_card, skipped = card_roots(net, enc, lo, hi, order)
+        print(f"[lattice {name}] card = CPU roots: the {len(pick)} smallest the card "
+              f"decides within {CARD_ROOT_CAP_S} s ({len(skipped)} smaller ones skipped), "
+              f"card {t_card:.3f} s", flush=True)
+        o0, scale, shift, xnet = crossing_net(net, enc, lo, hi, order)
+        t = time.perf_counter()
+        v, ce = lattice_ops.decide_box_exhaustive(xnet, enc, lo[o0], hi[o0], chunk=1 << 18,
+                                                  pipeline_depth=1)
+        if v != "sat":
+            fail(f"{name}: the crossing twin's box decides {v} on the card, not sat "
+                 f"through its first flip")
+        print(f"[lattice {name}] the crossing twin (protected weights x {scale:g}, output "
+              f"bias - {shift:.6g}) decides its box {o0} sat on the card in "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
+        boxes.update({f"{name}/lo": lo[pick], f"{name}/hi": hi[pick], f"{name}/xlo": lo[o0],
+                      f"{name}/xhi": hi[o0], f"{name}/twin": np.array([scale, shift])})
+        card[name] = (got, t_card, [lattice_ops.enumerable_size(enc, lo[i], hi[i])
+                                    for i in pick], len(skipped),
+                      [[v, [c.tolist() for c in ce]]])
+        lat[name] = dict(enc=enc, lo=lo, hi=hi, idx=idx, sizes=sizes, order=order,
+                         skipped=skipped, pick=pick, got=got, o0=o0, xnet=xnet)
+    path_in = os.path.join(work, "lattice_boxes.npz")
+    path_out = os.path.join(work, "lattice_cpu.json")
+    np.savez(path_in, **boxes)
+    worker = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lattice-cpu",
+                               path_in, path_out], cwd=os.path.dirname(os.path.abspath(
+                                   __file__)))
+    return dict(presets=lat, worker=worker, card=card, out=path_out)
+
+
+def lattice_kernel_checks(net, lat: dict) -> dict:
+    """Phase 1b, second part.  Per preset: the timed K9 rows on the
+    largest leftover's first full chunk (stress-AC: and its tail chunk);
+    the first two chunks of every small leftover that card = CPU skips;
+    the chunk that holds each card = CPU SAT witness; the first chunk
+    with a sparse (2-512) and with a dense margin; the
+    crossing twin's flip chunk (relaxed-AC: again with K9c's scratch
+    dilation forced); the overflow path (stress-AC).  Fails unless the
+    chunks held against the plain version include a flip with margin
+    points (RA: found through a dilated partner), a sparse and a dense
+    margin.  Returns the kernel rows."""
+    import numpy as np
+
+    from fairify_tpu_torch.models.mlp import seeded_net
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    rows = {}
+    for name in LATTICE_PRESETS:
+        p = lat[name]
+        enc, lo, hi, order, o0, xnet = (p[k] for k in ("enc", "lo", "hi", "order", "o0",
+                                                        "xnet"))
+        big = p["idx"][int(np.argmax(p["sizes"]))]
+        r = check_lattice(name, net, enc, lo[big], hi[big], 0, reps=5)
+        kname = "lattice_scan_ra" if enc.eps and len(enc.ra_idx) else "lattice_scan"
+        checked = [r[kname]]
+        if name == "stress-AC":
+            rows.update(r)  # K9b's row is its V = 2 stress-AC shape
+            plan = lattice_ops.scan_plan(net, enc, lo[big], hi[big], chunk=1 << 18)
+            c_last = (plan.n_suf - 1) // plan.chunk * plan.chunk
+            if plan.n_suf % plan.chunk == 0:
+                fail("stress-AC: the largest leftover has no tail chunk")
+            checked.append(check_lattice(f"{name} tail", net, enc, lo[big], hi[big],
+                                         c_last, reps=3)[kname])
+        else:
+            rows["lattice_scan_ra"] = r["lattice_scan_ra"]
+            rows["lattice_signs"]["relaxed"] = {
+                k: r["lattice_signs"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "V")}
+        for i in p["skipped"]:
+            plan = lattice_ops.scan_plan(net, enc, lo[i], hi[i], chunk=1 << 18)
+            for c0 in range(0, min(plan.n_suf, 2 * plan.chunk), plan.chunk):
+                checked.append(check_lattice(f"{name} skipped {i}", net, enc, lo[i], hi[i],
+                                             c0, reps=1)[kname])
+        for i, (v, ce) in zip(p["pick"], p["got"]):
+            if v == "sat":  # the chunk that holds a card = CPU SAT witness
+                plan = lattice_ops.scan_plan(net, enc, lo[i], hi[i], chunk=1 << 18)
+                x = np.asarray(ce[0], np.int64)
+                flat = int(sum((x[k] - plan.lo_eff[k]) * st
+                               for k, st in zip(plan.suf_dims, plan.suf_strides)))
+                checked.append(check_lattice(f"{name} SAT root {i}, witness chunk", net, enc,
+                                             lo[i], hi[i], flat - flat % plan.chunk,
+                                             reps=1)[kname])
+        found, n_scanned, n_flip = margin_chunks(net, enc, lo, hi, order)
+        for key in ("sparse", "dense"):
+            i, c0 = found[key]
+            checked.append(check_lattice(f"{name} {key} margin", net, enc, lo[i], hi[i], c0,
+                                         reps=1, mutate=True)[kname])
+        fx = check_lattice(f"{name} crossing twin", xnet, enc, lo[o0], hi[o0], 0, reps=3,
+                           mutate=True)[kname]
+        checked.append(fx)
+        if kname == "lattice_scan_ra":
+            # K9c's other dilation path, a global scratch slice per block
+            # (RA tiles past LAT_RA_SMEM_MAX), forced on the same chunk.
+            keep = lattice_ops.LAT_RA_SMEM_MAX
+            lattice_ops.LAT_RA_SMEM_MAX = 0
+            try:
+                fs = check_lattice(f"{name} crossing twin, scratch dilation", xnet, enc,
+                                   lo[o0], hi[o0], 0, reps=3, mutate=True)[kname]
+            finally:
+                lattice_ops.LAT_RA_SMEM_MAX = keep
+            checked.append(fs)
+            rows[kname]["scratch"] = {"ms": fs["ms"], "smem_ms": fx["ms"]}
+        mcs = [c["margin_count"] for c in checked]
+        flips = [c for c in checked if c["first_flip"] >= 0]
+        if not any(0 < m <= lattice_ops.MARGIN_BUF for m in mcs) or not any(
+                m > lattice_ops.MARGIN_BUF for m in mcs) or not any(
+                c["margin_count"] > 0 and (c["dilated"] or kname == "lattice_scan")
+                for c in flips):
+            fail(f"{name}: the checked chunks lack a flip, a sparse or a dense margin "
+                 f"(margin counts {mcs}, flips {len(flips)})")
+        print(f"[lattice {name}] {len(checked)} chunks held against the plain version "
+              f"({len(p['skipped'])} skipped leftovers x 2, margins found in {n_scanned} "
+              f"scanned chunks, {n_flip} of them with a flip): margin counts "
+              f"{sorted(mcs)}, {len(flips)} with a flip, none excused beyond "
+              f"{max(c['excused'] for c in checked)} points", flush=True)
+        if name == "stress-AC":
+            olo, ohi = small_box(enc, lo[order[0]], hi[order[0]], 3000)
+            rows["lattice_signs"]["overflow_launches"] = lattice_overflow_case(
+                seeded_net((AC_SIZES[0], 8, 1), seed=0, device="cuda"), enc, olo, ohi)
+        rows[kname]["checked_chunks"] = len(checked)
+    return rows
+
+
+def lattice_card_vs_cpu(worker, card, path_out: str) -> None:
+    """Wait for the CPU worker; its verdicts and witnesses must equal the
+    card's on every box (the crossing twin's box: sat), and no box may
+    stay unknown."""
+    t = time.perf_counter()
+    rc = worker.wait(timeout=900)
+    print(f"[card = CPU] waited {time.perf_counter() - t:.3f} s for the CPU worker",
+          flush=True)
+    if rc != 0:
+        fail(f"the CPU lattice worker exited with {rc}")
+    with open(path_out) as fp:
+        cpu = json.load(fp)
+    for name, (got, t_card, sizes, skipped, xcard) in card.items():
+        want, t_cpu = cpu[name]
+        xwant, xt_cpu = cpu[f"{name}/crossing"]
+        if got != want or xcard != xwant:
+            bad = [(i, g, w) for i, (g, w) in enumerate(zip(got + xcard, want + xwant))
+                   if g != w]
+            fail(f"card = CPU {name}: {bad}")
+        counts = {v: sum(1 for g, _ in got if g == v) for v in ("sat", "unsat")}
+        print(f"[card = CPU {name}] the {len(got)} smallest E0-eligible leftovers the "
+              f"card decides within {CARD_ROOT_CAP_S} s ({min(sizes)}-{max(sizes)} scan "
+              f"points; {skipped} smaller ones over the cap skipped): {counts}, "
+              f"witnesses equal, card {t_card:.3f} s, CPU worker {t_cpu:.3f} s; the "
+              f"crossing twin's box: sat through a first flip on both, witness equal, "
+              f"CPU {xt_cpu:.3f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the sweep through the kernels
 # ---------------------------------------------------------------------------
 
 
-def run_sweep(net, cfg, model_name: str, required=tuple(REPLACES), span=None):
+def run_sweep(net, cfg, model_name: str, required=(), span=None):
     """verify_model with every launch count zeroed just before; returns
     (report, launch counts, wall seconds).  Fails if a kernel of
     ``required`` never launched in the run."""
@@ -1261,12 +1970,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from fairify_tpu_torch.models.mlp import flagship_net, seeded_net
-    from fairify_tpu_torch.partition import grid as grid_mod
+    from fairify_tpu_torch.models.mlp import seeded_net
     from fairify_tpu_torch.utils import cuda_build, num
-    from fairify_tpu_torch.verify import presets, sweep
     from fairify_tpu_torch.verify.config import EngineConfig
-    from fairify_tpu_torch.verify.property import encode
 
     # --- phase 1
     smi = smi_line()
@@ -1281,17 +1987,39 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
-    # --- phase 2: the stage-0 kernels
     engine_cfg = EngineConfig(frontier_size=512, attack_samples=128,
                               bab_attack_samples=16, soft_timeout_s=10.0)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    ac_net = seeded_net(AC_SIZES, seed=0, device="cuda")
+    # --- phase 1b: the lattice kernels; the CPU side of card = CPU runs in
+    # a worker process beside the rest of phase 1b, phases 2-2c and 4
+    lat = lattice_card_side(ac_net, engine_cfg, work)
+    worker = lat["worker"]
+    try:
+        lat_rows = lattice_kernel_checks(ac_net, lat["presets"])
+        return run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat["card"],
+                          lat["out"])
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+
+
+def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
+               lat_out) -> int:
+    from fairify_tpu_torch.models.mlp import flagship_net
+    from fairify_tpu_torch.partition import grid as grid_mod
+    from fairify_tpu_torch.verify import presets, sweep
+    from fairify_tpu_torch.verify.config import EngineConfig
+    from fairify_tpu_torch.verify.property import encode
+
+    # --- phase 2: the stage-0 kernels
     gc_cfg = presets.get("GC").with_(result_dir=os.path.join(work, "gc"),
                                      soft_timeout_s=10.0, hard_timeout_s=600.0,
                                      exact_certify_masks=False, engine=engine_cfg)
     ac_cfg = presets.get("AC").with_(result_dir=os.path.join(work, "ac"),
                                      exact_certify_masks=False, engine=engine_cfg)
     gc_net = flagship_net(device="cuda")
-    ac_net = seeded_net(AC_SIZES, seed=0, device="cuda")
     gc_rows = check_kernels(case_inputs("GC", gc_net, gc_cfg), gc_net, reps=5)
     ac_rows = check_kernels(case_inputs("AC", ac_net, ac_cfg), ac_net, reps=3)
     # Off the main path, for coverage of the kernels' ε-relaxed (RA) terms
@@ -1336,19 +2064,8 @@ def main() -> int:
                                          reps=3, frontier=False))
     check_phase_s_kernels("relaxed-AC", ac_net, renc, rlo, rhi, reps=1)
 
-    # --- phase 3: the GC-1 main path (stage 0 decides every partition)
-    rep, gc_launch, wall = run_sweep(gc_net, gc_cfg, "GC-1",
-                                     required=("sim_and_bounds", "stage0_certify",
-                                               "attack_flips", "parity"))
-    if rep.counts != {"sat": 2, "unsat": 199, "unknown": 0}:
-        fail(f"GC-1 counts {rep.counts}, expected sat=2 unsat=199 unknown=0")
-    thr = check_outputs(rep, gc_cfg, gc_net, "GC-1", gc_launch)
-    print(f"[e2e GC-1] {rep.counts} in {wall:.3f} s = "
-          f"{(rep.counts['sat'] + rep.counts['unsat']) / wall:.2f} partitions/s; "
-          f"phases {thr['phases_s']}; launches {gc_launch}", flush=True)
-
     # --- phase 4: the bench's BaB ladder world on the card vs the CPU
-    for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3)):
+    for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3), ("default", {})):
         rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda", phases)
         rep_c, rows_c, _, _ = ladder_world(work, "cpu", phases)
         if rows_d != rows_c or rep_d.counts != {"sat": 0, "unsat": 8, "unknown": 0}:
@@ -1363,6 +2080,21 @@ def main() -> int:
               f"{rep_d.kernel_launches}; max_nodes=1 (heuristic retry): {rep_h.counts}, "
               f"h_attempt {sum(o.h_attempt for o in rep_h.outcomes)}, launches "
               f"{rep_h.kernel_launches}", flush=True)
+
+    # The CPU side of card = CPU ran beside phases 1b-2c and 4; the timed
+    # end-to-end phases 3, 5 and 6 run without it.
+    lattice_card_vs_cpu(worker, lat_card, lat_out)
+
+    # --- phase 3: the GC-1 main path (stage 0 decides every partition)
+    rep, gc_launch, wall = run_sweep(gc_net, gc_cfg, "GC-1",
+                                     required=("sim_and_bounds", "stage0_certify",
+                                               "attack_flips", "parity"))
+    if rep.counts != {"sat": 2, "unsat": 199, "unknown": 0}:
+        fail(f"GC-1 counts {rep.counts}, expected sat=2 unsat=199 unknown=0")
+    thr = check_outputs(rep, gc_cfg, gc_net, "GC-1", gc_launch)
+    print(f"[e2e GC-1] {rep.counts} in {wall:.3f} s = "
+          f"{(rep.counts['sat'] + rep.counts['unsat']) / wall:.2f} partitions/s; "
+          f"phases {thr['phases_s']}; launches {gc_launch}", flush=True)
 
     # --- phase 5: real size.  The whole AC grid (16,000 partitions, two
     # mega-segments) through verify_model with a short hard budget, then
@@ -1387,17 +2119,14 @@ def main() -> int:
           f"{thr_g['bab_decided']}; decided_fraction {thr_g['decided_fraction']}) in "
           f"{wall_g:.3f} s under a 30 s hard budget; funnel {thr_g['funnel']}; "
           f"phases {thr_g['phases_s']}; launches {g_launch}", flush=True)
-    tail_cfg = ac_cfg.with_(
-        result_dir=os.path.join(work, "ac-tail"), soft_timeout_s=0.02,
-        hard_timeout_s=60.0, engine=EngineConfig(**TAIL, max_nodes=1000))
     tail_launch = {}
     for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3)):
         tail_cfg = ac_cfg.with_(
             result_dir=os.path.join(work, f"ac-tail-{len(phases)}"), soft_timeout_s=0.02,
-            hard_timeout_s=60.0, engine=EngineConfig(**phases, max_nodes=1000))
+            hard_timeout_s=TAIL_HARD_S, engine=EngineConfig(**phases, max_nodes=1000))
         rep_ac, launch, wall_ac = run_sweep(
             ac_net, tail_cfg, "AC-S1-twin", span=(0, 2048),
-            required=SLICE2 if phases is TAIL else tuple(REPLACES))
+            required=SLICE2 if phases is TAIL else SLICE3_PATH)
         tail_launch[tag] = launch
         thr = check_outputs(rep_ac, tail_cfg, ac_net, "AC-S1-twin", launch)
         c = rep_ac.counts
@@ -1421,16 +2150,70 @@ def main() -> int:
               f"{thr['phases_s'].get('engine_pair', 0.0):.3f} s; funnel {thr['funnel']}; "
               f"phases {thr['phases_s']}; launches {launch}", flush=True)
     ac_launch = tail_launch["slice 3"]
+
+    # --- phase 6: this slice's main path.  The JAX engine's default
+    # configuration (lattice phases on; max_nodes cut to 1,000) on the
+    # AC-S1 twin over stress-AC and relaxed-AC partitions 0-1,024.
+    lat_launch = {}
+    for name, k9 in (("stress-AC", "lattice_scan"), ("relaxed-AC", "lattice_scan_ra")):
+        cfg = presets.get(name).with_(
+            result_dir=os.path.join(work, f"default-{name}"), exact_certify_masks=False,
+            soft_timeout_s=DEFAULT_SOFT_S, hard_timeout_s=DEFAULT_HARD_S,
+            engine=EngineConfig(max_nodes=1000))
+        rep_d, launch, wall_d = run_sweep(ac_net, cfg, "AC-S1-twin", span=(0, 1024),
+                                          required=DEFAULT_PATH + (k9,))
+        lat_launch[name] = launch
+        thr = check_outputs(rep_d, cfg, ac_net, "AC-S1-twin", launch)
+        first = thr["engine_decided"]
+        if first.get("lattice_first", 0) == 0:
+            fail(f"{name}: Phase E0 decided nothing ({first})")
+        c = rep_d.counts
+        reasons = {}
+        with open(sweep.ledger_path(cfg, rep_d.sink_name)) as fp:
+            for rec in (json.loads(line) for line in fp if line.strip()):
+                if rec["verdict"] == "unknown":
+                    why = rec.get("engine_reason")
+                    reasons[why] = reasons.get(why, 0) + 1
+        ph = thr["phases_s"]
+        print(f"[{name} default] partitions 0-1,024: sat {c['sat']} unsat {c['unsat']} "
+              f"unknown {c['unknown']}, decided_fraction {thr['decided_fraction']} in "
+              f"{wall_d:.3f} s (stage 0 + PGD decided {thr['stage0_decided']}; the engine "
+              f"and the retry {thr['bab_decided']}; first pass by phase {first}; retry "
+              f"{sum(o.h_success for o in rep_d.outcomes)} of "
+              f"{sum(o.h_attempt for o in rep_d.outcomes)} tried); engine t_lattice "
+              f"{ph.get('engine_lattice', 0.0):.3f} s, t_sign {ph.get('engine_sign', 0.0):.3f}"
+              f" s, t_lp {ph.get('engine_lp', 0.0):.3f} s, t_bab "
+              f"{ph.get('engine_bab', 0.0):.3f} s, t_pair {ph.get('engine_pair', 0.0):.3f} "
+              f"s; unknown reasons {reasons}; funnel {thr['funnel']}; phases {ph}; "
+              f"launches {launch}", flush=True)
     shutil.rmtree(work, ignore_errors=True)
 
     table = []
     for name in REPLACES:
+        if name in LATTICE_KERNELS:
+            r = lat_rows[name]
+            n = lat_launch[LATTICE_KERNELS[name]][name]
+            print(f"[summary] {name}: launches {LATTICE_KERNELS[name]} default {n} / "
+                  f"{'relaxed' if name != 'lattice_scan_ra' else 'stress'}-AC default "
+                  f"{lat_launch[LATTICE_OTHER[name]][name]}; median {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}) at V={r['V']}, chunk {r['chunk']}", flush=True)
+            table.append({
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": n, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "launches_other_preset": lat_launch[LATTICE_OTHER[name]][name],
+                **{k: r[k] for k in ("V", "chunk", "overflow_launches", "relaxed",
+                                     "checked_chunks", "scratch") if k in r}})
+            continue
         r, g = ac_rows[name], gc_rows[name]
         print(f"[summary] {name}: launches AC-S1 tail slice 3 {ac_launch[name]} / "
               f"slice 2 {tail_launch['slice 2'][name]} / AC grid {g_launch[name]} / "
-              f"GC-1 {gc_launch[name]}; AC median {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"GC-1 {gc_launch[name]} / stress-AC default {lat_launch['stress-AC'][name]} "
+              f"/ relaxed-AC default {lat_launch['relaxed-AC'][name]}; AC median "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']})", flush=True)
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": ac_launch[name],
@@ -1438,6 +2221,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "launches_slice2_tail": tail_launch["slice 2"][name],
             "launches_ac_grid": g_launch[name], "launches_gc1": gc_launch[name],
+            "launches_stress_default": lat_launch["stress-AC"][name],
+            "launches_relaxed_default": lat_launch["relaxed-AC"][name],
             "gc": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "max_abs_err")},
         }
@@ -1454,4 +2239,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--lattice-cpu":
+        sys.exit(lattice_cpu_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

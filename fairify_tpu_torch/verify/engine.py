@@ -25,9 +25,12 @@ Port of ``fairify_tpu/verify/engine.py`` for the phases the port runs:
   :func:`device_bab_phase`, with exact leaves (:func:`decide_leaf`);
 * Phase P, the relational pair LP BaB (:func:`pair_lp_phase`,
   ``ops.lp.pair_bab_lp``);
+* Phases E0 and E, the exhaustive lattice enumeration
+  (``ops.lattice.decide_box_exhaustive``: K9a–c, ``csrc/lattice_scan.cu``),
+  E0 before the device BaB on the cheap roots, E (:func:`lattice_phase`)
+  after Phase P;
 * :func:`decide_many` / :func:`decide_box`, which raise
-  ``NotImplementedError`` where an unported phase (E0/E, the host
-  frontier) would run;
+  ``NotImplementedError`` where the unported host frontier would run;
 * exact witness validation on the host (:func:`validate_pair`).
 
 Seven device kernels carry it: KB :func:`stage0_certify`
@@ -38,7 +41,8 @@ Seven device kernels carry it: KB :func:`stage0_certify`
 (``csrc/sign_bound.cu``), K8b :func:`inter_bounds`
 (``csrc/inter_bounds.cu``) and the role-logit forward
 :func:`sample_role_logits` (``csrc/role_logits.cu``), each beside its
-plain PyTorch version, which the CPU tests run.
+plain PyTorch version, which the CPU tests run; Phases E0/E run the three
+lattice kernels of ``ops/lattice.py``.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ import torch
 from fairify_tpu_torch.models.mlp import forward_np, local_affine_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
 from fairify_tpu_torch.ops import crown as crown_ops
+from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.ops import lp as lp_ops
 from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
 from fairify_tpu_torch.resilience import integrity as integrity_mod
@@ -1436,8 +1441,6 @@ def pair_lp_phase(net, enc: PairEncoding, roots_lo, roots_hi, verdicts, ces, nod
 # ---------------------------------------------------------------------------
 
 PHASE_NOT_PORTED = {
-    "lattice": "Phases E0/E (exhaustive lattice enumeration, "
-               "lattice_exhaustive=True) are not ported yet: ROADMAP queue 2, K9",
     "host_frontier": "the host-frontier BaB loop (device_bab=False, "
                      "use_crown=False or a mesh) is not ported yet: ROADMAP "
                      "queue 2, K10",
@@ -1458,7 +1461,8 @@ class Decision:
     # returned unknown); legacy 'frontier' for a degraded segment.
     reason: Optional[str] = None
     # The phase that decided the root: 'attack' (Phase A), 'lp' (Phase L),
-    # 'sign' (Phase S's device frontier), 'bab' or 'pair' (Phase P).
+    # 'sign' (Phase S's device frontier), 'lattice_first' (Phase E0),
+    # 'bab', 'pair' (Phase P) or 'lattice' (Phase E).
     phase: Optional[str] = None
 
 
@@ -1467,38 +1471,53 @@ def _branch_dims(enc: PairEncoding, d: int) -> np.ndarray:
     return shared_dims(enc, d)
 
 
-def _lattice_size(enc: PairEncoding, lo, hi) -> Optional[int]:
-    """Scan size of a root if the lattice phases could enumerate it, else
-    None (``ops.lattice.enumerable_size``'s rule: ε-expanded coordinates
-    below 2^24, a (2ε+1)^k delta window of at most 10^5)."""
-    lo_eff = np.asarray(lo, dtype=np.int64).copy()
-    hi_eff = np.asarray(hi, dtype=np.int64).copy()
-    ra_set = {int(j) for j in enc.ra_idx} if enc.eps else set()
-    if ra_set:
-        ra = np.asarray(sorted(ra_set))
-        lo_eff[ra] -= int(enc.eps)
-        hi_eff[ra] += int(enc.eps)
-        if (2 * int(enc.eps) + 1) ** len(ra_set) > 100_000:
-            return None
-    if max(np.abs(lo_eff).max(), np.abs(hi_eff).max()) >= 1 << 24:
-        return None
-    n = 1
-    for j in shared_dims(enc, len(lo_eff)):
-        n *= int(hi_eff[j]) - int(lo_eff[j]) + 1
-    return n
-
-
 def _eligible_lattice_roots(enc, roots_lo, roots_hi, cfg) -> dict:
-    """root index → enumerable scan size, for roots the lattice phases
-    would take."""
+    """root index → enumerable scan size, for roots Phases E0/E can
+    decide: the single eligibility rule (``ops.lattice.enumerable_size``)
+    shared by decide_many's budget reserve and :func:`lattice_phase`'s
+    queue, so the two never disagree."""
     if not cfg.lattice_exhaustive:
         return {}
     sizes = {}
     for r in range(roots_lo.shape[0]):
-        n = _lattice_size(enc, roots_lo[r], roots_hi[r])
+        n = lattice_ops.enumerable_size(enc, np.asarray(roots_lo[r], dtype=np.int64),
+                                        np.asarray(roots_hi[r], dtype=np.int64))
         if n is not None and n <= cfg.lattice_max:
             sizes[r] = n
     return sizes
+
+
+def lattice_phase(net, enc, roots_lo, roots_hi, verdicts, ces, cost_s, cfg, t0,
+                  deadline_s, lat_sizes=None) -> None:
+    """Phase E: exhaustive lattice enumeration of the still-unknown roots
+    (``ops.lattice.decide_box_exhaustive``: K9a, or K9c for RA queries),
+    smallest lattice first, while more than a second of the deadline is
+    left.  A decided root takes its verdict and witness."""
+    if lat_sizes is None:
+        lat_sizes = _eligible_lattice_roots(enc, roots_lo, roots_hi, cfg)
+    pending = sorted((r for r, v in enumerate(verdicts) if v == "unknown" and r in lat_sizes),
+                     key=lambda r: lat_sizes[r])
+    for r in pending:
+        remaining = deadline_s - (time.perf_counter() - t0)
+        if remaining <= 1.0:
+            break
+        _scan_root(net, enc, roots_lo, roots_hi, r, cfg, remaining, verdicts, ces, cost_s)
+
+
+def _scan_root(net, enc, roots_lo, roots_hi, r, cfg, deadline_s, verdicts, ces,
+               cost_s) -> bool:
+    """One root through ``decide_box_exhaustive`` under ``deadline_s``: its
+    time goes to ``cost_s[r]``; True (verdict and witness set) if decided."""
+    t_r = time.perf_counter()
+    verdict, ce = lattice_ops.decide_box_exhaustive(
+        net, enc, np.asarray(roots_lo[r], dtype=np.int64),
+        np.asarray(roots_hi[r], dtype=np.int64), chunk=cfg.lattice_chunk,
+        deadline_s=deadline_s)
+    cost_s[r] += time.perf_counter() - t_r
+    if verdict == "unknown":
+        return False
+    verdicts[r], ces[r] = verdict, ce
+    return True
 
 
 def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
@@ -1680,22 +1699,24 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
 def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 deadline_s: Optional[float] = None, mesh=None,
                 attacked: bool = False) -> list:
-    """Decide many root boxes: Phases A, S (with L), the device BaB, P.
+    """Decide many root boxes: Phases A, S (with L), E0, the device BaB, P, E.
 
     Port of the JAX package's ``decide_many`` for the phases the port has,
     in its order: Phase A (one :func:`pgd_attack` launch per chunk of at
     most 1,024 roots, a quarter of the deadline; skipped when
     ``attacked``); Phase S, the uniform-sign BaB with the host LP Phase L
     inside (:func:`uniform_sign_bab`, ``sign_bab_frac`` of the deadline);
-    the device-resident BaB (:func:`device_bab_phase`) on what is left
-    under ``main_deadline``; Phase P, the pair LP BaB
-    (:func:`pair_lp_phase`), on the roots still unknown under
-    ``pair_deadline``.  Phases E0/E (``lattice_exhaustive``) and the
-    host-frontier loop raise ``NotImplementedError`` naming their ROADMAP
-    item at the point where they would run on an open root.
-    ``deadline_s`` defaults to ``soft_timeout_s × n_roots``.  Returns one
-    :class:`Decision` per root, with per-root attributed ``t_attack``,
-    ``t_sign``, ``t_lp``, ``t_bab`` and ``t_pair``.
+    Phase E0, the lattice scan of the roots of at most
+    ``lattice_first_max`` points (``lattice_exhaustive``); the
+    device-resident BaB (:func:`device_bab_phase`) on what is left under
+    ``main_deadline``; Phase P, the pair LP BaB (:func:`pair_lp_phase`),
+    on the roots still unknown under ``pair_deadline``; Phase E
+    (:func:`lattice_phase`) on the enumerable roots still unknown.  The
+    host-frontier loop raises ``NotImplementedError`` naming its ROADMAP
+    item where it would run on an open root.  ``deadline_s`` defaults to
+    ``soft_timeout_s × n_roots``.  Returns one :class:`Decision` per root,
+    with per-root attributed ``t_attack``, ``t_sign``, ``t_lp``,
+    ``t_bab``, ``t_pair`` and ``t_lattice``.
     """
     t0 = time.perf_counter()
     R = roots_lo.shape[0]
@@ -1745,11 +1766,26 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 verdicts[r] = "unsat"
                 # Phase L settles a root before the frontier sees it.
                 decided_by[r] = "lp" if sign_cost[r] == sign_lp_cost[r] else "sign"
-    open_roots = [r for r in range(R) if verdicts[r] is None]
+    # Phase E0: a time-boxed exhaustive enumeration of the cheap enumerable
+    # roots (lattice at most lattice_first_max points), smallest first,
+    # before the device BaB; the scan exits on the first flip.  It stops
+    # once 40% of the deadline is spent, each root gets at most
+    # lattice_first_cap_s, and a root it leaves unknown keeps its full path.
     lat_sizes = _eligible_lattice_roots(enc, roots_lo, roots_hi, cfg)
-    if cfg.lattice_exhaustive and any(
-            lat_sizes.get(r, np.inf) <= cfg.lattice_first_max for r in open_roots):
-        raise NotImplementedError(PHASE_NOT_PORTED["lattice"])
+    lat_cost = np.zeros(R, dtype=np.float64)
+    if cfg.lattice_exhaustive and lat_sizes:
+        cheap = sorted((r for r in range(R) if verdicts[r] is None
+                        and lat_sizes.get(r, np.inf) <= cfg.lattice_first_max),
+                       key=lambda r: lat_sizes[r])
+        for r in cheap:
+            spent = time.perf_counter() - t0
+            if spent > 0.4 * deadline_s:
+                break
+            if _scan_root(net, enc, roots_lo, roots_hi, r, cfg,
+                          min(deadline_s - spent, cfg.lattice_first_cap_s), verdicts, ces,
+                          lat_cost):
+                decided_by[r] = "lattice_first"
+    open_roots = [r for r in range(R) if verdicts[r] is None]
 
     nodes = np.zeros(R, dtype=np.int64)
     leaves = np.zeros(R, dtype=np.int64)
@@ -1789,22 +1825,24 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
         pair_lp_phase(net, enc, roots_lo, roots_hi, verdicts, ces, nodes, pair_cost,
                       cfg, t0, pair_deadline)
         mark("pair")
-    # Phase E takes the roots still unknown while more than a second of the
-    # deadline is left (the JAX package's loop guard).
-    if any(verdicts[r] == "unknown" for r in lat_sizes) and \
-            deadline_s - (time.perf_counter() - t0) > 1.0:
-        raise NotImplementedError(PHASE_NOT_PORTED["lattice"])
+    # Phase E: the roots still unknown, smallest lattice first, while more
+    # than a second of the deadline is left.
+    if lat_sizes and any(v == "unknown" for v in verdicts):
+        lattice_phase(net, enc, roots_lo, roots_hi, verdicts, ces, lat_cost, cfg, t0,
+                      deadline_s, lat_sizes=lat_sizes)
+        mark("lattice")
     # Per-root attribution: A = PGD, S = the sign frontier, L = its host
-    # LP, bab = the device BaB, P = the pair LP; sums to elapsed_s.
+    # LP, bab = the device BaB, P = the pair LP, E0 + E = the lattice
+    # scans; sums to elapsed_s.
     return [
         Decision(verdicts[r], ces[r], nodes=int(nodes[r] + sign_nodes[r]),
                  leaves=int(leaves[r]),
                  elapsed_s=float(attack_cost[r] + cost_s[r] + sign_cost[r]
-                                 + pair_cost[r]),
+                                 + pair_cost[r] + lat_cost[r]),
                  stats={"t_attack": float(attack_cost[r]),
                         "t_sign": float(sign_cost[r] - sign_lp_cost[r]),
                         "t_lp": float(sign_lp_cost[r]), "t_bab": float(cost_s[r]),
-                        "t_pair": float(pair_cost[r]), "t_lattice": 0.0},
+                        "t_pair": float(pair_cost[r]), "t_lattice": float(lat_cost[r])},
                  reason=(unknown_reasons.get(r, "frontier")
                          if verdicts[r] == "unknown" else None),
                  phase=decided_by[r])

@@ -21,8 +21,12 @@ Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
   uniform-sign BaB (role logits, ``csrc/role_logits.cu``; β-CROWN sign
   bounds, K8a ``csrc/sign_bound.cu``) with Phase L, the host LP BaB on
   CROWN pre-activation bounds (K8b ``csrc/inter_bounds.cu``), inside it;
-  the device BaB (K6, ``csrc/bab_segment.cu``; segment 0 plain CROWN,
-  later segments α-CROWN); Phase P, the pair LP BaB (K8b again).
+  Phase E0, the exhaustive lattice scan of the cheap enumerable roots
+  (K9a ``lattice_scan``, K9c ``lattice_scan_ra`` for RA queries, K9b
+  ``lattice_signs`` on a margin overflow: ``csrc/lattice_scan.cu``); the
+  device BaB (K6, ``csrc/bab_segment.cu``; segment 0 plain CROWN, later
+  segments α-CROWN); Phase P, the pair LP BaB (K8b again); Phase E, the
+  lattice scan of the enumerable roots still unknown (K9 again).
 * **Heuristic retry** — each still-unknown partition is re-decided on its
   heuristically pruned net (:func:`ops.heuristic.heuristic_prune`,
   :func:`verify.engine.decide_box`); a SAT must replay on the original net,
@@ -34,9 +38,9 @@ Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
   phase, the partitions it decided on the first pass (``engine_decided``).
 
 Launches run synchronously (the async pipeline, supervisor and obs spans
-are ROADMAP queue 1, item 7).  Engine phases the port does not run yet —
-E0/E, the host frontier, the SMT tier — raise ``NotImplementedError``
-naming their ROADMAP item where they would run.
+are ROADMAP queue 1, item 7).  What the port does not run yet — the
+engine's host frontier, the SMT tier — raises ``NotImplementedError``
+naming its ROADMAP item where it would run.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ import torch
 from fairify_tpu_torch.models.mlp import predict_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
 from fairify_tpu_torch.ops import heuristic as heur_ops
+from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, mean_scale
 from fairify_tpu_torch.partition import grid as grid_mod
@@ -382,6 +387,9 @@ KERNELS = {
     "sign_bound": engine.sign_bound,
     "inter_bounds": engine.inter_bounds,
     "role_logits": engine.sample_role_logits,
+    "lattice_scan": lattice_ops.lattice_scan,
+    "lattice_signs": lattice_ops.lattice_signs,
+    "lattice_scan_ra": lattice_ops.lattice_scan_ra,
 }
 
 

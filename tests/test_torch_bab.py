@@ -13,9 +13,9 @@ S, L, P, E0/E off).
   ledger and CSV rows equal to JAX's; with ``max_nodes=1`` every partition
   takes the heuristic-retry path and the rows still equal JAX's.
 * The BaB integrity detectors: fold checksum and canary slot.
-* Every unported engine phase raises ``NotImplementedError`` naming its
-  ROADMAP item where it would run, never skipped (Phases S and P, ported
-  since, pass the root on to Phase E).
+* The unported host frontier raises ``NotImplementedError`` naming its
+  ROADMAP item where it would run, never skipped; the phases ported since
+  (S, P, E0/E) run the same world and equal JAX.
 """
 import csv
 import json
@@ -274,27 +274,40 @@ def test_bab_integrity_detectors():
 
 
 @pytest.mark.parametrize("kw,item", [
-    # Phases S and P (K8) are ported: with either on, the root now runs
-    # through it and on to Phase E, which still raises naming K9.  (The
-    # ids are those these cases had when S and P raised themselves.)
+    # Phases S, P (K8) and E0/E (K9) are ported: with them on, the root now
+    # runs through Phase E0 (and S, P, E where they are on) and must equal
+    # JAX.  The ids are those these cases had when the phases raised.
     pytest.param(dict(sign_bab=True, alpha_iters=2, lattice_exhaustive=True), "K9",
                  id="kw0-K8"),
     pytest.param(dict(lp_pair=True, lattice_exhaustive=True), "K9", id="kw1-K8"),
-    (dict(lattice_exhaustive=True), "K9"),
-    (dict(device_bab=False), "K10"),
+    pytest.param(dict(lattice_exhaustive=True), "K9", id="kw2-K9"),
+    pytest.param(dict(device_bab=False), "K10", id="kw3-K10"),
 ])
 def test_unported_phases_raise_where_they_would_run(kw, item):
     # Span-6 seed 3 at the floor capacity leaves its root open after the
     # device BaB (frontier:overflow): every phase after it is reached.
+    # The host frontier (K10) still raises there; with the lattice phases
+    # on, Phase E0 settles the root first, as in JAX.
     ws, bs, _ = _params(3, (4, 6, 1))
-    _, tenc, _ = _toy(6)
+    jenc, tenc, tq = _toy(6)
     lo = np.zeros((1, 4), np.int64)
     hi = np.array([[6, 6, 6, 1]], np.int64)
-    cfg = EngineConfig(**dict(_jeng(bab_frontier_cap=4, alpha_iters=0,
-                                    bab_rounds_per_segment=1), **kw))
-    with pytest.raises(NotImplementedError, match=item):
-        tengine.decide_many(tmlp.from_numpy(ws, bs, device="cpu"), tenc, lo, hi, cfg,
-                            deadline_s=60.0)
+    # (Phase E0's per-root cap raised: a loaded CPU must not cut a scan short
+    # in one package and not in the other.)
+    ekw = dict(_jeng(bab_frontier_cap=4, alpha_iters=0, bab_rounds_per_segment=1,
+                     lattice_first_cap_s=120.0), **kw)
+    tn = tmlp.from_numpy(ws, bs, device="cpu")
+    if item == "K10":
+        with pytest.raises(NotImplementedError, match=item):
+            tengine.decide_many(tn, tenc, lo, hi, EngineConfig(**ekw), deadline_s=60.0)
+    else:
+        jd = jengine.decide_many(jmlp.from_numpy(ws, bs), jenc, lo, hi,
+                                 jengine.EngineConfig(**ekw), deadline_s=60.0)[0]
+        td = tengine.decide_many(tn, tenc, lo, hi, EngineConfig(**ekw), deadline_s=60.0)[0]
+        assert (td.verdict, td.reason, td.nodes, _ce(td)) == \
+            (jd.verdict, jd.reason, jd.nodes, _ce(jd))
+        assert td.verdict == oracle.brute_force_verdict(tn, tq, lo[0], hi[0])
+        assert td.phase in ("lattice_first", "lp", "sign") and td.stats["t_bab"] == 0.0
     # A root the attack settles never reaches them.
     ws, bs, _ = _params(1, (4, 8, 1))
     _, tenc, _ = _toy(2)

@@ -15,8 +15,8 @@ default).
   (one where Phase L decides partitions the slice-2 configuration leaves
   unknown, and bench.py's BaB ladder), directly and through the heuristic
   retry (``max_nodes=1``): ledger rows and CSV rows equal JAX's.
-* With ``lattice_exhaustive=True`` an open root still raises
-  ``NotImplementedError`` naming K9, after Phase S ran.
+* With ``lattice_exhaustive=True`` Phase S runs and Phase E0 (ported
+  since) decides the root after it, as in JAX.
 """
 import json
 import os
@@ -182,19 +182,26 @@ def test_decide_many_slice3_matches_jax(world):
 
 
 def test_lattice_still_raises_k9_after_phase_s(monkeypatch):
+    """Phase E0 (K9, ported since) runs after Phase S: the root that once
+    raised here is now decided as in JAX."""
     calls = []
     real = tengine.uniform_sign_bab
     monkeypatch.setattr(tengine, "uniform_sign_bab",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     ws, bs, _ = _params(3, (4, 6, 1))
-    _, tenc, _ = _toy(6)
-    cfg = EngineConfig(**_eng(lattice_exhaustive=True, bab_frontier_cap=4,
-                              alpha_iters=2))
-    with pytest.raises(NotImplementedError, match="K9"):
-        tengine.decide_many(tmlp.from_numpy(ws, bs, device="cpu"), tenc,
-                            np.zeros((1, 4), np.int64), np.array([[6, 6, 6, 1]], np.int64),
-                            cfg, deadline_s=60.0)
+    jenc, tenc, tq = _toy(6)
+    kw = _eng(lattice_exhaustive=True, bab_frontier_cap=4, alpha_iters=2,
+              lattice_first_cap_s=120.0)
+    lo, hi = np.zeros((1, 4), np.int64), np.array([[6, 6, 6, 1]], np.int64)
+    jd = jengine.decide_many(jmlp.from_numpy(ws, bs), jenc, lo, hi,
+                             jengine.EngineConfig(**kw), deadline_s=60.0)[0]
+    tn = tmlp.from_numpy(ws, bs, device="cpu")
+    td = tengine.decide_many(tn, tenc, lo, hi, EngineConfig(**kw), deadline_s=60.0)[0]
     assert calls
+    assert (td.verdict, td.reason, td.nodes, _ce(td)) == \
+        (jd.verdict, jd.reason, jd.nodes, _ce(jd))
+    assert td.verdict == oracle.brute_force_verdict(tn, tq, lo[0], hi[0])
+    assert td.phase in ("lattice_first", "lp", "sign")
 
 
 # --------------------------------------------------------------------------

@@ -98,9 +98,10 @@ def test_resume_replays_the_ledger(tmp_path):
 def test_undecided_partitions_are_ledgered_not_ported(tmp_path):
     # bench.py's _bab_ladder world: stage 0 and the deep PGD decide none of
     # its 8 partitions.  With the default engine they pass Phase S and reach
-    # Phase E0, which is not ported: the run raises, naming its ROADMAP
-    # item (K9), instead of ledgering them.  In the slice-2 configuration
-    # every leftover goes through the device BaB and is decided.
+    # Phase E0 (ported since it raised here, naming K9), which decides them
+    # (the per-root E0 cap raised so a loaded CPU cannot cut a scan short).
+    # In the slice-2 configuration every leftover goes through the device
+    # BaB and is decided.
     from fairify_tpu_torch.data.domains import get_domain
 
     ov = {c: (0, 0) for c in get_domain("german").columns}
@@ -108,11 +109,13 @@ def test_undecided_partitions_are_ledgered_not_ported(tmp_path):
     cfg = tpresets.get("GC").with_(
         result_dir=str(tmp_path), exact_certify_masks=False, sim_size=16, grid_chunk=8,
         domain_overrides=ov, partition_threshold=2,
-        engine=EngineConfig(attack_samples=4, bab_frontier_cap=64))
+        engine=EngineConfig(attack_samples=4, bab_frontier_cap=64, lattice_first_cap_s=120.0))
     net = tmlp.init_mlp((len(cfg.query().columns), 4, 1), seed=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="K9"):
-        tsweep.verify_model(net, cfg, model_name="m", resume=False, device="cpu",
-                            partition_span=(0, 8))
+    rep = tsweep.verify_model(net, cfg, model_name="m", resume=False, device="cpu",
+                              partition_span=(0, 8))
+    assert rep.counts == {"sat": 0, "unsat": 8, "unknown": 0}
+    with open(os.path.join(cfg.result_dir, "GC-m@0-8.throughput.json")) as fp:
+        assert json.load(fp)["engine_decided"].get("lattice_first", 0) > 0
     tail = EngineConfig(attack_samples=4, bab_frontier_cap=64, sign_bab=False,
                         lp_sign=False, lp_pair=False, lattice_exhaustive=False)
     cfg = cfg.with_(result_dir=str(tmp_path / "tail"), engine=tail)
