@@ -103,8 +103,41 @@ Phases (any failure exits nonzero and prints no result line):
    unknown reasons and launches per kernel printed.  Phase 4 also runs the
    ladder world in the default configuration, card = CPU.
 
+7. Stacked families, the chunk loop and the host-frontier BaB.  (a) A
+   family of four AC-S1 twins (seeds 0-3; seed 0 is phases 5 and 6's net)
+   through ``stage0_families`` on the whole 16,000-partition AC grid: one
+   KB + one KC launch per segment over chunks x models x rows; each
+   model's verdicts, witnesses and histograms equal its solo stage 0; per
+   segment the family KB/KC outputs equal each model's solo launch bit for
+   bit (fold = wraparound sum of the solo folds), and on the first segment
+   their plain versions within the tolerances of phase 2; CUDA-event times
+   per family segment beside the sum of the four solo launches, with the
+   bound; on one 2,048-row chunk (row 7) the family KB/KC times beside
+   the solo sum, and a wide family of 11 AC-S1 twins bit-equal per model
+   to the solo launches at α = 0 and 8, KB's shared memory per block
+   printed.  (b) The zoo's CP and DF groups as 11 seeded twins each
+   (6-32-32-1, 30-16-16-16-1) on their own presets: the family chunk loop
+   (``mega_chunks=0``) and ``verify_model(stage0=...)`` per model, whose
+   ledger, CSV and funnel equal the model's solo ``verify_model``.  (c) The
+   chunk loop: GC-1 at ``mega_chunks=0`` equal to the mega path (ledger,
+   CSV, funnel); the AC grid's prune, stage 0 and parity in 8 launches
+   each against the mega path's 2 (masks, bounds, parity, verdicts,
+   witnesses, histograms equal); KA, KB, KC and KD on one 2,048-row chunk
+   against their plain versions.  (d) The host frontier: the ladder world
+   at ``device_bab=False``, card = CPU = the device BaB's verdicts; KB at
+   α = 8 and 0 with the branching score, and KC, on 512 AC-S1 stage-0
+   leftovers (the frontier batch F = 512, 16 candidates) against their
+   plain versions: margins and scores within tolerance, and every box's
+   first three split dims (``score·width``, stable) equal except at a
+   near-tie within the score tolerance, on at most 1% of the boxes.  (e)
+   End to end, after the CPU worker: the family's stage-0 results of AC
+   partitions 0-4,096 through ``verify_model(stage0=...)`` per model in the
+   default configuration, 15 s hard: the stage-0-decided rows equal each
+   model's solo stage 0; the rest are deadline-bound and reported.
+
 Phase 4 runs before phase 3, and the run waits for the CPU worker before
-phase 3, so the timed end-to-end phases 3, 5 and 6 run without it.
+phase 3, so the timed end-to-end phases 3, 5, 6 and 7e run without it
+(7a-7d run beside it).
 
 The next-to-last lines are the kernel table as one JSON object and the
 ``nvidia-smi`` name/power line; the last line is
@@ -139,6 +172,17 @@ REPLACES = {
     "lattice_scan": "fairify_tpu/ops/lattice.py:195",
     "lattice_signs": "fairify_tpu/ops/lattice.py:238",
     "lattice_scan_ra": "fairify_tpu/ops/lattice.py:246",
+}
+# The other TPU kernel sites each kernel replaces: the chunk loop's
+# one-chunk forms (rows 1, 10, 15), the family kernels (rows 5, 7) and
+# the host frontier's certificate + attack (row 15).
+ALSO_REPLACES = {
+    "sim_and_bounds": ["fairify_tpu/verify/pruning.py:58"],
+    "stage0_certify": ["fairify_tpu/verify/sweep.py:857", "fairify_tpu/verify/sweep.py:1072",
+                       "fairify_tpu/verify/engine.py:387"],
+    "attack_flips": ["fairify_tpu/verify/sweep.py:857", "fairify_tpu/verify/sweep.py:1072",
+                     "fairify_tpu/verify/engine.py:387"],
+    "parity": ["fairify_tpu/verify/sweep.py:1374"],
 }
 # Kernels of the slice-2 configuration's path (Phases S, L, P off).
 SLICE2 = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
@@ -300,8 +344,10 @@ def sample_near(net, keys, lo, hi, sim_size: int, alive=None):
 # ---------------------------------------------------------------------------
 
 
-def case_inputs(name: str, net, cfg):
-    """The main path's own inputs for one prune/stage-0/parity segment."""
+def case_inputs(name: str, net, cfg, canary: bool = True, seg: int = 0):
+    """The main path's own inputs for one prune/stage-0/parity segment,
+    the ``seg``-th (``canary``: with the integrity canary chunk, as the
+    mega path runs it; without, as one chunk of the chunk loop)."""
     import numpy as np
     import torch
 
@@ -313,7 +359,7 @@ def case_inputs(name: str, net, cfg):
     enc = encode(cfg.query())
     _, lo, hi = sweep.build_partitions(cfg)
     step, segs = grid_mod.segment_spans(len(lo), cfg.grid_chunk, cfg.mega_chunks)
-    seg_s, seg_e, chunks = segs[0]
+    seg_s, seg_e, chunks = segs[seg]
     dev = net.device
     n = seg_e - seg_s
     ka = dict(keys=grid_keys(cfg.seed, seg_s, n, device=dev),
@@ -321,7 +367,7 @@ def case_inputs(name: str, net, cfg):
               hi=torch.as_tensor(hi[seg_s:seg_e].astype(np.float32), device=dev),
               ok=torch.ones(n, dtype=torch.bool, device=dev))
     (x_lo, x_hi, xp_lo, xp_hi, plo, phi, valid, xr, pr,
-     nv) = sweep.mega_chunk_inputs(enc, lo, hi, cfg, chunks, step, 0, canary=True)
+     nv) = sweep.mega_chunk_inputs(enc, lo, hi, cfg, chunks, step, 0, canary=canary)
     C, P = valid.shape[:2]
     flat = lambda a: torch.as_tensor(a.reshape((C * P,) + a.shape[2:]), device=dev)
     av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
@@ -337,11 +383,113 @@ def case_inputs(name: str, net, cfg):
                 S=cfg.engine.attack_samples, V=enc.n_assign, sim=cfg.sim_size)
 
 
+def kb_cost(sizes, nb: int, V: int, M: int = 1, alpha_iters: int = 0):
+    """(flops, bytes) of one KB launch over ``nb`` boxes and ``M`` models.
+    Per box and model: 2V role boxes' CROWN passes and the forms' six d-long
+    sums; with α, per role box and iteration two chains forward and back
+    through the hidden layers (8 flops per hidden weight) plus the final
+    forward (4); the V x V pair stage per form set (12 flops per pair and
+    coordinate).  Bytes: the role boxes, boxes and masks read once, each
+    model's packed net, and per box and model the certificate, margin and
+    score written."""
+    d = sizes[0]
+    hidden = macs(sizes[:-1])
+    ns = 2 if alpha_iters > 0 and len(sizes) > 2 else 1
+    per_role = crown_flops(sizes) + 12 * d + (
+        alpha_iters * 8 * hidden + 4 * hidden if ns == 2 else 0)
+    fl = M * nb * (2 * V * per_role + ns * V * V * 12 * d)
+    pbytes = 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    by = nb * (4 * V * d * 4 + 2 * d * 4 + V) + M * (pbytes + nb * (1 + 4 + 4 * d))
+    return fl, by
+
+
+def kc_cost(sizes, nb: int, S: int, V: int, M: int = 1):
+    """(flops, bytes) of one KC launch: every model's forward of the
+    2 S V candidates of each box; the candidates read once, each model's
+    packed net, and per box and model the certificate and margin read and
+    the witness, reason and gap written."""
+    d = sizes[0]
+    pbytes = 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    fl = M * 2 * nb * 2 * S * V * macs(sizes)
+    by = nb * (2 * S * V * d * 4 + V + 1) + M * (pbytes + nb * (1 + 4 + 12 + 1 + 4))
+    return fl, by
+
+
+def kb_check(name, net, kb, cert_k, margin_k, cert_p, margin_p, alpha_iters: int = 0):
+    """KB against its plain version on one net: the margin agrees to
+    TOL_REL of the tied bound's magnitude (the scale the certificate's own
+    slack is taken against: the margin is a difference of sums whose terms
+    reach it), and the certificate — the margin's sign — may differ only
+    where the margin sits on 0 within that tolerance.  Returns ``(max abs
+    margin error, certificate differences)``."""
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+
+    _, _, _, scale = engine.certify_impl(net, **kb, alpha_iters=alpha_iters,
+                                         with_scale=True)
+    big = margin_p.abs() >= 3e38
+    err_m = tol_ratio(margin_k[~big], margin_p[~big], scale[~big])
+    near0 = margin_p.abs() <= TOL_REL * torch.maximum(margin_p.abs(), scale) + TOL_ABS
+    cert_bad = int(((cert_k != cert_p) & ~near0).sum())
+    if err_m > 1.0 or cert_bad or not torch.equal(big, margin_k.abs() >= 3e38):
+        fail(f"{name}: margin error {err_m} x tolerance, certificate mismatches "
+             f"away from 0: {cert_bad}")
+    err = float((margin_k - margin_p)[~big].abs().max()) if (~big).any() else 0.0
+    return err, int((cert_k != cert_p).sum())
+
+
+def kc_check(name, net, kc, k_out, p_out, margin_p):
+    """KC against its plain version on one net (``k_out``/``p_out`` = wit,
+    reason, gap, stats; both fed the same certificate and margin).  Gaps are
+    logits and agree to TOL_REL of the box's largest |logit|; a box's
+    witness (and so its reason) may differ only where a logit of the pair
+    that decides it lies near 0 (the earlier of the two sides' first hits);
+    the histogram must be the kernel's own margins and gaps bucketed, and
+    may differ from the plain one only through a gap near an edge.  Returns
+    ``(max abs gap error, witness/reason differences)``."""
+    import torch
+
+    from fairify_tpu_torch.obs import funnel as funnel_mod
+    from fairify_tpu_torch.verify import engine
+
+    wit_k, reason_k, gap_k, stats_k = k_out
+    wit_p, reason_p, gap_p, _stats_p = p_out
+    V = kc["valid"].shape[1]
+    lx, lp = engine.attack_logits(net, kc["xr"], kc["pr"])
+    lscale = torch.maximum(lx.abs().amax(dim=(1, 2)), lp.abs().amax(dim=(1, 2)))
+    err_g = tol_ratio(gap_k, gap_p, lscale)
+    diff = (wit_k != wit_p).any(dim=1) | (reason_k != reason_p)
+    wit_bad = 0
+    if diff.any():
+        near_x = forward_near(net, kc["xr"], list(net.masks))[-1][..., 0]
+        near_p = forward_near(net, kc["pr"], list(net.masks))[-1][..., 0]
+        flat = lambda w, r: torch.where(r >= 2, (w[:, 0] * V + w[:, 1]) * V + w[:, 2],
+                                        torch.iinfo(torch.int32).max)
+        first = torch.where((flat(wit_k, reason_k) <= flat(wit_p, reason_p))[:, None],
+                            wit_k, wit_p).long()
+        rows_ = torch.arange(first.shape[0], device=first.device)
+        decided_near = (near_x[rows_, first[:, 0], first[:, 1]]
+                        | near_p[rows_, first[:, 0], first[:, 2]])
+        wit_bad = int((diff & ~decided_near).sum())
+    stats_own = engine.chunk_stats(margin_p, gap_k, kc["ok"])
+    edges = torch.as_tensor(funnel_mod.EDGES, device=gap_p.device)
+    bucket = lambda v: (v[:, None] >= edges[None, :]).sum(dim=1)
+    tol_gap = TOL_REL * torch.maximum(gap_p.abs(), lscale) + TOL_ABS
+    moved = (bucket(gap_k) != bucket(gap_p)) & kc["ok"]
+    off_edge = (gap_p[:, None] - edges[None, :]).abs().amin(dim=1) > tol_gap
+    edge_bad = int((moved & off_edge).sum())
+    if err_g > 1.0 or wit_bad or edge_bad or not torch.equal(stats_k, stats_own):
+        fail(f"{name}: gap error {err_g} x tolerance, witness/reason mismatches away "
+             f"from a zero logit {wit_bad}, buckets moved away from an edge "
+             f"{edge_bad}, stats match own buckets {torch.equal(stats_k, stats_own)}")
+    return float((gap_k - gap_p).abs().max()), int(diff.sum())
+
+
 def check_kernels(case, net, reps: int):
     """Run KA–KD and their plain versions on one case; returns per-kernel rows."""
     import torch
 
-    from fairify_tpu_torch.obs import funnel as funnel_mod
     from fairify_tpu_torch.ops import masks as mask_ops
     from fairify_tpu_torch.verify import engine, pruning, sweep
 
@@ -388,81 +536,29 @@ def check_kernels(case, net, reps: int):
                                                  for a, b in zip(cnt_k, cnt_p)))
 
     # --- KB
-    (cert_k, margin_k), kb_ms = timed(lambda: engine.stage0_certify(net, **kb), reps)
-    (cert_p, margin_p), kbp_ms = timed(lambda: engine.certify_impl(net, **kb), 1)
-    # The margin is a difference of sums whose terms reach the tied bound's
-    # magnitude (the scale the certificate's own slack is taken against), so
-    # it agrees to TOL_REL of that magnitude, not of its own value.
-    _, _, scale = engine.certify_impl(net, **kb, with_scale=True)
-    big = margin_p.abs() >= 3e38
-    err_m = tol_ratio(margin_k[~big], margin_p[~big], scale[~big])
-    # The certificate is the sign of the margin: a disagreement is allowed
-    # only where the margin sits on 0 to within the stated tolerance.
-    near0 = margin_p.abs() <= TOL_REL * torch.maximum(margin_p.abs(), scale) + TOL_ABS
-    cert_bad = int(((cert_k != cert_p) & ~near0).sum())
-    if err_m > 1.0 or cert_bad or not torch.equal(big, margin_k.abs() >= 3e38):
-        fail(f"KB {case['name']}: margin error {err_m} x tolerance, "
-             f"certificate mismatches away from 0: {cert_bad}")
+    (cert_k, _score_k, margin_k), kb_ms = timed(lambda: engine.stage0_certify(net, **kb),
+                                                reps)
+    (cert_p, _score_p, margin_p), kbp_ms = timed(lambda: engine.certify_impl(net, **kb), 1)
+    err_m, cert_diffs = kb_check(f"KB {case['name']}", net, kb, cert_k, margin_k, cert_p,
+                                 margin_p)
     nb, V = case["n_boxes"], case["V"]
-    # Per box: 2V role boxes' CROWN passes, the forms' six d-long sums, and
-    # the V x V pair stage (12 flops per pair and coordinate).
-    fl = nb * 2 * V * (crown_flops(sizes) + 12 * d) + nb * V * V * 12 * d
-    by = nb * (4 * V * d * 4 + 2 * d * 4 + V + 5) + pbytes
-    rows["stage0_certify"] = dict(max_abs_err=float((margin_k - margin_p)[~big].abs().max())
-                                  if (~big).any() else 0.0,
-                                  ms=kb_ms, plain_ms=kbp_ms, flops=fl, bytes=by,
-                                  near_diffs=int((cert_k != cert_p).sum()))
+    fl, by = kb_cost(sizes, nb, V)
+    rows["stage0_certify"] = dict(max_abs_err=err_m, ms=kb_ms, plain_ms=kbp_ms, flops=fl,
+                                  bytes=by, near_diffs=cert_diffs)
 
     # --- KC (fed the plain certificate so both sides see identical inputs)
     args = (kc["xr"], kc["pr"], kc["valid"], kc["valid_pair"], cert_p, margin_p, kc["ok"])
     k_res, kc_ms = timed(lambda: engine.attack_flips(net, *args), reps)
     p_res, kcp_ms = timed(lambda: engine.attack_flips_plain(net, *args), 1)
-    wit_k, reason_k, gap_k, stats_k, fold_k = k_res
-    wit_p, reason_p, gap_p, stats_p, fold_p = p_res
-    # Gaps are logits: they agree to TOL_REL of the box's largest |logit|.
-    lx, lp = engine.attack_logits(net, kc["xr"], kc["pr"])
-    lscale = torch.maximum(lx.abs().amax(dim=(1, 2)), lp.abs().amax(dim=(1, 2)))
-    err_g = tol_ratio(gap_k, gap_p, lscale)
-    # A box's witness (and so its reason) may differ only where a logit of
-    # the pair that decides it lies near 0: the earlier of the two sides'
-    # first hits, where one side sees a strict flip and the other does not.
-    diff = (wit_k != wit_p).any(dim=1) | (reason_k != reason_p)
-    wit_bad = 0
-    if diff.any():
-        near_x = forward_near(net, kc["xr"], list(net.masks))[-1][..., 0]
-        near_p = forward_near(net, kc["pr"], list(net.masks))[-1][..., 0]
-        flat = lambda w, r: torch.where(r >= 2, (w[:, 0] * V + w[:, 1]) * V + w[:, 2],
-                                        torch.iinfo(torch.int32).max)
-        first = torch.where((flat(wit_k, reason_k) <= flat(wit_p, reason_p))[:, None],
-                            wit_k, wit_p).long()
-        rows_ = torch.arange(first.shape[0], device=first.device)
-        decided_near = (near_x[rows_, first[:, 0], first[:, 1]]
-                        | near_p[rows_, first[:, 0], first[:, 2]])
-        wit_bad = int((diff & ~decided_near).sum())
-    # The histogram is the kernel's own margins and gaps bucketed exactly;
-    # it may differ from the plain one only through a gap near an edge.
-    stats_own = engine.chunk_stats(margin_p, gap_k, kc["ok"])
-    edges = torch.as_tensor(funnel_mod.EDGES, device=gap_p.device)
-    bucket = lambda v: (v[:, None] >= edges[None, :]).sum(dim=1)
-    tol_gap = TOL_REL * torch.maximum(gap_p.abs(), lscale) + TOL_ABS
-    moved = (bucket(gap_k) != bucket(gap_p)) & kc["ok"]
-    off_edge = (gap_p[:, None] - edges[None, :]).abs().amin(dim=1) > tol_gap
-    edge_bad = int((moved & off_edge).sum())
+    err_g, wit_diffs = kc_check(f"KC {case['name']}", net, kc, k_res[:4], p_res[:4],
+                                margin_p)
     # The fold is the kernel's own buffers folded with wraparound.
-    fold_own = engine.fold_int32(cert_p, wit_k, reason_k, stats_k)
-    if (err_g > 1.0 or wit_bad or edge_bad or not torch.equal(stats_k, stats_own)
-            or fold_k != fold_own):
-        fail(f"KC {case['name']}: gap error {err_g} x tolerance, witness/reason "
-             f"mismatches away from a zero logit {wit_bad}, buckets moved away "
-             f"from an edge {edge_bad}, stats match own buckets "
-             f"{torch.equal(stats_k, stats_own)}, fold {fold_k} vs own "
-             f"{fold_own} vs plain {fold_p}")
-    S = case["S"]
-    fl = 2 * nb * 2 * S * V * macs(sizes)
-    by = nb * (2 * S * V * d * 4 + V + 6 + 12 + 1 + 4) + pbytes
-    rows["attack_flips"] = dict(max_abs_err=float((gap_k - gap_p).abs().max()),
-                                ms=kc_ms, plain_ms=kcp_ms, flops=fl, bytes=by,
-                                near_diffs=int(diff.sum()))
+    fold_own = engine.fold_int32(cert_p, k_res[0], k_res[1], k_res[3])
+    if k_res[4] != fold_own:
+        fail(f"KC {case['name']}: fold {k_res[4]} vs own {fold_own} vs plain {p_res[4]}")
+    fl, by = kc_cost(sizes, nb, case["S"], V)
+    rows["attack_flips"] = dict(max_abs_err=err_g, ms=kc_ms, plain_ms=kcp_ms, flops=fl,
+                                bytes=by, near_diffs=wit_diffs)
 
     # --- KD (alive masks from the KA bound-dead masks, as the sweep does)
     ibp_dead = [(u <= 0).to(torch.float32) for u in ub_p[:-1]]
@@ -818,12 +914,12 @@ def check_sim_rows(name, net, cfg, lo, hi, reps: int):
     import torch
 
     from fairify_tpu_torch.utils.prng import grid_keys, simulate_boxes
-    from fairify_tpu_torch.verify import sweep
+    from fairify_tpu_torch.verify import pruning
 
     keys = grid_keys(cfg.seed, 0, 1, device=net.device)
     box = lambda a: torch.as_tensor(np.asarray(a[:1], np.float32), device=net.device)
     blo, bhi = box(lo), box(hi)
-    k_out, k_ms = timed(lambda: sweep.sim_rows(keys, blo, bhi, cfg.sim_size), reps)
+    k_out, k_ms = timed(lambda: pruning.sim_rows(keys, blo, bhi, cfg.sim_size), reps)
     p_out, p_ms = timed(lambda: simulate_boxes(keys, blo, bhi, cfg.sim_size), reps)
     if not torch.equal(k_out, p_out):
         fail(f"K12 sim_rows {name}: {int((k_out != p_out).sum())} sample values "
@@ -1834,6 +1930,530 @@ def lattice_card_vs_cpu(worker, card, path_out: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: stacked families, the chunk loop and the host-frontier BaB
+# ---------------------------------------------------------------------------
+
+FAMILY_SEEDS = (0, 1, 2, 3)
+# The zoo's same-architecture groups (SURVEY.md §2.4) as seeded twins on
+# their own presets: CP-1..11 are 6-32-32-1, DF-1..11 30-16-16-16-1.
+ZOO_FAMILIES = (("CP", (6, 32, 32, 1)), ("DF", (30, 16, 16, 16, 1)))
+ZOO_MODELS = 11
+FAMILY_SPAN, FAMILY_HARD_S = (0, 4096), 15.0
+# The branching score agrees to TOL_REL of the box's largest score + this
+# (its coefficients come from backward passes summed in another order).
+SCORE_ABS = 1e-6
+# Of the host frontier's boxes at most this share may split in another
+# order than the plain version's (each only at a near-tie of score·width).
+SPLIT_EXCUSE_SHARE = 0.01
+CSV_COLS = ("Partition_ID", "Verification", "SAT_count", "UNSAT_count", "UNK_count",
+            "h_attempt", "h_success", "B_compression", "S_compression",
+            "ST_compression", "H_compression", "T_compression", "C-check",
+            "V-accurate", "Pruned-acc", "C1", "C2")
+
+
+def counted(fn):
+    """``(result, launch counts, wall s)`` of ``fn()``, with every launch
+    count zeroed just before it runs."""
+    import torch
+
+    from fairify_tpu_torch.verify import sweep
+
+    torch.cuda.synchronize()
+    sweep.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, sweep.launch_counts(), time.perf_counter() - t0
+
+
+def same_stage0(a, b) -> bool:
+    """Equal ``(unsat, sat, witnesses)`` stage-0 results."""
+    import numpy as np
+
+    return (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            and set(a[2]) == set(b[2])
+            and all(np.array_equal(a[2][k][0], b[2][k][0])
+                    and np.array_equal(a[2][k][1], b[2][k][1]) for k in a[2]))
+
+
+def run_rows(cfg, rep):
+    """Ledger rows (id, verdict, witness, engine reason) and the CSV's
+    verdict, count, compression, check and witness columns of one run."""
+    import csv
+
+    from fairify_tpu_torch.verify import sweep
+
+    with open(sweep.ledger_path(cfg, rep.sink_name)) as fp:
+        led = [json.loads(line) for line in fp if line.strip()]
+    with open(os.path.join(cfg.result_dir, f"{rep.sink_name}.csv"), newline="") as fp:
+        rows = list(csv.reader(fp))
+    cols = [rows[0].index(c) for c in CSV_COLS]
+    return ([(r["partition_id"], r["verdict"], r["ce"], r.get("engine_reason"))
+             for r in led], [[r[i] for i in cols] for r in rows[1:]])
+
+
+def family_grid(nets, cfg, reps: int):
+    """Phase 7a: the family's stage 0 on the whole grid.  One
+    ``stage0_families`` run (one KB + one KC launch per segment over
+    chunks x models x rows); each model's result and histograms equal its
+    solo ``stage0_certify_and_attack``; per segment, the family KB and KC
+    equal each model's solo launch bit for bit (the fold the wraparound sum
+    of the solo folds); on the first segment both agree with their plain
+    versions within the stated tolerances.  Returns ``(rows, family
+    results, solo results)``."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.obs import funnel as funnel_mod
+    from fairify_tpu_torch.parallel.mesh import stack_models
+    from fairify_tpu_torch.partition import grid as grid_mod
+    from fairify_tpu_torch.verify import engine, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    stack = stack_models(nets)
+    M = len(nets)
+    enc = encode(cfg.query())
+    _, lo, hi = sweep.build_partitions(cfg)
+    P = len(lo)
+    _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
+    fam_stats = {}
+    fam, launch, wall = counted(lambda: sweep.stage0_families([stack], enc, lo, hi, cfg,
+                                                              stats=fam_stats)[0])
+    odd = {k: v for k, v in launch.items()
+           if v != (len(segs) if k in ("stage0_certify", "attack_flips") else 0)}
+    if odd or len(segs) < 2:
+        fail(f"family grid: {len(segs)} segments, launches {launch}")
+    solo = []
+    for m, net in enumerate(nets):
+        st = funnel_mod.StageStats()
+        res = sweep.stage0_certify_and_attack(net, enc, lo, hi, cfg, st, {})
+        if (not same_stage0(fam[m], res) or not np.array_equal(fam_stats[(0, m)].hist, st.hist)
+                or st.boxes != P):
+            fail(f"family grid: model {m}'s family stage 0 differs from its solo run")
+        solo.append(res)
+    sizes = [nets[0].in_dim] + list(nets[0].layer_sizes)
+    V = enc.n_assign
+    times = {"kb": [], "kc": [], "kb_solo": [], "kc_solo": []}
+    plain = {}
+    for si in range(len(segs)):
+        case = case_inputs(f"family segment {si}", nets[0], cfg, canary=cfg.integrity, seg=si)
+        kb, kc = case["kb"], case["kc"]
+        kargs = lambda c, mg: (kc["xr"], kc["pr"], kc["valid"], kc["valid_pair"], c, mg,
+                               kc["ok"])
+        (cert_f, score_f, margin_f), t = timed(lambda: engine.stage0_certify(stack, **kb),
+                                               reps)
+        times["kb"].append(t)
+        out_f, t = timed(lambda: engine.attack_flips(stack, *kargs(cert_f, margin_f)), reps)
+        times["kc"].append(t)
+        folds, t_kb, t_kc = 0, 0.0, 0.0
+        for m, net in enumerate(nets):
+            (c, sc, mg), t = timed(lambda: engine.stage0_certify(net, **kb), reps)
+            t_kb += t
+            o, t = timed(lambda: engine.attack_flips(net, *kargs(c, mg)), reps)
+            t_kc += t
+            same = (torch.equal(c, cert_f[m]) and torch.equal(sc, score_f[m])
+                    and torch.equal(mg, margin_f[m])
+                    and all(torch.equal(a, b[m]) for a, b in zip(o[:4], out_f[:4])))
+            if not same:
+                fail(f"family grid, segment {si}: model {m}'s family KB/KC outputs are "
+                     "not bit-equal to its solo launch")
+            folds += o[4]
+        folds = (folds + (1 << 31)) % (1 << 32) - (1 << 31)
+        if out_f[4] != folds:
+            fail(f"family grid, segment {si}: family fold {out_f[4]}, solo folds {folds}")
+        times["kb_solo"].append(t_kb)
+        times["kc_solo"].append(t_kc)
+        if si:
+            continue
+        (cert_p, _sp, margin_p), kbp_ms = timed(lambda: engine.each_model(
+            stack, lambda n: engine.certify_impl(n, **kb)), 1)
+        k_out = engine.attack_flips(stack, *kargs(cert_p, margin_p))
+        p_out, kcp_ms = timed(lambda: engine.attack_flips_plain(
+            stack, *kargs(cert_p, margin_p)), 1)
+        errs = [kb_check(f"family KB model {m}", net, kb, cert_f[m], margin_f[m],
+                         cert_p[m], margin_p[m]) for m, net in enumerate(nets)]
+        kerrs = [kc_check(f"family KC model {m}", net, kc, [t[m] for t in k_out[:4]],
+                          [t[m] for t in p_out[:4]], margin_p[m])
+                 for m, net in enumerate(nets)]
+        if k_out[4] != engine.fold_int32(cert_p, k_out[0], k_out[1], k_out[3]):
+            fail("family KC: the fold is not the kernel's own buffers folded")
+        plain = dict(kb_ms=kbp_ms, kc_ms=kcp_ms, nb=case["n_boxes"], S=case["S"],
+                     kb_err=max(e[0] for e in errs), kc_err=max(e[0] for e in kerrs),
+                     near=sum(e[1] for e in errs) + sum(e[1] for e in kerrs))
+    rows = {}
+    for key, cost in (("stage0_certify", kb_cost(sizes, plain["nb"], V, M)),
+                      ("attack_flips", kc_cost(sizes, plain["nb"], plain["S"], V, M))):
+        k = "kb" if key == "stage0_certify" else "kc"
+        r = dict(ms=times[k][0], solo_sum_ms=times[f"{k}_solo"][0],
+                 ms_segments=times[k], solo_sum_ms_segments=times[f"{k}_solo"],
+                 plain_ms=plain[f"{k}_ms"], max_abs_err=plain[f"{k}_err"],
+                 flops=cost[0], bytes=cost[1], M=M, boxes=plain["nb"],
+                 launches=launch[key])
+        r["bound_ms"], r["bound_by"] = bound(*cost)
+        rows[key] = r
+        print(f"[family AC grid] {key} (M = {M}, {plain['nb']} boxes per segment): "
+              f"{r['ms']:.3f} ms per segment (segments {[round(t, 3) for t in times[k]]}; "
+              f"{M} solo launches {r['solo_sum_ms']:.3f} ms), plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, max_abs_err "
+              f"{r['max_abs_err']:.3g}; bit-equal per model to the solo launches", flush=True)
+    print(f"[family AC grid] {P} partitions in {len(segs)} segments, M = {M}: stage0_families "
+          f"{wall:.3f} s, launches {launch}; per model (unsat, sat) "
+          f"{[(int(u.sum()), int(s_.sum())) for u, s_, _ in fam]}, each equal to its solo "
+          f"run; discrete outputs differing from the plain version near a threshold "
+          f"{plain['near']}", flush=True)
+    return rows, fam, solo
+
+
+def kb_smem_bytes(sizes, V: int, alpha_iters: int) -> int:
+    """KB's dynamic shared memory per block (``kb_stage0_certify``'s
+    formula): the packed net, the CROWN workspace, the form sets, the box
+    vectors and, with α, the α workspace."""
+    d, outs = sizes[0], list(sizes[1:])
+    L, nsum, maxw = len(outs), sum(outs), max(sizes)
+    total = macs(sizes) + 2 * nsum
+    max_a = max([1] + [max(sizes[:k + 1]) * outs[k] for k in range(1, L)])
+    ns = 2 if alpha_iters > 0 and L > 1 else 1
+    floats = (total + 2 * nsum + 9 * maxw + 2 * d + 4 * max_a + ns * 2 * V * (2 * d + 10)
+              + 4 * d + 33 + (4 * nsum + 2 * d + 6 * maxw + 128 if ns == 2 else 0))
+    return 4 * floats
+
+
+def family_chunk(nets, cfg, reps: int) -> dict:
+    """Row 7: the family's certificate + attack on one 2,048-row chunk
+    (``_family_stage0_kernel``): KB and KC for the M-model family timed
+    beside the sum of the solo launches, with the bound; and a wide family,
+    11 AC-S1 twins (the zoo's widest groups), whose certify_attack at
+    α = 0 and 8 equals every model's solo launch bit for bit, with KB's
+    shared memory per block against the card's 227 KB.  Returns the rows."""
+    import torch
+
+    from fairify_tpu_torch.models.mlp import seeded_net
+    from fairify_tpu_torch.parallel.mesh import stack_models
+    from fairify_tpu_torch.verify import engine
+
+    case = case_inputs("AC chunk", nets[0], cfg.with_(mega_chunks=1), canary=False)
+    kb, kc = case["kb"], case["kc"]
+    kargs = lambda c, mg: (kc["xr"], kc["pr"], kc["valid"], kc["valid_pair"], c, mg, kc["ok"])
+    stack = stack_models(nets)
+    (c, _sc, mg), kb_ms = timed(lambda: engine.stage0_certify(stack, **kb), reps)
+    _, kc_ms = timed(lambda: engine.attack_flips(stack, *kargs(c, mg)), reps)
+    (cp, _sp, mp), kbp_ms = timed(lambda: engine.each_model(
+        stack, lambda n: engine.certify_impl(n, **kb)), 1)
+    kcp_ms = timed(lambda: engine.attack_flips_plain(stack, *kargs(cp, mp)), 1)[1]
+    kb_solo = kc_solo = 0.0
+    for net in nets:
+        (c1, _s1, m1), t = timed(lambda: engine.stage0_certify(net, **kb), reps)
+        kb_solo += t
+        kc_solo += timed(lambda: engine.attack_flips(net, *kargs(c1, m1)), reps)[1]
+    sizes = [nets[0].in_dim] + list(nets[0].layer_sizes)
+    M, nb, V = len(nets), case["n_boxes"], case["V"]
+    rows = {}
+    for key, ms, solo, plain, cost in (
+            ("stage0_certify", kb_ms, kb_solo, kbp_ms, kb_cost(sizes, nb, V, M)),
+            ("attack_flips", kc_ms, kc_solo, kcp_ms, kc_cost(sizes, nb, case["S"], V, M))):
+        r = dict(ms=ms, solo_sum_ms=solo, plain_ms=plain, M=M, boxes=nb, flops=cost[0],
+                 bytes=cost[1])
+        r["bound_ms"], r["bound_by"] = bound(*cost)
+        rows[key] = r
+        print(f"[family chunk] {key} (M = {M}, {nb} boxes): {ms:.3f} ms ({M} solo launches "
+              f"{solo:.3f} ms), plain {plain:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}", flush=True)
+    wide = [seeded_net(AC_SIZES, seed=s, device="cuda") for s in range(ZOO_MODELS)]
+    wstack = stack_models(wide)
+    for alpha in (0, 8):
+        fam = engine.certify_attack(wstack, **kb, xr=kc["xr"], pr=kc["pr"], alpha_iters=alpha)
+        for m, net in enumerate(wide):
+            solo = engine.certify_attack(net, **kb, xr=kc["xr"], pr=kc["pr"],
+                                         alpha_iters=alpha)
+            if not all(torch.equal(a[m], b) for a, b in zip(fam, solo)):
+                fail(f"wide family (M = {ZOO_MODELS}) alpha={alpha}: model {m}'s outputs "
+                     "are not bit-equal to its solo launch")
+        smem = kb_smem_bytes(AC_SIZES, V, alpha)
+        if smem > 232448:
+            fail(f"KB at alpha={alpha} needs {smem} bytes of shared memory per block")
+        print(f"[family chunk] M = {ZOO_MODELS} AC-S1 twins, alpha={alpha}: certify_attack "
+              f"bit-equal per model to the solo launches; KB shared memory {smem} of "
+              "232,448 bytes per block", flush=True)
+    return rows
+
+
+def zoo_families(work: str, engine_cfg) -> dict:
+    """Phase 7b: the zoo's CP and DF groups (11 seeded twins each) on their
+    own presets through the family chunk loop (``mega_chunks=0``) and
+    ``verify_model(stage0=...)``: every model's ledger and CSV rows and
+    funnel equal its solo ``verify_model`` on the default mega path.
+    Returns the family runs' launch counts by preset."""
+    from fairify_tpu_torch.models.mlp import seeded_net
+    from fairify_tpu_torch.parallel.mesh import stack_models
+    from fairify_tpu_torch.verify import presets, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    out = {}
+    for name, sizes in ZOO_FAMILIES:
+        cfg = presets.get(name).with_(result_dir=os.path.join(work, f"zoo-{name}"),
+                                      exact_certify_masks=False, engine=engine_cfg,
+                                      soft_timeout_s=10.0, hard_timeout_s=600.0,
+                                      mega_chunks=0)
+        solo_cfg = cfg.with_(result_dir=os.path.join(work, f"zoo-{name}-solo"),
+                             mega_chunks=4)
+        nets = [seeded_net(sizes, seed=s, device="cuda") for s in range(ZOO_MODELS)]
+        enc = encode(cfg.query())
+        _, lo, hi = sweep.build_partitions(cfg)
+        stats = {}
+        fam, launch, wall = counted(lambda: sweep.stage0_families(
+            [stack_models(nets)], enc, lo, hi, cfg, stats=stats)[0])
+        n_chunks = -(-len(lo) // cfg.grid_chunk)
+        if launch["stage0_certify"] != n_chunks or launch["attack_flips"] != n_chunks:
+            fail(f"{name} family: launches {launch} for {n_chunks} chunks")
+        counts = {"sat": 0, "unsat": 0, "unknown": 0}
+        t0 = time.perf_counter()
+        for m, net in enumerate(nets):
+            model = f"{name}-{m + 1}"
+            rep = sweep.verify_model(net, cfg, model_name=model, resume=False,
+                                     stage0=tuple(fam[m]) + (stats[(0, m)],))
+            check_outputs(rep, cfg, net, model, rep.kernel_launches)
+            solo = sweep.verify_model(net, solo_cfg, model_name=model, resume=False)
+            if (run_rows(cfg, rep) != run_rows(solo_cfg, solo)
+                    or rep.funnel["states"] != solo.funnel["states"]
+                    or rep.funnel["margin_hist"] != solo.funnel["margin_hist"]):
+                fail(f"{name} family: {model}'s ledger, CSV or funnel differs from its "
+                     "solo run")
+            for k, v in rep.counts.items():
+                counts[k] += v
+        out[name] = launch
+        print(f"[zoo family {name}] {ZOO_MODELS} twins of {'-'.join(map(str, sizes))} on "
+              f"{len(lo)} partitions: family stage 0 (chunk loop) {wall:.3f} s, launches "
+              f"{launch}; verify_model(stage0=...) and solo runs {time.perf_counter() - t0:.2f}"
+              f" s; ledgers, CSVs and funnels equal the solo runs; counts over the family "
+              f"{counts}", flush=True)
+    return out
+
+
+def chunk_loop_checks(work: str, gc_net, gc_cfg, ac_net, ac_cfg, reps: int) -> dict:
+    """Phase 7c: the chunk loop (``mega_chunks=0``).  GC-1 end to end
+    against the mega path (outcomes, ledger, CSV, funnel); the AC grid's
+    prune, stage 0 and parity chunk loops (8 launches each) against the mega
+    path (2): masks, bounds and parity bit-equal, verdicts, witnesses and
+    histograms equal; KA, KB, KC and KD on one 2,048-row AC chunk against
+    their plain versions (rows 1, 15 and 10).  Returns the rows and
+    launches."""
+    import numpy as np
+
+    from fairify_tpu_torch.obs import funnel as funnel_mod
+    from fairify_tpu_torch.verify import pruning, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    req = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity")
+    gm = gc_cfg.with_(result_dir=os.path.join(work, "gc-mega"))
+    gcl = gc_cfg.with_(result_dir=os.path.join(work, "gc-chunk"), mega_chunks=0)
+    rep_m, _launch_m, _ = run_sweep(gc_net, gm, "GC-1", required=req)
+    rep_c, gc_launch, wall_c = run_sweep(gc_net, gcl, "GC-1", required=req)
+    check_outputs(rep_c, gcl, gc_net, "GC-1", gc_launch)
+    if (run_rows(gm, rep_m) != run_rows(gcl, rep_c) or rep_m.funnel["states"]
+            != rep_c.funnel["states"] or rep_m.funnel["margin_hist"]
+            != rep_c.funnel["margin_hist"] or rep_c.counts != {"sat": 2, "unsat": 199,
+                                                               "unknown": 0}):
+        fail(f"GC-1 chunk loop: {rep_c.counts}; ledger, CSV or funnel differs from the "
+             "mega path")
+    print(f"[chunk loop GC-1] {rep_c.counts} in {wall_c:.3f} s, launches {gc_launch}; "
+          "ledger, CSV and funnel equal the mega path's", flush=True)
+
+    enc = encode(ac_cfg.query())
+    _, lo, hi = sweep.build_partitions(ac_cfg)
+    chunked = ac_cfg.with_(mega_chunks=0)
+    res, launch = {}, {}
+    for tag, cfg in (("chunk", chunked), ("mega", ac_cfg)):
+        st = funnel_mod.StageStats()
+
+        def passes(cfg=cfg, st=st):
+            prune = pruning.sound_prune_grid(ac_net, lo, hi, cfg.sim_size, cfg.seed,
+                                             chunk=cfg.grid_chunk, mega_chunks=cfg.mega_chunks)
+            s0 = sweep.stage0_certify_and_attack(ac_net, enc, lo, hi, cfg, st, {})
+            return prune, s0, sweep.parity_pass(ac_net, prune, lo, hi, cfg), st
+
+        res[tag], launch[tag], _ = counted(passes)
+    (pc, sc, parc, stc), (pm, sm, parm, stm) = res["chunk"], res["mega"]
+    masks_eq = all(np.array_equal(a, b) for k in ("candidates", "st_deads", "pos_prob", "ws_lb",
+                                                  "ws_ub")
+                   for a, b in zip(getattr(pc, k), getattr(pm, k)))
+    n_chunks = -(-len(lo) // ac_cfg.grid_chunk)
+    if (not masks_eq or not same_stage0(sc, sm) or not np.array_equal(parc, parm)
+            or not np.array_equal(stc.hist, stm.hist)
+            or any(launch["chunk"][k] != n_chunks for k in req)):
+        fail(f"AC grid chunk loop: masks equal {masks_eq}, stage 0 equal "
+             f"{same_stage0(sc, sm)}, parity equal {np.array_equal(parc, parm)}, "
+             f"histograms equal {np.array_equal(stc.hist, stm.hist)}; launches "
+             f"{launch}")
+    print(f"[chunk loop AC grid] {len(lo)} partitions: prune, stage 0 and parity launches "
+          f"per pass, chunk loop {[launch['chunk'][k] for k in req]} vs mega path "
+          f"{[launch['mega'][k] for k in req]}; masks, bounds, parity, verdicts, witnesses "
+          f"and histograms equal", flush=True)
+    rows = check_kernels(case_inputs("AC chunk", ac_net, ac_cfg.with_(mega_chunks=1),
+                                     canary=False), ac_net, reps)
+    for k, r in rows.items():
+        r["launches"] = launch["chunk"][k]
+    return dict(rows=rows, gc_launch=gc_launch, ac_launch=launch["chunk"])
+
+
+def split_orders(score, lo, hi, bd, n: int = 3):
+    """Per box, the host frontier's first ``n`` split dims: the branch dims
+    by ``score·width`` descending (stable; widths when every product is 0),
+    width-0 dims dropped — ``engine.host_frontier_phase``'s rule.  Also
+    returns the products."""
+    import numpy as np
+
+    widths = (hi - lo)[:, bd]
+    sc = score[:, bd].astype(np.float64) * widths
+    sc = np.where(sc.max(axis=1, keepdims=True) > 0, sc, widths.astype(np.float64))
+    order = np.argsort(-sc, axis=1, kind="stable")
+    return [[int(j) for j in o[:n] if w[j] > 0] for o, w in zip(order, widths)], sc
+
+
+def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) -> dict:
+    """Phase 7d: the host-frontier BaB.  The BaB ladder world at
+    ``device_bab=False`` on the card and on the CPU (equal rows), with the
+    device-BaB run's verdicts; then KB at α = 8 with the score, and KC, at
+    the host frontier's shape (F = 512 AC-S1 stage-0 leftovers, 16 attack
+    candidates each) against their plain versions, the split order of
+    every box included.  Returns the rows and launches."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+    from fairify_tpu_torch.verify.property import role_boxes, shared_dims
+
+    rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda", TAIL, device_bab=False)
+    rep_c, rows_c, _, _ = ladder_world(work, "cpu", TAIL, device_bab=False)
+    if rows_d != rows_c or [r[1] for r in rows_d] != [r[1] for r in rows_dev]:
+        fail(f"ladder world, host frontier: card {rows_d} vs CPU {rows_c} vs device BaB "
+             f"{rows_dev}")
+    check_outputs(rep_d, lcfg, lnet, "BaB-1", rep_d.kernel_launches)
+    print(f"[host frontier ladder] card = CPU = device-BaB verdicts: {rep_d.counts}; "
+          f"launches {rep_d.kernel_launches} (stage 0's one KB + one KC among them)", flush=True)
+
+    F, S = min(512, len(lo)), 16
+    lo, hi = lo[:F], hi[:F]
+    flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
+    x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, flo, fhi)
+    xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(0), lo, hi, S)
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
+    kb = dict(x_lo=on(x_lo), x_hi=on(x_hi), xp_lo=on(xp_lo), xp_hi=on(xp_hi), lo=on(flo),
+              hi=on(fhi), assign_vals=on(av), pa_mask=on(pm), ra_mask=on(rm),
+              eps=float(enc.eps), valid=on(valid), valid_pair=on(enc.valid_pair))
+    kc = dict(xr=on(xr), pr=on(pr), valid=kb["valid"],
+              ok=torch.zeros(F, dtype=torch.bool, device="cuda"))
+    sizes = [ac_net.in_dim] + list(ac_net.layer_sizes)
+    V, d = enc.n_assign, lo.shape[1]
+    bd = shared_dims(enc, d)
+    out = {}
+    for alpha in (8, 0):
+        (cert_k, score_k, margin_k), k_ms = timed(
+            lambda: engine.stage0_certify(ac_net, **kb, alpha_iters=alpha), reps)
+        (cert_p, score_p, margin_p), p_ms = timed(
+            lambda: engine.certify_impl(ac_net, **kb, alpha_iters=alpha), 1)
+        err_m, near = kb_check(f"host-frontier KB alpha={alpha}", ac_net, kb, cert_k,
+                               margin_k, cert_p, margin_p, alpha_iters=alpha)
+        box_max = score_p.amax(dim=1, keepdim=True)
+        tol_s = TOL_REL * box_max + SCORE_ABS
+        err_s = float(((score_k - score_p).abs() / tol_s).max())
+        if err_s > 1.0:
+            fail(f"host-frontier KB alpha={alpha}: score error {err_s} x tolerance")
+        # Split order: a box may split in another order only where the first
+        # pair of dims the two orders disagree on have score·width products
+        # within the score tolerance (times the wider of the two widths).
+        ok_k, _ = split_orders(score_k.cpu().numpy(), lo, hi, bd)
+        ok_p, sc_p = split_orders(score_p.cpu().numpy(), lo, hi, bd)
+        widths = (hi - lo)[:, bd]
+        excused = 0
+        for i, (a, b) in enumerate(zip(ok_k, ok_p)):
+            if a == b:
+                continue
+            j = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            tol = None if j is None else (float(tol_s[i, 0])
+                                          * max(widths[i, a[j]], widths[i, b[j]]))
+            if j is None or abs(sc_p[i, a[j]] - sc_p[i, b[j]]) > tol:
+                fail(f"host-frontier KB alpha={alpha}: box {i} splits {a}, the plain "
+                     f"version {b}, away from a tie of score·width")
+            excused += 1
+        if excused > SPLIT_EXCUSE_SHARE * F:
+            fail(f"host-frontier KB alpha={alpha}: {excused} of {F} boxes split in "
+                 "another order")
+        fl, by = kb_cost(sizes, F, V, alpha_iters=alpha)
+        r = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err_m, flops=fl, bytes=by,
+                 alpha_iters=alpha, boxes=F, score_err_x_tol=err_s,
+                 split_order_excused=excused, certified=int(cert_k.sum()),
+                 cert_near_diffs=near)
+        r["bound_ms"], r["bound_by"] = bound(fl, by)
+        out[f"kb_alpha{alpha}"] = r
+        print(f"[host frontier KB alpha={alpha}] F={F} AC-S1 leftovers: {k_ms:.4f} ms "
+              f"(plain {p_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}); "
+              f"certified {r['certified']}, margin max_abs_err {err_m:.3g}, score error "
+              f"{err_s:.3f} x tolerance, split order differs on {excused} boxes (each at "
+              f"a near-tie of score·width)", flush=True)
+        if alpha == 8:
+            args = (kc["xr"], kc["pr"], kc["valid"], kb["valid_pair"], cert_p, margin_p,
+                    kc["ok"])
+            k_res, kc_ms = timed(lambda: engine.attack_flips(ac_net, *args), reps)
+            p_res, kcp_ms = timed(lambda: engine.attack_flips_plain(ac_net, *args), 1)
+            err_g, wd = kc_check("host-frontier KC", ac_net, kc, k_res[:4], p_res[:4],
+                                 margin_p)
+            fl, by = kc_cost(sizes, F, S, V)
+            r = dict(ms=kc_ms, plain_ms=kcp_ms, max_abs_err=err_g, flops=fl, bytes=by,
+                     boxes=F, S=S, near_diffs=wd)
+            r["bound_ms"], r["bound_by"] = bound(fl, by)
+            out["kc"] = r
+            print(f"[host frontier KC] F={F}, S={S}: {kc_ms:.4f} ms (plain {kcp_ms:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})", flush=True)
+    out["launches"] = rep_d.kernel_launches
+    return out
+
+
+def family_tail(work: str, nets, ac_cfg, fam, solo) -> dict:
+    """Phase 7 end to end: the AC-S1 family's stage-0 results of
+    partitions 0-4,096 through ``verify_model(stage0=...)`` per model
+    (default engine configuration, 0.02 s soft, 15 s hard): the rows stage
+    0 decided equal the model's solo stage-0 verdicts and witnesses; the
+    rest are deadline-bound and reported.  Returns the launch counts."""
+    import numpy as np
+
+    from fairify_tpu_torch.verify import sweep
+    from fairify_tpu_torch.verify.config import EngineConfig
+
+    s, e = FAMILY_SPAN
+    cfg = ac_cfg.with_(result_dir=os.path.join(work, "family-tail"), soft_timeout_s=0.02,
+                       hard_timeout_s=FAMILY_HARD_S, engine=EngineConfig(max_nodes=1000))
+    cut = lambda r: (r[0][s:e], r[1][s:e], {k - s: v for k, v in r[2].items() if s <= k < e})
+    totals = {}
+    for m, net in enumerate(nets):
+        model = f"AC-S1-{m}"
+        rep, launch, wall = counted(lambda: sweep.verify_model(
+            net, cfg, model_name=model, resume=False, partition_span=FAMILY_SPAN,
+            stage0=cut(fam[m])))
+        thr = check_outputs(rep, cfg, net, model, launch)
+        u, sa, w = cut(solo[m])
+        bad = 0
+        for o in rep.outcomes:
+            p = o.partition_id - 1 - s
+            if sa[p]:
+                bad += o.verdict != "sat" or any(
+                    not np.array_equal(a, b) for a, b in zip(o.counterexample, w[p]))
+            elif u[p]:
+                bad += o.verdict != "unsat"
+        if bad or launch["stage0_certify"] or launch["attack_flips"]:
+            fail(f"{model} family run: {bad} stage-0 rows differ from the solo run; "
+                 f"launches {launch}")
+        for k, v in launch.items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"[family AC-S1 {model}] partitions {s}-{e}, {FAMILY_HARD_S} s hard: "
+              f"{rep.counts}, decided_fraction {thr['decided_fraction']} in {wall:.3f} s "
+              f"(stage 0 decided {int(u.sum() + sa.sum())}, equal to the solo run; "
+              f"first pass by phase {thr['engine_decided']}); launches {launch}",
+              flush=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the sweep through the kernels
 # ---------------------------------------------------------------------------
 
@@ -2007,7 +2627,7 @@ def main() -> int:
 
 def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                lat_out) -> int:
-    from fairify_tpu_torch.models.mlp import flagship_net
+    from fairify_tpu_torch.models.mlp import flagship_net, seeded_net
     from fairify_tpu_torch.partition import grid as grid_mod
     from fairify_tpu_torch.verify import presets, sweep
     from fairify_tpu_torch.verify.config import EngineConfig
@@ -2065,8 +2685,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     check_phase_s_kernels("relaxed-AC", ac_net, renc, rlo, rhi, reps=1)
 
     # --- phase 4: the bench's BaB ladder world on the card vs the CPU
+    ladder_rows = {}
     for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3), ("default", {})):
         rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda", phases)
+        ladder_rows[tag] = rows_d
         rep_c, rows_c, _, _ = ladder_world(work, "cpu", phases)
         if rows_d != rows_c or rep_d.counts != {"sat": 0, "unsat": 8, "unknown": 0}:
             fail(f"ladder world, {tag}: card {rows_d} vs CPU {rows_c}")
@@ -2081,8 +2703,19 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"h_attempt {sum(o.h_attempt for o in rep_h.outcomes)}, launches "
               f"{rep_h.kernel_launches}", flush=True)
 
-    # The CPU side of card = CPU ran beside phases 1b-2c and 4; the timed
-    # end-to-end phases 3, 5 and 6 run without it.
+    # --- phase 7, its untimed checks: the AC-S1 family on the whole grid,
+    # the zoo's CP and DF families, the chunk loop and the host frontier
+    fam_nets = [ac_net] + [seeded_net(AC_SIZES, seed=s, device="cuda")
+                           for s in FAMILY_SEEDS[1:]]
+    fam_rows, fam_res, solo_res = family_grid(fam_nets, ac_cfg, reps=3)
+    fam_chunk = family_chunk(fam_nets, ac_cfg, reps=3)
+    zoo_launch = zoo_families(work, engine_cfg)
+    chunk = chunk_loop_checks(work, gc_net, gc_cfg, ac_net, ac_cfg, reps=3)
+    hf = host_frontier_checks(work, ac_net, enc, lo, hi, reps=3,
+                              rows_dev=ladder_rows["slice 2"])
+
+    # The CPU side of card = CPU ran beside phases 1b-2c, 4 and 7's checks;
+    # the timed end-to-end phases 3, 5, 6 and 7's family run go without it.
     lattice_card_vs_cpu(worker, lat_card, lat_out)
 
     # --- phase 3: the GC-1 main path (stage 0 decides every partition)
@@ -2186,6 +2819,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"{ph.get('engine_bab', 0.0):.3f} s, t_pair {ph.get('engine_pair', 0.0):.3f} "
               f"s; unknown reasons {reasons}; funnel {thr['funnel']}; phases {ph}; "
               f"launches {launch}", flush=True)
+    # --- phase 7, end to end: the AC-S1 family through verify_model(stage0=)
+    fam_launch = family_tail(work, fam_nets, ac_cfg, fam_res, solo_res)
     shutil.rmtree(work, ignore_errors=True)
 
     table = []
@@ -2229,6 +2864,24 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
         for extra in ("alpha0", "root", "role_boxes"):
             if extra in r:
                 row[extra] = r[extra]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+        if name in chunk["rows"]:  # rows 1, 10 and 15 (stage 0) at one chunk
+            row["chunk_loop"] = {k: chunk["rows"][name][k] for k in keys + ("launches",)}
+            row["launches_chunk_loop_gc1"] = chunk["gc_launch"][name]
+            row["also_replaces"] = ALSO_REPLACES[name]
+        if name in fam_rows:  # rows 5 and 7 (families) and 15 (host frontier)
+            fr = fam_rows[name]
+            row["family_segment"] = {k: fr[k] for k in keys + (
+                "solo_sum_ms", "ms_segments", "solo_sum_ms_segments", "M", "boxes",
+                "launches")}
+            row["family_chunk"] = dict({k: fam_chunk[name][k] for k in (
+                "ms", "solo_sum_ms", "plain_ms", "bound_ms", "bound_by", "M", "boxes")},
+                launches={z: zoo_launch[z][name] for z in zoo_launch})
+            row["launches_family_tail"] = fam_launch[name]
+            hk = ("kb_alpha8", "kb_alpha0") if name == "stage0_certify" else ("kc",)
+            row["host_frontier"] = dict({k: {x: v for x, v in hf[k].items()
+                                             if x not in ("flops", "bytes")} for k in hk},
+                                        launches=hf["launches"][name])
         table.append(row)
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -1,7 +1,10 @@
 // KD — the parity pass: pruned-vs-original prediction agreement.
 //
 // Replaces fairify_tpu/verify/sweep.py:_mega_parity_kernel (the lax.scan of
-// _parity_grid_from_keys): per partition, regenerate the same sim_size
+// _parity_grid_from_keys; one launch per segment) and
+// _parity_grid_from_keys itself (the chunk loop, mega_chunks = 0: one launch
+// per chunk padded to the chunk size, alive masks padded like the boxes).
+// Per partition, regenerate the same sim_size
 // threefry samples as the prune pass (same key, same randint), run the
 // forward of the original net and of the masked net (hidden layers use the
 // partition's alive mask, the last layer stays all ones), and return the

@@ -1,7 +1,11 @@
 // KA — the prune pass: simulation statistics + IBP bounds per partition.
 //
 // Replaces fairify_tpu/verify/pruning.py:_mega_sim_and_bounds (the lax.scan
-// over chunks of _sim_and_bounds): per partition, sim_size uniform integer
+// over chunks of _sim_and_bounds; one launch per segment) and
+// _sim_and_bounds itself (the chunk loop, mega_chunks = 0: one launch per
+// padded chunk; the host then sums the looseness of the real rows in f64,
+// as the JAX package does).  Every output is per partition, so a launch over
+// one chunk's rows computes exactly that chunk.  Per partition, sim_size uniform integer
 // samples from the box (jax.random.randint under the partition's threefry
 // key), the masked forward of every sample, each neuron's activation count
 // (candidates = never active, pos_prob = count * (1 / sim_size), the

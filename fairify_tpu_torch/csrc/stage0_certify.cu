@@ -1,31 +1,43 @@
-// KB — stage-0 certificate: CROWN role bounds + tied pair-difference kills.
+// KB — the certificate: CROWN (or α-CROWN) role bounds + tied
+// pair-difference kills, the certified margin and the branching score.
 //
-// Replaces the _certify_impl half of fairify_tpu/verify/sweep.py:
-// _mega_stage0_kernel (fairify_tpu/verify/engine.py:_certify_impl at
-// alpha_iters=0, with ops/crown.py:crown_output_form_sets and
-// engine._tied_diff_ub).  Per partition box and for each of the V
-// protected-attribute assignments of both roles (x, x'):
+// Replaces fairify_tpu/verify/engine.py:_certify_impl (with
+// ops/crown.py:crown_output_form_sets and engine._tied_diff_ub) wherever it
+// runs on the device: the _certify_impl half of sweep.py:_mega_stage0_kernel
+// (row 4), of its family form _mega_family_stage0_kernel (row 5), of
+// _family_stage0_kernel (row 7) and of engine._certify_attack_kernel
+// (row 15: the chunk loop and the host-frontier BaB).  Per partition box,
+// per model, and for each of the V protected-attribute assignments of both
+// roles (x, x'):
 //   * IBP for layer 0, then for every deeper layer a CROWN backward pass
 //     (triangle ReLU relaxation, adaptive lower slope) concretized over the
 //     role box, intersected with IBP and widened outward;
 //   * the output-logit linear forms (A_low, c_low, A_up, c_up) of the last
-//     backward pass.
-// Then, per assignment pair (a, b) and flip direction, the tied difference
-// bound max over shared coordinates of (pos form - neg form), widened with
-// its own magnitude before the min over form sets, the role deadness tests,
-// and the per-box certificate and certified margin.
+//     backward pass; with alpha_iters > 0 a second form set from the
+//     α-CROWN optimiser (crown.cuh:alpha_role_forms), whose bounds tighten
+//     both sets' role bounds.
+// Then, per assignment pair (a, b), flip direction and form set, the tied
+// difference bound max over shared coordinates of (pos form - neg form),
+// widened with its own magnitude before the min over form sets, the role
+// deadness tests, the per-box certificate and certified margin, and per
+// shared coordinate the score: the largest |pos - neg| coefficient over
+// every set, direction and pair (valid or not, as in the JAX package).
 //
 // Bound on the H100: fp32 FMA throughput of the backward passes —
 // sum over layers k >= 1, over j < k, of in_j * out_j * out_k MACs per role
-// box (~0.8 M at AC-S1 widths, 64,000 role boxes on the adult grid); the
-// bytes (role boxes in, two values per box out) are small.
+// box (~0.8 M at AC-S1 widths, 64,000 role boxes on the adult grid) and, with
+// α, 2 * alpha_iters + 1 chain evaluations and alpha_iters reverse passes;
+// the bytes (role boxes in, 2 + d values per box out) are small.
 //
-// Design: one block per partition box; the packed network, the current
-// role box's layer bounds and the backward pass's coefficient matrices
-// (A_low/A_up ping-pong) live in dynamic shared memory.  Every product is a
-// true-f32 FMA loop (no tensor cores, so no TF32).  The pair stage reads
-// the 2V stored forms, one thread per pair, and reduces the certificate
-// (any possible flip) and the margin (min) across the block.
+// Design: one block per (box, model): blockIdx.x the box, blockIdx.y the
+// model of a stacked family, whose packed net starts at m * nd.total floats;
+// outputs of model m sit at m * N + box.  The packed network, the current
+// role box's layer bounds, the backward pass's coefficient matrices
+// (A_low/A_up ping-pong), the α workspace and the form sets live in dynamic
+// shared memory.  Every product is a true-f32 FMA loop (no tensor cores, so
+// no TF32).  The pair stage reads the stored forms, one thread per pair, and
+// reduces the certificate (any possible flip) and the margin (min) across
+// the block; the score takes one thread per coordinate.
 #include "common.cuh"
 #include "crown.cuh"
 
@@ -40,21 +52,27 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
           const float* __restrict__ assign, const float* __restrict__ pam,
           const float* __restrict__ ram, float eps,
           const uint8_t* __restrict__ valid, const uint8_t* __restrict__ vpair,
-          int V, uint8_t* __restrict__ cert, float* __restrict__ margin) {
+          int V, int N, int alpha_iters, uint8_t* __restrict__ cert,
+          float* __restrict__ score, float* __restrict__ margin) {
   extern __shared__ float smem[];
   const int d = nd.in[0], FS = 2 * d + KB_FORM;
+  const int ns = (alpha_iters > 0 && nd.L > 1) ? 2 : 1;  // form sets
   float* P = smem;
   CrownWs ws;
-  float* F = crown_ws_carve(ws, P + nd.total, nd, maxA);  // 2V forms of FS floats
-  float* bl = F + 2 * V * FS;
+  AlphaWs aw;
+  float* F = crown_ws_carve(ws, P + nd.total, nd, maxA);  // ns * 2V forms of FS floats
+  float* bl = F + ns * 2 * V * FS;
   float* bh = bl + d;
   float* absb = bh + d;
   float* shr = absb + d;
   float* scratch = shr + d;  // 32
   int* flag = (int*)(scratch + 32);
+  if (ns == 2) alpha_ws_carve(aw, scratch + 32 + 1, nd);
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < nd.total; i += nt) P[i] = params[i];
+  const int b = blockIdx.x, m = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  const size_t out = (size_t)m * N + b;
+  const float* Pm = params + (size_t)m * nd.total;
+  for (int i = tid; i < nd.total; i += nt) P[i] = Pm[i];
   for (int i = tid; i < d; i += nt) {
     const float l = blo_g[(size_t)b * d + i], h = bhi_g[(size_t)b * d + i];
     bl[i] = l;
@@ -65,7 +83,7 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
   if (tid == 0) *flag = 0;
   __syncthreads();
 
-  // ---- CROWN bounds + output forms for each of the 2V role boxes ----------
+  // ---- CROWN (and α-CROWN) bounds + output forms of the 2V role boxes ----
   for (int rv = 0; rv < 2 * V; ++rv) {
     const int role = rv / V, v = rv - role * V;
     const float* slo = (role == 0 ? xlo : plo) + ((size_t)b * V + v) * d;
@@ -75,12 +93,14 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
       ws.inhi[i] = shi[i];
     }
     __syncthreads();
-    crown_role_forms(nd, maxA, P, ws, F + rv * FS);
+    float* f0 = F + rv * FS;
+    crown_role_forms(nd, maxA, P, ws, f0);
+    if (ns == 2) alpha_role_forms(nd, P, ws, aw, alpha_iters, f0, f0 + 2 * V * FS);
   }
   // ---- per-form sums: PA dot products, RA magnitudes, coefficient mags ----
-  for (int rv = tid; rv < 2 * V; rv += nt) {
-    float* f = F + rv * FS;
-    const float* as = assign + (size_t)(rv % V) * d;
+  for (int q = tid; q < ns * 2 * V; q += nt) {
+    float* f = F + q * FS;
+    const float* as = assign + (size_t)((q % (2 * V)) % V) * d;
     float pl = 0.f, pu = 0.f, rl = 0.f, ru = 0.f, ml = 0.f, mu = 0.f;
     for (int i = 0; i < d; ++i) {
       const float a = f[i], u = f[d + i];
@@ -104,29 +124,34 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
   float mloc = FLT_MAX;
   for (int pidx = tid; pidx < V * V; pidx += nt) {
     const int a = pidx / V, c = pidx - a * V;
-    const float* fx = F + a * FS;        // x role, assignment a
-    const float* fp = F + (V + c) * FS;  // x' role, assignment c
-    // Direction 1: f(x_a) - f(x'_c) > 0 needs x up-form minus x' low-form.
-    const float cu1 = fx[2 * d + 1] + fx[2 * d + 5];
-    const float cn1 = (fp[2 * d + 0] + fp[2 * d + 4]) - fp[2 * d + 6];
-    // Direction 2: f(x'_c) - f(x_a) > 0 needs x' up-form minus x low-form.
-    const float cu2 = (fp[2 * d + 1] + fp[2 * d + 5]) + fp[2 * d + 7];
-    const float cn2 = fx[2 * d + 0] + fx[2 * d + 4];
-    float m1 = 0.f, g1 = 0.f, m2 = 0.f, g2 = 0.f;
-    for (int i = 0; i < d; ++i) {
-      const float D1 = (fx[d + i] - fp[i]) * shr[i];
-      const float D2 = (fp[d + i] - fx[i]) * shr[i];
-      m1 += D1 > 0.f ? D1 * bh[i] : D1 * bl[i];
-      m2 += D2 > 0.f ? D2 * bh[i] : D2 * bl[i];
-      g1 = fmaf(fabsf(D1), absb[i], g1);
-      g2 = fmaf(fabsf(D2), absb[i], g2);
+    float w1 = FLT_MAX, w2 = FLT_MAX;
+    for (int s = 0; s < ns; ++s) {
+      const float* fx = F + (s * 2 * V + a) * FS;      // x role, assignment a
+      const float* fp = F + (s * 2 * V + V + c) * FS;  // x' role, assignment c
+      // Direction 1: f(x_a) - f(x'_c) > 0 needs x up-form minus x' low-form.
+      const float cu1 = fx[2 * d + 1] + fx[2 * d + 5];
+      const float cn1 = (fp[2 * d + 0] + fp[2 * d + 4]) - fp[2 * d + 6];
+      // Direction 2: f(x'_c) - f(x_a) > 0 needs x' up-form minus x low-form.
+      const float cu2 = (fp[2 * d + 1] + fp[2 * d + 5]) + fp[2 * d + 7];
+      const float cn2 = fx[2 * d + 0] + fx[2 * d + 4];
+      float m1 = 0.f, g1 = 0.f, m2 = 0.f, g2 = 0.f;
+      for (int i = 0; i < d; ++i) {
+        const float D1 = (fx[d + i] - fp[i]) * shr[i];
+        const float D2 = (fp[d + i] - fx[i]) * shr[i];
+        m1 += D1 > 0.f ? D1 * bh[i] : D1 * bl[i];
+        m2 += D2 > 0.f ? D2 * bh[i] : D2 * bl[i];
+        g1 = fmaf(fabsf(D1), absb[i], g1);
+        g2 = fmaf(fabsf(D2), absb[i], g2);
+      }
+      const float row1 = (m1 + cu1) - cn1;
+      const float mag1 = (((g1 + fx[2 * d + 9]) + fp[2 * d + 8]) + fabsf(cu1)) + fabsf(cn1);
+      w1 = fminf(w1, (row1 + SLACK_REL * mag1) + SLACK_ABS);
+      const float row2 = (m2 + cu2) - cn2;
+      const float mag2 = (((g2 + fp[2 * d + 9]) + fx[2 * d + 8]) + fabsf(cu2)) + fabsf(cn2);
+      w2 = fminf(w2, (row2 + SLACK_REL * mag2) + SLACK_ABS);
     }
-    const float row1 = (m1 + cu1) - cn1;
-    const float mag1 = (((g1 + fx[2 * d + 9]) + fp[2 * d + 8]) + fabsf(cu1)) + fabsf(cn1);
-    const float w1 = (row1 + SLACK_REL * mag1) + SLACK_ABS;
-    const float row2 = (m2 + cu2) - cn2;
-    const float mag2 = (((g2 + fp[2 * d + 9]) + fx[2 * d + 8]) + fabsf(cu2)) + fabsf(cn2);
-    const float w2 = (row2 + SLACK_REL * mag2) + SLACK_ABS;
+    const float* fx = F + a * FS;
+    const float* fp = F + (V + c) * FS;
     const float lbx = fx[2 * d + 2], ubx = fx[2 * d + 3];
     const float lbp = fp[2 * d + 2], ubp = fp[2 * d + 3];
     const bool t1 = ubx <= 0.f || lbp >= 0.f || w1 <= 0.f;
@@ -137,10 +162,24 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
     const float k2 = fmaxf(fmaxf(lbx, -ubp), -w2);
     if (ok) mloc = fminf(mloc, fminf(k1, k2));
   }
+  // ---- branching score: one thread per shared coordinate ------------------
+  for (int i = tid; i < d; i += nt) {
+    float sc = 0.f;
+    for (int s = 0; s < ns; ++s)
+      for (int a = 0; a < V; ++a) {
+        const float* fx = F + (s * 2 * V + a) * FS;
+        for (int c = 0; c < V; ++c) {
+          const float* fp = F + (s * 2 * V + V + c) * FS;
+          sc = fmaxf(sc, fabsf((fx[d + i] - fp[i]) * shr[i]));
+          sc = fmaxf(sc, fabsf((fp[d + i] - fx[i]) * shr[i]));
+        }
+      }
+    score[out * d + i] = sc;
+  }
   const float mg = block_min(mloc, scratch);
   if (tid == 0) {
-    cert[b] = *flag ? 0 : 1;
-    margin[b] = mg;
+    cert[out] = *flag ? 0 : 1;
+    margin[out] = mg;
   }
 }
 
@@ -149,20 +188,22 @@ extern "C" int kb_stage0_certify(const void* params, const int* dims, int L,
                                  const void* phi, const void* blo, const void* bhi,
                                  const void* assign, const void* pam, const void* ram,
                                  float eps, const void* valid, const void* vpair,
-                                 int N, int V, void* cert, void* margin, void* stream) {
+                                 int N, int V, int M, int alpha_iters, void* cert,
+                                 void* score, void* margin, void* stream) {
   const NetDesc nd = make_desc(dims, L);
   const int maxA = crown_max_a(nd), d = nd.in[0];
+  const int ns = (alpha_iters > 0 && L > 1) ? 2 : 1;
   const size_t smem = sizeof(float) * (nd.total + crown_ws_floats(nd, maxA)
-                                       + 2 * V * (2 * d + KB_FORM) + 4 * d + 32)
-                      + sizeof(int);
+                                       + ns * 2 * V * (2 * d + KB_FORM) + 4 * d + 32 + 1
+                                       + (ns == 2 ? alpha_ws_floats(nd) : 0));
   cudaError_t err = set_smem(kb_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  if (N > 0)
-    kb_kernel<<<N, KB_THREADS, smem, (cudaStream_t)stream>>>(
+  if (N > 0 && M > 0)
+    kb_kernel<<<dim3(N, M), KB_THREADS, smem, (cudaStream_t)stream>>>(
         nd, maxA, (const float*)params, (const float*)xlo, (const float*)xhi,
         (const float*)plo, (const float*)phi, (const float*)blo, (const float*)bhi,
         (const float*)assign, (const float*)pam, (const float*)ram, eps,
-        (const uint8_t*)valid, (const uint8_t*)vpair, V, (uint8_t*)cert,
-        (float*)margin);
+        (const uint8_t*)valid, (const uint8_t*)vpair, V, N, alpha_iters,
+        (uint8_t*)cert, (float*)score, (float*)margin);
   return (int)cudaGetLastError();
 }

@@ -68,6 +68,57 @@ class MLP(nn.Module):
                 [b.detach().cpu().numpy() for b in self.biases])
 
 
+class StackedMLP(nn.Module):
+    """M same-architecture nets on a leading model axis: ``weights[i]``
+    (M, in_i, out_i), ``biases[i]`` and ``masks[i]`` (M, out_i) — the JAX
+    package's stacked ``MLP`` pytree (``parallel.mesh.stack_models``)."""
+
+    def __init__(self, weights: Sequence[torch.Tensor],
+                 biases: Sequence[torch.Tensor],
+                 masks: Sequence[torch.Tensor]):
+        super().__init__()
+        self.weights = nn.ParameterList([_frozen(w) for w in weights])
+        self.biases = nn.ParameterList([_frozen(b) for b in biases])
+        self.masks = nn.ParameterList([_frozen(m) for m in masks])
+
+    @property
+    def n_models(self) -> int:
+        return int(self.weights[0].shape[0])
+
+    @property
+    def depth(self) -> int:
+        return len(self.weights)
+
+    @property
+    def layer_sizes(self) -> tuple:
+        return tuple(int(w.shape[2]) for w in self.weights)
+
+    @property
+    def in_dim(self) -> int:
+        return int(self.weights[0].shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.weights[0].device
+
+    def model(self, m: int) -> MLP:
+        """Model ``m`` as an :class:`MLP` (views of the stacked tensors)."""
+        return MLP([w[m] for w in self.weights], [b[m] for b in self.biases],
+                   [k[m] for k in self.masks])
+
+    def unstack(self) -> list:
+        return [self.model(m) for m in range(self.n_models)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits (M, ...) of every model for shared ``(..., d)`` inputs."""
+        return torch.stack([net(x) for net in self.unstack()])
+
+    def numpy_params(self, m: int):
+        """Host copies ``(weights, biases)`` of model ``m``."""
+        return ([w[m].detach().cpu().numpy() for w in self.weights],
+                [b[m].detach().cpu().numpy() for b in self.biases])
+
+
 def from_numpy(weights, biases, masks=None, device=None) -> MLP:
     """Build an :class:`MLP` from host weight/bias lists (float32).
 

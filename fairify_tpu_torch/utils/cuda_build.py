@@ -160,6 +160,31 @@ def pack_net(net):
     return params, dims
 
 
+def pack_stack(stacked):
+    """:func:`pack_net` of each model of a ``StackedMLP``, back to back:
+    model m's buffer starts at ``m * nd.total`` floats (``nd.total`` the
+    length of one packed net).  Returns ``(params, dims)``."""
+    L = stacked.depth
+    if L > MAX_LAYERS:
+        raise ValueError(f"net depth {L} exceeds the kernels' MAX_LAYERS={MAX_LAYERS}")
+    M = stacked.n_models
+    parts = []
+    for w, b, m in zip(stacked.weights, stacked.biases, stacked.masks):
+        parts += [w.reshape(M, -1), b, m]
+    params = torch.cat([p.to(torch.float32) for p in parts], dim=1).reshape(-1).contiguous()
+    sizes = [stacked.in_dim] + list(stacked.layer_sizes)
+    dims = (ctypes.c_int * len(sizes))(*sizes)
+    return params, dims
+
+
+def pack_models(net):
+    """``(params, dims, M)``: :func:`pack_stack` of a stacked net (M its
+    models), :func:`pack_net` of a single one (M = 1)."""
+    if hasattr(net, "n_models"):
+        return pack_stack(net) + (net.n_models,)
+    return pack_net(net) + (1,)
+
+
 def u32_keys(keys: torch.Tensor) -> torch.Tensor:
     """(N, 2) int64 keys holding uint32 values → int32 with the same bits."""
     k = torch.where(keys >= 1 << 31, keys - (1 << 32), keys)

@@ -3,10 +3,12 @@ checks.
 
 Port of ``fairify_tpu/verify/engine.py`` for the phases the port runs:
 
-* the combined certificate :func:`certify_impl` (``_certify_impl`` at
-  ``alpha_iters=0``): CROWN role bounds give the separate-bound kills, the
-  output linear forms the tied pair-difference kills
-  (:func:`tied_diff_ub`); the per-box certified margin rides along;
+* the combined certificate :func:`certify_impl` (``_certify_impl``):
+  CROWN (α-CROWN with ``alpha_iters > 0``) role bounds give the
+  separate-bound kills, the output linear forms the tied pair-difference
+  kills (:func:`tied_diff_ub`); the branching score and the per-box
+  certified margin ride along; :func:`certify_attack` fuses it with the
+  attack (``_certify_attack_kernel``), for one net or a stacked family;
 * the sampling attack: host-drawn integer candidates
   (:func:`build_attack_candidates`, numpy, the JAX package's exact RNG
   stream), their logits, strict-sign flip detection with a first-hit
@@ -29,13 +31,18 @@ Port of ``fairify_tpu/verify/engine.py`` for the phases the port runs:
   (``ops.lattice.decide_box_exhaustive``: K9a–c, ``csrc/lattice_scan.cu``),
   E0 before the device BaB on the cheap roots, E (:func:`lattice_phase`)
   after Phase P;
+* the host-frontier branch-and-bound (:func:`host_frontier_phase`,
+  ``device_bab=False``): one :func:`certify_attack` per frontier batch
+  (certificate with the branching score, α-CROWN after a fifth of the
+  deadline, the attack), multi-way ``score·width`` splits on the host;
 * :func:`decide_many` / :func:`decide_box`, which raise
-  ``NotImplementedError`` where the unported host frontier would run;
+  ``NotImplementedError`` where the IBP path or a mesh would run;
 * exact witness validation on the host (:func:`validate_pair`).
 
 Seven device kernels carry it: KB :func:`stage0_certify`
-(``csrc/stage0_certify.cu``), KC :func:`attack_flips`
-(``csrc/attack_flips.cu``), K5 :func:`pgd_attack_kernel`
+(``csrc/stage0_certify.cu``, with a model axis for stacked families, an
+α-CROWN mode and the score output), KC :func:`attack_flips`
+(``csrc/attack_flips.cu``, with a model axis), K5 :func:`pgd_attack_kernel`
 (``csrc/pgd_attack.cu``), K6 :func:`bab_segment`
 (``csrc/bab_segment.cu``), K8a :func:`sign_bound`
 (``csrc/sign_bound.cu``), K8b :func:`inter_bounds`
@@ -57,7 +64,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from fairify_tpu_torch.models.mlp import forward_np, local_affine_np
+from fairify_tpu_torch.models.mlp import StackedMLP, forward_np, local_affine_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
 from fairify_tpu_torch.ops import crown as crown_ops
 from fairify_tpu_torch.ops import lattice as lattice_ops
@@ -71,6 +78,13 @@ from fairify_tpu_torch.verify.property import (PairEncoding, role_boxes,
 
 F32_MAX = float(np.finfo(np.float32).max)
 
+MESH_NOT_PORTED = ("mesh-sharded sweeps and engine phases are not ported yet: "
+                   "ROADMAP queue 1, item 8")
+IBP_NOT_PORTED = ("use_crown=False (the IBP path: role-logit bounds and attack "
+                  "forwards, fairify_tpu/verify/engine.py:51 and :615, and their "
+                  "family forms, sweep.py:1090 and :1099) is not ported yet: "
+                  "ROADMAP queue 2, K10")
+
 
 # ---------------------------------------------------------------------------
 # Certificate (KB)
@@ -83,27 +97,33 @@ def tied_diff_ub(A_pos, c_pos, A_neg, c_neg, lo, hi, shared_mask):
     ``A_pos``/``c_pos``: (B, Vp, d)/(B, Vp) upper form of the role that must
     be positive; ``A_neg``/``c_neg``: lower form of the role that must be
     negative; ``lo``/``hi``: (B, d) shared box.  Returns the (B, Vp, Vn)
-    bound matrix and its (B, Vp, Vn) magnitude (the concretized terms plus
-    both forms' coefficient magnitudes, against which the outward slack is
-    scaled); :func:`tied_diff_ub_keep` computes them.
+    bound matrix, the (B, d) largest coefficient magnitude |A_pos − A_neg|
+    per shared dim over all pairs (the branching score) and the (B, Vp,
+    Vn) magnitude (the concretized terms plus both forms' coefficient
+    magnitudes, against which the outward slack is scaled);
+    :func:`tied_diff_ub_keep` computes them.
     """
     alive = torch.zeros(A_pos.shape[:2] + A_neg.shape[1:2], dtype=torch.bool,
                         device=lo.device)
-    M, _coef, mag, _, _ = tied_diff_ub_keep(A_pos, c_pos, A_neg, c_neg, lo, hi,
-                                            shared_mask, alive)
-    return M, mag
+    M, coef, mag, _, _ = tied_diff_ub_keep(A_pos, c_pos, A_neg, c_neg, lo, hi,
+                                           shared_mask, alive)
+    return M, coef, mag
 
 
 def certify_impl(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
                  ra_mask, eps, valid, valid_pair, alpha_iters: int = 0,
                  with_scale: bool = False):
-    """Plain PyTorch version of KB: ``(certified (B,), margin (B,))``.
+    """Plain PyTorch version of KB: ``(certified (B,), score (B, d), margin
+    (B,))``, the JAX package's ``_certify_impl``.
 
     A box is certified iff every valid assignment pair has both flip
     directions killed, by a role bound or by the tied difference bound
-    (each form set widened with its own magnitude).  ``margin >= 0`` iff
-    certified; boxes without a valid pair get +FLT_MAX.  (The JAX version
-    also returns a branching score, an input of the not-yet-ported BaB.)
+    (each form set widened with its own magnitude); with ``alpha_iters >
+    0`` the role bounds and a second form set are α-CROWN's.  ``score``
+    is, per shared dim, the largest difference-form coefficient magnitude
+    over every form set, direction and assignment pair (the host
+    frontier's branching score).  ``margin >= 0`` iff certified; boxes
+    without a valid pair get +FLT_MAX.
 
     ``with_scale`` also returns each box's largest tied-bound magnitude over
     its valid pairs — the scale the outward slack is taken against, and so
@@ -118,17 +138,19 @@ def certify_impl(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
     ra_abs = lambda A: eps * (A.abs() * ra_mask).sum(-1)
     widen = lambda u, g: u + SOUND_SLACK_REL * g + SOUND_SLACK_ABS
     ub1 = ub2 = mag = None
+    score = torch.zeros_like(lo)
     for (Alx, clx, Aux, cux), (Alp, clp, Aup, cup) in zip(sets_x, sets_p):
         # Direction x⁺/x'⁻: needs f(x_a) − f(x'_b) > 0.
-        m1, g1 = tied_diff_ub(Aux, cux + pa_dot(Aux),
-                              Alp, clp + pa_dot(Alp) - ra_abs(Alp), lo, hi, shared)
+        m1, s1, g1 = tied_diff_ub(Aux, cux + pa_dot(Aux),
+                                  Alp, clp + pa_dot(Alp) - ra_abs(Alp), lo, hi, shared)
         # Direction x⁻/x'⁺: needs f(x'_b) − f(x_a) > 0 (matrix built [b, a]).
-        m2, g2 = tied_diff_ub(Aup, cup + pa_dot(Aup) + ra_abs(Aup),
-                              Alx, clx + pa_dot(Alx), lo, hi, shared)
+        m2, s2, g2 = tied_diff_ub(Aup, cup + pa_dot(Aup) + ra_abs(Aup),
+                                  Alx, clx + pa_dot(Alx), lo, hi, shared)
         w1 = widen(m1, g1)
         w2 = widen(m2, g2).transpose(-1, -2)
         ub1 = w1 if ub1 is None else torch.minimum(ub1, w1)
         ub2 = w2 if ub2 is None else torch.minimum(ub2, w2)
+        score = torch.maximum(score, torch.maximum(s1, s2))
         g = torch.maximum(g1, g2.transpose(-1, -2))
         mag = g if mag is None else torch.maximum(mag, g)
     t1_dead = t1_dead | (ub1 <= 0.0)
@@ -142,42 +164,60 @@ def certify_impl(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
     cert = ~possible.any(dim=-1).any(dim=-1)
     if with_scale:
         scale = torch.where(pair_ok, mag, torch.zeros_like(mag)).amax(dim=(-2, -1))
-        return cert, margin, scale
-    return cert, margin
+        return cert, score, margin, scale
+    return cert, score, margin
+
+
+def each_model(net, fn):
+    """``fn(net)`` for a single net; for a ``StackedMLP``, ``fn`` of every
+    model with each output tensor stacked on a leading model axis (the
+    plain versions' model loop)."""
+    if not isinstance(net, StackedMLP):
+        return fn(net)
+    return tuple(torch.stack(o) for o in zip(*(fn(m) for m in net.unstack())))
 
 
 def stage0_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
-                   ra_mask, eps: float, valid, valid_pair):
-    """KB: the stage-0 certificate of N boxes, one launch.
+                   ra_mask, eps: float, valid, valid_pair, alpha_iters: int = 0):
+    """KB: the certificate of N boxes, one launch.
 
     Role boxes (N, V, d), partition boxes (N, d), encoding tensors
     ``assign_vals`` (V, d), ``pa_mask``/``ra_mask`` (d,), ``valid`` (N, V)
-    and ``valid_pair`` (V, V) bool.  Returns ``(cert (N,) bool, margin (N,)
-    float32)``.  CPU tensors take :func:`certify_impl`; CUDA tensors launch
+    and ``valid_pair`` (V, V) bool.  Returns ``(cert (N,) bool, score (N,
+    d) float32, margin (N,) float32)`` (:func:`certify_impl`); for a
+    ``StackedMLP`` of M models every output gains a leading M axis (the
+    kernel's ``blockIdx.y``).  ``alpha_iters > 0`` runs α-CROWN.  CPU
+    tensors take :func:`certify_impl`; CUDA tensors launch
     ``csrc/stage0_certify.cu``.
     """
     if lo.device.type == "cpu":
-        return certify_impl(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals,
-                            pa_mask, ra_mask, eps, valid, valid_pair)
+        return each_model(net, lambda m: certify_impl(
+            m, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask, eps,
+            valid, valid_pair, alpha_iters))
     if net.layer_sizes[-1] != 1:
         raise ValueError("stage0_certify: the net must have one output logit")
-    params, dims = cuda_build.pack_net(net)
+    params, dims, M = cuda_build.pack_models(net)
     u8 = lambda t: t.to(torch.uint8).contiguous()
     ins = [t.contiguous() for t in (x_lo, x_hi, xp_lo, xp_hi, lo, hi,
                                     assign_vals, pa_mask, ra_mask)]
     vb, vp = u8(valid), u8(valid_pair)
     cuda_build.require_cuda(params, *ins, vb, vp)
     N, V = valid.shape
-    cert = torch.empty(N, dtype=torch.uint8, device=lo.device)
-    margin = torch.empty(N, dtype=torch.float32, device=lo.device)
+    d = lo.shape[1]
+    dev = lo.device
+    cert = torch.empty((M, N), dtype=torch.uint8, device=dev)
+    score = torch.empty((M, N, d), dtype=torch.float32, device=dev)
+    margin = torch.empty((M, N), dtype=torch.float32, device=dev)
     cuda_build.call("stage0_certify", "kb_stage0_certify",
                     cuda_build.ptr(params), dims, ctypes.c_int(net.depth),
                     *(cuda_build.ptr(t) for t in ins), ctypes.c_float(eps),
                     cuda_build.ptr(vb), cuda_build.ptr(vp), ctypes.c_int(N),
-                    ctypes.c_int(V), cuda_build.ptr(cert), cuda_build.ptr(margin),
+                    ctypes.c_int(V), ctypes.c_int(M), ctypes.c_int(int(alpha_iters)),
+                    cuda_build.ptr(cert), cuda_build.ptr(score), cuda_build.ptr(margin),
                     cuda_build.stream())
     stage0_certify.launches += 1
-    return cert.bool(), margin
+    out = (cert.bool(), score, margin)
+    return out if isinstance(net, StackedMLP) else tuple(t[0] for t in out)
 
 
 stage0_certify.launches = 0
@@ -257,26 +297,35 @@ def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok):
     ``xr``/``pr``: (N, S, V, d) candidates; ``cert``/``margin``: KB's
     outputs; ``ok`` (N,) rows counted in the histogram.  Returns ``(wit
     (N, 3) int32, reason (N,) int8, gap (N,) float32, stats (2, 14) int32,
-    fold int)``.
+    fold int)``.  For a ``StackedMLP`` every model attacks the same
+    candidates: ``cert``/``margin`` and every output but the fold gain a
+    leading model axis, and the fold covers all models' buffers.
     """
-    lx, lp = attack_logits(net, xr, pr)
-    found, wit = find_flips_impl(lx, lp, valid, valid_pair)
-    gap = attack_gap_impl(lx, lp, valid, valid_pair)
-    reason = (cert.to(torch.int8) + 2 * found.to(torch.int8))
-    stats = chunk_stats(margin, gap, ok)
+    def one(m, c, mg):
+        lx, lp = attack_logits(m, xr, pr)
+        found, wit = find_flips_impl(lx, lp, valid, valid_pair)
+        gap = attack_gap_impl(lx, lp, valid, valid_pair)
+        reason = (c.to(torch.int8) + 2 * found.to(torch.int8))
+        return wit, reason, gap, chunk_stats(mg, gap, ok)
+
+    if isinstance(net, StackedMLP):
+        outs = [one(m, c, mg) for m, c, mg in zip(net.unstack(), cert, margin)]
+        wit, reason, gap, stats = (torch.stack(o) for o in zip(*outs))
+    else:
+        wit, reason, gap, stats = one(net, cert, margin)
     return wit, reason, gap, stats, fold_int32(cert, wit, reason, stats)
 
 
 def attack_flips(net, xr, pr, valid, valid_pair, cert, margin, ok):
-    """KC: the stage-0 attack of N boxes, one launch (see
-    :func:`attack_flips_plain` for the contract).  CUDA tensors launch
-    ``csrc/attack_flips.cu``; the histogram and fold accumulate with
-    device atomics."""
+    """KC: the attack of N boxes, one launch (see :func:`attack_flips_plain`
+    for the contract, stacked nets included: the kernel's ``blockIdx.y``
+    is the model).  CUDA tensors launch ``csrc/attack_flips.cu``; the
+    histogram and fold accumulate with device atomics."""
     if xr.device.type == "cpu":
         return attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok)
     if net.layer_sizes[-1] != 1:
         raise ValueError("attack_flips: the net must have one output logit")
-    params, dims = cuda_build.pack_net(net)
+    params, dims, M = cuda_build.pack_models(net)
     u8 = lambda t: t.to(torch.uint8).contiguous()
     xr, pr, margin = xr.contiguous(), pr.contiguous(), margin.contiguous()
     vb, vp, cb, okb = u8(valid), u8(valid_pair), u8(cert), u8(ok)
@@ -284,24 +333,45 @@ def attack_flips(net, xr, pr, valid, valid_pair, cert, margin, ok):
     cuda_build.require_cuda(params, xr, pr, vb, vp, cb, margin, okb, edges)
     N, S, V, _ = xr.shape
     dev = xr.device
-    wit = torch.empty((N, 3), dtype=torch.int32, device=dev)
-    reason = torch.empty(N, dtype=torch.int8, device=dev)
-    gap = torch.empty(N, dtype=torch.float32, device=dev)
-    stats = torch.zeros((2, funnel_mod.N_BUCKETS), dtype=torch.int32, device=dev)
+    lead = (M,) if isinstance(net, StackedMLP) else ()
+    wit = torch.empty(lead + (N, 3), dtype=torch.int32, device=dev)
+    reason = torch.empty(lead + (N,), dtype=torch.int8, device=dev)
+    gap = torch.empty(lead + (N,), dtype=torch.float32, device=dev)
+    stats = torch.zeros(lead + (2, funnel_mod.N_BUCKETS), dtype=torch.int32, device=dev)
     fold = torch.zeros(1, dtype=torch.int32, device=dev)
     cuda_build.call("attack_flips", "kc_attack_flips",
                     cuda_build.ptr(params), dims, ctypes.c_int(net.depth),
                     cuda_build.ptr(xr), cuda_build.ptr(pr), cuda_build.ptr(vb),
                     cuda_build.ptr(vp), cuda_build.ptr(cb), cuda_build.ptr(margin),
                     cuda_build.ptr(okb), cuda_build.ptr(edges), ctypes.c_int(N),
-                    ctypes.c_int(S), ctypes.c_int(V), cuda_build.ptr(wit),
-                    cuda_build.ptr(reason), cuda_build.ptr(gap),
+                    ctypes.c_int(S), ctypes.c_int(V), ctypes.c_int(M),
+                    cuda_build.ptr(wit), cuda_build.ptr(reason), cuda_build.ptr(gap),
                     cuda_build.ptr(stats), cuda_build.ptr(fold), cuda_build.stream())
     attack_flips.launches += 1
     return wit, reason, gap, stats, int(fold.item())
 
 
 attack_flips.launches = 0
+
+
+def certify_attack(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
+                   ra_mask, eps: float, valid, valid_pair, xr, pr,
+                   alpha_iters: int = 0):
+    """Certificate + attack + flip detection of B boxes: the JAX package's
+    ``_certify_attack_kernel`` (row 15; vmapped over a stacked family,
+    ``_family_stage0_kernel``, row 7).  One KB launch
+    (:func:`stage0_certify`, α-CROWN when ``alpha_iters > 0``) and one KC
+    launch (:func:`attack_flips`, no histogram rows) on the card, their
+    plain versions on the CPU.  Returns ``(cert (B,) bool, score (B, d)
+    f32, found (B,) bool, wit (B, 3) int32, margin (B,) f32, gap (B,)
+    f32)``, each with a leading model axis for a ``StackedMLP``."""
+    cert, score, margin = stage0_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi,
+                                         assign_vals, pa_mask, ra_mask, eps, valid,
+                                         valid_pair, alpha_iters)
+    no_rows = torch.zeros(lo.shape[0], dtype=torch.bool, device=lo.device)
+    wit, reason, gap, _stats, _fold = attack_flips(net, xr, pr, valid, valid_pair,
+                                                   cert, margin, no_rows)
+    return cert, score, reason >= 2, wit, margin, gap
 
 
 # ---------------------------------------------------------------------------
@@ -1201,9 +1271,6 @@ def sign_boxes(enc: PairEncoding, lo, hi):
     return slo, shi
 
 
-MESH_NOT_PORTED = "mesh-sharded engine phases are not ported yet: ROADMAP queue 1, item 8"
-
-
 def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                      deadline_s: float, mesh=None):
     """Phase S (with Phase L inside): prove a uniform logit sign over each
@@ -1439,13 +1506,6 @@ def pair_lp_phase(net, enc: PairEncoding, roots_lo, roots_hi, verdicts, ces, nod
 # ---------------------------------------------------------------------------
 # The refinement engine: Phase A (PGD) and the device BaB
 # ---------------------------------------------------------------------------
-
-PHASE_NOT_PORTED = {
-    "host_frontier": "the host-frontier BaB loop (device_bab=False, "
-                     "use_crown=False or a mesh) is not ported yet: ROADMAP "
-                     "queue 2, K10",
-}
-
 
 @dataclass
 class Decision:
@@ -1696,6 +1756,135 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
                     settle(r, "unknown", reason="frontier:hard")
 
 
+def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
+                        main_deadline, verdicts, settle, nodes, leaves, cost_s):
+    """The host-frontier input-split BaB (``decide_many``'s batch loop,
+    fused branch): every still-undecided root's sub-boxes share one deque,
+    popped ``frontier_size`` at a time, one :func:`certify_attack` per
+    batch (KB + KC on the card) with ``bab_attack_samples`` candidates per
+    box from ``default_rng(cfg.seed)``; α-CROWN once a fifth of
+    ``deadline_s`` is spent.  Per uncertified box: an exactly replayed
+    flip settles its root SAT; more than ``max_nodes`` nodes settles it
+    unknown ('budget'); a zero-width box goes to :func:`decide_leaf`;
+    otherwise the box splits at the midpoints of its top 1–3 dims by
+    ``score·width`` (stable order; widest dim when every score is 0),
+    several dims at once when the frontier is underfull.  A root whose
+    boxes are all gone is UNSAT; at ``main_deadline`` the rest are unknown
+    ('deadline').  Each batch's time is split evenly over its boxes'
+    roots."""
+    R = roots_lo.shape[0]
+    F = cfg.frontier_size
+    dev = net.device
+    on = lambda a: torch.as_tensor(a, device=dev)
+    rng = np.random.default_rng(cfg.seed)
+    weights, biases = net.numpy_params()
+    branch_dims = _branch_dims(enc, roots_lo.shape[1])
+    av, pm, rm = (on(a) for a in enc_tensors(enc, roots_lo.shape[1]))
+    vpair = on(enc.valid_pair)
+    frontier = deque((np.asarray(roots_lo[r], dtype=np.int64),
+                      np.asarray(roots_hi[r], dtype=np.int64), r)
+                     for r in range(R) if verdicts[r] is None)
+    open_boxes = np.ones(R, dtype=np.int64)  # root boxes still in the frontier
+    while frontier:
+        if (time.perf_counter() - t0) > main_deadline:
+            for _, _, r in frontier:
+                settle(r, "unknown", reason="deadline")
+            break
+        t_iter = time.perf_counter()
+        # Pop a batch, dropping sub-boxes of roots that settled meanwhile.
+        blo_l, bhi_l, broot_l = [], [], []
+        while frontier and len(blo_l) < F:
+            l, h, r = frontier.popleft()
+            if verdicts[r] is not None:
+                continue
+            blo_l.append(l)
+            bhi_l.append(h)
+            broot_l.append(r)
+        if not blo_l:
+            break
+        batch = len(blo_l)
+        blo, bhi, broot = np.stack(blo_l), np.stack(bhi_l), np.array(broot_l)
+        for r in broot:
+            open_boxes[r] -= 1
+        np.add.at(nodes, broot, 1)
+        live = np.array([verdicts[r] is None for r in broot])
+        plo = _pad(blo, F).astype(np.float32)
+        phi = _pad(bhi, F).astype(np.float32)
+        x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, plo, phi)
+        use_alpha = cfg.alpha_iters > 0 and time.perf_counter() - t0 > 0.2 * deadline_s
+        xr, pr = build_attack_candidates(enc, rng, _pad(blo, F), _pad(bhi, F),
+                                         cfg.bab_attack_samples)
+        out = certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(plo),
+                             on(phi), av, pm, rm, float(enc.eps), on(valid), vpair,
+                             on(xr), on(pr),
+                             alpha_iters=cfg.alpha_iters if use_alpha else 0)
+        cert, score, found_all, wit_all, _margin, _gap = (t.cpu().numpy() for t in out)
+        certified = cert[:batch]
+        undecided = np.where(~certified & live)[0]
+        if undecided.size:
+            found, wit = found_all[undecided], wit_all[undecided]
+            for k in np.where(found)[0]:
+                r = int(broot[undecided[k]])
+                if verdicts[r] is not None:
+                    continue
+                s_, a, b = wit[k]
+                x = xr[undecided[k], s_, a].astype(np.int64)
+                xp = pr[undecided[k], s_, b].astype(np.int64)
+                if validate_pair(weights, biases, x, xp):
+                    settle(r, "sat", (x, xp))
+            for k in undecided:
+                r = int(broot[k])
+                if verdicts[r] is not None:
+                    continue
+                if nodes[r] > cfg.max_nodes:
+                    settle(r, "unknown", reason="budget")
+                    continue
+                l, h = blo[k], bhi[k]
+                widths = h[branch_dims] - l[branch_dims]
+                if widths.size == 0 or widths.max() == 0:
+                    leaves[r] += 1
+                    verdict, ce = decide_leaf(enc, weights, biases, l.copy(), l, h)
+                    if verdict == "sat":
+                        settle(r, "sat", ce)
+                    elif verdict == "unknown":
+                        settle(r, "unknown")
+                    continue
+                # Coefficient-aware branching: the dims whose width adds most
+                # to the difference bound's slack (score·width); several at
+                # once while the frontier is underfull.
+                sc = score[k][branch_dims] * widths
+                if float(sc.max()) <= 0:
+                    sc = widths.astype(np.float64)
+                n_dims = 1
+                if len(frontier) + 2 * undecided.size < F // 2:
+                    n_dims = 3 if len(frontier) + 4 * undecided.size < F // 4 else 2
+                order = np.argsort(-sc, kind="stable")
+                chosen = [int(branch_dims[j]) for j in order[:n_dims]
+                          if widths[j] > 0][:n_dims]
+                children = [(l, h)]
+                for dim in chosen:
+                    nxt = []
+                    for cl, ch in children:
+                        mid = (cl[dim] + ch[dim]) // 2
+                        left_hi = ch.copy()
+                        left_hi[dim] = mid
+                        right_lo = cl.copy()
+                        right_lo[dim] = mid + 1
+                        nxt += [(cl, left_hi), (right_lo, ch)]
+                    children = nxt
+                for cl, ch in children:
+                    frontier.append((cl, ch, r))
+                open_boxes[r] += len(children)
+        np.add.at(cost_s, broot, (time.perf_counter() - t_iter) / batch)
+        # Roots whose sub-tree emptied without a counterexample are fair.
+        for r in set(int(x) for x in broot):
+            if verdicts[r] is None and open_boxes[r] == 0:
+                settle(r, "unsat")
+    for r in range(R):
+        if verdicts[r] is None:
+            settle(r, "unsat" if open_boxes[r] == 0 else "unknown", reason="deadline")
+
+
 def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 deadline_s: Optional[float] = None, mesh=None,
                 attacked: bool = False) -> list:
@@ -1708,12 +1897,15 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
     inside (:func:`uniform_sign_bab`, ``sign_bab_frac`` of the deadline);
     Phase E0, the lattice scan of the roots of at most
     ``lattice_first_max`` points (``lattice_exhaustive``); the
-    device-resident BaB (:func:`device_bab_phase`) on what is left under
+    device-resident BaB (:func:`device_bab_phase`) — or, with
+    ``device_bab=False`` or no protected attribute, the host-frontier BaB
+    (:func:`host_frontier_phase`) — on what is left under
     ``main_deadline``; Phase P, the pair LP BaB (:func:`pair_lp_phase`),
     on the roots still unknown under ``pair_deadline``; Phase E
     (:func:`lattice_phase`) on the enumerable roots still unknown.  The
-    host-frontier loop raises ``NotImplementedError`` naming its ROADMAP
-    item where it would run on an open root.  ``deadline_s`` defaults to
+    IBP path (``use_crown=False``) and a mesh raise ``NotImplementedError``
+    naming their ROADMAP items where a root would reach the BaB.
+    ``deadline_s`` defaults to
     ``soft_timeout_s × n_roots``.  Returns one :class:`Decision` per root,
     with per-root attributed ``t_attack``, ``t_sign``, ``t_lp``,
     ``t_bab``, ``t_pair`` and ``t_lattice``.
@@ -1810,10 +2002,16 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 unknown_reasons[r] = reason or "frontier"
 
     if open_roots:
-        if not (cfg.device_bab and cfg.use_crown and mesh is None and len(enc.pa_idx)):
-            raise NotImplementedError(PHASE_NOT_PORTED["host_frontier"])
-        device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, main_deadline,
-                         verdicts, settle, nodes, leaves, cost_s)
+        if not cfg.use_crown:
+            raise NotImplementedError(IBP_NOT_PORTED)
+        if mesh is not None:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        if cfg.device_bab and len(enc.pa_idx):
+            device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, main_deadline,
+                             verdicts, settle, nodes, leaves, cost_s)
+        else:
+            host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
+                                main_deadline, verdicts, settle, nodes, leaves, cost_s)
     def mark(phase: str) -> None:
         for r in range(R):
             if decided_by[r] is None and verdicts[r] in ("sat", "unsat"):

@@ -1,12 +1,14 @@
 """Per-partition sound pruning, batched over the partition grid.
 
-Port of the mega path of ``fairify_tpu/verify/pruning.py:sound_prune_grid``
-(``keep_sim=False``, ``mega_chunks > 0``): per partition, simulation
-statistics (candidate dead neurons, activation frequency) and widened IBP
-bounds, then bound-dead masks (candidacy required), the keep-one guard and
-the per-layer bound-looseness sums.  One device launch per segment — the
-hand-written kernel KA (``csrc/sim_and_bounds.cu``) on a CUDA device, its
-plain PyTorch version :func:`sim_and_bounds_plain` on the CPU.
+Port of ``fairify_tpu/verify/pruning.py:sound_prune_grid``: per
+partition, simulation statistics (candidate dead neurons, activation
+frequency) and widened IBP bounds, then bound-dead masks (candidacy
+required), the keep-one guard and the per-layer bound-looseness sums.  One
+device launch per segment on the mega path, one per grid chunk on the
+chunk loop — the hand-written kernel KA (``csrc/sim_and_bounds.cu``) on a
+CUDA device, its plain PyTorch version :func:`sim_and_bounds_plain` on the
+CPU; ``keep_sim`` regenerates the samples with K12's row generator
+(:func:`sim_rows`, ``csrc/sim_rows.cu``).
 
 The exact-rational certify pass (``exact_certify=True``) is not ported yet
 (ROADMAP queue 1); the derived masks feed only the CSV's compression and
@@ -24,7 +26,7 @@ import torch
 from fairify_tpu_torch.ops import interval as interval_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, activation_stats, simulate_boxes
-from fairify_tpu_torch.partition.grid import segment_spans
+from fairify_tpu_torch.partition.grid import chunk_spans, pad_rows, segment_spans
 from fairify_tpu_torch.utils import cuda_build
 from fairify_tpu_torch.utils.prng import grid_keys
 
@@ -46,7 +48,7 @@ class PruneResult:
     pos_prob: List[np.ndarray]  # activation frequency per neuron
     ws_lb: List[np.ndarray]
     ws_ub: List[np.ndarray]
-    sim: Optional[np.ndarray]  # always None on the mega path
+    sim: Optional[np.ndarray]  # (P, sim_size, d) with keep_sim, else None
     sv_time_s: float
     looseness: Optional[np.ndarray] = None  # (L,) sum of (ub - lb) per layer
 
@@ -108,42 +110,77 @@ def sim_and_bounds(net, keys, lo, hi, ok, sim_size: int):
 sim_and_bounds.launches = 0
 
 
+def sim_rows(keys, lo, hi, sim_size: int):
+    """K12's row generator: the ``sim_size`` simulation samples (N, S, d)
+    f32 of N partitions, regenerated from their keys (the rows of the
+    prune pass and of KD).  CPU tensors take
+    :func:`utils.prng.simulate_boxes`; CUDA tensors launch
+    ``csrc/sim_rows.cu``."""
+    if lo.device.type == "cpu":
+        return simulate_boxes(keys, lo, hi, sim_size)
+    k32 = cuda_build.u32_keys(keys)
+    lo, hi = lo.contiguous(), hi.contiguous()
+    cuda_build.require_cuda(k32, lo, hi)
+    N, d = lo.shape
+    if N > 65535:
+        raise ValueError("sim_rows: at most 65,535 partitions per launch")
+    out = torch.empty((N, sim_size, d), dtype=torch.float32, device=lo.device)
+    cuda_build.call("sim_rows", "k12_sim_rows", cuda_build.ptr(k32), cuda_build.ptr(lo),
+                    cuda_build.ptr(hi), ctypes.c_int(N), ctypes.c_int(d),
+                    ctypes.c_int(sim_size), cuda_build.ptr(out), cuda_build.stream())
+    sim_rows.launches += 1
+    return out
+
+
+sim_rows.launches = 0
+
+
 def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
                      seed: int, chunk: int, mega_chunks: int,
-                     index_offset: int = 0) -> PruneResult:
-    """Sound pruning for a (P, d) box grid, one KA launch per segment.
+                     index_offset: int = 0, keep_sim: bool = False) -> PruneResult:
+    """Sound pruning for a (P, d) box grid, without the exact pass
+    (``exact_certify=False``).
 
-    The JAX package's mega path without the exact pass
-    (``exact_certify=False, keep_sim=False``).  Segments group
-    ``mega_chunks`` chunks of ``chunk`` rows, as in the JAX package
-    (``partition.grid.segment_spans``); each partition's key is
-    ``grid_keys(seed, global index)`` (row index plus ``index_offset``,
-    the start of a partition span), so masks are segment invariant.
-    Only real rows are launched: the JAX package's row and chunk-axis
-    padding exists to reuse compiled executables and never changes a real
-    row's result.
+    Each partition's key is ``grid_keys(seed, global index)`` (row index
+    plus ``index_offset``, the start of a partition span), so masks do not
+    depend on how the grid is cut.  ``mega_chunks > 0`` (and ``keep_sim``
+    False, the sweep's call): one KA launch per segment of ``mega_chunks``
+    chunks of ``chunk`` rows (``_mega_sim_and_bounds``); only real rows
+    are launched, since the JAX package's padding exists to reuse compiled
+    executables and never changes a real row's result.  Otherwise the
+    chunk loop (``_sim_and_bounds``, row 1): one KA launch per chunk,
+    padded to ``chunk`` rows (last row repeated), the per-layer looseness
+    summed in f64 on the host over the real rows, as the JAX package does;
+    with ``keep_sim`` the samples (P, sim_size, d) are regenerated from the
+    same keys by K12's row generator (:func:`sim_rows`).
     """
-    if mega_chunks <= 0:
-        raise NotImplementedError(
-            "only the mega path (mega_chunks > 0) of sound_prune_grid is "
-            "ported; the chunk loop is ROADMAP queue 2 (K10/K12)")
     dev = net.device
     P = lo.shape[0]
-    _, segs = segment_spans(P, chunk, mega_chunks)
-    parts = []
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    parts, sims = [], []
     loos = None
-    for seg_s, seg_e, _chunks in segs:
-        n = seg_e - seg_s
-        keys = grid_keys(seed, index_offset + seg_s, n, device=dev)
-        lo_t = torch.as_tensor(np.asarray(lo[seg_s:seg_e], np.float32), device=dev)
-        hi_t = torch.as_tensor(np.asarray(hi[seg_s:seg_e], np.float32), device=dev)
-        ok = torch.ones(n, dtype=torch.bool, device=dev)
-        cand, pos, ws_lb, ws_ub, seg_loos = sim_and_bounds(net, keys, lo_t, hi_t,
-                                                           ok, sim_size)
-        parts.append([[t.cpu().numpy() for t in group]
+    if mega_chunks > 0 and not keep_sim:
+        _, segs = segment_spans(P, chunk, mega_chunks)
+        pad, blocks = 0, [(s, e) for s, e, _chunks in segs]
+    else:
+        pad, blocks = chunk_spans(P, chunk)
+    for s, e in blocks:
+        n, rows = e - s, max(pad, e - s)
+        keys = grid_keys(seed, index_offset + s, rows, device=dev)
+        lo_t, hi_t = as_dev(pad_rows(lo[s:e], rows)), as_dev(pad_rows(hi[s:e], rows))
+        ok = torch.arange(rows, device=dev) < n
+        cand, pos, ws_lb, ws_ub, blk_loos = sim_and_bounds(net, keys, lo_t, hi_t, ok,
+                                                           sim_size)
+        parts.append([[t[:n].cpu().numpy() for t in group]
                       for group in (cand, pos, ws_lb, ws_ub)])
-        per = seg_loos.cpu().numpy().astype(np.float64)
+        if pad:
+            per = np.asarray([(ub.astype(np.float64) - lb.astype(np.float64)).sum()
+                              for lb, ub in zip(parts[-1][2], parts[-1][3])])
+        else:
+            per = blk_loos.cpu().numpy().astype(np.float64)
         loos = per if loos is None else loos + per
+        if keep_sim:
+            sims.append(sim_rows(keys[:n], lo_t[:n], hi_t[:n], sim_size).cpu().numpy())
     L = net.depth
     cat = lambda g: [np.concatenate([p[g][l] for p in parts]) for l in range(L)]
     candidates, pos_prob, ws_lb, ws_ub = cat(0), cat(1), cat(2), cat(3)
@@ -162,7 +199,8 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     surviving = [np.maximum(c - m, 0.0) for c, m in zip(candidates, certified)]
     return PruneResult(candidates=candidates, surviving=surviving,
                        b_deads=b_deads, s_deads=s_deads, st_deads=st_deads,
-                       pos_prob=pos_prob, ws_lb=ws_lb, ws_ub=ws_ub, sim=None,
+                       pos_prob=pos_prob, ws_lb=ws_lb, ws_ub=ws_ub,
+                       sim=np.concatenate(sims) if keep_sim else None,
                        sv_time_s=0.0, looseness=loos)
 
 

@@ -1,17 +1,26 @@
 """The partition sweep: grid → prune → certify + attack → parity → the
 refinement tail → ledger.
 
-Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
-(``mega_chunks > 0``, CROWN certificates, no mesh):
+Port of ``fairify_tpu/verify/sweep.py:verify_model`` and of its stacked
+family stage 0 (``stage0_families``), CROWN certificates, no mesh.  Each
+pass runs one launch per segment of ``mega_chunks`` grid chunks (the mega
+path) or, with ``mega_chunks = 0``, one per grid chunk padded to the chunk
+size (the chunk loop); both give the same verdicts, witnesses, ledger and
+histograms.
 
-* **Prune pass** — :func:`verify.pruning.sound_prune_grid`, one KA launch
-  per segment (``csrc/sim_and_bounds.cu``).
-* **Stage 0** — per segment of ``mega_chunks`` grid chunks, one KB launch
-  (certificate, ``csrc/stage0_certify.cu``) and one KC launch (attack,
-  flips, histograms, fold, ``csrc/attack_flips.cu``) over the stacked
-  chunks plus the integrity canary chunk; the host checks the fold and the
-  canary, then replays every flip exactly before it counts as SAT.
-* **Parity pass** — one KD launch per segment (``csrc/parity.cu``).
+* **Prune pass** — :func:`verify.pruning.sound_prune_grid`: KA
+  (``csrc/sim_and_bounds.cu``).
+* **Stage 0** — one KB launch (certificate, ``csrc/stage0_certify.cu``)
+  and one KC launch (attack, flips, histograms, fold,
+  ``csrc/attack_flips.cu``) per segment (the stacked chunks plus the
+  integrity canary chunk; the host checks the fold and the canary) or per
+  chunk (:func:`stage0_block`; histograms binned on the host); the host
+  replays every flip exactly before it counts as SAT.  For a stacked
+  family (:func:`stage0_families`) the same launches carry a model axis:
+  every model attacks the same candidates and replays its witnesses on its
+  own weights; :func:`verify_model` then takes each model's result as
+  ``stage0=`` and skips its own stage-0 launches.
+* **Parity pass** — KD (``csrc/parity.cu``).
 * **stage0_pgd** — the deep PGD attack (K5, ``csrc/pgd_attack.cu``) over
   every stage-0 leftover, one launch per grid chunk, then the exact
   flip-slab search from the near-zero seeds within a quarter of the
@@ -25,8 +34,10 @@ Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
   (K9a ``lattice_scan``, K9c ``lattice_scan_ra`` for RA queries, K9b
   ``lattice_signs`` on a margin overflow: ``csrc/lattice_scan.cu``); the
   device BaB (K6, ``csrc/bab_segment.cu``; segment 0 plain CROWN, later
-  segments α-CROWN); Phase P, the pair LP BaB (K8b again); Phase E, the
-  lattice scan of the enumerable roots still unknown (K9 again).
+  segments α-CROWN) or, with ``device_bab=False``, the host-frontier BaB
+  (KB with α and the branching score, and KC, per frontier batch); Phase
+  P, the pair LP BaB (K8b again); Phase E, the lattice scan of the
+  enumerable roots still unknown (K9 again).
 * **Heuristic retry** — each still-unknown partition is re-decided on its
   heuristically pruned net (:func:`ops.heuristic.heuristic_prune`,
   :func:`verify.engine.decide_box`); a SAT must replay on the original net,
@@ -38,9 +49,9 @@ Port of ``fairify_tpu/verify/sweep.py:verify_model`` on its mega path
   phase, the partitions it decided on the first pass (``engine_decided``).
 
 Launches run synchronously (the async pipeline, supervisor and obs spans
-are ROADMAP queue 1, item 7).  What the port does not run yet — the
-engine's host frontier, the SMT tier — raises ``NotImplementedError``
-naming its ROADMAP item where it would run.
+are ROADMAP queue 1, item 7).  What the port does not run yet — the IBP
+path (``use_crown=False``), meshes, the SMT tier — raises
+``NotImplementedError`` naming its ROADMAP item where it would run.
 """
 from __future__ import annotations
 
@@ -55,7 +66,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from fairify_tpu_torch.models.mlp import predict_np
+from fairify_tpu_torch.models.mlp import StackedMLP, predict_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
 from fairify_tpu_torch.ops import heuristic as heur_ops
 from fairify_tpu_torch.ops import lattice as lattice_ops
@@ -137,22 +148,15 @@ def build_partitions(cfg: SweepConfig):
 
 
 def check_supported(cfg: SweepConfig, mesh=None) -> None:
-    """Reject every configuration the stage-0 slice does not run.
+    """Reject every configuration the port does not run yet.
 
     Each message names the ROADMAP item that will port it; nothing is
     silently ignored.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded sweeps are not ported yet: ROADMAP queue 1, item 8")
-    if cfg.mega_chunks <= 0:
-        raise NotImplementedError(
-            "mega_chunks=0 (the per-chunk launch loop) is not ported yet: "
-            "ROADMAP queue 2, K10")
+        raise NotImplementedError(engine.MESH_NOT_PORTED)
     if not cfg.engine.use_crown:
-        raise NotImplementedError(
-            "use_crown=False (the IBP stage-0 path) is not ported yet: "
-            "ROADMAP queue 2, K10")
+        raise NotImplementedError(engine.IBP_NOT_PORTED)
     if cfg.exact_certify_masks:
         raise NotImplementedError(pruning.EXACT_CERTIFY_NOT_PORTED)
     if cfg.inject_faults:
@@ -165,8 +169,16 @@ def check_supported(cfg: SweepConfig, mesh=None) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Stage 0: certify + attack per segment (KB + KC)
+# Stage 0: certify + attack (KB + KC), per segment or per chunk, for one
+# net or a stacked family
 # ---------------------------------------------------------------------------
+
+
+def _model_params(net) -> list:
+    """Host ``(weights, biases)`` of each model (one for a single net)."""
+    if isinstance(net, StackedMLP):
+        return [net.numpy_params(m) for m in range(net.n_models)]
+    return [net.numpy_params()]
 
 
 def mega_chunk_inputs(enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
@@ -207,7 +219,11 @@ def mega_segment(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
     ``host`` holds the packed buffers the JAX package's mega kernel returns
     — ``cert (C, P) bool``, ``wit (C, P, 3) int32``, ``reason (C, P) int8``,
     ``stats (2, 14) int32`` and, with integrity on, the device fold
-    ``csum`` — with C the real chunks plus the canary.
+    ``csum`` — with C the real chunks plus the canary.  For a stacked
+    family (``_mega_family_stage0_kernel``) one KB and one KC launch cover
+    chunks × models × rows: ``cert (C, M, P)``, ``wit (C, M, P, 3)``,
+    ``reason (C, M, P)``, ``stats (M, 2, 14)``, and the fold covers every
+    model's buffers.
     """
     dev = net.device
     (x_lo, x_hi, xp_lo, xp_hi, plo, phi, valid, xr, pr,
@@ -219,35 +235,72 @@ def mega_segment(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
     flat = lambda a: on_dev(a.reshape((C * P,) + a.shape[2:]))
     ok = (np.arange(P)[None, :] < nv[:, None]).reshape(-1)
     valid_t, vpair = flat(valid), on_dev(enc.valid_pair)
-    cert, margin = engine.stage0_certify(
+    cert, _score, margin = engine.stage0_certify(
         net, flat(x_lo), flat(x_hi), flat(xp_lo), flat(xp_hi), flat(plo),
         flat(phi), on_dev(av), on_dev(pm), on_dev(rm), float(enc.eps),
         valid_t, vpair)
     wit, reason, _gap, stats, fold = engine.attack_flips(
         net, flat(xr), flat(pr), valid_t, vpair, cert, margin, on_dev(ok))
-    host = {"cert": cert.reshape(C, P).cpu().numpy(),
-            "wit": wit.reshape(C, P, 3).cpu().numpy(),
-            "reason": reason.reshape(C, P).cpu().numpy(),
-            "stats": stats.cpu().numpy()}
+
+    def chunk_major(t):  # (M?, C*P, ...) -> (C, M?, P, ...)
+        a = t.cpu().numpy()
+        lead = a.shape[:1] if isinstance(net, StackedMLP) else ()
+        a = a.reshape(lead + (C, P) + a.shape[len(lead) + 1:])
+        return np.moveaxis(a, 0, 1) if lead else a
+
+    host = {"cert": chunk_major(cert), "wit": chunk_major(wit),
+            "reason": chunk_major(reason), "stats": stats.cpu().numpy()}
     if cfg.integrity:
         host["csum"] = np.int32(fold)
     return host, {"chunks": chunks, "xr": xr, "pr": pr}
 
 
-def mega_segment_decode(host, ctx, weights, biases):
-    """Per-chunk ``(unsat, sat, witnesses)``: flips (``reason >= 2``) count
-    as SAT only after their exact ``validate_pair`` replay."""
+def decode_flips(cert, found, wit, xr, pr, weights, biases):
+    """``(unsat, sat, witnesses)`` of one chunk of one model: a flip counts
+    as SAT only after its exact ``validate_pair`` replay on the model's own
+    weights."""
+    witnesses = engine.extract_witnesses(found, wit, xr, pr, weights,
+                                         biases) if found.any() else {}
+    sat = np.zeros(cert.shape[0], dtype=bool)
+    sat[list(witnesses)] = True
+    return cert, sat, witnesses
+
+
+def mega_segment_decode(host, ctx, models):
+    """Per chunk, per model ``(unsat, sat, witnesses)`` (flips are
+    ``reason >= 2``); ``models`` the per-model host parameters
+    (:func:`_model_params`).  Rows keep the padding; callers trim."""
     cert, wit, reason = host["cert"], host["wit"], host["reason"]
-    out = []
-    for ci in range(len(ctx["chunks"])):
-        found = reason[ci] >= 2
-        witnesses = engine.extract_witnesses(
-            found, wit[ci], ctx["xr"][ci], ctx["pr"][ci],
-            weights, biases) if found.any() else {}
-        sat = np.zeros(cert.shape[1], dtype=bool)
-        sat[list(witnesses)] = True
-        out.append((cert[ci], sat, witnesses))
-    return out
+    if cert.ndim == 2:  # a single net: a model axis of one
+        cert, wit, reason = cert[:, None], wit[:, None], reason[:, None]
+    return [[decode_flips(cert[ci, m], reason[ci, m] >= 2, wit[ci, m], ctx["xr"][ci],
+                          ctx["pr"][ci], *models[m]) for m in range(len(models))]
+            for ci in range(len(ctx["chunks"]))]
+
+
+def stage0_block(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, rng_seed: int,
+                 pad_to: int):
+    """One grid chunk's stage 0 (``_stage0_block_submit`` + ``_decode``,
+    fused branch; ``_family_block_*`` for a stacked family): the chunk is
+    padded to ``pad_to`` rows BEFORE the attack candidates are drawn from
+    ``default_rng(rng_seed)``, then one :func:`engine.certify_attack` (one
+    KB + one KC launch).  Returns per model ``(unsat, sat, witnesses,
+    margin, gap)``, padding rows included."""
+    lo, hi = grid_mod.pad_rows(lo, pad_to), grid_mod.pad_rows(hi, pad_to)
+    flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
+    x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, flo, fhi)
+    xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(rng_seed),
+                                            lo, hi, cfg.engine.attack_samples)
+    on = lambda a: torch.as_tensor(a, device=net.device)
+    av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
+    out = engine.certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(flo),
+                                on(fhi), on(av), on(pm), on(rm), float(enc.eps), on(valid),
+                                on(enc.valid_pair), on(xr), on(pr), alpha_iters=0)
+    cert, _score, found, wit, margin, gap = (t.cpu().numpy() for t in out)
+    if not isinstance(net, StackedMLP):
+        cert, found, wit, margin, gap = (a[None] for a in (cert, found, wit, margin, gap))
+    return [decode_flips(cert[m], found[m], wit[m], xr, pr, w, b) + (margin[m], gap[m])
+            for m, (w, b) in enumerate(_model_params(net))]
 
 
 def integrity_failure(detector: str) -> dict:
@@ -261,36 +314,102 @@ def integrity_failure(detector: str) -> dict:
             "detail": f"{detector} mismatch (launch.decode)", "retries": 0}
 
 
+def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
+                    seed_offset: int = 0, stats=None, mesh=None, failed=None):
+    """Stage 0 of several stacked families (``stage0_families``): one
+    result list per entry of ``stacks``, each holding per model ``(unsat
+    (P,), sat (P,), witnesses {p: (x, x')})``.
+
+    ``mega_chunks > 0``: one KB + one KC launch per (family, segment) over
+    chunks × models × rows (:func:`mega_segment`); with integrity on, a
+    tripped fold or canary check leaves that (family, segment) undecided
+    (and, when ``failed`` is a dict, records the failure of each of its
+    rows — the single-model caller's contract).  ``mega_chunks = 0``: one
+    :func:`stage0_block` per (family, chunk).  Every model attacks the same
+    candidates, drawn once per chunk from ``default_rng(engine.seed +
+    seed_offset + chunk_start)``, and each model's witnesses replay on its
+    own weights.  ``stats`` (a dict) receives one ``StageStats`` per
+    ``(family index, model index)``: the kernel's histograms on the mega
+    path, host-binned margins and gaps on the chunk path — equal bit for
+    bit.  A single (unstacked) net in ``stacks`` counts as one model.
+    Launches run synchronously.
+    """
+    if mesh is not None:
+        raise NotImplementedError(engine.MESH_NOT_PORTED)
+    if not cfg.engine.use_crown:
+        raise NotImplementedError(engine.IBP_NOT_PORTED)
+    P = lo.shape[0]
+    n_models = [net.n_models if isinstance(net, StackedMLP) else 1 for net in stacks]
+    accs = [[(np.zeros(P, bool), np.zeros(P, bool), {}) for _ in range(M)]
+            for M in n_models]
+    bank = lambda gi, m: (stats.setdefault((gi, m), funnel_mod.StageStats())
+                          if stats is not None else funnel_mod.StageStats())
+
+    def store(gi, m, s, e, u, sa, w):
+        unsat, sat, wits = accs[gi][m]
+        unsat[s:e], sat[s:e] = u[: e - s], sa[: e - s]
+        wits.update({s + k: v for k, v in w.items() if k < e - s})
+
+    if cfg.mega_chunks > 0:
+        step, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
+        for gi, net in enumerate(stacks):
+            models = _model_params(net)
+            for seg_s, seg_e, chunks in segs:
+                host, ctx = mega_segment(net, enc, lo, hi, cfg, chunks, step, seed_offset)
+                if cfg.integrity:
+                    tripped = integrity_mod.verify_segment(host)
+                    if tripped is not None:
+                        if failed is not None:
+                            rec = integrity_failure(tripped)
+                            failed.update({i: rec for i in range(seg_s, seg_e)})
+                        continue
+                seg_stats = host["stats"].reshape((-1,) + host["stats"].shape[-2:])
+                for m in range(n_models[gi]):
+                    bank(gi, m).add_packed(seg_stats[m])
+                for (s, e), per_model in zip(chunks, mega_segment_decode(host, ctx,
+                                                                         models)):
+                    for m, (u, sa, w) in enumerate(per_model):
+                        store(gi, m, s, e, u, sa, w)
+    else:
+        step, spans = grid_mod.chunk_spans(P, cfg.grid_chunk)
+        for gi, net in enumerate(stacks):
+            for s, e in spans:
+                per_model = stage0_block(net, enc, lo[s:e], hi[s:e], cfg,
+                                         cfg.engine.seed + seed_offset + s, step)
+                for m, (u, sa, w, margin, gap) in enumerate(per_model):
+                    bank(gi, m).add_values(margin[: e - s], gap[: e - s])
+                    store(gi, m, s, e, u, sa, w)
+    return accs
+
+
+def stage0_family(stacked, enc: PairEncoding, lo, hi, cfg: SweepConfig,
+                  seed_offset: int = 0, stats=None):
+    """Stage 0 of one stacked family (``_stage0_family``): per model
+    ``(unsat, sat, witnesses)``; ``stats`` as in :func:`stage0_families`
+    (keys ``(0, m)``)."""
+    return stage0_families([stacked], enc, lo, hi, cfg, seed_offset=seed_offset,
+                           stats=stats)[0]
+
+
 def stage0_certify_and_attack(net, enc: PairEncoding, lo, hi, cfg: SweepConfig,
                               stats, failed, seed_offset: int = 0):
-    """Root certificates + attack for the whole grid, one segment at a time.
+    """Root certificates + attack for the whole grid of one net: one
+    KB + KC pair per segment (``mega_chunks > 0``) or per grid chunk
+    (``mega_chunks = 0``), :func:`stage0_families` with one model.
 
     Returns ``(unsat (P,), sat (P,), witnesses {p: (x, x')})``; ``stats``
-    (an ``obs.funnel.StageStats``) accumulates the device histograms;
-    ``failed`` (dict) receives the failure record of every partition of a
-    segment whose fold or canary check trips.  ``seed_offset`` (a partition
-    span's start) offsets the attack streams, as in the JAX package.
+    (an ``obs.funnel.StageStats``) accumulates the margin and gap
+    histograms; ``failed`` (dict) receives the failure record of every
+    partition of a segment whose fold or canary check trips.
+    ``seed_offset`` (a partition span's start) offsets the attack streams,
+    as in the JAX package.
     """
-    P = lo.shape[0]
-    step, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
-    weights, biases = net.numpy_params()
-    unsat = np.zeros(P, dtype=bool)
-    sat = np.zeros(P, dtype=bool)
-    witnesses: Dict[int, tuple] = {}
-    for seg_s, seg_e, chunks in segs:
-        host, ctx = mega_segment(net, enc, lo, hi, cfg, chunks, step, seed_offset)
-        if cfg.integrity:
-            tripped = integrity_mod.verify_segment(host)
-            if tripped is not None:
-                rec = integrity_failure(tripped)
-                failed.update({i: rec for i in range(seg_s, seg_e)})
-                continue
-        stats.add_packed(host["stats"])
-        for (s, e), (u, sa, w) in zip(chunks, mega_segment_decode(host, ctx, weights,
-                                                                  biases)):
-            unsat[s:e], sat[s:e] = u[: e - s], sa[: e - s]
-            witnesses.update({s + k: v for k, v in w.items() if k < e - s})
-    return unsat, sat, witnesses
+    fam_stats: dict = {}
+    (res,) = stage0_families([net], enc, lo, hi, cfg, seed_offset=seed_offset,
+                             stats=fam_stats, failed=failed)[0]
+    if (0, 0) in fam_stats:
+        stats.merge(fam_stats[(0, 0)])
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -340,38 +459,14 @@ def parity(net, keys, lo, hi, alive, sim_size: int):
 
 parity.launches = 0
 
-def sim_rows(keys, lo, hi, sim_size: int):
-    """K12's row generator: the ``sim_size`` simulation samples (N, S, d)
-    f32 of N partitions, regenerated from their keys (the rows of the
-    prune pass and of KD).  CPU tensors take
-    :func:`utils.prng.simulate_boxes`; CUDA tensors launch
-    ``csrc/sim_rows.cu``."""
-    if lo.device.type == "cpu":
-        return simulate_boxes(keys, lo, hi, sim_size)
-    k32 = cuda_build.u32_keys(keys)
-    lo, hi = lo.contiguous(), hi.contiguous()
-    cuda_build.require_cuda(k32, lo, hi)
-    N, d = lo.shape
-    if N > 65535:
-        raise ValueError("sim_rows: at most 65,535 partitions per launch")
-    out = torch.empty((N, sim_size, d), dtype=torch.float32, device=lo.device)
-    cuda_build.call("sim_rows", "k12_sim_rows", cuda_build.ptr(k32), cuda_build.ptr(lo),
-                    cuda_build.ptr(hi), ctypes.c_int(N), ctypes.c_int(d),
-                    ctypes.c_int(sim_size), cuda_build.ptr(out), cuda_build.stream())
-    sim_rows.launches += 1
-    return out
-
-
-sim_rows.launches = 0
-
 
 def parity_resim(weights, biases, dead, key, lo_p, hi_p, sim_size: int) -> float:
     """Pruned-vs-original parity of ONE partition whose masks changed after
     the parity pass (the heuristic retry): its ``sim_size`` samples (one
-    :func:`sim_rows` launch on ``key``'s device) through two host f64
+    :func:`verify.pruning.sim_rows` launch on ``key``'s device) through two host f64
     forwards."""
     box = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=key.device)[None]
-    sim = sim_rows(key[None], box(lo_p), box(hi_p), sim_size)[0].cpu().numpy()
+    sim = pruning.sim_rows(key[None], box(lo_p), box(hi_p), sim_size)[0].cpu().numpy()
     return float((predict_np(weights, biases, sim)
                   == predict_np(weights, biases, sim, dead=dead)).mean())
 
@@ -383,7 +478,7 @@ KERNELS = {
     "parity": parity,
     "pgd_attack": engine.pgd_attack_kernel,
     "bab_segment": engine.bab_segment,
-    "sim_rows": sim_rows,
+    "sim_rows": pruning.sim_rows,
     "sign_bound": engine.sign_bound,
     "inter_bounds": engine.inter_bounds,
     "role_logits": engine.sample_role_logits,
@@ -403,20 +498,27 @@ def launch_counts() -> Dict[str, int]:
 
 
 def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0):
-    """The grid's parity column, one KD launch per segment (keys of the
-    global partition index: row plus ``index_offset``)."""
+    """The grid's parity column (keys of the global partition index: row
+    plus ``index_offset``): one KD launch per segment, or with
+    ``mega_chunks = 0`` one per grid chunk padded to the chunk size
+    (``_parity_grid_from_keys``, row 10), alive masks padded like the
+    boxes."""
     P = lo.shape[0]
     dev = net.device
     out = np.zeros(P, dtype=np.float32)
-    _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
-    for seg_s, seg_e, _chunks in segs:
-        keys = grid_keys(cfg.seed, index_offset + seg_s, seg_e - seg_s, device=dev)
-        alive = [torch.as_tensor(1.0 - d[seg_s:seg_e], dtype=torch.float32,
-                                 device=dev) for d in prune.st_deads[:-1]]
-        as_f32 = lambda a: torch.as_tensor(np.asarray(a[seg_s:seg_e], np.float32),
-                                           device=dev)
-        out[seg_s:seg_e] = parity(net, keys, as_f32(lo), as_f32(hi), alive,
-                                  cfg.sim_size).cpu().numpy()
+    if cfg.mega_chunks > 0:
+        _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
+        pad, blocks = 0, [(s, e) for s, e, _chunks in segs]
+    else:
+        pad, blocks = grid_mod.chunk_spans(P, cfg.grid_chunk)
+    for s, e in blocks:
+        n = max(pad, e - s)
+        rows = lambda a: grid_mod.pad_rows(np.asarray(a[s:e], np.float32), n)
+        keys = grid_keys(cfg.seed, index_offset + s, n, device=dev)
+        alive = [torch.as_tensor(rows(1.0 - d), device=dev) for d in prune.st_deads[:-1]]
+        out[s:e] = parity(net, keys, torch.as_tensor(rows(lo), device=dev),
+                          torch.as_tensor(rows(hi), device=dev), alive,
+                          cfg.sim_size).cpu().numpy()[: e - s]
     return out
 
 
@@ -537,16 +639,20 @@ def stage0_pgd(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, pending,
 
 def verify_model(net, cfg: SweepConfig, model_name: str = "model",
                  resume: bool = True, mesh=None, device=None,
-                 partition_span=None) -> ModelReport:
+                 partition_span=None, stage0=None) -> ModelReport:
     """Run the sweep for one model; write CSV + ledger rows.
 
     ``device`` defaults to ``cuda`` (``device="cpu"`` runs the plain PyTorch
     versions of the kernels); the net is moved there.  ``partition_span``
     ``(start, stop)`` runs a contiguous slice of the shuffled grid, with
     global partition ids and keys, and sinks named ``model@start-stop``.
-    Configurations the port does not run raise ``NotImplementedError``
-    (:func:`check_supported`, and the engine where an unported phase would
-    run).
+    ``stage0``: this model's precomputed stage-0 result from
+    :func:`stage0_families` — ``(unsat, sat, witnesses)`` or, with the
+    family's ``StageStats`` forwarded, ``(unsat, sat, witnesses,
+    stats)`` — over the same grid rows; stage 0's own launches are then
+    skipped and the forwarded histograms merged.  Configurations the port
+    does not run raise ``NotImplementedError`` (:func:`check_supported`,
+    and the engine where an unported phase would run).
     """
     check_supported(cfg, mesh)
     dev = resolve_device(device)
@@ -581,9 +687,16 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
                                      index_offset=span_start)
     phases["stage0_prune"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    unsat0, sat0, witnesses = stage0_certify_and_attack(
-        net, enc, lo, hi, cfg, stats=stage_stats, failed=failed,
-        seed_offset=span_start)
+    if stage0 is not None:  # precomputed by the stacked family kernels
+        unsat0, sat0, witnesses = stage0[:3]
+        if len(stage0) == 4:  # the family path forwarded its StageStats
+            stage_stats.merge(stage0[3])
+        witnesses = dict(witnesses)
+    else:
+        unsat0, sat0, witnesses = stage0_certify_and_attack(
+            net, enc, lo, hi, cfg, stats=stage_stats, failed=failed,
+            seed_offset=span_start)
+    unsat0, sat0 = np.array(unsat0, dtype=bool), np.array(sat0, dtype=bool)
     phases["stage0_decide"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     parity_col = parity_pass(net, prune, lo, hi, cfg, index_offset=span_start)

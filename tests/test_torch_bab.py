@@ -13,9 +13,8 @@ S, L, P, E0/E off).
   ledger and CSV rows equal to JAX's; with ``max_nodes=1`` every partition
   takes the heuristic-retry path and the rows still equal JAX's.
 * The BaB integrity detectors: fold checksum and canary slot.
-* The unported host frontier raises ``NotImplementedError`` naming its
-  ROADMAP item where it would run, never skipped; the phases ported since
-  (S, P, E0/E) run the same world and equal JAX.
+* The phases ported since (S, P, E0/E, the host frontier) run the world
+  where an unported phase once raised, and equal JAX.
 """
 import csv
 import json
@@ -281,13 +280,15 @@ def test_bab_integrity_detectors():
                  id="kw0-K8"),
     pytest.param(dict(lp_pair=True, lattice_exhaustive=True), "K9", id="kw1-K8"),
     pytest.param(dict(lattice_exhaustive=True), "K9", id="kw2-K9"),
+    # The host frontier is ported too: the root now goes through it
+    # (device_bab=False; E0 off, so it reaches the BaB) and must equal JAX.
     pytest.param(dict(device_bab=False), "K10", id="kw3-K10"),
 ])
 def test_unported_phases_raise_where_they_would_run(kw, item):
     # Span-6 seed 3 at the floor capacity leaves its root open after the
     # device BaB (frontier:overflow): every phase after it is reached.
-    # The host frontier (K10) still raises there; with the lattice phases
-    # on, Phase E0 settles the root first, as in JAX.
+    # With the lattice phases on, Phase E0 settles the root first, as in
+    # JAX; with device_bab=False the host frontier decides it.
     ws, bs, _ = _params(3, (4, 6, 1))
     jenc, tenc, tq = _toy(6)
     lo = np.zeros((1, 4), np.int64)
@@ -297,16 +298,15 @@ def test_unported_phases_raise_where_they_would_run(kw, item):
     ekw = dict(_jeng(bab_frontier_cap=4, alpha_iters=0, bab_rounds_per_segment=1,
                      lattice_first_cap_s=120.0), **kw)
     tn = tmlp.from_numpy(ws, bs, device="cpu")
+    jd = jengine.decide_many(jmlp.from_numpy(ws, bs), jenc, lo, hi,
+                             jengine.EngineConfig(**ekw), deadline_s=60.0)[0]
+    td = tengine.decide_many(tn, tenc, lo, hi, EngineConfig(**ekw), deadline_s=60.0)[0]
+    assert (td.verdict, td.reason, td.nodes, _ce(td)) == \
+        (jd.verdict, jd.reason, jd.nodes, _ce(jd))
+    assert td.verdict == oracle.brute_force_verdict(tn, tq, lo[0], hi[0])
     if item == "K10":
-        with pytest.raises(NotImplementedError, match=item):
-            tengine.decide_many(tn, tenc, lo, hi, EngineConfig(**ekw), deadline_s=60.0)
+        assert td.phase == "bab" and td.stats["t_bab"] > 0.0
     else:
-        jd = jengine.decide_many(jmlp.from_numpy(ws, bs), jenc, lo, hi,
-                                 jengine.EngineConfig(**ekw), deadline_s=60.0)[0]
-        td = tengine.decide_many(tn, tenc, lo, hi, EngineConfig(**ekw), deadline_s=60.0)[0]
-        assert (td.verdict, td.reason, td.nodes, _ce(td)) == \
-            (jd.verdict, jd.reason, jd.nodes, _ce(jd))
-        assert td.verdict == oracle.brute_force_verdict(tn, tq, lo[0], hi[0])
         assert td.phase in ("lattice_first", "lp", "sign") and td.stats["t_bab"] == 0.0
     # A root the attack settles never reaches them.
     ws, bs, _ = _params(1, (4, 8, 1))

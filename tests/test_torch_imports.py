@@ -84,7 +84,10 @@ def _cfg(tmp_path, **kw):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mega_chunks", 0, "K10"),
+    # The chunk loop (mega_chunks=0) is ported: the case now runs it and
+    # requires the mega path's outcomes, launches aside.  The id is the one
+    # it had when it raised.
+    pytest.param("mega_chunks", 0, None, id="mega_chunks-0-K10"),
     ("exact_certify_masks", True, "exact-certify"),
     ("inject_faults", ("launch.decode:transient:1",), "item 7"),
     ("integrity_recheck", 0.05, "item 7"),
@@ -94,6 +97,17 @@ def test_unported_config_raises(tmp_path, field, value, item):
     from fairify_tpu_torch.verify import sweep
 
     kw = {"exact_certify_masks": False, field: value}
+    if item is None:
+        outs = {}
+        for v in (value, 4):
+            rep = sweep.verify_model(flagship_net(device="cpu"),
+                                     _cfg(tmp_path / str(v), **dict(kw, grid_chunk=16,
+                                                                    **{field: v})),
+                                     resume=False, device="cpu", partition_span=(0, 40))
+            outs[v] = ([(o.partition_id, o.verdict, o.pruned_acc) for o in rep.outcomes],
+                       rep.funnel["margin_hist"])
+        assert outs[value] == outs[4] and len(outs[4][0]) == 40
+        return
     with pytest.raises(NotImplementedError, match=item):
         sweep.verify_model(flagship_net(device="cpu"), _cfg(tmp_path, **kw),
                            resume=False, device="cpu")

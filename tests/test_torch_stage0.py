@@ -124,7 +124,7 @@ def test_mega_segment_matches_jax(case):
                 jnp.asarray(pr[ci]), alpha_iters=0)
             j_margin, j_gap = np.asarray(jc[4]), np.asarray(jc[5])
             T = lambda a: torch.as_tensor(a)
-            cert, margin, scale = tengine.certify_impl(
+            cert, _score, margin, scale = tengine.certify_impl(
                 tnet, *(T(a[ci]) for a in (x_lo, x_hi, xp_lo, xp_hi, plo, phi)),
                 *(T(np.asarray(a)) for a in (av, pm, rm)), float(tenc.eps),
                 T(valid[ci]), T(tenc.valid_pair), with_scale=True)

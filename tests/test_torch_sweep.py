@@ -24,6 +24,7 @@ from fairify_tpu_torch.models import mlp as tmlp
 from fairify_tpu_torch.resilience import integrity as tintegrity
 from fairify_tpu_torch.utils import prng as tprng
 from fairify_tpu_torch.verify import presets as tpresets
+from fairify_tpu_torch.verify import pruning as tpruning
 from fairify_tpu_torch.verify import sweep as tsweep
 from fairify_tpu_torch.verify.config import EngineConfig
 
@@ -156,8 +157,9 @@ def test_sim_rows_and_parity_resim_match_jax(P, sim_size):
     equals ``_parity_resim`` exactly."""
     _, lo, hi = jsweep.build_partitions(jpresets.get("GC"))
     lo, hi = lo[5:5 + P], hi[5:5 + P]
-    got = tsweep.sim_rows(tprng.grid_keys(42, 5, P), torch.as_tensor(lo.astype(np.float32)),
-                          torch.as_tensor(hi.astype(np.float32)), sim_size).numpy()
+    got = tpruning.sim_rows(tprng.grid_keys(42, 5, P),
+                            torch.as_tensor(lo.astype(np.float32)),
+                            torch.as_tensor(hi.astype(np.float32)), sim_size).numpy()
     jkeys = jprng.grid_keys(42, 5, P)
     for p in range(P):
         want = np.asarray(jsweep._sim_rows(jkeys[p], jnp.asarray(lo[p], jnp.float32),
