@@ -40,8 +40,8 @@ Phases (any failure exits nonzero and prints no result line):
    every point a margin point; narrow, since each point then takes the
    exact rational forward) on a box of a few thousand points runs K9b and
    decides unsat on the card and the CPU.  Card = CPU: decide_box_exhaustive
-   on the 8 smallest-lattice E0-eligible leftovers of each preset that the
-   card decides within 2 s (a smaller box over the cap is one whose margin
+   on the 8 (stress-AC) and 4 (relaxed-AC) smallest-lattice E0-eligible
+   leftovers that the card decides within 2 s (a smaller box over the cap is one whose margin
    cells the host resolves exactly, the same work on both paths; its
    chunks are checked above) and on the crossing twin's box (sat through
    its first flip), the CPU plain path in a worker process beside the
@@ -135,9 +135,38 @@ Phases (any failure exits nonzero and prints no result line):
    default configuration, 15 s hard: the stage-0-decided rows equal each
    model's solo stage 0; the rest are deadline-bound and reported.
 
+8. The IBP path (``use_crown=False``: K10's rows 13 and 17, ``role_bounds``
+   and ``attack_logits``, and their family forms, rows 8 and 9) and the
+   exact-certify pass.  The phase fails first unless the native exact core
+   is loaded.  Kernel checks: row 13 in IBP and CROWN mode and
+   row 17 on one 2,048-row AC chunk (2,048 x V role boxes per role, 128
+   candidates) and at the host frontier's shape (512 AC-S1 stage-0
+   leftovers, 16 candidates) against their plain versions — bounds to
+   TOL_REL of their interval magnitude and within a quarter of the
+   widening slack, containing, on 256 role boxes
+   per role, their float64 interval bounds (IBP) or sampled float64 logits
+   (CROWN); logits to TOL_REL of their rounding scale; a copy with one
+   bound moved past its float64 bound, with every bound moved inward by
+   one slack (the output widening removed), or with one logit moved, must
+   fail; the
+   library forward (a cuBLAS fp32 chain) timed beside row 17.  (8c) The
+   family of four AC-S1 twins through ``stage0_families`` on the whole AC
+   grid (8 chunks, one launch of each row per chunk), each model equal to
+   its solo stage 0; on one chunk the family rows 8 and 9 bit-equal per
+   model to the solo rows 13 and 17.  (8d) The ladder world on the IBP
+   path (the host frontier's non-fused branch), card = CPU.  End to end,
+   after the CPU worker: (8a) the GC-1 twin on the GC preset with only
+   ``use_crown`` changed (exact-certify on): sat=2 unsat=199 unknown=0,
+   ledger and CSV equal to the CPU's, ``sv_time_s`` printed; then the
+   preset on the CROWN path with exact-certify on; (8b) the whole AC grid
+   on the IBP path in phase 5's configuration (30 s hard); (8e) the
+   exact-certify pass over the whole AC grid through the native exact
+   core: ``sv_time_s``, and 48 partitions' masks
+   equal to the port's Fraction pass on the CPU (a flipped mask fails).
+
 Phase 4 runs before phase 3, and the run waits for the CPU worker before
-phase 3, so the timed end-to-end phases 3, 5, 6 and 7e run without it
-(7a-7d run beside it).
+phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b and 8e run
+without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
 
 The next-to-last lines are the kernel table as one JSON object and the
 ``nvidia-smi`` name/power line; the last line is
@@ -172,6 +201,8 @@ REPLACES = {
     "lattice_scan": "fairify_tpu/ops/lattice.py:195",
     "lattice_signs": "fairify_tpu/ops/lattice.py:238",
     "lattice_scan_ra": "fairify_tpu/ops/lattice.py:246",
+    "role_bounds": "fairify_tpu/verify/engine.py:51",
+    "attack_logits": "fairify_tpu/verify/engine.py:615",
 }
 # The other TPU kernel sites each kernel replaces: the chunk loop's
 # one-chunk forms (rows 1, 10, 15), the family kernels (rows 5, 7) and
@@ -183,6 +214,8 @@ ALSO_REPLACES = {
     "attack_flips": ["fairify_tpu/verify/sweep.py:857", "fairify_tpu/verify/sweep.py:1072",
                      "fairify_tpu/verify/engine.py:387"],
     "parity": ["fairify_tpu/verify/sweep.py:1374"],
+    "role_bounds": ["fairify_tpu/verify/sweep.py:1090"],
+    "attack_logits": ["fairify_tpu/verify/sweep.py:1099"],
 }
 # Kernels of the slice-2 configuration's path (Phases S, L, P off).
 SLICE2 = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
@@ -193,8 +226,9 @@ LATTICE_KERNELS = {"lattice_scan": "stress-AC", "lattice_signs": "stress-AC",
                    "lattice_scan_ra": "relaxed-AC"}
 LATTICE_OTHER = {"lattice_scan": "relaxed-AC", "lattice_signs": "relaxed-AC",
                  "lattice_scan_ra": "stress-AC"}
-SOURCES = {k: f"fairify_tpu_torch/csrc/{'lattice_scan' if k in LATTICE_KERNELS else k}.cu"
-           for k in REPLACES}
+# The role-logit forward (row 21) launches row 17's kernel with one model.
+KERNEL_SOURCE = dict({k: "lattice_scan" for k in LATTICE_KERNELS}, role_logits="attack_logits")
+SOURCES = {k: f"fairify_tpu_torch/csrc/{KERNEL_SOURCE.get(k, k)}.cu" for k in REPLACES}
 # Kernels every default-configuration run (phase 6) must launch, besides
 # its preset's lattice scan: stage 0, the PGD, Phase S and the retry's rows.
 DEFAULT_PATH = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
@@ -203,8 +237,10 @@ DEFAULT_SOFT_S, DEFAULT_HARD_S = 0.1, 75.0
 # Hard budget of the AC-S1 tail runs in the slice-2 and slice-3
 # configurations (phase 5), short enough to leave room for phase 6.
 TAIL_HARD_S = 45.0
-# Kernels of the slice-3 configuration's path (lattice phases off).
-SLICE3_PATH = tuple(k for k in REPLACES if k not in LATTICE_KERNELS)
+# Kernels of the slice-3 configuration's path (lattice phases off; K10 is
+# the IBP path's, phase 8).
+SLICE3_PATH = tuple(k for k in REPLACES if k not in LATTICE_KERNELS
+                    and k not in ("role_bounds", "attack_logits"))
 AC_SIZES = (13, 128, 64, 32, 16, 8, 1)  # models_scaled/adult/AC-S1.h5 widths
 
 
@@ -456,7 +492,7 @@ def kc_check(name, net, kc, k_out, p_out, margin_p):
     wit_k, reason_k, gap_k, stats_k = k_out
     wit_p, reason_p, gap_p, _stats_p = p_out
     V = kc["valid"].shape[1]
-    lx, lp = engine.attack_logits(net, kc["xr"], kc["pr"])
+    lx, lp = engine.attack_logits_plain(net, kc["xr"], kc["pr"])
     lscale = torch.maximum(lx.abs().amax(dim=(1, 2)), lp.abs().amax(dim=(1, 2)))
     err_g = tol_ratio(gap_k, gap_p, lscale)
     diff = (wit_k != wit_p).any(dim=1) | (reason_k != reason_p)
@@ -1201,7 +1237,8 @@ def check_role_logits(name, net, enc, lo, hi, reps: int, mutate: bool = False):
     """The role-logit forward at Phase S's shape (the roots' 32 sampled
     points per assignment, the root axis padded to a power of two) against
     the plain forward: logits to the tolerance of their rounding scale;
-    with ``mutate`` a copy with one logit moved must fail."""
+    with ``mutate`` a copy with one logit moved must fail.  Also times the
+    library forward (``library_forward``)."""
     import numpy as np
     import torch
 
@@ -1212,7 +1249,8 @@ def check_role_logits(name, net, enc, lo, hi, reps: int, mutate: bool = False):
     on = lambda a: torch.as_tensor(engine._pad(a, r_pad), device=net.device)
     x, xp = on(xr), on(pr)
     (kx, kp), k_ms = timed(lambda: engine.sample_role_logits(net, x, xp), reps)
-    (px, pp), p_ms = timed(lambda: engine.attack_logits(net, x, xp), reps)
+    (px, pp), p_ms = timed(lambda: engine.attack_logits_plain(net, x, xp), reps)
+    _, lib_ms = timed(lambda: (library_forward(net, x), library_forward(net, xp)), reps)
     sx, sp = logit_scale(net, x), logit_scale(net, xp)
 
     def err(kx, kp):
@@ -1231,10 +1269,10 @@ def check_role_logits(name, net, enc, lo, hi, reps: int, mutate: bool = False):
     fl = 2 * rows * macs(sizes)
     by = rows * (x.shape[-1] + 1) * 4 + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
     row = dict(max_abs_err=float(max((kx - px).abs().max(), (kp - pp).abs().max())),
-               ms=k_ms, plain_ms=p_ms, flops=fl, bytes=by)
+               ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, flops=fl, bytes=by)
     row["bound_ms"], row["bound_by"] = bound(fl, by)
     print(f"[kernel {name}] role_logits {tuple(x.shape)} x 2: {k_ms:.4f} ms (plain "
-          f"{p_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
+          f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
           f"within tolerance{'; a moved logit fails' if mutate else ''})", flush=True)
     return row
 
@@ -1296,9 +1334,9 @@ LATTICE_PRESETS = ("stress-AC", "relaxed-AC")
 CPU_WORKER_THREADS = 7
 CARD_ROOT_CAP_S = 2.0
 # Roots per preset in card = CPU: the CPU plain path takes seconds per
-# AC-S1 stress-AC root (~4e6 points, V = 2) and tens of seconds per
-# relaxed-AC root (V = 5), and the timed phases wait for the worker.
-CARD_CPU_ROOTS = 8
+# AC-S1 stress-AC root (~4e6 points, V = 2) and 18-82 s per relaxed-AC
+# root (V = 5) on a shared host, and the timed phases wait for the worker.
+CARD_CPU_ROOTS = {"stress-AC": 8, "relaxed-AC": 4}
 
 # Of a chunk's lattice points at most this share may have a certain sign in
 # one version and a 0 in the other (each only where the point's |f| lies
@@ -1695,7 +1733,7 @@ def decide_boxes(net, enc, lo, hi, pipeline_depth: int = 32):
     return out, time.perf_counter() - t
 
 
-def card_roots(net, enc, lo, hi, order, n: int = CARD_CPU_ROOTS):
+def card_roots(net, enc, lo, hi, order, n: int):
     """The first ``n`` boxes of ``order`` that decide_box_exhaustive
     decides on the card within CARD_ROOT_CAP_S.  A box over the cap is
     one whose margin cells the host resolves exactly (in RA mode each
@@ -1778,7 +1816,8 @@ def lattice_card_side(net, engine_cfg, work: str) -> dict:
               f"{len(idx)} E0-eligible ({sum(sizes)} scan points, V = {enc.n_assign}, "
               f"eps = {enc.eps})", flush=True)
         order = [idx[k] for k in np.argsort(sizes, kind="stable")]
-        pick, got, t_card, skipped = card_roots(net, enc, lo, hi, order)
+        pick, got, t_card, skipped = card_roots(net, enc, lo, hi, order,
+                                                CARD_CPU_ROOTS[name])
         print(f"[lattice {name}] card = CPU roots: the {len(pick)} smallest the card "
               f"decides within {CARD_ROOT_CAP_S} s ({len(skipped)} smaller ones skipped), "
               f"card {t_card:.3f} s", flush=True)
@@ -2454,6 +2493,512 @@ def family_tail(work: str, nets, ac_cfg, fam, solo) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the IBP path (K10: role_bounds, attack_logits) and the
+# exact-certify pass
+# ---------------------------------------------------------------------------
+
+K10 = ("role_bounds", "attack_logits")
+IBP = dict(use_crown=False)
+# Role boxes per check whose bounds are held against float64 references.
+K10_SAMPLE = 256
+# Largest distance of a row-13/8 bound from its plain version, as a
+# multiple of the widening slack.  Sound kernels read 0.023 (IBP) and 0.073
+# (CROWN) on the H100; one that skips the output layer's widening reads
+# about 1 (its slack taken from its own, narrower interval).
+K10_SLACK_LIMIT = 0.25
+# AC partitions whose exact masks the CPU re-certifies in Fraction
+# arithmetic, the native core's independent twin (~0.1 s each at AC-S1).
+EXACT_CPU_PARTS = 48
+
+
+def f64_role_ibp(net, lo, hi):
+    """Unwidened float64 interval bounds (lo, hi) of the output logit for
+    role boxes (n, d) of one net: the f32 weights are exact in f64 and the
+    sums good to ~1e-12 — what a widened f32 IBP bound must contain."""
+    import torch
+
+    l, h = lo.double(), hi.double()
+    for i, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        w, b = w.double(), b.double()
+        wp, wn = torch.clamp(w, min=0.0), torch.clamp(w, max=0.0)
+        zl, zh = l @ wp + h @ wn + b, h @ wp + l @ wn + b
+        if i == net.depth - 1:
+            return zl[..., 0], zh[..., 0]
+        l, h = torch.relu(zl) * m.double(), torch.relu(zh) * m.double()
+
+
+def f64_sampled_range(net, lo, hi, n: int = 32):
+    """(min, max) of the float64 logit over ``n`` seeded integer points of
+    each role box (n_boxes, d): a range every sound bound contains."""
+    import torch
+
+    g = torch.Generator(device=lo.device).manual_seed(0)
+    u = torch.rand((lo.shape[0], n, lo.shape[1]), generator=g, device=lo.device,
+                   dtype=torch.float64)
+    pts = torch.floor(lo.double()[:, None] + u * (hi.double() - lo.double() + 1)[:, None])
+    pts = torch.minimum(pts, hi.double()[:, None])
+    h = pts
+    for i, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        z = h @ w.double() + b.double()
+        h = z if i == net.depth - 1 else torch.relu(z) * m.double()
+    return h[..., 0].amin(dim=1), h[..., 0].amax(dim=1)
+
+
+def role_bounds_cost(sizes, nrole: int, M: int = 1, use_crown: bool = False):
+    """(flops, bytes) of one role_bounds launch over ``nrole`` role boxes
+    (both roles counted) and M models: IBP 4 FMAs per weight, CROWN
+    ``crown_flops``; the role boxes read once (2d floats each), each
+    model's packed net, and two floats written per role box and model."""
+    d = sizes[0]
+    per = crown_flops(sizes) if use_crown else 8 * macs(sizes)
+    pbytes = 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    return M * nrole * per, nrole * 2 * d * 4 + M * (pbytes + nrole * 8)
+
+
+def attack_logits_cost(sizes, nrows: int, M: int = 1):
+    """(flops, bytes) of one attack_logits launch over ``nrows`` candidate
+    rows (both roles counted) and M models: each model's forward of each
+    row; the rows read once, each model's packed net and one logit per row
+    and model written."""
+    pbytes = 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    return M * nrows * 2 * macs(sizes), nrows * sizes[0] * 4 + M * (pbytes + nrows * 4)
+
+
+def library_forward(net, x):
+    """The torch forward of rows (..., d) as a chain of cuBLAS products
+    (fp32, TF32 off): ``addmm`` per layer, ``baddbmm`` over a stacked
+    family's models (the yardstick of rows 17 and 9; the port never calls
+    it)."""
+    import torch
+
+    h = x.reshape(-1, x.shape[-1])
+    stacked = hasattr(net, "n_models")
+    if stacked:
+        h = h.expand(net.n_models, *h.shape)
+    for i, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        z = torch.baddbmm(b[:, None, :], h, w) if stacked else torch.addmm(b, h, w)
+        h = z if i == net.depth - 1 else torch.relu(z) * (m[:, None, :] if stacked else m)
+    return h[..., 0]
+
+
+def k10_refs(net, boxes, use_crown: bool):
+    """Per role, the float64 range over the first K10_SAMPLE role boxes that
+    the kernel's bounds must contain: the interval bounds (IBP) or the
+    sampled logits' range (CROWN, tighter than IBP)."""
+    ref = []
+    for role in (0, 1):
+        lo = boxes[2 * role].reshape(-1, boxes[0].shape[-1])[:K10_SAMPLE]
+        hi = boxes[2 * role + 1].reshape(-1, boxes[0].shape[-1])[:K10_SAMPLE]
+        ref.append(f64_sampled_range(net, lo, hi) if use_crown else f64_role_ibp(net, lo, hi))
+    return ref
+
+
+def role_bounds_verdict(k, p, ref):
+    """Row 13's outputs ``k`` against the plain version's ``p`` (both
+    ``(lb_x, ub_x, lb_p, ub_p)`` of one net): ``(error as a multiple of
+    TOL_REL of the role's interval magnitude max(|lb|, |ub|) + TOL_ABS,
+    error as a multiple of the widening slack, bounds that fail to contain
+    ``ref``)``."""
+    import torch
+
+    from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
+
+    err = slack = 0.0
+    bad = 0
+    for role in (0, 1):
+        mag = torch.maximum(p[2 * role].abs(), p[2 * role + 1].abs())
+        for i in (2 * role, 2 * role + 1):
+            err = max(err, tol_ratio(k[i], p[i], mag))
+            slack = max(slack, float(((k[i] - p[i]).abs()
+                                      / (SOUND_SLACK_REL * mag + SOUND_SLACK_ABS)).max()))
+        lo = k[2 * role].reshape(-1)[:K10_SAMPLE].double()
+        hi = k[2 * role + 1].reshape(-1)[:K10_SAMPLE].double()
+        bad += int((lo > ref[role][0]).sum() + (hi < ref[role][1]).sum())
+    return err, slack, bad
+
+
+def role_bounds_fails(err, slack, bad) -> bool:
+    """Whether :func:`role_bounds_verdict`'s reading fails the check."""
+    return err > 1.0 or slack > K10_SLACK_LIMIT or bad > 0
+
+
+def role_bounds_mutants(k, ref):
+    """Copies of row 13's outputs ``(lb_x, ub_x, lb_p, ub_p)`` that a sound
+    check must fail: one lower bound moved past its float64 bound, and
+    every bound moved inward by one widening slack (the output layer's
+    widening removed)."""
+    import torch
+
+    from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
+
+    moved = [t.clone() for t in k]
+    moved[0].view(-1)[0] = float(ref[0][0][0]) + 1e-3 * (1.0 + abs(float(ref[0][0][0])))
+    unwidened = []
+    for role in (0, 1):
+        lo, hi = k[2 * role], k[2 * role + 1]
+        s = SOUND_SLACK_REL * torch.maximum(lo.abs(), hi.abs()) + SOUND_SLACK_ABS
+        unwidened += [lo + s, hi - s]
+    return {"a bound moved past its float64 bound": moved,
+            "the output widening removed": unwidened}
+
+
+def check_role_bounds(name, net, boxes, use_crown: bool, reps: int, mutate: bool = False):
+    """Row 13 (one net) against its plain version on role boxes
+    ``(x_lo, x_hi, xp_lo, xp_hi)`` (..., V, d): every bound to TOL_REL of
+    its interval magnitude and within K10_SLACK_LIMIT of the widening slack
+    (``SOUND_SLACK_REL`` of that magnitude + ``SOUND_SLACK_ABS``), the
+    first K10_SAMPLE role boxes' bounds containing their float64
+    reference; with ``mutate`` every copy of :func:`role_bounds_mutants`
+    must fail.  Returns the row."""
+    from fairify_tpu_torch.verify import engine
+
+    k, k_ms = timed(lambda: engine.role_logit_bounds(net, *boxes, use_crown), reps)
+    p, p_ms = timed(lambda: engine.role_logit_bounds_plain(net, *boxes, use_crown), 1)
+    ref = k10_refs(net, boxes, use_crown)
+    err, slack, bad = role_bounds_verdict(k, p, ref)
+    if role_bounds_fails(err, slack, bad):
+        fail(f"role_bounds {name}: bound error {err} x tolerance = {slack} x the widening "
+             f"slack, {bad} bounds do not contain their float64 reference")
+    if mutate:
+        for what, km in role_bounds_mutants(k, ref).items():
+            if not role_bounds_fails(*role_bounds_verdict(km, p, ref)):
+                fail(f"role_bounds {name}: a copy with {what} passes")
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    nrole = 2 * boxes[0].numel() // boxes[0].shape[-1]
+    fl, by = role_bounds_cost(sizes, nrole, use_crown=use_crown)
+    row = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(float((a - b).abs().max())
+                                                       for a, b in zip(k, p)),
+               err_x_tol=err, err_x_slack=slack, role_boxes=nrole, flops=fl, bytes=by,
+               mode="crown" if use_crown else "ibp")
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    print(f"[kernel {name}] role_bounds {row['mode']} {nrole} role boxes: {k_ms:.4f} ms "
+          f"(plain {p_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
+          f"error {err:.3f} x tolerance = {slack:.3f} x the widening slack; "
+          f"{K10_SAMPLE} x 2 role boxes contain their float64 "
+          f"{'sampled range' if use_crown else 'interval bounds'}"
+          f"{'; a bound moved past it and the unwidened copy fail' if mutate else ''})",
+          flush=True)
+    return row
+
+
+def check_attack_logits(name, net, xr, pr, reps: int, mutate: bool = False):
+    """Row 17 (one net) against its plain version: every logit to TOL_REL of
+    its rounding scale |h| @ |W| + |b| (``logit_scale``) + TOL_ABS; with
+    ``mutate`` a copy with one logit moved must fail.  Also times the
+    library forward (``library_forward``).  Returns the row."""
+    from fairify_tpu_torch.verify import engine
+
+    (kx, kp), k_ms = timed(lambda: engine.attack_logits(net, xr, pr), reps)
+    (px, pp), p_ms = timed(lambda: engine.attack_logits_plain(net, xr, pr), 1)
+    _, lib_ms = timed(lambda: (library_forward(net, xr), library_forward(net, pr)), reps)
+    sx, sp = logit_scale(net, xr), logit_scale(net, pr)
+
+    def err(kx, kp):
+        return max(tol_ratio(kx, px, sx), tol_ratio(kp, pp, sp))
+
+    e = err(kx, kp)
+    if e > 1.0:
+        fail(f"attack_logits {name}: logit error {e} x tolerance")
+    if mutate:
+        km = kx.clone()
+        km.view(-1)[0] += 1e-3 * (1.0 + float(sx.view(-1)[0]))
+        if err(km, kp) <= 1.0:
+            fail(f"attack_logits {name}: a copy with one logit moved passes the check")
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    nrows = 2 * xr.numel() // xr.shape[-1]
+    fl, by = attack_logits_cost(sizes, nrows)
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, err_x_tol=e, rows=nrows,
+               max_abs_err=float(max((kx - px).abs().max(), (kp - pp).abs().max())),
+               flops=fl, bytes=by)
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    print(f"[kernel {name}] attack_logits {nrows} rows: {k_ms:.4f} ms (plain "
+          f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}; error {e:.3f} x tolerance"
+          f"{'; a moved logit fails' if mutate else ''})", flush=True)
+    return row
+
+
+def k10_inputs(enc, lo, hi, S: int, seed: int = 0):
+    """Role boxes and attack candidates of boxes (n, d) on the card."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+    from fairify_tpu_torch.verify.property import role_boxes
+
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    boxes = role_boxes(enc, lo.astype(np.float32), hi.astype(np.float32))[:4]
+    xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(seed), lo, hi, S)
+    return [on(b) for b in boxes], on(xr), on(pr)
+
+
+def k10_kernel_checks(ac_net, ac_cfg, enc, lo, hi, reps: int) -> dict:
+    """Phase 8b's kernel checks: rows 13 (IBP and CROWN) and 17 at one
+    2,048-row AC chunk (the chunk loop's shape: 2,048 x V role boxes per
+    role, 128 candidates) and at the host frontier's (F = 512 AC-S1
+    stage-0 leftovers ``lo``/``hi``, 16 candidates).  Returns the rows."""
+    case = case_inputs("AC chunk", ac_net, ac_cfg.with_(mega_chunks=1), canary=False)
+    kb, kc = case["kb"], case["kc"]
+    boxes = [kb["x_lo"], kb["x_hi"], kb["xp_lo"], kb["xp_hi"]]
+    rows = {"role_bounds": check_role_bounds("AC chunk", ac_net, boxes, False, reps,
+                                             mutate=True),
+            "attack_logits": check_attack_logits("AC chunk", ac_net, kc["xr"], kc["pr"],
+                                                 reps, mutate=True)}
+    rows["role_bounds"]["crown"] = check_role_bounds("AC chunk", ac_net, boxes, True,
+                                                     reps, mutate=True)
+    fb, fxr, fpr = k10_inputs(enc, lo[:512], hi[:512], 16)
+    rows["role_bounds"]["host_frontier"] = check_role_bounds("host frontier", ac_net, fb,
+                                                             False, reps)
+    rows["attack_logits"]["host_frontier"] = check_attack_logits("host frontier", ac_net,
+                                                                 fxr, fpr, reps)
+    return rows
+
+
+def k10_family(nets, ac_cfg, reps: int) -> dict:
+    """Phase 8c: a family of four AC-S1 twins through ``stage0_families`` on
+    the IBP path over the whole AC grid (the chunk loop: one row-8 and one
+    row-9 launch per chunk), each model's verdicts and witnesses equal to its
+    solo stage 0; on one 2,048-row chunk the family launches of rows 8 and 9
+    bit-equal per model to that model's solo launch of rows 13 and 17 and
+    within tolerance of the plain versions, timed beside the solo sum and
+    the library forward.  Returns the rows."""
+    from dataclasses import replace
+
+    import torch
+
+    from fairify_tpu_torch.obs import funnel as funnel_mod
+    from fairify_tpu_torch.parallel.mesh import stack_models
+    from fairify_tpu_torch.verify import engine, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    cfg = ac_cfg.with_(engine=replace(ac_cfg.engine, **IBP))
+    enc = encode(cfg.query())
+    _, lo, hi = sweep.build_partitions(cfg)
+    stack = stack_models(nets)
+    fam, launch, wall = counted(lambda: sweep.stage0_families([stack], enc, lo, hi, cfg))
+    n_chunks = -(-len(lo) // cfg.grid_chunk)
+    if any(launch[k] != n_chunks for k in K10):
+        fail(f"IBP family stage 0: launches {launch}, expected {n_chunks} of each K10 row")
+    solo_wall = 0.0
+    for m, net in enumerate(nets):
+        solo, _, w = counted(lambda: sweep.stage0_certify_and_attack(
+            net, enc, lo, hi, cfg, funnel_mod.StageStats(), {}))
+        solo_wall += w
+        if not same_stage0(fam[0][m], solo):
+            fail(f"IBP family stage 0: model {m} differs from its solo stage 0")
+    decided = [int(f[0].sum() + f[1].sum()) for f in fam[0]]
+    print(f"[IBP family AC grid] M = {len(nets)}, {len(lo)} partitions in {n_chunks} "
+          f"chunks: {wall:.3f} s ({len(nets)} solo runs {solo_wall:.3f} s), stage 0 "
+          f"decided per model {decided}, equal to each solo run; launches "
+          f"{ {k: launch[k] for k in K10} }", flush=True)
+
+    case = case_inputs("AC chunk", nets[0], cfg.with_(mega_chunks=1), canary=False)
+    kb, kc = case["kb"], case["kc"]
+    boxes = [kb["x_lo"], kb["x_hi"], kb["xp_lo"], kb["xp_hi"]]
+    xr, pr = kc["xr"], kc["pr"]
+    fb, fb_ms = timed(lambda: engine.role_logit_bounds(stack, *boxes, False), reps)
+    fl_, fl_ms = timed(lambda: engine.attack_logits(stack, xr, pr), reps)
+    pb, pb_ms = timed(lambda: engine.role_logit_bounds_plain(stack, *boxes, False), 1)
+    pl_, pl_ms = timed(lambda: engine.attack_logits_plain(stack, xr, pr), 1)
+    _, lib_ms = timed(lambda: (library_forward(stack, xr), library_forward(stack, pr)), reps)
+    sb_ms = sl_ms = 0.0
+    err_b = err_l = 0.0
+    for m, net in enumerate(nets):
+        sb, t = timed(lambda: engine.role_logit_bounds(net, *boxes, False), reps)
+        sb_ms += t
+        sl, t = timed(lambda: engine.attack_logits(net, xr, pr), reps)
+        sl_ms += t
+        if not (all(torch.equal(a[m], b) for a, b in zip(fb, sb))
+                and all(torch.equal(a[m], b) for a, b in zip(fl_, sl))):
+            fail(f"IBP family chunk: model {m}'s rows 8/9 are not bit-equal to its solo "
+                 "rows 13/17")
+        e, slack, bad = role_bounds_verdict([t[m] for t in fb], [t[m] for t in pb],
+                                            k10_refs(net, boxes, False))
+        if role_bounds_fails(e, slack, bad):
+            fail(f"IBP family chunk: model {m} bound error {e} x tolerance = {slack} x the "
+                 f"widening slack, {bad} bounds miss their float64 reference")
+        err_b = max(err_b, max(float((a[m] - b[m]).abs().max()) for a, b in zip(fb, pb)))
+        for a, b, x in zip(fl_, pl_, (xr, pr)):
+            if tol_ratio(a[m], b[m], logit_scale(net, x)) > 1.0:
+                fail(f"IBP family chunk: model {m} logit error past tolerance")
+            err_l = max(err_l, float((a[m] - b[m]).abs().max()))
+    sizes = [nets[0].in_dim] + list(nets[0].layer_sizes)
+    M = len(nets)
+    nrole, nrows = 2 * boxes[0].numel() // boxes[0].shape[-1], 2 * xr.numel() // xr.shape[-1]
+    rows = {}
+    for key, ms, solo, plain, lib, err, cost in (
+            ("role_bounds", fb_ms, sb_ms, pb_ms, None, err_b,
+             role_bounds_cost(sizes, nrole, M)),
+            ("attack_logits", fl_ms, sl_ms, pl_ms, lib_ms, err_l,
+             attack_logits_cost(sizes, nrows, M))):
+        r = dict(ms=ms, solo_sum_ms=solo, plain_ms=plain, library_ms=lib, max_abs_err=err,
+                 M=M, flops=cost[0], bytes=cost[1], launches=launch[key])
+        r["bound_ms"], r["bound_by"] = bound(*cost)
+        rows[key] = r
+        print(f"[IBP family chunk] {key} (M = {M}): {ms:.4f} ms ({M} solo launches "
+              f"{solo:.4f} ms), plain {plain:.4f} ms"
+              f"{'' if lib is None else f', library {lib:.4f} ms'}, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}; bit-equal per model to the "
+              "solo launches", flush=True)
+    return rows
+
+
+def k10_ladder(work: str) -> dict:
+    """Phase 8d: the BaB ladder world on the IBP path (the host frontier's
+    non-fused branch: row 13 per batch, row 17 on its undecided boxes) on
+    the card and on the CPU: equal ledger rows.  Returns the launches."""
+    rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda", TAIL, **IBP)
+    rep_c, rows_c, _, _ = ladder_world(work, "cpu", TAIL, **IBP)
+    if rows_d != rows_c or any(rep_d.kernel_launches[k] == 0 for k in K10):
+        fail(f"ladder world, IBP: card {rows_d} vs CPU {rows_c}; launches "
+             f"{rep_d.kernel_launches}")
+    check_outputs(rep_d, lcfg, lnet, "BaB-1", rep_d.kernel_launches)
+    print(f"[IBP ladder] card = CPU: {rep_d.counts}; launches {rep_d.kernel_launches}",
+          flush=True)
+    return rep_d.kernel_launches
+
+
+def require_native_exact() -> None:
+    """Fail unless the native exact core is loaded: phase 8's exact-certify
+    runs must not fall back to ``Fraction`` arithmetic on the card's host."""
+    from fairify_tpu_torch.ops import exact_native
+
+    if not exact_native.available():
+        fail(f"the native exact core is not loaded: {exact_native.build_error}")
+
+
+def exact_mask_diffs(net, lo, hi, prune, parts) -> int:
+    """Masks of the exact pass (certified = candidates − survivors) that
+    differ, on partitions ``parts``, from the port's Fraction pass on the
+    CPU over the same candidates."""
+    import numpy as np
+
+    from fairify_tpu_torch.ops import exact as exact_ops
+
+    ws, bs = net.numpy_params()
+    bad = 0
+    for p in parts:
+        cand = [c[p] for c in prune.candidates]
+        cpu = exact_ops.certify_dead_fraction(ws, bs, lo[p], hi[p], cand)
+        card = [c - s for c, s in zip(cand, [s[p] for s in prune.surviving])]
+        bad += sum(int((a != b).sum()) for a, b in zip(cpu, card))
+    return bad
+
+
+def exact_pass_check(ac_net, ac_cfg) -> dict:
+    """Phase 8e: the exact-certify pass over the whole AC grid (16,000
+    partitions, AC-S1 widths) through the native exact core, which must be
+    loaded: its seconds (``sv_time_s``), and the certified masks of
+    EXACT_CPU_PARTS partitions equal to the port's Fraction pass on the
+    CPU; a copy with one certified-dead neuron flipped must differ."""
+    import copy
+
+    import numpy as np
+
+    from fairify_tpu_torch.verify import pruning, sweep
+
+    require_native_exact()
+    _, lo, hi = sweep.build_partitions(ac_cfg)
+    prune, _, wall = counted(lambda: pruning.sound_prune_grid(
+        ac_net, lo, hi, ac_cfg.sim_size, ac_cfg.seed, chunk=ac_cfg.grid_chunk,
+        mega_chunks=ac_cfg.mega_chunks, exact_certify=True))
+    parts = np.linspace(0, len(lo) - 1, EXACT_CPU_PARTS).astype(int)
+    diffs = exact_mask_diffs(ac_net, lo, hi, prune, parts)
+    if diffs:
+        fail(f"exact pass: {diffs} masks differ from the CPU Fraction pass")
+    p_mut = next((int(p) for p in parts if ((prune.candidates[0][p] == 1)
+                                             & (prune.surviving[0][p] == 0)).any()), None)
+    if p_mut is None:
+        fail("exact pass: no sampled partition has a certified-dead neuron to flip")
+    mut = copy.copy(prune)
+    mut.surviving = [s.copy() for s in prune.surviving]
+    j = int(np.where((prune.candidates[0][p_mut] == 1) & (prune.surviving[0][p_mut] == 0))[0][0])
+    mut.surviving[0][p_mut, j] = 1.0
+    if exact_mask_diffs(ac_net, lo, hi, mut, [p_mut]) == 0:
+        fail("exact pass: a mask with one certified-dead neuron flipped passes the check")
+    cert = sum(int((c - s).sum()) for c, s in zip(prune.candidates, prune.surviving))
+    s_dead = sum(int(s.sum()) for s in prune.s_deads)
+    row = dict(sv_time_s=prune.sv_time_s, prune_wall_s=wall, partitions=len(lo),
+               certified=cert, s_deads=s_dead, cpu_checked=EXACT_CPU_PARTS)
+    print(f"[exact pass AC grid] {len(lo)} partitions, native core: sv_time_s "
+          f"{prune.sv_time_s:.3f} s of a {wall:.3f} s prune pass; {cert} neurons certified "
+          f"dead, {s_dead} beyond the IBP criterion; {EXACT_CPU_PARTS} partitions equal "
+          "the CPU Fraction pass, a flipped mask fails", flush=True)
+    return row
+
+
+def ibp_gc(work: str, gc_net, gc_cfg) -> dict:
+    """Phase 8a: the GC-1 twin on the GC preset with only the engine's
+    ``use_crown`` changed (exact-certify on, as the preset has it): sat=2
+    unsat=199 unknown=0, card = CPU (ledger, CSV without its timing
+    columns, funnel); then the preset on the CROWN path with the exact
+    pass on, for its cost beside the exact-off run of phase 3.  Returns
+    the launches and the throughput records."""
+    from dataclasses import replace
+
+    from fairify_tpu_torch.models.mlp import flagship_net
+    from fairify_tpu_torch.verify import sweep
+
+    cfg = gc_cfg.with_(result_dir=os.path.join(work, "gc-ibp"), exact_certify_masks=True,
+                       engine=replace(gc_cfg.engine, **IBP))
+    rep, launch, wall = run_sweep(gc_net, cfg, "GC-1", required=("sim_and_bounds", "parity")
+                                  + K10)
+    thr = check_outputs(rep, cfg, gc_net, "GC-1", launch)
+    ccfg = cfg.with_(result_dir=os.path.join(work, "gc-ibp-cpu"))
+    shutil.rmtree(ccfg.result_dir, ignore_errors=True)
+    rep_c = sweep.verify_model(flagship_net(device="cpu"), ccfg, model_name="GC-1",
+                               resume=False, device="cpu")
+    if (rep.counts != {"sat": 2, "unsat": 199, "unknown": 0}
+            or run_rows(cfg, rep) != run_rows(ccfg, rep_c)
+            or rep.funnel["states"] != rep_c.funnel["states"]):
+        fail(f"GC-1 IBP: card {rep.counts} vs CPU {rep_c.counts}, or the ledger, CSV or "
+             "funnel differ")
+    decided = rep.counts["sat"] + rep.counts["unsat"]
+    print(f"[e2e GC-1 IBP] {rep.counts} = CPU, decided_fraction {thr['decided_fraction']} "
+          f"in {wall:.3f} s = {decided / wall:.2f} decided partitions/s; sv_time_s "
+          f"{thr['phases_s'].get('prune_exact_certify')}; funnel {thr['funnel']}; phases "
+          f"{thr['phases_s']}; launches {launch}", flush=True)
+    xcfg = gc_cfg.with_(result_dir=os.path.join(work, "gc-exact"), exact_certify_masks=True)
+    rep_x, launch_x, wall_x = run_sweep(gc_net, xcfg, "GC-1", required=(
+        "sim_and_bounds", "stage0_certify", "attack_flips", "parity"))
+    thr_x = check_outputs(rep_x, xcfg, gc_net, "GC-1", launch_x)
+    if rep_x.counts != {"sat": 2, "unsat": 199, "unknown": 0}:
+        fail(f"GC-1 CROWN with exact-certify: {rep_x.counts}")
+    print(f"[e2e GC-1 CROWN exact-certify] {rep_x.counts} in {wall_x:.3f} s = "
+          f"{(rep_x.counts['sat'] + rep_x.counts['unsat']) / wall_x:.2f} decided "
+          f"partitions/s; sv_time_s {thr_x['phases_s'].get('prune_exact_certify')}; phases "
+          f"{thr_x['phases_s']}; launches {launch_x}", flush=True)
+    return dict(launch=launch, thr=thr, wall=wall, crown_exact=dict(
+        wall=wall_x, phases=thr_x["phases_s"]))
+
+
+def ibp_grid(work: str, ac_net, ac_cfg) -> dict:
+    """Phase 8b end to end: ``verify_model`` over the whole AC grid on the
+    IBP path (the chunk loop: 8 launches each of rows 13 and 17 in stage 0,
+    then the host frontier's), phase 5's configuration otherwise (0.02 s
+    soft, 30 s hard, Phases S/L/P/E0/E off).  Returns launches and the
+    throughput record."""
+    from fairify_tpu_torch.verify import sweep
+    from fairify_tpu_torch.verify.config import EngineConfig
+
+    cfg = ac_cfg.with_(result_dir=os.path.join(work, "ac-grid-ibp"), soft_timeout_s=0.02,
+                       hard_timeout_s=30.0, engine=EngineConfig(**TAIL, max_nodes=1000,
+                                                                **IBP))
+    n_chunks = -(-len(sweep.build_partitions(cfg)[0]) // cfg.grid_chunk)
+    rep, launch, wall = run_sweep(ac_net, cfg, "AC-S1-grid-ibp", required=(
+        "sim_and_bounds", "parity", "pgd_attack") + K10)
+    thr = check_outputs(rep, cfg, ac_net, "AC-S1-grid-ibp", launch)
+    if any(launch[k] < n_chunks for k in K10) or launch["sim_and_bounds"] != n_chunks:
+        fail(f"AC grid IBP: launches {launch}, expected the chunk loop's {n_chunks}")
+    print(f"[AC-S1 grid IBP] {rep.partitions_total} partitions, chunk loop of {n_chunks}: "
+          f"{rep.counts} (stage 0 + PGD decided {thr['stage0_decided']}, the host frontier "
+          f"and retry {thr['bab_decided']}; decided_fraction {thr['decided_fraction']}) in "
+          f"{wall:.3f} s under a 30 s hard budget; funnel {thr['funnel']}; phases "
+          f"{thr['phases_s']}; launches {launch}", flush=True)
+    return dict(launch=launch, thr=thr, wall=wall)
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the sweep through the kernels
 # ---------------------------------------------------------------------------
 
@@ -2713,6 +3258,13 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     chunk = chunk_loop_checks(work, gc_net, gc_cfg, ac_net, ac_cfg, reps=3)
     hf = host_frontier_checks(work, ac_net, enc, lo, hi, reps=3,
                               rows_dev=ladder_rows["slice 2"])
+    # --- phase 8, its untimed checks: rows 13 and 17 at the chunk loop's and
+    # the host frontier's shapes, the IBP family (rows 8 and 9) on the AC
+    # grid, the ladder world on the IBP path; the native exact core loaded
+    require_native_exact()
+    k10_rows = k10_kernel_checks(ac_net, ac_cfg, enc, lo, hi, reps=3)
+    k10_fam = k10_family(fam_nets, ac_cfg, reps=3)
+    k10_ladder_launch = k10_ladder(work)
 
     # The CPU side of card = CPU ran beside phases 1b-2c, 4 and 7's checks;
     # the timed end-to-end phases 3, 5, 6 and 7's family run go without it.
@@ -2821,10 +3373,42 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"launches {launch}", flush=True)
     # --- phase 7, end to end: the AC-S1 family through verify_model(stage0=)
     fam_launch = family_tail(work, fam_nets, ac_cfg, fam_res, solo_res)
+    # --- phase 8, end to end: GC-1 and the AC grid on the IBP path; the
+    # exact-certify pass over the AC grid
+    gc8 = ibp_gc(work, gc_net, gc_cfg)
+    grid8 = ibp_grid(work, ac_net, ac_cfg)
+    exact8 = exact_pass_check(ac_net, ac_cfg)
     shutil.rmtree(work, ignore_errors=True)
 
     table = []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     for name in REPLACES:
+        if name in K10:
+            r, fr = k10_rows[name], k10_fam[name]
+            print(f"[summary] {name}: launches AC grid IBP {grid8['launch'][name]} / GC-1 "
+                  f"IBP {gc8['launch'][name]} / IBP family {fr['launches']} / ladder IBP "
+                  f"{k10_ladder_launch[name]}; AC chunk median {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+            row = {
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "also_replaces": ALSO_REPLACES[name],
+                "launches": grid8["launch"][name], "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                "chunk_shape": r.get("rows", r.get("role_boxes")),
+                "launches_gc1_ibp": gc8["launch"][name],
+                "launches_ladder_ibp": k10_ladder_launch[name],
+                "family_chunk": {k: fr[k] for k in keys + (
+                    "solo_sum_ms", "library_ms", "M", "launches")},
+                "host_frontier": {k: r["host_frontier"].get(k) for k in keys + (
+                    "library_ms", "rows", "role_boxes") if k in r["host_frontier"]},
+            }
+            if name == "role_bounds":
+                row["crown"] = {k: r["crown"][k] for k in keys + ("err_x_tol",)}
+                row["err_x_slack"] = r["err_x_slack"]
+            table.append(row)
+            continue
         if name in LATTICE_KERNELS:
             r = lat_rows[name]
             n = lat_launch[LATTICE_KERNELS[name]][name]
@@ -2853,8 +3437,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": ac_launch[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "launches_slice2_tail": tail_launch["slice 2"][name],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "launches_slice2_tail": tail_launch["slice 2"][name],
             "launches_ac_grid": g_launch[name], "launches_gc1": gc_launch[name],
             "launches_stress_default": lat_launch["stress-AC"][name],
             "launches_relaxed_default": lat_launch["relaxed-AC"][name],
@@ -2864,7 +3448,6 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
         for extra in ("alpha0", "root", "role_boxes"):
             if extra in r:
                 row[extra] = r[extra]
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
         if name in chunk["rows"]:  # rows 1, 10 and 15 (stage 0) at one chunk
             row["chunk_loop"] = {k: chunk["rows"][name][k] for k in keys + ("launches",)}
             row["launches_chunk_loop_gc1"] = chunk["gc_launch"][name]
@@ -2883,6 +3466,9 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                                              if x not in ("flops", "bytes")} for k in hk},
                                         launches=hf["launches"][name])
         table.append(row)
+    print(f"[exact-certify] AC grid sv_time_s {exact8['sv_time_s']:.3f} s; GC-1 "
+          f"sv_time_s IBP {gc8['thr']['phases_s'].get('prune_exact_certify')} s, CROWN "
+          f"{gc8['crown_exact']['phases'].get('prune_exact_certify')} s", flush=True)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

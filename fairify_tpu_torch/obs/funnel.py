@@ -188,7 +188,7 @@ def is_decided(state: str) -> bool:
 class FunnelCounts:
     """Per-run terminal-state counter: the tally that rides the throughput
     JSON.  (The JAX package also mirrors it into its metrics registry; the
-    port's obs layer is ROADMAP queue 1, item 7.)"""
+    port's obs layer is ROADMAP queue 1, item 4.)"""
 
     def __init__(self) -> None:
         self.counts: Dict[str, int] = {}

@@ -176,9 +176,10 @@ def _groups(params, n: int, with_beta: bool):
     return [params[i * n:(i + 1) * n] for i in range(4 if with_beta else 2)]
 
 
-def crown_bounds(net, lb, ub) -> LayerBounds:
+def crown_bounds(net, lb, ub, widen_bounds: bool = True) -> LayerBounds:
     """Full-network CROWN pre-activation bounds, intersected with IBP and
-    widened outward (layer 0 is the exact affine interval)."""
+    (``widen_bounds``) widened outward; layer 0 is the exact affine
+    interval."""
     n = net.depth
     ws_lb, ws_ub, pl_lb, pl_ub = [], [], [], []
     lo_run, hi_run = lb, ub
@@ -190,7 +191,8 @@ def crown_bounds(net, lb, ub) -> LayerBounds:
             zlo_c, zhi_c = concretize(*forms, lb, ub)
             zlo = torch.maximum(zlo, zlo_c)
             zhi = torch.minimum(zhi, zhi_c)
-        zlo, zhi = widen(zlo, zhi)
+        if widen_bounds:
+            zlo, zhi = widen(zlo, zhi)
         ws_lb.append(zlo)
         ws_ub.append(zhi)
         if k == n - 1:
@@ -202,6 +204,12 @@ def crown_bounds(net, lb, ub) -> LayerBounds:
         pl_ub.append(phi)
         lo_run, hi_run = plo, phi
     return LayerBounds(tuple(ws_lb), tuple(ws_ub), tuple(pl_lb), tuple(pl_ub))
+
+
+def crown_output_bounds(net, lb, ub, widen: bool = True):
+    """CROWN bounds ``(lo, hi)`` of the output logit over a batch of boxes."""
+    bounds = crown_bounds(net, lb, ub, widen_bounds=widen)
+    return bounds.ws_lb[-1][..., 0], bounds.ws_ub[-1][..., 0]
 
 
 def sign_constrained_output_bounds(net, lb, ub, signs, alpha_iters: int = 0,

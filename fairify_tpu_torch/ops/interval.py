@@ -65,6 +65,12 @@ def network_bounds(net, lb, ub, widen_bounds: bool = True) -> LayerBounds:
     return LayerBounds(tuple(ws_lb), tuple(ws_ub), tuple(pl_lb), tuple(pl_ub))
 
 
+def output_bounds(net, lb, ub):
+    """Widened interval bounds ``(lo, hi)`` of the output logit only."""
+    bounds = network_bounds(net, lb, ub)
+    return bounds.ws_lb[-1][..., 0], bounds.ws_ub[-1][..., 0]
+
+
 def dead_from_ws_ub(bounds: LayerBounds) -> list:
     """Provably-dead masks (1 = dead) from WS upper bounds; the output
     layer is all-alive."""

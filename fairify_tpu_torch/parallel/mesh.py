@@ -1,7 +1,7 @@
 """Model stacking for the family path.
 
 Port of ``fairify_tpu/parallel/mesh.py:stack_models``; the rest of that
-module (device meshes, sharded placement) is ROADMAP queue 1, item 8.
+module (device meshes, sharded placement) is ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 

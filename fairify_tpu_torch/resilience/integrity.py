@@ -6,7 +6,7 @@ known-answer canary checks (:func:`check_canary` for stage-0 segments,
 :func:`check_bab_canary` for device-BaB segments), their combinations
 (:func:`verify_segment`, :func:`verify_bab_segment`), and the per-row ledger CRC (:func:`record_crc`,
 :func:`verify_records`).  Fault injection and the sampled recheck are not
-ported yet (ROADMAP queue 1, item 7).
+ported yet (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Atomic + fsync'd JSONL appends: the writer behind the verdict ledger.
 
 Copy of ``fairify_tpu/resilience/journal.py`` without its supervisor and
-fault-injection hooks (ROADMAP queue 1, item 7): one ``write`` per record
+fault-injection hooks (ROADMAP queue 1, item 4): one ``write`` per record
 (a crash can only truncate the final line), a flush and an fsync before the
 next partition, and, with ``crc=True``, a ``_crc`` field per row (CRC-32 of
 the canonical JSON body, :func:`resilience.integrity.record_crc`) that a

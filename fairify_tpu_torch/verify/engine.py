@@ -35,19 +35,31 @@ Port of ``fairify_tpu/verify/engine.py`` for the phases the port runs:
   ``device_bab=False``): one :func:`certify_attack` per frontier batch
   (certificate with the branching score, α-CROWN after a fifth of the
   deadline, the attack), multi-way ``score·width`` splits on the host;
+* the IBP path (``use_crown=False``, the JAX package's K10 group): the
+  role-logit bounds of both roles (:func:`role_logit_bounds`, rows 13
+  and 8) and the attack logits (:func:`attack_logits`, rows 17 and 9) on
+  the card, the certificate (:func:`no_flip_certified`), its margin
+  (:func:`role_bound_margin`), the flips and the gap on the host
+  (:func:`ibp_certify_attack`); the host frontier's non-fused branch,
+  which splits the widest dims;
 * :func:`decide_many` / :func:`decide_box`, which raise
-  ``NotImplementedError`` where the IBP path or a mesh would run;
-* exact witness validation on the host (:func:`validate_pair`).
+  ``NotImplementedError`` where a mesh would run;
+* exact witness validation on the host (:func:`validate_pair`: float64
+  first, then the native exact core, ``ops.exact_native``, or
+  ``Fraction`` arithmetic).
 
-Seven device kernels carry it: KB :func:`stage0_certify`
+Eight device kernels carry it: KB :func:`stage0_certify`
 (``csrc/stage0_certify.cu``, with a model axis for stacked families, an
 α-CROWN mode and the score output), KC :func:`attack_flips`
 (``csrc/attack_flips.cu``, with a model axis), K5 :func:`pgd_attack_kernel`
 (``csrc/pgd_attack.cu``), K6 :func:`bab_segment`
 (``csrc/bab_segment.cu``), K8a :func:`sign_bound`
 (``csrc/sign_bound.cu``), K8b :func:`inter_bounds`
-(``csrc/inter_bounds.cu``) and the role-logit forward
-:func:`sample_role_logits` (``csrc/role_logits.cu``), each beside its
+(``csrc/inter_bounds.cu``), K10's role bounds :func:`role_logit_bounds`
+(``csrc/role_bounds.cu``) and the masked forward of
+``csrc/attack_logits.cu``, launched as K10's attack forward
+:func:`attack_logits` and as Phase S's :func:`sample_role_logits`, each
+beside its
 plain PyTorch version, which the CPU tests run; Phases E0/E run the three
 lattice kernels of ``ops/lattice.py``.
 """
@@ -67,6 +79,8 @@ import torch
 from fairify_tpu_torch.models.mlp import StackedMLP, forward_np, local_affine_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
 from fairify_tpu_torch.ops import crown as crown_ops
+from fairify_tpu_torch.ops import exact_native
+from fairify_tpu_torch.ops import interval as interval_ops
 from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.ops import lp as lp_ops
 from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
@@ -79,11 +93,7 @@ from fairify_tpu_torch.verify.property import (PairEncoding, role_boxes,
 F32_MAX = float(np.finfo(np.float32).max)
 
 MESH_NOT_PORTED = ("mesh-sharded sweeps and engine phases are not ported yet: "
-                   "ROADMAP queue 1, item 8")
-IBP_NOT_PORTED = ("use_crown=False (the IBP path: role-logit bounds and attack "
-                  "forwards, fairify_tpu/verify/engine.py:51 and :615, and their "
-                  "family forms, sweep.py:1090 and :1099) is not ported yet: "
-                  "ROADMAP queue 2, K10")
+                   "ROADMAP queue 1, item 7")
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +238,6 @@ stage0_certify.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def attack_logits(net, x_roles, xp_roles):
-    """Forward logits of attack candidates: (..., V, d) → (..., V)."""
-    return net(x_roles), net(xp_roles)
-
-
 def find_flips_impl(lx, lp, valid, valid_pair):
     """Strict-flip detection: ``(found (B,), wit (B, 3) int32)``.
 
@@ -302,7 +307,7 @@ def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok):
     leading model axis, and the fold covers all models' buffers.
     """
     def one(m, c, mg):
-        lx, lp = attack_logits(m, xr, pr)
+        lx, lp = attack_logits_plain(m, xr, pr)
         found, wit = find_flips_impl(lx, lp, valid, valid_pair)
         gap = attack_gap_impl(lx, lp, valid, valid_pair)
         reason = (c.to(torch.int8) + 2 * found.to(torch.int8))
@@ -375,6 +380,159 @@ def certify_attack(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
 
 
 # ---------------------------------------------------------------------------
+# The IBP path (K10): role-logit bounds (rows 13 and 8) and attack logits
+# (rows 17 and 9) on the card; the certificate, margin, flips and gap on
+# the host
+# ---------------------------------------------------------------------------
+
+
+def role_logit_bounds_plain(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool):
+    """Plain PyTorch version of :func:`role_logit_bounds`: the widened
+    output-logit bounds of both roles' boxes, by CROWN
+    (``ops.crown.crown_output_bounds``) or by IBP
+    (``ops.interval.output_bounds``)."""
+    bounds = (crown_ops.crown_output_bounds if use_crown
+              else interval_ops.output_bounds)
+    return each_model(net, lambda m: bounds(m, x_lo, x_hi) + bounds(m, xp_lo, xp_hi))
+
+
+def role_logit_bounds(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool):
+    """Rows 13 and 8: ``(lb_x, ub_x, lb_p, ub_p)`` (..., V) of the role boxes
+    (..., V, d) of both roles, one launch; a ``StackedMLP`` adds a leading
+    model axis (the kernel's ``blockIdx.y``).  ``use_crown`` picks the CROWN
+    bounds (as ``crown_bounds(widen=True)``), else the widened interval
+    image.  CPU tensors take :func:`role_logit_bounds_plain`; CUDA tensors
+    launch ``csrc/role_bounds.cu``."""
+    if x_lo.device.type == "cpu":
+        return role_logit_bounds_plain(net, x_lo, x_hi, xp_lo, xp_hi, use_crown)
+    if net.layer_sizes[-1] != 1:
+        raise ValueError("role_logit_bounds: the net must have one output logit")
+    if not (x_lo.shape == x_hi.shape == xp_lo.shape == xp_hi.shape):
+        raise ValueError("role_logit_bounds: the four role-box tensors need one shape")
+    params, dims, M = cuda_build.pack_models(net)
+    ins = [t.contiguous() for t in (x_lo, x_hi, xp_lo, xp_hi)]
+    cuda_build.require_cuda(params, *ins)
+    shape = x_lo.shape[:-1]
+    V = shape[-1] if len(shape) else 1
+    B = x_lo.numel() // (x_lo.shape[-1] * V)
+    out_lo = torch.empty((M, 2, B * V), dtype=torch.float32, device=x_lo.device)
+    out_hi = torch.empty_like(out_lo)
+    cuda_build.call("role_bounds", "k10_role_bounds", cuda_build.ptr(params), dims,
+                    ctypes.c_int(net.depth), *(cuda_build.ptr(t) for t in ins),
+                    ctypes.c_int(B), ctypes.c_int(V), ctypes.c_int(M),
+                    ctypes.c_int(int(bool(use_crown))), cuda_build.ptr(out_lo),
+                    cuda_build.ptr(out_hi), cuda_build.stream())
+    role_logit_bounds.launches += 1
+    lead = (M,) if isinstance(net, StackedMLP) else ()
+    out = (out_lo[:, 0], out_hi[:, 0], out_lo[:, 1], out_hi[:, 1])
+    return tuple(t.reshape(lead + shape) for t in out)
+
+
+role_logit_bounds.launches = 0
+
+
+def attack_logits_plain(net, x_roles, xp_roles):
+    """Plain PyTorch version of :func:`attack_logits`: the forward logits of
+    attack candidates, (..., V, d) → (..., V); a ``StackedMLP`` gives every
+    model's logits on a leading model axis."""
+    return net(x_roles), net(xp_roles)
+
+
+def attack_logits(net, x_roles, xp_roles):
+    """Rows 17 and 9: the masked forward logit of every attack candidate of
+    both roles, (..., d) → (...), one launch; for a ``StackedMLP`` every
+    model reads the same candidates and the outputs gain a leading model
+    axis.  CPU tensors take :func:`attack_logits_plain`; CUDA tensors launch
+    ``csrc/attack_logits.cu``."""
+    if x_roles.device.type == "cpu":
+        return attack_logits_plain(net, x_roles, xp_roles)
+    if net.layer_sizes[-1] != 1:
+        raise ValueError("attack_logits: the net must have one output logit")
+    if x_roles.shape != xp_roles.shape:
+        raise ValueError("attack_logits: both role tensors need one shape")
+    out = _launch_attack_logits(net, x_roles, xp_roles, None)
+    attack_logits.launches += 1
+    return out
+
+
+def _launch_attack_logits(net, x_roles, xp_roles, models):
+    """One launch of ``k10_attack_logits`` on CUDA role tensors; ``models``
+    must match the packed net's model count when given."""
+    params, dims, M = cuda_build.pack_models(net)
+    if models is not None and M != models:
+        raise ValueError(f"expected {models} model(s), got {M}")
+    x, xp = x_roles.contiguous(), xp_roles.contiguous()
+    cuda_build.require_cuda(params, x, xp)
+    n = x.numel() // x.shape[-1]
+    out = torch.empty((M, 2 * n), dtype=torch.float32, device=x.device)
+    cuda_build.call("attack_logits", "k10_attack_logits", cuda_build.ptr(params), dims,
+                    ctypes.c_int(net.depth), cuda_build.ptr(x), cuda_build.ptr(xp),
+                    ctypes.c_longlong(n), ctypes.c_int(M), cuda_build.ptr(out),
+                    cuda_build.stream())
+    lead = (M,) if isinstance(net, StackedMLP) else ()
+    shape = lead + x.shape[:-1]
+    return out[:, :n].reshape(shape), out[:, n:].reshape(shape)
+
+
+attack_logits.launches = 0
+
+
+def no_flip_certified(lb_x, ub_x, lb_p, ub_p, valid_assign, valid_pair) -> np.ndarray:
+    """Per-box certificate from role logit bounds (numpy; the JAX package's
+    host ``no_flip_certified``): for a valid pair (a, b) the flip x⁺/x'⁻ is
+    impossible iff ``ub_x[a] <= 0`` or ``lb_p[b] >= 0``, the flip x⁻/x'⁺ iff
+    ``lb_x[a] >= 0`` or ``ub_p[b] <= 0``; certified iff both are impossible
+    for every valid pair."""
+    lb_x, ub_x, lb_p, ub_p = (np.asarray(v) for v in (lb_x, ub_x, lb_p, ub_p))
+    valid_assign = np.asarray(valid_assign, bool)
+    pair_ok = (np.asarray(valid_pair, bool) & valid_assign[..., :, None]
+               & valid_assign[..., None, :])
+    t1_dead = (ub_x[..., :, None] <= 0.0) | (lb_p[..., None, :] >= 0.0)
+    t2_dead = (lb_x[..., :, None] >= 0.0) | (ub_p[..., None, :] <= 0.0)
+    return ~(pair_ok & ~(t1_dead & t2_dead)).any(axis=(-2, -1))
+
+
+def role_bound_margin(lb_x, ub_x, lb_p, ub_p, valid, valid_pair) -> np.ndarray:
+    """Certified margin from role logit bounds alone (numpy, f32; the JAX
+    package's host ``role_bound_margin``): ``margin >= 0`` iff
+    :func:`no_flip_certified`; boxes without a valid pair get FLT_MAX."""
+    lb_x, ub_x, lb_p, ub_p = (np.asarray(v, np.float32)
+                              for v in (lb_x, ub_x, lb_p, ub_p))
+    m1 = np.maximum(-ub_x[..., :, None], lb_p[..., None, :])
+    m2 = np.maximum(lb_x[..., :, None], -ub_p[..., None, :])
+    va = np.asarray(valid, bool)
+    pair_ok = np.asarray(valid_pair, bool) & va[..., :, None] & va[..., None, :]
+    big = np.float32(F32_MAX)
+    return np.where(pair_ok, np.minimum(m1, m2), big).min(axis=(-2, -1))
+
+
+def ibp_certify_attack(net, enc: PairEncoding, x_lo, x_hi, xp_lo, xp_hi, valid, xr, pr):
+    """The IBP path's certificate + attack of N boxes: one row-13 and one
+    row-17 launch (:func:`role_logit_bounds`, :func:`attack_logits`) on
+    the net's device, then per model on the host (numpy role boxes (N, V,
+    d), ``valid`` (N, V), candidates (N, S, V, d)) ``(cert (N,), margin
+    (N,), found (N,), wit (N, 3), gap (N,))`` — a list with one entry per
+    model of a ``StackedMLP``, else one tuple."""
+    on = lambda a: torch.as_tensor(a, device=net.device)
+    bounds = role_logit_bounds(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi),
+                               use_crown=False)
+    logits = attack_logits(net, on(xr), on(pr))
+    lbx, ubx, lbp, ubp, lx, lp = (t.cpu() for t in bounds + logits)
+    stacked = isinstance(net, StackedMLP)
+    if not stacked:
+        lbx, ubx, lbp, ubp, lx, lp = (t[None] for t in (lbx, ubx, lbp, ubp, lx, lp))
+    va, vp = torch.as_tensor(valid), torch.as_tensor(enc.valid_pair)
+    out = []
+    for m in range(lbx.shape[0]):
+        b = (lbx[m].numpy(), ubx[m].numpy(), lbp[m].numpy(), ubp[m].numpy())
+        found, wit = find_flips_impl(lx[m], lp[m], va, vp)
+        out.append((no_flip_certified(*b, valid, enc.valid_pair),
+                    role_bound_margin(*b, valid, enc.valid_pair), found.numpy(),
+                    wit.numpy(), attack_gap_impl(lx[m], lp[m], va, vp).numpy()))
+    return out if stacked else out[0]
+
+
+# ---------------------------------------------------------------------------
 # Host-side helpers: encoding tensors, attack candidates, exact checks
 # ---------------------------------------------------------------------------
 
@@ -432,12 +590,18 @@ def extract_witnesses(found, wit, x_cand, xp_cand, weights, biases, limit=None) 
 def exact_logit_sign(weights, biases, x: np.ndarray) -> int:
     """Sign of the logit at integer point x, exact when ambiguous.
 
-    Float64 forward first; within 1e-6 of zero, re-evaluate in rational
-    arithmetic (f32 weights are dyadic rationals, so this is the true sign).
+    Float64 forward first; within 1e-6 of zero, re-evaluate exactly (f32
+    weights are dyadic rationals, so this is the true sign): in the native
+    exact core (``ops.exact_native.forward_signs``) when it is available,
+    else in ``Fraction`` arithmetic.
     """
     v = float(forward_np(weights, biases, np.asarray(x, dtype=np.float64)))
     if abs(v) > 1e-6:
         return 1 if v > 0 else -1
+    nat = exact_native.forward_signs(weights, biases,
+                                     np.asarray(x, dtype=np.int64)[None, :])
+    if nat is not None:
+        return int(nat[0])
     hf = [Fraction(int(t)) for t in np.asarray(x, dtype=np.int64)]
     for i, (w, b) in enumerate(zip(weights, biases)):
         wf = np.asarray(w, dtype=np.float64)
@@ -1062,25 +1226,18 @@ bab_segment.launches = 0
 def sample_role_logits(net, x_roles, xp_roles):
     """Logits of the sign conjecture's sampled role points: two (..., d)
     tensors → two (...) tensors, one launch.  CPU tensors take the plain
-    forward (:func:`attack_logits`); CUDA tensors launch
-    ``csrc/role_logits.cu``."""
+    forward (:func:`attack_logits_plain`); CUDA tensors launch the kernel of
+    :func:`attack_logits` (``csrc/attack_logits.cu``) with one model, counted
+    here and not there."""
     if x_roles.device.type == "cpu":
-        return attack_logits(net, x_roles, xp_roles)
+        return attack_logits_plain(net, x_roles, xp_roles)
     if net.layer_sizes[-1] != 1:
         raise ValueError("sample_role_logits: the net must have one output logit")
     if x_roles.shape != xp_roles.shape:
         raise ValueError("sample_role_logits: both role tensors need one shape")
-    params, dims = cuda_build.pack_net(net)
-    x, xp = x_roles.contiguous(), xp_roles.contiguous()
-    cuda_build.require_cuda(params, x, xp)
-    n = x.numel() // x.shape[-1]
-    out = torch.empty(2 * n, dtype=torch.float32, device=x.device)
-    cuda_build.call("role_logits", "kr_role_logits", cuda_build.ptr(params), dims,
-                    ctypes.c_int(net.depth), cuda_build.ptr(x), cuda_build.ptr(xp),
-                    ctypes.c_int(n), cuda_build.ptr(out), cuda_build.stream())
+    out = _launch_attack_logits(net, x_roles, xp_roles, 1)
     sample_role_logits.launches += 1
-    shape = x.shape[:-1]
-    return out[:n].reshape(shape), out[n:].reshape(shape)
+    return out
 
 
 sample_role_logits.launches = 0
@@ -1595,7 +1752,7 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
     capacity-invariant), :func:`decide_leaf` on point leaves, UNSAT for
     roots whose boxes all closed, and slot recycling.  Segments run
     synchronously (the launch pipeline and supervisor are ROADMAP queue 1,
-    item 7).
+    item 4).
     """
     d = roots_lo.shape[1]
     V = enc.n_assign
@@ -1758,17 +1915,23 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
 
 def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
                         main_deadline, verdicts, settle, nodes, leaves, cost_s):
-    """The host-frontier input-split BaB (``decide_many``'s batch loop,
-    fused branch): every still-undecided root's sub-boxes share one deque,
-    popped ``frontier_size`` at a time, one :func:`certify_attack` per
-    batch (KB + KC on the card) with ``bab_attack_samples`` candidates per
-    box from ``default_rng(cfg.seed)``; α-CROWN once a fifth of
-    ``deadline_s`` is spent.  Per uncertified box: an exactly replayed
-    flip settles its root SAT; more than ``max_nodes`` nodes settles it
-    unknown ('budget'); a zero-width box goes to :func:`decide_leaf`;
-    otherwise the box splits at the midpoints of its top 1–3 dims by
-    ``score·width`` (stable order; widest dim when every score is 0),
-    several dims at once when the frontier is underfull.  A root whose
+    """The host-frontier input-split BaB (``decide_many``'s batch loop):
+    every still-undecided root's sub-boxes share one deque, popped
+    ``frontier_size`` at a time.  On the CROWN path (the fused branch) one
+    :func:`certify_attack` per batch (KB + KC on the card) with
+    ``bab_attack_samples`` candidates per box from ``default_rng(cfg.seed)``,
+    α-CROWN once a fifth of ``deadline_s`` is spent.  On the IBP path
+    (``use_crown=False``, the non-fused branch) the batch's role-logit
+    bounds (:func:`role_logit_bounds`, row 13) and
+    :func:`no_flip_certified` first, then candidates drawn for the
+    undecided boxes only, padded to ``frontier_size``, through
+    :func:`attack_logits` (row 17) and :func:`find_flips`.  Per uncertified
+    box: an exactly replayed flip settles its root SAT; more than
+    ``max_nodes`` nodes settles it unknown ('budget'); a zero-width box
+    goes to :func:`decide_leaf`; otherwise the box splits at the midpoints
+    of its top 1–3 dims by ``score·width`` (stable order; by width where
+    every score is 0 and on the IBP path, which has no score), several dims
+    at once when the frontier is underfull.  A root whose
     boxes are all gone is UNSAT; at ``main_deadline`` the rest are unknown
     ('deadline').  Each batch's time is split evenly over its boxes'
     roots."""
@@ -1811,25 +1974,43 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
         plo = _pad(blo, F).astype(np.float32)
         phi = _pad(bhi, F).astype(np.float32)
         x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, plo, phi)
-        use_alpha = cfg.alpha_iters > 0 and time.perf_counter() - t0 > 0.2 * deadline_s
-        xr, pr = build_attack_candidates(enc, rng, _pad(blo, F), _pad(bhi, F),
-                                         cfg.bab_attack_samples)
-        out = certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(plo),
-                             on(phi), av, pm, rm, float(enc.eps), on(valid), vpair,
-                             on(xr), on(pr),
-                             alpha_iters=cfg.alpha_iters if use_alpha else 0)
-        cert, score, found_all, wit_all, _margin, _gap = (t.cpu().numpy() for t in out)
-        certified = cert[:batch]
+        score = None
+        if cfg.use_crown:
+            use_alpha = cfg.alpha_iters > 0 and time.perf_counter() - t0 > 0.2 * deadline_s
+            xr, pr = build_attack_candidates(enc, rng, _pad(blo, F), _pad(bhi, F),
+                                             cfg.bab_attack_samples)
+            out = certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(plo),
+                                 on(phi), av, pm, rm, float(enc.eps), on(valid), vpair,
+                                 on(xr), on(pr),
+                                 alpha_iters=cfg.alpha_iters if use_alpha else 0)
+            cert, score, found_all, wit_all, _margin, _gap = (t.cpu().numpy()
+                                                               for t in out)
+            certified = cert[:batch]
+        else:  # IBP: role bounds (row 13) first, then attack the undecided
+            bounds = role_logit_bounds(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi),
+                                       use_crown=False)
+            certified = no_flip_certified(*(t.cpu().numpy() for t in bounds), valid,
+                                          enc.valid_pair)[:batch]
         undecided = np.where(~certified & live)[0]
         if undecided.size:
-            found, wit = found_all[undecided], wit_all[undecided]
+            if cfg.use_crown:
+                found, wit = found_all[undecided], wit_all[undecided]
+                xr_u, pr_u = xr[undecided], pr[undecided]
+            else:  # candidates for the undecided boxes only, padded to F
+                xr_u, pr_u = build_attack_candidates(
+                    enc, rng, _pad(blo[undecided], F), _pad(bhi[undecided], F),
+                    cfg.bab_attack_samples)
+                lx, lp = attack_logits(net, on(xr_u), on(pr_u))
+                found, wit = find_flips(enc, lx.cpu().numpy(), lp.cpu().numpy(),
+                                        _pad(valid[undecided], F))
+                found = found[:undecided.size]
             for k in np.where(found)[0]:
                 r = int(broot[undecided[k]])
                 if verdicts[r] is not None:
                     continue
                 s_, a, b = wit[k]
-                x = xr[undecided[k], s_, a].astype(np.int64)
-                xp = pr[undecided[k], s_, b].astype(np.int64)
+                x = xr_u[k, s_, a].astype(np.int64)
+                xp = pr_u[k, s_, b].astype(np.int64)
                 if validate_pair(weights, biases, x, xp):
                     settle(r, "sat", (x, xp))
             for k in undecided:
@@ -1850,11 +2031,12 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
                         settle(r, "unknown")
                     continue
                 # Coefficient-aware branching: the dims whose width adds most
-                # to the difference bound's slack (score·width); several at
-                # once while the frontier is underfull.
-                sc = score[k][branch_dims] * widths
-                if float(sc.max()) <= 0:
-                    sc = widths.astype(np.float64)
+                # to the difference bound's slack (score·width; the widest
+                # dims on the IBP path, which has no score); several at once
+                # while the frontier is underfull.
+                sc = widths.astype(np.float64)
+                if score is not None and float((score[k][branch_dims] * widths).max()) > 0:
+                    sc = score[k][branch_dims] * widths
                 n_dims = 1
                 if len(frontier) + 2 * undecided.size < F // 2:
                     n_dims = 3 if len(frontier) + 4 * undecided.size < F // 4 else 2
@@ -1898,13 +2080,13 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
     Phase E0, the lattice scan of the roots of at most
     ``lattice_first_max`` points (``lattice_exhaustive``); the
     device-resident BaB (:func:`device_bab_phase`) — or, with
-    ``device_bab=False`` or no protected attribute, the host-frontier BaB
-    (:func:`host_frontier_phase`) — on what is left under
-    ``main_deadline``; Phase P, the pair LP BaB (:func:`pair_lp_phase`),
-    on the roots still unknown under ``pair_deadline``; Phase E
-    (:func:`lattice_phase`) on the enumerable roots still unknown.  The
-    IBP path (``use_crown=False``) and a mesh raise ``NotImplementedError``
-    naming their ROADMAP items where a root would reach the BaB.
+    ``device_bab=False``, ``use_crown=False`` (the IBP path) or no
+    protected attribute, the host-frontier BaB (:func:`host_frontier_phase`)
+    — on what is left under ``main_deadline``; Phase P, the pair LP BaB
+    (:func:`pair_lp_phase`), on the roots still unknown under
+    ``pair_deadline``; Phase E (:func:`lattice_phase`) on the enumerable
+    roots still unknown.  A mesh raises ``NotImplementedError`` naming its
+    ROADMAP item where a root would reach the BaB.
     ``deadline_s`` defaults to
     ``soft_timeout_s × n_roots``.  Returns one :class:`Decision` per root,
     with per-root attributed ``t_attack``, ``t_sign``, ``t_lp``,
@@ -2002,11 +2184,9 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 unknown_reasons[r] = reason or "frontier"
 
     if open_roots:
-        if not cfg.use_crown:
-            raise NotImplementedError(IBP_NOT_PORTED)
         if mesh is not None:
             raise NotImplementedError(MESH_NOT_PORTED)
-        if cfg.device_bab and len(enc.pa_idx):
+        if cfg.device_bab and cfg.use_crown and len(enc.pa_idx):
             device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, main_deadline,
                              verdicts, settle, nodes, leaves, cost_s)
         else:

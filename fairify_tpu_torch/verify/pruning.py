@@ -10,31 +10,31 @@ CUDA device, its plain PyTorch version :func:`sim_and_bounds_plain` on the
 CPU; ``keep_sim`` regenerates the samples with K12's row generator
 (:func:`sim_rows`, ``csrc/sim_rows.cu``).
 
-The exact-rational certify pass (``exact_certify=True``) is not ported yet
-(ROADMAP queue 1); the derived masks feed only the CSV's compression and
-parity columns, never a verdict.
+With ``exact_certify`` the host then re-derives every proposed dead
+neuron in exact rational arithmetic (:mod:`fairify_tpu_torch.ops.exact`:
+the native exact core over all partitions in one call, else the
+``Fraction`` pass per partition), so the masks never rest on f32
+round-off.  The masks feed only the CSV's compression and parity columns
+and the heuristic retry, never a stage-0 verdict.
 """
 from __future__ import annotations
 
 import ctypes
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from fairify_tpu_torch.ops import exact as exact_ops
+from fairify_tpu_torch.ops import exact_native
 from fairify_tpu_torch.ops import interval as interval_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, activation_stats, simulate_boxes
 from fairify_tpu_torch.partition.grid import chunk_spans, pad_rows, segment_spans
 from fairify_tpu_torch.utils import cuda_build
 from fairify_tpu_torch.utils.prng import grid_keys
-
-EXACT_CERTIFY_NOT_PORTED = (
-    "exact_certify=True (the exact-rational mask pass, fairify_tpu/verify/"
-    "pruning.py:272-291) is not ported yet: ROADMAP queue 1, 'exact-certify "
-    "pass'")
-
 
 @dataclass
 class PruneResult:
@@ -43,13 +43,13 @@ class PruneResult:
     candidates: List[np.ndarray]  # (P, n_l) 1 = never activated in simulation
     surviving: List[np.ndarray]  # candidates not proven dead
     b_deads: List[np.ndarray]  # bound-proven dead (IBP criterion)
-    s_deads: List[np.ndarray]  # exact-pass-proven dead beyond b_deads (zeros)
+    s_deads: List[np.ndarray]  # exact-pass-proven dead beyond b_deads
     st_deads: List[np.ndarray]  # merged sound dead, keep-one guarded
     pos_prob: List[np.ndarray]  # activation frequency per neuron
     ws_lb: List[np.ndarray]
     ws_ub: List[np.ndarray]
     sim: Optional[np.ndarray]  # (P, sim_size, d) with keep_sim, else None
-    sv_time_s: float
+    sv_time_s: float  # seconds of the exact pass (the reference's SV time)
     looseness: Optional[np.ndarray] = None  # (L,) sum of (ub - lb) per layer
 
 
@@ -137,9 +137,9 @@ sim_rows.launches = 0
 
 def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
                      seed: int, chunk: int, mega_chunks: int,
-                     index_offset: int = 0, keep_sim: bool = False) -> PruneResult:
-    """Sound pruning for a (P, d) box grid, without the exact pass
-    (``exact_certify=False``).
+                     index_offset: int = 0, keep_sim: bool = False,
+                     exact_certify: bool = False) -> PruneResult:
+    """Sound pruning for a (P, d) box grid.
 
     Each partition's key is ``grid_keys(seed, global index)`` (row index
     plus ``index_offset``, the start of a partition span), so masks do not
@@ -153,6 +153,14 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     summed in f64 on the host over the real rows, as the JAX package does;
     with ``keep_sim`` the samples (P, sim_size, d) are regenerated from the
     same keys by K12's row generator (:func:`sim_rows`).
+
+    ``exact_certify`` (the sweep passes ``exact_certify_masks``; off by
+    default here, on in the JAX package's signature) runs the exact pass
+    of ``fairify_tpu/verify/pruning.py``: every simulation candidate is
+    certified dead iff its exact pre-activation upper bound is <= 0
+    (``certify_dead_batch``, or per partition ``certify_dead_masks``);
+    ``s_deads`` = certified beyond ``b_deads``, and ``st_deads`` and
+    ``surviving`` follow the certified masks; ``sv_time_s`` is its time.
     """
     dev = net.device
     P = lo.shape[0]
@@ -191,9 +199,13 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     ibp_dead = [d.numpy() for d in interval_ops.dead_from_ws_ub(bounds)]
     # Bound-dead requires simulation candidacy (``utils/prune.py:241-242``).
     b_deads = [c * d for c, d in zip(candidates, ibp_dead)]
-    # No exact pass: nothing is proven dead beyond the IBP criterion.
+    t0 = time.perf_counter()
     s_deads = [np.zeros_like(c) for c in candidates]
     certified = b_deads
+    if exact_certify:
+        certified = exact_masks(net, lo, hi, candidates)
+        s_deads = [np.maximum(c - b, 0.0) for c, b in zip(certified, b_deads)]
+    sv_time = time.perf_counter() - t0
     merged = [np.maximum(b, s) for b, s in zip(b_deads, s_deads)]
     st_deads = mask_ops.keep_one_alive(merged)
     surviving = [np.maximum(c - m, 0.0) for c, m in zip(candidates, certified)]
@@ -201,7 +213,34 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
                        b_deads=b_deads, s_deads=s_deads, st_deads=st_deads,
                        pos_prob=pos_prob, ws_lb=ws_lb, ws_ub=ws_ub,
                        sim=np.concatenate(sims) if keep_sim else None,
-                       sv_time_s=0.0, looseness=loos)
+                       sv_time_s=sv_time, looseness=loos)
+
+
+def exact_masks(net, lo: np.ndarray, hi: np.ndarray, candidates) -> List[np.ndarray]:
+    """Exactly certified dead masks, per layer (P, n_l) float32, of the
+    proposed ``candidates`` over the integer boxes ``lo``/``hi`` (P, d):
+    one native call over every partition, or the ``Fraction`` pass per
+    partition without the library."""
+    weights, biases = net.numpy_params()
+    batched = exact_native.certify_dead_batch(weights, biases, lo, hi, candidates)
+    if batched is not None:
+        return batched[:len(candidates)]
+    per = [exact_ops.certify_dead_masks(weights, biases, lo[p], hi[p],
+                                        [c[p] for c in candidates])
+           for p in range(lo.shape[0])]
+    return [np.stack([per[p][l] for p in range(lo.shape[0])])
+            for l in range(len(candidates))]
+
+
+def sound_prune_global(net, lo: np.ndarray, hi: np.ndarray, sim_size: int, seed: int,
+                       exact_certify: bool = True) -> PruneResult:
+    """Whole-domain sound pruning (``sound_prune_global``,
+    ``utils/prune.py:646-667``): the grid pass on the single full-range box
+    (P = 1), with the JAX package's defaults (the whole grid as one chunk,
+    no segments, samples kept)."""
+    return sound_prune_grid(net, np.asarray(lo)[None, :], np.asarray(hi)[None, :],
+                            sim_size, seed, chunk=0, mega_chunks=0, keep_sim=True,
+                            exact_certify=exact_certify)
 
 
 def partition_masks(prune: PruneResult, p: int) -> list:

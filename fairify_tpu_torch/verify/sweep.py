@@ -2,15 +2,22 @@
 refinement tail → ledger.
 
 Port of ``fairify_tpu/verify/sweep.py:verify_model`` and of its stacked
-family stage 0 (``stage0_families``), CROWN certificates, no mesh.  Each
-pass runs one launch per segment of ``mega_chunks`` grid chunks (the mega
-path) or, with ``mega_chunks = 0``, one per grid chunk padded to the chunk
-size (the chunk loop); both give the same verdicts, witnesses, ledger and
-histograms.
+family stage 0 (``stage0_families``), CROWN or IBP certificates
+(``use_crown``), no mesh.  Each pass runs one launch per segment of
+``mega_chunks`` grid chunks (the mega path) or, with ``mega_chunks = 0``
+and always on the IBP path (:func:`use_mega`), one per grid chunk padded
+to the chunk size (the chunk loop); both give the same verdicts,
+witnesses, ledger and histograms.
 
 * **Prune pass** — :func:`verify.pruning.sound_prune_grid`: KA
-  (``csrc/sim_and_bounds.cu``).
-* **Stage 0** — one KB launch (certificate, ``csrc/stage0_certify.cu``)
+  (``csrc/sim_and_bounds.cu``), then with ``exact_certify_masks`` (the
+  default) the exact-rational mask pass on the host (the native exact
+  core, ``ops/exact_native.py``).
+* **Stage 0, IBP path** — per chunk one row-13 launch (role-logit bounds,
+  ``csrc/role_bounds.cu``) and one row-17 launch (attack logits,
+  ``csrc/attack_logits.cu``), each with a model axis for a stacked family;
+  the certificate, margin, flips and gap on the host.
+* **Stage 0, CROWN path** — one KB launch (certificate, ``csrc/stage0_certify.cu``)
   and one KC launch (attack, flips, histograms, fold,
   ``csrc/attack_flips.cu``) per segment (the stacked chunks plus the
   integrity canary chunk; the host checks the fold and the canary) or per
@@ -27,15 +34,17 @@ histograms.
   remaining hard budget.
 * **bab** — :func:`verify.engine.decide_many` on what is left, under
   ``min(soft_timeout × leftovers, hard budget left)``: Phase S, the
-  uniform-sign BaB (role logits, ``csrc/role_logits.cu``; β-CROWN sign
+  uniform-sign BaB (role logits, ``csrc/attack_logits.cu``; β-CROWN sign
   bounds, K8a ``csrc/sign_bound.cu``) with Phase L, the host LP BaB on
   CROWN pre-activation bounds (K8b ``csrc/inter_bounds.cu``), inside it;
   Phase E0, the exhaustive lattice scan of the cheap enumerable roots
   (K9a ``lattice_scan``, K9c ``lattice_scan_ra`` for RA queries, K9b
   ``lattice_signs`` on a margin overflow: ``csrc/lattice_scan.cu``); the
   device BaB (K6, ``csrc/bab_segment.cu``; segment 0 plain CROWN, later
-  segments α-CROWN) or, with ``device_bab=False``, the host-frontier BaB
-  (KB with α and the branching score, and KC, per frontier batch); Phase
+  segments α-CROWN) or, with ``device_bab=False`` or on the IBP path, the
+  host-frontier BaB (KB with α and the branching score, and KC, per
+  frontier batch; on the IBP path row 13, then row 17 on the undecided
+  boxes); Phase
   P, the pair LP BaB (K8b again); Phase E, the lattice scan of the
   enumerable roots still unknown (K9 again).
 * **Heuristic retry** — each still-unknown partition is re-decided on its
@@ -49,9 +58,9 @@ histograms.
   phase, the partitions it decided on the first pass (``engine_decided``).
 
 Launches run synchronously (the async pipeline, supervisor and obs spans
-are ROADMAP queue 1, item 7).  What the port does not run yet — the IBP
-path (``use_crown=False``), meshes, the SMT tier — raises
-``NotImplementedError`` naming its ROADMAP item where it would run.
+are ROADMAP queue 1, item 4).  What the port does not run yet — meshes,
+the runtime contracts' settings (:func:`check_supported`), the SMT tier —
+raises ``NotImplementedError`` naming its ROADMAP item where it would run.
 """
 from __future__ import annotations
 
@@ -147,25 +156,48 @@ def build_partitions(cfg: SweepConfig):
     return grid_mod.BoxList(lo, hi, domain.columns), lo, hi
 
 
-def check_supported(cfg: SweepConfig, mesh=None) -> None:
-    """Reject every configuration the port does not run yet.
+# Settings with which the JAX package writes or changes an output the port
+# does not produce yet: a span trace, an XLA trace, a heartbeat line, and a
+# per-chunk retry deadline that changes which chunks are retried.
+OUTPUT_SETTINGS = ("trace_out", "profile_dir", "heartbeat_s", "chunk_deadline_s")
+RUNTIME_NOT_PORTED = ("the runtime contracts (pipeline, supervisor, faults, "
+                      "integrity recheck, obs) are not ported yet: ROADMAP queue 1, "
+                      "item 4")
 
-    Each message names the ROADMAP item that will port it; nothing is
-    silently ignored.
+
+def check_supported(cfg: SweepConfig, mesh=None) -> None:
+    """Reject every configuration the port does not run yet, naming its
+    ROADMAP item: a mesh (item 7); fault injection, the sampled integrity
+    recheck (only with ``integrity`` on: with it off the JAX package runs
+    no recheck) and a non-default value of a setting in
+    :data:`OUTPUT_SETTINGS`, with which the JAX package writes or changes
+    an output (item 4).
+
+    The port accepts, and does not act on yet, ``pipeline_depth``,
+    ``max_launch_retries`` and ``launch_backoff_s``: its launches run
+    synchronously and see no faults, where these settings change only
+    timing (the stress presets set the first two).  ``partition_metrics``
+    acts in the JAX package only with a ``dataset``, which the port's
+    :func:`verify_model` does not take yet (ROADMAP queue 1, item 6).
     """
     if mesh is not None:
         raise NotImplementedError(engine.MESH_NOT_PORTED)
-    if not cfg.engine.use_crown:
-        raise NotImplementedError(engine.IBP_NOT_PORTED)
-    if cfg.exact_certify_masks:
-        raise NotImplementedError(pruning.EXACT_CERTIFY_NOT_PORTED)
     if cfg.inject_faults:
-        raise NotImplementedError(
-            "fault injection is not ported yet: ROADMAP queue 1, item 7")
-    if cfg.integrity_recheck > 0.0:
-        raise NotImplementedError(
-            "the sampled integrity recheck is not ported yet: ROADMAP queue 1, "
-            "item 7")
+        raise NotImplementedError(f"inject_faults: {RUNTIME_NOT_PORTED}")
+    if cfg.integrity and cfg.integrity_recheck > 0.0:
+        raise NotImplementedError(f"integrity_recheck: {RUNTIME_NOT_PORTED}")
+    default = SweepConfig(name="", dataset="", protected=())
+    for name in OUTPUT_SETTINGS:
+        if getattr(cfg, name) != getattr(default, name):
+            raise NotImplementedError(f"{name}: {RUNTIME_NOT_PORTED}")
+
+
+def use_mega(cfg: SweepConfig) -> bool:
+    """Whether stage 0, the prune and the parity passes run the mega path
+    (the JAX package's ``_use_mega``, no mesh): only the fused CROWN body
+    has one, so the IBP path takes the chunk loop whatever
+    ``mega_chunks`` says."""
+    return cfg.mega_chunks > 0 and cfg.engine.use_crown
 
 
 # ---------------------------------------------------------------------------
@@ -280,17 +312,26 @@ def mega_segment_decode(host, ctx, models):
 
 def stage0_block(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, rng_seed: int,
                  pad_to: int):
-    """One grid chunk's stage 0 (``_stage0_block_submit`` + ``_decode``,
-    fused branch; ``_family_block_*`` for a stacked family): the chunk is
-    padded to ``pad_to`` rows BEFORE the attack candidates are drawn from
-    ``default_rng(rng_seed)``, then one :func:`engine.certify_attack` (one
-    KB + one KC launch).  Returns per model ``(unsat, sat, witnesses,
-    margin, gap)``, padding rows included."""
+    """One grid chunk's stage 0 (``_stage0_block_submit`` + ``_decode``;
+    ``_family_block_*`` for a stacked family): the chunk is padded to
+    ``pad_to`` rows BEFORE the attack candidates are drawn from
+    ``default_rng(rng_seed)``.  The CROWN path (the fused branch) is one
+    :func:`engine.certify_attack` (one KB + one KC launch); the IBP path
+    (``use_crown=False``) is :func:`engine.ibp_certify_attack` (one
+    row-13 and one row-17 launch, the certificate, margin, flips and gap
+    on the host).  Returns per model ``(unsat, sat, witnesses, margin,
+    gap)``, padding rows included."""
     lo, hi = grid_mod.pad_rows(lo, pad_to), grid_mod.pad_rows(hi, pad_to)
     flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
     x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, flo, fhi)
     xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(rng_seed),
                                             lo, hi, cfg.engine.attack_samples)
+    models = _model_params(net)
+    if not cfg.engine.use_crown:
+        out = engine.ibp_certify_attack(net, enc, x_lo, x_hi, xp_lo, xp_hi, valid, xr, pr)
+        per_model = out if isinstance(net, StackedMLP) else [out]
+        return [decode_flips(cert, found, wit, xr, pr, w, b) + (margin, gap)
+                for (cert, margin, found, wit, gap), (w, b) in zip(per_model, models)]
     on = lambda a: torch.as_tensor(a, device=net.device)
     av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
     out = engine.certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(flo),
@@ -300,7 +341,7 @@ def stage0_block(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, rng_seed: int
     if not isinstance(net, StackedMLP):
         cert, found, wit, margin, gap = (a[None] for a in (cert, found, wit, margin, gap))
     return [decode_flips(cert[m], found[m], wit[m], xr, pr, w, b) + (margin[m], gap[m])
-            for m, (w, b) in enumerate(_model_params(net))]
+            for m, (w, b) in enumerate(models)]
 
 
 def integrity_failure(detector: str) -> dict:
@@ -331,13 +372,14 @@ def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
     own weights.  ``stats`` (a dict) receives one ``StageStats`` per
     ``(family index, model index)``: the kernel's histograms on the mega
     path, host-binned margins and gaps on the chunk path — equal bit for
-    bit.  A single (unstacked) net in ``stacks`` counts as one model.
-    Launches run synchronously.
+    bit.  The IBP path (``use_crown=False``) always takes the chunk loop
+    (:func:`use_mega`) and, like the JAX package's IBP family branch,
+    banks no statistics for a stacked family (a single net's chunks bank
+    theirs, as ``_stage0_block_decode`` does).  A single (unstacked) net
+    in ``stacks`` counts as one model.  Launches run synchronously.
     """
     if mesh is not None:
         raise NotImplementedError(engine.MESH_NOT_PORTED)
-    if not cfg.engine.use_crown:
-        raise NotImplementedError(engine.IBP_NOT_PORTED)
     P = lo.shape[0]
     n_models = [net.n_models if isinstance(net, StackedMLP) else 1 for net in stacks]
     accs = [[(np.zeros(P, bool), np.zeros(P, bool), {}) for _ in range(M)]
@@ -350,7 +392,7 @@ def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
         unsat[s:e], sat[s:e] = u[: e - s], sa[: e - s]
         wits.update({s + k: v for k, v in w.items() if k < e - s})
 
-    if cfg.mega_chunks > 0:
+    if use_mega(cfg):
         step, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
         for gi, net in enumerate(stacks):
             models = _model_params(net)
@@ -373,11 +415,13 @@ def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
     else:
         step, spans = grid_mod.chunk_spans(P, cfg.grid_chunk)
         for gi, net in enumerate(stacks):
+            banked = cfg.engine.use_crown or not isinstance(net, StackedMLP)
             for s, e in spans:
                 per_model = stage0_block(net, enc, lo[s:e], hi[s:e], cfg,
                                          cfg.engine.seed + seed_offset + s, step)
                 for m, (u, sa, w, margin, gap) in enumerate(per_model):
-                    bank(gi, m).add_values(margin[: e - s], gap[: e - s])
+                    if banked:
+                        bank(gi, m).add_values(margin[: e - s], gap[: e - s])
                     store(gi, m, s, e, u, sa, w)
     return accs
 
@@ -394,8 +438,9 @@ def stage0_family(stacked, enc: PairEncoding, lo, hi, cfg: SweepConfig,
 def stage0_certify_and_attack(net, enc: PairEncoding, lo, hi, cfg: SweepConfig,
                               stats, failed, seed_offset: int = 0):
     """Root certificates + attack for the whole grid of one net: one
-    KB + KC pair per segment (``mega_chunks > 0``) or per grid chunk
-    (``mega_chunks = 0``), :func:`stage0_families` with one model.
+    KB + KC pair per segment (the mega path, :func:`use_mega`) or per grid
+    chunk (the chunk loop), or on the IBP path one row-13 + row-17 pair per
+    grid chunk; :func:`stage0_families` with one model.
 
     Returns ``(unsat (P,), sat (P,), witnesses {p: (x, x')})``; ``stats``
     (an ``obs.funnel.StageStats``) accumulates the margin and gap
@@ -485,6 +530,8 @@ KERNELS = {
     "lattice_scan": lattice_ops.lattice_scan,
     "lattice_signs": lattice_ops.lattice_signs,
     "lattice_scan_ra": lattice_ops.lattice_scan_ra,
+    "role_bounds": engine.role_logit_bounds,
+    "attack_logits": engine.attack_logits,
 }
 
 
@@ -499,14 +546,14 @@ def launch_counts() -> Dict[str, int]:
 
 def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0):
     """The grid's parity column (keys of the global partition index: row
-    plus ``index_offset``): one KD launch per segment, or with
-    ``mega_chunks = 0`` one per grid chunk padded to the chunk size
+    plus ``index_offset``): one KD launch per segment, or off the mega
+    path (:func:`use_mega`) one per grid chunk padded to the chunk size
     (``_parity_grid_from_keys``, row 10), alive masks padded like the
     boxes."""
     P = lo.shape[0]
     dev = net.device
     out = np.zeros(P, dtype=np.float32)
-    if cfg.mega_chunks > 0:
+    if use_mega(cfg):
         _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
         pad, blocks = 0, [(s, e) for s, e, _chunks in segs]
     else:
@@ -683,9 +730,13 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
 
     t0 = time.perf_counter()
     prune = pruning.sound_prune_grid(net, lo, hi, cfg.sim_size, cfg.seed,
-                                     chunk=cfg.grid_chunk, mega_chunks=cfg.mega_chunks,
-                                     index_offset=span_start)
+                                     chunk=cfg.grid_chunk,
+                                     mega_chunks=cfg.mega_chunks if use_mega(cfg) else 0,
+                                     index_offset=span_start,
+                                     exact_certify=cfg.exact_certify_masks)
     phases["stage0_prune"] = time.perf_counter() - t0
+    if cfg.exact_certify_masks:  # the host's exact mask pass, inside the prune
+        phases["prune_exact_certify"] = prune.sv_time_s
     t0 = time.perf_counter()
     if stage0 is not None:  # precomputed by the stacked family kernels
         unsat0, sat0, witnesses = stage0[:3]

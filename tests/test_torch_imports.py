@@ -3,8 +3,11 @@
 * Every module of ``fairify_tpu_torch`` (and ``chip_smoke.py``) imports with
   ``jax`` blocked, and none imports ``jax`` or any ``fairify_tpu`` module.
 * The numeric policy holds after import: no TF32 anywhere.
-* Configurations outside the stage-0 slice raise ``NotImplementedError``
-  naming their ROADMAP item; a CUDA entry point without CUDA raises.
+* Configurations the port does not run yet raise ``NotImplementedError``
+  naming their ROADMAP item (and those it runs now, under the ids they had
+  when they raised, equal the JAX package or the port's other path); the
+  settings it accepts without acting on them change no outcome; a CUDA
+  entry point without CUDA raises.
 """
 import ast
 import os
@@ -83,14 +86,47 @@ def _cfg(tmp_path, **kw):
     return presets.get("GC").with_(result_dir=str(tmp_path), **kw)
 
 
+def _outcomes(tmp_path, tag, **kw):
+    from fairify_tpu_torch.models.mlp import flagship_net
+    from fairify_tpu_torch.verify import sweep
+
+    rep = sweep.verify_model(flagship_net(device="cpu"),
+                             _cfg(tmp_path / tag, **dict(dict(grid_chunk=16), **kw)),
+                             resume=False, device="cpu", partition_span=(0, 40))
+    return ([(o.partition_id, o.verdict, o.pruned_acc, o.compressions) for o in rep.outcomes],
+            rep.funnel["margin_hist"])
+
+
+def _jax_outcomes(tmp_path, **kw):
+    from __graft_entry__ import _flagship_net
+    from fairify_tpu.verify import presets as jpresets
+    from fairify_tpu.verify import sweep as jsweep
+
+    cfg = jpresets.get("GC").with_(result_dir=str(tmp_path / "jax"), grid_chunk=16, **kw)
+    rep = jsweep.verify_model(_flagship_net(), cfg, resume=False, partition_span=(0, 40))
+    return ([(o.partition_id, o.verdict, o.pruned_acc, o.compressions) for o in rep.outcomes],
+            rep.funnel["margin_hist"])
+
+
 @pytest.mark.parametrize("field,value,item", [
     # The chunk loop (mega_chunks=0) is ported: the case now runs it and
     # requires the mega path's outcomes, launches aside.  The id is the one
     # it had when it raised.
     pytest.param("mega_chunks", 0, None, id="mega_chunks-0-K10"),
-    ("exact_certify_masks", True, "exact-certify"),
-    ("inject_faults", ("launch.decode:transient:1",), "item 7"),
-    ("integrity_recheck", 0.05, "item 7"),
+    # The exact-certify pass is ported: the case now runs it and requires
+    # JAX's outcomes, compression columns included.  Its id is the one it
+    # had when it raised.
+    pytest.param("exact_certify_masks", True, "jax", id="exact_certify_masks-True-exact-certify"),
+    # The runtime contracts are ROADMAP queue 1, item 4 (these ids named
+    # item 7, the number the item had before the ROADMAP was re-anchored).
+    pytest.param("inject_faults", ("launch.decode:transient:1",), "item 4",
+                 id="inject_faults-value2-item 7"),
+    pytest.param("integrity_recheck", 0.05, "item 4", id="integrity_recheck-0.05-item 7"),
+    # Settings with which the JAX package writes or changes an output.
+    ("trace_out", "trace.jsonl", "item 4"),
+    ("profile_dir", "prof", "item 4"),
+    ("heartbeat_s", 1.0, "item 4"),
+    ("chunk_deadline_s", 5.0, "item 4"),
 ])
 def test_unported_config_raises(tmp_path, field, value, item):
     from fairify_tpu_torch.models.mlp import flagship_net
@@ -98,33 +134,49 @@ def test_unported_config_raises(tmp_path, field, value, item):
 
     kw = {"exact_certify_masks": False, field: value}
     if item is None:
-        outs = {}
-        for v in (value, 4):
-            rep = sweep.verify_model(flagship_net(device="cpu"),
-                                     _cfg(tmp_path / str(v), **dict(kw, grid_chunk=16,
-                                                                    **{field: v})),
-                                     resume=False, device="cpu", partition_span=(0, 40))
-            outs[v] = ([(o.partition_id, o.verdict, o.pruned_acc) for o in rep.outcomes],
-                       rep.funnel["margin_hist"])
+        outs = {v: _outcomes(tmp_path, str(v), **dict(kw, **{field: v})) for v in (value, 4)}
         assert outs[value] == outs[4] and len(outs[4][0]) == 40
+        return
+    if item == "jax":
+        got = _outcomes(tmp_path, "port", **kw)
+        assert got == _jax_outcomes(tmp_path, **kw) and len(got[0]) == 40
         return
     with pytest.raises(NotImplementedError, match=item):
         sweep.verify_model(flagship_net(device="cpu"), _cfg(tmp_path, **kw),
                            resume=False, device="cpu")
 
 
+@pytest.mark.parametrize("kw", [
+    # With integrity off the JAX package runs no recheck: the port accepts it.
+    dict(integrity=False, integrity_recheck=0.05),
+    # No-ops for the port's synchronous, fault-free launches (the stress
+    # presets' values).
+    dict(pipeline_depth=4, max_launch_retries=3, launch_backoff_s=0.5),
+], ids=["recheck-without-integrity", "pipeline-and-retries"])
+def test_accepted_settings_run_unchanged(tmp_path, kw):
+    want = _outcomes(tmp_path, "base", exact_certify_masks=False,
+                     integrity=kw.get("integrity", True))
+    assert _outcomes(tmp_path, "set", exact_certify_masks=False, **kw) == want
+
+
 def test_ibp_engine_and_mesh_raise(tmp_path):
+    # The IBP path is ported: the case now runs it and requires JAX's
+    # outcomes; a mesh still raises.
+    from fairify_tpu.verify import engine as jengine
     from fairify_tpu_torch.models.mlp import flagship_net
     from fairify_tpu_torch.verify import sweep
     from fairify_tpu_torch.verify.config import EngineConfig
 
-    net = flagship_net(device="cpu")
-    with pytest.raises(NotImplementedError, match="K10"):
-        sweep.verify_model(net, _cfg(tmp_path, exact_certify_masks=False,
-                                     engine=EngineConfig(use_crown=False)),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sweep.verify_model(net, _cfg(tmp_path, exact_certify_masks=False),
+    got = _outcomes(tmp_path, "ibp", engine=EngineConfig(use_crown=False))
+    want = _jax_outcomes(tmp_path, engine=jengine.EngineConfig(use_crown=False))
+    assert got[0] == want[0] and len(got[0]) == 40
+    # The IBP path is the chunk loop; JAX's bins the last chunk's 8 padding
+    # rows too (ROADMAP queue 3), the port's real rows only.
+    for row in ("margin", "gap"):
+        extra = np.asarray(want[1][row]) - np.asarray(got[1][row])
+        assert (extra >= 0).all() and extra.sum() == 8
+    with pytest.raises(NotImplementedError, match="item 7"):
+        sweep.verify_model(flagship_net(device="cpu"), _cfg(tmp_path, exact_certify_masks=False),
                            mesh=object(), device="cpu")
 
 

@@ -120,7 +120,7 @@ def test_uniform_sign_bab_rejects_a_mesh():
     ws, bs = _positive_net()
     _, tenc, jd = _encs({"a": (0, 6), "pa": (0, 1), "b": (0, 6)})
     lo, hi = jd.lo_hi()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tengine.uniform_sign_bab(tmlp.from_numpy(ws, bs, device="cpu"), tenc,
                                  lo.astype(np.int64)[None], hi.astype(np.int64)[None],
                                  EngineConfig(), deadline_s=10.0, mesh=object())
