@@ -164,8 +164,33 @@ Phases (any failure exits nonzero and prints no result line):
    core: ``sv_time_s``, and 48 partitions' masks
    equal to the port's Fraction pass on the CPU (a flipped mask fails).
 
+9. The mesh path (``parallel.mesh``: rows 14 and 6, KB launched as the
+   certificate alone), harsh pruning (row 3, KA's simulation half) and the
+   standalone α-CROWN bounds (K7, ``role_bounds.cu``), after the CPU
+   worker.  (9a) The GC-1 twin over a 1 x 1 mesh (``make_mesh``): sat=2
+   unsat=199 unknown=0, verdicts equal to mesh=None's, ledger and CSV
+   equal to the port's one-shard CPU mesh run, row 14 and row 17 once per
+   chunk, KB and KC never; decided partitions/s of both runs.  (9b) The
+   same over ``submesh([cuda:0] * 3)`` (ragged shard padding): rows equal
+   9a's.  (9c) The AC-S1 twin, AC partitions 0-2,048: stage 0 over a 1 x 1
+   mesh bit-equal to the fused mesh=None stage 0; then verify_model both
+   ways in the slice-3 configuration, 15 s hard, decided fractions
+   printed.  (9d) Row 14 on one 2,048-row AC chunk at α = 0 and on the
+   host frontier's F = 512 leftovers at α = 8 against its plain version
+   (phase 7's KB rule); row 6 (M = 4) on the chunk bit-equal per model to
+   four solo launches; K8a and K8b over a 3-shard submesh bit-equal to the
+   unsharded launches.  (9e) The ladder world over 3 shards in the slice-3
+   configuration and on the IBP path, card = CPU; the four AC-S1 twins
+   through ``stage0_families`` and ``uniform_sign_bab`` over 3 shards
+   equal to mesh=None's.  (9f) ``harsh_prune_grid`` over the whole AC grid:
+   one row-3 launch, candidates equal to KA's full launch bit for bit, and
+   row 3 against its plain version by phase 2's KA rule.  (9g)
+   ``alpha_crown_output_bounds`` (iters 8) on 512 AC-S1 leftovers: within
+   the widening slack of its plain version (at most 1% of boxes excused),
+   containing float64 sampled logits, no looser than plain CROWN.
+
 Phase 4 runs before phase 3, and the run waits for the CPU worker before
-phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b and 8e run
+phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e and 9 run
 without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
 
 The next-to-last lines are the kernel table as one JSON object and the
@@ -203,6 +228,9 @@ REPLACES = {
     "lattice_scan_ra": "fairify_tpu/ops/lattice.py:246",
     "role_bounds": "fairify_tpu/verify/engine.py:51",
     "attack_logits": "fairify_tpu/verify/engine.py:615",
+    "role_certify": "fairify_tpu/verify/engine.py:283",
+    "sim_stats": "fairify_tpu/verify/pruning.py:107",
+    "alpha_crown": "fairify_tpu/ops/crown.py:369",
 }
 # The other TPU kernel sites each kernel replaces: the chunk loop's
 # one-chunk forms (rows 1, 10, 15), the family kernels (rows 5, 7) and
@@ -216,6 +244,7 @@ ALSO_REPLACES = {
     "parity": ["fairify_tpu/verify/sweep.py:1374"],
     "role_bounds": ["fairify_tpu/verify/sweep.py:1090"],
     "attack_logits": ["fairify_tpu/verify/sweep.py:1099"],
+    "role_certify": ["fairify_tpu/verify/sweep.py:1055"],
 }
 # Kernels of the slice-2 configuration's path (Phases S, L, P off).
 SLICE2 = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
@@ -226,8 +255,11 @@ LATTICE_KERNELS = {"lattice_scan": "stress-AC", "lattice_signs": "stress-AC",
                    "lattice_scan_ra": "relaxed-AC"}
 LATTICE_OTHER = {"lattice_scan": "relaxed-AC", "lattice_signs": "relaxed-AC",
                  "lattice_scan_ra": "stress-AC"}
-# The role-logit forward (row 21) launches row 17's kernel with one model.
-KERNEL_SOURCE = dict({k: "lattice_scan" for k in LATTICE_KERNELS}, role_logits="attack_logits")
+# The role-logit forward (row 21) launches row 17's kernel with one model;
+# rows 14 and 6 launch KB, row 3 KA's simulation half, K7 role_bounds.cu.
+KERNEL_SOURCE = dict({k: "lattice_scan" for k in LATTICE_KERNELS}, role_logits="attack_logits",
+                     role_certify="stage0_certify", sim_stats="sim_and_bounds",
+                     alpha_crown="role_bounds")
 SOURCES = {k: f"fairify_tpu_torch/csrc/{KERNEL_SOURCE.get(k, k)}.cu" for k in REPLACES}
 # Kernels every default-configuration run (phase 6) must launch, besides
 # its preset's lattice scan: stage 0, the PGD, Phase S and the retry's rows.
@@ -237,10 +269,13 @@ DEFAULT_SOFT_S, DEFAULT_HARD_S = 0.1, 75.0
 # Hard budget of the AC-S1 tail runs in the slice-2 and slice-3
 # configurations (phase 5), short enough to leave room for phase 6.
 TAIL_HARD_S = 45.0
+# Phase 9's kernels: row 14 (and 6) of the mesh path, row 3 and K7 of their
+# own entry points.
+MESH_KERNELS = ("role_certify", "sim_stats", "alpha_crown")
 # Kernels of the slice-3 configuration's path (lattice phases off; K10 is
-# the IBP path's, phase 8).
+# the IBP path's, phase 8; MESH_KERNELS phase 9's).
 SLICE3_PATH = tuple(k for k in REPLACES if k not in LATTICE_KERNELS
-                    and k not in ("role_bounds", "attack_logits"))
+                    and k not in ("role_bounds", "attack_logits") + MESH_KERNELS)
 AC_SIZES = (13, 128, 64, 32, 16, 8, 1)  # models_scaled/adult/AC-S1.h5 widths
 
 
@@ -522,6 +557,28 @@ def kc_check(name, net, kc, k_out, p_out, margin_p):
     return float((gap_k - gap_p).abs().max()), int(diff.sum())
 
 
+def sim_counts_check(net, keys, lo, hi, S: int, k_out, p_out):
+    """KA's simulation statistics (``(candidates, pos_prob)`` per layer)
+    against the plain version's: the activation counts (pos_prob * S,
+    exact in f32) must be equal except for samples whose pre-activation
+    lies within tolerance of 0, and the candidate masks must be the counts'
+    own zeros on both sides.  Returns ``(max abs pos_prob error, counts off
+    by more than their near-zero samples, candidates inconsistent with
+    their counts, neurons whose counts differ)``."""
+    import torch
+
+    (cand_k, pos_k), (cand_p, pos_p) = k_out, p_out
+    err_pos = max(float((a - b).abs().max()) for a, b in zip(pos_k, pos_p))
+    near = sample_near(net, keys, lo, hi, S)
+    count = lambda pos: [torch.round(p * S) for p in pos]
+    cnt_k, cnt_p = count(pos_k), count(pos_p)
+    cnt_bad = sum(int(((a - b).abs() > n).sum()) for a, b, n in zip(cnt_k, cnt_p, near))
+    cand_bad = sum(int((c != (n == 0).to(c.dtype)).sum())
+                   for cs, ns in ((cand_k, cnt_k), (cand_p, cnt_p))
+                   for c, n in zip(cs, ns))
+    return err_pos, cnt_bad, cand_bad, sum(int((a != b).sum()) for a, b in zip(cnt_k, cnt_p))
+
+
 def check_kernels(case, net, reps: int):
     """Run KA–KD and their plain versions on one case; returns per-kernel rows."""
     import torch
@@ -542,17 +599,8 @@ def check_kernels(case, net, reps: int):
         net, ka["keys"], ka["lo"], ka["hi"], ka["ok"], S_sim), 1)
     cand_k, pos_k, lb_k, ub_k, loos_k = k_out
     cand_p, pos_p, lb_p, ub_p, loos_p = p_out
-    err_pos = max(float((a - b).abs().max()) for a, b in zip(pos_k, pos_p))
-    # Activation counts (pos_prob * S, exact in f32) must be equal except
-    # for samples whose pre-activation lies within tolerance of 0; the
-    # candidate masks must be the counts' own zeros on both sides.
-    near = sample_near(net, ka["keys"], ka["lo"], ka["hi"], S_sim)
-    count = lambda pos: [torch.round(p * S_sim) for p in pos]
-    cnt_k, cnt_p = count(pos_k), count(pos_p)
-    cnt_bad = sum(int(((a - b).abs() > n).sum()) for a, b, n in zip(cnt_k, cnt_p, near))
-    cand_bad = sum(int((c != (n == 0).to(c.dtype)).sum())
-                   for cs, ns in ((cand_k, cnt_k), (cand_p, cnt_p))
-                   for c, n in zip(cs, ns))
+    err_pos, cnt_bad, cand_bad, near_diffs = sim_counts_check(
+        net, ka["keys"], ka["lo"], ka["hi"], S_sim, (cand_k, pos_k), (cand_p, pos_p))
     # Bounds: TOL_REL of the neuron's interval magnitude (sign-split sums
     # cancel on wide boxes; the widening slack is taken on the same scale).
     err_b = max(tol_ratio(a, b, torch.maximum(lo.abs(), hi.abs()))
@@ -567,9 +615,7 @@ def check_kernels(case, net, reps: int):
     fl = 2 * n * S_sim * macs(sizes) + 8 * n * macs(sizes)
     by = n * (8 + 8 * d) + pbytes + n * (16 * nsum + 4 * L)
     rows["sim_and_bounds"] = dict(max_abs_err=max(err_pos, err_abs_b), ms=k_ms,
-                                  plain_ms=p_ms, flops=fl, bytes=by,
-                                  near_diffs=sum(int((a != b).sum())
-                                                 for a, b in zip(cnt_k, cnt_p)))
+                                  plain_ms=p_ms, flops=fl, bytes=by, near_diffs=near_diffs)
 
     # --- KB
     (cert_k, _score_k, margin_k), kb_ms = timed(lambda: engine.stage0_certify(net, **kb),
@@ -2348,6 +2394,29 @@ def split_orders(score, lo, hi, bd, n: int = 3):
     return [[int(j) for j in o[:n] if w[j] > 0] for o, w in zip(order, widths)], sc
 
 
+def frontier_inputs(enc, lo, hi, S: int):
+    """KB's and KC's inputs on the card for the boxes ``lo``/``hi`` (F, d)
+    int64 as a host-frontier batch: role boxes, encoding tensors and ``S``
+    attack candidates per box from ``default_rng(0)``."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+    from fairify_tpu_torch.verify.property import role_boxes
+
+    flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
+    x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, flo, fhi)
+    xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(0), lo, hi, S)
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
+    kb = dict(x_lo=on(x_lo), x_hi=on(x_hi), xp_lo=on(xp_lo), xp_hi=on(xp_hi), lo=on(flo),
+              hi=on(fhi), assign_vals=on(av), pa_mask=on(pm), ra_mask=on(rm),
+              eps=float(enc.eps), valid=on(valid), valid_pair=on(enc.valid_pair))
+    kc = dict(xr=on(xr), pr=on(pr), valid=kb["valid"],
+              ok=torch.zeros(lo.shape[0], dtype=torch.bool, device="cuda"))
+    return kb, kc
+
+
 def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) -> dict:
     """Phase 7d: the host-frontier BaB.  The BaB ladder world at
     ``device_bab=False`` on the card and on the CPU (equal rows), with the
@@ -2355,11 +2424,8 @@ def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) ->
     the host frontier's shape (F = 512 AC-S1 stage-0 leftovers, 16 attack
     candidates each) against their plain versions, the split order of
     every box included.  Returns the rows and launches."""
-    import numpy as np
-    import torch
-
     from fairify_tpu_torch.verify import engine
-    from fairify_tpu_torch.verify.property import role_boxes, shared_dims
+    from fairify_tpu_torch.verify.property import shared_dims
 
     rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda", TAIL, device_bab=False)
     rep_c, rows_c, _, _ = ladder_world(work, "cpu", TAIL, device_bab=False)
@@ -2372,16 +2438,7 @@ def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) ->
 
     F, S = min(512, len(lo)), 16
     lo, hi = lo[:F], hi[:F]
-    flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
-    x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, flo, fhi)
-    xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(0), lo, hi, S)
-    on = lambda a: torch.as_tensor(a, device="cuda")
-    av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
-    kb = dict(x_lo=on(x_lo), x_hi=on(x_hi), xp_lo=on(xp_lo), xp_hi=on(xp_hi), lo=on(flo),
-              hi=on(fhi), assign_vals=on(av), pa_mask=on(pm), ra_mask=on(rm),
-              eps=float(enc.eps), valid=on(valid), valid_pair=on(enc.valid_pair))
-    kc = dict(xr=on(xr), pr=on(pr), valid=kb["valid"],
-              ok=torch.zeros(F, dtype=torch.bool, device="cuda"))
+    kb, kc = frontier_inputs(enc, lo, hi, S)
     sizes = [ac_net.in_dim] + list(ac_net.layer_sizes)
     V, d = enc.n_assign, lo.shape[1]
     bd = shared_dims(enc, d)
@@ -2999,14 +3056,356 @@ def ibp_grid(work: str, ac_net, ac_cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the mesh path (rows 14 and 6), harsh pruning (row 3) and the
+# standalone α-CROWN bounds (K7)
+# ---------------------------------------------------------------------------
+
+MESH_AC_SPAN, MESH_AC_HARD_S = (0, 2048), 15.0
+GC_COUNTS = {"sat": 2, "unsat": 199, "unknown": 0}
+K7_ITERS, K7_BOXES = 8, 512
+# Of K7's boxes at most this share may differ from the plain version by
+# more than the widening slack (an α path that met a zero gradient, where
+# the two versions' rounding may step differently); every box stays sound
+# and no looser than plain CROWN.
+K7_EXCUSE_SHARE = 0.01
+
+
+def mesh_gc(work: str, gc_net, gc_cfg) -> dict:
+    """Phases 9a and 9b: the GC-1 twin on the GC grid (CROWN, exact-certify
+    off) over a 1 x 1 mesh of cuda:0 and over a 3-shard submesh of it
+    (ragged shard padding): sat=2 unsat=199 unknown=0, verdicts equal to the
+    mesh=None run's, ledger and CSV rows equal to the port's one-shard CPU
+    mesh run and to each other; row 14 (role_certify) launches once per
+    chunk and shard, row 17 once per chunk, KB and KC never.  Returns the
+    launches and the decided partitions/s of the three runs."""
+    from fairify_tpu_torch.models.mlp import flagship_net
+    from fairify_tpu_torch.parallel.mesh import make_mesh, submesh
+    from fairify_tpu_torch.verify import sweep
+
+    n_chunks = -(-len(sweep.build_partitions(gc_cfg)[0]) // gc_cfg.grid_chunk)
+    path = ("sim_and_bounds", "role_certify", "attack_logits", "parity")
+    rate = lambda rep, wall: (rep.counts["sat"] + rep.counts["unsat"]) / wall
+    cfg0 = gc_cfg.with_(result_dir=os.path.join(work, "mesh-gc-none"))
+    rep0, launch0, wall0 = run_sweep(gc_net, cfg0, "GC-1",
+                                     required=("stage0_certify", "attack_flips"))
+    out = {"none": dict(launch=launch0, pps=rate(rep0, wall0), wall=wall0)}
+    verdicts = lambda rep: [(o.partition_id, o.verdict) for o in rep.outcomes]
+    rows = None
+    for tag, mesh, shards in (("1x1", make_mesh(n_parts=1), 1),
+                              ("3 shards", submesh(["cuda:0"] * 3), 3)):
+        cfg = gc_cfg.with_(result_dir=os.path.join(work, f"mesh-gc-{shards}"))
+        rep, launch, wall = run_sweep(gc_net, cfg, "GC-1", required=path, mesh=mesh)
+        thr = check_outputs(rep, cfg, gc_net, "GC-1", launch)
+        if rows is None:
+            ccfg = gc_cfg.with_(result_dir=os.path.join(work, "mesh-gc-cpu"))
+            shutil.rmtree(ccfg.result_dir, ignore_errors=True)
+            rep_c = sweep.verify_model(flagship_net(device="cpu"), ccfg, model_name="GC-1",
+                                       resume=False, device="cpu", mesh=submesh(["cpu"]))
+            rows = run_rows(ccfg, rep_c)
+        if (rep.counts != GC_COUNTS or verdicts(rep) != verdicts(rep0)
+                or run_rows(cfg, rep) != rows or launch["role_certify"] != shards * n_chunks
+                or launch["attack_logits"] != n_chunks or launch["stage0_certify"]
+                or launch["attack_flips"]
+                or abs(thr["partitions_per_sec_per_chip"]
+                       - thr["partitions_per_sec"] / shards) > 1e-3):
+            fail(f"GC-1 over a mesh ({tag}): {rep.counts}, verdicts equal to mesh=None "
+                 f"{verdicts(rep) == verdicts(rep0)}, rows equal to the CPU mesh run "
+                 f"{run_rows(cfg, rep) == rows}; launches {launch}; throughput {thr}")
+        out[tag] = dict(launch=launch, pps=rate(rep, wall), wall=wall)
+        print(f"[mesh GC-1 {tag}] {rep.counts} = mesh=None = the CPU mesh run; "
+              f"{out[tag]['pps']:.2f} decided partitions/s in {wall:.3f} s (mesh=None "
+              f"{out['none']['pps']:.2f} /s in {wall0:.3f} s); phases {thr['phases_s']}; "
+              f"launches {launch}", flush=True)
+    return out
+
+
+def mesh_ac(work: str, ac_net, ac_cfg) -> dict:
+    """Phase 9c: the AC-S1 twin over AC partitions 0-2,048 on a 1 x 1 mesh
+    and without one.  Stage 0 (the mesh's row 14 + row 17 against the fused
+    KB + KC, whose forwards share ``tile_forward``) is bit-equal; then
+    verify_model in the slice-3 configuration
+    (0.02 s soft, 15 s hard) both ways — the mesh run's BaB is the host
+    frontier with row 14 — with the decided fractions printed.  Returns
+    the mesh run's launches and both throughput records."""
+    from fairify_tpu_torch.obs import funnel as funnel_mod
+    from fairify_tpu_torch.parallel.mesh import make_mesh
+    from fairify_tpu_torch.verify import sweep
+    from fairify_tpu_torch.verify.config import EngineConfig
+    from fairify_tpu_torch.verify.property import encode
+
+    mesh = make_mesh(n_parts=1)
+    s, e = MESH_AC_SPAN
+    enc = encode(ac_cfg.query())
+    _, lo, hi = sweep.build_partitions(ac_cfg)
+    st = {tag: counted(lambda m=m: sweep.stage0_certify_and_attack(
+        ac_net, enc, lo[s:e], hi[s:e], ac_cfg, funnel_mod.StageStats(), {}, mesh=m))
+        for tag, m in (("none", None), ("mesh", mesh))}
+    if not same_stage0(st["none"][0], st["mesh"][0]) or st["mesh"][1]["stage0_certify"]:
+        fail(f"AC-S1 0-2048: stage 0 over a mesh differs from mesh=None's (launches "
+             f"{st['mesh'][1]})")
+    out = {}
+    for tag, m in (("none", None), ("mesh", mesh)):
+        cfg = ac_cfg.with_(result_dir=os.path.join(work, f"mesh-ac-{tag}"),
+                           soft_timeout_s=0.02, hard_timeout_s=MESH_AC_HARD_S,
+                           engine=EngineConfig(**SLICE3, max_nodes=1000))
+        rep, launch, wall = run_sweep(ac_net, cfg, "AC-S1-twin", span=MESH_AC_SPAN, mesh=m,
+                                      required=("sim_and_bounds", "parity", "pgd_attack")
+                                      + (("role_certify", "attack_logits")
+                                         if m is not None else ()))
+        thr = check_outputs(rep, cfg, ac_net, "AC-S1-twin", launch)
+        if m is not None and (launch["bab_segment"] or launch["stage0_certify"]):
+            fail(f"AC-S1 over a mesh ran the device BaB or the fused stage 0: {launch}")
+        out[tag] = dict(launch=launch, thr=thr, wall=wall)
+        print(f"[mesh AC-S1 {tag}] partitions {s}-{e}, {MESH_AC_HARD_S} s hard: "
+              f"{rep.counts}, decided_fraction {thr['decided_fraction']} in {wall:.3f} s "
+              f"(stage 0 + PGD decided {thr['stage0_decided']}; the "
+              f"engine and the retry {thr['bab_decided']}, first pass by phase "
+              f"{thr['engine_decided']}); phases {thr['phases_s']}; launches {launch}",
+              flush=True)
+    return out
+
+
+def mesh_kernels(ac_net, ac_cfg, fam_nets, enc, lo, hi, reps: int) -> dict:
+    """Phase 9d: row 14 (KB, certificate alone) on one 2,048-row AC chunk at
+    α = 0 and at the host frontier's F = 512 AC-S1 leftovers at α = 8
+    against its plain version (``kb_check``); row 6 (M = 4 AC-S1 twins) on
+    the chunk bit-equal per model to four solo launches, timed beside their
+    sum; K8b and K8a (α = 8) on the leftovers' 512 sign boxes over a 3-shard
+    submesh of cuda:0 bit-equal to the unsharded launch.  Returns the rows."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.parallel import mesh as mesh_mod
+    from fairify_tpu_torch.parallel.mesh import stack_models
+    from fairify_tpu_torch.verify import engine
+
+    sizes = [ac_net.in_dim] + list(ac_net.layer_sizes)
+    case = case_inputs("AC chunk", ac_net, ac_cfg.with_(mega_chunks=1), canary=False)
+    F = min(K7_BOXES, len(lo))
+    kb_f, _ = frontier_inputs(enc, lo[:F], hi[:F], 1)
+    rows = {}
+    for tag, kb, nb, alpha in (("chunk", case["kb"], case["n_boxes"], 0),
+                               ("host_frontier", kb_f, F, 8)):
+        (ck, _sk, mk), k_ms = timed(lambda: engine.role_certify(ac_net, **kb,
+                                                                alpha_iters=alpha), reps)
+        (cp, _sp, mp), p_ms = timed(lambda: engine.certify_impl(ac_net, **kb,
+                                                                alpha_iters=alpha), 1)
+        err, near = kb_check(f"row 14 {tag} alpha={alpha}", ac_net, kb, ck, mk, cp, mp,
+                             alpha_iters=alpha)
+        fl, by = kb_cost(sizes, nb, enc.n_assign, alpha_iters=alpha)
+        r = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err, boxes=nb, alpha_iters=alpha,
+                 cert_near_diffs=near, certified=int(ck.sum()), flops=fl, bytes=by)
+        r["bound_ms"], r["bound_by"] = bound(fl, by)
+        rows[tag] = r
+        print(f"[kernel row 14 {tag}] role_certify alpha={alpha} on {nb} boxes: "
+              f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}); margin max_abs_err {err:.3g}, certified {r['certified']}, "
+              f"certificates differing at a zero margin {near}", flush=True)
+    kb = case["kb"]
+    fam, f_ms = timed(lambda: engine.role_certify(stack_models(fam_nets), **kb), reps)
+    solo_ms = 0.0
+    for m, net in enumerate(fam_nets):
+        solo, t = timed(lambda: engine.role_certify(net, **kb), reps)
+        solo_ms += t
+        if not all(torch.equal(a[m], b) for a, b in zip(fam, solo)):
+            fail(f"row 6: model {m}'s certificate, score or margin is not bit-equal to its "
+                 "solo row-14 launch")
+    M = len(fam_nets)
+    fl, by = kb_cost(sizes, case["n_boxes"], enc.n_assign, M)
+    r = dict(ms=f_ms, solo_sum_ms=solo_ms, M=M, boxes=case["n_boxes"], flops=fl, bytes=by)
+    r["bound_ms"], r["bound_by"] = bound(fl, by)
+    rows["family_chunk"] = r
+    print(f"[kernel row 6] role_certify M = {M} on {case['n_boxes']} boxes: {f_ms:.4f} ms "
+          f"({M} solo launches {solo_ms:.4f} ms), bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}; bit-equal per model", flush=True)
+    mesh3 = mesh_mod.submesh(["cuda:0"] * 3)
+    reps3 = mesh_mod.replicated(mesh3, ac_net)
+    slo, shi = (a.astype(np.float32) for a in engine.sign_boxes(enc, lo[:F], hi[:F]))
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    signs = [np.zeros((F, n), np.float32) for n in ac_net.layer_sizes[:-1]]
+    flat = lambda tree: [t.cpu().numpy() if torch.is_tensor(t) else t
+                         for x in tree for t in (x if isinstance(x, (list, tuple)) else [x])]
+    pairs = (
+        ("inter_bounds", engine.inter_bounds(ac_net, on(slo), on(shi)),
+         mesh_mod.shard_map(mesh3, engine.inter_bounds, reps3, slo, shi)),
+        ("sign_bound", engine.sign_bound(ac_net, on(slo), on(shi), [on(g) for g in signs], 8),
+         mesh_mod.shard_map(mesh3, lambda n, a, b, *g: engine.sign_bound(n, a, b, list(g), 8),
+                            reps3, slo, shi, *signs)))
+    for name, whole, sharded in pairs:
+        a, b = flat(whole), flat(sharded)
+        if len(a) != len(b) or not all(np.array_equal(x, y[:F]) for x, y in zip(a, b)):
+            fail(f"{name}: the 3-shard launch over {F} sign boxes differs from the "
+                 "unsharded one")
+    print(f"[kernel mesh K8] inter_bounds and sign_bound (alpha 8) over {F} AC-S1 sign boxes "
+          "in 3 shards (padded to a multiple of 3) = the unsharded launches, bit for bit",
+          flush=True)
+    return rows
+
+
+def mesh_worlds(work: str, fam_nets, ac_cfg) -> dict:
+    """Phase 9e: the BaB ladder world over a 3-shard mesh in the slice-3
+    configuration (Phase S with Phase L, its K8 batches sharded; the host
+    frontier with row 14) and on the IBP path (rows 13 and 17 sharded):
+    card = CPU; the four AC-S1 twins through ``stage0_families`` over a
+    3-shard mesh on partitions 0-2,048 (row 6, then row 9), per model equal
+    to the mesh=None family's fused stage 0; and ``uniform_sign_bab`` of
+    each twin's first 16 stage-0 leftovers (Phase L off, 64 nodes a root)
+    over the mesh equal to the unsharded run: verdicts and node counts.
+    Returns the ladder runs' launches."""
+    import numpy as np
+
+    from fairify_tpu_torch.parallel.mesh import stack_models, submesh
+    from fairify_tpu_torch.verify import engine, sweep
+    from fairify_tpu_torch.verify.config import EngineConfig
+    from fairify_tpu_torch.verify.property import encode
+
+    out = {}
+    for tag, phases, kw in (("slice 3", SLICE3, {}), ("IBP", TAIL, IBP)):
+        rep_d, rows_d, lnet, lcfg = ladder_world(work, "cuda", phases, mesh_parts=3, **kw)
+        rep_c, rows_c, _, _ = ladder_world(work, "cpu", phases, mesh_parts=3, **kw)
+        launch = rep_d.kernel_launches
+        if (rows_d != rows_c or rep_d.counts != {"sat": 0, "unsat": 8, "unknown": 0}
+                or launch["bab_segment"]
+                or not launch["role_certify" if phases is SLICE3 else "role_bounds"]):
+            fail(f"ladder world over a mesh, {tag}: card {rows_d} vs CPU {rows_c}; "
+                 f"launches {launch}")
+        check_outputs(rep_d, lcfg, lnet, "BaB-1", launch)
+        out[tag] = launch
+        print(f"[mesh ladder {tag}] 3 shards, card = CPU: {rep_d.counts}; launches {launch}",
+              flush=True)
+    mesh = submesh(["cuda:0"] * 3)
+    enc = encode(ac_cfg.query())
+    _, lo, hi = sweep.build_partitions(ac_cfg)
+    s, e = MESH_AC_SPAN
+    cfg = ac_cfg.with_(mega_chunks=0)
+    stack = stack_models(fam_nets)
+    (fam,), launch, _ = counted(lambda: sweep.stage0_families([stack], enc, lo[s:e], hi[s:e],
+                                                              cfg, mesh=mesh))
+    (ref,) = sweep.stage0_families([stack], enc, lo[s:e], hi[s:e], cfg)
+    if (not all(same_stage0(a, b) for a, b in zip(fam, ref)) or launch["role_certify"] != 3
+            or launch["attack_logits"] != 1):
+        fail(f"AC-S1 family over a mesh: stage 0 differs from mesh=None's; launches {launch}")
+    scfg = EngineConfig(lp_sign=False, sign_max_nodes=64)
+    nodes = []
+    for m, net in enumerate(fam_nets):
+        lenc, llo, lhi = leftovers(net, ac_cfg, 16, 2048)
+        got, want = (engine.uniform_sign_bab(net, lenc, llo, lhi, scfg, deadline_s=120.0,
+                                             mesh=mm) for mm in (mesh, None))
+        if got[0] != want[0] or not np.array_equal(got[1], want[1]):
+            fail(f"uniform_sign_bab over a mesh, twin {m}: {got[:2]} vs unsharded {want[:2]}")
+        nodes.append(int(got[1].sum()))
+    print(f"[mesh AC-S1 twins] stage0_families over 3 shards = mesh=None per model (one "
+          f"chunk: {launch['role_certify']} row-6 and {launch['attack_logits']} row-9 "
+          f"launches); uniform_sign_bab of 16 leftovers each over 3 shards = unsharded "
+          f"(nodes {nodes})", flush=True)
+    return out
+
+
+def harsh_check(ac_net, ac_cfg, reps: int) -> dict:
+    """Phase 9f: ``harsh_prune_grid`` over the whole AC grid (16,000
+    partitions, one row-3 launch: KA's simulation half) equal bit for bit
+    to the candidates of KA's full launch on the same keys, and row 3
+    against its plain version by phase 2's KA rule.  Returns the row."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.utils.prng import grid_keys
+    from fairify_tpu_torch.verify import pruning, sweep
+
+    _, lo, hi = sweep.build_partitions(ac_cfg)
+    P, S = len(lo), ac_cfg.sim_size
+    harsh, launch, wall = counted(lambda: pruning.harsh_prune_grid(ac_net, lo, hi, S,
+                                                                   ac_cfg.seed))
+    keys = grid_keys(ac_cfg.seed, 0, P, device="cuda")
+    lo_t, hi_t = (torch.as_tensor(a.astype(np.float32), device="cuda") for a in (lo, hi))
+    full = pruning.sim_and_bounds(ac_net, keys, lo_t, hi_t,
+                                  torch.ones(P, dtype=torch.bool, device="cuda"), S)[0]
+    if launch["sim_stats"] != 1 or not all(np.array_equal(h, c.cpu().numpy())
+                                           for h, c in zip(harsh, full)):
+        fail(f"harsh_prune_grid: launches {launch}, or its candidates differ from KA's "
+             "full launch")
+    k_out, k_ms = timed(lambda: pruning.sim_stats(ac_net, keys, lo_t, hi_t, S), reps)
+    p_out, p_ms = timed(lambda: pruning.sim_stats_plain(ac_net, keys, lo_t, hi_t, S), 1)
+    err, cnt_bad, cand_bad, near = sim_counts_check(ac_net, keys, lo_t, hi_t, S, k_out, p_out)
+    if cnt_bad or cand_bad:
+        fail(f"row 3: activation counts off by more than their near-zero samples on "
+             f"{cnt_bad} neurons, candidates inconsistent with counts on {cand_bad}")
+    sizes = [ac_net.in_dim] + list(ac_net.layer_sizes)
+    nsum = sum(sizes[1:])
+    fl = 2 * P * S * macs(sizes)
+    by = P * (8 + 8 * sizes[0]) + 4 * (macs(sizes) + 2 * nsum) + P * 8 * nsum
+    row = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err, partitions=P, near_diffs=near,
+               launches=launch["sim_stats"], wall_s=wall,
+               dead=int(sum(float(h.sum()) for h in harsh)))
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    print(f"[harsh AC grid] harsh_prune_grid over {P} partitions in {wall:.3f} s: one row-3 "
+          f"launch, candidates = KA's full launch bit for bit ({row['dead']} dead); row 3 "
+          f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}); counts differing near zero on {near} neurons", flush=True)
+    return row
+
+
+def k7_check(ac_net, lo, hi, reps: int) -> dict:
+    """Phase 9g: ``alpha_crown_output_bounds`` (K7, ``iters`` = 8) on 512
+    AC-S1 stage-0 leftover boxes against its plain version: within the
+    widening slack on all but K7_EXCUSE_SHARE of the boxes, containing the
+    float64 logits of 32 seeded points per box, and no looser than plain
+    CROWN (the kernel's own ``iters = 0`` launch exactly, the plain
+    version's within the slack).  Returns the row."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.ops import crown
+    from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
+
+    F = min(K7_BOXES, len(lo))
+    lo_t, hi_t = (torch.as_tensor(a[:F].astype(np.float32), device="cuda") for a in (lo, hi))
+    _, launch, wall = counted(lambda: crown.alpha_crown_output_bounds(ac_net, lo_t, hi_t,
+                                                                      iters=K7_ITERS))
+    (klo, khi), k_ms = timed(lambda: crown.alpha_crown_output_bounds(
+        ac_net, lo_t, hi_t, iters=K7_ITERS), reps)
+    (plo, phi), p_ms = timed(lambda: crown.alpha_crown_output_bounds_plain(
+        ac_net, lo_t, hi_t, iters=K7_ITERS), 1)
+    c_lo, c_hi = crown.alpha_crown_output_bounds(ac_net, lo_t, hi_t, iters=0)
+    cp_lo, cp_hi = crown.crown_output_bounds(ac_net, lo_t, hi_t)
+    ref_lo, ref_hi = f64_sampled_range(ac_net, lo_t, hi_t)
+    slack = SOUND_SLACK_REL * torch.maximum(plo.abs(), phi.abs()) + SOUND_SLACK_ABS
+    ratio = torch.maximum((klo - plo).abs(), (khi - phi).abs()) / slack
+    excused = int((ratio > 1.0).sum())
+    unsound = int((klo.double() > ref_lo).sum() + (khi.double() < ref_hi).sum())
+    looser = int((klo < c_lo).sum() + (khi > c_hi).sum()
+                 + (klo < cp_lo - slack).sum() + (khi > cp_hi + slack).sum())
+    if launch["alpha_crown"] != 1 or unsound or looser or excused > K7_EXCUSE_SHARE * F:
+        fail(f"K7: launches {launch}; {unsound} bounds miss a float64 sample, {looser} are "
+             f"looser than plain CROWN, {excused} of {F} boxes differ from the plain "
+             "version by more than the widening slack")
+    sizes = [ac_net.in_dim] + list(ac_net.layer_sizes)
+    hidden = macs(sizes[:-1])
+    fl = F * (crown_flops(sizes) + K7_ITERS * 8 * hidden + 4 * hidden)
+    by = F * (2 * sizes[0] * 4 + 8) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    tight = float(((khi - klo) / (c_hi - c_lo)).mean())
+    row = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=float(torch.maximum(
+        (klo - plo).abs(), (khi - phi).abs()).max()), err_x_slack=float(ratio.max()),
+        excused=excused, boxes=F, iters=K7_ITERS, width_vs_crown=tight,
+        launches=launch["alpha_crown"])
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    print(f"[kernel K7] alpha_crown_output_bounds iters={K7_ITERS} on {F} AC-S1 leftovers: "
+          f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}); error {row['err_x_slack']:.3f} x the widening slack "
+          f"({excused} boxes past it); every box contains its float64 samples and is no "
+          f"looser than CROWN (mean width {tight:.4f} of CROWN's)", flush=True)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the sweep through the kernels
 # ---------------------------------------------------------------------------
 
 
-def run_sweep(net, cfg, model_name: str, required=(), span=None):
-    """verify_model with every launch count zeroed just before; returns
-    (report, launch counts, wall seconds).  Fails if a kernel of
-    ``required`` never launched in the run."""
+def run_sweep(net, cfg, model_name: str, required=(), span=None, mesh=None):
+    """verify_model (over ``mesh`` when given) with every launch count
+    zeroed just before; returns (report, launch counts, wall seconds).
+    Fails if a kernel of ``required`` never launched in the run."""
     import torch
 
     from fairify_tpu_torch.verify import sweep
@@ -3016,7 +3415,7 @@ def run_sweep(net, cfg, model_name: str, required=(), span=None):
     sweep.reset_launches()
     t0 = time.perf_counter()
     rep = sweep.verify_model(net, cfg, model_name=model_name, resume=False,
-                             partition_span=span)
+                             partition_span=span, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = sweep.launch_counts()
@@ -3071,12 +3470,14 @@ TAIL = dict(sign_bab=False, lp_sign=False, lp_pair=False, lattice_exhaustive=Fal
 SLICE3 = dict(lattice_exhaustive=False)
 
 
-def ladder_world(work: str, device: str, phases=TAIL, **engine_kw):
+def ladder_world(work: str, device: str, phases=TAIL, mesh_parts: int = 0, **engine_kw):
     """bench.py's _bab_ladder world (8 German-derived partitions that all
-    reach the engine BaB) on ``device`` in the configuration ``phases``:
+    reach the engine BaB) on ``device`` in the configuration ``phases``,
+    over a mesh of ``mesh_parts`` shards of that device when nonzero:
     (report, ledger rows, net, config)."""
     from fairify_tpu_torch.data.domains import get_domain
     from fairify_tpu_torch.models.mlp import init_mlp
+    from fairify_tpu_torch.parallel.mesh import submesh
     from fairify_tpu_torch.verify import presets, sweep
     from fairify_tpu_torch.verify.config import EngineConfig
 
@@ -3086,14 +3487,16 @@ def ladder_world(work: str, device: str, phases=TAIL, **engine_kw):
                        bab_frontier_cap=64, bab_rounds_per_segment=8, **phases,
                        **engine_kw)
     cfg = presets.get("GC").with_(
-        result_dir=os.path.join(work, f"ladder-{device}-{len(engine_kw)}-{len(phases)}"),
+        result_dir=os.path.join(work, f"ladder-{device}-{len(engine_kw)}-{len(phases)}-"
+                                      f"{mesh_parts}"),
         soft_timeout_s=20.0,
         hard_timeout_s=120.0, sim_size=16, exact_certify_masks=False, grid_chunk=8,
         domain_overrides=ov, partition_threshold=2, engine=eng)
     shutil.rmtree(cfg.result_dir, ignore_errors=True)
     net = init_mlp((len(cfg.query().columns), 4, 1), seed=3, device=device)
     rep = sweep.verify_model(net, cfg, model_name="BaB-1", resume=False,
-                             device=device, partition_span=(0, 8))
+                             device=device, partition_span=(0, 8),
+                             mesh=submesh([device] * mesh_parts) if mesh_parts else None)
     with open(sweep.ledger_path(cfg, rep.sink_name)) as fp:
         rows = [json.loads(line) for line in fp if line.strip()]
     return rep, [(r["partition_id"], r["verdict"], r.get("engine_reason")) for r in rows], net, cfg
@@ -3378,11 +3781,44 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     gc8 = ibp_gc(work, gc_net, gc_cfg)
     grid8 = ibp_grid(work, ac_net, ac_cfg)
     exact8 = exact_pass_check(ac_net, ac_cfg)
+    # --- phase 9: the mesh path (rows 14 and 6) end to end and at its
+    # kernels' shapes, harsh pruning (row 3) and K7
+    gc9 = mesh_gc(work, gc_net, gc_cfg)
+    ac9 = mesh_ac(work, ac_net, ac_cfg)
+    k9 = mesh_kernels(ac_net, ac_cfg, fam_nets, enc, lo, hi, reps=3)
+    worlds9 = mesh_worlds(work, fam_nets, ac_cfg)
+    harsh9 = harsh_check(ac_net, ac_cfg, reps=3)
+    k7 = k7_check(ac_net, lo, hi, reps=3)
     shutil.rmtree(work, ignore_errors=True)
 
     table = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     for name in REPLACES:
+        if name in MESH_KERNELS:
+            if name == "role_certify":
+                r = k9["chunk"]
+                row = dict(launches=gc9["1x1"]["launch"][name],
+                           launches_gc1_3_shards=gc9["3 shards"]["launch"][name],
+                           launches_ac_tail_mesh=ac9["mesh"]["launch"][name],
+                           launches_ladder_mesh=worlds9["slice 3"][name],
+                           chunk_boxes=r["boxes"],
+                           host_frontier={k: k9["host_frontier"][k] for k in keys + (
+                               "boxes", "alpha_iters")},
+                           family_chunk={k: k9["family_chunk"][k] for k in (
+                               "ms", "solo_sum_ms", "bound_ms", "bound_by", "M", "boxes")})
+            else:
+                r = harsh9 if name == "sim_stats" else k7
+                row = dict(launches=r["launches"])
+                row.update({k: r[k] for k in ("partitions", "boxes", "iters", "err_x_slack",
+                                              "excused") if k in r})
+            print(f"[summary] {name}: launches {row['launches']}; median {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})", flush=True)
+            table.append(dict({"name": name, "route": "cuda", "source": SOURCES[name],
+                               "replaces": REPLACES[name],
+                               "also_replaces": ALSO_REPLACES.get(name, []),
+                               "library_ms": None, **{k: r[k] for k in keys}}, **row))
+            continue
         if name in K10:
             r, fr = k10_rows[name], k10_fam[name]
             print(f"[summary] {name}: launches AC grid IBP {grid8['launch'][name]} / GC-1 "

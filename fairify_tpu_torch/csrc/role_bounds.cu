@@ -22,6 +22,16 @@
 // role box) are under 1 MB.  Each layer depends on the one before, so at
 // these sizes the kernel is bound by latency and launch, not by the peak.
 //
+// K7 (k7_alpha_output_bounds) — α-CROWN output bounds of B plain boxes:
+// fairify_tpu/ops/crown.py:alpha_crown_output_bounds.  Per box,
+// crown_role_forms (plain CROWN, widened) and then crown.cuh:alpha_role_forms,
+// KB's α mode: iters signed-gradient steps on the lower slopes of the
+// unstable neurons from the adaptive slopes, the best bounds kept over every
+// iterate including the final one, widened once and intersected with plain
+// CROWN, so never looser than it.  Bound: fp32 FMA throughput of
+// 2 * iters + 1 chain evaluations and iters reverse passes per box on top of
+// the CROWN passes; one block per box, the same shared-memory layout.
+//
 // Design: one block per (box, role), blockIdx.x = 2 * box + role;
 // blockIdx.y the model of a stacked family, whose packed net starts at
 // m * nd.total floats.  The block stages the packed net in shared memory
@@ -118,6 +128,48 @@ k10b_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
       out_hi[out0 + v] = zhi[0];
     }
   }
+}
+
+__global__ void __launch_bounds__(K10B_CROWN_THREADS)
+k7_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
+          const float* __restrict__ lo, const float* __restrict__ hi, int iters,
+          float* __restrict__ out_lo, float* __restrict__ out_hi) {
+  extern __shared__ float smem[];
+  const int d = nd.in[0], tid = threadIdx.x, nt = blockDim.x, b = blockIdx.x;
+  float* P = smem;
+  for (int i = tid; i < nd.total; i += nt) P[i] = params[i];
+  CrownWs ws;
+  AlphaWs aw;
+  float* fp = crown_ws_carve(ws, P + nd.total, nd, maxA);  // plain set: 2d + 4
+  float* ft = fp + 2 * d + 4;                                // tuned set: 2d + 4
+  alpha_ws_carve(aw, ft + 2 * d + 4, nd);
+  for (int i = tid; i < d; i += nt) {
+    ws.inlo[i] = lo[(size_t)b * d + i];
+    ws.inhi[i] = hi[(size_t)b * d + i];
+  }
+  __syncthreads();
+  crown_role_forms(nd, maxA, P, ws, fp);
+  if (iters > 0 && nd.L > 1) alpha_role_forms(nd, P, ws, aw, iters, fp, ft);
+  if (tid == 0) {
+    out_lo[b] = fp[2 * d + 2];
+    out_hi[b] = fp[2 * d + 3];
+  }
+}
+
+extern "C" int k7_alpha_output_bounds(const void* params, const int* dims, int L,
+                                      const void* lo, const void* hi, int B, int iters,
+                                      void* out_lo, void* out_hi, void* stream) {
+  const NetDesc nd = make_desc(dims, L);
+  const int maxA = crown_max_a(nd), d = nd.in[0];
+  const size_t smem = sizeof(float) * (nd.total + crown_ws_floats(nd, maxA)
+                                       + 2 * (2 * d + 4) + alpha_ws_floats(nd));
+  cudaError_t err = set_smem(k7_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0)
+    k7_kernel<<<B, K10B_CROWN_THREADS, smem, (cudaStream_t)stream>>>(
+        nd, maxA, (const float*)params, (const float*)lo, (const float*)hi, iters,
+        (float*)out_lo, (float*)out_hi);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int k10_role_bounds(const void* params, const int* dims, int L,

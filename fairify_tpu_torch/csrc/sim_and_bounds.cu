@@ -27,11 +27,19 @@
 // of (sample, neuron) outputs in registers (common.cuh:dense_tile).
 // Activation counts are shared-memory atomics, one per thread and neuron
 // per tile.
+//
+// ka_sim_stats is the simulation half alone (BOUNDS = false): row 3,
+// fairify_tpu/verify/pruning.py:_sim_stats, which harsh_prune_grid launches
+// once over the whole grid.  The samples come from the keys and the box
+// integers alone, so skipping the IBP half changes no sample, count or
+// pos_prob: its candidates equal the full launch's bit for bit.  Bound:
+// the same forward flops, with no bound or looseness output.
 #include "common.cuh"
 
 #define KA_THREADS 256
 #define KA_TILE 32
 
+template <bool BOUNDS>
 __global__ void __launch_bounds__(KA_THREADS)
 ka_kernel(NetDesc nd, const float* __restrict__ params,
           const uint32_t* __restrict__ keys, const float* __restrict__ lo,
@@ -62,7 +70,7 @@ ka_kernel(NetDesc nd, const float* __restrict__ params,
   __syncthreads();
 
   // --- IBP: widened interval image of every layer --------------------------
-  for (int l = 0; l < L; ++l) {
+  for (int l = 0; BOUNDS && l < L; ++l) {
     const int nin = nd.in[l], nout = nd.out[l];
     const float* W = P + nd.w[l];
     const float* B = P + nd.b[l];
@@ -148,19 +156,34 @@ ka_kernel(NetDesc nd, const float* __restrict__ params,
   }
 }
 
-extern "C" int ka_sim_and_bounds(const void* params, const int* dims, int L,
-                                 const void* keys, const void* lo, const void* hi,
-                                 int N, int S, void* cand, void* pos, void* wslb,
-                                 void* wsub, void* loos, void* stream) {
+template <bool BOUNDS>
+static int ka_launch(const void* params, const int* dims, int L, const void* keys,
+                     const void* lo, const void* hi, int N, int S, void* cand,
+                     void* pos, void* wslb, void* wsub, void* loos, void* stream) {
   const NetDesc nd = make_desc(dims, L);
   const size_t smem = sizeof(float) * (nd.total + 2 * KA_TILE * nd.ld + 3 * nd.maxw)
                       + sizeof(int) * (nd.nsum + 2 * nd.in[0]);
-  cudaError_t err = set_smem(ka_kernel, smem);
+  cudaError_t err = set_smem(ka_kernel<BOUNDS>, smem);
   if (err != cudaSuccess) return (int)err;
   if (N > 0)
-    ka_kernel<<<N, KA_THREADS, smem, (cudaStream_t)stream>>>(
+    ka_kernel<BOUNDS><<<N, KA_THREADS, smem, (cudaStream_t)stream>>>(
         nd, (const float*)params, (const uint32_t*)keys, (const float*)lo,
         (const float*)hi, S, (float*)cand, (float*)pos, (float*)wslb,
         (float*)wsub, (float*)loos);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ka_sim_and_bounds(const void* params, const int* dims, int L,
+                                 const void* keys, const void* lo, const void* hi,
+                                 int N, int S, void* cand, void* pos, void* wslb,
+                                 void* wsub, void* loos, void* stream) {
+  return ka_launch<true>(params, dims, L, keys, lo, hi, N, S, cand, pos, wslb, wsub,
+                         loos, stream);
+}
+
+extern "C" int ka_sim_stats(const void* params, const int* dims, int L,
+                            const void* keys, const void* lo, const void* hi, int N,
+                            int S, void* cand, void* pos, void* stream) {
+  return ka_launch<false>(params, dims, L, keys, lo, hi, N, S, cand, pos, nullptr,
+                          nullptr, nullptr, stream);
 }

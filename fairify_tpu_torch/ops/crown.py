@@ -8,9 +8,11 @@ slopes α and the β penalties of sign-split constraints
 full-network CROWN bounds intersected with IBP (:func:`crown_bounds`), the
 signed-gradient α/β optimiser (:func:`optimize_relaxation`), the output
 bounds under per-neuron sign splits that Phase S branches on
-(:func:`sign_constrained_output_bounds`), and the output-logit linear forms
+(:func:`sign_constrained_output_bounds`), the output-logit linear forms
 the tied pair certificate consumes (:func:`crown_output_form_sets`,
-:func:`output_form_stack`).
+:func:`output_form_stack`), and the standalone α-CROWN output bounds
+(:func:`alpha_crown_output_bounds`, K7: ``csrc/role_bounds.cu`` on the
+card, :func:`alpha_crown_output_bounds_plain` on the CPU).
 
 The α/β gradient follows JAX's tie rules, so the iterates are JAX's:
 every positive/negative split is ``torch.maximum``/``torch.minimum``
@@ -21,10 +23,13 @@ Every function takes arbitrary leading batch axes on the box tensors.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from fairify_tpu_torch.ops.interval import LayerBounds, affine_interval, widen
+from fairify_tpu_torch.utils import cuda_build
 
 def _pos(a):
     return torch.maximum(a, a.new_zeros(()))
@@ -210,6 +215,61 @@ def crown_output_bounds(net, lb, ub, widen: bool = True):
     """CROWN bounds ``(lo, hi)`` of the output logit over a batch of boxes."""
     bounds = crown_bounds(net, lb, ub, widen_bounds=widen)
     return bounds.ws_lb[-1][..., 0], bounds.ws_ub[-1][..., 0]
+
+
+def alpha_crown_output_bounds_plain(net, lb, ub, iters: int = 8):
+    """Plain PyTorch version of :func:`alpha_crown_output_bounds`: plain
+    CROWN bounds (``crown_bounds``, widened) fix every intermediate layer;
+    the final backward pass is re-run with free lower slopes α in [0, 1]
+    for the unstable neurons, separate sets for the lower and the upper
+    bound, tuned by :func:`optimize_relaxation` from the adaptive slopes.
+    The best bounds over every iterate (the final one included) are
+    widened once and intersected with plain CROWN, so they are never
+    looser.  With ``iters`` 0 (or no hidden layer) they are plain CROWN's."""
+    bounds = crown_bounds(net, lb, ub)
+    k = net.depth - 1
+    pre_lbs, pre_ubs = bounds.ws_lb[:k], bounds.ws_ub[:k]
+    lo0, hi0 = bounds.ws_lb[-1][..., 0], bounds.ws_ub[-1][..., 0]
+    if k == 0 or iters <= 0:
+        return lo0, hi0
+
+    def width(al_, au_):
+        lo, hi = backward_bounds(net, k, pre_lbs, pre_ubs, lb, ub, al_, au_)
+        return (hi[..., 0] - lo[..., 0]).sum(), (lo[..., 0], hi[..., 0])
+
+    init = [(pre_ubs[j] >= -pre_lbs[j]).to(lb.dtype) for j in range(k)]
+    opt_lo, opt_hi, _, _ = optimize_relaxation(width, init, iters)
+    opt_lo, opt_hi = widen(opt_lo, opt_hi)
+    return torch.maximum(opt_lo, lo0), torch.minimum(opt_hi, hi0)
+
+
+def alpha_crown_output_bounds(net, lb, ub, iters: int = 8):
+    """K7: α-CROWN bounds ``(lo, hi)`` (B,) of the output logit over B boxes
+    (B, d), widened, the JAX package's ``ops/crown.py:alpha_crown_output_bounds``
+    (with its default ``widen=True``, the only value its callers use), one
+    launch.  CPU tensors take :func:`alpha_crown_output_bounds_plain`; CUDA
+    tensors launch ``csrc/role_bounds.cu``'s ``k7_alpha_output_bounds``."""
+    if lb.device.type == "cpu":
+        return alpha_crown_output_bounds_plain(net, lb, ub, iters)
+    if net.layer_sizes[-1] != 1:
+        raise ValueError("alpha_crown_output_bounds: the net must have one output logit")
+    if lb.dim() != 2:
+        raise ValueError("alpha_crown_output_bounds: the kernel takes (B, d) boxes")
+    params, dims = cuda_build.pack_net(net)
+    lb, ub = lb.contiguous(), ub.contiguous()
+    cuda_build.require_cuda(params, lb, ub)
+    B = lb.shape[0]
+    out_lo = torch.empty(B, dtype=torch.float32, device=lb.device)
+    out_hi = torch.empty_like(out_lo)
+    cuda_build.call("role_bounds", "k7_alpha_output_bounds", cuda_build.ptr(params),
+                    dims, ctypes.c_int(net.depth), cuda_build.ptr(lb), cuda_build.ptr(ub),
+                    ctypes.c_int(B), ctypes.c_int(int(iters)), cuda_build.ptr(out_lo),
+                    cuda_build.ptr(out_hi), cuda_build.stream())
+    alpha_crown_output_bounds.launches += 1
+    return out_lo, out_hi
+
+
+alpha_crown_output_bounds.launches = 0
 
 
 def sign_constrained_output_bounds(net, lb, ub, signs, alpha_iters: int = 0,

@@ -132,13 +132,18 @@ def stream() -> ctypes.c_void_p:
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:
-    """Wrapper-side validation: CUDA, contiguous, one device."""
+    """Wrapper-side validation: CUDA, contiguous, one device — the current
+    one, on which the C entry point launches (a mesh shard's launch runs
+    inside ``torch.cuda.device``)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError("kernel inputs must all lie on one CUDA device")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        raise ValueError(f"kernel inputs lie on {dev}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
 
 
 def pack_net(net):
@@ -147,7 +152,11 @@ def pack_net(net):
     Layout per layer: ``W (in*out, row-major) | b (out) | m (out)``.
     Returns ``(params, dims)`` with ``dims`` a ctypes int array
     ``[d, n_0, ..., n_{L-1}]`` (host memory, read by the C launcher).
+    A mesh replica (``parallel.mesh.replicated``) carries its buffer,
+    built once, as ``kernel_pack``.
     """
+    if getattr(net, "kernel_pack", None) is not None:
+        return net.kernel_pack[:2]
     L = net.depth
     if L > MAX_LAYERS:
         raise ValueError(f"net depth {L} exceeds the kernels' MAX_LAYERS={MAX_LAYERS}")
@@ -179,7 +188,10 @@ def pack_stack(stacked):
 
 def pack_models(net):
     """``(params, dims, M)``: :func:`pack_stack` of a stacked net (M its
-    models), :func:`pack_net` of a single one (M = 1)."""
+    models), :func:`pack_net` of a single one (M = 1); a mesh replica's
+    ``kernel_pack`` when it carries one."""
+    if getattr(net, "kernel_pack", None) is not None:
+        return net.kernel_pack
     if hasattr(net, "n_models"):
         return pack_stack(net) + (net.n_models,)
     return pack_net(net) + (1,)

@@ -40,17 +40,22 @@ Port of ``fairify_tpu/verify/engine.py`` for the phases the port runs:
   and 8) and the attack logits (:func:`attack_logits`, rows 17 and 9) on
   the card, the certificate (:func:`no_flip_certified`), its margin
   (:func:`role_bound_margin`), the flips and the gap on the host
-  (:func:`ibp_certify_attack`); the host frontier's non-fused branch,
+  (:func:`split_certify_attack`); the host frontier's non-fused branch,
   which splits the widest dims;
-* :func:`decide_many` / :func:`decide_box`, which raise
-  ``NotImplementedError`` where a mesh would run;
+* the mesh branches (``parallel.mesh``): stage 0's certificate alone
+  (:func:`role_certify`, rows 14 and 6) sharded over a mesh's ``parts``
+  axis before the attack forward (:func:`split_certify_attack`), Phase
+  S's K8 batches sharded, and :func:`decide_many`'s BaB the host
+  frontier's non-fused branch with its batches sharded;
+* :func:`decide_many` / :func:`decide_box`;
 * exact witness validation on the host (:func:`validate_pair`: float64
   first, then the native exact core, ``ops.exact_native``, or
   ``Fraction`` arithmetic).
 
 Eight device kernels carry it: KB :func:`stage0_certify`
 (``csrc/stage0_certify.cu``, with a model axis for stacked families, an
-α-CROWN mode and the score output), KC :func:`attack_flips`
+α-CROWN mode and the score output; launched alone as
+:func:`role_certify`), KC :func:`attack_flips`
 (``csrc/attack_flips.cu``, with a model axis), K5 :func:`pgd_attack_kernel`
 (``csrc/pgd_attack.cu``), K6 :func:`bab_segment`
 (``csrc/bab_segment.cu``), K8a :func:`sign_bound`
@@ -84,6 +89,7 @@ from fairify_tpu_torch.ops import interval as interval_ops
 from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.ops import lp as lp_ops
 from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
+from fairify_tpu_torch.parallel import mesh as mesh_mod
 from fairify_tpu_torch.resilience import integrity as integrity_mod
 from fairify_tpu_torch.utils import cuda_build, prng
 from fairify_tpu_torch.verify.config import EngineConfig
@@ -91,9 +97,6 @@ from fairify_tpu_torch.verify.property import (PairEncoding, role_boxes,
                                                shared_dims, valid_assignments)
 
 F32_MAX = float(np.finfo(np.float32).max)
-
-MESH_NOT_PORTED = ("mesh-sharded sweeps and engine phases are not ported yet: "
-                   "ROADMAP queue 1, item 7")
 
 
 # ---------------------------------------------------------------------------
@@ -200,12 +203,34 @@ def stage0_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
     tensors take :func:`certify_impl`; CUDA tensors launch
     ``csrc/stage0_certify.cu``.
     """
+    return _kb(stage0_certify, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals,
+               pa_mask, ra_mask, eps, valid, valid_pair, alpha_iters)
+
+
+def role_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
+                 ra_mask, eps: float, valid, valid_pair, alpha_iters: int = 0):
+    """Rows 14 and 6: the certificate alone, ``(cert, score, margin)`` —
+    the JAX package's ``_role_certify_kernel`` (``_certify_impl``) and,
+    for a ``StackedMLP``, ``_family_certify_kernel`` (the same vmapped over
+    the models), which run where the certificate and the attack are two
+    launches: the mesh branches of stage 0 and of the host frontier.  The
+    body is KB's (:func:`stage0_certify`'s inputs and outputs), launched
+    and counted here."""
+    return _kb(role_certify, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals,
+               pa_mask, ra_mask, eps, valid, valid_pair, alpha_iters)
+
+
+def _kb(counter, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
+        eps: float, valid, valid_pair, alpha_iters: int):
+    """KB's body for the wrapper ``counter``: :func:`certify_impl` on CPU
+    tensors, else one launch of ``kb_stage0_certify``, counted on
+    ``counter``."""
     if lo.device.type == "cpu":
         return each_model(net, lambda m: certify_impl(
             m, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask, eps,
             valid, valid_pair, alpha_iters))
     if net.layer_sizes[-1] != 1:
-        raise ValueError("stage0_certify: the net must have one output logit")
+        raise ValueError(f"{counter.__name__}: the net must have one output logit")
     params, dims, M = cuda_build.pack_models(net)
     u8 = lambda t: t.to(torch.uint8).contiguous()
     ins = [t.contiguous() for t in (x_lo, x_hi, xp_lo, xp_hi, lo, hi,
@@ -225,12 +250,13 @@ def stage0_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
                     ctypes.c_int(V), ctypes.c_int(M), ctypes.c_int(int(alpha_iters)),
                     cuda_build.ptr(cert), cuda_build.ptr(score), cuda_build.ptr(margin),
                     cuda_build.stream())
-    stage0_certify.launches += 1
+    counter.launches += 1
     out = (cert.bool(), score, margin)
     return out if isinstance(net, StackedMLP) else tuple(t[0] for t in out)
 
 
 stage0_certify.launches = 0
+role_certify.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -506,30 +532,77 @@ def role_bound_margin(lb_x, ub_x, lb_p, ub_p, valid, valid_pair) -> np.ndarray:
     return np.where(pair_ok, np.minimum(m1, m2), big).min(axis=(-2, -1))
 
 
-def ibp_certify_attack(net, enc: PairEncoding, x_lo, x_hi, xp_lo, xp_hi, valid, xr, pr):
-    """The IBP path's certificate + attack of N boxes: one row-13 and one
-    row-17 launch (:func:`role_logit_bounds`, :func:`attack_logits`) on
-    the net's device, then per model on the host (numpy role boxes (N, V,
-    d), ``valid`` (N, V), candidates (N, S, V, d)) ``(cert (N,), margin
-    (N,), found (N,), wit (N, 3), gap (N,))`` — a list with one entry per
-    model of a ``StackedMLP``, else one tuple."""
-    on = lambda a: torch.as_tensor(a, device=net.device)
-    bounds = role_logit_bounds(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi),
-                               use_crown=False)
-    logits = attack_logits(net, on(xr), on(pr))
-    lbx, ubx, lbp, ubp, lx, lp = (t.cpu() for t in bounds + logits)
+def split_certify_attack(net, enc: PairEncoding, x_lo, x_hi, xp_lo, xp_hi, lo, hi,
+                         valid, xr, pr, use_crown: bool, mesh=None, replicas=None):
+    """Stage 0 of N boxes in two launches, the JAX package's non-fused
+    kinds of ``_stage0_block_submit`` / ``_family_block_submit``: the
+    certificate — on the CROWN path :func:`role_certify` (rows 14 and 6),
+    on the IBP path :func:`role_logit_bounds` (rows 13 and 8) with the
+    certificate and margin taken on the host — then the attack forward
+    :func:`attack_logits` (rows 17 and 9) and the flips and gap on the host.
+
+    Inputs are numpy: role boxes (N, V, d), partition boxes ``lo``/``hi``
+    (N, d) f32, ``valid`` (N, V), candidates (N, S, V, d).  With a
+    ``mesh`` (``parallel.mesh.Mesh``, ``replicas`` the net's
+    ``parallel.mesh.replicated`` copies) the certificate's inputs are
+    sharded over its ``parts`` axis and its outputs trimmed back to N rows;
+    the attack forward runs unsharded on the mesh's first device, as in
+    JAX.  Without one everything runs on the net's device.  Returns per
+    model ``(cert (N,), margin (N,), found (N,), wit (N, 3), gap (N,))`` —
+    a list with one entry per model of a ``StackedMLP``, else one tuple.
+    """
+    n = lo.shape[0]
     stacked = isinstance(net, StackedMLP)
+    if mesh is None:
+        mesh, replicas = mesh_mod.placement(net)
+    boxes = (x_lo, x_hi, xp_lo, xp_hi)
+    if use_crown:
+        cert, _score, margin = sharded_certify(mesh, replicas, enc, boxes, lo, hi, valid,
+                                               axis=int(stacked))
+        bounds = None
+    else:
+        bounds = mesh_mod.shard_map(
+            mesh, lambda m, *b: role_logit_bounds(m, *b, use_crown=False), replicas,
+            *boxes, axis=int(stacked))
+    home = replicas[mesh.home]
+    with mesh_mod.on_device(mesh.home):
+        on = lambda a: torch.as_tensor(a, device=mesh.home)
+        lx, lp = (t.cpu() for t in attack_logits(home, on(xr), on(pr)))
     if not stacked:
-        lbx, ubx, lbp, ubp, lx, lp = (t[None] for t in (lbx, ubx, lbp, ubp, lx, lp))
+        lx, lp = lx[None], lp[None]
+        if bounds is None:
+            cert, margin = cert[None], margin[None]
+        else:
+            bounds = [b[None] for b in bounds]
     va, vp = torch.as_tensor(valid), torch.as_tensor(enc.valid_pair)
     out = []
-    for m in range(lbx.shape[0]):
-        b = (lbx[m].numpy(), ubx[m].numpy(), lbp[m].numpy(), ubp[m].numpy())
+    for m in range(lx.shape[0]):
+        if bounds is None:
+            cert_m, margin_m = cert[m, :n], margin[m, :n]
+        else:
+            b = tuple(v[m, :n] for v in bounds)
+            cert_m = no_flip_certified(*b, valid, enc.valid_pair)
+            margin_m = role_bound_margin(*b, valid, enc.valid_pair)
         found, wit = find_flips_impl(lx[m], lp[m], va, vp)
-        out.append((no_flip_certified(*b, valid, enc.valid_pair),
-                    role_bound_margin(*b, valid, enc.valid_pair), found.numpy(),
-                    wit.numpy(), attack_gap_impl(lx[m], lp[m], va, vp).numpy()))
+        out.append((cert_m, margin_m, found.numpy(), wit.numpy(),
+                    attack_gap_impl(lx[m], lp[m], va, vp).numpy()))
     return out if stacked else out[0]
+
+
+def sharded_certify(mesh, replicas, enc: PairEncoding, boxes, lo, hi, valid,
+                    alpha_iters: int = 0, axis: int = 0):
+    """:func:`role_certify` of numpy role boxes ``boxes`` (x_lo, x_hi,
+    xp_lo, xp_hi), partition boxes and ``valid`` over ``mesh``'s ``parts``
+    shards (``replicas`` the net's copies): numpy ``(cert, score, margin)``
+    gathered along ``axis`` (1 for a stacked family), shard padding kept."""
+    av, pm, rm = enc_tensors(enc, lo.shape[1])
+
+    def certify(m, x_lo, x_hi, xp_lo, xp_hi, plo, phi, va):
+        to = lambda t: torch.as_tensor(t, device=plo.device)
+        return role_certify(m, x_lo, x_hi, xp_lo, xp_hi, plo, phi, to(av), to(pm), to(rm),
+                            float(enc.eps), va, to(enc.valid_pair), alpha_iters=alpha_iters)
+
+    return mesh_mod.shard_map(mesh, certify, replicas, *boxes, lo, hi, valid, axis=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -1448,12 +1521,15 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
     per-root ``sign_max_nodes`` cap, and a root settled only after the
     whole batch that popped its last branch (siblings may share a batch).
 
+    With a ``mesh`` (``parallel.mesh.Mesh``) every K8b and K8a batch is
+    sharded over its ``parts`` axis (the net replicated) and trimmed back
+    to the batch, as in JAX; the sign conjecture runs unsharded.
+
     Returns ``(verdicts, nodes, cost_s, lp_cost_s)``: per-root 'unsat' |
     'mixed', node counts (LP and device), attributed wall time (each
     batch's time split evenly over its branches) and its Phase-L share.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    mesh_mod.require_mesh(mesh)
     t0 = time.perf_counter()
     R = roots_lo.shape[0]
     n_hidden = net.depth - 1
@@ -1465,6 +1541,10 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
     on = lambda a: torch.as_tensor(a, device=dev)
     host_w, host_b = net.numpy_params()
     host_m = [m.detach().cpu().numpy() for m in net.masks]
+    # The K8 batches (numpy in, numpy out, padded rows kept): one launch on
+    # the net's device, or one per parts shard of the mesh.
+    mesh, reps = mesh_mod.placement(net, mesh)
+    batched = lambda fn, *arrays: mesh_mod.shard_map(mesh, fn, reps, *arrays)
 
     slo, shi = sign_boxes(enc, roots_lo, roots_hi)
 
@@ -1505,11 +1585,11 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
         pre_ub = [np.zeros((R, n), np.float32) for n in net.layer_sizes]
         for s in range(0, len(cand), F):
             blk = cand[s:s + F]
-            wl, wu = inter_bounds(net, on(_pad(slo[blk].astype(np.float32), F)),
-                                  on(_pad(shi[blk].astype(np.float32), F)))
+            wl, wu = batched(inter_bounds, _pad(slo[blk].astype(np.float32), F),
+                             _pad(shi[blk].astype(np.float32), F))
             for L, (a, b) in enumerate(zip(wl, wu)):
-                pre_lb[L][blk] = a.cpu().numpy()[:len(blk)]
-                pre_ub[L][blk] = b.cpu().numpy()[:len(blk)]
+                pre_lb[L][blk] = a[:len(blk)]
+                pre_ub[L][blk] = b[:len(blk)]
         unstable = np.zeros(R, dtype=np.int64)
         for L in range(n_hidden):
             alive = host_m[L] > 0.5
@@ -1552,21 +1632,20 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
             break
         batch = len(items)
         broot = np.array([r for r, _ in items])
-        bsigns = [on(_pad(np.stack([sgn[j] for _, sgn in items]).astype(np.float32), F))
+        bsigns = [_pad(np.stack([sgn[j] for _, sgn in items]).astype(np.float32), F)
                   for j in range(n_hidden)]
         # subtract.at, not fancy-index -=: a root's two children routinely
         # share a batch, and x[idx] -= 1 decrements duplicates only once.
         np.subtract.at(open_n, broot, 1)
         np.add.at(nodes, broot, 1)
         np.add.at(dev_nodes, broot, 1)
-        out_lo, out_hi, feasible, scores, resolved = sign_bound(
-            net, on(_pad(slo[broot].astype(np.float32), F)),
-            on(_pad(shi[broot].astype(np.float32), F)), bsigns, cfg.alpha_iters)
-        out_lo = out_lo.cpu().numpy()[:batch]
-        out_hi = out_hi.cpu().numpy()[:batch]
-        feasible = feasible.cpu().numpy()[:batch]
-        scores = [s.cpu().numpy()[:batch] for s in scores]
-        resolved = [s.cpu().numpy()[:batch] for s in resolved]
+        out_lo, out_hi, feasible, scores, resolved = batched(
+            lambda m, lo, hi, *sg: sign_bound(m, lo, hi, list(sg), cfg.alpha_iters),
+            _pad(slo[broot].astype(np.float32), F), _pad(shi[broot].astype(np.float32), F),
+            *bsigns)
+        out_lo, out_hi, feasible = out_lo[:batch], out_hi[:batch], feasible[:batch]
+        scores = [s[:batch] for s in scores]
+        resolved = [s[:batch] for s in resolved]
         for k, (r, sgn) in enumerate(items):
             if settled[r]:
                 continue
@@ -1914,7 +1993,8 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
 
 
 def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
-                        main_deadline, verdicts, settle, nodes, leaves, cost_s):
+                        main_deadline, verdicts, settle, nodes, leaves, cost_s,
+                        mesh=None):
     """The host-frontier input-split BaB (``decide_many``'s batch loop):
     every still-undecided root's sub-boxes share one deque, popped
     ``frontier_size`` at a time.  On the CROWN path (the fused branch) one
@@ -1934,11 +2014,24 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
     at once when the frontier is underfull.  A root whose
     boxes are all gone is UNSAT; at ``main_deadline`` the rest are unknown
     ('deadline').  Each batch's time is split evenly over its boxes'
-    roots."""
+    roots.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``; the JAX package's mesh
+    branch) the CROWN path takes the non-fused branch too: the batch's
+    certificate and score by :func:`role_certify` (row 14, α-CROWN once a
+    fifth of ``deadline_s`` is spent), sharded over the mesh's ``parts``
+    axis and trimmed as JAX trims (``cert[:batch]``, ``score[:F]``), then
+    the undecided boxes' candidates, drawn after it, through
+    :func:`attack_logits` (row 17), sharded and trimmed to ``[:F]``; the
+    IBP path's two launches are sharded the same way."""
     R = roots_lo.shape[0]
     F = cfg.frontier_size
     dev = net.device
     on = lambda a: torch.as_tensor(a, device=dev)
+    fused = cfg.use_crown and mesh is None
+    # The non-fused branch's batches (numpy in, numpy out): one launch on
+    # the net's device, or one per parts shard of the mesh.
+    mesh, reps = mesh_mod.placement(net, mesh)
     rng = np.random.default_rng(cfg.seed)
     weights, biases = net.numpy_params()
     branch_dims = _branch_dims(enc, roots_lo.shape[1])
@@ -1975,34 +2068,40 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
         phi = _pad(bhi, F).astype(np.float32)
         x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, plo, phi)
         score = None
-        if cfg.use_crown:
-            use_alpha = cfg.alpha_iters > 0 and time.perf_counter() - t0 > 0.2 * deadline_s
+        use_alpha = (cfg.use_crown and cfg.alpha_iters > 0
+                     and time.perf_counter() - t0 > 0.2 * deadline_s)
+        alpha = cfg.alpha_iters if use_alpha else 0
+        if fused:
             xr, pr = build_attack_candidates(enc, rng, _pad(blo, F), _pad(bhi, F),
                                              cfg.bab_attack_samples)
             out = certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(plo),
                                  on(phi), av, pm, rm, float(enc.eps), on(valid), vpair,
-                                 on(xr), on(pr),
-                                 alpha_iters=cfg.alpha_iters if use_alpha else 0)
+                                 on(xr), on(pr), alpha_iters=alpha)
             cert, score, found_all, wit_all, _margin, _gap = (t.cpu().numpy()
                                                                for t in out)
             certified = cert[:batch]
+        elif cfg.use_crown:  # the mesh branch: row 14, sharded
+            cert, score, _margin = sharded_certify(mesh, reps, enc,
+                                                   (x_lo, x_hi, xp_lo, xp_hi), plo, phi,
+                                                   valid, alpha_iters=alpha)
+            certified, score = cert[:batch], score[:F]
         else:  # IBP: role bounds (row 13) first, then attack the undecided
-            bounds = role_logit_bounds(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi),
-                                       use_crown=False)
-            certified = no_flip_certified(*(t.cpu().numpy() for t in bounds), valid,
-                                          enc.valid_pair)[:batch]
+            bounds = [t[:F] for t in mesh_mod.shard_map(
+                mesh, lambda m, *b: role_logit_bounds(m, *b, use_crown=False), reps,
+                x_lo, x_hi, xp_lo, xp_hi)]
+            certified = no_flip_certified(*bounds, valid, enc.valid_pair)[:batch]
         undecided = np.where(~certified & live)[0]
         if undecided.size:
-            if cfg.use_crown:
+            if fused:
                 found, wit = found_all[undecided], wit_all[undecided]
                 xr_u, pr_u = xr[undecided], pr[undecided]
             else:  # candidates for the undecided boxes only, padded to F
                 xr_u, pr_u = build_attack_candidates(
                     enc, rng, _pad(blo[undecided], F), _pad(bhi[undecided], F),
                     cfg.bab_attack_samples)
-                lx, lp = attack_logits(net, on(xr_u), on(pr_u))
-                found, wit = find_flips(enc, lx.cpu().numpy(), lp.cpu().numpy(),
-                                        _pad(valid[undecided], F))
+                lx, lp = (t[:F] for t in mesh_mod.shard_map(mesh, attack_logits, reps,
+                                                            xr_u, pr_u))
+                found, wit = find_flips(enc, lx, lp, _pad(valid[undecided], F))
                 found = found[:undecided.size]
             for k in np.where(found)[0]:
                 r = int(broot[undecided[k]])
@@ -2085,13 +2184,16 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
     — on what is left under ``main_deadline``; Phase P, the pair LP BaB
     (:func:`pair_lp_phase`), on the roots still unknown under
     ``pair_deadline``; Phase E (:func:`lattice_phase`) on the enumerable
-    roots still unknown.  A mesh raises ``NotImplementedError`` naming its
-    ROADMAP item where a root would reach the BaB.
+    roots still unknown.  With a ``mesh`` (``parallel.mesh.Mesh``; anything
+    else raises ``TypeError``) Phase S shards its K8 batches and the BaB is
+    the host frontier's mesh branch (no device BaB, as in JAX); the other
+    phases run unsharded on the net's device.
     ``deadline_s`` defaults to
     ``soft_timeout_s × n_roots``.  Returns one :class:`Decision` per root,
     with per-root attributed ``t_attack``, ``t_sign``, ``t_lp``,
     ``t_bab``, ``t_pair`` and ``t_lattice``.
     """
+    mesh_mod.require_mesh(mesh)
     t0 = time.perf_counter()
     R = roots_lo.shape[0]
     if deadline_s is None:
@@ -2184,14 +2286,13 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 unknown_reasons[r] = reason or "frontier"
 
     if open_roots:
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        if cfg.device_bab and cfg.use_crown and len(enc.pa_idx):
+        if cfg.device_bab and cfg.use_crown and mesh is None and len(enc.pa_idx):
             device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, main_deadline,
                              verdicts, settle, nodes, leaves, cost_s)
         else:
             host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
-                                main_deadline, verdicts, settle, nodes, leaves, cost_s)
+                                main_deadline, verdicts, settle, nodes, leaves, cost_s,
+                                mesh=mesh)
     def mark(phase: str) -> None:
         for r in range(R):
             if decided_by[r] is None and verdicts[r] in ("sat", "unsat"):

@@ -8,7 +8,9 @@ device launch per segment on the mega path, one per grid chunk on the
 chunk loop — the hand-written kernel KA (``csrc/sim_and_bounds.cu``) on a
 CUDA device, its plain PyTorch version :func:`sim_and_bounds_plain` on the
 CPU; ``keep_sim`` regenerates the samples with K12's row generator
-(:func:`sim_rows`, ``csrc/sim_rows.cu``).
+(:func:`sim_rows`, ``csrc/sim_rows.cu``).  :func:`harsh_prune_grid`, the
+reference's unsound candidate-only pruning, runs KA's simulation half
+alone (:func:`sim_stats`).
 
 With ``exact_certify`` the host then re-derives every proposed dead
 neuron in exact rational arithmetic (:mod:`fairify_tpu_torch.ops.exact`:
@@ -62,6 +64,18 @@ def sim_and_bounds_plain(net, keys, lo, hi, ok, sim_size: int):
     tensors and an (L,) float32 tensor.  Samples are drawn
     ``PLAIN_ROWS`` partitions at a time to bound memory.
     """
+    cand, pos = sim_stats_plain(net, keys, lo, hi, sim_size)
+    bounds = interval_ops.network_bounds(net, lo, hi)
+    okf = ok.to(torch.float32)[:, None]
+    loos = torch.stack([((ub - lb) * okf).sum()
+                        for lb, ub in zip(bounds.ws_lb, bounds.ws_ub)])
+    return cand, pos, list(bounds.ws_lb), list(bounds.ws_ub), loos
+
+
+def sim_stats_plain(net, keys, lo, hi, sim_size: int):
+    """Plain PyTorch version of :func:`sim_stats`, the simulation half of
+    :func:`sim_and_bounds_plain`: per-layer (N, n_l) ``candidates`` and
+    ``pos_prob``, samples drawn ``PLAIN_ROWS`` partitions at a time."""
     cand_p, pos_p = [], []
     for s in range(0, lo.shape[0], PLAIN_ROWS):
         e = s + PLAIN_ROWS
@@ -70,11 +84,7 @@ def sim_and_bounds_plain(net, keys, lo, hi, ok, sim_size: int):
         cand_p.append(stats.candidates)
         pos_p.append(stats.positive_prob)
     cat = lambda parts: [torch.cat([p[l] for p in parts]) for l in range(net.depth)]
-    bounds = interval_ops.network_bounds(net, lo, hi)
-    okf = ok.to(torch.float32)[:, None]
-    loos = torch.stack([((ub - lb) * okf).sum()
-                        for lb, ub in zip(bounds.ws_lb, bounds.ws_ub)])
-    return cat(cand_p), cat(pos_p), list(bounds.ws_lb), list(bounds.ws_ub), loos
+    return cat(cand_p), cat(pos_p)
 
 
 def sim_and_bounds(net, keys, lo, hi, ok, sim_size: int):
@@ -108,6 +118,34 @@ def sim_and_bounds(net, keys, lo, hi, ok, sim_size: int):
 
 
 sim_and_bounds.launches = 0
+
+
+def sim_stats(net, keys, lo, hi, sim_size: int):
+    """Row 3: simulation statistics alone (the JAX package's ``_sim_stats``)
+    for N partitions, one launch — KA with its IBP half skipped, so the
+    samples, counts and ``pos_prob`` are KA's bit for bit.  Returns
+    per-layer (N, n_l) float32 ``(candidates, pos_prob)``.  CPU tensors
+    take :func:`sim_stats_plain`; CUDA tensors launch
+    ``csrc/sim_and_bounds.cu``'s ``ka_sim_stats``."""
+    if lo.device.type == "cpu":
+        return sim_stats_plain(net, keys, lo, hi, sim_size)
+    params, dims = cuda_build.pack_net(net)
+    k32 = cuda_build.u32_keys(keys)
+    lo, hi = lo.contiguous(), hi.contiguous()
+    cuda_build.require_cuda(params, k32, lo, hi)
+    N, L, nsum = lo.shape[0], net.depth, sum(net.layer_sizes)
+    cand, pos = (torch.empty((N, nsum), dtype=torch.float32, device=lo.device)
+                 for _ in range(2))
+    cuda_build.call("sim_and_bounds", "ka_sim_stats", cuda_build.ptr(params), dims,
+                    ctypes.c_int(L), cuda_build.ptr(k32), cuda_build.ptr(lo),
+                    cuda_build.ptr(hi), ctypes.c_int(N), ctypes.c_int(sim_size),
+                    cuda_build.ptr(cand), cuda_build.ptr(pos), cuda_build.stream())
+    sim_stats.launches += 1
+    sizes = list(net.layer_sizes)
+    return list(cand.split(sizes, dim=1)), list(pos.split(sizes, dim=1))
+
+
+sim_stats.launches = 0
 
 
 def sim_rows(keys, lo, hi, sim_size: int):
@@ -241,6 +279,21 @@ def sound_prune_global(net, lo: np.ndarray, hi: np.ndarray, sim_size: int, seed:
     return sound_prune_grid(net, np.asarray(lo)[None, :], np.asarray(hi)[None, :],
                             sim_size, seed, chunk=0, mega_chunks=0, keep_sim=True,
                             exact_certify=exact_certify)
+
+
+def harsh_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
+                     seed: int) -> List[np.ndarray]:
+    """Unsound candidate-only pruning (the reference's ``harsh_prune``,
+    ``utils/prune.py:89-102``; ``fairify_tpu/verify/pruning.py``): the
+    simulation candidates of every box, from ``grid_keys(seed, 0, P)``, in
+    one :func:`sim_stats` launch over all P boxes, taken as dead directly —
+    no bound, no exact pass and (faithful to the reference) no keep-one
+    guard.  Returns per-layer (P, n_l) float32 dead masks on the host."""
+    dev = net.device
+    keys = grid_keys(seed, 0, lo.shape[0], device=dev)
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    cand, _pos = sim_stats(net, keys, as_dev(lo), as_dev(hi), sim_size)
+    return [c.cpu().numpy() for c in cand]
 
 
 def partition_masks(prune: PruneResult, p: int) -> list:

@@ -3,11 +3,12 @@ refinement tail → ledger.
 
 Port of ``fairify_tpu/verify/sweep.py:verify_model`` and of its stacked
 family stage 0 (``stage0_families``), CROWN or IBP certificates
-(``use_crown``), no mesh.  Each pass runs one launch per segment of
-``mega_chunks`` grid chunks (the mega path) or, with ``mega_chunks = 0``
-and always on the IBP path (:func:`use_mega`), one per grid chunk padded
-to the chunk size (the chunk loop); both give the same verdicts,
-witnesses, ledger and histograms.
+(``use_crown``), on one device or over a mesh (``parallel.mesh.Mesh``).
+Each pass runs one launch per segment of ``mega_chunks`` grid chunks (the
+mega path) or, with ``mega_chunks = 0``, always on the IBP path and
+always with a mesh (:func:`use_mega`), one per grid chunk padded to the
+chunk size (the chunk loop); both give the same verdicts, witnesses,
+ledger and histograms.
 
 * **Prune pass** — :func:`verify.pruning.sound_prune_grid`: KA
   (``csrc/sim_and_bounds.cu``), then with ``exact_certify_masks`` (the
@@ -22,7 +23,12 @@ witnesses, ledger and histograms.
   ``csrc/attack_flips.cu``) per segment (the stacked chunks plus the
   integrity canary chunk; the host checks the fold and the canary) or per
   chunk (:func:`stage0_block`; histograms binned on the host); the host
-  replays every flip exactly before it counts as SAT.  For a stacked
+  replays every flip exactly before it counts as SAT.
+* **Stage 0 with a mesh** — per chunk the certificate alone (KB as rows
+  14 and 6, :func:`engine.role_certify`; row 13 on the IBP path) over the
+  mesh's ``parts`` shards, then the attack forward (row 17) unsharded on
+  the mesh's first device, the flips and gap on the host
+  (:func:`engine.split_certify_attack`).  For a stacked
   family (:func:`stage0_families`) the same launches carry a model axis:
   every model attacks the same candidates and replays its witnesses on its
   own weights; :func:`verify_model` then takes each model's result as
@@ -58,8 +64,8 @@ witnesses, ledger and histograms.
   phase, the partitions it decided on the first pass (``engine_decided``).
 
 Launches run synchronously (the async pipeline, supervisor and obs spans
-are ROADMAP queue 1, item 4).  What the port does not run yet — meshes,
-the runtime contracts' settings (:func:`check_supported`), the SMT tier —
+are ROADMAP queue 1, item 4).  What the port does not run yet — the
+runtime contracts' settings (:func:`check_supported`), the SMT tier —
 raises ``NotImplementedError`` naming its ROADMAP item where it would run.
 """
 from __future__ import annotations
@@ -77,10 +83,12 @@ import torch
 
 from fairify_tpu_torch.models.mlp import StackedMLP, predict_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
+from fairify_tpu_torch.ops import crown as crown_ops
 from fairify_tpu_torch.ops import heuristic as heur_ops
 from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, mean_scale
+from fairify_tpu_torch.parallel import mesh as mesh_mod
 from fairify_tpu_torch.partition import grid as grid_mod
 from fairify_tpu_torch.resilience import integrity as integrity_mod
 from fairify_tpu_torch.resilience.journal import JournalWriter
@@ -167,7 +175,7 @@ RUNTIME_NOT_PORTED = ("the runtime contracts (pipeline, supervisor, faults, "
 
 def check_supported(cfg: SweepConfig, mesh=None) -> None:
     """Reject every configuration the port does not run yet, naming its
-    ROADMAP item: a mesh (item 7); fault injection, the sampled integrity
+    ROADMAP item: fault injection, the sampled integrity
     recheck (only with ``integrity`` on: with it off the JAX package runs
     no recheck) and a non-default value of a setting in
     :data:`OUTPUT_SETTINGS`, with which the JAX package writes or changes
@@ -179,9 +187,9 @@ def check_supported(cfg: SweepConfig, mesh=None) -> None:
     timing (the stress presets set the first two).  ``partition_metrics``
     acts in the JAX package only with a ``dataset``, which the port's
     :func:`verify_model` does not take yet (ROADMAP queue 1, item 6).
+    A ``mesh`` that is not a ``parallel.mesh.Mesh`` raises ``TypeError``.
     """
-    if mesh is not None:
-        raise NotImplementedError(engine.MESH_NOT_PORTED)
+    mesh_mod.require_mesh(mesh)
     if cfg.inject_faults:
         raise NotImplementedError(f"inject_faults: {RUNTIME_NOT_PORTED}")
     if cfg.integrity and cfg.integrity_recheck > 0.0:
@@ -192,12 +200,12 @@ def check_supported(cfg: SweepConfig, mesh=None) -> None:
             raise NotImplementedError(f"{name}: {RUNTIME_NOT_PORTED}")
 
 
-def use_mega(cfg: SweepConfig) -> bool:
+def use_mega(cfg: SweepConfig, mesh=None) -> bool:
     """Whether stage 0, the prune and the parity passes run the mega path
-    (the JAX package's ``_use_mega``, no mesh): only the fused CROWN body
-    has one, so the IBP path takes the chunk loop whatever
-    ``mega_chunks`` says."""
-    return cfg.mega_chunks > 0 and cfg.engine.use_crown
+    (the JAX package's ``_use_mega``): only the fused CROWN body on one
+    device has one, so the IBP path and a mesh take the chunk loop
+    whatever ``mega_chunks`` says."""
+    return cfg.mega_chunks > 0 and cfg.engine.use_crown and mesh is None
 
 
 # ---------------------------------------------------------------------------
@@ -311,24 +319,29 @@ def mega_segment_decode(host, ctx, models):
 
 
 def stage0_block(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, rng_seed: int,
-                 pad_to: int):
+                 pad_to: int, mesh=None, replicas=None):
     """One grid chunk's stage 0 (``_stage0_block_submit`` + ``_decode``;
     ``_family_block_*`` for a stacked family): the chunk is padded to
     ``pad_to`` rows BEFORE the attack candidates are drawn from
     ``default_rng(rng_seed)``.  The CROWN path (the fused branch) is one
     :func:`engine.certify_attack` (one KB + one KC launch); the IBP path
-    (``use_crown=False``) is :func:`engine.ibp_certify_attack` (one
-    row-13 and one row-17 launch, the certificate, margin, flips and gap
-    on the host).  Returns per model ``(unsat, sat, witnesses, margin,
-    gap)``, padding rows included."""
+    (``use_crown=False``) and, on either path, a ``mesh`` (``replicas``
+    the net's copies on it) take :func:`engine.split_certify_attack`: the
+    certificate alone (row 13, or with a mesh on the CROWN path row 14 /
+    row 6) over the mesh's ``parts`` shards, then the attack forward (row
+    17) unsharded, the flips and gap on the host.  Returns per model
+    ``(unsat, sat, witnesses, margin, gap)``, chunk padding rows included
+    (the shard padding trimmed)."""
     lo, hi = grid_mod.pad_rows(lo, pad_to), grid_mod.pad_rows(hi, pad_to)
     flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
     x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, flo, fhi)
     xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(rng_seed),
                                             lo, hi, cfg.engine.attack_samples)
     models = _model_params(net)
-    if not cfg.engine.use_crown:
-        out = engine.ibp_certify_attack(net, enc, x_lo, x_hi, xp_lo, xp_hi, valid, xr, pr)
+    if mesh is not None or not cfg.engine.use_crown:
+        out = engine.split_certify_attack(net, enc, x_lo, x_hi, xp_lo, xp_hi, flo, fhi,
+                                          valid, xr, pr, cfg.engine.use_crown,
+                                          mesh=mesh, replicas=replicas)
         per_model = out if isinstance(net, StackedMLP) else [out]
         return [decode_flips(cert, found, wit, xr, pr, w, b) + (margin, gap)
                 for (cert, margin, found, wit, gap), (w, b) in zip(per_model, models)]
@@ -365,21 +378,23 @@ def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
     chunks × models × rows (:func:`mega_segment`); with integrity on, a
     tripped fold or canary check leaves that (family, segment) undecided
     (and, when ``failed`` is a dict, records the failure of each of its
-    rows — the single-model caller's contract).  ``mega_chunks = 0``: one
+    rows — the single-model caller's contract).  ``mega_chunks = 0`` or a
+    ``mesh`` (``parallel.mesh.Mesh``: the family is replicated over it and
+    each chunk's certificate sharded, :func:`stage0_block`): one
     :func:`stage0_block` per (family, chunk).  Every model attacks the same
     candidates, drawn once per chunk from ``default_rng(engine.seed +
     seed_offset + chunk_start)``, and each model's witnesses replay on its
     own weights.  ``stats`` (a dict) receives one ``StageStats`` per
     ``(family index, model index)``: the kernel's histograms on the mega
     path, host-binned margins and gaps on the chunk path — equal bit for
-    bit.  The IBP path (``use_crown=False``) always takes the chunk loop
-    (:func:`use_mega`) and, like the JAX package's IBP family branch,
-    banks no statistics for a stacked family (a single net's chunks bank
-    theirs, as ``_stage0_block_decode`` does).  A single (unstacked) net
+    bit.  The IBP path (``use_crown=False``) and a mesh always take the
+    chunk loop (:func:`use_mega`) and, like the JAX package's IBP and mesh
+    family branches, bank no statistics for a stacked family (a single
+    net's chunks bank theirs, as ``_stage0_block_decode`` does).  A single
+    (unstacked) net
     in ``stacks`` counts as one model.  Launches run synchronously.
     """
-    if mesh is not None:
-        raise NotImplementedError(engine.MESH_NOT_PORTED)
+    mesh_mod.require_mesh(mesh)
     P = lo.shape[0]
     n_models = [net.n_models if isinstance(net, StackedMLP) else 1 for net in stacks]
     accs = [[(np.zeros(P, bool), np.zeros(P, bool), {}) for _ in range(M)]
@@ -392,7 +407,7 @@ def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
         unsat[s:e], sat[s:e] = u[: e - s], sa[: e - s]
         wits.update({s + k: v for k, v in w.items() if k < e - s})
 
-    if use_mega(cfg):
+    if use_mega(cfg, mesh):
         step, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
         for gi, net in enumerate(stacks):
             models = _model_params(net)
@@ -415,10 +430,13 @@ def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
     else:
         step, spans = grid_mod.chunk_spans(P, cfg.grid_chunk)
         for gi, net in enumerate(stacks):
-            banked = cfg.engine.use_crown or not isinstance(net, StackedMLP)
+            banked = not isinstance(net, StackedMLP) or (cfg.engine.use_crown
+                                                         and mesh is None)
+            reps = None if mesh is None else mesh_mod.replicated(mesh, net)
             for s, e in spans:
                 per_model = stage0_block(net, enc, lo[s:e], hi[s:e], cfg,
-                                         cfg.engine.seed + seed_offset + s, step)
+                                         cfg.engine.seed + seed_offset + s, step,
+                                         mesh=mesh, replicas=reps)
                 for m, (u, sa, w, margin, gap) in enumerate(per_model):
                     if banked:
                         bank(gi, m).add_values(margin[: e - s], gap[: e - s])
@@ -436,11 +454,13 @@ def stage0_family(stacked, enc: PairEncoding, lo, hi, cfg: SweepConfig,
 
 
 def stage0_certify_and_attack(net, enc: PairEncoding, lo, hi, cfg: SweepConfig,
-                              stats, failed, seed_offset: int = 0):
+                              stats, failed, seed_offset: int = 0, mesh=None):
     """Root certificates + attack for the whole grid of one net: one
     KB + KC pair per segment (the mega path, :func:`use_mega`) or per grid
     chunk (the chunk loop), or on the IBP path one row-13 + row-17 pair per
-    grid chunk; :func:`stage0_families` with one model.
+    grid chunk; with a ``mesh``, per grid chunk one row-14 (row-13) launch
+    per shard and one row-17 launch; :func:`stage0_families` with one
+    model.
 
     Returns ``(unsat (P,), sat (P,), witnesses {p: (x, x')})``; ``stats``
     (an ``obs.funnel.StageStats``) accumulates the margin and gap
@@ -451,7 +471,7 @@ def stage0_certify_and_attack(net, enc: PairEncoding, lo, hi, cfg: SweepConfig,
     """
     fam_stats: dict = {}
     (res,) = stage0_families([net], enc, lo, hi, cfg, seed_offset=seed_offset,
-                             stats=fam_stats, failed=failed)[0]
+                             stats=fam_stats, failed=failed, mesh=mesh)[0]
     if (0, 0) in fam_stats:
         stats.merge(fam_stats[(0, 0)])
     return res
@@ -532,6 +552,9 @@ KERNELS = {
     "lattice_scan_ra": lattice_ops.lattice_scan_ra,
     "role_bounds": engine.role_logit_bounds,
     "attack_logits": engine.attack_logits,
+    "role_certify": engine.role_certify,
+    "sim_stats": pruning.sim_stats,
+    "alpha_crown": crown_ops.alpha_crown_output_bounds,
 }
 
 
@@ -544,16 +567,18 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0):
+def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0,
+                mesh=None):
     """The grid's parity column (keys of the global partition index: row
     plus ``index_offset``): one KD launch per segment, or off the mega
-    path (:func:`use_mega`) one per grid chunk padded to the chunk size
-    (``_parity_grid_from_keys``, row 10), alive masks padded like the
+    path (:func:`use_mega`; always with a ``mesh``, whose parity the JAX
+    package also runs unsharded) one per grid chunk padded to the chunk
+    size (``_parity_grid_from_keys``, row 10), alive masks padded like the
     boxes."""
     P = lo.shape[0]
     dev = net.device
     out = np.zeros(P, dtype=np.float32)
-    if use_mega(cfg):
+    if use_mega(cfg, mesh):
         _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
         pad, blocks = 0, [(s, e) for s, e, _chunks in segs]
     else:
@@ -690,7 +715,13 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     """Run the sweep for one model; write CSV + ledger rows.
 
     ``device`` defaults to ``cuda`` (``device="cpu"`` runs the plain PyTorch
-    versions of the kernels); the net is moved there.  ``partition_span``
+    versions of the kernels); the net is moved there.  ``mesh`` (a
+    ``parallel.mesh.Mesh``; anything else raises ``TypeError``) shards
+    stage 0's certificates and the engine's BaB batches over its ``parts``
+    axis and runs the rest on its first device, which ``device`` must name
+    if given (``ValueError`` otherwise); the throughput record's
+    ``partitions_per_sec_per_chip`` is divided by the mesh's size, as in
+    the JAX package.  ``partition_span``
     ``(start, stop)`` runs a contiguous slice of the shuffled grid, with
     global partition ids and keys, and sinks named ``model@start-stop``.
     ``stage0``: this model's precomputed stage-0 result from
@@ -702,7 +733,12 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     and the engine where an unported phase would run).
     """
     check_supported(cfg, mesh)
+    if mesh is not None and device is None:
+        device = mesh.home
     dev = resolve_device(device)
+    if mesh is not None and mesh_mod.canonical_device(dev) != mesh.home:
+        raise ValueError(f"verify_model: device {dev} is not the mesh's first "
+                         f"device {mesh.home}")
     net = net.to(dev)
     t_run = time.perf_counter()
     phases: Dict[str, float] = {}
@@ -731,7 +767,8 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     t0 = time.perf_counter()
     prune = pruning.sound_prune_grid(net, lo, hi, cfg.sim_size, cfg.seed,
                                      chunk=cfg.grid_chunk,
-                                     mega_chunks=cfg.mega_chunks if use_mega(cfg) else 0,
+                                     mega_chunks=cfg.mega_chunks if use_mega(cfg, mesh)
+                                     else 0,
                                      index_offset=span_start,
                                      exact_certify=cfg.exact_certify_masks)
     phases["stage0_prune"] = time.perf_counter() - t0
@@ -746,11 +783,11 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     else:
         unsat0, sat0, witnesses = stage0_certify_and_attack(
             net, enc, lo, hi, cfg, stats=stage_stats, failed=failed,
-            seed_offset=span_start)
+            seed_offset=span_start, mesh=mesh)
     unsat0, sat0 = np.array(unsat0, dtype=bool), np.array(sat0, dtype=bool)
     phases["stage0_decide"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    parity_col = parity_pass(net, prune, lo, hi, cfg, index_offset=span_start)
+    parity_col = parity_pass(net, prune, lo, hi, cfg, index_offset=span_start, mesh=mesh)
     phases["stage0_parity"] = time.perf_counter() - t0
 
     # The refinement tail: every stage-0 leftover goes through the deep PGD
@@ -780,7 +817,7 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
             net, enc, lo[pending], hi[pending],
             replace(cfg.engine, device_bab=cfg.device_bab and cfg.engine.device_bab,
                     integrity=cfg.integrity and cfg.engine.integrity),
-            deadline_s=deadline, attacked=pgd_covered_all)
+            deadline_s=deadline, mesh=mesh, attacked=pgd_covered_all)
         phases["bab"] = time.perf_counter() - t0
         bab = dict(zip(pending, decisions))
         for ph in ("t_attack", "t_sign", "t_lp", "t_bab", "t_pair", "t_lattice"):
@@ -940,7 +977,7 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
         "bab_decided": counter["decided"] - counter["stage0_decided"],
         "engine_decided": engine_decided,
         "unknown": counter["unknown"], "partitions_per_sec": round(pps, 4),
-        "partitions_per_sec_per_chip": round(pps, 4),
+        "partitions_per_sec_per_chip": round(pps / (1 if mesh is None else mesh.size), 4),
         "launches_per_model": sum(kernel_launches.values()),
         "kernel_launches": kernel_launches,
         "device": {"platform": "gpu" if dev.type == "cuda" else "cpu",

@@ -45,6 +45,17 @@ def test_package_imports_with_jax_blocked():
         for name in {names!r}:
             importlib.import_module(name)
         import chip_smoke
+        from fairify_tpu_torch.ops import crown
+        from fairify_tpu_torch.parallel import mesh
+        from fairify_tpu_torch.verify import engine, pruning, sweep
+        for mod, names in ((mesh, ("Mesh", "make_mesh", "submesh", "pad_to_multiple",
+                                   "shard_parts", "replicated", "shard_map")),
+                           (engine, ("role_certify", "split_certify_attack")),
+                           (pruning, ("sim_stats", "harsh_prune_grid")),
+                           (crown, ("alpha_crown_output_bounds",))):
+            missing = [n for n in names if not hasattr(mod, n)]
+            assert not missing, (mod.__name__, missing)
+        assert {{"role_certify", "sim_stats", "alpha_crown"}} <= set(sweep.KERNELS)
         bad = [m for m in sys.modules if m == "fairify_tpu"
                or m.startswith("fairify_tpu.") or m == "jax" and sys.modules[m]]
         assert not bad, bad
@@ -161,9 +172,12 @@ def test_accepted_settings_run_unchanged(tmp_path, kw):
 
 def test_ibp_engine_and_mesh_raise(tmp_path):
     # The IBP path is ported: the case now runs it and requires JAX's
-    # outcomes; a mesh still raises.
+    # outcomes.  The mesh is ported too: an object that is not the port's
+    # Mesh raises TypeError, and a one-shard mesh runs with the unsharded
+    # outcomes.
     from fairify_tpu.verify import engine as jengine
     from fairify_tpu_torch.models.mlp import flagship_net
+    from fairify_tpu_torch.parallel.mesh import submesh
     from fairify_tpu_torch.verify import sweep
     from fairify_tpu_torch.verify.config import EngineConfig
 
@@ -175,9 +189,17 @@ def test_ibp_engine_and_mesh_raise(tmp_path):
     for row in ("margin", "gap"):
         extra = np.asarray(want[1][row]) - np.asarray(got[1][row])
         assert (extra >= 0).all() and extra.sum() == 8
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         sweep.verify_model(flagship_net(device="cpu"), _cfg(tmp_path, exact_certify_masks=False),
                            mesh=object(), device="cpu")
+    # A one-shard mesh runs the mesh branch (stage 0's certificate alone,
+    # then the attack forward) with the unsharded run's outcomes.
+    rep = sweep.verify_model(flagship_net(device="cpu"),
+                             _cfg(tmp_path / "mesh", exact_certify_masks=False, grid_chunk=16),
+                             resume=False, device="cpu", partition_span=(0, 40),
+                             mesh=submesh(["cpu"]))
+    assert [(o.partition_id, o.verdict, o.pruned_acc, o.compressions)
+            for o in rep.outcomes] == _outcomes(tmp_path, "nomesh", exact_certify_masks=False)[0]
 
 
 def test_cuda_entry_points_raise_without_cuda(tmp_path, monkeypatch):

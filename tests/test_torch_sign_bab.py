@@ -117,13 +117,22 @@ def test_uniform_sign_bab_matches_jax(world, kw):
 
 
 def test_uniform_sign_bab_rejects_a_mesh():
+    # The mesh is ported: an object that is not the port's Mesh raises
+    # TypeError, and a one-shard mesh gives the unsharded outcome.
+    from fairify_tpu_torch.parallel.mesh import submesh
+
     ws, bs = _positive_net()
     _, tenc, jd = _encs({"a": (0, 6), "pa": (0, 1), "b": (0, 6)})
     lo, hi = jd.lo_hi()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tengine.uniform_sign_bab(tmlp.from_numpy(ws, bs, device="cpu"), tenc,
-                                 lo.astype(np.int64)[None], hi.astype(np.int64)[None],
-                                 EngineConfig(), deadline_s=10.0, mesh=object())
+    net = tmlp.from_numpy(ws, bs, device="cpu")
+    args = (net, tenc, lo.astype(np.int64)[None], hi.astype(np.int64)[None],
+            EngineConfig(alpha_iters=4))
+    with pytest.raises(TypeError, match="Mesh"):
+        tengine.uniform_sign_bab(*args, deadline_s=10.0, mesh=object())
+    got = tengine.uniform_sign_bab(*args, deadline_s=60.0, mesh=submesh(["cpu"]))
+    want = tengine.uniform_sign_bab(*args, deadline_s=60.0)
+    assert got[0] == want[0] == ["unsat"]
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 # --------------------------------------------------------------------------
