@@ -54,11 +54,15 @@ Phases (any failure exits nonzero and prints no result line):
    on age, 5 race assignments) for the relaxed-attribute terms.
    Refinement kernels vs plain versions: K5 (pgd_attack) on one 2,048-box
    launch of real AC-S1 stage-0 leftovers (96 restarts, 60 steps, and
-   again 0, 1 and 4 steps) and K6 (bab_segment) on one 8-round segment
-   of a 512-slot queue of them, with alpha_iters 0 and 8; both again on
-   GC boxes and on relaxed-AC leftovers; K12's row generator (sim_rows)
-   on one partition's samples.  K5's trajectories may end elsewhere only
-   where the plain path met a threshold, and at most 0.1% of them may;
+   again 0, 1 and 4 steps; at the heuristic retry's shape, 32 single-box
+   launches (B = 1) judged together as 3,072 trajectories, the median
+   launch timed; at one trajectory a warp tile and one warp a block
+   against its largest tile, bit-equal) and K6 (bab_segment) on one
+   8-round segment of a 512-slot queue of them, with alpha_iters 0 and 8;
+   both again on GC boxes and on relaxed-AC leftovers; K12's row
+   generator (sim_rows) on one partition's samples.  K5's trajectories
+   may end elsewhere only where the plain path met a threshold, and at
+   most 0.1% of them may;
    K6's segment must equal the plain version's in every queue buffer,
    latch and counter; sim_rows must be bit-equal.  Copies of the
    kernels' outputs with one point, latch, counter or slot shifted by one
@@ -74,7 +78,9 @@ Phases (any failure exits nonzero and prints no result line):
    scores agree to tolerance, ``feasible`` and ``resolved`` are equal and
    the bounds contain the f64 bounds of the same relaxations; K8b
    (inter_bounds) at B = 512 and at one root's 2V = 4 role boxes; the
-   role logits at Phase S's shape.  The same on relaxed-AC (ε = 5) boxes.
+   role logits at Phase S's shape (row 21; row 17's wrapper on the same
+   rows bit-equal to it, both beside the library forward).  The same on
+   relaxed-AC (ε = 5) boxes.
    Copies of the outputs with one resolved sign flipped, one lower bound
    raised past its f64 bound, one K8b bound or one logit moved must fail.
 3. End to end, stage 0 only: ``verify_model`` on the GC-1 twin with the
@@ -149,7 +155,9 @@ Phases (any failure exits nonzero and prints no result line):
    bound moved past its float64 bound, with every bound moved inward by
    one slack (the output widening removed), or with one logit moved, must
    fail; the
-   library forward (a cuBLAS fp32 chain) timed beside row 17.  (8c) The
+   library forward (a cuBLAS fp32 chain) timed beside row 17; row 17's
+   logits at its smallest rows per block (4-row warp tiles, one warp a
+   block) and its largest bit-equal.  (8c) The
    family of four AC-S1 twins through ``stage0_families`` on the whole AC
    grid (8 chunks, one launch of each row per chunk), each model equal to
    its solo stage 0; on one chunk the family rows 8 and 9 bit-equal per
@@ -178,11 +186,11 @@ Phases (any failure exits nonzero and prints no result line):
    printed.  (9d) Row 14 on one 2,048-row AC chunk at α = 0 and on the
    host frontier's F = 512 leftovers at α = 8 against its plain version
    (phase 7's KB rule); row 6 (M = 4) on the chunk bit-equal per model to
-   four solo launches; K8a and K8b over a 3-shard submesh bit-equal to the
-   unsharded launches.  (9e) The ladder world over 3 shards in the slice-3
-   configuration and on the IBP path, card = CPU; the four AC-S1 twins
-   through ``stage0_families`` and ``uniform_sign_bab`` over 3 shards
-   equal to mesh=None's.  (9f) ``harsh_prune_grid`` over the whole AC grid:
+   four solo launches, its plain version timed beside; K8a and K8b over a
+   3-shard submesh bit-equal to the unsharded launches.  (9e) The ladder
+   world over 3 shards in the slice-3 configuration and on the IBP path,
+   card = CPU; the four AC-S1 twins through ``stage0_families`` and
+   ``uniform_sign_bab`` over 3 shards equal to mesh=None's.  (9f) ``harsh_prune_grid`` over the whole AC grid:
    one row-3 launch, candidates equal to KA's full launch bit for bit, and
    row 3 against its plain version by phase 2's KA rule.  (9g)
    ``alpha_crown_output_bounds`` (iters 8) on 512 AC-S1 leftovers: within
@@ -193,8 +201,9 @@ Phase 4 runs before phase 3, and the run waits for the CPU worker before
 phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e and 9 run
 without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
 
-The next-to-last lines are the kernel table as one JSON object and the
-``nvidia-smi`` name/power line; the last line is
+The next-to-last lines are the kernel table as one JSON object (K5's
+launches in the slice-3 AC-S1 tail split by B, row 17's on the IBP AC grid
+by row count) and the ``nvidia-smi`` name/power line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -788,6 +797,21 @@ def pgd_verdict(net, k_out, p_out, near, valid):
     return None, same
 
 
+def pgd_mutant(name, k_out, same, near, pa_mask):
+    """A copy of K5's outputs with the first shared coordinate of one
+    trajectory that met no threshold (and ended at the plain version's
+    point) shifted by one: :func:`pgd_verdict` must fail it."""
+    import torch
+
+    clean = torch.nonzero(same & ~near)
+    if clean.shape[0] == 0:
+        fail(f"K5 {name}: every trajectory met a threshold; the check is vacuous")
+    b, r = (int(v) for v in clean[0])
+    x_m = k_out[2].clone()
+    x_m[b, r, :, int(torch.nonzero(1.0 - pa_mask)[0, 0])] += 1.0
+    return k_out[0], k_out[1], x_m, k_out[3]
+
+
 def check_pgd(name, net, enc, lo, hi, reps: int, steps: int, restarts: int,
               mutate: bool = False):
     """K5 against its plain version on one batch of boxes
@@ -809,15 +833,9 @@ def check_pgd(name, net, enc, lo, hi, reps: int, steps: int, restarts: int,
     why, same = pgd_verdict(net, k_out, p_out, near, valid)
     if why:
         fail(f"K5 {name}, {steps} steps: {why}")
-    if mutate:
-        clean = torch.nonzero(same & ~near)
-        if clean.shape[0] == 0:
-            fail(f"K5 {name}: every trajectory met a threshold; the check is vacuous")
-        b, r = (int(v) for v in clean[0])
-        x_m = k_out[2].clone()
-        x_m[b, r, :, int(torch.nonzero(1.0 - args[3])[0, 0])] += 1.0
-        if pgd_verdict(net, (k_out[0], k_out[1], x_m, k_out[3]), p_out, near, valid)[0] is None:
-            fail(f"K5 {name}: a point shifted by one passes the check")
+    if mutate and pgd_verdict(net, pgd_mutant(name, k_out, same, near, args[3]), p_out,
+                              near, valid)[0] is None:
+        fail(f"K5 {name}: a point shifted by one passes the check")
     near_short = {}
     for short in (0, 1, 4):
         ps, nears = pgd_near(net, args, key, short, restarts)
@@ -846,6 +864,87 @@ def check_pgd(name, net, enc, lo, hi, reps: int, steps: int, restarts: int,
           f"{near_short[1]} in 1, {near_short[4]} in 4"
           f"{'; a shifted point fails the check' if mutate else ''})", flush=True)
     return row
+
+
+RETRY_BOXES = 32
+
+
+def check_pgd_retry(name, net, enc, lo, hi, steps: int, restarts: int):
+    """K5 at the heuristic retry's shape: RETRY_BOXES launches of one box
+    each (B = 1, as ``decide_box`` → Phase A runs it), each with its own
+    key, against the plain version's run of the same box and key; the
+    RETRY_BOXES x restarts trajectories are judged together by
+    :func:`pgd_verdict` (PGD_DIFF_SHARE of all of them).  Each launch timed
+    once after a warm-up; the median is the row's time."""
+    import torch
+
+    from fairify_tpu_torch.utils import prng
+    from fairify_tpu_torch.verify import engine
+
+    k_outs, p_outs, nears, valids, times = [], [], [], [], []
+    for b in range(RETRY_BOXES):
+        args, _ = engine.pgd_inputs(enc, lo[b:b + 1], hi[b:b + 1], net.device)
+        key = prng.seed_key(5000 + b, device=net.device)
+        run = lambda: engine.pgd_attack_kernel(net, *args, key, steps, restarts)
+        out, ms = timed(run, 1)
+        (p_out, near), p_ms = timed(lambda: pgd_near(net, args, key, steps, restarts), 1)
+        k_outs.append(out)
+        p_outs.append(p_out)
+        nears.append(near)
+        valids.append(args[5])
+        times.append(ms)
+    cat = lambda outs: tuple(torch.cat(t) for t in zip(*outs))
+    k_out, p_out, near, valid = cat(k_outs), cat(p_outs), torch.cat(nears), torch.cat(valids)
+    why, same = pgd_verdict(net, k_out, p_out, near, valid)
+    if why:
+        fail(f"K5 {name}, {RETRY_BOXES} single-box launches: {why}")
+    if pgd_verdict(net, pgd_mutant(name, k_out, same, near, args[3]), p_out, near,
+                   valid)[0] is None:
+        fail(f"K5 {name}, single-box launches: a point shifted by one passes the check")
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    V, d = valid.shape[1], lo.shape[1]
+    fl = restarts * 2 * V * (steps * 4 * macs(sizes) + 2 * macs(sizes))
+    by = (2 * d * 4 + V) + 4 * (macs(sizes) + 2 * sum(sizes[1:])) + restarts * V * (2 + 2 * d) * 4
+    ms = sorted(times)[len(times) // 2]
+    row = dict(ms=ms, plain_ms=p_ms, boxes=RETRY_BOXES, trajectories=int(same.numel()),
+               near_diffs=int((~same).sum()), flops=fl, bytes=by,
+               max_abs_err=float((torch.cat([k_out[0][same], k_out[1][same]])
+                                  - torch.cat([p_out[0][same], p_out[1][same]])).abs().max())
+               if same.any() else 0.0)
+    row["bound_ms"], row["bound_by"] = bound(fl, by)
+    print(f"[kernel {name}] pgd_attack B=1 R={restarts}, {RETRY_BOXES} launches: median "
+          f"{ms:.4f} ms (min {min(times):.4f}, max {max(times):.4f}; plain {p_ms:.3f} ms; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}); "
+          f"{int(same.numel())} trajectories checked together, {row['near_diffs']} end "
+          f"elsewhere near a threshold; a shifted point fails the check", flush=True)
+    return row
+
+
+def pgd_invariance(name, net, enc, lo, hi, steps: int, restarts: int) -> dict:
+    """K5's outputs at one trajectory per warp tile and one warp per block
+    (TT = 1) and at the largest tile (the most trajectories a warp tile
+    holds, every warp shared memory holds) must be bit-equal: a
+    trajectory's arithmetic does not depend on the tile, warp or block that
+    carries it.  Uses the launch helper's private ``_geometry_force``."""
+    import torch
+
+    from fairify_tpu_torch.utils import prng
+    from fairify_tpu_torch.verify import engine
+
+    args, _ = engine.pgd_inputs(enc, lo, hi, net.device)
+    key = prng.seed_key(77, device=net.device)
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    big = engine.pgd_geometry(sizes, 1 << 30, args[2].shape[0])
+    geos = {"TT=1": (1, 1), "largest": (big["ttw"], big["warps"])}
+    outs = {k: engine._pgd_attack_launch(net, *args, key, steps, restarts, _geometry_force=g)
+            for k, g in geos.items()}
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(outs["TT=1"], outs["largest"])):
+        fail(f"K5 {name}: the outputs at (ttw, warps) {geos['TT=1']} and "
+             f"{geos['largest']} differ")
+    print(f"[geometry {name}] pgd_attack B={lo.shape[0]} R={restarts}, {steps} steps, at "
+          f"(ttw, warps) {geos['TT=1']} and {geos['largest']}: bit-equal", flush=True)
+    return {k: list(g) for k, g in geos.items()}
 
 
 def logit_scale(net, x):
@@ -1283,8 +1382,9 @@ def check_role_logits(name, net, enc, lo, hi, reps: int, mutate: bool = False):
     """The role-logit forward at Phase S's shape (the roots' 32 sampled
     points per assignment, the root axis padded to a power of two) against
     the plain forward: logits to the tolerance of their rounding scale;
-    with ``mutate`` a copy with one logit moved must fail.  Also times the
-    library forward (``library_forward``)."""
+    with ``mutate`` a copy with one logit moved must fail.  Row 17's wrapper
+    (``attack_logits``, the same kernel) on the same rows is timed beside
+    and must be bit-equal; so is the library forward (``library_forward``)."""
     import numpy as np
     import torch
 
@@ -1295,30 +1395,28 @@ def check_role_logits(name, net, enc, lo, hi, reps: int, mutate: bool = False):
     on = lambda a: torch.as_tensor(engine._pad(a, r_pad), device=net.device)
     x, xp = on(xr), on(pr)
     (kx, kp), k_ms = timed(lambda: engine.sample_role_logits(net, x, xp), reps)
+    (ax, ap), a_ms = timed(lambda: engine.attack_logits(net, x, xp), reps)
     (px, pp), p_ms = timed(lambda: engine.attack_logits_plain(net, x, xp), reps)
     _, lib_ms = timed(lambda: (library_forward(net, x), library_forward(net, xp)), reps)
-    sx, sp = logit_scale(net, x), logit_scale(net, xp)
-
-    def err(kx, kp):
-        return max(tol_ratio(kx, px, sx), tol_ratio(kp, pp, sp))
-
-    e = err(kx, kp)
+    scales = (logit_scale(net, x), logit_scale(net, xp))
+    e = logit_error((kx, kp), (px, pp), scales)
     if e > 1.0:
         fail(f"role_logits {name}: logit error {e} x tolerance")
-    if mutate:
-        km = kx.clone()
-        km.view(-1)[0] += 1e-3 * (1.0 + float(sx.view(-1)[0]))
-        if err(km, kp) <= 1.0:
-            fail(f"role_logits {name}: a copy with one logit moved passes the check")
+    if not (torch.equal(ax, kx) and torch.equal(ap, kp)):
+        fail(f"role_logits {name}: row 17's launch differs from row 21's on its inputs")
+    if mutate and logit_error(moved_logit((kx, kp), scales), (px, pp), scales) <= 1.0:
+        fail(f"role_logits {name}: a copy with one logit moved passes the check")
     sizes = [net.in_dim] + list(net.layer_sizes)
     rows = 2 * x.numel() // x.shape[-1]
     fl = 2 * rows * macs(sizes)
     by = rows * (x.shape[-1] + 1) * 4 + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
     row = dict(max_abs_err=float(max((kx - px).abs().max(), (kp - pp).abs().max())),
-               ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, flops=fl, bytes=by)
+               ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, flops=fl, bytes=by,
+               rows=rows, row17_ms=a_ms)
     row["bound_ms"], row["bound_by"] = bound(fl, by)
-    print(f"[kernel {name}] role_logits {tuple(x.shape)} x 2: {k_ms:.4f} ms (plain "
-          f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
+    print(f"[kernel {name}] role_logits {tuple(x.shape)} x 2: {k_ms:.4f} ms (row 17's "
+          f"wrapper on the same rows {a_ms:.4f} ms, bit-equal; plain {p_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
           f"within tolerance{'; a moved logit fails' if mutate else ''})", flush=True)
     return row
 
@@ -2738,6 +2836,22 @@ def check_role_bounds(name, net, boxes, use_crown: bool, reps: int, mutate: bool
     return row
 
 
+def logit_error(k, p, scales) -> float:
+    """Largest error of the logits ``k`` (one tensor per role) against the
+    plain version's ``p``, as a multiple of TOL_REL of each logit's rounding
+    scale ``scales`` (:func:`logit_scale`) + TOL_ABS (<= 1 passes)."""
+    return max(tol_ratio(a, b, s) for a, b, s in zip(k, p, scales))
+
+
+def moved_logit(k, scales):
+    """A copy of the logits ``k`` (one tensor per role) with the first
+    logit moved by 1e-3 of its rounding scale + 1e-3: the checks of rows
+    17 and 21 must fail it."""
+    km = [t.clone() for t in k]
+    km[0].view(-1)[0] += 1e-3 * (1.0 + float(scales[0].view(-1)[0]))
+    return km
+
+
 def check_attack_logits(name, net, xr, pr, reps: int, mutate: bool = False):
     """Row 17 (one net) against its plain version: every logit to TOL_REL of
     its rounding scale |h| @ |W| + |b| (``logit_scale``) + TOL_ABS; with
@@ -2748,19 +2862,12 @@ def check_attack_logits(name, net, xr, pr, reps: int, mutate: bool = False):
     (kx, kp), k_ms = timed(lambda: engine.attack_logits(net, xr, pr), reps)
     (px, pp), p_ms = timed(lambda: engine.attack_logits_plain(net, xr, pr), 1)
     _, lib_ms = timed(lambda: (library_forward(net, xr), library_forward(net, pr)), reps)
-    sx, sp = logit_scale(net, xr), logit_scale(net, pr)
-
-    def err(kx, kp):
-        return max(tol_ratio(kx, px, sx), tol_ratio(kp, pp, sp))
-
-    e = err(kx, kp)
+    scales = (logit_scale(net, xr), logit_scale(net, pr))
+    e = logit_error((kx, kp), (px, pp), scales)
     if e > 1.0:
         fail(f"attack_logits {name}: logit error {e} x tolerance")
-    if mutate:
-        km = kx.clone()
-        km.view(-1)[0] += 1e-3 * (1.0 + float(sx.view(-1)[0]))
-        if err(km, kp) <= 1.0:
-            fail(f"attack_logits {name}: a copy with one logit moved passes the check")
+    if mutate and logit_error(moved_logit((kx, kp), scales), (px, pp), scales) <= 1.0:
+        fail(f"attack_logits {name}: a copy with one logit moved passes the check")
     sizes = [net.in_dim] + list(net.layer_sizes)
     nrows = 2 * xr.numel() // xr.shape[-1]
     fl, by = attack_logits_cost(sizes, nrows)
@@ -2773,6 +2880,30 @@ def check_attack_logits(name, net, xr, pr, reps: int, mutate: bool = False):
           f"{row['bound_by']}; error {e:.3f} x tolerance"
           f"{'; a moved logit fails' if mutate else ''})", flush=True)
     return row
+
+
+def attack_logits_invariance(name, net, xr, pr) -> dict:
+    """Row 17's logits at the smallest rows per block (one warp of 4-row
+    tiles) and at the largest (the widest warp tile, every warp shared
+    memory holds) must be bit-equal: a row's sums do not depend on the tile,
+    the warp or the block that carries it.  Uses the launch helper's
+    private ``_geometry_force``; counted nowhere."""
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    big = engine.attack_logits_geometry(sizes, 1 << 30)
+    geos = {"smallest": (4, 1), "largest": (big["tw"], big["warps"])}
+    outs = {k: engine._launch_attack_logits(net, xr, pr, None, _geometry_force=g)
+            for k, g in geos.items()}
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(outs["smallest"], outs["largest"])):
+        fail(f"attack_logits {name}: the logits at {geos['smallest']} and "
+             f"{geos['largest']} (rows per warp tile, warps) differ")
+    print(f"[geometry {name}] attack_logits at (tw, warps) {geos['smallest']} and "
+          f"{geos['largest']}: bit-equal", flush=True)
+    return {k: list(g) for k, g in geos.items()}
 
 
 def k10_inputs(enc, lo, hi, S: int, seed: int = 0):
@@ -2808,6 +2939,8 @@ def k10_kernel_checks(ac_net, ac_cfg, enc, lo, hi, reps: int) -> dict:
                                                              False, reps)
     rows["attack_logits"]["host_frontier"] = check_attack_logits("host frontier", ac_net,
                                                                  fxr, fpr, reps)
+    rows["attack_logits"]["geometry"] = attack_logits_invariance("AC chunk", ac_net,
+                                                                 kc["xr"], kc["pr"])
     return rows
 
 
@@ -3042,8 +3175,10 @@ def ibp_grid(work: str, ac_net, ac_cfg) -> dict:
                        hard_timeout_s=30.0, engine=EngineConfig(**TAIL, max_nodes=1000,
                                                                 **IBP))
     n_chunks = -(-len(sweep.build_partitions(cfg)[0]) // cfg.grid_chunk)
-    rep, launch, wall = run_sweep(ac_net, cfg, "AC-S1-grid-ibp", required=(
-        "sim_and_bounds", "parity", "pgd_attack") + K10)
+    with ShapeLog() as shapes:
+        rep, launch, wall = run_sweep(ac_net, cfg, "AC-S1-grid-ibp", required=(
+            "sim_and_bounds", "parity", "pgd_attack") + K10)
+    shapes.check(launch, "AC grid IBP")
     thr = check_outputs(rep, cfg, ac_net, "AC-S1-grid-ibp", launch)
     if any(launch[k] < n_chunks for k in K10) or launch["sim_and_bounds"] != n_chunks:
         fail(f"AC grid IBP: launches {launch}, expected the chunk loop's {n_chunks}")
@@ -3051,8 +3186,9 @@ def ibp_grid(work: str, ac_net, ac_cfg) -> dict:
           f"{rep.counts} (stage 0 + PGD decided {thr['stage0_decided']}, the host frontier "
           f"and retry {thr['bab_decided']}; decided_fraction {thr['decided_fraction']}) in "
           f"{wall:.3f} s under a 30 s hard budget; funnel {thr['funnel']}; phases "
-          f"{thr['phases_s']}; launches {launch}", flush=True)
-    return dict(launch=launch, thr=thr, wall=wall)
+          f"{thr['phases_s']}; launches {launch}; row-17 launches by rows "
+          f"{dict(sorted(shapes.rows.items()))}", flush=True)
+    return dict(launch=launch, thr=thr, wall=wall, rows=shapes.rows)
 
 
 # ---------------------------------------------------------------------------
@@ -3202,7 +3338,10 @@ def mesh_kernels(ac_net, ac_cfg, fam_nets, enc, lo, hi, reps: int) -> dict:
               f"{r['bound_by']}); margin max_abs_err {err:.3g}, certified {r['certified']}, "
               f"certificates differing at a zero margin {near}", flush=True)
     kb = case["kb"]
-    fam, f_ms = timed(lambda: engine.role_certify(stack_models(fam_nets), **kb), reps)
+    stack = stack_models(fam_nets)
+    fam, f_ms = timed(lambda: engine.role_certify(stack, **kb), reps)
+    plain, p_ms = timed(lambda: engine.each_model(
+        stack, lambda n: engine.certify_impl(n, **kb)), 1)
     solo_ms = 0.0
     for m, net in enumerate(fam_nets):
         solo, t = timed(lambda: engine.role_certify(net, **kb), reps)
@@ -3212,12 +3351,14 @@ def mesh_kernels(ac_net, ac_cfg, fam_nets, enc, lo, hi, reps: int) -> dict:
                  "solo row-14 launch")
     M = len(fam_nets)
     fl, by = kb_cost(sizes, case["n_boxes"], enc.n_assign, M)
-    r = dict(ms=f_ms, solo_sum_ms=solo_ms, M=M, boxes=case["n_boxes"], flops=fl, bytes=by)
+    r = dict(ms=f_ms, solo_sum_ms=solo_ms, plain_ms=p_ms, M=M, boxes=case["n_boxes"],
+             max_abs_err=float((fam[2] - plain[2]).abs().max()), flops=fl, bytes=by)
     r["bound_ms"], r["bound_by"] = bound(fl, by)
     rows["family_chunk"] = r
     print(f"[kernel row 6] role_certify M = {M} on {case['n_boxes']} boxes: {f_ms:.4f} ms "
-          f"({M} solo launches {solo_ms:.4f} ms), bound {r['bound_ms']:.4f} ms by "
-          f"{r['bound_by']}; bit-equal per model", flush=True)
+          f"({M} solo launches {solo_ms:.4f} ms, plain {p_ms:.4f} ms, margin max_abs_err "
+          f"{r['max_abs_err']:.3g}), bound {r['bound_ms']:.4f} ms by {r['bound_by']}; "
+          f"bit-equal per model to the solo launches", flush=True)
     mesh3 = mesh_mod.submesh(["cuda:0"] * 3)
     reps3 = mesh_mod.replicated(mesh3, ac_net)
     slo, shi = (a.astype(np.float32) for a in engine.sign_boxes(enc, lo[:F], hi[:F]))
@@ -3400,6 +3541,49 @@ def k7_check(ac_net, lo, hi, reps: int) -> dict:
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the sweep through the kernels
 # ---------------------------------------------------------------------------
+
+
+class ShapeLog:
+    """Within ``with ShapeLog() as log``, the launches of K5 by its batch B
+    (``log.pgd``) and of the attack forward by its row count (``log.rows``):
+    the split of one run's launch count by shape.  It wraps the launch
+    helpers and counts beside the kernels' own counters."""
+
+    def __enter__(self):
+        from fairify_tpu_torch.verify import engine
+
+        self.pgd, self.rows = {}, {}
+        self._saved = engine._pgd_attack_launch, engine._launch_attack_logits
+        pgd, logits = self._saved
+
+        def pgd_launch(net, lo, *args, **kw):
+            self.pgd[lo.shape[0]] = self.pgd.get(lo.shape[0], 0) + 1
+            return pgd(net, lo, *args, **kw)
+
+        def logits_launch(net, x_roles, *args, **kw):
+            n = 2 * x_roles.numel() // x_roles.shape[-1]
+            self.rows[n] = self.rows.get(n, 0) + 1
+            return logits(net, x_roles, *args, **kw)
+
+        engine._pgd_attack_launch, engine._launch_attack_logits = pgd_launch, logits_launch
+        return self
+
+    def __exit__(self, *exc):
+        from fairify_tpu_torch.verify import engine
+
+        engine._pgd_attack_launch, engine._launch_attack_logits = self._saved
+        return False
+
+    def check(self, launch: dict, what: str) -> None:
+        """Fails unless the split adds up to the kernels' own counts of the
+        same run (``launch``, from :func:`run_sweep`): row 17's helper also
+        carries Phase S's role logits."""
+        want_rows = launch["attack_logits"] + launch["role_logits"]
+        if sum(self.pgd.values()) != launch["pgd_attack"] or sum(
+                self.rows.values()) != want_rows:
+            fail(f"{what}: launches by shape K5 {self.pgd}, row 17 {self.rows} do not add "
+                 f"up to the counters' pgd_attack {launch['pgd_attack']}, attack_logits + "
+                 f"role_logits {want_rows}")
 
 
 def run_sweep(net, cfg, model_name: str, required=(), span=None, mesh=None):
@@ -3601,6 +3785,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     enc, lo, hi = leftovers(ac_net, ac_cfg, 2048, 8192)
     ac_rows["pgd_attack"] = check_pgd("AC", ac_net, enc, lo, hi, reps=3, steps=60,
                                       restarts=96, mutate=True)
+    ac_rows["pgd_attack"]["retry_shape"] = check_pgd_retry("AC retry", ac_net, enc, lo, hi,
+                                                           steps=60, restarts=96)
+    ac_rows["pgd_attack"]["geometry"] = pgd_invariance("AC", ac_net, enc, lo[:4], hi[:4],
+                                                       steps=60, restarts=96)
     genc = encode(gc_cfg.query())
     _, glo, ghi = sweep.build_partitions(gc_cfg)
     gc_rows["pgd_attack"] = check_pgd("GC", gc_net, genc, glo[:128], ghi[:128],
@@ -3707,15 +3895,18 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
           f"{thr_g['bab_decided']}; decided_fraction {thr_g['decided_fraction']}) in "
           f"{wall_g:.3f} s under a 30 s hard budget; funnel {thr_g['funnel']}; "
           f"phases {thr_g['phases_s']}; launches {g_launch}", flush=True)
-    tail_launch = {}
+    tail_launch, tail_shapes = {}, {}
     for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3)):
         tail_cfg = ac_cfg.with_(
             result_dir=os.path.join(work, f"ac-tail-{len(phases)}"), soft_timeout_s=0.02,
             hard_timeout_s=TAIL_HARD_S, engine=EngineConfig(**phases, max_nodes=1000))
-        rep_ac, launch, wall_ac = run_sweep(
-            ac_net, tail_cfg, "AC-S1-twin", span=(0, 2048),
-            required=SLICE2 if phases is TAIL else SLICE3_PATH)
+        with ShapeLog() as shapes:
+            rep_ac, launch, wall_ac = run_sweep(
+                ac_net, tail_cfg, "AC-S1-twin", span=(0, 2048),
+                required=SLICE2 if phases is TAIL else SLICE3_PATH)
+        shapes.check(launch, f"AC-S1 tail, {tag}")
         tail_launch[tag] = launch
+        tail_shapes[tag] = shapes.pgd
         thr = check_outputs(rep_ac, tail_cfg, ac_net, "AC-S1-twin", launch)
         c = rep_ac.counts
         h_try = sum(o.h_attempt for o in rep_ac.outcomes)
@@ -3736,7 +3927,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"{thr['phases_s'].get('engine_sign', 0.0):.3f} s, t_lp "
               f"{thr['phases_s'].get('engine_lp', 0.0):.3f} s, t_pair "
               f"{thr['phases_s'].get('engine_pair', 0.0):.3f} s; funnel {thr['funnel']}; "
-              f"phases {thr['phases_s']}; launches {launch}", flush=True)
+              f"phases {thr['phases_s']}; launches {launch}; K5 launches by B "
+              f"{tail_shapes[tag]}", flush=True)
     ac_launch = tail_launch["slice 3"]
 
     # --- phase 6: this slice's main path.  The JAX engine's default
@@ -3805,7 +3997,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                            host_frontier={k: k9["host_frontier"][k] for k in keys + (
                                "boxes", "alpha_iters")},
                            family_chunk={k: k9["family_chunk"][k] for k in (
-                               "ms", "solo_sum_ms", "bound_ms", "bound_by", "M", "boxes")})
+                               "ms", "solo_sum_ms", "plain_ms", "max_abs_err", "bound_ms",
+                               "bound_by", "M", "boxes")})
             else:
                 r = harsh9 if name == "sim_stats" else k7
                 row = dict(launches=r["launches"])
@@ -3843,6 +4036,9 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             if name == "role_bounds":
                 row["crown"] = {k: r["crown"][k] for k in keys + ("err_x_tol",)}
                 row["err_x_slack"] = r["err_x_slack"]
+            else:
+                row["launches_by_rows"] = {str(k): v for k, v in sorted(grid8["rows"].items())}
+                row["geometry"] = r["geometry"]
             table.append(row)
             continue
         if name in LATTICE_KERNELS:
@@ -3881,9 +4077,17 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             "gc": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "max_abs_err")},
         }
-        for extra in ("alpha0", "root", "role_boxes"):
+        for extra in ("alpha0", "root", "role_boxes", "geometry"):
             if extra in r:
                 row[extra] = r[extra]
+        if name == "pgd_attack":
+            row["retry_shape"] = {k: r["retry_shape"][k] for k in keys + (
+                "boxes", "trajectories", "near_diffs")}
+            row["launches_by_B"] = {str(k): v for k, v in sorted(tail_shapes["slice 3"].items())}
+        if name == "role_logits":
+            row["row17_ms"] = r["row17_ms"]
+            row["gc"]["row17_ms"] = g["row17_ms"]
+            row["gc"]["library_ms"] = g["library_ms"]
         if name in chunk["rows"]:  # rows 1, 10 and 15 (stage 0) at one chunk
             row["chunk_loop"] = {k: chunk["rows"][name][k] for k in keys + ("launches",)}
             row["launches_chunk_loop_gc1"] = chunk["gc_launch"][name]

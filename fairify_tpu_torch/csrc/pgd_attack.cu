@@ -9,29 +9,39 @@
 // forward.  Starts: s0 = lo + U[0,1) * (hi - lo) (one fused multiply-add,
 // as XLA computes it) and r0 = U[-1,1) * eps, from the threefry device
 // function, bit-equal to jax.random.uniform (partitionable path) at flat
-// index (b * R + t) * d + i of the (B, R, d) draw.
+// index (b * R + t) * d + i of the (B, R, d) draw, under the two keys that
+// jax.random.split gives the launch key (split on the card, so the wrapper
+// never waits for it).
 //
-// The gradient is hand-derived with JAX's tie rules: relu'(0) = 0 (the
-// masked net's activations are stored and a unit passes gradient only
-// where its output is positive), min(u, v) passes half to each side on a
-// tie, and a max/min over the assignments splits its share equally among
-// the tied entries; sign(0) = 0 leaves a coordinate where it is.
+// The gradient is hand-derived with JAX's tie rules: relu'(0) = 0 (a unit
+// passes gradient only where its masked output is positive), min(u, v)
+// passes half to each side on a tie, and a max/min over the assignments
+// splits its share equally among the tied entries; sign(0) = 0 leaves a
+// coordinate where it is.
 //
 // Bound on the H100: fp32 FMA throughput — per step, 2V forward and 2V
 // backward passes of the net per trajectory (about 4 * macs flops each
 // way), so 2 * 2V * R * B * steps * 4 * macs in all (~2.4 TFLOP at AC-S1,
 // B = 2048, R = 96, V = 2, 60 steps); the inputs and outputs are small.
+// At B = 1 (the heuristic retry: 96 trajectories) the launch is bound by
+// the latency of one trajectory's 60 dependent steps.
 //
-// Design: persistent blocks (one per SM) walk tiles of TT trajectories
-// (TT * 2V rows: the x rows then the x' rows of each trajectory).  The
-// packed net, every hidden layer's activations of the tile (kept for the
-// backward pass), the two gradient buffers and the trajectory state live
-// in dynamic shared memory; each layer forward is common.cuh's
-// register-blocked dense_tile and each layer backward its transpose.
+// Design (warp_tile.cuh): a trajectory's rows (its x rows, then its x'
+// rows) depend on no other trajectory, so each warp carries TTW
+// trajectories (TW >= TTW * 2V rows) through every step with __syncwarp
+// only.  The block stages the padded net (W for the forward, W^T for the
+// backward) with one bulk copy.  Forward and backward ping-pong two
+// activation buffers; the backward's ReLU' is the forward's sign bits,
+// which each lane keeps for its own (row, unit) entries (the backward tile
+// of a layer's inputs is the forward tile of the layer below, so the lane
+// holds the same entries).  The wrapper sizes the launch to the work
+// (engine.pgd_geometry): one trajectory a warp and one warp a block when
+// there are few (B = 1: 96 blocks), full tiles on every SM when there are
+// many.
 #include "common.cuh"
+#include "warp_tile.cuh"
 
-#define K5_THREADS 256
-#define K5_ROWS 64  // target rows (trajectories x 2V) per tile
+#define K5_MAX_WARPS 8
 
 __device__ __forceinline__ float sgnf(float g) { return g > 0.f ? 1.f : (g < 0.f ? -1.f : 0.f); }
 
@@ -41,45 +51,42 @@ __device__ __forceinline__ float bits_to_unit(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
-// out[r][i] = sum_j g[r * ldg + j] * W[i * nout + j] for i < nin: the
-// transposed layer product of the backward pass, register-blocked like
-// dense_tile with the row groups varying fastest across threads (so a
-// warp's weight reads are broadcasts).  Rows past T are clamped; epi(s0,
-// nrows, i, v) receives the sums of column i for rows s0 .. s0 + nrows - 1.
-template <typename Epi>
-__device__ __forceinline__ void dense_tile_t(const float* __restrict__ g, int ldg,
-                                             const float* __restrict__ W, int nin,
-                                             int nout, int T, Epi epi) {
-  const int CG = (nin + RT_COLS - 1) / RT_COLS;
-  const int RG = (T + RT_ROWS - 1) / RT_ROWS;
-  for (int item = threadIdx.x; item < RG * CG; item += blockDim.x) {
-    const int rg = item % RG, cg = item / RG, s0 = rg * RT_ROWS;
-    int ic[RT_COLS], rr[RT_ROWS];
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c) ic[c] = min(cg + c * CG, nin - 1);
-#pragma unroll
-    for (int r = 0; r < RT_ROWS; ++r) rr[r] = min(s0 + r, T - 1);
-    float acc[RT_COLS][RT_ROWS];
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c)
-#pragma unroll
-      for (int r = 0; r < RT_ROWS; ++r) acc[c][r] = 0.f;
-    for (int j = 0; j < nout; ++j) {
-      float gv[RT_ROWS], wv[RT_COLS];
-#pragma unroll
-      for (int r = 0; r < RT_ROWS; ++r) gv[r] = g[rr[r] * ldg + j];
-#pragma unroll
-      for (int c = 0; c < RT_COLS; ++c) wv[c] = W[ic[c] * nout + j];
-#pragma unroll
-      for (int c = 0; c < RT_COLS; ++c)
-#pragma unroll
-        for (int r = 0; r < RT_ROWS; ++r) acc[c][r] = fmaf(gv[r], wv[c], acc[c][r]);
+// Unit capacities of the two activation buffers: hidden layer l's output
+// goes to buffer l % 2, the backward pass of layer l writes its in_l input
+// gradients to buffer (L - 1 - l) % 2.
+__host__ __device__ inline void k5_buffers(const PadDesc& pd, int& h0, int& h1) {
+  h0 = h1 = 0;
+  for (int l = 0; l < pd.L; ++l) {
+    if (l + 1 < pd.L) {
+      int& h = (l & 1) ? h1 : h0;
+      if (pd.out[l] > h) h = pd.out[l];
     }
-    const int nrows = min(RT_ROWS, T - s0);
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c)
-      if (cg + c * CG < nin) epi(s0, nrows, cg + c * CG, acc[c]);
+    int& g = ((pd.L - 1 - l) & 1) ? h1 : h0;
+    if (pd.in[l] > g) g = pd.in[l];
   }
+}
+
+// Sign-bit words of hidden layer l's forward tile: 2 per lane and pass.
+__host__ __device__ inline int k5_bit_words(const PadDesc& pd, int tw) {
+  int n = 0;
+  for (int l = 0; l + 1 < pd.L; ++l) n += 64 * tile_passes(pd.out[l], tw);
+  return n;
+}
+
+// Floats of one warp's share: the input tile X, the two activation
+// buffers, the logit adjoints and logits (TW each), the sign bits, the
+// trajectory state s, r, lo, hi (TTW x d each); rounded up to 16 bytes.
+__host__ __device__ inline long long k5_warp_floats(const PadDesc& pd, int ttw, int tw) {
+  int h0, h1;
+  k5_buffers(pd, h0, h1);
+  const long long f = (long long)(pd.in[0] + h0 + h1 + 2) * tw + k5_bit_words(pd, tw) +
+                      4LL * ttw * pd.in[0];
+  return (f + 3) / 4 * 4;
+}
+
+// engine.pgd_smem is the same sum.
+static inline long long k5_smem(const PadDesc& pd, int ttw, int tw, int warps) {
+  return 4LL * (4 + pd.total + warps * k5_warp_floats(pd, ttw, tw));
 }
 
 struct PgdArgs {
@@ -87,113 +94,111 @@ struct PgdArgs {
   const float *lo, *hi, *assign, *pam, *ram;
   const uint8_t* valid;
   float eps;
-  uint32_t ks0, ks1, kr0, kr1;  // the split keys of the launch key (s, r)
+  const int32_t* key;           // the launch key's two words, on the card
   const float* sched;           // decay[steps], r_step[steps]
-  int steps, B, R, V, TT;
+  int steps, B, R, V, TTW, TW;
   float *fx, *fp, *x, *xp;
 };
 
-__global__ void __launch_bounds__(K5_THREADS) k5_kernel(NetDesc nd, PgdArgs A) {
-  extern __shared__ float smem[];
-  const int d = nd.in[0], L = nd.L, V = A.V, TT = A.TT, tid = threadIdx.x, nt = blockDim.x;
-  const int rows = TT * 2 * V, rp = (rows + RT_ROWS - 1) / RT_ROWS * RT_ROWS;
-  const int dX = d | 1, ldg = nd.ld;
-  float* P = smem;
-  float* S = P + nd.total;  // trajectory state and box, TT x d each
-  float* Rv = S + TT * d;
-  float* LO = Rv + TT * d;
-  float* HI = LO + TT * d;
-  float* X = HI + TT * d;  // rp x dX
-  float* ACT = X + rp * dX;
-  int aoff[MAX_LAYERS], ast[MAX_LAYERS];
-  int acc_off = 0;
-  for (int l = 0; l + 1 < L; ++l) {
-    ast[l] = nd.out[l] | 1;
-    aoff[l] = acc_off;
-    acc_off += rp * ast[l];
+__global__ void __launch_bounds__(K5_MAX_WARPS * 32, 1) k5_kernel(PadDesc pd, PgdArgs A) {
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* P = smem + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int d = pd.in[0], L = pd.L, V = A.V, TTW = A.TTW, tw = A.TW, smask = swz_mask(tw);
+  int h0, h1;
+  k5_buffers(pd, h0, h1);
+  float* X = P + pd.total + warp * k5_warp_floats(pd, TTW, tw);  // d units x TW
+  float* H[2] = {X + d * tw, X + (d + h0) * tw};
+  float* CF = H[1] + h1 * tw;  // logit adjoints: unit 0 of a tile
+  float* LG = CF + tw;         // logits per row
+  uint32_t* BITS = reinterpret_cast<uint32_t*>(LG + tw);
+  float* S = reinterpret_cast<float*>(BITS + k5_bit_words(pd, tw));  // TTW x d each
+  float* Rv = S + TTW * d;
+  float* LO = Rv + TTW * d;
+  float* HI = LO + TTW * d;
+  int bit_off[MAX_LAYERS];
+  for (int l = 0, n = 0; l + 1 < L; ++l) {
+    bit_off[l] = n;
+    n += 64 * tile_passes(pd.out[l], tw);
   }
-  float* G0 = ACT + acc_off;  // rp x ldg each
-  float* G1 = G0 + rp * ldg;
-  float* LG = G1 + rp * ldg;  // rows: logits
-  float* CF = LG + rp;        // rows: logit adjoints
-  for (int i = tid; i < nd.total; i += nt) P[i] = A.params[i];
-  __syncthreads();
+  // Forward layer l's tile; the backward pass of layer l (its in_l input
+  // gradients) takes the tile of forward layer l - 1 (in_l = out_{l-1}), so
+  // a lane holds the same (row, unit) entries as that layer's sign bits.
+  const uint32_t tiles_f = pick_tiles(L, tw, [&](int l) { return pd.out[l]; });
+  const uint32_t tiles_b = pick_tiles(L, tw, [&](int l) { return pd.in[l]; });
+  stage_net(P, A.params, pd.total, bar);
+  // jax.random.split(key): the keys of the s and r draws (prng.split).
+  const SplitKey sk = split_key((uint32_t)A.key[0], (uint32_t)A.key[1]);
+  mbar_wait(bar, 0);
 
   const long long n_traj = (long long)A.B * A.R;
-  for (long long t0 = (long long)blockIdx.x * TT; t0 < n_traj; t0 += (long long)gridDim.x * TT) {
-    const int ntile = (int)min((long long)TT, n_traj - t0);
-    for (int q = tid; q < TT * d; q += nt) {  // threefry starts
+  const long long tiles = (n_traj + TTW - 1) / TTW;
+  const int rows = TTW * 2 * V;
+  for (long long tile = (long long)blockIdx.x * nw + warp; tile < tiles;
+       tile += (long long)gridDim.x * nw) {
+    const long long t0 = tile * TTW;
+    const int ntile = (int)min((long long)TTW, n_traj - t0);
+    for (int q = lane; q < TTW * d; q += 32) {  // threefry starts
       const int t = q / d, i = q % d;
       const long long tau = t0 + min(t, ntile - 1);
       const int b = (int)(tau / A.R);
       const float lo = A.lo[(size_t)b * d + i], hi = A.hi[(size_t)b * d + i];
       const uint64_t n = (uint64_t)tau * d + i;
-      const float us = bits_to_unit(random_bits32(A.ks0, A.ks1, n));
-      const float ur = fmaxf(-1.f, fmaf(bits_to_unit(random_bits32(A.kr0, A.kr1, n)), 2.f, -1.f));
+      const float us = bits_to_unit(random_bits32(sk.hi0, sk.hi1, n));
+      const float ur = fmaxf(-1.f, fmaf(bits_to_unit(random_bits32(sk.lo0, sk.lo1, n)), 2.f, -1.f));
       LO[q] = lo;
       HI[q] = hi;
       S[q] = fmaf(us, __fsub_rn(hi, lo), lo);
       Rv[q] = __fmul_rn(ur, A.eps);
     }
-    __syncthreads();
+    __syncwarp();
     for (int step = 0; step <= A.steps; ++step) {
       const bool last = step == A.steps;
       if (last) {  // round to the lattice for the final forward
-        for (int q = tid; q < TT * d; q += nt) {
+        for (int q = lane; q < TTW * d; q += 32) {
           const int i = q % d;
           S[q] = fminf(fmaxf(rintf(S[q]), LO[q]), HI[q]);
           Rv[q] = __fmul_rn(rintf(Rv[q]), A.ram[i]);
         }
-        __syncthreads();
+        __syncwarp();
       }
-      for (int q = tid; q < rows * d; q += nt) {  // the tile's input rows
+      for (int q = lane; q < rows * d; q += 32) {  // the tile's input rows
         const int row = q / d, i = q % d, t = row / (2 * V), k = row % (2 * V);
         const int a = k < V ? k : k - V;
         float xv = __fadd_rn(__fmul_rn(S[t * d + i], 1.f - A.pam[i]), A.assign[(size_t)a * d + i]);
         if (k >= V) xv = __fadd_rn(xv, __fmul_rn(Rv[t * d + i], A.ram[i]));
-        X[row * dX + i] = xv;
+        X[act_off(i, row, tw, smask)] = xv;
+        if (last && t < ntile)
+          (k < V ? A.x : A.xp)[((size_t)(t0 + t) * V + a) * d + i] = xv;
       }
-      __syncthreads();
-      for (int l = 0; l < L; ++l) {  // forward, keeping every hidden layer
-        const float* B = P + nd.b[l];
-        const float* M = P + nd.m[l];
+      __syncwarp();
+      const float* cur = X;
+      for (int l = 0; l < L; ++l) {  // forward, recording ReLU' bits
         const bool hidden = l + 1 < L;
-        const float* cur = l == 0 ? X : ACT + aoff[l - 1];
-        const int ldc = l == 0 ? dX : ast[l - 1];
-        float* nxt = hidden ? ACT + aoff[l] : nullptr;
-        const int ldn = hidden ? ast[l] : 0;
-        dense_tile(cur, ldc, P + nd.w[l], nd.in[l], nd.out[l], rows,
-                   [&](int s0, int nrows, int j, const float* v) {
-#pragma unroll
-                     for (int r = 0; r < RT_ROWS; ++r) {
-                       if (r >= nrows) break;
-                       const float z = v[r] + B[j];
-                       if (hidden)
-                         nxt[(s0 + r) * ldn + j] = fmaxf(z, 0.f) * M[j];
-                       else if (j == 0)
-                         LG[s0 + r] = z;
-                     }
-                   });
-        __syncthreads();
+        Epi e;
+        e.mode = hidden ? EPI_HIDDEN : EPI_LOGIT;
+        e.bias = P + pd.b[l];
+        e.mask = P + pd.m[l];
+        e.out = H[l & 1];
+        e.logit = LG;
+        e.nvalid = tw;
+        e.bits = hidden ? BITS + bit_off[l] : nullptr;
+        warp_layer((tiles_f >> (3 * l)) & 7, cur, tw, smask, P + pd.w[l], pd.ldw[l], pd.in[l],
+                   pd.out[l], lane, e);
+        __syncwarp();
+        cur = H[l & 1];
       }
       if (last) {
-        for (int q = tid; q < ntile * 2 * V; q += nt) {
+        for (int q = lane; q < ntile * 2 * V; q += 32) {
           const int t = q / (2 * V), k = q % (2 * V);
-          const long long tau = t0 + t;
           const int a = k < V ? k : k - V;
-          const size_t o = (size_t)tau * V + a;
-          (k < V ? A.fx : A.fp)[o] = LG[q];
+          (k < V ? A.fx : A.fp)[(size_t)(t0 + t) * V + a] = LG[q];
         }
-        for (int q = tid; q < ntile * 2 * V * d; q += nt) {
-          const int row = q / d, i = q % d, t = row / (2 * V), k = row % (2 * V);
-          const long long tau = t0 + t;
-          const int a = k < V ? k : k - V;
-          (k < V ? A.x : A.xp)[((size_t)tau * V + a) * d + i] = X[row * dX + i];
-        }
-        __syncthreads();
+        __syncwarp();
         break;
       }
-      for (int t = tid; t < TT; t += nt) {  // objective adjoints per row
+      for (int t = lane; t < TTW; t += 32) {  // objective adjoints per row
         const long long tau = t0 + min(t, ntile - 1);
         const uint8_t* vb = A.valid + (size_t)(tau / A.R) * V;
         const float* lx = LG + t * 2 * V;
@@ -213,46 +218,35 @@ __global__ void __launch_bounds__(K5_THREADS) k5_kernel(NetDesc nd, PgdArgs A) {
             cx += lx[a] == fxm;
             cp += lp[a] == fpm;
           }
-        for (int a = 0; a < V; ++a) {
+        for (int a = 0; a < V; ++a) {  // unit 0 of the tile: CF[row]
           CF[t * 2 * V + a] = vb[a] && lx[a] == fxm ? gx / (float)cx : 0.f;
           CF[t * 2 * V + V + a] = vb[a] && lp[a] == fpm ? -gp / (float)cp : 0.f;
         }
       }
-      __syncthreads();
+      __syncwarp();
       // Backward to the input: G_{l-1} = (G_l W_l^T) * relu'(z_{l-1}) * m.
       const float* gcur = CF;
-      int ldcur = 1;
-      float* bufs[2] = {G0, G1};
-      int which = 0;
       for (int l = L - 1; l >= 0; --l) {
-        float* gout = bufs[which];
-        const bool to_hidden = l > 0;
-        const float* act = to_hidden ? ACT + aoff[l - 1] : nullptr;
-        const int lda = to_hidden ? ast[l - 1] : 0;
-        const float* Mp = to_hidden ? P + nd.m[l - 1] : nullptr;
-        dense_tile_t(gcur, ldcur, P + nd.w[l], nd.in[l], nd.out[l], rows,
-                     [&](int s0, int nrows, int i, const float* v) {
-#pragma unroll
-                       for (int r = 0; r < RT_ROWS; ++r) {
-                         if (r >= nrows) break;
-                         const int row = s0 + r;
-                         float gval = v[r];
-                         if (to_hidden) gval = act[row * lda + i] > 0.f ? gval * Mp[i] : 0.f;
-                         gout[row * ldg + i] = gval;
-                       }
-                     });
-        __syncthreads();
-        gcur = gout;
-        ldcur = ldg;
-        which ^= 1;
+        Epi e;
+        e.mode = EPI_BACKWARD;
+        e.bias = nullptr;
+        e.mask = l > 0 ? P + pd.m[l - 1] : nullptr;
+        e.out = H[(L - 1 - l) & 1];
+        e.logit = nullptr;
+        e.nvalid = 0;
+        e.bits = l > 0 ? BITS + bit_off[l - 1] : nullptr;
+        warp_layer((tiles_b >> (3 * l)) & 7, gcur, tw, smask, P + pd.wt[l], pd.ldt[l],
+                   pd.out[l], pd.in[l], lane, e);
+        __syncwarp();
+        gcur = e.out;
       }
       const float dec = A.sched[step], rstep = A.sched[A.steps + step];
-      for (int q = tid; q < TT * d; q += nt) {  // signed step, clipped
+      for (int q = lane; q < TTW * d; q += 32) {  // signed step, clipped
         const int t = q / d, i = q % d;
         float gs = 0.f, gr = 0.f;
         for (int a = 0; a < V; ++a) {
-          const float gxv = gcur[(t * 2 * V + a) * ldg + i];
-          const float gpv = gcur[(t * 2 * V + V + a) * ldg + i];
+          const float gxv = gcur[act_off(i, t * 2 * V + a, tw, smask)];
+          const float gpv = gcur[act_off(i, t * 2 * V + V + a, tw, smask)];
           gs += gxv + gpv;
           gr += gpv;
         }
@@ -263,34 +257,29 @@ __global__ void __launch_bounds__(K5_THREADS) k5_kernel(NetDesc nd, PgdArgs A) {
         S[q] = fminf(fmaxf(__fadd_rn(S[q], __fmul_rn(alpha, sgnf(gs))), LO[q]), HI[q]);
         Rv[q] = fminf(fmaxf(__fadd_rn(Rv[q], __fmul_rn(rstep, sgnf(gr))), -A.eps), A.eps);
       }
-      __syncthreads();
+      __syncwarp();
     }
   }
 }
 
+// The launch geometry comes from the wrapper (engine.pgd_geometry:
+// trajectories per warp tile `ttw`, rows per tile `tw`, warps per block,
+// blocks, shared-memory bytes); it is checked here against the net, V and
+// the kernel's limits.
 extern "C" int k5_pgd_attack(const void* params, const int* dims, int L, const void* lo,
                              const void* hi, const void* assign, const void* pam,
-                             const void* ram, const void* valid, float eps, unsigned ks0,
-                             unsigned ks1, unsigned kr0, unsigned kr1, const void* sched,
+                             const void* ram, const void* valid, float eps, const void* key,
+                             const void* sched,
                              int steps, int B, int R, int V, void* fx, void* fp, void* x,
-                             void* xp, void* stream) {
-  const NetDesc nd = make_desc(dims, L);
-  const int d = nd.in[0];
-  int TT = K5_ROWS / (2 * V);
-  if (TT < 1) TT = 1;
-  const int rows = TT * 2 * V, rp = (rows + RT_ROWS - 1) / RT_ROWS * RT_ROWS;
-  int act = 0;
-  for (int l = 0; l + 1 < L; ++l) act += rp * (nd.out[l] | 1);
-  const size_t smem = sizeof(float) * ((size_t)nd.total + 4 * TT * d + rp * (d | 1) + act +
-                                       2 * rp * nd.ld + 2 * rp);
-  cudaError_t err = set_smem(k5_kernel, smem);
+                             void* xp, int ttw, int tw, int warps, int grid, long long smem,
+                             void* stream) {
+  const PadDesc pd = make_pad_desc(dims, L);
+  if (ttw < 1 || tw % 4 != 0 || tw < ttw * 2 * V || tw > 64 || warps < 1 ||
+      warps > K5_MAX_WARPS || grid < 1 || smem != k5_smem(pd, ttw, tw, warps) ||
+      smem > SMEM_LIMIT || pd.out[L - 1] != 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(k5_kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, nsm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  const long long tiles = ((long long)B * R + TT - 1) / TT;
-  const int grid = (int)(tiles < nsm ? tiles : nsm);
   PgdArgs A;
   A.params = (const float*)params;
   A.lo = (const float*)lo;
@@ -300,21 +289,19 @@ extern "C" int k5_pgd_attack(const void* params, const int* dims, int L, const v
   A.ram = (const float*)ram;
   A.valid = (const uint8_t*)valid;
   A.eps = eps;
-  A.ks0 = ks0;
-  A.ks1 = ks1;
-  A.kr0 = kr0;
-  A.kr1 = kr1;
+  A.key = (const int32_t*)key;
   A.sched = (const float*)sched;
   A.steps = steps;
   A.B = B;
   A.R = R;
   A.V = V;
-  A.TT = TT;
+  A.TTW = ttw;
+  A.TW = tw;
   A.fx = (float*)fx;
   A.fp = (float*)fp;
   A.x = (float*)x;
   A.xp = (float*)xp;
-  if (grid > 0)
-    k5_kernel<<<grid, K5_THREADS, smem, (cudaStream_t)stream>>>(nd, A);
+  if ((long long)B * R > 0)
+    k5_kernel<<<grid, warps * 32, (size_t)smem, (cudaStream_t)stream>>>(pd, A);
   return (int)cudaGetLastError();
 }

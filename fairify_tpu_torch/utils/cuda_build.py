@@ -146,44 +146,73 @@ def require_cuda(*tensors: torch.Tensor) -> None:
                          f"cuda:{torch.cuda.current_device()}")
 
 
+def _cached(net, kind: str, build):
+    """``build(net)``, built once per net and kind and kept on the net.
+
+    Nets are immutable (``MLP.with_masks`` builds a new one; parameters are
+    frozen), so a pack stays valid while the net's parameter tensors are
+    the same objects at the same storage address and version; ``Module.to``
+    or an in-place op on a parameter rebuilds it."""
+    params = [p for group in (net.weights, net.biases, net.masks)
+              for p in group._parameters.values()]
+    stamp = tuple((p._version, p.data_ptr()) for p in params)
+    cache = net.__dict__.setdefault("_kernel_packs", {})
+    hit = cache.get(kind)
+    if (hit is not None and len(hit[0]) == len(params)
+            and all(a is b for a, b in zip(hit[0], params)) and hit[1] == stamp):
+        return hit[2]
+    value = build(net)
+    cache[kind] = (tuple(params), stamp, value)
+    return value
+
+
+def _dims(sizes):
+    return (ctypes.c_int * len(sizes))(*sizes)
+
+
+def _check_depth(L: int) -> None:
+    if L > MAX_LAYERS:
+        raise ValueError(f"net depth {L} exceeds the kernels' MAX_LAYERS={MAX_LAYERS}")
+
+
+def _pack_net(net):
+    _check_depth(net.depth)
+    parts = []
+    for w, b, m in zip(net.weights, net.biases, net.masks):
+        parts += [w.reshape(-1), b, m]
+    params = torch.cat([p.to(torch.float32) for p in parts]).contiguous()
+    return params, _dims([net.in_dim] + list(net.layer_sizes))
+
+
 def pack_net(net):
     """Flat float32 parameter buffer + layer dims for the kernels.
 
     Layout per layer: ``W (in*out, row-major) | b (out) | m (out)``.
     Returns ``(params, dims)`` with ``dims`` a ctypes int array
     ``[d, n_0, ..., n_{L-1}]`` (host memory, read by the C launcher).
-    A mesh replica (``parallel.mesh.replicated``) carries its buffer,
-    built once, as ``kernel_pack``.
+    Built once per net (:func:`_cached`); a mesh replica
+    (``parallel.mesh.replicated``) carries its buffer as ``kernel_pack``.
     """
     if getattr(net, "kernel_pack", None) is not None:
         return net.kernel_pack[:2]
-    L = net.depth
-    if L > MAX_LAYERS:
-        raise ValueError(f"net depth {L} exceeds the kernels' MAX_LAYERS={MAX_LAYERS}")
-    parts = []
-    for w, b, m in zip(net.weights, net.biases, net.masks):
-        parts += [w.reshape(-1), b, m]
-    params = torch.cat([p.to(torch.float32) for p in parts]).contiguous()
-    sizes = [net.in_dim] + list(net.layer_sizes)
-    dims = (ctypes.c_int * len(sizes))(*sizes)
-    return params, dims
+    return _cached(net, "net", _pack_net)
 
 
-def pack_stack(stacked):
-    """:func:`pack_net` of each model of a ``StackedMLP``, back to back:
-    model m's buffer starts at ``m * nd.total`` floats (``nd.total`` the
-    length of one packed net).  Returns ``(params, dims)``."""
-    L = stacked.depth
-    if L > MAX_LAYERS:
-        raise ValueError(f"net depth {L} exceeds the kernels' MAX_LAYERS={MAX_LAYERS}")
+def _pack_stack(stacked):
+    _check_depth(stacked.depth)
     M = stacked.n_models
     parts = []
     for w, b, m in zip(stacked.weights, stacked.biases, stacked.masks):
         parts += [w.reshape(M, -1), b, m]
     params = torch.cat([p.to(torch.float32) for p in parts], dim=1).reshape(-1).contiguous()
-    sizes = [stacked.in_dim] + list(stacked.layer_sizes)
-    dims = (ctypes.c_int * len(sizes))(*sizes)
-    return params, dims
+    return params, _dims([stacked.in_dim] + list(stacked.layer_sizes))
+
+
+def pack_stack(stacked):
+    """:func:`pack_net` of each model of a ``StackedMLP``, back to back:
+    model m's buffer starts at ``m * nd.total`` floats (``nd.total`` the
+    length of one packed net).  Returns ``(params, dims)``; built once."""
+    return _cached(stacked, "stack", _pack_stack)
 
 
 def pack_models(net):
@@ -195,6 +224,113 @@ def pack_models(net):
     if hasattr(net, "n_models"):
         return pack_stack(net) + (net.n_models,)
     return pack_net(net) + (1,)
+
+
+# ---------------------------------------------------------------------------
+# The padded pack and the tile menu of csrc/warp_tile.cuh (attack_logits.cu
+# and pgd_attack.cu)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
+TILES = ((8, 8), (8, 4), (4, 4), (4, 2), (4, 1))  # (rows, columns) a lane owns
+
+
+def _round8(v: int) -> int:
+    return (v + 7) // 8 * 8
+
+
+def pad_layout(sizes) -> dict:
+    """Float offsets of one model's padded pack (``warp_tile.cuh:
+    make_pad_desc``): per layer ``W`` (in x ldw, ldw = out rounded up to
+    8, zero columns past out) | ``b`` (ldw) | ``m`` (ldw), which end at
+    ``fwd``; then per layer ``W^T`` (out x ldt, ldt = in rounded up to 8),
+    which end at ``total``."""
+    L = len(sizes) - 1
+    lay = {k: [] for k in ("ldw", "ldt", "w", "b", "m", "wt")}
+    off = 0
+    for l in range(L):
+        ldw = _round8(sizes[l + 1])
+        lay["ldw"].append(ldw)
+        lay["w"].append(off)
+        off += sizes[l] * ldw
+        lay["b"].append(off)
+        lay["m"].append(off + ldw)
+        off += 2 * ldw
+    lay["fwd"] = off
+    for l in range(L):
+        ldt = _round8(sizes[l])
+        lay["ldt"].append(ldt)
+        lay["wt"].append(off)
+        off += sizes[l + 1] * ldt
+    lay["total"] = off
+    return lay
+
+
+def _pack_padded(net):
+    stacked = hasattr(net, "n_models")
+    M = net.n_models if stacked else 1
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    _check_depth(len(sizes) - 1)
+    lay = pad_layout(sizes)
+    bufs = []
+    for k in range(M):
+        flat = torch.zeros(lay["total"], dtype=torch.float32, device=net.device)
+        for l, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+            w, b, m = (w[k], b[k], m[k]) if stacked else (w, b, m)
+            n_in, n_out = sizes[l], sizes[l + 1]
+            ldw, ldt = lay["ldw"][l], lay["ldt"][l]
+            o = lay["w"][l]
+            flat[o:o + n_in * ldw].view(n_in, ldw)[:, :n_out] = w
+            flat[lay["b"][l]:lay["b"][l] + n_out] = b
+            flat[lay["m"][l]:lay["m"][l] + n_out] = m
+            o = lay["wt"][l]
+            flat[o:o + n_out * ldt].view(n_out, ldt)[:, :n_in] = w.t()
+        bufs.append(flat)
+    return torch.cat(bufs).contiguous(), _dims(sizes), M
+
+
+def pack_padded(net):
+    """``(params, dims, M)``: the padded pack (:func:`pad_layout`) of each
+    model of a stacked net back to back (model m at ``m * total``
+    floats), or of a single net (M = 1).  The kernels of ``warp_tile.cuh``
+    read it: every weight row 16-byte aligned, the transposed copy for the
+    PGD's backward pass.  Built once per net (:func:`_cached`)."""
+    return _cached(net, "padded", _pack_padded)
+
+
+def pick_tile(nout: int, tw: int) -> int:
+    """Index into :data:`TILES` of the tile a layer of ``nout`` outputs
+    takes in a warp tile of ``tw`` rows (``warp_tile.cuh:pick_tile``): the
+    one with the fewest instructions per lane and k-step over all its
+    passes (``RR·RC`` FMAs plus twice its ``RR/4 + ceil(RC/4)`` loads), the
+    larger on a tie."""
+    best, best_cost = -1, None
+    for i, (rr, rc) in enumerate(TILES):
+        if tw % rr:
+            continue
+        items = -(-nout // rc) * (tw // rr)
+        cost = -(-items // 32) * (rr * rc + 2 * (rr // 4 + -(-rc // 4)))
+        if best < 0 or cost < best_cost:
+            best, best_cost = i, cost
+    return best
+
+
+def tile_passes(nout: int, tw: int) -> int:
+    """Passes of the 32 lanes over the items of :func:`pick_tile`'s tile."""
+    rr, rc = TILES[pick_tile(nout, tw)]
+    return -(-(-(-nout // rc) * (tw // rr)) // 32)
+
+
+_sms: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once per device)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def u32_keys(keys: torch.Tensor) -> torch.Tensor:

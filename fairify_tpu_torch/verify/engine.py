@@ -71,6 +71,7 @@ lattice kernels of ``ops/lattice.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import time
 from collections import deque
@@ -457,6 +458,122 @@ def role_logit_bounds(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool):
 role_logit_bounds.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry of the warp-tile kernels (csrc/warp_tile.cuh): the
+# attack forward (rows 17, 9, 21) and the PGD attack (K5)
+# ---------------------------------------------------------------------------
+
+AL_TW = 16  # rows of an attack-forward warp tile
+AL_MAX_WARPS = 12  # csrc/attack_logits.cu
+K5_MAX_ROWS = 16  # rows of a PGD warp tile, at most (TTW trajectories x 2V)
+K5_MAX_WARPS = 8  # csrc/pgd_attack.cu
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fit_warps(smem, cap: int, limit: int) -> int:
+    """The most warps, at most ``cap``, whose ``smem(warps)`` fits."""
+    w = cap
+    while w > 0 and smem(w) > limit:
+        w -= 1
+    if w < 1:
+        raise ValueError(f"one warp's tiles need {smem(1)} bytes of shared memory, "
+                         f"more than {limit}")
+    return w
+
+
+def attack_logits_smem(sizes, tw: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one attack-forward block
+    (``attack_logits.cu:al_smem``): the mbarrier's 16, the padded net's
+    forward part, per warp two input tiles and the two hidden buffers
+    (hidden layer l's output in buffer l % 2)."""
+    h = [0, 0]
+    for l in range(len(sizes) - 2):
+        h[l & 1] = max(h[l & 1], sizes[l + 1])
+    fwd = cuda_build.pad_layout(sizes)["fwd"]
+    return 4 * (4 + fwd + warps * (2 * sizes[0] + h[0] + h[1]) * tw)
+
+
+def attack_logits_geometry(sizes, rows: int, models: int = 1, sms: int = 132,
+                           smem_limit: int = cuda_build.SMEM_LIMIT, _force=None) -> dict:
+    """Launch geometry of ``csrc/attack_logits.cu`` for ``rows`` candidate
+    rows (both roles) of ``models`` models on a card of ``sms`` SMs: warp
+    tiles of ``tw`` rows; warps per block enough to give each SM its share
+    (at most AL_MAX_WARPS and what shared memory holds); blocks per model so
+    that the grid fills the card (``grid``; ``blocks`` in all).  ``_force``
+    (``(tw, warps)``) overrides the two choices."""
+    tw = AL_TW if _force is None else int(_force[0])
+    wmax = _fit_warps(lambda w: attack_logits_smem(sizes, tw, w), AL_MAX_WARPS, smem_limit)
+    tiles = _ceil(rows, tw)
+    if _force is None:
+        warps = min(max(_ceil(tiles * models, sms), 1), wmax)
+    else:
+        warps = int(_force[1])
+        if not 1 <= warps <= wmax:
+            raise ValueError(f"attack_logits: {warps} warps of {tw} rows do not fit")
+    grid = max(1, min(_ceil(tiles, warps), _ceil(sms, models)))
+    return dict(tw=tw, warps=warps, threads=32 * warps, grid=grid, blocks=grid * models,
+                smem=attack_logits_smem(sizes, tw, warps), tiles=tiles)
+
+
+def pgd_smem(sizes, ttw: int, tw: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one K5 block
+    (``pgd_attack.cu:k5_smem``): the mbarrier's 16, the whole padded net,
+    and per warp the input tile, the two activation buffers (hidden layer
+    l's output in buffer l % 2, layer l's input gradients in (L - 1 - l) %
+    2), the logit adjoints and logits, the ReLU' sign bits (2 words per
+    lane and pass of each hidden layer's tile) and 4 x TTW x d of
+    trajectory state, rounded up to 16 bytes."""
+    L, d = len(sizes) - 1, sizes[0]
+    h = [0, 0]
+    for l in range(L):
+        if l + 1 < L:
+            h[l & 1] = max(h[l & 1], sizes[l + 1])
+        g = (L - 1 - l) & 1
+        h[g] = max(h[g], sizes[l])
+    bits = sum(64 * cuda_build.tile_passes(n, tw) for n in sizes[1:-1])
+    per = _ceil((d + h[0] + h[1] + 2) * tw + bits + 4 * ttw * d, 4) * 4
+    return 4 * (4 + cuda_build.pad_layout(sizes)["total"] + warps * per)
+
+
+def pgd_geometry(sizes, n_traj: int, V: int, sms: int = 132,
+                 smem_limit: int = cuda_build.SMEM_LIMIT, _force=None) -> dict:
+    """Launch geometry of K5 for ``n_traj`` trajectories (boxes x restarts)
+    with V assignments on a card of ``sms`` SMs, from the work: ``ttw`` =
+    clamp(ceil(n_traj / (SMs x K5_MAX_WARPS)), 1, K5_MAX_ROWS // 2V)
+    trajectories per warp tile of ``tw`` (= 2V x ttw rounded up to 4) rows;
+    warps per block enough to give each SM its share (at most K5_MAX_WARPS
+    and what shared memory holds); then ``grid`` blocks, at most one per
+    SM.  So B = 1 (96 trajectories) runs one trajectory per warp on 96
+    blocks, and B = 2,048 full tiles on every SM.  ``_force`` (``(ttw,
+    warps)``) overrides the two choices."""
+    ttw_max = max(1, K5_MAX_ROWS // (2 * V))
+    if _force is None:
+        ttw = min(max(_ceil(n_traj, sms * K5_MAX_WARPS), 1), ttw_max)
+    else:
+        ttw = int(_force[0])
+    tw = _ceil(ttw * 2 * V, 4) * 4
+    wmax = _fit_warps(lambda w: pgd_smem(sizes, ttw, tw, w), K5_MAX_WARPS, smem_limit)
+    tiles = _ceil(n_traj, ttw)
+    if _force is None:
+        warps = min(max(_ceil(tiles, sms), 1), wmax)
+    else:
+        warps = int(_force[1])
+        if not 1 <= warps <= wmax:
+            raise ValueError(f"pgd_attack: {warps} warps of {ttw} trajectories do not fit")
+    grid = max(1, min(_ceil(tiles, warps), sms))
+    return dict(ttw=ttw, tw=tw, warps=warps, threads=32 * warps, grid=grid,
+                smem=pgd_smem(sizes, ttw, tw, warps), tiles=tiles)
+
+
+# The wrappers' geometry, computed once per shape (hashable arguments; the
+# returned dicts are shared and read only).
+_attack_logits_geometry = functools.lru_cache(maxsize=256)(attack_logits_geometry)
+_pgd_geometry = functools.lru_cache(maxsize=256)(pgd_geometry)
+
+
 def attack_logits_plain(net, x_roles, xp_roles):
     """Plain PyTorch version of :func:`attack_logits`: the forward logits of
     attack candidates, (..., V, d) → (..., V); a ``StackedMLP`` gives every
@@ -481,19 +598,25 @@ def attack_logits(net, x_roles, xp_roles):
     return out
 
 
-def _launch_attack_logits(net, x_roles, xp_roles, models):
+def _launch_attack_logits(net, x_roles, xp_roles, models, _geometry_force=None):
     """One launch of ``k10_attack_logits`` on CUDA role tensors; ``models``
-    must match the packed net's model count when given."""
-    params, dims, M = cuda_build.pack_models(net)
+    must match the packed net's model count when given.  ``_geometry_force``
+    (``(tw, warps)``) forces the launch geometry: the card's checks that
+    the logits do not depend on it."""
+    params, dims, M = cuda_build.pack_padded(net)
     if models is not None and M != models:
         raise ValueError(f"expected {models} model(s), got {M}")
     x, xp = x_roles.contiguous(), xp_roles.contiguous()
     cuda_build.require_cuda(params, x, xp)
     n = x.numel() // x.shape[-1]
+    geo = _attack_logits_geometry(tuple(dims), 2 * n, M, cuda_build.sm_count(x.device),
+                                  cuda_build.SMEM_LIMIT, _geometry_force)
     out = torch.empty((M, 2 * n), dtype=torch.float32, device=x.device)
     cuda_build.call("attack_logits", "k10_attack_logits", cuda_build.ptr(params), dims,
                     ctypes.c_int(net.depth), cuda_build.ptr(x), cuda_build.ptr(xp),
                     ctypes.c_longlong(n), ctypes.c_int(M), cuda_build.ptr(out),
+                    ctypes.c_int(geo["tw"]), ctypes.c_int(geo["warps"]),
+                    ctypes.c_int(geo["grid"]), ctypes.c_longlong(geo["smem"]),
                     cuda_build.stream())
     lead = (M,) if isinstance(net, StackedMLP) else ()
     shape = lead + x.shape[:-1]
@@ -808,24 +931,37 @@ def pgd_attack_kernel(net, lo, hi, assign_vals, pa_mask, ra_mask, valid, eps,
         return pgd_attack_plain(net, lo, hi, assign_vals, pa_mask, ra_mask, valid,
                                 eps, key, steps, restarts)
     cuda_build.require_cuda(lo)
-    return _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid,
-                              eps, key, steps, restarts)
+    out = _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid,
+                             eps, key, steps, restarts)
+    pgd_attack_kernel.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _pgd_schedule_on(eps: float, steps: int, device) -> torch.Tensor:
+    """:func:`pgd_schedule` as one (2, steps) f32 tensor on ``device``,
+    copied there once per (eps, steps)."""
+    return torch.as_tensor(np.stack(pgd_schedule(eps, steps)), device=device)
 
 
 def _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid, eps,
-                       key, steps: int, restarts: int):
+                       key, steps: int, restarts: int, _geometry_force=None):
+    """One K5 launch; ``_geometry_force`` (``(ttw, warps)``) forces the
+    launch geometry: the card's checks that a trajectory does not depend
+    on it."""
     if net.layer_sizes[-1] != 1:
         raise ValueError("pgd_attack: the net must have one output logit")
-    params, dims = cuda_build.pack_net(net)
+    params, dims, _ = cuda_build.pack_padded(net)
     lo, hi = lo.contiguous(), hi.contiguous()
     av, pm, rm = (t.contiguous() for t in (assign_vals, pa_mask, ra_mask))
     vb = valid.to(torch.uint8).contiguous()
     cuda_build.require_cuda(params, lo, hi, av, pm, rm, vb)
     B, d = lo.shape
     V = av.shape[0]
-    decay, r_step = pgd_schedule(eps, steps)
-    sched = torch.as_tensor(np.stack([decay, r_step]), device=lo.device)
-    keys = [int(v) for v in prng.split(key.cpu()).reshape(-1)]
+    geo = _pgd_geometry(tuple(dims), B * restarts, V, cuda_build.sm_count(lo.device),
+                        cuda_build.SMEM_LIMIT, _geometry_force)
+    sched = _pgd_schedule_on(eps, steps, lo.device)
+    k32 = cuda_build.u32_keys(key.to(lo.device).reshape(1, 2))
     dev = lo.device
     fx = torch.empty((B, restarts, V), dtype=torch.float32, device=dev)
     fp = torch.empty_like(fx)
@@ -835,11 +971,13 @@ def _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid, eps,
                     ctypes.c_int(net.depth), cuda_build.ptr(lo), cuda_build.ptr(hi),
                     cuda_build.ptr(av), cuda_build.ptr(pm), cuda_build.ptr(rm),
                     cuda_build.ptr(vb), ctypes.c_float(float(np.float32(eps))),
-                    *(ctypes.c_uint(k) for k in keys), cuda_build.ptr(sched),
+                    cuda_build.ptr(k32), cuda_build.ptr(sched),
                     ctypes.c_int(steps), ctypes.c_int(B), ctypes.c_int(restarts),
                     ctypes.c_int(V), cuda_build.ptr(fx), cuda_build.ptr(fp),
-                    cuda_build.ptr(x), cuda_build.ptr(xp), cuda_build.stream())
-    pgd_attack_kernel.launches += 1
+                    cuda_build.ptr(x), cuda_build.ptr(xp), ctypes.c_int(geo["ttw"]),
+                    ctypes.c_int(geo["tw"]), ctypes.c_int(geo["warps"]),
+                    ctypes.c_int(geo["grid"]), ctypes.c_longlong(geo["smem"]),
+                    cuda_build.stream())
     return fx, fp, x, xp
 
 

@@ -11,7 +11,8 @@ against the JAX package, on the CPU.
   bounds within rel 1e-4 of the case's largest bound + abs 1e-4 (as
   test_torch_crown.py) and containing the f64 logits of sampled points.
 * Row 17, ``engine.attack_logits``, against ``_attack_logits``: within rel
-  1e-5 of the box's largest |logit| + abs 1e-6 (f32 summation order).
+  1e-5 of the box's largest |logit| + abs 1e-6 (f32 summation order); and
+  chip_smoke.py's row-17 check passes JAX's logits and fails a moved one.
 * Rows 8 and 9 (a stacked family) against ``_family_bounds_kernel`` and
   ``_family_logits_kernel``, and per model equal to the single-net rows.
 * ``verify_model`` at ``use_crown=False`` (with the preset's
@@ -127,8 +128,8 @@ def test_role_logit_bounds_match_jax(kind, use_crown):
             assert (f >= lb).all() and (f <= ub).all()
 
 
-@pytest.mark.parametrize("kind", ["toy", "ac_s1"])
-def test_attack_logits_match_jax(kind):
+def _attack_case(kind):
+    """(ws, bs, ms, x candidates, x' candidates) of a row-17 case."""
     ws, bs, ms, _ = _role_case(kind)
     cfg = tpresets.get("relaxed-AC")
     enc = tencode(cfg.query())
@@ -139,6 +140,12 @@ def test_attack_logits_match_jax(kind):
         hi = np.array([[6, 6, 6, 1]] * 6, np.int64)
     xr, pr = tengine.build_attack_candidates(enc, np.random.default_rng(2), lo[:6],
                                              hi[:6], 16)
+    return ws, bs, ms, xr, pr
+
+
+@pytest.mark.parametrize("kind", ["toy", "ac_s1"])
+def test_attack_logits_match_jax(kind):
+    ws, bs, ms, xr, pr = _attack_case(kind)
     jlx, jlp = (np.asarray(v) for v in jengine._attack_logits(
         jmlp.from_numpy(ws, bs, ms), jnp.asarray(xr), jnp.asarray(pr)))
     lx, lp = (t.numpy() for t in tengine.attack_logits(
@@ -345,3 +352,22 @@ def test_chip_smoke_role_bounds_check_rejects_mutants(use_crown):
     assert len(mutants) == 2
     for what, km in mutants.items():
         assert chip_smoke.role_bounds_fails(*chip_smoke.role_bounds_verdict(km, p, ref)), what
+
+
+@pytest.mark.parametrize("kind", ["toy", "ac_s1"])
+def test_chip_smoke_attack_logits_check_rejects_a_moved_logit(kind):
+    """chip_smoke.py's row-17 and row-21 check (``logit_error``, each logit
+    to TOL_REL of its rounding scale): JAX's logits (another summation
+    order, standing in for the kernel) pass against the port's plain
+    version, and the copy with one logit moved (``moved_logit``) fails."""
+    import chip_smoke
+
+    ws, bs, ms, xr, pr = _attack_case(kind)
+    k = [torch.tensor(np.asarray(v)) for v in jengine._attack_logits(
+        jmlp.from_numpy(ws, bs, ms), jnp.asarray(xr), jnp.asarray(pr))]
+    tnet = tmlp.from_numpy(ws, bs, ms, device="cpu")
+    x, xp = torch.as_tensor(xr), torch.as_tensor(pr)
+    p = tengine.attack_logits_plain(tnet, x, xp)
+    scales = (chip_smoke.logit_scale(tnet, x), chip_smoke.logit_scale(tnet, xp))
+    assert chip_smoke.logit_error(k, p, scales) <= 1.0
+    assert chip_smoke.logit_error(chip_smoke.moved_logit(k, scales), p, scales) > 1.0

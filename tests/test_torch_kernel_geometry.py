@@ -1,0 +1,173 @@
+"""Launch geometry and packs of the warp-tile kernels, on the CPU.
+
+``engine.attack_logits_geometry`` and ``engine.pgd_geometry`` size the
+launches of ``csrc/attack_logits.cu`` (rows 17, 9, 21) and
+``csrc/pgd_attack.cu`` (K5), and the C entry points refuse any other
+shared-memory size; so these tests hold the geometry at an H100's 132 SMs
+and 227 KB (232,448 bytes) of shared memory a block, for the nets the repo
+runs, without a card:
+
+* every launch's shared memory fits, at the main path's shapes;
+* K5 at B = 1, R = 96, V = 2 (the heuristic retry) spreads over at least
+  96 blocks, and at B = 2,048 runs full tiles;
+* a 32,768-row attack forward (the host frontier's F = 512) fills all 132
+  SMs;
+* the padded pack is the layout the kernels read, and every pack is built
+  once per net: a net's ``with_masks`` copy gets its own, equal to a fresh
+  pack.
+"""
+import numpy as np
+import pytest
+import torch
+
+from fairify_tpu_torch.models.mlp import flagship_net, seeded_net
+from fairify_tpu_torch.utils import cuda_build
+from fairify_tpu_torch.verify import engine
+
+SMS = 132
+LIMIT = 232448
+
+# Widths (d, hidden..., 1) of the nets the kernels run.  The four trained
+# nets' are the layer shapes of their .h5 files:
+#   models_scaled/adult/AC-S1.h5: 13x128, 128x64, 64x32, 32x16, 16x8, 8x1
+#   models_scaled/adult/AC-S2.h5: 13x128, 128x64, 64x64, 64x32, 32x16, 16x8, 8x1
+#   models_scaled/bank/BM-S1.h5: 16x128, 128x64, 64x32, 32x16, 16x1
+#   models_scaled/bank/BM-S2.h5: 16x128, 128x64, 64x32, 32x32, 32x16, 16x8, 8x1
+# The GC-1 twin is models/mlp.py:flagship_net; the CP and DF twins are
+# chip_smoke.py's ZOO_FAMILIES.
+NETS = {
+    "AC-S1": (13, 128, 64, 32, 16, 8, 1),
+    "AC-S2": (13, 128, 64, 64, 32, 16, 8, 1),
+    "BM-S1": (16, 128, 64, 32, 16, 1),
+    "BM-S2": (16, 128, 64, 32, 32, 16, 8, 1),
+    "GC-1": (20, 50, 1),
+    "CP": (6, 32, 32, 1),
+    "DF": (30, 16, 16, 16, 1),
+}
+H5 = {"AC-S1": "models_scaled/adult/AC-S1.h5", "AC-S2": "models_scaled/adult/AC-S2.h5",
+      "BM-S1": "models_scaled/bank/BM-S1.h5", "BM-S2": "models_scaled/bank/BM-S2.h5"}
+
+
+def test_cited_widths_are_the_trained_nets():
+    pytest.importorskip("h5py")
+    from pathlib import Path
+
+    from fairify_tpu.models.ingest import load_keras_h5
+
+    root = Path(__file__).resolve().parents[1]
+    for name, path in H5.items():
+        net = load_keras_h5(root / path)
+        widths = (net.weights[0].shape[0],) + tuple(w.shape[1] for w in net.weights)
+        assert widths == NETS[name], name
+    assert (flagship_net(device="cpu").in_dim,) + flagship_net(device="cpu").layer_sizes \
+        == NETS["GC-1"]
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_attack_logits_geometry_fits_and_fills_the_card(name):
+    sizes = NETS[name]
+    for rows, models in ((32768, 1), (1 << 20, 1), (1 << 20, 4), (1 << 20, 11), (1024, 1)):
+        g = engine.attack_logits_geometry(sizes, rows, models, sms=SMS, smem_limit=LIMIT)
+        assert g["smem"] == engine.attack_logits_smem(sizes, g["tw"], g["warps"]) <= LIMIT
+        assert 1 <= g["warps"] <= engine.AL_MAX_WARPS and g["threads"] == 32 * g["warps"]
+        assert g["tiles"] * g["tw"] >= rows
+        # Every warp of the grid has a tile, and the grid is at most the card.
+        assert (g["grid"] - 1) * g["warps"] < g["tiles"]
+        assert g["blocks"] <= SMS + models - 1
+    # The host frontier's batch (F = 512, 16 candidates, V = 2, both roles)
+    # fills every SM.
+    g = engine.attack_logits_geometry(sizes, 32768, sms=SMS, smem_limit=LIMIT)
+    assert g["blocks"] >= SMS
+    # A family of four on a chunk: every model's blocks together fill it.
+    g = engine.attack_logits_geometry(sizes, 1 << 20, 4, sms=SMS, smem_limit=LIMIT)
+    assert g["blocks"] >= SMS
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_pgd_geometry_fits_and_follows_the_work(name):
+    sizes = NETS[name]
+    R = 96
+    one = engine.pgd_geometry(sizes, 1 * R, 2, sms=SMS, smem_limit=LIMIT)
+    assert one["ttw"] == 1 and one["tw"] == 4 and one["grid"] * one["warps"] >= R
+    assert one["grid"] >= 96  # the retry's 96 trajectories on 96 blocks
+    full = engine.pgd_geometry(sizes, 2048 * R, 2, sms=SMS, smem_limit=LIMIT)
+    assert full["ttw"] == engine.K5_MAX_ROWS // 4  # full tiles: 4 trajectories, 16 rows
+    assert full["tiles"] * full["ttw"] == 2048 * R and full["grid"] == SMS
+    relaxed = engine.pgd_geometry(sizes, 64 * R, 5, sms=SMS, smem_limit=LIMIT)
+    assert relaxed["ttw"] == 1 and relaxed["tw"] == 12
+    for g, V in ((one, 2), (full, 2), (relaxed, 5)):
+        assert g["smem"] == engine.pgd_smem(sizes, g["ttw"], g["tw"], g["warps"]) <= LIMIT
+        assert 1 <= g["warps"] <= engine.K5_MAX_WARPS
+        assert g["tw"] % 4 == 0 and g["tw"] >= 2 * V * g["ttw"]
+        assert (g["grid"] - 1) * g["warps"] < g["tiles"]
+
+
+def test_forced_geometry_is_checked():
+    sizes = NETS["AC-S1"]
+    g = engine.pgd_geometry(sizes, 384, 2, sms=SMS, _force=(1, 1))
+    assert (g["ttw"], g["tw"], g["warps"], g["grid"]) == (1, 4, 1, SMS)
+    g = engine.attack_logits_geometry(sizes, 1 << 20, sms=SMS, _force=(4, 1))
+    assert (g["tw"], g["warps"], g["grid"]) == (4, 1, SMS)
+    with pytest.raises(ValueError):
+        engine.pgd_geometry(sizes, 384, 2, sms=SMS, _force=(4, engine.K5_MAX_WARPS + 1))
+    with pytest.raises(ValueError):
+        engine.attack_logits_geometry(sizes, 1024, sms=SMS, _force=(16, 13))
+    wide = (13, 4096, 1)  # a net whose one warp tile exceeds shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.pgd_geometry(wide, 96, 2, sms=SMS)
+
+
+@pytest.mark.parametrize("nout,tw,want", [
+    (128, 16, (8, 8)), (64, 16, (8, 4)), (32, 16, (4, 4)), (16, 16, (4, 2)),
+    (8, 16, (4, 1)), (50, 16, (8, 4)), (128, 4, (4, 4)), (64, 4, (4, 2)),
+    (32, 4, (4, 1)), (13, 12, (4, 2)), (1, 16, (4, 1))])
+def test_tile_menu_takes_the_shortest_lane_chain(nout, tw, want):
+    """csrc/warp_tile.cuh:pick_tile's rule, mirrored: the tile with the
+    fewest instructions per lane and k-step over all its passes, the
+    larger on a tie."""
+    assert cuda_build.TILES[cuda_build.pick_tile(nout, tw)] == want
+
+
+def test_padded_pack_layout():
+    net = seeded_net((5, 9, 3, 1), seed=4, device="cpu")
+    params, dims, M = cuda_build.pack_padded(net)
+    lay = cuda_build.pad_layout(list(dims))
+    assert M == 1 and list(dims) == [5, 9, 3, 1] and params.numel() == lay["total"]
+    for l, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        n_in, n_out = w.shape
+        ldw, ldt = lay["ldw"][l], lay["ldt"][l]
+        assert ldw % 8 == 0 and ldt % 8 == 0 and lay["w"][l] % 8 == 0
+        wp = params[lay["w"][l]:lay["w"][l] + n_in * ldw].view(n_in, ldw)
+        assert torch.equal(wp[:, :n_out], w) and not wp[:, n_out:].any()
+        assert torch.equal(params[lay["b"][l]:lay["b"][l] + n_out], b)
+        assert torch.equal(params[lay["m"][l]:lay["m"][l] + n_out], m)
+        wt = params[lay["wt"][l]:lay["wt"][l] + n_out * ldt].view(n_out, ldt)
+        assert torch.equal(wt[:, :n_in], w.t()) and not wt[:, n_in:].any()
+    from fairify_tpu_torch.parallel.mesh import stack_models
+
+    nets = [net, seeded_net((5, 9, 3, 1), seed=5, device="cpu")]
+    sp, _, SM = cuda_build.pack_padded(stack_models(nets))
+    assert SM == 2 and torch.equal(sp, torch.cat([cuda_build.pack_padded(n)[0] for n in nets]))
+
+
+def test_packs_are_built_once_per_net():
+    net = seeded_net((6, 8, 4, 1), seed=1, device="cpu")
+    for pack in (cuda_build.pack_net, cuda_build.pack_padded):
+        assert pack(net)[0] is pack(net)[0]  # built once, then reused
+    masks = [torch.ones_like(m) for m in net.masks]
+    masks[0][3] = 0.0
+    other = net.with_masks(masks)
+    for pack, fresh in ((cuda_build.pack_net, cuda_build._pack_net),
+                        (cuda_build.pack_padded, cuda_build._pack_padded)):
+        a, b = pack(net)[0], pack(other)[0]
+        assert a is not b and not torch.equal(a, b)
+        assert torch.equal(a, fresh(net)[0]) and torch.equal(b, fresh(other)[0])
+    np.testing.assert_array_equal(cuda_build.pack_models(net)[0].numpy(),
+                                  cuda_build.pack_net(net)[0].numpy())
+    # An in-place change of a parameter (which the port never makes) is seen.
+    third = seeded_net((6, 8, 4, 1), seed=2, device="cpu")
+    before = cuda_build.pack_net(third)[0]
+    with torch.no_grad():
+        third.biases[0].add_(1.0)
+    after = cuda_build.pack_net(third)[0]
+    assert after is not before and torch.equal(after, cuda_build._pack_net(third)[0])

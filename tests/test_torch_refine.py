@@ -15,6 +15,8 @@
   re-evaluated in float64 along the f32 α path.
 * The host deciders ``slab_search``, ``decide_leaf`` and
   ``local_affine_np`` are copies: equal outputs on the same inputs.
+* chip_smoke.py's K5 check still bites: JAX's PGD outputs pass
+  ``pgd_verdict`` against the plain version, a point shifted by one fails.
 """
 import jax
 import jax.numpy as jnp
@@ -158,6 +160,30 @@ def test_pgd_runs_match_jax(eps, steps):
             np.testing.assert_array_equal(b, a)  # the lattice points
         else:  # logits: f32 sums in another order
             np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("eps,steps", [(0.0, 5), (2.0, 30)])
+def test_chip_smoke_pgd_check_rejects_a_shifted_point(eps, steps):
+    """chip_smoke.py's K5 check (``pgd_verdict`` over the near-threshold map
+    of ``pgd_near``): JAX's ``_pgd_attack_kernel`` outputs (another
+    summation order, standing in for the kernel) pass against the port's
+    plain version, and the copy with one point of a trajectory that met no
+    threshold shifted by one (``pgd_mutant``) fails."""
+    import chip_smoke
+
+    ws, bs, ms = _params((5, 12, 8, 1), 3)
+    jn, tn = _nets(ws, bs, ms)
+    lo, hi, av, pm, rm, valid = _boxes(3, 8, 5)
+    R = 16
+    k_out = tuple(torch.tensor(np.asarray(a)) for a in jengine._pgd_attack_kernel(
+        jn, *map(jnp.asarray, (lo, hi, av, pm, rm, valid)), eps,
+        jax.random.PRNGKey(123), steps, R))
+    args = tuple(torch.as_tensor(a) for a in (lo, hi, av, pm, rm, valid)) + (eps,)
+    p_out, near = chip_smoke.pgd_near(tn, args, prng.seed_key(123), steps, R)
+    why, same = chip_smoke.pgd_verdict(tn, k_out, p_out, near, args[5])
+    assert why is None and same.any()
+    mutant = chip_smoke.pgd_mutant("JAX", k_out, same, near, args[3])
+    assert chip_smoke.pgd_verdict(tn, mutant, p_out, near, args[5])[0] is not None
 
 
 def _toy(span=2):
