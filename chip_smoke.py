@@ -36,9 +36,14 @@ Phases (any failure exits nonzero and prints no result line):
    version's; (e) on the margin and flip chunks, copies with one certain
    sign flipped, one margin index dropped, two swapped or the flip lost
    fail.  The run fails unless a flip, a sparse and a dense margin were
-   checked.  The overflow path: a net with a zero last layer (f = 0,
-   every point a margin point; narrow, since each point then takes the
-   exact rational forward) on a box of a few thousand points runs K9b and
+   checked.  On each preset's timed chunk a cuBLAS fp32 chain (three addmm
+   a layer: h W, |h| |W|, e |W|; TF32 off and asserted) is timed beside the
+   kernels as the library yardstick of rows 22-24, and on the crossing
+   twin's chunk the signs kernel under three forced geometries (points a
+   warp tile, warps a block) must give K9b's signs, f and e and the scan's
+   outputs bit for bit.  The overflow path: a net with a zero last layer
+   (f = 0, every point a margin point; narrow, since each point then takes
+   the exact rational forward) on a box of a few thousand points runs K9b and
    decides unsat on the card and the CPU.  Card = CPU: decide_box_exhaustive
    on the 8 (stress-AC) and 4 (relaxed-AC) smallest-lattice E0-eligible
    leftovers that the card decides within 2 s (a smaller box over the cap is one whose margin
@@ -64,7 +69,9 @@ Phases (any failure exits nonzero and prints no result line):
    may end elsewhere only where the plain path met a threshold, and at
    most 0.1% of them may;
    K6's segment must equal the plain version's in every queue buffer,
-   latch and counter; sim_rows must be bit-equal.  Copies of the
+   latch and counter, and at the AC shape (α 0 and 8) its own default
+   launch's bit for bit under three forced geometries (warps a block, one
+   block an SM); sim_rows must be bit-equal.  Copies of the
    kernels' outputs with one point, latch, counter or slot shifted by one
    must fail these checks.  A toy world through decide_many agrees with
    the brute-force oracle.
@@ -98,7 +105,10 @@ Phases (any failure exits nonzero and prints no result line):
    and P on), 45 s hard each — each under a fixed node and time budget,
    with every kernel of the path launched, every partition ledgered,
    every SAT replayed exactly and every unknown ledgered with the
-   engine's reason (phase 6 likewise).
+   engine's reason (phase 6 likewise).  K6's launches in both tails are
+   split by (α, live slot-rounds: the segment's nodes sum, up to the next
+   power of two); each bucket is timed on its first launch's inputs, the
+   slice-2 tail's most frequent one also against the plain version.
 
 6. This slice's main path: ``verify_model`` on the AC-S1 twin over
    stress-AC and relaxed-AC partitions 0-1,024 in the JAX engine's default
@@ -202,9 +212,10 @@ phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e and 9 run
 without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
 
 The next-to-last lines are the kernel table as one JSON object (K5's
-launches in the slice-3 AC-S1 tail split by B, row 17's on the IBP AC grid
-by row count) and the ``nvidia-smi`` name/power line; the last line is
-``{"ok": true, "device": {...}}``.
+launches in the slice-3 AC-S1 tail split by B, K6's in both tails by (α,
+live slot-rounds), row 17's on the IBP AC grid by row count) and the
+``nvidia-smi`` name/power line; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1042,49 +1053,94 @@ def bab_mutants(seg):
         yield key, mut
 
 
-def check_bab(name, net, st0, c, alpha_iters: int, rounds: int, reps: int,
-              mutate: bool = False):
-    """K6 against its plain version on one queue: one ``rounds``-round
-    segment of each (:func:`bab_verdict`).  With ``mutate``, every copy of
-    :func:`bab_mutants` must fail.  Returns the kernel row."""
-    from fairify_tpu_torch.verify import engine
-
-    seg, k_ms = timed(lambda: engine.bab_segment(
-        net, *seg_args(st0, c), rounds=rounds, alpha_iters=alpha_iters), reps)
-    plain, p_ms = timed(lambda: engine.bab_segment_plain(
-        net, *seg_args(st0, c), rounds=rounds, alpha_iters=alpha_iters), 1)
-    why = bab_verdict(seg, plain)
-    if why:
-        fail(f"K6 {name} alpha={alpha_iters}: {why}")
-    if mutate:
-        for key, mut in bab_mutants(seg):
-            if bab_verdict(mut, plain) is None:
-                fail(f"K6 {name} alpha={alpha_iters}: a segment with {key} shifted "
-                     "by one passes the check")
-    sizes = [net.in_dim] + list(net.layer_sizes)
-    V, d = c["assign_vals"].shape
-    live_rounds = int(seg["nodes"].sum())  # slot-rounds certified in the segment
+def bab_cost(sizes, V: int, Qs: int, alpha_iters: int, live_rounds: int):
+    """(flops, bytes) of one K6 segment that certified ``live_rounds``
+    slot-rounds (the segment's ``nodes`` sum): per role box CROWN
+    (crown_flops), the form sums (12 d), and per α iteration two chains
+    forward and back through the hidden layers (8 flops per hidden
+    weight), plus the final forward (4); per slot the pair bounds and the
+    probe.  Bytes: the queue read and written once, the net read once."""
+    d = sizes[0]
     ns = 2 if alpha_iters > 0 else 1
-    # Per role box: CROWN (crown_flops), the form sums (12 d), and per α
-    # iteration two chains forward and back through the hidden layers
-    # (8 flops per hidden weight), plus the final forward (4).
     hidden = macs(sizes[:-1])
     per_box = crown_flops(sizes) + 12 * d + (alpha_iters * 8 * hidden + 4 * hidden
                                              if alpha_iters > 0 else 0)
     fl = live_rounds * (2 * V * per_box + ns * 2 * V * V * 12 * d + 2 * V * macs(sizes))
-    Qs = st0["q_lo"].shape[0]
     by = 2 * (Qs * (3 * d * 4 + 4 * 3 + 2)) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
-    row = dict(max_abs_err=float(max((seg["q_lo"] - plain["q_lo"]).abs().max(),
-                                     (seg["q_hi"] - plain["q_hi"]).abs().max())),
-               ms=k_ms, plain_ms=p_ms, flops=fl, bytes=by)
+    return fl, by
+
+
+def check_bab(name, net, st0, c, alpha_iters: int, rounds: int, reps: int,
+              mutate: bool = False, plain: bool = True):
+    """K6 against its plain version on one queue: one ``rounds``-round
+    segment of each (:func:`bab_verdict`).  With ``mutate``, every copy of
+    :func:`bab_mutants` must fail; without ``plain`` the kernel is only
+    timed.  Returns the kernel row."""
+    from fairify_tpu_torch.verify import engine
+
+    seg, k_ms = timed(lambda: engine.bab_segment(
+        net, *seg_args(st0, c), rounds=rounds, alpha_iters=alpha_iters), reps)
+    p_ms = err = None
+    if plain:
+        ref, p_ms = timed(lambda: engine.bab_segment_plain(
+            net, *seg_args(st0, c), rounds=rounds, alpha_iters=alpha_iters), 1)
+        why = bab_verdict(seg, ref)
+        if why:
+            fail(f"K6 {name} alpha={alpha_iters}: {why}")
+        if mutate:
+            for key, mut in bab_mutants(seg):
+                if bab_verdict(mut, ref) is None:
+                    fail(f"K6 {name} alpha={alpha_iters}: a segment with {key} shifted "
+                         "by one passes the check")
+        err = float(max((seg["q_lo"] - ref["q_lo"]).abs().max(),
+                        (seg["q_hi"] - ref["q_hi"]).abs().max()))
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    V = c["assign_vals"].shape[0]
+    live_rounds = int(seg["nodes"].sum())  # slot-rounds certified in the segment
+    Qs = st0["q_lo"].shape[0]
+    fl, by = bab_cost(sizes, V, Qs, alpha_iters, live_rounds)
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, flops=fl, bytes=by,
+               live_rounds=live_rounds)
     row["bound_ms"], row["bound_by"] = bound(fl, by)
     print(f"[kernel {name}] bab_segment alpha={alpha_iters} Qs={Qs} rounds={rounds}: "
-          f"{k_ms:.3f} ms (plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
-          f"{row['bound_by']}; {live_rounds} slot-rounds; queue, latches, counters "
-          f"and fold equal to the plain version's"
-          f"{'; every shifted latch, counter or slot fails the check' if mutate else ''})",
-          flush=True)
+          f"{k_ms:.3f} ms ("
+          + (f"plain {p_ms:.3f} ms, " if plain else "")
+          + f"bound {row['bound_ms']:.3f} ms by {row['bound_by']}; {live_rounds} "
+          f"slot-rounds"
+          + ("; queue, latches, counters and fold equal to the plain version's" if plain
+             else "")
+          + ("; every shifted latch, counter or slot fails the check" if mutate else "")
+          + ")", flush=True)
     return row
+
+
+def bab_invariance(name, net, st0, c, alpha_iters: int, rounds: int) -> list:
+    """K6 under forced launch geometries (warps a block, blocks an SM):
+    every queue buffer, latch, counter and the fold must equal the default
+    launch's bit for bit.  Returns the forced geometries."""
+    import torch
+
+    from fairify_tpu_torch.resilience import integrity
+    from fairify_tpu_torch.utils import cuda_build
+    from fairify_tpu_torch.verify import engine
+
+    args = seg_args(st0, c)
+    base = engine._bab_segment_launch(net, *args, rounds, alpha_iters)
+    sizes = tuple([net.in_dim] + list(net.layer_sizes))
+    V, Qs = c["assign_vals"].shape[0], st0["q_lo"].shape[0]
+    default = engine.bab_geometry(sizes, V, Qs, cuda_build.sm_count(net.device),
+                                  live=int(st0["q_live"].sum()))
+    forces = [(4, 1), (default["warps"], 1), (engine.K6_MAX_WARPS, 1)]
+    for force in forces:
+        seg = engine._bab_segment_launch(net, *args, rounds, alpha_iters,
+                                         _geometry_force=force)
+        bad = [k for k in integrity.BAB_FOLD_KEYS if not torch.equal(seg[k], base[k])]
+        if bad or seg["csum"] != base["csum"]:
+            fail(f"K6 {name} alpha={alpha_iters}: geometry {force} changes {bad or 'the fold'}")
+    print(f"[geometry {name}] bab_segment alpha={alpha_iters}: forced (warps, blocks/SM) "
+          f"{forces} bit-equal to the default {(default['warps'], default['per_sm'])}",
+          flush=True)
+    return forces
 
 
 def check_sim_rows(name, net, cfg, lo, hi, reps: int):
@@ -1525,6 +1581,29 @@ def lattice_eligible(enc, lo, hi, cap: float):
     return idx, [sizes[i] for i in idx]
 
 
+def library_signed_forward(net, x):
+    """The lattice forward as a cuBLAS fp32 chain, the library yardstick of
+    rows 22-24 (timed here, used nowhere in the port): per layer z = h @ W +
+    b, a = |h| @ |W| + |b| and e' = e @ |W| + gamma a (three addmm), then
+    ReLU and mask; TF32 off and asserted."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for the lattice library chain")
+    h, e = x.reshape(-1, x.shape[-1]), None
+    for i, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        aw = w.abs()
+        gamma = 4.0 * (w.shape[0] + 4) * 2.0 ** -24
+        a = torch.addmm(b.abs(), h.abs(), aw)
+        e = a.mul_(gamma) if e is None else torch.addmm(a, e, aw, beta=gamma)
+        z = torch.addmm(b, h, w)
+        if i < net.depth - 1:
+            h, e = z.clamp_min_(0.0).mul_(m), e.mul_(m)
+        else:
+            h = z
+    return h, e
+
+
 def f64_forward(net, x):
     """Float64 logits of f32 inputs ``x`` (..., d) under the net's masks."""
     h = x.double()
@@ -1655,28 +1734,26 @@ def check_lattice(name, net, enc, lo, hi, c0: int, reps: int, chunk: int = 1 << 
     import torch
 
     from fairify_tpu_torch.ops import lattice as lattice_ops
-    from fairify_tpu_torch.utils import cuda_build
 
     plan, args = scan_args(net, enc, lo, hi, c0, chunk)
     if isinstance(plan, str) or len(plan.peel_dims):
         fail(f"{name}: box not scannable in one prefix ({plan})")
-    packed = cuda_build.pack_net(net)
     _, _, _, strides, widths, lo_sh, bases, _, _, _, _, d = args
     ra = (plan.ra_ws, plan.eps) if plan.ra_mode else ()
     kname = "lattice_scan_ra" if plan.ra_mode else "lattice_scan"
     kern = getattr(lattice_ops, kname)
     plain = getattr(lattice_ops, kname + "_plain")
-    k_scan, k_ms = timed(lambda: kern(*args, *ra, packed=packed), reps)
+    k_scan, k_ms = timed(lambda: kern(*args, *ra), reps)
     p_scan, p_ms = timed(lambda: plain(*args, *ra), 1)
     sargs = (net, c0, strides, widths, lo_sh, bases, plan.chunk, plan.dims_tuple, d)
-    k_sfe, s_ms = timed(lambda: lattice_ops.lattice_signs(*sargs, packed=packed,
-                                                          with_fe=True), reps)
+    k_sfe, s_ms = timed(lambda: lattice_ops.lattice_signs(*sargs, with_fe=True), reps)
     p_sfe, ps_ms = timed(lambda: lattice_ops.device_signs_plain(*sargs, with_fe=True), 1)
     x = lattice_ops.lattice_inputs(c0, strides, widths, lo_sh, bases, plan.chunk,
                                    plan.dims_tuple, d)
     f64 = f64_forward(net, x)
+    lib_ms = timed(lambda: library_signed_forward(net, x), reps)[1] if reps > 1 else None
     del x
-    if not torch.equal(lattice_ops.lattice_signs(*sargs, packed=packed), k_sfe[0]):
+    if not torch.equal(lattice_ops.lattice_signs(*sargs), k_sfe[0]):
         fail(f"{name}: K9b's signs differ with and without f, e")
     own = scan_from_signs(plan, args, k_sfe[0])
     bad, excused = lattice_verdict(k_scan, k_sfe, p_scan, p_sfe, f64, own)
@@ -1699,16 +1776,51 @@ def check_lattice(name, net, enc, lo, hi, c0: int, reps: int, chunk: int = 1 << 
     print(f"[kernel {name}] {kname} V={V} chunk={plan.chunk} at {c0} (n_total "
           f"{plan.n_suf}{', RA tile ' + str(plan.tile) if plan.ra_mode else ''}): "
           f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {b_ms:.4f} ms); lattice_signs "
-          f"{s_ms:.4f} ms (plain {ps_ms:.4f} ms); first_flip {ff}"
+          f"{s_ms:.4f} ms (plain {ps_ms:.4f} ms)"
+          f"{'' if lib_ms is None else f'; library addmm chain {lib_ms:.4f} ms'}; first_flip {ff}"
           f"{' (through a dilated partner only)' if dilated else ''}, margin_count {mc}, "
           f"excused {excused}, max |f - plain| {err:.3g}"
           f"{', mutants caught' if mutate else ''}", flush=True)
     row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                chunk=plan.chunk, V=V, excused=excused, first_flip=ff, margin_count=mc,
-               dilated=dilated)
+               dilated=dilated, library_ms=lib_ms)
     srow = dict(ms=s_ms, plain_ms=ps_ms, bound_ms=bs_ms, bound_by=bs_by, max_abs_err=err,
-                chunk=plan.chunk, V=V)
+                chunk=plan.chunk, V=V, library_ms=lib_ms)
     return {kname: row, "lattice_signs": srow}
+
+
+def lattice_invariance(name, net, enc, lo, hi, c0: int) -> list:
+    """The signs kernel under forced launch geometries (points a warp tile,
+    warps a block) on the chunk at ``c0``: K9b's signs, f and e and the
+    scan's (K9a, or K9c in RA mode) first flip, margin count, margin
+    indices and sign columns must equal the default launch's bit for bit.
+    Returns the forced geometries."""
+    import torch
+
+    from fairify_tpu_torch.ops import lattice as lattice_ops
+
+    plan, args = scan_args(net, enc, lo, hi, c0, 1 << 18)
+    _, c0, n_suf, strides, widths, lo_sh, bases, valid, vp, chunk, dims_t, d = args
+    ra = dict(ra_ws=plan.ra_ws, eps=plan.eps) if plan.ra_mode else {}
+    mode = 2 if plan.ra_mode else 1
+    ones, zeros = torch.ones_like(valid), torch.zeros_like(vp)
+
+    def run(force):
+        sfe = lattice_ops._launch(0, net, c0, 0, strides, widths, lo_sh, bases, ones, zeros,
+                                  chunk, dims_t, d, with_fe=True, _geometry_force=force)
+        scan = lattice_ops._launch(mode, net, c0, n_suf, strides, widths, lo_sh, bases, valid,
+                                   vp, chunk, dims_t, d, _geometry_force=force, **ra)
+        return tuple(sfe) + tuple(scan)
+
+    base = run(None)
+    forces = [(4, 1), (8, 3), (64, 1)]
+    for force in forces:
+        if not all(torch_equal(a, b) for a, b in zip(run(force), base)):
+            fail(f"{name}: the lattice kernels' outputs change under geometry {force}")
+    print(f"[geometry {name}] lattice signs, f, e and the "
+          f"{'K9c' if plan.ra_mode else 'K9a'} scan under forced (tw, warps) {forces} "
+          f"bit-equal to the default", flush=True)
+    return forces
 
 
 def margin_chunks(net, enc, lo, hi, order):
@@ -1718,16 +1830,14 @@ def margin_chunks(net, enc, lo, hi, order):
     valid assignment.  Returns ({"sparse" | "dense": (box, c0)}, chunks
     scanned, scanned chunks with a flip)."""
     from fairify_tpu_torch.ops import lattice as lattice_ops
-    from fairify_tpu_torch.utils import cuda_build
 
-    packed = cuda_build.pack_net(net)
     found, n, n_flip = {}, 0, 0
     for i in order:
         plan, args = scan_args(net, enc, lo[i], hi[i], 0, 1 << 18)
         ra = (plan.ra_ws, plan.eps) if plan.ra_mode else ()
         kern = lattice_ops.lattice_scan_ra if plan.ra_mode else lattice_ops.lattice_scan
         for c0 in range(0, plan.n_suf, plan.chunk):
-            ff, mc = (int(t) for t in kern(args[0], c0, *args[2:], *ra, packed=packed)[:2])
+            ff, mc = (int(t) for t in kern(args[0], c0, *args[2:], *ra)[:2])
             n += 1
             n_flip += ff >= 0
             if 2 <= mc <= lattice_ops.MARGIN_BUF:
@@ -2028,7 +2138,7 @@ def lattice_kernel_checks(net, lat: dict) -> dict:
             rows["lattice_scan_ra"] = r["lattice_scan_ra"]
             rows["lattice_signs"]["relaxed"] = {
                 k: r["lattice_signs"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                    "V")}
+                                                    "V", "library_ms")}
         for i in p["skipped"]:
             plan = lattice_ops.scan_plan(net, enc, lo[i], hi[i], chunk=1 << 18)
             for c0 in range(0, min(plan.n_suf, 2 * plan.chunk), plan.chunk):
@@ -2051,6 +2161,8 @@ def lattice_kernel_checks(net, lat: dict) -> dict:
         fx = check_lattice(f"{name} crossing twin", xnet, enc, lo[o0], hi[o0], 0, reps=3,
                            mutate=True)[kname]
         checked.append(fx)
+        rows[kname]["geometry"] = lattice_invariance(f"{name} crossing twin", xnet, enc,
+                                                     lo[o0], hi[o0], 0)
         if kname == "lattice_scan_ra":
             # K9c's other dilation path, a global scratch slice per block
             # (RA tiles past LAT_RA_SMEM_MAX), forced on the same chunk.
@@ -3543,18 +3655,30 @@ def k7_check(ac_net, lo, hi, reps: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def slot_round_bucket(n: int) -> int:
+    """The bucket of a K6 segment with n live slot-rounds: the next power
+    of two (at least 64)."""
+    return max(64, 1 << max(0, n - 1).bit_length())
+
+
 class ShapeLog:
     """Within ``with ShapeLog() as log``, the launches of K5 by its batch B
-    (``log.pgd``) and of the attack forward by its row count (``log.rows``):
-    the split of one run's launch count by shape.  It wraps the launch
-    helpers and counts beside the kernels' own counters."""
+    (``log.pgd``), of the attack forward by its row count (``log.rows``)
+    and of K6 by α and live slot-rounds (``log.bab``: (alpha_iters,
+    :func:`slot_round_bucket` of the segment's ``nodes`` sum) -> launches,
+    with the first launch of each bucket's inputs in ``log.bab_case``): the
+    split of one run's launch count by shape.  It wraps the launch helpers
+    and counts beside the kernels' own counters."""
 
     def __enter__(self):
+        import torch
+
         from fairify_tpu_torch.verify import engine
 
-        self.pgd, self.rows = {}, {}
-        self._saved = engine._pgd_attack_launch, engine._launch_attack_logits
-        pgd, logits = self._saved
+        self.pgd, self.rows, self.bab, self.bab_case = {}, {}, {}, {}
+        self._saved = (engine._pgd_attack_launch, engine._launch_attack_logits,
+                       engine._bab_segment_launch)
+        pgd, logits, bab = self._saved
 
         def pgd_launch(net, lo, *args, **kw):
             self.pgd[lo.shape[0]] = self.pgd.get(lo.shape[0], 0) + 1
@@ -3565,13 +3689,23 @@ class ShapeLog:
             self.rows[n] = self.rows.get(n, 0) + 1
             return logits(net, x_roles, *args, **kw)
 
+        def bab_launch(net, *args, **kw):
+            keep = [a.clone() if torch.is_tensor(a) else a for a in args]
+            out = bab(net, *args, **kw)
+            key = (int(args[-1]), slot_round_bucket(int(out["nodes"].sum())))
+            self.bab[key] = self.bab.get(key, 0) + 1
+            self.bab_case.setdefault(key, (net, keep))
+            return out
+
         engine._pgd_attack_launch, engine._launch_attack_logits = pgd_launch, logits_launch
+        engine._bab_segment_launch = bab_launch
         return self
 
     def __exit__(self, *exc):
         from fairify_tpu_torch.verify import engine
 
-        engine._pgd_attack_launch, engine._launch_attack_logits = self._saved
+        (engine._pgd_attack_launch, engine._launch_attack_logits,
+         engine._bab_segment_launch) = self._saved
         return False
 
     def check(self, launch: dict, what: str) -> None:
@@ -3580,10 +3714,45 @@ class ShapeLog:
         carries Phase S's role logits."""
         want_rows = launch["attack_logits"] + launch["role_logits"]
         if sum(self.pgd.values()) != launch["pgd_attack"] or sum(
-                self.rows.values()) != want_rows:
-            fail(f"{what}: launches by shape K5 {self.pgd}, row 17 {self.rows} do not add "
-                 f"up to the counters' pgd_attack {launch['pgd_attack']}, attack_logits + "
-                 f"role_logits {want_rows}")
+                self.rows.values()) != want_rows or sum(
+                self.bab.values()) != launch["bab_segment"]:
+            fail(f"{what}: launches by shape K5 {self.pgd}, row 17 {self.rows}, K6 "
+                 f"{self.bab} do not add up to the counters' pgd_attack "
+                 f"{launch['pgd_attack']}, attack_logits + role_logits {want_rows}, "
+                 f"bab_segment {launch['bab_segment']}")
+
+
+def bab_by_shape(tails: dict) -> dict:
+    """K6 at the shapes of the AC-S1 tails' launches (``tails``: tag ->
+    ShapeLog): every (α, slot-round bucket) timed on its first launch's
+    inputs, the most frequent bucket of the slice-2 tail also held against
+    the plain version.  Returns, per tail, the launches by bucket with the
+    bucket's time, bound and launches x (time - bound), and the frequent
+    bucket's row."""
+    cases, rows = {}, {}
+    for tags in tails.values():
+        cases.update({k: v for k, v in tags.bab_case.items() if k not in cases})
+    freq = max(tails["slice 2"].bab.items(), key=lambda kv: (kv[1], kv[0]))[0]
+    for key, (net, args) in sorted(cases.items()):
+        st = dict(zip(("q_lo", "q_hi", "q_root", "q_live", "found", "wit_a", "wit_b",
+                       "wit_pt"), args[:8]))
+        c = dict(zip(("slot_ok", "root_valid", "assign_vals", "pa_mask", "ra_mask", "eps",
+                      "valid_pair", "branch_mask"), args[8:16]))
+        rows[key] = check_bab(f"AC-S1 tail K6 {key}", net, st, c, key[0], rounds=args[16],
+                              reps=3, plain=key == freq)
+    out = {"frequent": dict(rows[freq], alpha_iters=freq[0], bucket=freq[1])}
+    for tag, log in tails.items():
+        out[tag] = {f"alpha{a}:<={b}": dict(
+            launches=n, ms=rows[(a, b)]["ms"], bound_ms=rows[(a, b)]["bound_ms"],
+            live_rounds=rows[(a, b)]["live_rounds"],
+            excess_s=n * (rows[(a, b)]["ms"] - rows[(a, b)]["bound_ms"]) / 1e3)
+            for (a, b), n in sorted(log.bab.items())}
+        print(f"[K6 by shape, {tag}] " + ", ".join(
+            f"{k}: {v['launches']} x ({v['ms']:.3f} - {v['bound_ms']:.3f}) ms"
+            for k, v in out[tag].items())
+              + "; launches x (time - bound) "
+              f"{sum(v['excess_s'] for v in out[tag].values()):.2f} s", flush=True)
+    return out
 
 
 def run_sweep(net, cfg, model_name: str, required=(), span=None, mesh=None):
@@ -3798,8 +3967,9 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
         st, c = bab_queue(ac_net, enc, lo, hi, 512)
         bab_rows[alpha] = check_bab("AC", ac_net, st, c, alpha, rounds=8, reps=3,
                                     mutate=alpha > 0)
+        bab_rows[alpha]["geometry"] = bab_invariance("AC", ac_net, st, c, alpha, rounds=8)
     ac_rows["bab_segment"] = dict(bab_rows[8], alpha0={
-        k: bab_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        k: bab_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "live_rounds")})
     st, c = bab_queue(gc_net, genc, glo[:128], ghi[:128], 512)
     gc_rows["bab_segment"] = check_bab("GC", gc_net, st, c, 8, rounds=8, reps=3)
     renc, rlo, rhi = leftovers(ac_net, rx_cfg, 64, 1024)
@@ -3906,7 +4076,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                 required=SLICE2 if phases is TAIL else SLICE3_PATH)
         shapes.check(launch, f"AC-S1 tail, {tag}")
         tail_launch[tag] = launch
-        tail_shapes[tag] = shapes.pgd
+        tail_shapes[tag] = shapes
         thr = check_outputs(rep_ac, tail_cfg, ac_net, "AC-S1-twin", launch)
         c = rep_ac.counts
         h_try = sum(o.h_attempt for o in rep_ac.outcomes)
@@ -3928,8 +4098,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"{thr['phases_s'].get('engine_lp', 0.0):.3f} s, t_pair "
               f"{thr['phases_s'].get('engine_pair', 0.0):.3f} s; funnel {thr['funnel']}; "
               f"phases {thr['phases_s']}; launches {launch}; K5 launches by B "
-              f"{tail_shapes[tag]}", flush=True)
+              f"{shapes.pgd}; K6 launches by (alpha, slot-rounds) {shapes.bab}", flush=True)
     ac_launch = tail_launch["slice 3"]
+    # K6 at the tails' launch shapes: every bucket timed on its first launch.
+    bab_shapes = bab_by_shape(tail_shapes)
 
     # --- phase 6: this slice's main path.  The JAX engine's default
     # configuration (lattice phases on; max_nodes cut to 1,000) on the
@@ -4053,10 +4225,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": n, "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None,
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "launches_other_preset": lat_launch[LATTICE_OTHER[name]][name],
                 **{k: r[k] for k in ("V", "chunk", "overflow_launches", "relaxed",
-                                     "checked_chunks", "scratch") if k in r}})
+                                     "checked_chunks", "scratch", "geometry") if k in r}})
             continue
         r, g = ac_rows[name], gc_rows[name]
         print(f"[summary] {name}: launches AC-S1 tail slice 3 {ac_launch[name]} / "
@@ -4083,7 +4255,12 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
         if name == "pgd_attack":
             row["retry_shape"] = {k: r["retry_shape"][k] for k in keys + (
                 "boxes", "trajectories", "near_diffs")}
-            row["launches_by_B"] = {str(k): v for k, v in sorted(tail_shapes["slice 3"].items())}
+            row["launches_by_B"] = {str(k): v for k, v in
+                                    sorted(tail_shapes["slice 3"].pgd.items())}
+        if name == "bab_segment":
+            row["launches_by_shape"] = {t: bab_shapes[t] for t in ("slice 2", "slice 3")}
+            row["frequent_shape"] = {k: bab_shapes["frequent"][k] for k in keys + (
+                "alpha_iters", "bucket", "live_rounds")}
         if name == "role_logits":
             row["row17_ms"] = r["row17_ms"]
             row["gc"]["row17_ms"] = g["row17_ms"]

@@ -24,19 +24,29 @@
 // slot per round, plus the α chains (each step two forward and two reverse
 // chain passes, ~50 k flops).  The compaction is O(Qs) integer work.
 //
-// Design: blocks walk the slots (one slot per block at a time); the packed
-// network, the CROWN workspace (KB's layout, crown.cuh), the α workspace,
-// the form sets and the pair bounds live in dynamic shared memory (~190 KB
-// at AC-S1, so one block per SM and a grid of one block per SM).  All
-// products are true-f32 FMA loops.
+// Design (crown_warp.cuh): a block certifies one live slot at a time, its
+// 2V role boxes side by side; blocks take the next slot of the round from
+// a counter.  Within a layer every backward-pass column pair of every role
+// box is one warp's work (__syncwarp only), every α side of a role box one
+// warp's chain, so a slot runs about 2L block barriers instead of a few
+// hundred per role box.  The net (rows at an odd stride, cuda_build.
+// pack_odd) is staged once per block by one bulk copy; the role boxes'
+// bounds and the warps' vectors are small, so two slots stay resident per
+// SM at AC-S1 widths, V = 2.  The wrapper sizes the launch
+// (engine.bab_geometry) and the entry point refuses any other shared-memory
+// size or a grid the card cannot hold resident.  The first-flip scan, the
+// split choice and the compaction's ranks are warp ballots and block prefix
+// counts with the serial scans' rules.  All products are true-f32 FMA
+// loops.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
-#include "crown.cuh"
+#include "crown_warp.cuh"
+#include "warp_tile.cuh"
 
 namespace cg = cooperative_groups;
 
-#define K6_THREADS 256
+#define K6_MAX_WARPS 16
 #define K6_FORM 10  // per-form scalars after the two d-vectors
 #define TINY 1e-12f
 
@@ -55,6 +65,8 @@ struct SegArgs {
   float eps;
   int Qs, G, V, rounds, alpha_iters;
   int4* scratch;  // per slot, this round: can, dim, mid (float bits), kept
+  int* table;     // Qs: the free slots by rank (compaction)
+  int* next;      // rounds: each round's slot counter, zeroed by the caller
   unsigned* fold;
 };
 
@@ -72,12 +84,39 @@ struct SegArgs {
 #define F_ML(f, d) f[2 * (d) + 8]
 #define F_MU(f, d) f[2 * (d) + 9]
 
+// Float offsets of one block's shared memory after the mbarrier's 4: the
+// net, the 2V role boxes, the warps' scratch, then the slot's form sets,
+// pair bounds, box vectors, probe activations, validity, α best bounds and
+// flags (engine.bab_smem is the same sum).
+struct K6Layout {
+  int net, roles, rws, warps, wws, F, PW, box, H0, H1, vld, best, flags, total;
+};
+
+__host__ __device__ inline K6Layout k6_layout(const NetDesc& nd, int V, int warps) {
+  K6Layout o;
+  const int d = nd.in[0], FS = 2 * d + K6_FORM;
+  o.net = 4;
+  o.roles = o.net + cw_round4(nd.total);
+  o.rws = role_ws_floats(nd);
+  o.warps = o.roles + 2 * V * o.rws;
+  o.wws = warp_ws_floats(nd);
+  o.F = o.warps + warps * o.wws;
+  o.PW = o.F + cw_round4(2 * 2 * V * FS);
+  o.box = o.PW + cw_round4(2 * 2 * V * V);
+  o.H0 = o.box + cw_round4(7 * d);
+  o.H1 = o.H0 + cw_round4(V * nd.maxw);
+  o.vld = o.H1 + cw_round4(V * nd.maxw);
+  o.best = o.vld + cw_round4(V);
+  o.flags = o.best + cw_round4(4 * V);
+  o.total = o.flags + 8;
+  return o;
+}
+
 struct SlotSmem {
-  float *P, *F, *PW, *bl, *bh, *absb, *shr, *nlo, *nhi, *sc, *H0, *H1, *vld;
-  int* flags;  // [0] possible, [1] empty, [2] live, [3] found_now, [4] a, [5] b
-  int *tab, *dest;
-  CrownWs ws;
-  AlphaWs aw;
+  float *P, *roles, *warps, *F, *PW, *bl, *bh, *absb, *shr, *nlo, *nhi, *sc, *H0, *H1, *vld,
+      *best;
+  int* flags;  // [0] possible, [1] empty, [3] found_now
+  int rws, wws;
 };
 
 // Pair (a, b), direction dir, form set s: the positive (upper) and the
@@ -100,10 +139,10 @@ __device__ __forceinline__ void pair_forms(const float* F, int FS, int V, int d,
   }
 }
 
-__device__ void slot_phase(const NetDesc& nd, int maxA, const SegArgs& A,
-                           const SlotSmem& S, int slot) {
+__device__ void slot_phase(const NetDesc& nd, const SegArgs& A, const SlotSmem& S, int slot) {
   const int d = nd.in[0], L = nd.L, V = A.V, tid = threadIdx.x, nt = blockDim.x;
-  const int FS = 2 * d + K6_FORM;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int FS = 2 * d + K6_FORM, nrv = 2 * V;
   const int ns = (A.alpha_iters > 0 && L > 1) ? 2 : 1;
   const int root = A.q_root[slot];
   for (int i = tid; i < d; i += nt) {
@@ -116,23 +155,67 @@ __device__ void slot_phase(const NetDesc& nd, int maxA, const SegArgs& A,
   if (tid == 0) S.flags[0] = S.flags[1] = 0;
   __syncthreads();
 
-  // ---- CROWN (and α-CROWN) forms of the 2V role boxes --------------------
-  for (int rv = 0; rv < 2 * V; ++rv) {
+  // ---- CROWN (and α-CROWN) forms of the 2V role boxes, side by side -------
+  for (int q = tid; q < nrv * d; q += nt) {
+    const int rv = q / d, i = q - rv * d;
     const int role = rv / V, v = rv - role * V;
-    for (int i = tid; i < d; i += nt) {
-      const float sh = S.shr[i], av = A.assign[(size_t)v * d + i];
-      float lo = S.bl[i] * sh + av, hi = S.bh[i] * sh + av;
-      if (role) {
-        lo = lo - A.eps * A.ram[i];
-        hi = hi + A.eps * A.ram[i];
-      }
-      S.ws.inlo[i] = lo;
-      S.ws.inhi[i] = hi;
+    const RoleWs R = role_ws(S.roles + rv * S.rws, nd);
+    const float sh = S.shr[i], av = A.assign[(size_t)v * d + i];
+    float lo = S.bl[i] * sh + av, hi = S.bh[i] * sh + av;
+    if (role) {
+      lo = lo - A.eps * A.ram[i];
+      hi = hi + A.eps * A.ram[i];
+    }
+    R.inlo[i] = lo;
+    R.inhi[i] = hi;
+  }
+  __syncthreads();
+  float* wws = S.warps + warp * S.wws;
+  for (int k = 0; k < L; ++k) {
+    ibp_layer(nd, S.P, S.roles, S.rws, nrv, k);
+    __syncthreads();
+    if (k == 0) continue;
+    const int nout = nd.out[k], npair = (nout + 1) / 2;
+    for (int t = warp; t < nrv * npair; t += nw) {
+      const int rv = t / npair, c0 = 2 * (t - rv * npair);
+      crown_columns(nd, S.P, role_ws(S.roles + rv * S.rws, nd), wws, k, c0,
+                    min(2, nout - c0), k == L - 1 ? S.F + rv * FS : nullptr);
     }
     __syncthreads();
-    float* f0 = S.F + rv * FS;
-    crown_role_forms(nd, maxA, S.P, S.ws, f0);
-    if (ns == 2) alpha_role_forms(nd, S.P, S.ws, S.aw, A.alpha_iters, f0, f0 + 2 * V * FS);
+  }
+  if (L == 1) {  // the forms of a one-layer net are its weights
+    for (int q = tid; q < nrv * d; q += nt) {
+      const int rv = q / d, i = q - rv * d;
+      float* f = S.F + rv * FS;
+      f[i] = f[d + i] = S.P[nd.w[0] + i * nd.ldw[0]];
+      if (i == 0) {
+        const RoleWs R = role_ws(S.roles + rv * S.rws, nd);
+        F_CL(f, d) = F_CU(f, d) = S.P[nd.b[0]];
+        F_LB(f, d) = R.wslb[nd.n[0]];
+        F_UB(f, d) = R.wsub[nd.n[0]];
+      }
+    }
+    __syncthreads();
+  }
+  if (ns == 2) {
+    for (int t = warp; t < 2 * nrv; t += nw) {
+      const int rv = t >> 1, side = t & 1;
+      alpha_side(nd, S.P, role_ws(S.roles + rv * S.rws, nd), wws, side, A.alpha_iters,
+                 S.F + (nrv + rv) * FS, S.best + t);
+    }
+    __syncthreads();
+    // Both sets' bounds: the widened best bounds intersected with the plain
+    // ones (crown.cuh:alpha_role_forms).
+    for (int rv = tid; rv < nrv; rv += nt) {
+      float* fp = S.F + rv * FS;
+      float* ft = S.F + (nrv + rv) * FS;
+      const float blo = S.best[2 * rv], bhi = S.best[2 * rv + 1];
+      const float slack = SLACK_REL * fmaxf(fabsf(blo), fabsf(bhi)) + SLACK_ABS;
+      const float lb = fmaxf(blo - slack, F_LB(fp, d));
+      const float ub = fminf(bhi + slack, F_UB(fp, d));
+      F_LB(fp, d) = F_LB(ft, d) = lb;
+      F_UB(fp, d) = F_UB(ft, d) = ub;
+    }
   }
   // ---- per-form sums ------------------------------------------------------
   for (int q = tid; q < ns * 2 * V; q += nt) {
@@ -260,7 +343,7 @@ __device__ void slot_phase(const NetDesc& nd, int maxA, const SegArgs& A,
     for (int q = tid; q < V * nout; q += nt) {
       const int v = q / nout, j = q % nout;
       float z = 0.f;
-      for (int i = 0; i < nin; ++i) z = fmaf(cur[v * nd.maxw + i], W[i * nout + j], z);
+      for (int i = 0; i < nin; ++i) z = fmaf(cur[v * nd.maxw + i], W[i * nd.ldw[l] + j], z);
       z = z + B[j];
       nxt[v * nd.maxw + j] = l == L - 1 ? z : fmaxf(z, 0.f) * M[j];
     }
@@ -269,42 +352,60 @@ __device__ void slot_phase(const NetDesc& nd, int maxA, const SegArgs& A,
     cur = nxt;
     nxt = t;
   }
-  if (tid == 0) {  // first strict flip in (a, b) order (engine.find_flips_impl)
+  if (warp == 0) {
+    // First strict flip in (a, b) order (engine.find_flips_impl).
     int hit = -1;
-    for (int q = 0; q < V * V && hit < 0; ++q) {
-      const int a = q / V, b = q % V;
-      if (!(A.vpair[q] && S.vld[a] > 0.f && S.vld[b] > 0.f)) continue;
-      const float la = cur[a * nd.maxw], lb = cur[b * nd.maxw];
-      if ((la > 0.f && lb < 0.f) || (la < 0.f && lb > 0.f)) hit = q;
-    }
-    S.flags[3] = hit >= 0 && !A.found[slot];
-    if (hit >= 0) {
-      if (!A.found[slot]) {
-        A.wit_a[slot] = hit / V;
-        A.wit_b[slot] = hit % V;
+    for (int q0 = 0; q0 < V * V && hit < 0; q0 += 32) {
+      const int q = q0 + lane;
+      bool flip = false;
+      if (q < V * V) {
+        const int a = q / V, b = q % V;
+        if (A.vpair[q] && S.vld[a] > 0.f && S.vld[b] > 0.f) {
+          const float la = cur[a * nd.maxw], lb = cur[b * nd.maxw];
+          flip = (la > 0.f && lb < 0.f) || (la < 0.f && lb > 0.f);
+        }
       }
-      A.found[slot] = 1;
+      const unsigned m = __ballot_sync(CW_FULL, flip);
+      if (m) hit = q0 + __ffs(m) - 1;
     }
-    // Split choice: score x width over branchable dims, widest fallback.
+    // Split choice: score x width over branchable dims, widest fallback,
+    // the first maximum.
     float wmax = 0.f, scmax = 0.f;
-    for (int i = 0; i < d; ++i) {
+    for (int i = lane; i < d; i += 32) {
       const float w = (S.bh[i] - S.bl[i]) * A.bmask[i];
       wmax = fmaxf(wmax, w);
       scmax = fmaxf(scmax, S.sc[i] * w);
     }
+    wmax = warp_max(wmax);
+    scmax = warp_max(scmax);
     int dim = 0;
     float best = -FLT_MAX;
-    for (int i = 0; i < d; ++i) {
-      const float w = (S.bh[i] - S.bl[i]) * A.bmask[i];
-      float sc = scmax > 0.f ? S.sc[i] * w : w;
-      if (!(A.bmask[i] > 0.f)) sc = -1.f;
-      if (sc > best) {
-        best = sc;
-        dim = i;
+    for (int i0 = 0; i0 < d; i0 += 32) {
+      const int i = i0 + lane;
+      float sc = -FLT_MAX;
+      if (i < d) {
+        const float w = (S.bh[i] - S.bl[i]) * A.bmask[i];
+        sc = scmax > 0.f ? S.sc[i] * w : w;
+        if (!(A.bmask[i] > 0.f)) sc = -1.f;
+      }
+      const float m = warp_max(sc);
+      if (m > best) {
+        best = m;
+        dim = i0 + __ffs(__ballot_sync(CW_FULL, sc == m)) - 1;
       }
     }
-    const float mid = floorf((S.bl[dim] + S.bh[dim]) * 0.5f);
-    A.scratch[slot] = make_int4(wmax > 0.f ? 1 : 0, dim, __float_as_int(mid), 1);
+    if (lane == 0) {
+      S.flags[3] = hit >= 0 && !A.found[slot];
+      if (hit >= 0) {
+        if (!A.found[slot]) {
+          A.wit_a[slot] = hit / V;
+          A.wit_b[slot] = hit % V;
+        }
+        A.found[slot] = 1;
+      }
+      const float mid = floorf((S.bl[dim] + S.bh[dim]) * 0.5f);
+      A.scratch[slot] = make_int4(wmax > 0.f ? 1 : 0, dim, __float_as_int(mid), 1);
+    }
   }
   __syncthreads();
   if (S.flags[3])
@@ -312,39 +413,51 @@ __device__ void slot_phase(const NetDesc& nd, int maxA, const SegArgs& A,
       A.wit_pt[(size_t)slot * d + i] = floorf((S.bl[i] + S.bh[i]) * 0.5f);
 }
 
+// Exclusive count of `f` over the block's threads in thread order; *tot
+// gets the block's count.  Two barriers; cnt holds >= 32 ints.
+__device__ __forceinline__ int block_excl_count(bool f, int* cnt, int* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = (blockDim.x + 31) >> 5;
+  const unsigned m = __ballot_sync(CW_FULL, f);
+  if (lane == 0) cnt[warp] = __popc(m);
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < nw; ++w) {
+    before += w < warp ? cnt[w] : 0;
+    all += cnt[w];
+  }
+  __syncthreads();
+  *tot = all;
+  return before + __popc(m & ((1u << lane) - 1u));
+}
+
 // Block 0: rank free slots and splitters in slot order, place children.
-__device__ void compaction(const SegArgs& A, const SlotSmem& S, int d) {
+// Free slots (not live, not latched, not the canary) and splitters are
+// disjoint, so a splitter writes its child as soon as it has its rank.
+__device__ void compaction(const SegArgs& A, int d) {
+  __shared__ int cnt[32];
   const int tid = threadIdx.x, nt = blockDim.x, Qs = A.Qs;
-  for (int i = tid; i < Qs; i += nt) {
-    S.tab[i] = (!A.q_live[i] && A.slot_ok[i] && !A.found[i]) ? 1 : 0;
-    S.dest[i] = A.scratch[i].x;
+  int nf = 0, tot = 0;
+  for (int i0 = 0; i0 < Qs; i0 += nt) {
+    const int i = i0 + tid;
+    const bool f = i < Qs && !A.q_live[i] && A.slot_ok[i] && !A.found[i];
+    const int rank = nf + block_excl_count(f, cnt, &tot);
+    if (f) A.table[rank] = i;
+    nf += tot;
   }
-  __syncthreads();
-  if (tid == 0) {
-    int nf = 0;
-    for (int i = 0; i < Qs; ++i)
-      if (S.tab[i]) S.tab[nf++] = i;
-    int nc = 0;
-    for (int i = 0; i < Qs; ++i) {
-      if (!S.dest[i]) {
-        S.dest[i] = -1;
-        continue;
-      }
-      const int rank = nc++;
-      const int root = A.q_root[i];
-      if (rank < nf) {
-        S.dest[i] = S.tab[rank];
-        A.splits[root] += 1;
-      } else {
-        S.dest[i] = -1;
-        A.overflow[root] += 1;
-      }
+  int nc = 0;
+  for (int i0 = 0; i0 < Qs; i0 += nt) {
+    const int i = i0 + tid;
+    const bool f = i < Qs && A.scratch[i].x != 0;
+    const int rank = nc + block_excl_count(f, cnt, &tot);
+    nc += tot;
+    if (!f) continue;
+    const int root = A.q_root[i];
+    if (rank >= nf) {
+      atomicAdd(&A.overflow[root], 1);
+      continue;
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < Qs; i += nt) {
-    const int dst = S.dest[i];
-    if (dst < 0) continue;
+    atomicAdd(&A.splits[root], 1);
+    const int dst = A.table[rank];
     const int4 sc = A.scratch[i];
     const float mid = __int_as_float(sc.z);
     for (int j = 0; j < d; ++j) {
@@ -353,7 +466,7 @@ __device__ void compaction(const SegArgs& A, const SlotSmem& S, int d) {
       A.q_hi[(size_t)dst * d + j] = hi;
     }
     A.q_hi[(size_t)i * d + sc.y] = mid;
-    A.q_root[dst] = A.q_root[i];
+    A.q_root[dst] = root;
     A.q_live[dst] = 1;
   }
   __syncthreads();
@@ -372,54 +485,68 @@ __device__ void fold_all(const SegArgs& A, int d) {
   atomicAdd(A.fold, s);
 }
 
-__global__ void __launch_bounds__(K6_THREADS)
-k6_kernel(NetDesc nd, int maxA, SegArgs A) {
+__global__ void __launch_bounds__(K6_MAX_WARPS * 32)
+k6_kernel(NetDesc nd, SegArgs A) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  const int d = nd.in[0], V = A.V, tid = threadIdx.x, nt = blockDim.x;
-  const int FS = 2 * d + K6_FORM;
+  extern __shared__ __align__(16) float smem[];
+  const int d = nd.in[0], tid = threadIdx.x, nt = blockDim.x;
+  const K6Layout o = k6_layout(nd, A.V, nt >> 5);
   SlotSmem S;
-  S.P = smem;
-  float* p = crown_ws_carve(S.ws, S.P + nd.total, nd, maxA);
-  p = alpha_ws_carve(S.aw, p, nd);
-  S.F = p;
-  S.PW = S.F + 2 * 2 * V * FS;
-  S.bl = S.PW + 2 * 2 * V * V;
+  S.P = smem + o.net;
+  S.roles = smem + o.roles;
+  S.rws = o.rws;
+  S.warps = smem + o.warps;
+  S.wws = o.wws;
+  S.F = smem + o.F;
+  S.PW = smem + o.PW;
+  S.bl = smem + o.box;
   S.bh = S.bl + d;
   S.absb = S.bh + d;
   S.shr = S.absb + d;
   S.nlo = S.shr + d;
   S.nhi = S.nlo + d;
   S.sc = S.nhi + d;
-  S.H0 = S.sc + d;
-  S.H1 = S.H0 + V * nd.maxw;
-  S.vld = S.H1 + V * nd.maxw;
-  S.flags = (int*)(S.vld + V);
-  S.tab = S.flags + 8;
-  S.dest = S.tab + A.Qs;
-  __shared__ int live_flag;
+  S.H0 = smem + o.H0;
+  S.H1 = smem + o.H1;
+  S.vld = smem + o.vld;
+  S.best = smem + o.best;
+  S.flags = reinterpret_cast<int*>(smem + o.flags);
+  __shared__ int s_slot;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
 
-  for (int i = tid; i < nd.total; i += nt) S.P[i] = A.params[i];
+  stage_net(S.P, A.params, cw_round4(nd.total), bar);
   for (int i = tid; i < d; i += nt) S.shr[i] = 1.f - A.pam[i];
+  mbar_wait(bar, 0);
   __syncthreads();
   for (int round = 0; round < A.rounds; ++round) {
-    for (int slot = blockIdx.x; slot < A.Qs; slot += gridDim.x) {
-      if (tid == 0) live_flag = A.q_live[slot];
+    for (;;) {
+      if (tid == 0) s_slot = atomicAdd(&A.next[round], 1);
       __syncthreads();
-      if (live_flag) {
-        slot_phase(nd, maxA, A, S, slot);
+      const int slot = s_slot;
+      __syncthreads();
+      if (slot >= A.Qs) break;
+      if (A.q_live[slot]) {
+        slot_phase(nd, A, S, slot);
       } else if (tid == 0) {
         A.scratch[slot] = make_int4(0, 0, 0, 0);
       }
-      __syncthreads();
     }
     grid.sync();
-    if (blockIdx.x == 0) compaction(A, S, d);
+    if (blockIdx.x == 0) compaction(A, d);
     grid.sync();
   }
   if (blockIdx.x == 0) fold_all(A, d);
 }
 
+// Dynamic shared memory of one block (engine.bab_smem).
+static inline long long k6_smem(const NetDesc& nd, int V, int warps) {
+  return 4LL * k6_layout(nd, V, warps).total;
+}
+
+// The launch geometry comes from the wrapper (engine.bab_geometry: warps
+// per block, grid, shared-memory bytes); it is checked here against the
+// net, the kernel's limits and the card's residency for the cooperative
+// launch.  params is cuda_build.pack_odd's buffer, padded to 16 bytes.
 extern "C" int k6_bab_segment(const void* params, const int* dims, int L, void* q_lo,
                               void* q_hi, void* q_root, void* q_live, void* found,
                               void* wit_a, void* wit_b, void* wit_pt, void* nodes,
@@ -427,25 +554,23 @@ extern "C" int k6_bab_segment(const void* params, const int* dims, int L, void* 
                               const void* root_valid, const void* assign, const void* pam,
                               const void* ram, const void* vpair, const void* bmask,
                               float eps, int Qs, int G, int V, int rounds,
-                              int alpha_iters, void* scratch, void* fold, void* stream) {
-  NetDesc nd = make_desc(dims, L);
-  int maxA = crown_max_a(nd);
-  const int d = nd.in[0], FS = 2 * d + K6_FORM;
-  const size_t smem = sizeof(float) * (nd.total + crown_ws_floats(nd, maxA) +
-                                       alpha_ws_floats(nd) + 2 * 2 * V * FS +
-                                       2 * 2 * V * V + 7 * d + 2 * V * nd.maxw + V) +
-                      sizeof(int) * (8 + 2 * Qs);
-  cudaError_t err = set_smem(k6_kernel, smem);
+                              int alpha_iters, void* scratch, void* table, void* next,
+                              void* fold, int warps, int grid, long long smem,
+                              void* stream) {
+  NetDesc nd = make_desc(dims, L, /*odd_rows=*/true);
+  if (warps < 1 || warps > K6_MAX_WARPS || grid < 1 || smem != k6_smem(nd, V, warps) ||
+      smem > SMEM_LIMIT || nd.out[L - 1] != 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(k6_kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, nsm = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k6_kernel, K6_THREADS,
-                                                           smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k6_kernel, 32 * warps,
+                                                           (size_t)smem)) != cudaSuccess)
     return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = Qs < nsm * per_sm ? Qs : nsm * per_sm;
+  if ((long long)grid > (long long)per_sm * nsm) return (int)cudaErrorCooperativeLaunchTooLarge;
   SegArgs A;
   A.params = (const float*)params;
   A.q_lo = (float*)q_lo;
@@ -473,10 +598,12 @@ extern "C" int k6_bab_segment(const void* params, const int* dims, int L, void* 
   A.rounds = rounds;
   A.alpha_iters = alpha_iters;
   A.scratch = (int4*)scratch;
+  A.table = (int*)table;
+  A.next = (int*)next;
   A.fold = (unsigned*)fold;
-  void* args[] = {(void*)&nd, (void*)&maxA, (void*)&A};
-  err = cudaLaunchCooperativeKernel((const void*)k6_kernel, dim3(grid), dim3(K6_THREADS),
-                                    args, smem, (cudaStream_t)stream);
+  void* args[] = {(void*)&nd, (void*)&A};
+  err = cudaLaunchCooperativeKernel((const void*)k6_kernel, dim3(grid), dim3(32 * warps), args,
+                                    (size_t)smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@
 // Network layout (utils/cuda_build.py:pack_net): per layer l a row-major
 // weight block W_l (in_l x out_l), then its bias b_l (out_l), then its
 // alive mask m_l (out_l), all float32, concatenated.  Kernels stage the
-// whole buffer in shared memory once per block.
+// whole buffer in shared memory once per block.  K6 reads the same layout
+// with each weight row padded to an odd stride (cuda_build.pack_odd,
+// make_desc's odd_rows), so lanes on consecutive rows hit distinct banks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,11 +27,13 @@ struct NetDesc {
   int total;   // floats in the packed parameter buffer
   int nsum;    // sum of layer widths (per-neuron output rows)
   int in[MAX_LAYERS], out[MAX_LAYERS];
+  int ldw[MAX_LAYERS];                              // row stride of W_l
   int w[MAX_LAYERS], b[MAX_LAYERS], m[MAX_LAYERS];  // offsets into params
   int n[MAX_LAYERS];                                // offsets into nsum
 };
 
-static inline NetDesc make_desc(const int* dims, int L) {
+// odd_rows: cuda_build.pack_odd's layout, W_l rows of out_l | 1 floats.
+static inline NetDesc make_desc(const int* dims, int L, bool odd_rows = false) {
   NetDesc nd;
   nd.L = L;
   nd.maxw = dims[0];
@@ -37,8 +41,9 @@ static inline NetDesc make_desc(const int* dims, int L) {
   for (int l = 0; l < L; ++l) {
     nd.in[l] = dims[l];
     nd.out[l] = dims[l + 1];
+    nd.ldw[l] = odd_rows ? (dims[l + 1] | 1) : dims[l + 1];
     nd.w[l] = off;
-    off += dims[l] * dims[l + 1];
+    off += dims[l] * nd.ldw[l];
     nd.b[l] = off;
     off += dims[l + 1];
     nd.m[l] = off;

@@ -4,17 +4,25 @@
 //   z = h.W + b,   a = |h|.|W| + |b|,   e' = e.|W| + gamma_l * a,
 //   gamma_l = 4 (n_in + 4) 2^-24
 //
-// (hidden layers: h' = relu(z) * m, e' = e' * m).  The three products run
-// in one register-blocked pass over the weights, the same blocking as
-// common.cuh's dense_tile, with |W| and |h| taken by fabsf on the fly.  The
-// bound covers any summation order, so no TF32, no tensor cores and no
-// --use_fast_math; the formula is the JAX package's _signed_forward, not
-// restructured.
+// (hidden layers: h' = relu(z) * m, e' = e' * m).  The bound covers any
+// summation order, so no TF32, no tensor cores and no --use_fast_math; the
+// formula is the JAX package's _signed_forward, not restructured.
+//
+// Layout (warp_tile.cuh's): a warp carries its own tile of TW lattice
+// points through every layer with __syncwarp only.  The activation tile H
+// and the bound tile E are unit-major with warp_tile.cuh's swizzle, and the
+// weights come from the padded pack's forward part, so a lane's four rows
+// are one 16-byte load and its four columns another.  A lane owns RR rows
+// x RC columns of a layer's output with three accumulators each (z,
+// |h|.|W|, e.|W|; layer 0 skips e.|W|, e = 0 there): 8 x 4, 4 x 4, 4 x 2
+// or 4 x 1, the tile with the shortest lane chain for the layer's width.
+// Every sum is the index-ordered fmaf chain from 0 over the layer's
+// inputs, so f and e do not depend on the tile, the warp or the block.
 #pragma once
 
 #include "common.cuh"
+#include "warp_tile.cuh"
 
-#define LAT_TMAX 64            // lattice points per tile (rows of a pass)
 #define LAT_MAXD 64            // input dims (ops/lattice.py: LAT_MAXD)
 #define LAT_MARGIN_BUF 512     // ops/lattice.py: MARGIN_BUF
 #define LAT_RA_MAXK 16         // RA axes (ops/lattice.py: LAT_RA_MAXK)
@@ -35,97 +43,157 @@ struct LatRA {
   int w[LAT_RA_MAXK], st[LAT_RA_MAXK];
 };
 
-// One layer of the signed forward over T rows of (H, E) (row stride ld):
-// epi(s0, nrows, j, z, a, ee) gets the pre-bias sums of column j for rows
-// s0 .. s0 + nrows - 1.  WITH_E = false skips e.|W| (layer 0: e = 0).
-template <bool WITH_E, typename Epi>
-__device__ __forceinline__ void signed_dense(const float* __restrict__ H,
-                                             const float* __restrict__ E, int ld,
-                                             const float* __restrict__ W, int nin,
-                                             int nout, int T, Epi epi) {
-  const int CG = (nout + RT_COLS - 1) / RT_COLS;
-  const int RG = (T + RT_ROWS - 1) / RT_ROWS;
-  for (int item = threadIdx.x; item < RG * CG; item += blockDim.x) {
-    const int cg = item % CG, s0 = (item / CG) * RT_ROWS;
-    int jc[RT_COLS];
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c) jc[c] = min(cg + c * CG, nout - 1);
-    float z[RT_COLS][RT_ROWS], a[RT_COLS][RT_ROWS], ee[RT_COLS][RT_ROWS];
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c)
-#pragma unroll
-      for (int r = 0; r < RT_ROWS; ++r) z[c][r] = a[c][r] = ee[c][r] = 0.f;
-    const float* x = H + s0 * ld;
-    const float* ex = E + s0 * ld;
-    for (int i = 0; i < nin; ++i) {
-      float hv[RT_ROWS], ev[RT_ROWS], wv[RT_COLS], aw[RT_COLS];
-#pragma unroll
-      for (int r = 0; r < RT_ROWS; ++r) {
-        hv[r] = x[r * ld + i];
-        ev[r] = WITH_E ? ex[r * ld + i] : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < RT_COLS; ++c) {
-        wv[c] = W[i * nout + jc[c]];
-        aw[c] = fabsf(wv[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < RT_COLS; ++c)
-#pragma unroll
-        for (int r = 0; r < RT_ROWS; ++r) {
-          z[c][r] = fmaf(hv[r], wv[c], z[c][r]);
-          a[c][r] = fmaf(fabsf(hv[r]), aw[c], a[c][r]);
-          if (WITH_E) ee[c][r] = fmaf(ev[r], aw[c], ee[c][r]);
-        }
+// The signed forward's tile menu: warp_tile.cuh's tiles 1-4 ((8, 4),
+// (4, 4), (4, 2), (4, 1)); 8 x 8 would hold 192 accumulators.  A lane's
+// instructions per k-step over all its passes: 3 RR RC FMAs and its loads
+// (RR / 4 for H, RR / 4 for E, RC / 4 weights, at least one), a load
+// counted twice; the cheapest tile, the larger on a tie.
+__host__ __device__ inline int signed_pick_tile(int nout, int tw) {
+  int best = -1, cost = 0;
+  for (int id = 1; id < WT_TILES; ++id) {
+    const int rr = tile_rr(id), rc = tile_rc(id);
+    if (tw % rr != 0) continue;
+    const int c = (tile_items(id, nout, tw) + 31) / 32 *
+                  (3 * rr * rc + 2 * (2 * (rr / 4) + (rc + 3) / 4));
+    if (best < 0 || c < cost) {
+      best = id;
+      cost = c;
     }
-    const int nrows = min(RT_ROWS, T - s0);
+  }
+  return best;
+}
+
+// What a layer does with its sums (z, a, ee) of unit j, row r: hidden
+// layers write h' = relu(z + b) m and e' = (ee + gamma (a + |b|)) m to the
+// next tiles; the output layer writes f = z + b and e' of unit 0 to f[r],
+// fe[r].
+struct SignedEpi {
+  bool hidden;
+  float gamma;
+  const float* bias;
+  const float* mask;
+  float *hout, *eout, *f, *fe;
+};
+
+template <int RR, int RC, bool WITH_E>
+__device__ __forceinline__ void signed_dense(const float* __restrict__ H,
+                                             const float* __restrict__ E, int tw, int smask,
+                                             const float* __restrict__ W, int ldw, int K,
+                                             int nout, int lane, const SignedEpi& ep) {
+  constexpr int RCW = RC < 4 ? RC : 4;  // columns per chunk
+  constexpr int NP = RR / 4;            // row chunks
+  const int CG = (nout + RC - 1) / RC, RG = tw / RR, items = CG * RG;
+  for (int item = lane; item < items; item += 32) {
+    const int cg = item % CG, rg = item / CG;
+    float z[RR][RC], a[RR][RC], ee[RR][RC];
 #pragma unroll
-    for (int c = 0; c < RT_COLS; ++c)
-      if (cg + c * CG < nout) epi(s0, nrows, cg + c * CG, z[c], a[c], ee[c]);
+    for (int r = 0; r < RR; ++r)
+#pragma unroll
+      for (int c = 0; c < RC; ++c) z[r][c] = a[r][c] = ee[r][c] = 0.f;
+    const float* wp = W + RCW * cg;
+    for (int k = 0; k < K; ++k) {
+      // The operands of k-step k: RR activations and bounds (rows 4 (rg +
+      // p RG) .. + 3, their chunk XORed with the swizzle) and RC weights.
+      const int s = ((k >> 2) & smask) << 2;
+      float hv[RR], ev[RR], wv[RC];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int o = k * tw + ((4 * (rg + p * RG)) ^ s);
+        const float4 th = *reinterpret_cast<const float4*>(H + o);
+        hv[4 * p] = th.x;
+        hv[4 * p + 1] = th.y;
+        hv[4 * p + 2] = th.z;
+        hv[4 * p + 3] = th.w;
+        if (WITH_E) {
+          const float4 te = *reinterpret_cast<const float4*>(E + o);
+          ev[4 * p] = te.x;
+          ev[4 * p + 1] = te.y;
+          ev[4 * p + 2] = te.z;
+          ev[4 * p + 3] = te.w;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < RC / RCW; ++q) {
+        const float* src = wp + k * ldw + RCW * q * CG;
+        if constexpr (RCW == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(src);
+          wv[4 * q] = t.x;
+          wv[4 * q + 1] = t.y;
+          wv[4 * q + 2] = t.z;
+          wv[4 * q + 3] = t.w;
+        } else if constexpr (RCW == 2) {
+          const float2 t = *reinterpret_cast<const float2*>(src);
+          wv[2 * q] = t.x;
+          wv[2 * q + 1] = t.y;
+        } else {
+          wv[q] = *src;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        const float ah = fabsf(hv[r]);
+#pragma unroll
+        for (int c = 0; c < RC; ++c) {
+          const float aw = fabsf(wv[c]);
+          z[r][c] = fmaf(hv[r], wv[c], z[r][c]);
+          a[r][c] = fmaf(ah, aw, a[r][c]);
+          if (WITH_E) ee[r][c] = fmaf(ev[r], aw, ee[r][c]);
+        }
+      }
+    }
+    // Epilogue.  Row of acc[r]: 4 (rg + (r / 4) RG) + r % 4; unit of
+    // acc[.][c]: RCW (cg + (c / RCW) CG) + c % RCW.
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      const int j = RCW * (cg + (c / RCW) * CG) + c % RCW;
+      if (j >= nout || (!ep.hidden && j != 0)) continue;
+      const float bj = ep.bias[j], abj = fabsf(bj), mj = ep.mask[j];
+      float oh[RR], oe[RR];
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        const float zz = z[r][c] + bj;
+        const float aa = a[r][c] + abj;
+        const float ev = ee[r][c] + ep.gamma * aa;
+        oh[r] = fmaxf(zz, 0.f) * mj;
+        oe[r] = ev * mj;
+        if (!ep.hidden) {
+          const int row = 4 * (rg + (r / 4) * RG) + r % 4;
+          ep.f[row] = zz;
+          ep.fe[row] = ev;
+        }
+      }
+      if (!ep.hidden) continue;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int o = act_off(j, 4 * (rg + p * RG), tw, smask);
+        *reinterpret_cast<float4*>(ep.hout + o) =
+            make_float4(oh[4 * p], oh[4 * p + 1], oh[4 * p + 2], oh[4 * p + 3]);
+        *reinterpret_cast<float4*>(ep.eout + o) =
+            make_float4(oe[4 * p], oe[4 * p + 1], oe[4 * p + 2], oe[4 * p + 3]);
+      }
+    }
   }
 }
 
-// signed_forward for a tile of T input rows held in H0 (row stride nd.ld):
-// the logit f and its bound e of each row go to fout[r], eout[r].  H0/E0
-// and H1/E1 are ping-pong activation/bound tiles; H0 is overwritten.
-// Callers __syncthreads() before (H0 filled) and read fout/eout after the
-// final __syncthreads() inside.
-__device__ __forceinline__ void signed_forward(const NetDesc& nd, const float* P,
-                                               float* H0, float* E0, float* H1,
-                                               float* E1, int T, float* fout,
-                                               float* eout) {
-  const float u32 = 5.9604644775390625e-8f;  // 2^-24
-  const int ld = nd.ld;
-  float *h = H0, *e = E0, *hn = H1, *en = E1;
-  for (int l = 0; l < nd.L; ++l) {
-    const float gamma = 4.f * (float)(nd.in[l] + 4) * u32;
-    const bool hidden = l < nd.L - 1;
-    const float* B = P + nd.b[l];
-    const float* M = P + nd.m[l];
-    auto epi = [&](int s0, int nrows, int j, const float* z, const float* a,
-                   const float* ee) {
-      const float bj = B[j], abj = fabsf(bj), mj = M[j];
-#pragma unroll
-      for (int r = 0; r < RT_ROWS; ++r) {
-        if (r >= nrows) break;
-        const float zz = z[r] + bj;
-        const float aa = a[r] + abj;
-        const float ev = ee[r] + gamma * aa;
-        if (hidden) {
-          hn[(s0 + r) * ld + j] = fmaxf(zz, 0.f) * mj;
-          en[(s0 + r) * ld + j] = ev * mj;
-        } else if (j == 0) {
-          fout[s0 + r] = zz;
-          eout[s0 + r] = ev;
-        }
-      }
-    };
-    if (l == 0)
-      signed_dense<false>(h, e, ld, P + nd.w[l], nd.in[l], nd.out[l], T, epi);
-    else
-      signed_dense<true>(h, e, ld, P + nd.w[l], nd.in[l], nd.out[l], T, epi);
-    __syncthreads();
-    float* t = h; h = hn; hn = t;
-    t = e; e = en; en = t;
+// One layer with tile `tile` (signed_pick_tile(nout, tw)); layer 0 passes
+// with_e = false.
+__device__ __forceinline__ void signed_layer(int tile, bool with_e, const float* H,
+                                             const float* E, int tw, int smask,
+                                             const float* W, int ldw, int K, int nout,
+                                             int lane, const SignedEpi& ep) {
+  if (with_e) {
+    switch (tile) {
+      case 1: signed_dense<8, 4, true>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+      case 2: signed_dense<4, 4, true>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+      case 3: signed_dense<4, 2, true>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+      default: signed_dense<4, 1, true>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+    }
+  } else {
+    switch (tile) {
+      case 1: signed_dense<8, 4, false>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+      case 2: signed_dense<4, 4, false>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+      case 3: signed_dense<4, 2, false>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+      default: signed_dense<4, 1, false>(H, E, tw, smask, W, ldw, K, nout, lane, ep); break;
+    }
   }
 }

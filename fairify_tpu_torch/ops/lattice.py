@@ -45,6 +45,7 @@ validation and the box ends ``unknown`` (``_EvidenceMismatch``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import time
 from collections import deque
@@ -72,6 +73,11 @@ LAT_MAXD = 64
 LAT_RA_MAXK = 16
 LAT_RA_SMEM_MAX = 160 * 1024
 LAT_RA_BLOCKS = 264
+# csrc/lattice_scan.cu: points per warp tile of the signs kernel (at most
+# LAT_TW_MAX, dividing the 64-point tiles of lat_compact) and warps a block.
+LAT_TW = 8
+LAT_TW_MAX = 64
+LAT_MAX_WARPS = 12
 
 # Points per block of the plain forward on the CPU.
 CPU_ROWS = 16384
@@ -314,6 +320,51 @@ def scan_ra_from_signs(s, start, n_total, valid_mask, valid_pair_f, ra_ws: tuple
 _MODE_SIGNS, _MODE_SCAN, _MODE_RA = 0, 1, 2
 
 
+def lattice_smem(sizes, tw: int, warps: int, V: int) -> int:
+    """Bytes of dynamic shared memory of one signs-kernel block
+    (``lattice_scan.cu:lat_smem``): the mbarrier's 16, the padded net's
+    forward part, and per warp the input tile (d units), two activation and
+    two bound tiles (hidden layer l's in buffer l % 2), f and e, and V x TW
+    sign bytes rounded up to 16, all of TW points."""
+    h = [0, 0]
+    for l in range(len(sizes) - 2):
+        h[l & 1] = max(h[l & 1], sizes[l + 1])
+    per = (sizes[0] + 2 * (h[0] + h[1]) + 2) * tw + (V * tw // 4 + 3) // 4 * 4
+    return 4 * (4 + cuda_build.pad_layout(sizes)["fwd"] + warps * per)
+
+
+def lattice_geometry(sizes, V: int, points: int, sms: int = 132,
+                     smem_limit: int = cuda_build.SMEM_LIMIT, _force=None) -> dict:
+    """Launch geometry of the lattice signs kernel (K9a/b/c's forward) for
+    a chunk of ``points`` lattice points with V assignments on a card of
+    ``sms`` SMs: warp tiles of ``tw`` points, warps per block enough to give
+    each SM its share (at most LAT_MAX_WARPS and what shared memory holds),
+    and a persistent grid of at most one block per SM.  ``_force`` (``(tw,
+    warps)``) overrides the two choices; a geometry that does not fit
+    raises."""
+    tw = LAT_TW if _force is None else int(_force[0])
+    if not (4 <= tw <= LAT_TW_MAX and 64 % tw == 0):
+        raise ValueError(f"lattice: a warp tile of {tw} points is not one the kernel takes")
+    fit = lambda w: lattice_smem(sizes, tw, w, V) <= smem_limit
+    wmax = max((w for w in range(1, LAT_MAX_WARPS + 1) if fit(w)), default=0)
+    if wmax == 0:
+        raise ValueError(f"lattice: one warp's tiles need {lattice_smem(sizes, tw, 1, V)} "
+                         f"bytes of shared memory, more than {smem_limit}")
+    tiles = -(-int(points) // tw)
+    if _force is None:
+        warps = min(max(-(-tiles // sms), 1), wmax)
+    else:
+        warps = int(_force[1])
+        if not 1 <= warps <= wmax:
+            raise ValueError(f"lattice: {warps} warps of {tw} points do not fit")
+    return dict(tw=tw, warps=warps, threads=32 * warps,
+                grid=max(1, min(-(-tiles // warps), sms)),
+                smem=lattice_smem(sizes, tw, warps, V), tiles=tiles)
+
+
+_lattice_geometry = functools.lru_cache(maxsize=256)(lattice_geometry)
+
+
 def _host_desc(start, n_total, chunk, d, strides, widths, lo_shared, dims_tuple, V):
     """The chunk's decode descriptor as a host int array: ``[start,
     n_total, chunk, d, n_shared, V, strides, widths, lo_shared, col]``
@@ -332,8 +383,11 @@ def _host_desc(start, n_total, chunk, d, strides, widths, lo_shared, dims_tuple,
 
 
 def _launch(mode, net, start, n_total, strides, widths, lo_shared, bases, valid_mask,
-            valid_pair_f, chunk, dims_tuple, d, ra_ws=(), eps=0, packed=None,
-            with_fe=False):
+            valid_pair_f, chunk, dims_tuple, d, ra_ws=(), eps=0, with_fe=False,
+            _geometry_force=None):
+    """One ``k9_lattice`` call on CUDA tensors; ``_geometry_force`` (``(tw,
+    warps)``) forces the signs kernel's geometry: the card's checks that
+    signs, f and e do not depend on it."""
     if bases.dtype != torch.float32 or valid_pair_f.dtype != torch.float32 \
             or valid_mask.dtype != torch.bool:
         raise ValueError("bases and valid_pair_f must be float32, valid_mask bool")
@@ -343,9 +397,13 @@ def _launch(mode, net, start, n_total, strides, widths, lo_shared, bases, valid_
     if tuple(bases.shape) != (V, d) or tuple(valid_pair_f.shape) != (V, V) \
             or tuple(valid_mask.shape) != (V,):
         raise ValueError("bases (V, d), valid_mask (V,) and valid_pair_f (V, V) expected")
-    params, dims = packed if packed is not None else cuda_build.pack_net(net)
+    if net.layer_sizes[-1] != 1:
+        raise ValueError("lattice: the net must have one output logit")
+    params, dims, _ = cuda_build.pack_padded(net)
     cuda_build.require_cuda(params)
     desc = _host_desc(start, n_total, chunk, d, strides, widths, lo_shared, dims_tuple, V)
+    geo = _lattice_geometry(tuple(dims), V, int(chunk), cuda_build.sm_count(dev),
+                            cuda_build.SMEM_LIMIT, _geometry_force)
     tile = int(np.prod(ra_ws)) if len(ra_ws) else 1
     if len(ra_ws) > LAT_RA_MAXK:
         raise ValueError(f"{len(ra_ws)} RA axes exceed LAT_RA_MAXK={LAT_RA_MAXK}")
@@ -359,7 +417,7 @@ def _launch(mode, net, start, n_total, strides, widths, lo_shared, bases, valid_
     small = torch.empty(2 + MARGIN_BUF, dtype=torch.int32, device=dev)
     sign_cols = torch.empty((V, MARGIN_BUF + 1), dtype=torch.int8, device=dev)
     pflag = torch.empty(chunk if mode else 0, dtype=torch.uint8, device=dev)
-    blk = torch.empty(chunk // 4 + 1 if mode else 0, dtype=torch.int32, device=dev)
+    blk = torch.empty(chunk // 64 + 1 if mode else 0, dtype=torch.int32, device=dev)
     ra_bytes = 4 * V * tile
     scratch = torch.empty(min(chunk // tile, LAT_RA_BLOCKS) * ra_bytes
                           if mode == _MODE_RA and ra_bytes > LAT_RA_SMEM_MAX else 0,
@@ -374,6 +432,8 @@ def _launch(mode, net, start, n_total, strides, widths, lo_shared, bases, valid_
                     opt(fe[1] if fe is not None else None),
                     cuda_build.ptr(small), cuda_build.ptr(sign_cols), opt(pflag),
                     opt(blk), opt(scratch), ctypes.c_int(scratch.numel() // max(ra_bytes, 1)),
+                    ctypes.c_int(geo["tw"]), ctypes.c_int(geo["warps"]),
+                    ctypes.c_int(geo["grid"]), ctypes.c_longlong(geo["smem"]),
                     cuda_build.stream())
     if mode == _MODE_SIGNS:
         return (signs, fe[0], fe[1]) if with_fe else signs
@@ -381,18 +441,18 @@ def _launch(mode, net, start, n_total, strides, widths, lo_shared, bases, valid_
 
 
 def lattice_scan(net, start, n_total, strides, widths, lo_shared, bases, valid_mask,
-                 valid_pair_f, chunk: int, dims_tuple: tuple, d: int, packed=None):
+                 valid_pair_f, chunk: int, dims_tuple: tuple, d: int):
     """K9a: one RA-free chunk → ``(first_flip, margin_count, margin_idx,
     sign_cols)`` (replaces ``ops/lattice.py:_lattice_scan_kernel``).
     ``strides``/``widths``/``lo_shared`` are host int arrays; ``bases``
     (V, d) f32, ``valid_mask`` (V,) bool and ``valid_pair_f`` (V, V) f32
-    lie on the device that runs it; ``packed`` is ``cuda_build.pack_net``
-    of ``net``, made once per box."""
+    lie on the device that runs it; the kernel reads the net's padded pack
+    (``cuda_build.pack_padded``, built once per net)."""
     if bases.device.type == "cpu":
         return lattice_scan_plain(net, start, n_total, strides, widths, lo_shared, bases,
                                   valid_mask, valid_pair_f, chunk, dims_tuple, d)
     out = _launch(_MODE_SCAN, net, start, n_total, strides, widths, lo_shared, bases,
-                  valid_mask, valid_pair_f, chunk, dims_tuple, d, packed=packed)
+                  valid_mask, valid_pair_f, chunk, dims_tuple, d)
     lattice_scan.launches += 1
     return out
 
@@ -401,7 +461,7 @@ lattice_scan.launches = 0
 
 
 def lattice_signs(net, start, strides, widths, lo_shared, bases, chunk: int,
-                  dims_tuple: tuple, d: int, packed=None, with_fe: bool = False):
+                  dims_tuple: tuple, d: int, with_fe: bool = False):
     """K9b: the full (V, chunk) int8 sign tensor of one chunk, the
     margin-overflow fallback (replaces ``_lattice_signs_kernel``); with
     ``with_fe`` also each point's f32 logit and bound."""
@@ -412,7 +472,7 @@ def lattice_signs(net, start, strides, widths, lo_shared, bases, chunk: int,
     ones = torch.ones(V, dtype=torch.bool, device=bases.device)
     out = _launch(_MODE_SIGNS, net, start, 0, strides, widths, lo_shared, bases, ones,
                   torch.zeros((V, V), dtype=torch.float32, device=bases.device), chunk,
-                  dims_tuple, d, packed=packed, with_fe=with_fe)
+                  dims_tuple, d, with_fe=with_fe)
     lattice_signs.launches += 1
     return out
 
@@ -422,7 +482,7 @@ lattice_signs.launches = 0
 
 def lattice_scan_ra(net, start, n_total, strides, widths, lo_shared, bases, valid_mask,
                     valid_pair_f, chunk: int, dims_tuple: tuple, d: int, ra_ws: tuple,
-                    eps: int, packed=None):
+                    eps: int):
     """K9c: one chunk of the ε-expanded RA lattice (whole RA tiles) →
     ``(first_flip, margin_count, margin_idx, sign_cols)``, the flip at a
     core point (replaces ``_lattice_scan_kernel_ra``)."""
@@ -431,8 +491,7 @@ def lattice_scan_ra(net, start, n_total, strides, widths, lo_shared, bases, vali
                                      bases, valid_mask, valid_pair_f, chunk, dims_tuple,
                                      d, ra_ws, eps)
     out = _launch(_MODE_RA, net, start, n_total, strides, widths, lo_shared, bases,
-                  valid_mask, valid_pair_f, chunk, dims_tuple, d, ra_ws=ra_ws, eps=eps,
-                  packed=packed)
+                  valid_mask, valid_pair_f, chunk, dims_tuple, d, ra_ws=ra_ws, eps=eps)
     lattice_scan_ra.launches += 1
     return out
 
@@ -536,23 +595,22 @@ class ScanPlan:
         base[:, np.asarray(enc.pa_idx)] = enc.assignments.astype(np.float32)
         return base
 
-    def scan(self, net, c0: int, bases_dev, valid_dev, vp_dev, packed=None):
+    def scan(self, net, c0: int, bases_dev, valid_dev, vp_dev):
         """K9a (RA-free) or K9c (RA) on the chunk starting at ``c0``."""
         strides, widths, lo_sh = self.host_desc()
         d = int(bases_dev.shape[1])
         if self.ra_mode:
             return lattice_scan_ra(net, c0, self.n_suf, strides, widths, lo_sh, bases_dev,
                                    valid_dev, vp_dev, self.chunk, self.dims_tuple, d,
-                                   self.ra_ws, self.eps, packed=packed)
+                                   self.ra_ws, self.eps)
         return lattice_scan(net, c0, self.n_suf, strides, widths, lo_sh, bases_dev,
-                            valid_dev, vp_dev, self.chunk, self.dims_tuple, d, packed=packed)
+                            valid_dev, vp_dev, self.chunk, self.dims_tuple, d)
 
-    def signs(self, net, c0: int, bases_dev, packed=None, with_fe: bool = False):
+    def signs(self, net, c0: int, bases_dev, with_fe: bool = False):
         """K9b on the chunk starting at ``c0``."""
         strides, widths, lo_sh = self.host_desc()
         return lattice_signs(net, c0, strides, widths, lo_sh, bases_dev, self.chunk,
-                             self.dims_tuple, int(bases_dev.shape[1]), packed=packed,
-                             with_fe=with_fe)
+                             self.dims_tuple, int(bases_dev.shape[1]), with_fe=with_fe)
 
 
 def scan_plan(net, enc, lo: np.ndarray, hi: np.ndarray, chunk: int = 1 << 21,
@@ -688,7 +746,6 @@ def decide_box_exhaustive(
     valid_np[valid] = True
     valid_dev = torch.as_tensor(valid_np, device=dev)
     vp_dev = torch.as_tensor(plan.vp.astype(np.float32), device=dev)
-    packed = cuda_build.pack_net(net) if dev.type == "cuda" else None
 
     def make_decode(prefix_vals):
         def decode(idx_flat: np.ndarray) -> np.ndarray:
@@ -771,7 +828,7 @@ def decide_box_exhaustive(
         if mc > MARGIN_BUF:
             # Margin buffer overflow: pull the chunk's full sign tensor (K9b)
             # and resolve everything on the host.
-            s_full = plan.signs(net, c0, bases_dev, packed=packed).cpu().numpy()[:, :n_here]
+            s_full = plan.signs(net, c0, bases_dev).cpu().numpy()[:, :n_here]
             if ra_mode:
                 cells = np.where((s_full[valid] == 0).any(axis=0))[0]
                 return resolve_ra_cells(decode, c0, cells)
@@ -798,7 +855,7 @@ def decide_box_exhaustive(
                 if time_left() <= 0:
                     return "unknown", None
                 prefix_vals, bases_dev, c0 = nxt
-                out = plan.scan(net, c0, bases_dev, valid_dev, vp_dev, packed=packed)
+                out = plan.scan(net, c0, bases_dev, valid_dev, vp_dev)
                 inflight.append((prefix_vals, c0, bases_dev, *_to_host(out, dev)))
             if not inflight:
                 break

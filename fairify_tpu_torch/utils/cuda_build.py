@@ -226,12 +226,56 @@ def pack_models(net):
     return pack_net(net) + (1,)
 
 
+def odd_layout(sizes) -> dict:
+    """Float offsets of :func:`pack_odd`'s layout (``common.cuh:make_desc``
+    with ``odd_rows``): per layer ``W`` (in x ldw, ldw = out | 1, the odd
+    stride) | ``b`` (out) | ``m`` (out); ``total`` floats, and ``padded``,
+    ``total`` rounded up to 4 (the staged length: a bulk copy moves 16-byte
+    units)."""
+    lay = {k: [] for k in ("ldw", "w", "b", "m")}
+    off = 0
+    for l in range(len(sizes) - 1):
+        ldw = sizes[l + 1] | 1
+        lay["ldw"].append(ldw)
+        lay["w"].append(off)
+        off += sizes[l] * ldw
+        lay["b"].append(off)
+        lay["m"].append(off + sizes[l + 1])
+        off += 2 * sizes[l + 1]
+    lay["total"] = off
+    lay["padded"] = (off + 3) // 4 * 4
+    return lay
+
+
+def _pack_odd(net):
+    sizes = [net.in_dim] + list(net.layer_sizes)
+    _check_depth(len(sizes) - 1)
+    lay = odd_layout(sizes)
+    flat = torch.zeros(lay["padded"], dtype=torch.float32, device=net.device)
+    for l, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        n_in, n_out = sizes[l], sizes[l + 1]
+        o = lay["w"][l]
+        flat[o:o + n_in * lay["ldw"][l]].view(n_in, lay["ldw"][l])[:, :n_out] = w
+        flat[lay["b"][l]:lay["b"][l] + n_out] = b
+        flat[lay["m"][l]:lay["m"][l] + n_out] = m
+    return flat, _dims(sizes)
+
+
+def pack_odd(net):
+    """``(params, dims)``: :func:`pack_net`'s layout with each weight row
+    padded to an odd stride (:func:`odd_layout`), so a warp whose lanes read
+    one column of consecutive rows hits 32 distinct banks (K6,
+    ``csrc/bab_segment.cu``).  Built once per net (:func:`_cached`)."""
+    return _cached(net, "odd", _pack_odd)
+
+
 # ---------------------------------------------------------------------------
-# The padded pack and the tile menu of csrc/warp_tile.cuh (attack_logits.cu
-# and pgd_attack.cu)
+# The padded pack and the tile menu of csrc/warp_tile.cuh (attack_logits.cu,
+# pgd_attack.cu and lattice_scan.cu)
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
+SMEM_PER_SM = 233472  # shared memory of one SM; each resident block also takes 1,024
 TILES = ((8, 8), (8, 4), (4, 4), (4, 2), (4, 1))  # (rows, columns) a lane owns
 
 

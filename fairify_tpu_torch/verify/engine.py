@@ -568,10 +568,71 @@ def pgd_geometry(sizes, n_traj: int, V: int, sms: int = 132,
                 smem=pgd_smem(sizes, ttw, tw, warps), tiles=tiles)
 
 
+K6_MAX_WARPS = 16  # csrc/bab_segment.cu
+# Live slots at a segment's start up to which K6 takes its latency geometry
+# (on an H100 at AC-S1 widths: 1 and 8 live roots ran 10-25% faster on
+# 16 warps, one block an SM; 32 and 128 on the throughput geometry).
+K6_FEW_LIVE = 16
+# Warps one SM holds at K6's register cap (__launch_bounds__ of 512
+# threads: at most 128 registers a thread, 65,536 an SM).
+K6_SM_WARPS = 16
+
+
+def _r4(v: int) -> int:
+    return _ceil(v, 4) * 4
+
+
+def bab_smem(sizes, V: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one K6 block
+    (``bab_segment.cu:k6_layout``): the mbarrier's 16; the odd-stride net
+    (``cuda_build.odd_layout``); per role box (2V) its widened bounds and
+    their relaxation (5 nsum), IBP bounds (2 maxw) and box (2d); per warp
+    the larger of the CROWN column pair's 8 maxw and the α side's 2 nsum +
+    d + 3 maxw; the slot's two form sets (4V (2d + 10)), pair bounds
+    (4V^2), box vectors (7d), probe activations (2 V maxw), validity (V), α
+    best bounds (4V) and 8 flags; every part rounded up to 4 floats."""
+    d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+    fl = (4 + cuda_build.odd_layout(sizes)["padded"]
+          + 2 * V * _r4(5 * nsum + 2 * maxw + 2 * d)
+          + warps * _r4(max(8 * maxw, 2 * nsum + d + 3 * maxw))
+          + _r4(4 * V * (2 * d + 10)) + _r4(4 * V * V) + _r4(7 * d)
+          + 2 * _r4(V * maxw) + _r4(V) + _r4(4 * V) + 8)
+    return 4 * fl
+
+
+def bab_geometry(sizes, V: int, Qs: int, sms: int = 132,
+                 smem_limit: int = cuda_build.SMEM_LIMIT, _force=None, live=None) -> dict:
+    """Launch geometry of K6 for a Qs-slot queue with V assignments on a
+    card of ``sms`` SMs: one slot a block at a time, 4V warps a block (one
+    per α side of every role box; at least 4, at most K6_MAX_WARPS and what
+    shared memory holds), as many blocks per SM as shared memory and the
+    register cap allow, and the grid every resident block (at most Qs): a
+    cooperative launch must hold all of them at once.  A segment that
+    starts with at most K6_FEW_LIVE live slots (``live``) is bound by one
+    slot's critical path, not by the card's throughput: it takes the most
+    warps that fit, one block an SM.  ``_force`` (``(warps, blocks per
+    SM)``) overrides the choice; a geometry that does not fit raises."""
+    few = _force is None and live is not None and live <= K6_FEW_LIVE
+    cap = K6_MAX_WARPS if _force is not None or few else min(K6_MAX_WARPS, max(4, 4 * V))
+    wmax = _fit_warps(lambda w: bab_smem(sizes, V, w), cap, smem_limit)
+    warps = wmax if _force is None else int(_force[0])
+    if not 1 <= warps <= wmax:
+        raise ValueError(f"bab_segment: {warps} warps do not fit in shared memory")
+    smem = bab_smem(sizes, V, warps)
+    per_max = min(cuda_build.SMEM_PER_SM // (smem + 1024), K6_SM_WARPS // warps)
+    per_sm = (1 if few else per_max) if _force is None else int(_force[1])
+    if not 1 <= per_sm <= per_max:
+        raise ValueError(f"bab_segment: {per_sm} blocks of {warps} warps per SM do not fit "
+                         f"(at most {per_max})")
+    return dict(warps=warps, threads=32 * warps, per_sm=per_sm,
+                grid=max(1, min(Qs, per_sm * sms)), smem=smem)
+
+
 # The wrappers' geometry, computed once per shape (hashable arguments; the
 # returned dicts are shared and read only).
 _attack_logits_geometry = functools.lru_cache(maxsize=256)(attack_logits_geometry)
 _pgd_geometry = functools.lru_cache(maxsize=256)(pgd_geometry)
+_bab_geometry = functools.lru_cache(maxsize=256)(bab_geometry)
 
 
 def attack_logits_plain(net, x_roles, xp_roles):
@@ -1377,29 +1438,37 @@ def bab_segment(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b, wit_pt,
     """K6: one device BaB segment, one launch (contract of
     :func:`bab_segment_plain`).  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/bab_segment.cu`` cooperatively (a grid-wide sync
-    between each round's per-slot phase and its compaction), updating
-    copies of the queue tensors in place."""
+    between each round's per-slot phase and its compaction, the geometry
+    from :func:`bab_geometry`), updating copies of the queue tensors in
+    place."""
     args = (net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b, wit_pt, slot_ok,
             root_valid, assign_vals, pa_mask, ra_mask, eps, valid_pair, branch_mask,
             rounds, alpha_iters)
     if q_lo.device.type == "cpu":
         return bab_segment_plain(*args)
     cuda_build.require_cuda(q_lo)
-    return _bab_segment_launch(*args)
+    out = _bab_segment_launch(*args)
+    bab_segment.launches += 1
+    return out
 
 
 def _bab_segment_launch(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
                         wit_pt, slot_ok, root_valid, assign_vals, pa_mask, ra_mask,
-                        eps, valid_pair, branch_mask, rounds: int, alpha_iters: int):
+                        eps, valid_pair, branch_mask, rounds: int, alpha_iters: int,
+                        _geometry_force=None):
+    """One K6 launch; ``_geometry_force`` (``(warps, blocks per SM)``)
+    forces the launch geometry: the card's checks that a segment does not
+    depend on it."""
     if net.layer_sizes[-1] != 1:
         raise ValueError("bab_segment: the net must have one output logit")
-    params, dims = cuda_build.pack_net(net)
+    params, dims = cuda_build.pack_odd(net)
     u8 = lambda t: t.to(torch.uint8).contiguous()
-    f32 = lambda t: t.to(torch.float32).contiguous().clone()
-    i32 = lambda t: t.to(torch.int32).contiguous().clone()
-    out = {"q_lo": f32(q_lo), "q_hi": f32(q_hi), "q_root": i32(q_root),
-           "q_live": u8(q_live).clone(), "found": u8(q_found).clone(),
-           "wit_a": i32(wit_a), "wit_b": i32(wit_b), "wit_pt": f32(wit_pt)}
+    # The queue is updated in place on one copy of each buffer.
+    copy = lambda t, dt: t.to(dt, memory_format=torch.contiguous_format, copy=True)
+    out = {"q_lo": copy(q_lo, torch.float32), "q_hi": copy(q_hi, torch.float32),
+           "q_root": copy(q_root, torch.int32), "q_live": copy(q_live, torch.uint8),
+           "found": copy(q_found, torch.uint8), "wit_a": copy(wit_a, torch.int32),
+           "wit_b": copy(wit_b, torch.int32), "wit_pt": copy(wit_pt, torch.float32)}
     ins = [u8(slot_ok), u8(root_valid), assign_vals.contiguous(),
            pa_mask.contiguous(), ra_mask.contiguous(), u8(valid_pair),
            branch_mask.contiguous()]
@@ -1407,19 +1476,29 @@ def _bab_segment_launch(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
     Q, d = q_lo.shape
     G, V = root_valid.shape
     dev = q_lo.device
-    for k in ("nodes", "splits", "overflow"):
-        out[k] = torch.zeros(G, dtype=torch.int32, device=dev)
-    fold = torch.zeros(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty((Q, 4), dtype=torch.int32, device=dev)
+    # Live slots at the start, counted up to one past K6_FEW_LIVE (all the
+    # geometry reads; it keeps the memoized shapes few).
+    live = min(int(out["q_live"].sum()), K6_FEW_LIVE + 1) if _geometry_force is None else None
+    geo = _bab_geometry(tuple(dims), V, Q, cuda_build.sm_count(dev), cuda_build.SMEM_LIMIT,
+                        _geometry_force, live)
+    # One zeroed buffer: nodes, splits, overflow (G each), the fold, each
+    # round's slot counter; one scratch buffer: per slot the split plan
+    # (4 ints) and the compaction's free-slot table.
+    zeros = torch.zeros(3 * G + 1 + max(rounds, 1), dtype=torch.int32, device=dev)
+    out["nodes"], out["splits"], out["overflow"] = zeros[:3 * G].view(3, G)
+    fold, nxt = zeros[3 * G:3 * G + 1], zeros[3 * G + 1:]
+    scratch = torch.empty(5 * Q, dtype=torch.int32, device=dev)
+    table = scratch[4 * Q:]
     cuda_build.call("bab_segment", "k6_bab_segment", cuda_build.ptr(params), dims,
                     ctypes.c_int(net.depth),
                     *(cuda_build.ptr(out[k]) for k in integrity_mod.BAB_FOLD_KEYS),
                     *(cuda_build.ptr(t) for t in ins),
                     ctypes.c_float(float(np.float32(eps))), ctypes.c_int(Q),
                     ctypes.c_int(G), ctypes.c_int(V), ctypes.c_int(rounds),
-                    ctypes.c_int(alpha_iters), cuda_build.ptr(scratch),
-                    cuda_build.ptr(fold), cuda_build.stream())
-    bab_segment.launches += 1
+                    ctypes.c_int(alpha_iters), cuda_build.ptr(scratch), cuda_build.ptr(table),
+                    cuda_build.ptr(nxt), cuda_build.ptr(fold), ctypes.c_int(geo["warps"]),
+                    ctypes.c_int(geo["grid"]), ctypes.c_longlong(geo["smem"]),
+                    cuda_build.stream())
     out["q_live"], out["found"] = out["q_live"].bool(), out["found"].bool()
     out["csum"] = int(fold.item())
     return out

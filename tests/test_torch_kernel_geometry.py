@@ -1,8 +1,10 @@
 """Launch geometry and packs of the warp-tile kernels, on the CPU.
 
-``engine.attack_logits_geometry`` and ``engine.pgd_geometry`` size the
-launches of ``csrc/attack_logits.cu`` (rows 17, 9, 21) and
-``csrc/pgd_attack.cu`` (K5), and the C entry points refuse any other
+``engine.attack_logits_geometry``, ``engine.pgd_geometry``,
+``engine.bab_geometry`` and ``lattice.lattice_geometry`` size the launches
+of ``csrc/attack_logits.cu`` (rows 17, 9, 21), ``csrc/pgd_attack.cu``
+(K5), ``csrc/bab_segment.cu`` (K6) and the lattice signs kernel of
+``csrc/lattice_scan.cu`` (K9a/b/c), and the C entry points refuse any other
 shared-memory size; so these tests hold the geometry at an H100's 132 SMs
 and 227 KB (232,448 bytes) of shared memory a block, for the nets the repo
 runs, without a card:
@@ -11,21 +13,27 @@ runs, without a card:
 * K5 at B = 1, R = 96, V = 2 (the heuristic retry) spreads over at least
   96 blocks, and at B = 2,048 runs full tiles;
 * a 32,768-row attack forward (the host frontier's F = 512) fills all 132
-  SMs;
-* the padded pack is the layout the kernels read, and every pack is built
-  once per net: a net's ``with_masks`` copy gets its own, equal to a fresh
-  pack.
+  SMs, and so does the lattice forward of a 2^18-point chunk;
+* K6 keeps two slots resident per SM at AC-S1 widths, V = 2, and its
+  cooperative grid is what the card holds resident;
+* a forced geometry that does not fit raises;
+* the padded and odd-stride packs are the layouts the kernels read, and
+  every pack is built once per net: a net's ``with_masks`` copy gets its
+  own, equal to a fresh pack.
 """
 import numpy as np
 import pytest
 import torch
 
 from fairify_tpu_torch.models.mlp import flagship_net, seeded_net
+from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.utils import cuda_build
 from fairify_tpu_torch.verify import engine
 
 SMS = 132
 LIMIT = 232448
+SM_BYTES = 233472  # shared memory of one H100 SM; each resident block takes 1,024 more
+QS = 513  # the device BaB's queue: frontier 512 plus the integrity canary
 
 # Widths (d, hidden..., 1) of the nets the kernels run.  The four trained
 # nets' are the layer shapes of their .h5 files:
@@ -171,3 +179,93 @@ def test_packs_are_built_once_per_net():
         third.biases[0].add_(1.0)
     after = cuda_build.pack_net(third)[0]
     assert after is not before and torch.equal(after, cuda_build._pack_net(third)[0])
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_bab_geometry_fits_and_stays_resident(name):
+    sizes = NETS[name]
+    for V in (2, 5):
+        g = engine.bab_geometry(sizes, V, QS, sms=SMS, smem_limit=LIMIT)
+        assert g["smem"] == engine.bab_smem(sizes, V, g["warps"]) <= LIMIT
+        assert 1 <= g["warps"] <= engine.K6_MAX_WARPS and g["threads"] == 32 * g["warps"]
+        # One α side of every role box has a warp of its own.
+        assert g["warps"] == min(engine.K6_MAX_WARPS, 4 * V)
+        # The cooperative grid: every block resident at once.
+        assert g["per_sm"] * (g["smem"] + 1024) <= SM_BYTES
+        assert g["per_sm"] * g["warps"] <= engine.K6_SM_WARPS
+        assert g["grid"] == min(QS, g["per_sm"] * SMS)
+    small = engine.bab_geometry(sizes, 2, 9, sms=SMS, smem_limit=LIMIT)
+    assert small["grid"] == 9  # never more blocks than slots
+
+
+def test_bab_keeps_two_slots_per_sm_at_ac_s1():
+    g = engine.bab_geometry(NETS["AC-S1"], 2, QS, sms=SMS, smem_limit=LIMIT)
+    assert g["per_sm"] >= 2 and g["grid"] >= 2 * SMS
+    assert engine.bab_geometry(NETS["AC-S1"], 2, QS, sms=SMS, smem_limit=LIMIT,
+                               live=engine.K6_FEW_LIVE + 1) == g
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_bab_few_live_slots_take_the_latency_geometry(name):
+    """A segment that starts with few live slots is one slot's critical
+    path: the most warps that fit, one block an SM, every SM."""
+    sizes = NETS[name]
+    for V in (2, 5):
+        g = engine.bab_geometry(sizes, V, QS, sms=SMS, smem_limit=LIMIT,
+                                live=engine.K6_FEW_LIVE)
+        assert g["per_sm"] == 1 and g["grid"] == SMS
+        assert g["warps"] == engine.K6_MAX_WARPS  # every repo net fits 16 warps
+        assert g["smem"] == engine.bab_smem(sizes, V, g["warps"]) <= LIMIT
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_lattice_geometry_fits_and_fills_the_card(name):
+    sizes = NETS[name]
+    for V in (2, 5):
+        g = lattice_ops.lattice_geometry(sizes, V, 1 << 18, sms=SMS, smem_limit=LIMIT)
+        assert g["smem"] == lattice_ops.lattice_smem(sizes, g["tw"], g["warps"], V) <= LIMIT
+        assert 1 <= g["warps"] <= lattice_ops.LAT_MAX_WARPS and g["threads"] == 32 * g["warps"]
+        assert 64 % g["tw"] == 0 and g["tiles"] * g["tw"] >= 1 << 18
+        assert g["grid"] == SMS  # a 2^18-point chunk fills all 132 SMs
+        assert (g["grid"] - 1) * g["warps"] < g["tiles"]
+        tail = lattice_ops.lattice_geometry(sizes, V, 100, sms=SMS, smem_limit=LIMIT)
+        assert tail["grid"] * tail["warps"] * tail["tw"] >= 100
+        assert tail["grid"] <= -(-100 // tail["tw"])
+
+
+def test_forced_k6_and_k9_geometry_is_checked():
+    sizes = NETS["AC-S1"]
+    g = engine.bab_geometry(sizes, 2, QS, sms=SMS, _force=(4, 1))
+    assert (g["warps"], g["per_sm"], g["grid"]) == (4, 1, SMS)
+    with pytest.raises(ValueError):
+        engine.bab_geometry(sizes, 2, QS, sms=SMS, _force=(8, 3))  # 3 x 106 KB
+    with pytest.raises(ValueError):
+        engine.bab_geometry(sizes, 2, QS, sms=SMS, _force=(engine.K6_MAX_WARPS + 1, 1))
+    g = lattice_ops.lattice_geometry(sizes, 2, 1 << 18, sms=SMS, _force=(4, 1))
+    assert (g["tw"], g["warps"], g["grid"]) == (4, 1, SMS)
+    with pytest.raises(ValueError):
+        lattice_ops.lattice_geometry(sizes, 2, 1 << 18, sms=SMS, _force=(16, 8))  # > 227 KB
+    with pytest.raises(ValueError):
+        lattice_ops.lattice_geometry(sizes, 2, 1 << 18, sms=SMS, _force=(12, 1))  # not | 64
+    wide = (13, 4096, 1)  # a net whose one warp or block exceeds shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.bab_geometry(wide, 2, QS, sms=SMS)
+    with pytest.raises(ValueError, match="shared memory"):
+        lattice_ops.lattice_geometry(wide, 2, 1 << 18, sms=SMS)
+
+
+def test_odd_pack_layout():
+    net = seeded_net((5, 9, 4, 1), seed=4, device="cpu")
+    params, dims = cuda_build.pack_odd(net)
+    lay = cuda_build.odd_layout(list(dims))
+    assert list(dims) == [5, 9, 4, 1] and params.numel() == lay["padded"]
+    assert lay["padded"] % 4 == 0 and lay["padded"] - lay["total"] < 4
+    for l, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        n_in, n_out = w.shape
+        ld = lay["ldw"][l]
+        assert ld % 2 == 1 and n_out <= ld <= n_out + 1
+        wp = params[lay["w"][l]:lay["w"][l] + n_in * ld].view(n_in, ld)
+        assert torch.equal(wp[:, :n_out], w) and not wp[:, n_out:].any()
+        assert torch.equal(params[lay["b"][l]:lay["b"][l] + n_out], b)
+        assert torch.equal(params[lay["m"][l]:lay["m"][l] + n_out], m)
+    assert cuda_build.pack_odd(net)[0] is params  # built once per net
