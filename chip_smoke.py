@@ -52,7 +52,9 @@ Phases (any failure exits nonzero and prints no result line):
    its first flip), the CPU plain path in a worker process beside the
    rest of phase 1b, phases 2-2c and 4, verdicts and witnesses equal.
 2. Stage-0 kernels vs plain versions: KA (sim_and_bounds), KB
-   (stage0_certify), KC (attack_flips) and KD (parity) at the shapes the
+   (stage0_certify; on the AC segment also its default launch bit for bit
+   under three forced geometries), KC (attack_flips) and KD (parity) at
+   the shapes the
    main path gives them — the GC grid (201 partitions, GC-1 twin 20-50-1)
    and one segment of the AC grid (16,000 partitions, AC-S1 widths
    13-128-64-32-16-8-1, seeded weights), and one relaxed-AC segment (ε = 5
@@ -83,7 +85,9 @@ Phases (any failure exits nonzero and prints no result line):
    excused only where a gradient on the plain path has another sign in
    f32 than in f64, and at most 1% may be), and there the bounds and
    scores agree to tolerance, ``feasible`` and ``resolved`` are equal and
-   the bounds contain the f64 bounds of the same relaxations; K8b
+   the bounds contain the f64 bounds of the same relaxations; on the
+   AC-S1 frontier branches at α 8 and 0 its default launch bit for bit
+   under three forced geometries (warps a block); K8b
    (inter_bounds) at B = 512 and at one root's 2V = 4 role boxes; the
    role logits at Phase S's shape (row 21; row 17's wrapper on the same
    rows bit-equal to it, both beside the library forward).  The same on
@@ -131,7 +135,7 @@ Phases (any failure exits nonzero and prints no result line):
    bound; on one 2,048-row chunk (row 7) the family KB/KC times beside
    the solo sum, and a wide family of 11 AC-S1 twins bit-equal per model
    to the solo launches at α = 0 and 8, KB's shared memory per block
-   printed.  (b) The zoo's CP and DF groups as 11 seeded twins each
+   (``engine.kb_geometry``) printed.  (b) The zoo's CP and DF groups as 11 seeded twins each
    (6-32-32-1, 30-16-16-16-1) on their own presets: the family chunk loop
    (``mega_chunks=0``) and ``verify_model(stage0=...)`` per model, whose
    ledger, CSV and funnel equal the model's solo ``verify_model``.  (c) The
@@ -145,7 +149,8 @@ Phases (any failure exits nonzero and prints no result line):
    leftovers (the frontier batch F = 512, 16 candidates) against their
    plain versions: margins and scores within tolerance, and every box's
    first three split dims (``score·width``, stable) equal except at a
-   near-tie within the score tolerance, on at most 1% of the boxes.  (e)
+   near-tie within the score tolerance, on at most 1% of the boxes; KB's
+   default launch there bit for bit under three forced geometries.  (e)
    End to end, after the CPU worker: the family's stage-0 results of AC
    partitions 0-4,096 through ``verify_model(stage0=...)`` per model in the
    default configuration, 15 s hard: the stage-0-decided rows equal each
@@ -211,9 +216,18 @@ Phase 4 runs before phase 3, and the run waits for the CPU worker before
 phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e and 9 run
 without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
 
+Every ``run_sweep``/``counted`` window splits K8a's launches by (α, live
+rows up to the next power of two) and KB's (rows 4-7, 14, 15) by (α,
+boxes, models) and fails unless the split adds up to the counters; after
+phase 9 every bucket is timed on its first launch's inputs and each
+window's launches x (time - bound) printed ("[K8a by shape, ...]", "[KB
+by shape, ...]"), and K8a's launch over the live rows of the slice-3
+tail's most frequent bucket must equal the full launch bit for bit.
+
 The next-to-last lines are the kernel table as one JSON object (K5's
 launches in the slice-3 AC-S1 tail split by B, K6's in both tails by (α,
-live slot-rounds), row 17's on the IBP AC grid by row count) and the
+live slot-rounds), K8a's and KB's in every window by shape, row 17's on
+the IBP AC grid by row count) and the
 ``nvidia-smi`` name/power line; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -1181,6 +1195,9 @@ def check_sim_rows(name, net, cfg, lo, hi, reps: int):
 # from the plain version's after a gradient whose f32 sign differs from its
 # f64 sign on the plain path).
 SIGN_EXCUSE_SHARE = 0.01
+# Forced launch geometries (warps a block) of K8a and KB's invariance checks.
+SIGN_BOUND_FORCES = (2, 8, 16)
+KB_FORCES = (4, 8, 16)
 
 
 def sign_bound_flops(sizes, iters: int) -> int:
@@ -1200,6 +1217,16 @@ def sign_bound_flops(sizes, iters: int) -> int:
         back = sum((2 * ins[j] + 12) * outs[j] * cols for j in range(k))
         total += 2 * ((iters + 1) * (step + 8 * d * cols) + iters * (back + 4 * d * cols))
     return total
+
+
+def sign_bound_cost(sizes, B: int, iters: int):
+    """(flops, bytes) of one K8a launch over B boxes: :func:`sign_bound_flops`
+    per box; the boxes and signs read, the bounds, feasibility, scores and
+    resolved signs written, and the packed net read once."""
+    d, nh = sizes[0], sum(sizes[1:-1])
+    fl = B * sign_bound_flops(sizes, iters)
+    by = B * (2 * d * 4 + nh * 4 + 9 + 5 * nh) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    return fl, by
 
 
 def sign_bound_reference(net, lo, hi, signs, alpha_iters: int):
@@ -1328,7 +1355,7 @@ def frontier_patterns(net, enc, lo, hi, n: int, deadline_s: float = 10.0):
 
     recorded = []
 
-    def plain(net_, lo_, hi_, signs, alpha_iters, with_ab=False):
+    def plain(net_, lo_, hi_, signs, alpha_iters, with_ab=False, live=None):
         recorded.append(torch.cat([lo_, hi_] + list(signs), dim=1))
         return engine.sign_bound_plain(net_, lo_, hi_, signs, alpha_iters)[0]
 
@@ -1379,10 +1406,8 @@ def check_sign_bound(name, net, lo, hi, pats, alpha_iters: int, reps: int,
             if sign_bound_verdict(mut, k_ab, ref) is None:
                 fail(f"K8a {name} alpha={alpha_iters}: a copy with {what} passes the check")
     sizes = [net.in_dim] + list(net.layer_sizes)
-    B, d = lo.shape
-    nh = sum(sizes[1:-1])
-    fl = B * sign_bound_flops(sizes, alpha_iters)
-    by = B * (2 * d * 4 + nh * 4 + 9 + 5 * nh) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
+    B = lo.shape[0]
+    fl, by = sign_bound_cost(sizes, B, alpha_iters)
     row = dict(max_abs_err=float(max((k_out[0] - ref[0][0]).abs().max(),
                                      (k_out[1] - ref[0][1]).abs().max())),
                ms=k_ms, plain_ms=plain_ms, flops=fl, bytes=by)
@@ -1394,6 +1419,60 @@ def check_sign_bound(name, net, lo, hi, pats, alpha_iters: int, reps: int,
           f"resolved equal, bounds within tolerance and around the f64 bounds"
           f"{'; every mutant fails' if mutate else ''})", flush=True)
     return row
+
+
+def sign_bound_invariance(name, net, lo, hi, pats, alpha_iters: int) -> dict:
+    """K8a under forced launch geometries (warps a block): bounds,
+    feasibility, scores, resolved signs and the final α/β must equal the
+    default launch's bit for bit.  Returns the default warps and each
+    forced geometry's time (ms).  Uses the launch helper's private
+    ``_geometry_force``; counted nowhere."""
+    import torch
+
+    from fairify_tpu_torch.utils import cuda_build
+    from fairify_tpu_torch.verify import engine
+
+    B = lo.shape[0]
+    flat = lambda o: list(o[:3]) + list(o[3]) + list(o[4]) + [o[5]]
+    base = engine._sign_bound_launch(net, lo, hi, pats, alpha_iters, True, B)
+    sizes = tuple([net.in_dim] + list(net.layer_sizes))
+    default = engine.sign_bound_geometry(sizes, live=B, sms=cuda_build.sm_count(net.device))
+    times = {}
+    for w in SIGN_BOUND_FORCES:
+        out, ms = timed(lambda: engine._sign_bound_launch(net, lo, hi, pats, alpha_iters, True,
+                                                          B, _geometry_force=w), 3)
+        if not all(torch.equal(a, b) for a, b in zip(flat(out), flat(base))):
+            fail(f"K8a {name} alpha={alpha_iters}: {w} warps a block change its outputs")
+        times[w] = ms
+    print(f"[geometry {name}] sign_bound alpha={alpha_iters} B={B}: forced warps "
+          f"{list(times)} bit-equal to the default {default['warps']} "
+          f"({default['per_sm']} blocks an SM); ms by warps {times}", flush=True)
+    return dict(default=default["warps"], forced_ms=times)
+
+
+def kb_invariance(name, net, kb, alpha_iters: int) -> dict:
+    """KB under forced launch geometries (warps a block): certificate,
+    score and margin must equal the default launch's bit for bit.  Returns
+    the default warps and each forced geometry's time (ms).  Uses the
+    launch helper's private ``_geometry_force``; counted nowhere."""
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+
+    base = engine._kb_launch(net, **kb, alpha_iters=alpha_iters)
+    V = kb["valid"].shape[1]
+    default = engine.kb_geometry(tuple([net.in_dim] + list(net.layer_sizes)), V)
+    times = {}
+    for w in KB_FORCES:
+        out, ms = timed(lambda: engine._kb_launch(net, **kb, alpha_iters=alpha_iters,
+                                                  _geometry_force=w), 3)
+        if not all(torch.equal(a, b) for a, b in zip(out, base)):
+            fail(f"KB {name} alpha={alpha_iters}: {w} warps a block change its outputs")
+        times[w] = ms
+    print(f"[geometry {name}] stage0_certify alpha={alpha_iters} N={kb['valid'].shape[0]}: "
+          f"forced warps {list(times)} bit-equal to the default {default['warps']} "
+          f"({default['per_sm']} blocks an SM); ms by warps {times}", flush=True)
+    return dict(default=default["warps"], forced_ms=times)
 
 
 def check_inter_bounds(name, net, lo, hi, reps: int, mutate: bool = False):
@@ -1478,7 +1557,7 @@ def check_role_logits(name, net, enc, lo, hi, reps: int, mutate: bool = False):
 
 
 def check_phase_s_kernels(name, net, enc, lo, hi, reps: int, mutate: bool = False,
-                          frontier: bool = True):
+                          frontier: bool = True, geometry: bool = False):
     """K8a (the roots' sign boxes with the root pattern, and branches of
     depth 1-8 from one plain sign frontier over them, at alpha_iters 8 and
     0), K8b (the sign boxes, and one root's 2V role boxes) and the role
@@ -1486,7 +1565,8 @@ def check_phase_s_kernels(name, net, enc, lo, hi, reps: int, mutate: bool = Fals
     (K8a at alpha 8 on the frontier branches, its alpha-0 and root-pattern
     times beside).  Without ``frontier`` (boxes whose candidates all
     certify at the root, where the frontier never splits) K8a runs on the
-    root pattern alone."""
+    root pattern alone.  With ``geometry`` K8a's frontier launch also runs
+    under forced geometries (:func:`sign_bound_invariance`)."""
     import numpy as np
     import torch
 
@@ -1513,8 +1593,12 @@ def check_phase_s_kernels(name, net, enc, lo, hi, reps: int, mutate: bool = Fals
                                       mutate=mutate and alpha == 8)
             rows[alpha] = dict(r_deep, root={k: r_root[k] for k in
                                              ("ms", "plain_ms", "bound_ms", "bound_by")})
+            if geometry:
+                rows[alpha]["geometry"] = sign_bound_invariance(
+                    f"{name} frontier", net, *branches[:3], alpha)
     sign_row = dict(rows[8], alpha0={k: rows[0][k] for k in
-                                     ("ms", "plain_ms", "bound_ms", "bound_by")})
+                                     ("ms", "plain_ms", "bound_ms", "bound_by", "geometry")
+                                     if k in rows[0]})
     inter_row = check_inter_bounds(name, net, slo, shi, reps, mutate=mutate)
     x_lo, x_hi, xp_lo, xp_hi, _ = role_boxes(enc, lo[:1], hi[:1])
     inter4 = check_inter_bounds(
@@ -2246,9 +2330,10 @@ CSV_COLS = ("Partition_ID", "Verification", "SAT_count", "UNSAT_count", "UNK_cou
             "V-accurate", "Pruned-acc", "C1", "C2")
 
 
-def counted(fn):
+def counted(fn, label: str = "counted"):
     """``(result, launch counts, wall s)`` of ``fn()``, with every launch
-    count zeroed just before it runs."""
+    count zeroed just before it runs: one window of WINDOWS (``label``),
+    whose K8a and KB launches by shape add up to the counters."""
     import torch
 
     from fairify_tpu_torch.verify import sweep
@@ -2256,9 +2341,14 @@ def counted(fn):
     torch.cuda.synchronize()
     sweep.reset_launches()
     t0 = time.perf_counter()
-    res = fn()
+    with ShapeLog() as shapes:
+        res = fn()
     torch.cuda.synchronize()
-    return res, sweep.launch_counts(), time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    counts = sweep.launch_counts()
+    shapes.check_cert(counts, label)
+    WINDOWS.append((label, shapes, counts))
+    return res, counts, wall
 
 
 def same_stage0(a, b) -> bool:
@@ -2313,7 +2403,8 @@ def family_grid(nets, cfg, reps: int):
     _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
     fam_stats = {}
     fam, launch, wall = counted(lambda: sweep.stage0_families([stack], enc, lo, hi, cfg,
-                                                              stats=fam_stats)[0])
+                                                              stats=fam_stats)[0],
+                                "family AC grid")
     odd = {k: v for k, v in launch.items()
            if v != (len(segs) if k in ("stage0_certify", "attack_flips") else 0)}
     if odd or len(segs) < 2:
@@ -2399,20 +2490,6 @@ def family_grid(nets, cfg, reps: int):
     return rows, fam, solo
 
 
-def kb_smem_bytes(sizes, V: int, alpha_iters: int) -> int:
-    """KB's dynamic shared memory per block (``kb_stage0_certify``'s
-    formula): the packed net, the CROWN workspace, the form sets, the box
-    vectors and, with α, the α workspace."""
-    d, outs = sizes[0], list(sizes[1:])
-    L, nsum, maxw = len(outs), sum(outs), max(sizes)
-    total = macs(sizes) + 2 * nsum
-    max_a = max([1] + [max(sizes[:k + 1]) * outs[k] for k in range(1, L)])
-    ns = 2 if alpha_iters > 0 and L > 1 else 1
-    floats = (total + 2 * nsum + 9 * maxw + 2 * d + 4 * max_a + ns * 2 * V * (2 * d + 10)
-              + 4 * d + 33 + (4 * nsum + 2 * d + 6 * maxw + 128 if ns == 2 else 0))
-    return 4 * floats
-
-
 def family_chunk(nets, cfg, reps: int) -> dict:
     """Row 7: the family's certificate + attack on one 2,048-row chunk
     (``_family_stage0_kernel``): KB and KC for the M-model family timed
@@ -2463,7 +2540,7 @@ def family_chunk(nets, cfg, reps: int) -> dict:
             if not all(torch.equal(a[m], b) for a, b in zip(fam, solo)):
                 fail(f"wide family (M = {ZOO_MODELS}) alpha={alpha}: model {m}'s outputs "
                      "are not bit-equal to its solo launch")
-        smem = kb_smem_bytes(AC_SIZES, V, alpha)
+        smem = engine.kb_geometry(AC_SIZES, V)["smem"]
         if smem > 232448:
             fail(f"KB at alpha={alpha} needs {smem} bytes of shared memory per block")
         print(f"[family chunk] M = {ZOO_MODELS} AC-S1 twins, alpha={alpha}: certify_attack "
@@ -2496,7 +2573,7 @@ def zoo_families(work: str, engine_cfg) -> dict:
         _, lo, hi = sweep.build_partitions(cfg)
         stats = {}
         fam, launch, wall = counted(lambda: sweep.stage0_families(
-            [stack_models(nets)], enc, lo, hi, cfg, stats=stats)[0])
+            [stack_models(nets)], enc, lo, hi, cfg, stats=stats)[0], f"zoo family {name}")
         n_chunks = -(-len(lo) // cfg.grid_chunk)
         if launch["stage0_certify"] != n_chunks or launch["attack_flips"] != n_chunks:
             fail(f"{name} family: launches {launch} for {n_chunks} chunks")
@@ -2566,7 +2643,7 @@ def chunk_loop_checks(work: str, gc_net, gc_cfg, ac_net, ac_cfg, reps: int) -> d
             s0 = sweep.stage0_certify_and_attack(ac_net, enc, lo, hi, cfg, st, {})
             return prune, s0, sweep.parity_pass(ac_net, prune, lo, hi, cfg), st
 
-        res[tag], launch[tag], _ = counted(passes)
+        res[tag], launch[tag], _ = counted(passes, f"AC grid passes, {tag}")
     (pc, sc, parc, stc), (pm, sm, parm, stm) = res["chunk"], res["mega"]
     masks_eq = all(np.array_equal(a, b) for k in ("candidates", "st_deads", "pos_prob", "ws_lb",
                                                   "ws_ub")
@@ -2689,7 +2766,8 @@ def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) ->
         r = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err_m, flops=fl, bytes=by,
                  alpha_iters=alpha, boxes=F, score_err_x_tol=err_s,
                  split_order_excused=excused, certified=int(cert_k.sum()),
-                 cert_near_diffs=near)
+                 cert_near_diffs=near,
+                 geometry=kb_invariance(f"host frontier F={F}", ac_net, kb, alpha))
         r["bound_ms"], r["bound_by"] = bound(fl, by)
         out[f"kb_alpha{alpha}"] = r
         print(f"[host frontier KB alpha={alpha}] F={F} AC-S1 leftovers: {k_ms:.4f} ms "
@@ -2735,7 +2813,7 @@ def family_tail(work: str, nets, ac_cfg, fam, solo) -> dict:
         model = f"AC-S1-{m}"
         rep, launch, wall = counted(lambda: sweep.verify_model(
             net, cfg, model_name=model, resume=False, partition_span=FAMILY_SPAN,
-            stage0=cut(fam[m])))
+            stage0=cut(fam[m])), f"family tail {model}")
         thr = check_outputs(rep, cfg, net, model, launch)
         u, sa, w = cut(solo[m])
         bad = 0
@@ -3386,8 +3464,8 @@ def mesh_ac(work: str, ac_net, ac_cfg) -> dict:
     enc = encode(ac_cfg.query())
     _, lo, hi = sweep.build_partitions(ac_cfg)
     st = {tag: counted(lambda m=m: sweep.stage0_certify_and_attack(
-        ac_net, enc, lo[s:e], hi[s:e], ac_cfg, funnel_mod.StageStats(), {}, mesh=m))
-        for tag, m in (("none", None), ("mesh", mesh))}
+        ac_net, enc, lo[s:e], hi[s:e], ac_cfg, funnel_mod.StageStats(), {}, mesh=m),
+        f"AC-S1 stage 0, mesh {tag}") for tag, m in (("none", None), ("mesh", mesh))}
     if not same_stage0(st["none"][0], st["mesh"][0]) or st["mesh"][1]["stage0_certify"]:
         fail(f"AC-S1 0-2048: stage 0 over a mesh differs from mesh=None's (launches "
              f"{st['mesh'][1]})")
@@ -3533,7 +3611,8 @@ def mesh_worlds(work: str, fam_nets, ac_cfg) -> dict:
     cfg = ac_cfg.with_(mega_chunks=0)
     stack = stack_models(fam_nets)
     (fam,), launch, _ = counted(lambda: sweep.stage0_families([stack], enc, lo[s:e], hi[s:e],
-                                                              cfg, mesh=mesh))
+                                                              cfg, mesh=mesh),
+                                "AC-S1 family over 3 shards")
     (ref,) = sweep.stage0_families([stack], enc, lo[s:e], hi[s:e], cfg)
     if (not all(same_stage0(a, b) for a, b in zip(fam, ref)) or launch["role_certify"] != 3
             or launch["attack_logits"] != 1):
@@ -3661,14 +3740,30 @@ def slot_round_bucket(n: int) -> int:
     return max(64, 1 << max(0, n - 1).bit_length())
 
 
+def live_bucket(n: int) -> int:
+    """The bucket of a K8a launch over n live rows: the next power of two."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+# The first launch's inputs of every K8a bucket (alpha_iters, live_bucket)
+# and KB bucket (alpha_iters, boxes, models) met in any window of the run.
+CERT_CASES = {"sign_bound": {}, "stage0_certify": {}}
+# Every window of the run (run_sweep, counted): (label, ShapeLog, launches).
+WINDOWS = []
+
+
 class ShapeLog:
     """Within ``with ShapeLog() as log``, the launches of K5 by its batch B
-    (``log.pgd``), of the attack forward by its row count (``log.rows``)
-    and of K6 by α and live slot-rounds (``log.bab``: (alpha_iters,
+    (``log.pgd``), of the attack forward by its row count (``log.rows``),
+    of K6 by α and live slot-rounds (``log.bab``: (alpha_iters,
     :func:`slot_round_bucket` of the segment's ``nodes`` sum) -> launches,
-    with the first launch of each bucket's inputs in ``log.bab_case``): the
-    split of one run's launch count by shape.  It wraps the launch helpers
-    and counts beside the kernels' own counters."""
+    with the first launch of each bucket's inputs in ``log.bab_case``), of
+    K8a by α and live rows (``log.sign_bound``: (alpha_iters,
+    :func:`live_bucket`) -> launches) and of KB by α, boxes and models
+    (``log.stage0_certify``: (alpha_iters, N, M) -> launches; rows 14 and
+    6 included), the first launch of each K8a and KB bucket's inputs kept in
+    CERT_CASES: the split of one run's launch count by shape.  It wraps the
+    launch helpers and counts beside the kernels' own counters."""
 
     def __enter__(self):
         import torch
@@ -3676,9 +3771,14 @@ class ShapeLog:
         from fairify_tpu_torch.verify import engine
 
         self.pgd, self.rows, self.bab, self.bab_case = {}, {}, {}, {}
+        self.sign_bound, self.stage0_certify = {}, {}
         self._saved = (engine._pgd_attack_launch, engine._launch_attack_logits,
-                       engine._bab_segment_launch)
-        pgd, logits, bab = self._saved
+                       engine._bab_segment_launch, engine._sign_bound_launch,
+                       engine._kb_launch)
+        pgd, logits, bab, k8a, kb = self._saved
+        keep = lambda args: [a.clone() if torch.is_tensor(a) else
+                             [t.clone() for t in a] if isinstance(a, list) else a
+                             for a in args]
 
         def pgd_launch(net, lo, *args, **kw):
             self.pgd[lo.shape[0]] = self.pgd.get(lo.shape[0], 0) + 1
@@ -3690,22 +3790,37 @@ class ShapeLog:
             return logits(net, x_roles, *args, **kw)
 
         def bab_launch(net, *args, **kw):
-            keep = [a.clone() if torch.is_tensor(a) else a for a in args]
+            kept = keep(args)
             out = bab(net, *args, **kw)
             key = (int(args[-1]), slot_round_bucket(int(out["nodes"].sum())))
             self.bab[key] = self.bab.get(key, 0) + 1
-            self.bab_case.setdefault(key, (net, keep))
+            self.bab_case.setdefault(key, (net, kept))
             return out
 
-        engine._pgd_attack_launch, engine._launch_attack_logits = pgd_launch, logits_launch
-        engine._bab_segment_launch = bab_launch
+        def k8a_launch(net, *args, **kw):  # lo, hi, signs, alpha_iters, with_ab, live
+            key = (int(args[3]), live_bucket(int(args[5])))
+            self.sign_bound[key] = self.sign_bound.get(key, 0) + 1
+            if key not in CERT_CASES["sign_bound"]:
+                CERT_CASES["sign_bound"][key] = (net, keep(args))
+            return k8a(net, *args, **kw)
+
+        def kb_launch(net, *args, **kw):  # the role and partition boxes, ..., alpha_iters
+            key = (int(args[-1]), int(args[10].shape[0]), getattr(net, "n_models", 1))
+            self.stage0_certify[key] = self.stage0_certify.get(key, 0) + 1
+            if key not in CERT_CASES["stage0_certify"]:
+                CERT_CASES["stage0_certify"][key] = (net, keep(args))
+            return kb(net, *args, **kw)
+
+        (engine._pgd_attack_launch, engine._launch_attack_logits, engine._bab_segment_launch,
+         engine._sign_bound_launch, engine._kb_launch) = (pgd_launch, logits_launch,
+                                                          bab_launch, k8a_launch, kb_launch)
         return self
 
     def __exit__(self, *exc):
         from fairify_tpu_torch.verify import engine
 
-        (engine._pgd_attack_launch, engine._launch_attack_logits,
-         engine._bab_segment_launch) = self._saved
+        (engine._pgd_attack_launch, engine._launch_attack_logits, engine._bab_segment_launch,
+         engine._sign_bound_launch, engine._kb_launch) = self._saved
         return False
 
     def check(self, launch: dict, what: str) -> None:
@@ -3720,6 +3835,16 @@ class ShapeLog:
                  f"{self.bab} do not add up to the counters' pgd_attack "
                  f"{launch['pgd_attack']}, attack_logits + role_logits {want_rows}, "
                  f"bab_segment {launch['bab_segment']}")
+
+    def check_cert(self, launch: dict, what: str) -> None:
+        """Fails unless the K8a and KB split adds up to the counters' sign_bound
+        and stage0_certify + role_certify of the same run."""
+        kb = launch["stage0_certify"] + launch["role_certify"]
+        if sum(self.sign_bound.values()) != launch["sign_bound"] or sum(
+                self.stage0_certify.values()) != kb:
+            fail(f"{what}: launches by shape K8a {self.sign_bound}, KB "
+                 f"{self.stage0_certify} do not add up to the counters' sign_bound "
+                 f"{launch['sign_bound']}, stage0_certify + role_certify {kb}")
 
 
 def bab_by_shape(tails: dict) -> dict:
@@ -3755,10 +3880,84 @@ def bab_by_shape(tails: dict) -> dict:
     return out
 
 
-def run_sweep(net, cfg, model_name: str, required=(), span=None, mesh=None):
+def cert_by_shape(live_window: str = "AC-S1 tail, slice 3") -> dict:
+    """K8a and KB at the shapes of the run's windows (WINDOWS): every bucket
+    met (CERT_CASES) timed on its first launch's inputs, with its bound;
+    per window that launched either kernel, its launches by bucket and
+    launches x (time - bound).  The K8a launch of ``live_window``'s most
+    frequent bucket over its live rows must equal the full launch of the
+    same rows bit for bit (and, when that bucket's launch had no padded
+    row, the most frequent bucket's that had).  Returns, per kernel, the
+    buckets' rows and the windows' splits, and the live-row check."""
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+
+    sizes_of = lambda net: [net.in_dim] + list(net.layer_sizes)
+    name = {"sign_bound": lambda k: f"alpha{k[0]}:<={k[1]}",
+            "stage0_certify": lambda k: f"alpha{k[0]}:N{k[1]}:M{k[2]}"}
+    buckets = {"sign_bound": {}, "stage0_certify": {}}
+    for key, (net, args) in sorted(CERT_CASES["sign_bound"].items()):
+        lo, hi, signs, alpha, _, live = args
+        _, ms = timed(lambda: engine._sign_bound_launch(net, lo, hi, signs, alpha, False,
+                                                        live), 3)
+        b_ms, b_by = bound(*sign_bound_cost(sizes_of(net), live, alpha))
+        buckets["sign_bound"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, live=live,
+                                          rows=int(lo.shape[0]))
+    for key, (net, args) in sorted(CERT_CASES["stage0_certify"].items()):
+        _, ms = timed(lambda: engine._kb_launch(net, *args), 3)
+        V = int(args[10].shape[1])
+        b_ms, b_by = bound(*kb_cost(sizes_of(net), key[1], V, key[2], key[0]))
+        buckets["stage0_certify"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, V=V)
+    out = {k: {"buckets": {name[k](b): r for b, r in v.items()}, "windows": {}}
+           for k, v in buckets.items()}
+    for label, log, _ in WINDOWS:
+        for kernel, tag in (("sign_bound", "K8a"), ("stage0_certify", "KB")):
+            split = getattr(log, kernel)
+            if not split:
+                continue
+            rows = {name[kernel](k): dict(
+                launches=n, ms=buckets[kernel][k]["ms"], bound_ms=buckets[kernel][k]["bound_ms"],
+                excess_s=n * (buckets[kernel][k]["ms"] - buckets[kernel][k]["bound_ms"]) / 1e3)
+                for k, n in sorted(split.items())}
+            win = out[kernel]["windows"]
+            key = label if label not in win else f"{label} #{sum(w.startswith(label) for w in win) + 1}"
+            win[key] = dict(rows, excess_s=sum(r["excess_s"] for r in rows.values()))
+            print(f"[{tag} by shape, {key}] " + ", ".join(
+                f"{b}: {r['launches']} x ({r['ms']:.3f} - {r['bound_ms']:.3f}) ms"
+                for b, r in rows.items())
+                  + f"; launches x (time - bound) {win[key]['excess_s']:.3f} s", flush=True)
+    log = next((w for label, w, _ in WINDOWS if label == live_window), None)
+    if log is None or not log.sign_bound:
+        fail(f"{live_window}: no K8a launch to check live rows on")
+    order = sorted(log.sign_bound.items(), key=lambda kv: (-kv[1], kv[0]))
+    keys = [order[0][0]]
+    padded = [k for k, _ in order if CERT_CASES["sign_bound"][k][1][5]
+              < CERT_CASES["sign_bound"][k][1][0].shape[0]]
+    if padded and padded[0] not in keys:
+        keys.append(padded[0])
+    flat = lambda o: list(o[:3]) + list(o[3]) + list(o[4]) + [o[5]]
+    checked = []
+    for key in keys:
+        net, (lo, hi, signs, alpha, _, live) = CERT_CASES["sign_bound"][key]
+        part = engine._sign_bound_launch(net, lo, hi, signs, alpha, True, live)
+        full = engine._sign_bound_launch(net, lo, hi, signs, alpha, True, lo.shape[0])
+        if not all(torch.equal(a, b) for a, b in zip(flat(part), flat(full))):
+            fail(f"K8a {name['sign_bound'](key)}: the launch over {live} live rows differs "
+                 f"from the full launch of its {lo.shape[0]} rows")
+        checked.append(dict(bucket=name["sign_bound"](key), live=live, rows=int(lo.shape[0])))
+    print(f"[K8a live rows, {live_window}] most frequent buckets {checked}: the live-row "
+          "launch equals the full launch bit for bit", flush=True)
+    out["sign_bound"]["live_check"] = checked
+    return out
+
+
+def run_sweep(net, cfg, model_name: str, required=(), span=None, mesh=None, label=None):
     """verify_model (over ``mesh`` when given) with every launch count
     zeroed just before; returns (report, launch counts, wall seconds).
-    Fails if a kernel of ``required`` never launched in the run."""
+    Fails if a kernel of ``required`` never launched in the run.  The run
+    is one window of WINDOWS (``label``, by default the model, preset, span
+    and mesh), whose K8a and KB launches by shape add up to the counters."""
     import torch
 
     from fairify_tpu_torch.verify import sweep
@@ -3767,11 +3966,16 @@ def run_sweep(net, cfg, model_name: str, required=(), span=None, mesh=None):
     torch.cuda.synchronize()
     sweep.reset_launches()
     t0 = time.perf_counter()
-    rep = sweep.verify_model(net, cfg, model_name=model_name, resume=False,
-                             partition_span=span, mesh=mesh)
+    with ShapeLog() as shapes:
+        rep = sweep.verify_model(net, cfg, model_name=model_name, resume=False,
+                                 partition_span=span, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = sweep.launch_counts()
+    label = label or f"{model_name} {cfg.name}" + (
+        f" {span[0]}-{span[1]}" if span else "") + (" mesh" if mesh is not None else "")
+    shapes.check_cert(counts, label)
+    WINDOWS.append((label, shapes, counts))
     missing = [k for k in required if counts[k] == 0]
     if missing:
         fail(f"{model_name}: kernels never launched on the main path: {missing}")
@@ -3942,7 +4146,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                                      exact_certify_masks=False, engine=engine_cfg)
     gc_net = flagship_net(device="cuda")
     gc_rows = check_kernels(case_inputs("GC", gc_net, gc_cfg), gc_net, reps=5)
-    ac_rows = check_kernels(case_inputs("AC", ac_net, ac_cfg), ac_net, reps=3)
+    ac_case = case_inputs("AC", ac_net, ac_cfg)
+    ac_rows = check_kernels(ac_case, ac_net, reps=3)
+    ac_rows["stage0_certify"]["geometry"] = kb_invariance("AC", ac_net, ac_case["kb"], 0)
+    del ac_case
     # Off the main path, for coverage of the kernels' ε-relaxed (RA) terms
     # and V > 2 assignment pairs: one 2-chunk segment of the relaxed-AC grid.
     rx_cfg = presets.get("relaxed-AC").with_(exact_certify_masks=False,
@@ -3983,7 +4190,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     # --- phase 2c: the Phase-S/L/P kernels on real AC-S1 leftovers, then on
     # relaxed-AC (ε = 5) leftovers for the RA widening
     ac_rows.update(check_phase_s_kernels("AC", ac_net, enc, lo[:512], hi[:512],
-                                         reps=3, mutate=True))
+                                         reps=3, mutate=True, geometry=True))
     # The GC-1 twin's sign candidates all certify at their root: K8a's GC
     # times are the root pattern's.
     gc_rows.update(check_phase_s_kernels("GC", gc_net, genc, glo[:128], ghi[:128],
@@ -4073,7 +4280,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
         with ShapeLog() as shapes:
             rep_ac, launch, wall_ac = run_sweep(
                 ac_net, tail_cfg, "AC-S1-twin", span=(0, 2048),
-                required=SLICE2 if phases is TAIL else SLICE3_PATH)
+                required=SLICE2 if phases is TAIL else SLICE3_PATH, label=f"AC-S1 tail, {tag}")
         shapes.check(launch, f"AC-S1 tail, {tag}")
         tail_launch[tag] = launch
         tail_shapes[tag] = shapes
@@ -4113,7 +4320,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             soft_timeout_s=DEFAULT_SOFT_S, hard_timeout_s=DEFAULT_HARD_S,
             engine=EngineConfig(max_nodes=1000))
         rep_d, launch, wall_d = run_sweep(ac_net, cfg, "AC-S1-twin", span=(0, 1024),
-                                          required=DEFAULT_PATH + (k9,))
+                                          required=DEFAULT_PATH + (k9,),
+                                          label=f"{name} default")
         lat_launch[name] = launch
         thr = check_outputs(rep_d, cfg, ac_net, "AC-S1-twin", launch)
         first = thr["engine_decided"]
@@ -4154,6 +4362,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     harsh9 = harsh_check(ac_net, ac_cfg, reps=3)
     k7 = k7_check(ac_net, lo, hi, reps=3)
     shutil.rmtree(work, ignore_errors=True)
+    # K8a and KB by shape in every window of the run
+    cert_shapes = cert_by_shape()
 
     table = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -4257,6 +4467,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                 "boxes", "trajectories", "near_diffs")}
             row["launches_by_B"] = {str(k): v for k, v in
                                     sorted(tail_shapes["slice 3"].pgd.items())}
+        if name in cert_shapes:
+            row["launches_by_shape"] = cert_shapes[name]
         if name == "bab_segment":
             row["launches_by_shape"] = {t: bab_shapes[t] for t in ("slice 2", "slice 3")}
             row["frequent_shape"] = {k: bab_shapes["frequent"][k] for k in keys + (

@@ -25,7 +25,8 @@
 // chain passes, ~50 k flops).  The compaction is O(Qs) integer work.
 //
 // Design (crown_warp.cuh): a block certifies one live slot at a time, its
-// 2V role boxes side by side; blocks take the next slot of the round from
+// 2V role boxes side by side (crown_warp.cuh:role_forms_stage, the forms
+// stage KB shares); blocks take the next slot of the round from
 // a counter.  Within a layer every backward-pass column pair of every role
 // box is one warp's work (__syncwarp only), every α side of a role box one
 // warp's chain, so a slot runs about 2L block barriers instead of a few
@@ -141,7 +142,7 @@ __device__ __forceinline__ void pair_forms(const float* F, int FS, int V, int d,
 
 __device__ void slot_phase(const NetDesc& nd, const SegArgs& A, const SlotSmem& S, int slot) {
   const int d = nd.in[0], L = nd.L, V = A.V, tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
   const int FS = 2 * d + K6_FORM, nrv = 2 * V;
   const int ns = (A.alpha_iters > 0 && L > 1) ? 2 : 1;
   const int root = A.q_root[slot];
@@ -170,53 +171,8 @@ __device__ void slot_phase(const NetDesc& nd, const SegArgs& A, const SlotSmem& 
     R.inhi[i] = hi;
   }
   __syncthreads();
-  float* wws = S.warps + warp * S.wws;
-  for (int k = 0; k < L; ++k) {
-    ibp_layer(nd, S.P, S.roles, S.rws, nrv, k);
-    __syncthreads();
-    if (k == 0) continue;
-    const int nout = nd.out[k], npair = (nout + 1) / 2;
-    for (int t = warp; t < nrv * npair; t += nw) {
-      const int rv = t / npair, c0 = 2 * (t - rv * npair);
-      crown_columns(nd, S.P, role_ws(S.roles + rv * S.rws, nd), wws, k, c0,
-                    min(2, nout - c0), k == L - 1 ? S.F + rv * FS : nullptr);
-    }
-    __syncthreads();
-  }
-  if (L == 1) {  // the forms of a one-layer net are its weights
-    for (int q = tid; q < nrv * d; q += nt) {
-      const int rv = q / d, i = q - rv * d;
-      float* f = S.F + rv * FS;
-      f[i] = f[d + i] = S.P[nd.w[0] + i * nd.ldw[0]];
-      if (i == 0) {
-        const RoleWs R = role_ws(S.roles + rv * S.rws, nd);
-        F_CL(f, d) = F_CU(f, d) = S.P[nd.b[0]];
-        F_LB(f, d) = R.wslb[nd.n[0]];
-        F_UB(f, d) = R.wsub[nd.n[0]];
-      }
-    }
-    __syncthreads();
-  }
-  if (ns == 2) {
-    for (int t = warp; t < 2 * nrv; t += nw) {
-      const int rv = t >> 1, side = t & 1;
-      alpha_side(nd, S.P, role_ws(S.roles + rv * S.rws, nd), wws, side, A.alpha_iters,
-                 S.F + (nrv + rv) * FS, S.best + t);
-    }
-    __syncthreads();
-    // Both sets' bounds: the widened best bounds intersected with the plain
-    // ones (crown.cuh:alpha_role_forms).
-    for (int rv = tid; rv < nrv; rv += nt) {
-      float* fp = S.F + rv * FS;
-      float* ft = S.F + (nrv + rv) * FS;
-      const float blo = S.best[2 * rv], bhi = S.best[2 * rv + 1];
-      const float slack = SLACK_REL * fmaxf(fabsf(blo), fabsf(bhi)) + SLACK_ABS;
-      const float lb = fmaxf(blo - slack, F_LB(fp, d));
-      const float ub = fminf(bhi + slack, F_UB(fp, d));
-      F_LB(fp, d) = F_LB(ft, d) = lb;
-      F_UB(fp, d) = F_UB(ft, d) = ub;
-    }
-  }
+  role_forms_stage(nd, S.P, S.roles, S.rws, S.warps, S.wws, nrv, S.F, FS, S.best,
+                   ns == 2 ? A.alpha_iters : 0);
   // ---- per-form sums ------------------------------------------------------
   for (int q = tid; q < ns * 2 * V; q += nt) {
     float* f = S.F + q * FS;

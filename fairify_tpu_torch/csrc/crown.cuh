@@ -1,6 +1,7 @@
-// CROWN device functions shared by the certificate kernels: the bounds and
-// output-logit linear forms of one role box (KB, K6) and the α-CROWN
-// optimiser of those forms (K6).
+// Block-wide CROWN device functions: the bounds and output-logit linear
+// forms of one role box and the α-CROWN optimiser of those forms, a whole
+// block on one role box (row 13's CROWN mode, K7, K8b); K6 and KB run the
+// same arithmetic warp by warp (crown_warp.cuh).
 //
 // crown_role_forms mirrors ops/crown.py:crown_bounds + the plain set of
 // crown_output_form_sets: IBP for layer 0, then for every deeper layer a

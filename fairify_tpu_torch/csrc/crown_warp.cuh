@@ -1,7 +1,8 @@
-// Warp-owned CROWN and α-CROWN of one role box: K6's layout on the H100
-// (bab_segment.cu).  crown.cuh runs the same arithmetic with a whole block
-// on one role box (KB, row 13, K7, K8b keep it); here a block certifies
-// one slot, all 2V role boxes side by side, and every sum of a role box is
+// Warp-owned CROWN and α-CROWN of one role box: the H100 layout of K6
+// (bab_segment.cu) and KB (stage0_certify.cu), which share its forms stage
+// (role_forms_stage).  crown.cuh runs the same arithmetic with a whole
+// block on one role box (row 13, K7, K8b keep it); here a block takes all
+// 2V role boxes of one box side by side, and every sum of a role box is
 // carried by one warp.
 //
 // CROWN (crown.cuh:crown_role_forms).  Layer k's backward pass is out_k
@@ -30,9 +31,10 @@
 // splits each row's sum over the two half-warps (even and odd terms, each
 // in index order, added even + odd).  The constant terms of every step and
 // every concretization are summed where the lane holds the terms:
-// lane-strided partials and a warp XOR tree.  So K6's forms and bounds
-// may differ from crown.cuh's (KB's) in the last bits; the queue checks
-// hold K6 to the plain version's decisions.
+// lane-strided partials and a warp XOR tree.  So these forms and bounds
+// may differ from crown.cuh's in the last bits; the card's checks hold K6
+// to the plain version's decisions and KB's margins to the plain version's
+// within tolerance.
 #pragma once
 
 #include "common.cuh"
@@ -142,13 +144,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The next vectors of a column pair: dlo[i] = sum_r W[i, r] xlo[r] and
 // dup[i] = sum_r W[i, r] xup[r] (float2: both columns) for i < nin, r < n.
 // A lane per row i (up to four rows a pass), each sum the index-ordered
-// fmaf chain; a layer of at most 16 rows splits each sum over the two
-// half-warps (even r, odd r), each an index-ordered chain, added even +
-// odd, so every lane works and the halves hit distinct banks.
+// fmaf chain; with `split`, a layer of at most 16 rows splits each sum over
+// the two half-warps (even r, odd r), each an index-ordered chain, added
+// even + odd, so every lane works and the halves hit distinct banks.
 __device__ void rows_dot2(const float* W, int ld, int nin, const float2* xlo,
-                          const float2* xup, int n, float2* dlo, float2* dup) {
+                          const float2* xup, int n, float2* dlo, float2* dup,
+                          bool split = true) {
   const int lane = threadIdx.x & 31;
-  if (nin <= 16) {
+  if (split && nin <= 16) {
     const int i = lane & 15, h = lane >> 4;
     const float* w = W + min(i, nin - 1) * ld;
     float a0 = 0.f, a1 = 0.f, u0 = 0.f, u1 = 0.f;
@@ -493,4 +496,73 @@ __device__ void alpha_side(const NetDesc& nd, const float* P, const RoleWs& R, f
     *best = bestv;
   }
   __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// The forms stage of K6's slot phase and of KB: every role box's CROWN (and
+// α-CROWN) forms, side by side
+// ---------------------------------------------------------------------------
+
+// The output-logit forms of nrv role boxes (R.inlo/R.inhi of each, at roles
+// + rv * rws, written by the caller before a __syncthreads()): layer by
+// layer the IBP of every (role box, unit), then every backward-pass column
+// pair of every role box on a warp (crown_columns); with iters > 0 (and a
+// hidden layer) every α side of every role box on a warp (alpha_side).  Set
+// 0 (plain) of role box rv lands at F + rv * FS, set 1 (α-tuned) at F +
+// (nrv + rv) * FS, each A_low (d), A_up (d), c_low, c_up, lb, ub; with α
+// both sets' bounds are the widened best α bounds intersected with the
+// plain ones (crown.cuh:alpha_role_forms).  warps: the block's warps'
+// scratch, wws floats each; best: 2 nrv floats.  About 2L block barriers;
+// ends with one.
+__device__ void role_forms_stage(const NetDesc& nd, const float* P, float* roles, int rws,
+                                 float* warps, int wws, int nrv, float* F, int FS,
+                                 float* best, int iters) {
+  const int d = nd.in[0], L = nd.L, tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, nw = nt >> 5;
+  float* ws = warps + warp * wws;
+  for (int k = 0; k < L; ++k) {
+    ibp_layer(nd, P, roles, rws, nrv, k);
+    __syncthreads();
+    if (k == 0) continue;
+    const int nout = nd.out[k], npair = (nout + 1) / 2;
+    for (int t = warp; t < nrv * npair; t += nw) {
+      const int rv = t / npair, c0 = 2 * (t - rv * npair);
+      crown_columns(nd, P, role_ws(roles + rv * rws, nd), ws, k, c0, min(2, nout - c0),
+                    k == L - 1 ? F + rv * FS : nullptr);
+    }
+    __syncthreads();
+  }
+  if (L == 1) {  // the forms of a one-layer net are its weights
+    for (int q = tid; q < nrv * d; q += nt) {
+      const int rv = q / d, i = q - rv * d;
+      float* f = F + rv * FS;
+      f[i] = f[d + i] = P[nd.w[0] + i * nd.ldw[0]];
+      if (i == 0) {
+        const RoleWs R = role_ws(roles + rv * rws, nd);
+        f[2 * d + 0] = f[2 * d + 1] = P[nd.b[0]];
+        f[2 * d + 2] = R.wslb[nd.n[0]];
+        f[2 * d + 3] = R.wsub[nd.n[0]];
+      }
+    }
+    __syncthreads();
+  }
+  if (iters > 0 && L > 1) {
+    for (int t = warp; t < 2 * nrv; t += nw) {
+      const int rv = t >> 1, side = t & 1;
+      alpha_side(nd, P, role_ws(roles + rv * rws, nd), ws, side, iters, F + (nrv + rv) * FS,
+                 best + t);
+    }
+    __syncthreads();
+    for (int rv = tid; rv < nrv; rv += nt) {
+      float* fp = F + rv * FS;
+      float* ft = F + (nrv + rv) * FS;
+      const float blo = best[2 * rv], bhi = best[2 * rv + 1];
+      const float slack = SLACK_REL * fmaxf(fabsf(blo), fabsf(bhi)) + SLACK_ABS;
+      const float lb = fmaxf(blo - slack, fp[2 * d + 2]);
+      const float ub = fminf(bhi + slack, fp[2 * d + 3]);
+      fp[2 * d + 2] = ft[2 * d + 2] = lb;
+      fp[2 * d + 3] = ft[2 * d + 3] = ub;
+    }
+    __syncthreads();
+  }
 }

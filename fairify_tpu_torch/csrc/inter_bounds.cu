@@ -12,8 +12,8 @@
 // layers k >= 1, over j < k, of in_j * out_j * out_k MACs per box, ~0.8 M at
 // AC-S1 widths); the bytes (2d floats in, 2 * sum(n_k) out per box) are small.
 //
-// Design: crown.cuh:crown_role_forms, the function KB and K6 run per role
-// box — the packed network, the layer bounds and the backward pass's
+// Design: crown.cuh:crown_role_forms, the block-wide CROWN of one role box
+// (row 13's CROWN mode runs it too) — the packed network, the layer bounds and the backward pass's
 // coefficient matrices in dynamic shared memory — and then the block writes
 // the widened bounds of every layer out.
 #include "common.cuh"

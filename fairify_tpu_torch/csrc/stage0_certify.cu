@@ -6,16 +6,16 @@
 // runs on the device: the _certify_impl half of sweep.py:_mega_stage0_kernel
 // (row 4), of its family form _mega_family_stage0_kernel (row 5), of
 // _family_stage0_kernel (row 7) and of engine._certify_attack_kernel
-// (row 15: the chunk loop and the host-frontier BaB).  Per partition box,
-// per model, and for each of the V protected-attribute assignments of both
-// roles (x, x'):
+// (row 15: the chunk loop and the host-frontier BaB), and the certificate
+// alone of the mesh path (rows 14 and 6).  Per partition box, per model,
+// and for each of the V protected-attribute assignments of both roles
+// (x, x'):
 //   * IBP for layer 0, then for every deeper layer a CROWN backward pass
 //     (triangle ReLU relaxation, adaptive lower slope) concretized over the
 //     role box, intersected with IBP and widened outward;
 //   * the output-logit linear forms (A_low, c_low, A_up, c_up) of the last
 //     backward pass; with alpha_iters > 0 a second form set from the
-//     α-CROWN optimiser (crown.cuh:alpha_role_forms), whose bounds tighten
-//     both sets' role bounds.
+//     α-CROWN optimiser, whose bounds tighten both sets' role bounds.
 // Then, per assignment pair (a, b), flip direction and form set, the tied
 // difference bound max over shared coordinates of (pos form - neg form),
 // widened with its own magnitude before the min over form sets, the role
@@ -30,22 +30,53 @@
 // the bytes (role boxes in, 2 + d values per box out) are small.
 //
 // Design: one block per (box, model): blockIdx.x the box, blockIdx.y the
-// model of a stacked family, whose packed net starts at m * nd.total floats;
-// outputs of model m sit at m * N + box.  The packed network, the current
-// role box's layer bounds, the backward pass's coefficient matrices
-// (A_low/A_up ping-pong), the α workspace and the form sets live in dynamic
-// shared memory.  Every product is a true-f32 FMA loop (no tensor cores, so
-// no TF32).  The pair stage reads the stored forms, one thread per pair, and
-// reduces the certificate (any possible flip) and the margin (min) across
-// the block; the score takes one thread per coordinate.
+// model of a stacked family, whose packed net (rows at an odd stride,
+// cuda_build.pack_odd_models) starts at m * mstride floats; outputs of
+// model m sit at m * N + box.  The net is staged once per block by one bulk
+// copy.  The 2V role boxes' CROWN and α-CROWN forms are computed side by
+// side by crown_warp.cuh:role_forms_stage, the forms stage K6 runs: a warp
+// per backward-pass column pair or α side, about 2L block barriers, no
+// coefficient matrix in shared memory.  Then KB's own stages: the per-form
+// sums (a thread per form), the pair stage (a thread per pair: tied bounds,
+// deadness, the certificate and the margin, a block min), the score (a
+// thread per coordinate).  The launch geometry (warps per block) comes from
+// the wrapper (engine.kb_geometry) and the entry point refuses any other
+// shared-memory size.  Every product is a true-f32 FMA loop (no tensor
+// cores, so no TF32).  The model axis only offsets the net and the outputs,
+// so a family launch equals the solo launches per model bit for bit.
 #include "common.cuh"
-#include "crown.cuh"
+#include "crown_warp.cuh"
+#include "warp_tile.cuh"
 
-#define KB_THREADS 256
+#define KB_MAX_WARPS 16
 #define KB_FORM 10  // per-form scalars after the two d-vectors
 
-__global__ void __launch_bounds__(KB_THREADS)
-kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
+// Float offsets of one block's shared memory after the mbarrier's 4: the
+// net, the 2V role boxes, the warps' scratch, both form sets, the box
+// vectors, the α best bounds, the reduction scratch and the flag
+// (engine.kb_smem is the same sum).
+struct KbLayout {
+  int net, roles, rws, warps, wws, F, box, best, red, total;
+};
+
+__host__ __device__ inline KbLayout kb_layout(const NetDesc& nd, int V, int warps) {
+  KbLayout o;
+  const int d = nd.in[0], FS = 2 * d + KB_FORM;
+  o.net = 4;
+  o.roles = o.net + cw_round4(nd.total);
+  o.rws = role_ws_floats(nd);
+  o.warps = o.roles + 2 * V * o.rws;
+  o.wws = warp_ws_floats(nd);
+  o.F = o.warps + warps * o.wws;
+  o.box = o.F + cw_round4(2 * 2 * V * FS);
+  o.best = o.box + cw_round4(4 * d);
+  o.red = o.best + cw_round4(4 * V);
+  o.total = o.red + 32 + 4;
+  return o;
+}
+
+__global__ void __launch_bounds__(KB_MAX_WARPS * 32)
+kb_kernel(NetDesc nd, const float* __restrict__ params, long long mstride,
           const float* __restrict__ xlo, const float* __restrict__ xhi,
           const float* __restrict__ plo, const float* __restrict__ phi,
           const float* __restrict__ blo_g, const float* __restrict__ bhi_g,
@@ -54,25 +85,32 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
           const uint8_t* __restrict__ valid, const uint8_t* __restrict__ vpair,
           int V, int N, int alpha_iters, uint8_t* __restrict__ cert,
           float* __restrict__ score, float* __restrict__ margin) {
-  extern __shared__ float smem[];
-  const int d = nd.in[0], FS = 2 * d + KB_FORM;
+  extern __shared__ __align__(16) float smem[];
+  const int d = nd.in[0], FS = 2 * d + KB_FORM, nrv = 2 * V;
   const int ns = (alpha_iters > 0 && nd.L > 1) ? 2 : 1;  // form sets
-  float* P = smem;
-  CrownWs ws;
-  AlphaWs aw;
-  float* F = crown_ws_carve(ws, P + nd.total, nd, maxA);  // ns * 2V forms of FS floats
-  float* bl = F + ns * 2 * V * FS;
+  const int b = blockIdx.x, m = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  const KbLayout o = kb_layout(nd, V, nt >> 5);
+  float* P = smem + o.net;
+  float* roles = smem + o.roles;
+  float* F = smem + o.F;  // ns * 2V forms of FS floats
+  float* bl = smem + o.box;
   float* bh = bl + d;
   float* absb = bh + d;
   float* shr = absb + d;
-  float* scratch = shr + d;  // 32
-  int* flag = (int*)(scratch + 32);
-  if (ns == 2) alpha_ws_carve(aw, scratch + 32 + 1, nd);
-
-  const int b = blockIdx.x, m = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  float* scratch = smem + o.red;  // 32
+  int* flag = reinterpret_cast<int*>(scratch + 32);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   const size_t out = (size_t)m * N + b;
-  const float* Pm = params + (size_t)m * nd.total;
-  for (int i = tid; i < nd.total; i += nt) P[i] = Pm[i];
+
+  stage_net(P, params + (size_t)m * mstride, cw_round4(nd.total), bar);
+  for (int q = tid; q < nrv * d; q += nt) {  // the role boxes
+    const int rv = q / d, i = q - rv * d;
+    const int role = rv / V, v = rv - role * V;
+    const size_t src = ((size_t)b * V + v) * d + i;
+    const RoleWs R = role_ws(roles + rv * o.rws, nd);
+    R.inlo[i] = (role == 0 ? xlo : plo)[src];
+    R.inhi[i] = (role == 0 ? xhi : phi)[src];
+  }
   for (int i = tid; i < d; i += nt) {
     const float l = blo_g[(size_t)b * d + i], h = bhi_g[(size_t)b * d + i];
     bl[i] = l;
@@ -81,22 +119,12 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
     shr[i] = 1.f - pam[i];
   }
   if (tid == 0) *flag = 0;
+  mbar_wait(bar, 0);
   __syncthreads();
 
   // ---- CROWN (and α-CROWN) bounds + output forms of the 2V role boxes ----
-  for (int rv = 0; rv < 2 * V; ++rv) {
-    const int role = rv / V, v = rv - role * V;
-    const float* slo = (role == 0 ? xlo : plo) + ((size_t)b * V + v) * d;
-    const float* shi = (role == 0 ? xhi : phi) + ((size_t)b * V + v) * d;
-    for (int i = tid; i < d; i += nt) {
-      ws.inlo[i] = slo[i];
-      ws.inhi[i] = shi[i];
-    }
-    __syncthreads();
-    float* f0 = F + rv * FS;
-    crown_role_forms(nd, maxA, P, ws, f0);
-    if (ns == 2) alpha_role_forms(nd, P, ws, aw, alpha_iters, f0, f0 + 2 * V * FS);
-  }
+  role_forms_stage(nd, P, roles, o.rws, smem + o.warps, o.wws, nrv, F, FS, smem + o.best,
+                   ns == 2 ? alpha_iters : 0);
   // ---- per-form sums: PA dot products, RA magnitudes, coefficient mags ----
   for (int q = tid; q < ns * 2 * V; q += nt) {
     float* f = F + q * FS;
@@ -183,24 +211,33 @@ kb_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
   }
 }
 
-extern "C" int kb_stage0_certify(const void* params, const int* dims, int L,
+// Dynamic shared memory of one block (engine.kb_smem).
+static inline long long kb_smem(const NetDesc& nd, int V, int warps) {
+  return 4LL * kb_layout(nd, V, warps).total;
+}
+
+// The launch geometry comes from the wrapper (engine.kb_geometry: warps per
+// block, shared-memory bytes) and is checked here against the net and the
+// kernel's limits.  params is cuda_build.pack_odd_models's buffer: M packs
+// of mstride floats (a multiple of 4), each padded to 16 bytes.
+extern "C" int kb_stage0_certify(const void* params, const int* dims, int L, long long mstride,
                                  const void* xlo, const void* xhi, const void* plo,
                                  const void* phi, const void* blo, const void* bhi,
                                  const void* assign, const void* pam, const void* ram,
                                  float eps, const void* valid, const void* vpair,
                                  int N, int V, int M, int alpha_iters, void* cert,
-                                 void* score, void* margin, void* stream) {
-  const NetDesc nd = make_desc(dims, L);
-  const int maxA = crown_max_a(nd), d = nd.in[0];
-  const int ns = (alpha_iters > 0 && L > 1) ? 2 : 1;
-  const size_t smem = sizeof(float) * (nd.total + crown_ws_floats(nd, maxA)
-                                       + ns * 2 * V * (2 * d + KB_FORM) + 4 * d + 32 + 1
-                                       + (ns == 2 ? alpha_ws_floats(nd) : 0));
-  cudaError_t err = set_smem(kb_kernel, smem);
+                                 void* score, void* margin, int warps, long long smem,
+                                 void* stream) {
+  const NetDesc nd = make_desc(dims, L, /*odd_rows=*/true);
+  if (warps < 1 || warps > KB_MAX_WARPS || V < 1 || smem != kb_smem(nd, V, warps) ||
+      smem > SMEM_LIMIT || nd.out[L - 1] != 1 || mstride != cw_round4(nd.total) ||
+      alpha_iters < 0 || M > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(kb_kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   if (N > 0 && M > 0)
-    kb_kernel<<<dim3(N, M), KB_THREADS, smem, (cudaStream_t)stream>>>(
-        nd, maxA, (const float*)params, (const float*)xlo, (const float*)xhi,
+    kb_kernel<<<dim3(N, M), 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+        nd, (const float*)params, mstride, (const float*)xlo, (const float*)xhi,
         (const float*)plo, (const float*)phi, (const float*)blo, (const float*)bhi,
         (const float*)assign, (const float*)pam, (const float*)ram, eps,
         (const uint8_t*)valid, (const uint8_t*)vpair, V, N, alpha_iters,

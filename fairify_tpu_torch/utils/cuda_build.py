@@ -247,26 +247,41 @@ def odd_layout(sizes) -> dict:
     return lay
 
 
-def _pack_odd(net):
+def _pack_odd_models(net):
+    stacked = hasattr(net, "n_models")
+    M = net.n_models if stacked else 1
     sizes = [net.in_dim] + list(net.layer_sizes)
     _check_depth(len(sizes) - 1)
     lay = odd_layout(sizes)
-    flat = torch.zeros(lay["padded"], dtype=torch.float32, device=net.device)
+    flat = torch.zeros((M, lay["padded"]), dtype=torch.float32, device=net.device)
     for l, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        w, b, m = (w, b, m) if stacked else (w[None], b[None], m[None])
         n_in, n_out = sizes[l], sizes[l + 1]
         o = lay["w"][l]
-        flat[o:o + n_in * lay["ldw"][l]].view(n_in, lay["ldw"][l])[:, :n_out] = w
-        flat[lay["b"][l]:lay["b"][l] + n_out] = b
-        flat[lay["m"][l]:lay["m"][l] + n_out] = m
-    return flat, _dims(sizes)
+        flat[:, o:o + n_in * lay["ldw"][l]].view(M, n_in, lay["ldw"][l])[:, :, :n_out] = w
+        flat[:, lay["b"][l]:lay["b"][l] + n_out] = b
+        flat[:, lay["m"][l]:lay["m"][l] + n_out] = m
+    return flat.reshape(-1), _dims(sizes), M
+
+
+def pack_odd_models(net):
+    """``(params, dims, M)``: :func:`pack_odd`'s layout for each model of
+    a stacked net back to back, model m at ``m * odd_layout(dims)["padded"]``
+    floats (16-byte aligned), or for a single net (M = 1).  KB
+    (``csrc/stage0_certify.cu``) reads it.  Built once per net
+    (:func:`_cached`)."""
+    return _cached(net, "odd_models", _pack_odd_models)
 
 
 def pack_odd(net):
     """``(params, dims)``: :func:`pack_net`'s layout with each weight row
     padded to an odd stride (:func:`odd_layout`), so a warp whose lanes read
     one column of consecutive rows hits 32 distinct banks (K6,
-    ``csrc/bab_segment.cu``).  Built once per net (:func:`_cached`)."""
-    return _cached(net, "odd", _pack_odd)
+    ``csrc/bab_segment.cu``, and K8a, ``csrc/sign_bound.cu``).  Built once
+    per net (:func:`_cached`)."""
+    if hasattr(net, "n_models"):
+        raise TypeError("pack_odd: one net; a stacked family takes pack_odd_models")
+    return pack_odd_models(net)[:2]
 
 
 # ---------------------------------------------------------------------------

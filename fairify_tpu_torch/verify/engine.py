@@ -232,7 +232,18 @@ def _kb(counter, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra
             valid, valid_pair, alpha_iters))
     if net.layer_sizes[-1] != 1:
         raise ValueError(f"{counter.__name__}: the net must have one output logit")
-    params, dims, M = cuda_build.pack_models(net)
+    out = _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
+                     eps, valid, valid_pair, alpha_iters)
+    counter.launches += 1
+    return out
+
+
+def _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
+               eps: float, valid, valid_pair, alpha_iters: int, _geometry_force=None):
+    """One launch of ``kb_stage0_certify`` on CUDA tensors (the geometry
+    from :func:`kb_geometry`); ``_geometry_force`` (warps a block) forces
+    it: the card's checks that the certificate does not depend on it."""
+    params, dims, M = cuda_build.pack_odd_models(net)
     u8 = lambda t: t.to(torch.uint8).contiguous()
     ins = [t.contiguous() for t in (x_lo, x_hi, xp_lo, xp_hi, lo, hi,
                                     assign_vals, pa_mask, ra_mask)]
@@ -241,17 +252,19 @@ def _kb(counter, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra
     N, V = valid.shape
     d = lo.shape[1]
     dev = lo.device
+    geo = _kb_geometry(tuple(dims), V, cuda_build.SMEM_LIMIT, _geometry_force)
     cert = torch.empty((M, N), dtype=torch.uint8, device=dev)
     score = torch.empty((M, N, d), dtype=torch.float32, device=dev)
     margin = torch.empty((M, N), dtype=torch.float32, device=dev)
     cuda_build.call("stage0_certify", "kb_stage0_certify",
                     cuda_build.ptr(params), dims, ctypes.c_int(net.depth),
+                    ctypes.c_longlong(params.numel() // M),
                     *(cuda_build.ptr(t) for t in ins), ctypes.c_float(eps),
                     cuda_build.ptr(vb), cuda_build.ptr(vp), ctypes.c_int(N),
                     ctypes.c_int(V), ctypes.c_int(M), ctypes.c_int(int(alpha_iters)),
                     cuda_build.ptr(cert), cuda_build.ptr(score), cuda_build.ptr(margin),
+                    ctypes.c_int(geo["warps"]), ctypes.c_longlong(geo["smem"]),
                     cuda_build.stream())
-    counter.launches += 1
     out = (cert.bool(), score, margin)
     return out if isinstance(net, StackedMLP) else tuple(t[0] for t in out)
 
@@ -573,9 +586,16 @@ K6_MAX_WARPS = 16  # csrc/bab_segment.cu
 # (on an H100 at AC-S1 widths: 1 and 8 live roots ran 10-25% faster on
 # 16 warps, one block an SM; 32 and 128 on the throughput geometry).
 K6_FEW_LIVE = 16
-# Warps one SM holds at K6's register cap (__launch_bounds__ of 512
-# threads: at most 128 registers a thread, 65,536 an SM).
+# Warps one SM holds at the register cap of K6, K8a and KB
+# (__launch_bounds__ of 512 threads: at most 128 registers a thread, 65,536
+# an SM).
 K6_SM_WARPS = 16
+
+
+def _per_sm(smem: int, warps: int) -> int:
+    """Blocks of ``smem`` bytes and ``warps`` warps one SM holds (each block
+    also takes 1,024 bytes; 512-thread launch bounds)."""
+    return min(cuda_build.SMEM_PER_SM // (smem + 1024), K6_SM_WARPS // warps)
 
 
 def _r4(v: int) -> int:
@@ -619,7 +639,7 @@ def bab_geometry(sizes, V: int, Qs: int, sms: int = 132,
     if not 1 <= warps <= wmax:
         raise ValueError(f"bab_segment: {warps} warps do not fit in shared memory")
     smem = bab_smem(sizes, V, warps)
-    per_max = min(cuda_build.SMEM_PER_SM // (smem + 1024), K6_SM_WARPS // warps)
+    per_max = _per_sm(smem, warps)
     per_sm = (1 if few else per_max) if _force is None else int(_force[1])
     if not 1 <= per_sm <= per_max:
         raise ValueError(f"bab_segment: {per_sm} blocks of {warps} warps per SM do not fit "
@@ -628,11 +648,97 @@ def bab_geometry(sizes, V: int, Qs: int, sms: int = 132,
                 grid=max(1, min(Qs, per_sm * sms)), smem=smem)
 
 
+KB_MAX_WARPS = 16  # csrc/stage0_certify.cu
+K8A_MAX_WARPS = 16  # csrc/sign_bound.cu
+
+
+def kb_smem(sizes, V: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one KB block
+    (``stage0_certify.cu:kb_layout``): the mbarrier's 16; the odd-stride net
+    (``cuda_build.odd_layout``); per role box (2V) its widened bounds and
+    their relaxation (5 nsum), IBP bounds (2 maxw) and box (2d); per warp
+    the larger of the CROWN column pair's 8 maxw and the α side's 2 nsum +
+    d + 3 maxw; both form sets (4V (2d + 10)), the box vectors (4d), the α
+    best bounds (4V), 32 floats of reduction scratch and the flag; every
+    part rounded up to 4 floats."""
+    d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+    fl = (4 + cuda_build.odd_layout(sizes)["padded"]
+          + 2 * V * _r4(5 * nsum + 2 * maxw + 2 * d)
+          + warps * _r4(max(8 * maxw, 2 * nsum + d + 3 * maxw))
+          + _r4(4 * V * (2 * d + 10)) + _r4(4 * d) + _r4(4 * V) + 32 + 4)
+    return 4 * fl
+
+
+def kb_geometry(sizes, V: int, smem_limit: int = cuda_build.SMEM_LIMIT, _force=None) -> dict:
+    """Launch geometry of KB (one block per box and model) with V
+    assignments: 4V warps a block (one per α side of every role box; at
+    least 4, at most KB_MAX_WARPS and what shared memory holds), and the
+    blocks an SM holds (``per_sm``).  ``_force`` (warps) overrides the
+    choice; a geometry that does not fit raises."""
+    cap = KB_MAX_WARPS if _force is not None else min(KB_MAX_WARPS, max(4, 4 * V))
+    wmax = _fit_warps(lambda w: kb_smem(sizes, V, w), cap, smem_limit)
+    warps = wmax if _force is None else int(_force)
+    if not 1 <= warps <= wmax:
+        raise ValueError(f"stage0_certify: {warps} warps do not fit in shared memory")
+    smem = kb_smem(sizes, V, warps)
+    return dict(warps=warps, threads=32 * warps, smem=smem, per_sm=_per_sm(smem, warps))
+
+
+def sign_bound_smem(sizes, warps: int) -> int:
+    """Bytes of dynamic shared memory of one K8a block
+    (``sign_bound.cu:sb_layout``): the mbarrier's 16; the odd-stride net;
+    the box (2d); six per-layer vectors (6 maxw); eleven per-neuron vectors
+    (bounds, relaxation, split signs, α/β: 11 nsum) and four gradient sums
+    (4 nsum); the flag; the warps' workspaces, carved per layer k >= 1 for
+    the warps that have a column pair there, each 4 maxw + 8 n_k + 4d (n_k
+    the units of the layers before k), the most any layer needs; every part
+    rounded up to 4 floats."""
+    d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+    ws = max([min(warps, (sizes[k + 1] + 1) // 2)
+              * _r4(4 * maxw + 8 * sum(sizes[1:k + 1]) + 4 * d)
+              for k in range(1, len(sizes) - 1)] or [0])
+    fl = (4 + cuda_build.odd_layout(sizes)["padded"] + _r4(2 * d) + _r4(6 * maxw)
+          + _r4(11 * nsum) + _r4(4 * nsum) + 4 + ws)
+    return 4 * fl
+
+
+def sign_bound_geometry(sizes, live=None, sms: int = 132,
+                        smem_limit: int = cuda_build.SMEM_LIMIT, _force=None) -> dict:
+    """Launch geometry of K8a (one block per live box): warps a block, a
+    power of two at most one per column pair of the widest layer past the
+    first (K8A_MAX_WARPS and what shared memory holds): the most at which
+    two blocks fit an SM with at least 4 warps each, so that one box's
+    narrow layers overlap another's (on an H100 at AC-S1, B = 512: 4 warps,
+    two blocks an SM, 4.07 ms against 4.38 at 16 warps and 4.92 at 8, one
+    block an SM), else the most that fit.  A launch of at most ``sms`` live
+    boxes is one box's critical path: it takes the most warps (16 at AC-S1:
+    1.18-1.31 ms against 1.34-1.48 at 8).  ``per_sm``: the blocks an SM
+    holds.  ``_force`` (warps) overrides the choice; a geometry that does
+    not fit raises."""
+    pairs = max([(n + 1) // 2 for n in sizes[2:]] or [1])
+    cap = K8A_MAX_WARPS if _force is not None else min(K8A_MAX_WARPS, pairs)
+    wmax = _fit_warps(lambda w: sign_bound_smem(sizes, w), cap, smem_limit)
+    if _force is None:
+        per = lambda w: _per_sm(sign_bound_smem(sizes, w), w)
+        pow2 = [1 << i for i in range(wmax.bit_length()) if 1 << i <= wmax]
+        two = [w for w in pow2 if w >= 4 and per(w) >= 2]
+        few = live is not None and live <= sms
+        warps = max(two) if two and not few else max(pow2)
+    else:
+        warps = int(_force)
+        if not 1 <= warps <= wmax:
+            raise ValueError(f"sign_bound: {warps} warps do not fit in shared memory")
+    smem = sign_bound_smem(sizes, warps)
+    return dict(warps=warps, threads=32 * warps, smem=smem, per_sm=_per_sm(smem, warps))
+
+
 # The wrappers' geometry, computed once per shape (hashable arguments; the
 # returned dicts are shared and read only).
 _attack_logits_geometry = functools.lru_cache(maxsize=256)(attack_logits_geometry)
 _pgd_geometry = functools.lru_cache(maxsize=256)(pgd_geometry)
 _bab_geometry = functools.lru_cache(maxsize=256)(bab_geometry)
+_kb_geometry = functools.lru_cache(maxsize=256)(kb_geometry)
+_sign_bound_geometry = functools.lru_cache(maxsize=256)(sign_bound_geometry)
 
 
 def attack_logits_plain(net, x_roles, xp_roles):
@@ -1588,19 +1694,44 @@ def sign_bound_ab_floats(sizes, alpha_iters: int) -> int:
     return sum(4 * sum(hidden[:k]) for k in range(1, len(sizes) - 1))
 
 
-def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False):
+def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False, live=None):
     """K8a: β-CROWN output bounds of B boxes (B, d) under per-hidden-layer
     sign patterns (B, n_j) in {-1, 0, +1}, one launch; see
     :func:`ops.crown.sign_constrained_output_bounds` for the outputs.
     ``with_ab`` also returns the final α/β (:func:`sign_bound_plain`'s
-    layout).  CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/sign_bound.cu``."""
+    layout).  ``live`` (default B): rows ``>= live`` get row ``live - 1``'s
+    outputs — what a full call returns for them when they repeat that row's
+    inputs (:func:`_pad`).  CUDA tensors launch ``csrc/sign_bound.cu`` over
+    the live rows only; CPU tensors take the plain version on every row
+    (whose results for a row may depend on the batch's size in the last
+    bits) and the same fill."""
+    B = lo.shape[0]
+    live = B if live is None else int(live)
+    if not (1 <= live <= B or live == B == 0):
+        raise ValueError(f"sign_bound: live={live} for {B} rows")
     if lo.device.type == "cpu":
         out, ab = sign_bound_plain(net, lo, hi, signs, alpha_iters)
+        if live < B:
+            fill = lambda t: torch.cat([t[:live], t[live - 1:live].expand(
+                (B - live,) + t.shape[1:])])
+            out = (fill(out[0]), fill(out[1]), fill(out[2]), [fill(t) for t in out[3]],
+                   [fill(t) for t in out[4]])
+            ab = fill(ab)
         return out + (ab,) if with_ab else out
     if net.layer_sizes[-1] != 1:
         raise ValueError("sign_bound: the net must have one output logit")
-    params, dims = cuda_build.pack_net(net)
+    out = _sign_bound_launch(net, lo, hi, signs, alpha_iters, with_ab, live)
+    sign_bound.launches += 1
+    return out
+
+
+def _sign_bound_launch(net, lo, hi, signs, alpha_iters: int, with_ab: bool, live: int,
+                       _geometry_force=None):
+    """One launch of ``k8a_sign_bound`` over the ``live`` first of the B
+    rows (the geometry from :func:`sign_bound_geometry`);
+    ``_geometry_force`` (warps a block) forces it: the card's checks that
+    the bounds do not depend on it."""
+    params, dims = cuda_build.pack_odd(net)
     sizes = [net.in_dim] + list(net.layer_sizes)
     hidden = sizes[1:-1]
     B = lo.shape[0]
@@ -1609,9 +1740,12 @@ def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False):
         else lo.new_zeros((B, 0))
     cuda_build.require_cuda(params, lo, hi, sg)
     dev = lo.device
+    sms = cuda_build.sm_count(dev)
+    # Live rows up to one past the SM count: all the geometry reads (it
+    # keeps the memoized shapes few).
+    geo = _sign_bound_geometry(tuple(sizes), min(live, sms + 1), sms, cuda_build.SMEM_LIMIT,
+                               _geometry_force)
     nh = sum(hidden)
-    ws_stride = sign_bound_ws_floats(sizes)
-    ws = torch.empty(max(B * ws_stride, 1), dtype=torch.float32, device=dev)
     out_lo = torch.empty(B, dtype=torch.float32, device=dev)
     out_hi = torch.empty_like(out_lo)
     feasible = torch.empty(B, dtype=torch.uint8, device=dev)
@@ -1621,33 +1755,20 @@ def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False):
     ab = torch.empty((B, ab_stride), dtype=torch.float32, device=dev) if with_ab else None
     cuda_build.call("sign_bound", "k8a_sign_bound", cuda_build.ptr(params), dims,
                     ctypes.c_int(net.depth), cuda_build.ptr(lo), cuda_build.ptr(hi),
-                    cuda_build.ptr(sg), ctypes.c_int(B), ctypes.c_int(int(alpha_iters)),
-                    cuda_build.ptr(ws), ctypes.c_int(ws_stride), cuda_build.ptr(out_lo),
+                    cuda_build.ptr(sg), ctypes.c_int(B), ctypes.c_int(live),
+                    ctypes.c_int(int(alpha_iters)), cuda_build.ptr(out_lo),
                     cuda_build.ptr(out_hi), cuda_build.ptr(feasible),
                     cuda_build.ptr(scores), cuda_build.ptr(resolved),
                     ctypes.c_void_p(ab.data_ptr() if ab is not None and ab.numel()
                                     else 0),
+                    ctypes.c_int(geo["warps"]), ctypes.c_longlong(geo["smem"]),
                     cuda_build.stream())
-    sign_bound.launches += 1
     out = (out_lo, out_hi, feasible.bool(), list(scores[:, :nh].split(hidden, dim=1)),
            list(resolved[:, :nh].split(hidden, dim=1)))
     return out + (ab,) if with_ab else out
 
 
 sign_bound.launches = 0
-
-
-def sign_bound_ws_floats(sizes) -> int:
-    """Per-box floats of K8a's global workspace (``csrc/sign_bound.cu``):
-    for each form, the stack of layer k's backward-pass matrices (one per
-    layer j < k, n_j x n_k, then the input level, d x n_k) and two adjoint
-    buffers of max(d, n_j) x n_k, at the k that needs the most."""
-    d, hidden = sizes[0], list(sizes[1:])
-    stack = adj = 1
-    for k in range(1, len(hidden)):
-        stack = max(stack, hidden[k] * (sum(hidden[:k]) + d))
-        adj = max(adj, hidden[k] * max([d] + hidden[:k]))
-    return 2 * (stack + 2 * adj)
 
 
 def leaf_sign_lp(weights, biases, masks, pattern, lo, hi, want_positive: bool):
@@ -1733,10 +1854,12 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
     ``lp_sign_max_unstable`` unstable neurons, fewest first; 'certified'
     settles a root UNSAT, 'refuted' settles it 'mixed'.  The rest share one
     device frontier of sign patterns, ``frontier_size`` per
-    :func:`sign_bound` launch (K8a), with BaBSR branching, the exact-region
-    leaf LP (:func:`leaf_sign_lp`) on fully resolved branches, the
-    per-root ``sign_max_nodes`` cap, and a root settled only after the
-    whole batch that popped its last branch (siblings may share a batch).
+    :func:`sign_bound` launch (K8a; padded to ``frontier_size`` as in JAX,
+    the kernel launched over the batch's rows only), with BaBSR branching,
+    the exact-region leaf LP (:func:`leaf_sign_lp`) on fully resolved
+    branches, the per-root ``sign_max_nodes`` cap, and a root settled only
+    after the whole batch that popped its last branch (siblings may share a
+    batch).
 
     With a ``mesh`` (``parallel.mesh.Mesh``) every K8b and K8a batch is
     sharded over its ``parts`` axis (the net replicated) and trimmed back
@@ -1747,6 +1870,7 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
     batch's time split evenly over its branches) and its Phase-L share.
     """
     mesh_mod.require_mesh(mesh)
+    sharded = mesh is not None
     t0 = time.perf_counter()
     R = roots_lo.shape[0]
     n_hidden = net.depth - 1
@@ -1856,8 +1980,12 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
         np.subtract.at(open_n, broot, 1)
         np.add.at(nodes, broot, 1)
         np.add.at(dev_nodes, broot, 1)
+        # Unsharded, K8a computes the batch's rows only; a mesh keeps its
+        # full padded shards.
+        live = None if sharded else batch
         out_lo, out_hi, feasible, scores, resolved = batched(
-            lambda m, lo, hi, *sg: sign_bound(m, lo, hi, list(sg), cfg.alpha_iters),
+            lambda m, lo, hi, *sg: sign_bound(m, lo, hi, list(sg), cfg.alpha_iters,
+                                              live=live),
             _pad(slo[broot].astype(np.float32), F), _pad(shi[broot].astype(np.float32), F),
             *bsigns)
         out_lo, out_hi, feasible = out_lo[:batch], out_hi[:batch], feasible[:batch]

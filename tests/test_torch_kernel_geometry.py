@@ -1,13 +1,15 @@
 """Launch geometry and packs of the warp-tile kernels, on the CPU.
 
 ``engine.attack_logits_geometry``, ``engine.pgd_geometry``,
-``engine.bab_geometry`` and ``lattice.lattice_geometry`` size the launches
+``engine.bab_geometry``, ``engine.sign_bound_geometry``,
+``engine.kb_geometry`` and ``lattice.lattice_geometry`` size the launches
 of ``csrc/attack_logits.cu`` (rows 17, 9, 21), ``csrc/pgd_attack.cu``
-(K5), ``csrc/bab_segment.cu`` (K6) and the lattice signs kernel of
-``csrc/lattice_scan.cu`` (K9a/b/c), and the C entry points refuse any other
-shared-memory size; so these tests hold the geometry at an H100's 132 SMs
-and 227 KB (232,448 bytes) of shared memory a block, for the nets the repo
-runs, without a card:
+(K5), ``csrc/bab_segment.cu`` (K6), ``csrc/sign_bound.cu`` (K8a),
+``csrc/stage0_certify.cu`` (KB: rows 4-7, 14, 15) and the lattice signs
+kernel of ``csrc/lattice_scan.cu`` (K9a/b/c), and the C entry points refuse
+any other shared-memory size; so these tests hold the geometry at an
+H100's 132 SMs and 227 KB (232,448 bytes) of shared memory a block, for
+the nets the repo runs, without a card:
 
 * every launch's shared memory fits, at the main path's shapes;
 * K5 at B = 1, R = 96, V = 2 (the heuristic retry) spreads over at least
@@ -16,6 +18,12 @@ runs, without a card:
   SMs, and so does the lattice forward of a 2^18-point chunk;
 * K6 keeps two slots resident per SM at AC-S1 widths, V = 2, and its
   cooperative grid is what the card holds resident;
+* K8a and KB fit every net at V = 2 and 5 within an SM's shared memory
+  and the 512-thread register cap, K8a keeps two boxes resident per SM at
+  AC-S1 widths and takes its most warps for a launch of at most one box an
+  SM, KB keeps two boxes resident per SM at AC-S1 widths, V = 2; the
+  per-model odd-stride pack of a family of M = 1, 4 and 11 models is each
+  model's own pack back to back;
 * a forced geometry that does not fit raises;
 * the padded and odd-stride packs are the layouts the kernels read, and
   every pack is built once per net: a net's ``with_masks`` copy gets its
@@ -269,3 +277,93 @@ def test_odd_pack_layout():
         assert torch.equal(params[lay["b"][l]:lay["b"][l] + n_out], b)
         assert torch.equal(params[lay["m"][l]:lay["m"][l] + n_out], m)
     assert cuda_build.pack_odd(net)[0] is params  # built once per net
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_sign_bound_geometry_fits_and_stays_resident(name):
+    sizes = NETS[name]
+    for live in (None, 1, SMS, SMS + 1, 512):
+        g = engine.sign_bound_geometry(sizes, live=live, sms=SMS, smem_limit=LIMIT)
+        assert g["smem"] == engine.sign_bound_smem(sizes, g["warps"]) <= LIMIT
+        assert 1 <= g["warps"] <= engine.K8A_MAX_WARPS and g["threads"] == 32 * g["warps"]
+        assert g["warps"] & (g["warps"] - 1) == 0  # a power of two
+        # No more warps than the widest layer past the first has column pairs.
+        assert g["warps"] <= max([(n + 1) // 2 for n in sizes[2:]] or [1])
+        assert g["per_sm"] >= 1 and g["per_sm"] * (g["smem"] + 1024) <= SM_BYTES
+        assert g["per_sm"] * g["warps"] <= engine.K6_SM_WARPS
+    few = engine.sign_bound_geometry(sizes, live=SMS, sms=SMS, smem_limit=LIMIT)
+    many = engine.sign_bound_geometry(sizes, live=SMS + 1, sms=SMS, smem_limit=LIMIT)
+    assert few["warps"] >= many["warps"]
+    assert many == engine.sign_bound_geometry(sizes, sms=SMS, smem_limit=LIMIT)
+
+
+def test_sign_bound_keeps_two_boxes_per_sm_at_ac_s1():
+    sizes = NETS["AC-S1"]
+    g = engine.sign_bound_geometry(sizes, live=512, sms=SMS, smem_limit=LIMIT)
+    assert (g["warps"], g["per_sm"]) == (4, 2)
+    # One box an SM or fewer: one box's critical path, the most warps (the
+    # workspaces are carved per layer, so 16 fit).
+    g = engine.sign_bound_geometry(sizes, live=8, sms=SMS, smem_limit=LIMIT)
+    assert (g["warps"], g["per_sm"]) == (16, 1)
+
+
+@pytest.mark.parametrize("V", [2, 5])
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_kb_geometry_fits_every_net(name, V):
+    sizes = NETS[name]
+    g = engine.kb_geometry(sizes, V, smem_limit=LIMIT)
+    assert g["smem"] == engine.kb_smem(sizes, V, g["warps"]) <= LIMIT
+    # One α side of every role box has a warp of its own.
+    assert g["warps"] == min(engine.KB_MAX_WARPS, 4 * V) and g["threads"] == 32 * g["warps"]
+    assert g["per_sm"] >= 1 and g["per_sm"] * (g["smem"] + 1024) <= SM_BYTES
+    assert g["per_sm"] * g["warps"] <= engine.K6_SM_WARPS
+    # A forced geometry runs only where it fits.
+    for w in range(1, engine.KB_MAX_WARPS + 1):
+        if engine.kb_smem(sizes, V, w) <= LIMIT:
+            assert engine.kb_geometry(sizes, V, smem_limit=LIMIT, _force=w)["warps"] == w
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                engine.kb_geometry(sizes, V, smem_limit=LIMIT, _force=w)
+
+
+def test_kb_keeps_two_boxes_per_sm_at_ac_s1():
+    g = engine.kb_geometry(NETS["AC-S1"], 2, smem_limit=LIMIT)
+    assert (g["warps"], g["per_sm"]) == (8, 2)
+
+
+def test_forced_k8a_and_kb_geometry_is_checked():
+    sizes = NETS["AC-S1"]
+    for w in (1, 2, 8, 16):
+        g = engine.sign_bound_geometry(sizes, live=512, sms=SMS, _force=w)
+        assert g["warps"] == w and g["smem"] == engine.sign_bound_smem(sizes, w)
+    with pytest.raises(ValueError):
+        engine.sign_bound_geometry(NETS["AC-S2"], _force=16)  # 16 workspaces > 227 KB
+    with pytest.raises(ValueError):
+        engine.sign_bound_geometry(sizes, _force=engine.K8A_MAX_WARPS + 1)
+    with pytest.raises(ValueError):
+        engine.sign_bound_geometry(sizes, _force=0)
+    with pytest.raises(ValueError):
+        engine.kb_geometry(sizes, 5, _force=engine.KB_MAX_WARPS + 1)
+    wide = (13, 4096, 1)  # a net whose one warp or block exceeds shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.sign_bound_geometry(wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.kb_geometry(wide, 2)
+
+
+@pytest.mark.parametrize("M", [1, 4, 11])
+def test_odd_pack_of_a_family_is_each_models_pack(M):
+    from fairify_tpu_torch.parallel.mesh import stack_models
+
+    nets = [seeded_net(NETS["CP"], seed=s, device="cpu") for s in range(M)]
+    lay = cuda_build.odd_layout(list(NETS["CP"]))
+    params, dims, got_m = cuda_build.pack_odd_models(stack_models(nets))
+    assert got_m == M and list(dims) == list(NETS["CP"])
+    assert params.numel() == M * lay["padded"] and lay["padded"] % 4 == 0
+    for m, net in enumerate(nets):
+        own = cuda_build.pack_odd(net)[0]
+        assert torch.equal(params[m * lay["padded"]:(m + 1) * lay["padded"]], own)
+    single, _, one = cuda_build.pack_odd_models(nets[0])
+    assert one == 1 and single is cuda_build.pack_odd(nets[0])[0]
+    with pytest.raises(TypeError):
+        cuda_build.pack_odd(stack_models(nets))

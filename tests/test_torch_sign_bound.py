@@ -14,6 +14,10 @@ the CPU.
 * Every output bound contains the f64 re-evaluation of the same
   relaxations along the f32 α/β path (``chip_smoke.sign_bound_reference``,
   the card's check), and the card check's mutants fail.
+* K8a's live-row launch (``sign_bound(..., live=k)``) on ``_pad``-ded
+  inputs equals the full call on every row, for k = 1, a middle value and
+  B, at the widths above: the rows past ``live`` take row ``live - 1``'s
+  outputs, which the full call gives them because they repeat its inputs.
 * ``inter_bounds`` (K8b's plain version) against ``_inter_bounds_kernel``
   within the slack; ``sample_role_logits`` against ``_sample_role_logits``
   to 1e-6 of the logits' rounding scale.
@@ -208,6 +212,26 @@ def test_sign_bounds_contain_f64_and_card_check_mutants_fail(iters):
         ab_m = k[5].clone()
         ab_m[0, 0] = 1.0 - ab_m[0, 0]
         assert chip_smoke.sign_bound_verdict(k[:5], ab_m, ref) is not None
+
+
+@pytest.mark.parametrize("iters", [0, 8])
+@pytest.mark.parametrize("sizes", SIZES)
+def test_live_rows_equal_the_full_call(sizes, iters):
+    _, tn, lo, hi, signs = _case(sizes, 5)
+    B = lo.shape[0]
+    for k in (1, B // 2 + 1, B):
+        pad = lambda a: torch.as_tensor(tengine._pad(a[:k], B))
+        plo, phi, psg = pad(lo), pad(hi), [pad(s) for s in signs]
+        full = tengine.sign_bound(tn, plo, phi, psg, iters, with_ab=True)
+        part = tengine.sign_bound(tn, plo, phi, psg, iters, with_ab=True, live=k)
+        flat = lambda o: list(o[:3]) + list(o[3]) + list(o[4]) + [o[5]]
+        assert len(flat(part)) == len(flat(full))
+        for a, b in zip(flat(part), flat(full)):
+            assert a.shape == b.shape and torch.equal(a, b)
+    for bad in (0, B + 1):
+        with pytest.raises(ValueError):
+            tengine.sign_bound(tn, torch.as_tensor(lo), torch.as_tensor(hi),
+                               [torch.as_tensor(s) for s in signs], iters, live=bad)
 
 
 @pytest.mark.parametrize("B", [4, 16])
