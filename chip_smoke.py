@@ -88,7 +88,11 @@ Phases (any failure exits nonzero and prints no result line):
    the bounds contain the f64 bounds of the same relaxations; on the
    AC-S1 frontier branches at α 8 and 0 its default launch bit for bit
    under three forced geometries (warps a block); K8b
-   (inter_bounds) at B = 512 and at one root's 2V = 4 role boxes; the
+   (inter_bounds) at B = 512, over 1 and 17 live rows of a 512-row pad
+   (past them equal to the full launch bit for bit) and at one root's
+   2V = 4 role boxes, each bit-equal under four forced geometries (warps,
+   boxes a block) and timed two ways (the wrapper, and its C entry point
+   alone, 300 launches back to back); the
    role logits at Phase S's shape (row 21; row 17's wrapper on the same
    rows bit-equal to it, both beside the library forward).  The same on
    relaxed-AC (ε = 5) boxes.
@@ -169,14 +173,21 @@ Phases (any failure exits nonzero and prints no result line):
    (CROWN); logits to TOL_REL of their rounding scale; a copy with one
    bound moved past its float64 bound, with every bound moved inward by
    one slack (the output widening removed), or with one logit moved, must
-   fail; the
+   fail; row 13 also over 17 and 1 live boxes of the F = 512 pad (past
+   them equal to the full launch), in IBP mode bit-equal to its
+   plain-order reference (``ibp_ordered``: the kernel's fmaf order, exact
+   on the card), in both modes bit-equal under three forced geometries,
+   timed two ways (the wrapper and its C entry point alone) and, in IBP
+   mode, beside the library chain (``library_interval``: the centre-radius
+   image in cuBLAS fp32); the
    library forward (a cuBLAS fp32 chain) timed beside row 17; row 17's
    logits at its smallest rows per block (4-row warp tiles, one warp a
    block) and its largest bit-equal.  (8c) The
    family of four AC-S1 twins through ``stage0_families`` on the whole AC
    grid (8 chunks, one launch of each row per chunk), each model equal to
    its solo stage 0; on one chunk the family rows 8 and 9 bit-equal per
-   model to the solo rows 13 and 17.  (8d) The ladder world on the IBP
+   model to the solo rows 13 and 17, row 8 bit-equal under three forced
+   geometries and timed beside its library chain.  (8d) The ladder world on the IBP
    path (the host frontier's non-fused branch), card = CPU.  End to end,
    after the CPU worker: (8a) the GC-1 twin on the GC preset with only
    ``use_crown`` changed (exact-certify on): sat=2 unsat=199 unknown=0,
@@ -217,17 +228,21 @@ phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e and 9 run
 without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
 
 Every ``run_sweep``/``counted`` window splits K8a's launches by (α, live
-rows up to the next power of two) and KB's (rows 4-7, 14, 15) by (α,
-boxes, models) and fails unless the split adds up to the counters; after
-phase 9 every bucket is timed on its first launch's inputs and each
-window's launches x (time - bound) printed ("[K8a by shape, ...]", "[KB
-by shape, ...]"), and K8a's launch over the live rows of the slice-3
-tail's most frequent bucket must equal the full launch bit for bit.
+rows up to the next power of two), KB's (rows 4-7, 14, 15) by (α, boxes,
+models), K8b's by (engine phase L or P, live rows) and row 13's (and 8's)
+by (mode, role boxes, live boxes, models) and fails unless the split adds
+up to the counters; after phase 9 every bucket is timed on its first
+launch's inputs and each window's launches x (time - bound) printed
+("[K8a by shape, ...]", "[KB by shape, ...]", "[K8b by shape, ...]",
+"[row 13 by shape, ...]"), and K8a's launch over the live rows of the
+slice-3 tail's most frequent bucket must equal the full launch bit for
+bit.  KA's and KD's checks time a cuBLAS forward of the same samples
+beside them (``library_sim_forward``).
 
 The next-to-last lines are the kernel table as one JSON object (K5's
 launches in the slice-3 AC-S1 tail split by B, K6's in both tails by (α,
-live slot-rounds), K8a's and KB's in every window by shape, row 17's on
-the IBP AC grid by row count) and the
+live slot-rounds), K8a's, KB's, K8b's and row 13's in every window by
+shape, row 17's on the IBP AC grid by row count) and the
 ``nvidia-smi`` name/power line; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -613,11 +628,31 @@ def sim_counts_check(net, keys, lo, hi, S: int, k_out, p_out):
     return err_pos, cnt_bad, cand_bad, sum(int((a != b).sum()) for a, b in zip(cnt_k, cnt_p))
 
 
+def library_sim_forward(net, sim, alive=None):
+    """The masked forward of simulation samples (N, S, d) as a chain of
+    cuBLAS products (fp32, TF32 off): ``addmm`` per layer, the hidden
+    layers masked by the net's masks or, given ``alive`` (a list of (N,
+    n_l) tensors), per partition — the library yardstick of KA's and KD's
+    simulation (rows 1, 2, 10, 11), which the port never calls."""
+    import torch
+
+    N, S, d = sim.shape
+    h = sim.reshape(N * S, d)
+    for i, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        z = torch.addmm(b, h, w)
+        if i == net.depth - 1:
+            return z[:, 0].view(N, S)
+        z = torch.relu(z)
+        h = z * m if alive is None else (z.view(N, S, -1) * alive[i][:, None, :]).view(N * S, -1)
+
+
 def check_kernels(case, net, reps: int):
-    """Run KA–KD and their plain versions on one case; returns per-kernel rows."""
+    """Run KA–KD and their plain versions on one case; returns per-kernel
+    rows (KA's and KD's with the library forward of the same samples)."""
     import torch
 
     from fairify_tpu_torch.ops import masks as mask_ops
+    from fairify_tpu_torch.utils.prng import simulate_boxes
     from fairify_tpu_torch.verify import engine, pruning, sweep
 
     sizes = [net.in_dim] + list(net.layer_sizes)
@@ -648,8 +683,11 @@ def check_kernels(case, net, reps: int):
     n = case["n_prune"]
     fl = 2 * n * S_sim * macs(sizes) + 8 * n * macs(sizes)
     by = n * (8 + 8 * d) + pbytes + n * (16 * nsum + 4 * L)
+    sim = simulate_boxes(ka["keys"], ka["lo"], ka["hi"], S_sim)
+    _, lib_ka = timed(lambda: library_sim_forward(net, sim), reps)
     rows["sim_and_bounds"] = dict(max_abs_err=max(err_pos, err_abs_b), ms=k_ms,
-                                  plain_ms=p_ms, flops=fl, bytes=by, near_diffs=near_diffs)
+                                  plain_ms=p_ms, library_ms=lib_ka, flops=fl, bytes=by,
+                                  near_diffs=near_diffs)
 
     # --- KB
     (cert_k, _score_k, margin_k), kb_ms = timed(lambda: engine.stage0_certify(net, **kb),
@@ -697,12 +735,17 @@ def check_kernels(case, net, reps: int):
     # Two forwards per sample that share layer 0's pre-activation.
     fl = 2 * n * S_sim * (2 * macs(sizes) - sizes[0] * sizes[1])
     by = n * (8 + 8 * d + 4 * (nsum - 1) + 4) + pbytes
-    rows["parity"] = dict(max_abs_err=err_par, ms=kd_ms, plain_ms=kdp_ms,
+    _, lib_kd = timed(lambda: (library_sim_forward(net, sim),
+                               library_sim_forward(net, sim, alive)), reps)
+    del sim
+    rows["parity"] = dict(max_abs_err=err_par, ms=kd_ms, plain_ms=kdp_ms, library_ms=lib_kd,
                           flops=fl, bytes=by, near_diffs=int((par_k != par_p).sum()))
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"])
+        lib = r.get("library_ms")
         print(f"[kernel {case['name']}] {name}: {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['plain_ms']:.4f} ms{'' if lib is None else f', library {lib:.4f} ms'}, "
+              f"bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, max_abs_err {r['max_abs_err']:.3g}, discrete "
               f"outputs differing near a threshold {r['near_diffs']})", flush=True)
     return rows
@@ -1475,41 +1518,118 @@ def kb_invariance(name, net, kb, alpha_iters: int) -> dict:
     return dict(default=default["warps"], forced_ms=times)
 
 
-def check_inter_bounds(name, net, lo, hi, reps: int, mutate: bool = False):
-    """K8b against its plain version (``crown_bounds``): every layer's
-    bounds to the tolerance of their magnitude; with ``mutate`` a copy
-    with one bound moved by 1e-3 of its magnitude must fail."""
+# C entry-point launches back to back that time_split averages over.
+SPLIT_LAUNCHES = 300
+
+
+def time_split(wrapper, prepared) -> dict:
+    """How one launch's time splits between the device and the wrapper:
+    ``wrapper_ms``, the Python wrapper timed as :func:`timed` times it (its
+    host work between the two events), and ``entry_ms``, the C entry point
+    alone (``prepared``: the launch helper's ``(entry point, arguments but
+    the stream, output)``), SPLIT_LAUNCHES launches back to back between two
+    events, per launch.  The entry-point launches count nowhere."""
+    import torch
+
+    fn, args, _out = prepared
+    _, w_ms = timed(wrapper, 5)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(SPLIT_LAUNCHES):
+        err |= fn(*args, stream)
+    b.record()
+    torch.cuda.synchronize()
+    if err:
+        fail(f"time split: the entry point returned CUDA error {err}")
+    e_ms = a.elapsed_time(b) / SPLIT_LAUNCHES
+    return dict(wrapper_ms=w_ms, entry_ms=e_ms, wrapper_share=max(0.0, 1.0 - e_ms / w_ms))
+
+
+def inter_bounds_cost(sizes, live: int):
+    """(flops, bytes) of one K8b launch over ``live`` boxes: each box's
+    CROWN bounds (``crown_flops``); its box read and every layer's bounds
+    written, and the packed net read once."""
+    d, nsum = sizes[0], sum(sizes[1:])
+    return live * crown_flops(sizes), live * (2 * d + 2 * nsum) * 4 + 4 * (macs(sizes) + 2 * nsum)
+
+
+def pad_rows(t, live: int):
+    """``t``'s first ``live`` rows, the last of them repeated up to its row
+    count (``engine._pad``'s padding, on the card)."""
+    import torch
+
+    return torch.cat([t[:live], t[live - 1:live].expand((t.shape[0] - live,) + t.shape[1:])])
+
+
+# Forced K8b geometries (warps, boxes a block) its bounds must not depend on.
+K8B_FORCED = ((16, 1), (8, 2), (4, 4), (1, 1))
+
+
+def check_inter_bounds(name, net, lo, hi, reps: int, mutate: bool = False, live=None):
+    """K8b over the ``live`` first of the rows ``lo``/``hi`` (default all)
+    against its plain version (``crown_bounds`` of those rows): every
+    layer's bounds to the tolerance of their magnitude; past ``live`` every
+    row equal to row ``live - 1`` and the whole launch equal to the full
+    launch of all rows bit for bit; bit-equal under the K8B_FORCED
+    geometries; with ``mutate`` a copy with one bound moved by
+    1e-3 of its magnitude must fail.  Times the wrapper and the C entry
+    point alone (:func:`time_split`)."""
     import torch
 
     from fairify_tpu_torch.ops import crown as crown_ops
     from fairify_tpu_torch.verify import engine
 
-    (kl, ku), k_ms = timed(lambda: engine.inter_bounds(net, lo, hi), reps)
-    pb, p_ms = timed(lambda: crown_ops.crown_bounds(net, lo, hi), reps)
+    B = lo.shape[0]
+    live = B if live is None else live
+    (kl, ku), k_ms = timed(lambda: engine.inter_bounds(net, lo, hi, live=live), reps)
+    pb, p_ms = timed(lambda: crown_ops.crown_bounds(net, lo[:live], hi[:live]), reps)
     pl, pu = list(pb.ws_lb), list(pb.ws_ub)
 
     def err(kl, ku):
-        return max(tol_ratio(a, b, torch.maximum(b.abs(), c.abs()))
+        return max(tol_ratio(a[:live], b, torch.maximum(b.abs(), c.abs()))
                    for a, b, c in zip(kl + ku, pl + pu, pu + pl))
 
     e = err(kl, ku)
     if e > 1.0:
-        fail(f"K8b {name} B={lo.shape[0]}: bound error {e} x tolerance")
+        fail(f"K8b {name} B={B} live={live}: bound error {e} x tolerance")
+    if live < B:
+        full = engine._inter_bounds_launch(net, lo, hi, B)
+        if not all(torch.equal(a[live:], a[live - 1:live].expand_as(a[live:]))
+                   for a in kl + ku) or not all(torch.equal(a, b) for a, b in
+                                                zip(kl + ku, full[0] + full[1])):
+            fail(f"K8b {name}: the launch over {live} of {B} rows differs from the full "
+                 "launch, or its padded rows from row live - 1")
+    forced = {}
+    for f in K8B_FORCED:
+        o, forced[str(f)] = timed(lambda: engine._inter_bounds_launch(
+            net, lo, hi, live, _geometry_force=f), reps)
+        if not all(torch.equal(a, b) for a, b in zip(o[0] + o[1], kl + ku)):
+            fail(f"K8b {name}: the bounds under forced geometry {f} (warps, boxes a "
+                 "block) differ from the default launch's")
     if mutate:
         km = [t.clone() for t in kl]
         km[-1][0, 0] += 1e-3 * (1.0 + float(pl[-1][0, 0].abs()))
         if err(km, ku) <= 1.0:
             fail(f"K8b {name}: a copy with one bound moved passes the check")
     sizes = [net.in_dim] + list(net.layer_sizes)
-    B, d = lo.shape
-    fl = B * crown_flops(sizes)
-    by = B * (2 * d * 4 + 2 * sum(sizes[1:]) * 4) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
-    row = dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(kl + ku, pl + pu)),
-               ms=k_ms, plain_ms=p_ms, flops=fl, bytes=by)
+    split = time_split(lambda: engine.inter_bounds(net, lo, hi, live=live),
+                       engine._inter_bounds_prepare(net, lo, hi, live))
+    fl, by = inter_bounds_cost(sizes, live)
+    geo = engine.inter_bounds_geometry(sizes, live)
+    row = dict(max_abs_err=max(float((a[:live] - b).abs().max())
+                               for a, b in zip(kl + ku, pl + pu)),
+               ms=k_ms, plain_ms=p_ms, flops=fl, bytes=by, live=live, rows=B,
+               time_split=split, geometry=dict(default=[geo["warps"], geo["per"]],
+                                               forced_ms=forced))
     row["bound_ms"], row["bound_by"] = bound(fl, by)
-    print(f"[kernel {name}] inter_bounds B={B}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
-          f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}; every layer within "
-          f"tolerance{'; a moved bound fails' if mutate else ''})", flush=True)
+    print(f"[kernel {name}] inter_bounds B={B} live={live}: {k_ms:.4f} ms (C entry point "
+          f"alone {split['entry_ms']:.4f} ms, wrapper share {split['wrapper_share']:.2f}; "
+          f"plain {p_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; every "
+          f"layer within tolerance; bit-equal under forced (warps, boxes a block) {forced}"
+          f"{'; a moved bound fails' if mutate else ''})", flush=True)
     return row
 
 
@@ -1600,12 +1720,21 @@ def check_phase_s_kernels(name, net, enc, lo, hi, reps: int, mutate: bool = Fals
                                      ("ms", "plain_ms", "bound_ms", "bound_by", "geometry")
                                      if k in rows[0]})
     inter_row = check_inter_bounds(name, net, slo, shi, reps, mutate=mutate)
+    # Phase L's padded blocks: the live-row launch over 1 and 17 rows of a
+    # 512-row pad (engine._pad's padding of the first rows).
+    inter_row["live_rows"] = {}
+    for live in (1, 17):
+        r = check_inter_bounds(f"{name} live rows", net, pad_rows(slo[:512], live),
+                               pad_rows(shi[:512], live), reps, live=live)
+        inter_row["live_rows"][str(live)] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "rows", "time_split")}
     x_lo, x_hi, xp_lo, xp_hi, _ = role_boxes(enc, lo[:1], hi[:1])
     inter4 = check_inter_bounds(
         f"{name} role boxes", net, on(np.concatenate([x_lo[0], xp_lo[0]])),
         on(np.concatenate([x_hi[0], xp_hi[0]])), reps)
     inter_row["role_boxes"] = {k: inter4[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                       "bound_by")}
+                                                       "bound_by", "time_split",
+                                                       "geometry")}
     logit_row = check_role_logits(name, net, enc, lo, hi, reps, mutate=mutate)
     return {"sign_bound": sign_row, "inter_bounds": inter_row, "role_logits": logit_row}
 
@@ -2926,6 +3055,91 @@ def library_forward(net, x):
     return h[..., 0]
 
 
+def fma32(x, y, a):
+    """``fmaf(x, y, a)`` elementwise on float32 tensors, exactly: the
+    product in float64 (exact), the sum split by TwoSum into its float64
+    rounding s and the error e, and s rounded to float32 — moved one step
+    toward e where s lies exactly halfway between two float32 values."""
+    import torch
+
+    p = x.double() * y.double()
+    a64 = a.double()
+    s = p + a64
+    bb = s - p
+    e = (p - (s - bb)) + (a64 - bb)
+    r = s.float()
+    other = torch.nextafter(r, torch.where(s > r.double(), torch.inf, -torch.inf).float())
+    tie = (s != r.double()) & (s == (r.double() + other.double()) / 2) & (e != 0)
+    up = torch.maximum(r, other)
+    down = torch.minimum(r, other)
+    return torch.where(tie, torch.where(e > 0, up, down), r)
+
+
+def ibp_ordered(net, lo, hi):
+    """Row 13's IBP output bounds (lb, ub) of role boxes (n, d) of one net
+    in the kernel's own order: per unit the four sums as index-ordered
+    ``fmaf`` chains from 0 (:func:`fma32`), ``(a1 + a2) + b``, the slack
+    ``fmaf(SLACK_REL, max(|lo|, |hi|), SLACK_ABS)``, ReLU and the mask — so
+    the kernel must equal it bit for bit."""
+    import torch
+
+    from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
+
+    rel = torch.tensor(SOUND_SLACK_REL, dtype=torch.float32, device=lo.device)
+    eps = torch.tensor(SOUND_SLACK_ABS, dtype=torch.float32, device=lo.device)
+    l, h = lo.float(), hi.float()
+    for k, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+        wp, wn = torch.clamp(w, min=0.0), torch.clamp(w, max=0.0)
+        a1 = a2 = a3 = a4 = torch.zeros((l.shape[0], w.shape[1]), device=lo.device)
+        for i in range(w.shape[0]):
+            li, hi_ = l[:, i:i + 1], h[:, i:i + 1]
+            a1 = fma32(li, wp[i], a1)
+            a2 = fma32(hi_, wn[i], a2)
+            a3 = fma32(hi_, wp[i], a3)
+            a4 = fma32(li, wn[i], a4)
+        zl, zh = (a1 + a2) + b, (a3 + a4) + b
+        slack = fma32(rel, torch.maximum(zl.abs(), zh.abs()), eps)
+        zl, zh = zl - slack, zh + slack
+        if k == net.depth - 1:
+            return zl[:, 0], zh[:, 0]
+        l, h = torch.clamp(zl, min=0.0) * m, torch.clamp(zh, min=0.0) * m
+
+
+def library_interval(net, boxes):
+    """Row 13's IBP as a chain of cuBLAS products (fp32, TF32 off): the
+    centre-radius interval image, per layer ``c W + b`` (``addmm``;
+    ``baddbmm`` over a stacked family's models) and ``r |W|``, then the
+    widening, ReLU and the mask — the library yardstick of rows 13 and 8,
+    which the port never calls."""
+    import torch
+
+    from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
+
+    stacked = hasattr(net, "n_models")
+    out = []
+    for lo, hi in ((boxes[0], boxes[1]), (boxes[2], boxes[3])):
+        lo, hi = lo.reshape(-1, lo.shape[-1]), hi.reshape(-1, hi.shape[-1])
+        c, r = (lo + hi) * 0.5, (hi - lo) * 0.5
+        if stacked:
+            c, r = c.expand(net.n_models, *c.shape), r.expand(net.n_models, *r.shape)
+        for i, (w, b, m) in enumerate(zip(net.weights, net.biases, net.masks)):
+            if stacked:
+                zc = torch.baddbmm(b[:, None, :], c, w)
+                zr = torch.bmm(r, w.abs())
+            else:
+                zc, zr = torch.addmm(b, c, w), r @ w.abs()
+            zl, zh = zc - zr, zc + zr
+            s = SOUND_SLACK_REL * torch.maximum(zl.abs(), zh.abs()) + SOUND_SLACK_ABS
+            zl, zh = zl - s, zh + s
+            if i == net.depth - 1:
+                out += [zl[..., 0], zh[..., 0]]
+                break
+            mm = m[:, None, :] if stacked else m
+            zl, zh = torch.relu(zl) * mm, torch.relu(zh) * mm
+            c, r = (zl + zh) * 0.5, (zh - zl) * 0.5
+    return out
+
+
 def k10_refs(net, boxes, use_crown: bool):
     """Per role, the float64 range over the first K10_SAMPLE role boxes that
     the kernel's bounds must contain: the interval bounds (IBP) or the
@@ -2987,40 +3201,105 @@ def role_bounds_mutants(k, ref):
             "the output widening removed": unwidened}
 
 
-def check_role_bounds(name, net, boxes, use_crown: bool, reps: int, mutate: bool = False):
-    """Row 13 (one net) against its plain version on role boxes
-    ``(x_lo, x_hi, xp_lo, xp_hi)`` (..., V, d): every bound to TOL_REL of
-    its interval magnitude and within K10_SLACK_LIMIT of the widening slack
-    (``SOUND_SLACK_REL`` of that magnitude + ``SOUND_SLACK_ABS``), the
-    first K10_SAMPLE role boxes' bounds containing their float64
-    reference; with ``mutate`` every copy of :func:`role_bounds_mutants`
-    must fail.  Returns the row."""
+# Forced row-13 geometries the bounds must not depend on: IBP (role boxes a
+# warp tile, warps a block), CROWN (warps a block).
+RB_FORCED = {False: ((4, 1), (16, 3), (8, 12)), True: (1, 4, 16)}
+
+
+def role_bounds_invariance(name, net, boxes, use_crown: bool, live: int, k) -> dict:
+    """Row 13's (or 8's) launch over ``live`` boxes under every RB_FORCED
+    geometry must give the bounds ``k`` of its default launch bit for bit.
+    Returns each forced geometry's time (ms, the launch helper)."""
+    import torch
+
     from fairify_tpu_torch.verify import engine
 
-    k, k_ms = timed(lambda: engine.role_logit_bounds(net, *boxes, use_crown), reps)
+    B, V = boxes[0].shape[0], boxes[0].shape[1]
+    times = {}
+    for f in RB_FORCED[bool(use_crown)]:
+        run = lambda: engine._role_bounds_launch(net, boxes, B, V, live, use_crown,
+                                                 _geometry_force=f)
+        o, times[str(f)] = timed(run, 3)
+        got = o.view((getattr(net, "n_models", 1), 4, B * V))
+        want = torch.stack([t.reshape(got.shape[0], B * V) for t in k], dim=1)
+        if not torch.equal(got, want):
+            fail(f"role_bounds {name}: the bounds under forced geometry {f} differ from "
+                 "the default launch's")
+    return times
+
+
+def check_role_bounds(name, net, boxes, use_crown: bool, reps: int, mutate: bool = False,
+                      live=None, ordered: bool = False):
+    """Row 13 (one net) against its plain version on role boxes
+    ``(x_lo, x_hi, xp_lo, xp_hi)`` (B, V, d), the launch over the ``live``
+    first boxes (default all; past it the boxes repeat box ``live - 1``):
+    every bound to TOL_REL of its interval magnitude and within
+    K10_SLACK_LIMIT of the widening slack (``SOUND_SLACK_REL`` of that
+    magnitude + ``SOUND_SLACK_ABS``), the first K10_SAMPLE role boxes'
+    bounds containing their float64 reference; past ``live`` every box
+    equal to box ``live - 1`` and the launch equal to the full launch bit
+    for bit; bit-equal under the RB_FORCED geometries; with ``ordered``
+    (IBP) bit-equal to the plain-order reference :func:`ibp_ordered`; with
+    ``mutate`` every copy of :func:`role_bounds_mutants` must fail.  Times
+    the wrapper and the C entry point alone (:func:`time_split`) and, in
+    IBP mode, the library chain (:func:`library_interval`).  Returns the
+    row."""
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+
+    B, V, d = boxes[0].shape
+    live = B if live is None else live
+    k, k_ms = timed(lambda: engine.role_logit_bounds(net, *boxes, use_crown, live=live), reps)
     p, p_ms = timed(lambda: engine.role_logit_bounds_plain(net, *boxes, use_crown), 1)
     ref = k10_refs(net, boxes, use_crown)
     err, slack, bad = role_bounds_verdict(k, p, ref)
     if role_bounds_fails(err, slack, bad):
         fail(f"role_bounds {name}: bound error {err} x tolerance = {slack} x the widening "
              f"slack, {bad} bounds do not contain their float64 reference")
+    if live < B:
+        full = engine.role_logit_bounds(net, *boxes, use_crown)
+        if not all(torch.equal(a, b) for a, b in zip(k, full)) or not all(
+                torch.equal(a[live:], a[live - 1:live].expand_as(a[live:])) for a in k):
+            fail(f"role_bounds {name}: the launch over {live} of {B} boxes differs from the "
+                 "full launch, or its padded boxes from box live - 1")
+    forced = role_bounds_invariance(name, net, boxes, use_crown, live, k)
+    if ordered:
+        o = [ibp_ordered(net, boxes[2 * r].reshape(-1, d), boxes[2 * r + 1].reshape(-1, d))
+             for r in (0, 1)]
+        ndiff = sum(int((a.reshape(-1) != b).sum())
+                    for a, b in zip(k, (o[0][0], o[0][1], o[1][0], o[1][1])))
+        if ndiff:
+            fail(f"role_bounds {name}: {ndiff} bounds differ from the plain-order reference")
     if mutate:
         for what, km in role_bounds_mutants(k, ref).items():
             if not role_bounds_fails(*role_bounds_verdict(km, p, ref)):
                 fail(f"role_bounds {name}: a copy with {what} passes")
+    lib_ms = None
+    if not use_crown:
+        _, lib_ms = timed(lambda: library_interval(net, boxes), reps)
+    split = time_split(lambda: engine.role_logit_bounds(net, *boxes, use_crown, live=live),
+                       engine._role_bounds_prepare(net, boxes, B, V, live, use_crown))
     sizes = [net.in_dim] + list(net.layer_sizes)
-    nrole = 2 * boxes[0].numel() // boxes[0].shape[-1]
-    fl, by = role_bounds_cost(sizes, nrole, use_crown=use_crown)
-    row = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(float((a - b).abs().max())
-                                                       for a, b in zip(k, p)),
-               err_x_tol=err, err_x_slack=slack, role_boxes=nrole, flops=fl, bytes=by,
-               mode="crown" if use_crown else "ibp")
+    nrole = 2 * B * V
+    fl, by = role_bounds_cost(sizes, 2 * live * V, use_crown=use_crown)
+    geo = engine.role_bounds_geometry(sizes, V, 2 * live * V, 1, use_crown)
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, max_abs_err=max(
+        float((a - b).abs().max()) for a, b in zip(k, p)),
+               err_x_tol=err, err_x_slack=slack, role_boxes=nrole, live=live, flops=fl,
+               bytes=by, mode="crown" if use_crown else "ibp", time_split=split,
+               geometry=dict(default=[geo["tw"], geo["warps"], geo["grid"]],
+                             forced_ms=forced), ordered_bit_equal=ordered or None)
     row["bound_ms"], row["bound_by"] = bound(fl, by)
-    print(f"[kernel {name}] role_bounds {row['mode']} {nrole} role boxes: {k_ms:.4f} ms "
-          f"(plain {p_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
-          f"error {err:.3f} x tolerance = {slack:.3f} x the widening slack; "
-          f"{K10_SAMPLE} x 2 role boxes contain their float64 "
-          f"{'sampled range' if use_crown else 'interval bounds'}"
+    print(f"[kernel {name}] role_bounds {row['mode']} {nrole} role boxes, live boxes {live} "
+          f"of {B}: {k_ms:.4f} ms (C entry point alone {split['entry_ms']:.4f} ms, wrapper "
+          f"share {split['wrapper_share']:.2f}; plain {p_ms:.4f} ms"
+          f"{'' if lib_ms is None else f', library {lib_ms:.4f} ms'}, bound "
+          f"{row['bound_ms']:.5f} ms by {row['bound_by']}; error {err:.3f} x tolerance = "
+          f"{slack:.3f} x the widening slack; {K10_SAMPLE} x 2 role boxes contain their "
+          f"float64 {'sampled range' if use_crown else 'interval bounds'}; bit-equal under "
+          f"forced geometries {forced}"
+          f"{'; bit-equal to the plain-order reference' if ordered else ''}"
           f"{'; a bound moved past it and the unwidened copy fail' if mutate else ''})",
           flush=True)
     return row
@@ -3119,14 +3398,22 @@ def k10_kernel_checks(ac_net, ac_cfg, enc, lo, hi, reps: int) -> dict:
     kb, kc = case["kb"], case["kc"]
     boxes = [kb["x_lo"], kb["x_hi"], kb["xp_lo"], kb["xp_hi"]]
     rows = {"role_bounds": check_role_bounds("AC chunk", ac_net, boxes, False, reps,
-                                             mutate=True),
+                                             mutate=True, ordered=True),
             "attack_logits": check_attack_logits("AC chunk", ac_net, kc["xr"], kc["pr"],
                                                  reps, mutate=True)}
     rows["role_bounds"]["crown"] = check_role_bounds("AC chunk", ac_net, boxes, True,
                                                      reps, mutate=True)
     fb, fxr, fpr = k10_inputs(enc, lo[:512], hi[:512], 16)
     rows["role_bounds"]["host_frontier"] = check_role_bounds("host frontier", ac_net, fb,
-                                                             False, reps)
+                                                             False, reps, ordered=True)
+    # The host frontier's padded batches: the launch over 17 and 1 live
+    # boxes of the F = 512 pad.
+    rows["role_bounds"]["host_frontier"]["live_boxes"] = {
+        str(live): {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "time_split")}
+        for live in (17, 1)
+        for r in [check_role_bounds("host frontier live boxes", ac_net,
+                                    [pad_rows(b, live) for b in fb], False, reps, live=live,
+                                    ordered=True)]}
     rows["attack_logits"]["host_frontier"] = check_attack_logits("host frontier", ac_net,
                                                                  fxr, fpr, reps)
     rows["attack_logits"]["geometry"] = attack_logits_invariance("AC chunk", ac_net,
@@ -3181,6 +3468,11 @@ def k10_family(nets, ac_cfg, reps: int) -> dict:
     pb, pb_ms = timed(lambda: engine.role_logit_bounds_plain(stack, *boxes, False), 1)
     pl_, pl_ms = timed(lambda: engine.attack_logits_plain(stack, xr, pr), 1)
     _, lib_ms = timed(lambda: (library_forward(stack, xr), library_forward(stack, pr)), reps)
+    _, lib_b_ms = timed(lambda: library_interval(stack, boxes), reps)
+    B, V = boxes[0].shape[0], boxes[0].shape[1]
+    fam_forced = role_bounds_invariance("IBP family chunk", stack, boxes, False, B, fb)
+    fam_split = time_split(lambda: engine.role_logit_bounds(stack, *boxes, False),
+                           engine._role_bounds_prepare(stack, boxes, B, V, B, False))
     sb_ms = sl_ms = 0.0
     err_b = err_l = 0.0
     for m, net in enumerate(nets):
@@ -3207,19 +3499,24 @@ def k10_family(nets, ac_cfg, reps: int) -> dict:
     nrole, nrows = 2 * boxes[0].numel() // boxes[0].shape[-1], 2 * xr.numel() // xr.shape[-1]
     rows = {}
     for key, ms, solo, plain, lib, err, cost in (
-            ("role_bounds", fb_ms, sb_ms, pb_ms, None, err_b,
+            ("role_bounds", fb_ms, sb_ms, pb_ms, lib_b_ms, err_b,
              role_bounds_cost(sizes, nrole, M)),
             ("attack_logits", fl_ms, sl_ms, pl_ms, lib_ms, err_l,
              attack_logits_cost(sizes, nrows, M))):
         r = dict(ms=ms, solo_sum_ms=solo, plain_ms=plain, library_ms=lib, max_abs_err=err,
                  M=M, flops=cost[0], bytes=cost[1], launches=launch[key])
         r["bound_ms"], r["bound_by"] = bound(*cost)
+        if key == "role_bounds":
+            r["geometry"], r["time_split"] = dict(forced_ms=fam_forced), fam_split
         rows[key] = r
         print(f"[IBP family chunk] {key} (M = {M}): {ms:.4f} ms ({M} solo launches "
               f"{solo:.4f} ms), plain {plain:.4f} ms"
               f"{'' if lib is None else f', library {lib:.4f} ms'}, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}; bit-equal per model to the "
-              "solo launches", flush=True)
+              "solo launches"
+              + (f"; C entry point alone {fam_split['entry_ms']:.4f} ms; bit-equal under "
+                 f"forced geometries {fam_forced}" if key == "role_bounds" else ""),
+              flush=True)
     return rows
 
 
@@ -3745,9 +4042,12 @@ def live_bucket(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-# The first launch's inputs of every K8a bucket (alpha_iters, live_bucket)
-# and KB bucket (alpha_iters, boxes, models) met in any window of the run.
-CERT_CASES = {"sign_bound": {}, "stage0_certify": {}}
+# The first launch's inputs of every K8a bucket (alpha_iters, live_bucket),
+# KB bucket (alpha_iters, boxes, models), K8b bucket (phase, live_bucket)
+# and row-13 bucket (mode, role boxes, live_bucket, models) met in any
+# window of the run.
+CERT_CASES = {"sign_bound": {}, "stage0_certify": {}, "inter_bounds": {},
+              "role_bounds": {}}
 # Every window of the run (run_sweep, counted): (label, ShapeLog, launches).
 WINDOWS = []
 
@@ -3761,9 +4061,14 @@ class ShapeLog:
     K8a by α and live rows (``log.sign_bound``: (alpha_iters,
     :func:`live_bucket`) -> launches) and of KB by α, boxes and models
     (``log.stage0_certify``: (alpha_iters, N, M) -> launches; rows 14 and
-    6 included), the first launch of each K8a and KB bucket's inputs kept in
-    CERT_CASES: the split of one run's launch count by shape.  It wraps the
-    launch helpers and counts beside the kernels' own counters."""
+    6 included), of K8b by engine phase and live rows (``log.inter_bounds``:
+    ("L" or "P", :func:`live_bucket`) -> launches; "P" inside
+    ``pair_lp_phase``) and of row 13 by mode, role boxes, live rows and
+    models (``log.role_bounds``: ("ibp" or "crown", 2 B V, live_bucket, M)
+    -> launches), the first launch of each K8a, KB, K8b and row-13 bucket's
+    inputs kept in CERT_CASES: the split of one run's launch count by
+    shape.  It wraps the launch helpers and counts beside the kernels' own
+    counters."""
 
     def __enter__(self):
         import torch
@@ -3772,10 +4077,13 @@ class ShapeLog:
 
         self.pgd, self.rows, self.bab, self.bab_case = {}, {}, {}, {}
         self.sign_bound, self.stage0_certify = {}, {}
+        self.inter_bounds, self.role_bounds = {}, {}
+        self._phase_p = False
         self._saved = (engine._pgd_attack_launch, engine._launch_attack_logits,
                        engine._bab_segment_launch, engine._sign_bound_launch,
-                       engine._kb_launch)
-        pgd, logits, bab, k8a, kb = self._saved
+                       engine._kb_launch, engine._inter_bounds_launch,
+                       engine._role_bounds_launch, engine.pair_lp_phase)
+        pgd, logits, bab, k8a, kb, k8b, k10b, phase_p = self._saved
         keep = lambda args: [a.clone() if torch.is_tensor(a) else
                              [t.clone() for t in a] if isinstance(a, list) else a
                              for a in args]
@@ -3811,16 +4119,41 @@ class ShapeLog:
                 CERT_CASES["stage0_certify"][key] = (net, keep(args))
             return kb(net, *args, **kw)
 
+        def k8b_launch(net, lo, hi, live, **kw):
+            key = ("P" if self._phase_p else "L", live_bucket(int(live)))
+            self.inter_bounds[key] = self.inter_bounds.get(key, 0) + 1
+            if key not in CERT_CASES["inter_bounds"]:
+                CERT_CASES["inter_bounds"][key] = (net, keep([lo, hi, live]))
+            return k8b(net, lo, hi, live, **kw)
+
+        def k10b_launch(net, boxes, B, V, live, use_crown, **kw):
+            key = ("crown" if use_crown else "ibp", 2 * int(B) * int(V),
+                   live_bucket(int(live)), getattr(net, "n_models", 1))
+            self.role_bounds[key] = self.role_bounds.get(key, 0) + 1
+            if key not in CERT_CASES["role_bounds"]:
+                CERT_CASES["role_bounds"][key] = (net, [keep(boxes), B, V, live, use_crown])
+            return k10b(net, boxes, B, V, live, use_crown, **kw)
+
+        def pair_phase(*args, **kw):
+            self._phase_p = True
+            try:
+                return phase_p(*args, **kw)
+            finally:
+                self._phase_p = False
+
         (engine._pgd_attack_launch, engine._launch_attack_logits, engine._bab_segment_launch,
-         engine._sign_bound_launch, engine._kb_launch) = (pgd_launch, logits_launch,
-                                                          bab_launch, k8a_launch, kb_launch)
+         engine._sign_bound_launch, engine._kb_launch, engine._inter_bounds_launch,
+         engine._role_bounds_launch, engine.pair_lp_phase) = (
+            pgd_launch, logits_launch, bab_launch, k8a_launch, kb_launch, k8b_launch,
+            k10b_launch, pair_phase)
         return self
 
     def __exit__(self, *exc):
         from fairify_tpu_torch.verify import engine
 
         (engine._pgd_attack_launch, engine._launch_attack_logits, engine._bab_segment_launch,
-         engine._sign_bound_launch, engine._kb_launch) = self._saved
+         engine._sign_bound_launch, engine._kb_launch, engine._inter_bounds_launch,
+         engine._role_bounds_launch, engine.pair_lp_phase) = self._saved
         return False
 
     def check(self, launch: dict, what: str) -> None:
@@ -3837,14 +4170,20 @@ class ShapeLog:
                  f"bab_segment {launch['bab_segment']}")
 
     def check_cert(self, launch: dict, what: str) -> None:
-        """Fails unless the K8a and KB split adds up to the counters' sign_bound
-        and stage0_certify + role_certify of the same run."""
+        """Fails unless the K8a, KB, K8b and row-13 splits add up to the
+        counters' sign_bound, stage0_certify + role_certify, inter_bounds and
+        role_bounds of the same run."""
         kb = launch["stage0_certify"] + launch["role_certify"]
         if sum(self.sign_bound.values()) != launch["sign_bound"] or sum(
-                self.stage0_certify.values()) != kb:
+                self.stage0_certify.values()) != kb or sum(
+                self.inter_bounds.values()) != launch["inter_bounds"] or sum(
+                self.role_bounds.values()) != launch["role_bounds"]:
             fail(f"{what}: launches by shape K8a {self.sign_bound}, KB "
-                 f"{self.stage0_certify} do not add up to the counters' sign_bound "
-                 f"{launch['sign_bound']}, stage0_certify + role_certify {kb}")
+                 f"{self.stage0_certify}, K8b {self.inter_bounds}, row 13 "
+                 f"{self.role_bounds} do not add up to the counters' sign_bound "
+                 f"{launch['sign_bound']}, stage0_certify + role_certify {kb}, "
+                 f"inter_bounds {launch['inter_bounds']}, role_bounds "
+                 f"{launch['role_bounds']}")
 
 
 def bab_by_shape(tails: dict) -> dict:
@@ -3881,9 +4220,10 @@ def bab_by_shape(tails: dict) -> dict:
 
 
 def cert_by_shape(live_window: str = "AC-S1 tail, slice 3") -> dict:
-    """K8a and KB at the shapes of the run's windows (WINDOWS): every bucket
-    met (CERT_CASES) timed on its first launch's inputs, with its bound;
-    per window that launched either kernel, its launches by bucket and
+    """K8a, KB, K8b and row 13 at the shapes of the run's windows (WINDOWS):
+    every bucket met (CERT_CASES) timed on its first launch's inputs (the
+    launch helper, host work included), with its bound on its live rows;
+    per window that launched any of them, its launches by bucket and
     launches x (time - bound).  The K8a launch of ``live_window``'s most
     frequent bucket over its live rows must equal the full launch of the
     same rows bit for bit (and, when that bucket's launch had no padded
@@ -3895,8 +4235,10 @@ def cert_by_shape(live_window: str = "AC-S1 tail, slice 3") -> dict:
 
     sizes_of = lambda net: [net.in_dim] + list(net.layer_sizes)
     name = {"sign_bound": lambda k: f"alpha{k[0]}:<={k[1]}",
-            "stage0_certify": lambda k: f"alpha{k[0]}:N{k[1]}:M{k[2]}"}
-    buckets = {"sign_bound": {}, "stage0_certify": {}}
+            "stage0_certify": lambda k: f"alpha{k[0]}:N{k[1]}:M{k[2]}",
+            "inter_bounds": lambda k: f"{k[0]}:<={k[1]}",
+            "role_bounds": lambda k: f"{k[0]}:R{k[1]}:<={k[2]}:M{k[3]}"}
+    buckets = {k: {} for k in name}
     for key, (net, args) in sorted(CERT_CASES["sign_bound"].items()):
         lo, hi, signs, alpha, _, live = args
         _, ms = timed(lambda: engine._sign_bound_launch(net, lo, hi, signs, alpha, False,
@@ -3909,10 +4251,21 @@ def cert_by_shape(live_window: str = "AC-S1 tail, slice 3") -> dict:
         V = int(args[10].shape[1])
         b_ms, b_by = bound(*kb_cost(sizes_of(net), key[1], V, key[2], key[0]))
         buckets["stage0_certify"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, V=V)
+    for key, (net, (lo, hi, live)) in sorted(CERT_CASES["inter_bounds"].items()):
+        _, ms = timed(lambda: engine._inter_bounds_launch(net, lo, hi, live), 3)
+        b_ms, b_by = bound(*inter_bounds_cost(sizes_of(net), live))
+        buckets["inter_bounds"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, live=live,
+                                            rows=int(lo.shape[0]))
+    for key, (net, (boxes, B, V, live, crown)) in sorted(CERT_CASES["role_bounds"].items()):
+        _, ms = timed(lambda: engine._role_bounds_launch(net, boxes, B, V, live, crown), 3)
+        b_ms, b_by = bound(*role_bounds_cost(sizes_of(net), 2 * live * V, key[3], crown))
+        buckets["role_bounds"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, live=live,
+                                           boxes=B, V=V)
     out = {k: {"buckets": {name[k](b): r for b, r in v.items()}, "windows": {}}
            for k, v in buckets.items()}
     for label, log, _ in WINDOWS:
-        for kernel, tag in (("sign_bound", "K8a"), ("stage0_certify", "KB")):
+        for kernel, tag in (("sign_bound", "K8a"), ("stage0_certify", "KB"),
+                            ("inter_bounds", "K8b"), ("role_bounds", "row 13")):
             split = getattr(log, kernel)
             if not split:
                 continue
@@ -4413,11 +4766,17 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                 "family_chunk": {k: fr[k] for k in keys + (
                     "solo_sum_ms", "library_ms", "M", "launches")},
                 "host_frontier": {k: r["host_frontier"].get(k) for k in keys + (
-                    "library_ms", "rows", "role_boxes") if k in r["host_frontier"]},
+                    "library_ms", "rows", "role_boxes", "time_split", "live_boxes",
+                    "geometry") if k in r["host_frontier"]},
             }
             if name == "role_bounds":
-                row["crown"] = {k: r["crown"][k] for k in keys + ("err_x_tol",)}
+                row["crown"] = {k: r["crown"][k] for k in keys + (
+                    "err_x_tol", "time_split", "geometry")}
                 row["err_x_slack"] = r["err_x_slack"]
+                row["time_split"], row["geometry"] = r["time_split"], r["geometry"]
+                row["family_chunk"].update(time_split=fr["time_split"],
+                                           geometry=fr["geometry"])
+                row["launches_by_shape"] = cert_shapes[name]
             else:
                 row["launches_by_rows"] = {str(k): v for k, v in sorted(grid8["rows"].items())}
                 row["geometry"] = r["geometry"]
@@ -4459,7 +4818,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             "gc": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "max_abs_err")},
         }
-        for extra in ("alpha0", "root", "role_boxes", "geometry"):
+        for extra in ("alpha0", "root", "role_boxes", "geometry", "live_rows", "time_split"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "pgd_attack":
@@ -4478,7 +4837,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             row["gc"]["row17_ms"] = g["row17_ms"]
             row["gc"]["library_ms"] = g["library_ms"]
         if name in chunk["rows"]:  # rows 1, 10 and 15 (stage 0) at one chunk
-            row["chunk_loop"] = {k: chunk["rows"][name][k] for k in keys + ("launches",)}
+            row["chunk_loop"] = {k: chunk["rows"][name].get(k) for k in keys + (
+                "launches", "library_ms")}
             row["launches_chunk_loop_gc1"] = chunk["gc_launch"][name]
             row["also_replaces"] = ALSO_REPLACES[name]
         if name in fam_rows:  # rows 5 and 7 (families) and 15 (host frontier)

@@ -58,12 +58,33 @@ static inline NetDesc make_desc(const int* dims, int L, bool odd_rows = false) {
   return nd;
 }
 
-// Dynamic shared memory above 48 KB must be opted into per kernel.
+// Dynamic shared memory above 48 KB must be opted into per kernel and
+// device.  The largest size opted into so far is kept per (kernel, device),
+// so a launch pays cudaFuncSetAttribute only when it needs more.
 template <typename K>
 static inline cudaError_t set_smem(K kernel, size_t bytes) {
-  if (bytes > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes);
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  struct Opted {
+    const void* fn;
+    int dev;
+    size_t bytes;
+  };
+  static Opted opted[32];
+  static int n_opted = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = (const void*)kernel;
+  int slot = -1;
+  for (int i = 0; i < n_opted; ++i)
+    if (opted[i].fn == fn && opted[i].dev == dev) {
+      if (opted[i].bytes >= bytes) return cudaSuccess;
+      slot = i;
+    }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  if (slot < 0 && n_opted < 32) slot = n_opted++;
+  if (slot >= 0) opted[slot] = Opted{fn, dev, bytes};
   return cudaSuccess;
 }
 

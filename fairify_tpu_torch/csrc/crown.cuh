@@ -1,6 +1,6 @@
 // Block-wide CROWN device functions: the bounds and output-logit linear
 // forms of one role box and the α-CROWN optimiser of those forms, a whole
-// block on one role box (row 13's CROWN mode, K7, K8b); K6 and KB run the
+// block on one role box (K7); K6, KB, K8b and row 13's CROWN mode run the
 // same arithmetic warp by warp (crown_warp.cuh).
 //
 // crown_role_forms mirrors ops/crown.py:crown_bounds + the plain set of

@@ -1,8 +1,9 @@
 // Warp-owned CROWN and α-CROWN of one role box: the H100 layout of K6
-// (bab_segment.cu) and KB (stage0_certify.cu), which share its forms stage
+// (bab_segment.cu), KB (stage0_certify.cu), K8b (inter_bounds.cu) and row
+// 13's CROWN mode (role_bounds.cu), which share its forms stage
 // (role_forms_stage).  crown.cuh runs the same arithmetic with a whole
-// block on one role box (row 13, K7, K8b keep it); here a block takes all
-// 2V role boxes of one box side by side, and every sum of a role box is
+// block on one role box (K7 keeps it); here a block takes its role boxes
+// (KB: all 2V of one box) side by side, and every sum of a role box is
 // carried by one warp.
 //
 // CROWN (crown.cuh:crown_role_forms).  Layer k's backward pass is out_k
@@ -33,8 +34,8 @@
 // every concretization are summed where the lane holds the terms:
 // lane-strided partials and a warp XOR tree.  So these forms and bounds
 // may differ from crown.cuh's in the last bits; the card's checks hold K6
-// to the plain version's decisions and KB's margins to the plain version's
-// within tolerance.
+// to the plain version's decisions, and KB's margins and the bounds of K8b
+// and row 13's CROWN mode to the plain version's within tolerance.
 #pragma once
 
 #include "common.cuh"
@@ -511,9 +512,11 @@ __device__ void alpha_side(const NetDesc& nd, const float* P, const RoleWs& R, f
 // 0 (plain) of role box rv lands at F + rv * FS, set 1 (α-tuned) at F +
 // (nrv + rv) * FS, each A_low (d), A_up (d), c_low, c_up, lb, ub; with α
 // both sets' bounds are the widened best α bounds intersected with the
-// plain ones (crown.cuh:alpha_role_forms).  warps: the block's warps'
-// scratch, wws floats each; best: 2 nrv floats.  About 2L block barriers;
-// ends with one.
+// plain ones (crown.cuh:alpha_role_forms).  With F null (and iters 0) no
+// forms are written: the stage leaves every layer's widened bounds in each
+// role box's R.wslb/R.wsub (K8b, row 13's CROWN mode).  warps: the block's
+// warps' scratch, wws floats each; best: 2 nrv floats.  About 2L block
+// barriers; ends with one.
 __device__ void role_forms_stage(const NetDesc& nd, const float* P, float* roles, int rws,
                                  float* warps, int wws, int nrv, float* F, int FS,
                                  float* best, int iters) {
@@ -528,11 +531,11 @@ __device__ void role_forms_stage(const NetDesc& nd, const float* P, float* roles
     for (int t = warp; t < nrv * npair; t += nw) {
       const int rv = t / npair, c0 = 2 * (t - rv * npair);
       crown_columns(nd, P, role_ws(roles + rv * rws, nd), ws, k, c0, min(2, nout - c0),
-                    k == L - 1 ? F + rv * FS : nullptr);
+                    k == L - 1 && F != nullptr ? F + rv * FS : nullptr);
     }
     __syncthreads();
   }
-  if (L == 1) {  // the forms of a one-layer net are its weights
+  if (L == 1 && F != nullptr) {  // the forms of a one-layer net are its weights
     for (int q = tid; q < nrv * d; q += nt) {
       const int rv = q / d, i = q - rv * d;
       float* f = F + rv * FS;

@@ -110,17 +110,36 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+_entries: Dict[tuple, object] = {}
+
+
+def entry(src: str, name: str, types: tuple):
+    """C entry point ``name`` of library ``src`` declared with argument
+    ``types`` and an ``int`` result: one function object per signature,
+    declared once."""
+    key = (src, name, types)
+    fn = _entries.get(key)
+    if fn is None:
+        fn = lib(src)[name]
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(types)
+        _entries[key] = fn
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise if C entry point ``name`` returned a nonzero CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
 def call(src: str, name: str, *args) -> None:
     """Call C entry point ``name`` of library ``src`` with ctypes arguments
     (``c_void_p`` pointers and stream, ``c_int``/``c_float`` scalars, the
     host dims array); raise if it returns a nonzero CUDA error code."""
-    fn = getattr(lib(src), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int) if isinstance(a, ctypes.Array)
-                   else type(a) for a in args]
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}")
+    types = tuple(ctypes.POINTER(ctypes.c_int) if isinstance(a, ctypes.Array) else type(a)
+                  for a in args)
+    check(name, entry(src, name, types)(*args))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -436,36 +436,79 @@ def role_logit_bounds_plain(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool):
     return each_model(net, lambda m: bounds(m, x_lo, x_hi) + bounds(m, xp_lo, xp_hi))
 
 
-def role_logit_bounds(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool):
+def role_logit_bounds(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool, live=None):
     """Rows 13 and 8: ``(lb_x, ub_x, lb_p, ub_p)`` (..., V) of the role boxes
     (..., V, d) of both roles, one launch; a ``StackedMLP`` adds a leading
     model axis (the kernel's ``blockIdx.y``).  ``use_crown`` picks the CROWN
     bounds (as ``crown_bounds(widen=True)``), else the widened interval
-    image.  CPU tensors take :func:`role_logit_bounds_plain`; CUDA tensors
-    launch ``csrc/role_bounds.cu``."""
-    if x_lo.device.type == "cpu":
-        return role_logit_bounds_plain(net, x_lo, x_hi, xp_lo, xp_hi, use_crown)
-    if net.layer_sizes[-1] != 1:
-        raise ValueError("role_logit_bounds: the net must have one output logit")
-    if not (x_lo.shape == x_hi.shape == xp_lo.shape == xp_hi.shape):
-        raise ValueError("role_logit_bounds: the four role-box tensors need one shape")
-    params, dims, M = cuda_build.pack_models(net)
-    ins = [t.contiguous() for t in (x_lo, x_hi, xp_lo, xp_hi)]
-    cuda_build.require_cuda(params, *ins)
+    image.  ``live`` (default B, the boxes of the flattened leading axes):
+    boxes ``>= live`` get box ``live - 1``'s bounds — what a full call
+    returns for them when they repeat that box's inputs (:func:`_pad`).
+    CPU tensors take :func:`role_logit_bounds_plain` on every box and the
+    same fill; CUDA tensors launch ``csrc/role_bounds.cu`` over the live
+    boxes only (the geometry from :func:`role_bounds_geometry`)."""
     shape = x_lo.shape[:-1]
     V = shape[-1] if len(shape) else 1
-    B = x_lo.numel() // (x_lo.shape[-1] * V)
-    out_lo = torch.empty((M, 2, B * V), dtype=torch.float32, device=x_lo.device)
-    out_hi = torch.empty_like(out_lo)
-    cuda_build.call("role_bounds", "k10_role_bounds", cuda_build.ptr(params), dims,
-                    ctypes.c_int(net.depth), *(cuda_build.ptr(t) for t in ins),
-                    ctypes.c_int(B), ctypes.c_int(V), ctypes.c_int(M),
-                    ctypes.c_int(int(bool(use_crown))), cuda_build.ptr(out_lo),
-                    cuda_build.ptr(out_hi), cuda_build.stream())
+    B = x_lo.numel() // (x_lo.shape[-1] * V) if x_lo.shape[-1] else 0
+    live = _live_rows("role_logit_bounds", B, live)
+    lead = (net.n_models,) if isinstance(net, StackedMLP) else ()
+    if x_lo.device.type == "cpu":
+        out = role_logit_bounds_plain(net, x_lo, x_hi, xp_lo, xp_hi, use_crown)
+        if live < B:
+            out = tuple(_fill_past(t.reshape(lead + (B, V)), live, len(lead)).reshape(t.shape)
+                        for t in out)
+        return out
+    if not (x_lo.shape == x_hi.shape == xp_lo.shape == xp_hi.shape):
+        raise ValueError("role_logit_bounds: the four role-box tensors need one shape")
+    out = _role_bounds_launch(net, (x_lo, x_hi, xp_lo, xp_hi), B, V, live, use_crown)
     role_logit_bounds.launches += 1
-    lead = (M,) if isinstance(net, StackedMLP) else ()
-    out = (out_lo[:, 0], out_hi[:, 0], out_lo[:, 1], out_hi[:, 1])
-    return tuple(t.reshape(lead + shape) for t in out)
+    return out.view(lead + (4,) + shape).unbind(len(lead))
+
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+# k10_role_bounds(params, dims, L, xlo, xhi, plo, phi, B, V, M, live, use_crown,
+# out, tw, warps, grid, smem, stream)
+_K10B_ARGS = ((_VP, ctypes.POINTER(_INT), _INT) + (_VP,) * 4 + (_INT,) * 5 + (_VP,)
+              + (_INT,) * 3 + (ctypes.c_longlong, _VP))
+# k8b_inter_bounds(params, dims, L, lo, hi, B, live, out_lb, out_ub, warps, per,
+# smem, stream)
+_K8B_ARGS = ((_VP, ctypes.POINTER(_INT), _INT, _VP, _VP, _INT, _INT, _VP, _VP, _INT, _INT,
+              ctypes.c_longlong, _VP))
+
+
+def _role_bounds_launch(net, boxes, B: int, V: int, live: int, use_crown: bool,
+                        _geometry_force=None):
+    """One launch of ``k10_role_bounds`` over the ``live`` first of the B
+    boxes of the role boxes ``boxes`` (x_lo, x_hi, xp_lo, xp_hi): one
+    (M, 2 roles, 2 (lo, hi), B·V) tensor.  ``_geometry_force`` (IBP ``(tw,
+    warps)``, CROWN warps) forces the geometry: the card's checks that the
+    bounds do not depend on it."""
+    fn, args, out = _role_bounds_prepare(net, boxes, B, V, live, use_crown, _geometry_force)
+    cuda_build.check("k10_role_bounds", fn(*args, torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def _role_bounds_prepare(net, boxes, B: int, V: int, live: int, use_crown: bool,
+                         _geometry_force=None):
+    """``(entry point, its arguments but the stream, output tensor)`` of one
+    ``k10_role_bounds`` launch: IBP reads the padded pack, CROWN the
+    odd-stride pack of every model, the geometry from
+    :func:`role_bounds_geometry`."""
+    crown = bool(use_crown)
+    params, dims, M = (cuda_build.pack_odd_models if crown else cuda_build.pack_padded)(net)
+    if dims[len(dims) - 1] != 1:
+        raise ValueError("role_logit_bounds: the net must have one output logit")
+    ins = [t.contiguous() for t in boxes]
+    cuda_build.require_cuda(params, *ins)
+    dev = ins[0].device
+    geo = _role_bounds_geometry(tuple(dims), V, 2 * live * V, M, crown,
+                                cuda_build.sm_count(dev), cuda_build.SMEM_LIMIT,
+                                _geometry_force)
+    out = torch.empty((M, 2, 2, B * V), dtype=torch.float32, device=dev)
+    args = (params.data_ptr(), dims, len(dims) - 1, *(t.data_ptr() for t in ins), B, V, M,
+            live, int(crown), out.data_ptr(), geo["tw"], geo["warps"], geo["grid"],
+            geo["smem"])
+    return cuda_build.entry("role_bounds", "k10_role_bounds", _K10B_ARGS), args, out
 
 
 role_logit_bounds.launches = 0
@@ -732,6 +775,130 @@ def sign_bound_geometry(sizes, live=None, sms: int = 132,
     return dict(warps=warps, threads=32 * warps, smem=smem, per_sm=_per_sm(smem, warps))
 
 
+K8B_MAX_WARPS = 16  # csrc/inter_bounds.cu
+
+
+def inter_bounds_smem(sizes, per: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one K8b block
+    (``inter_bounds.cu:ib_layout``): the mbarrier's 16; the odd-stride net
+    (``cuda_build.odd_layout``); per box (``per``) its widened bounds and
+    their relaxation (5 nsum), IBP bounds (2 maxw) and box (2d); per warp a
+    column pair's 8 maxw; every part rounded up to 4 floats."""
+    d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+    fl = (4 + cuda_build.odd_layout(sizes)["padded"] + per * _r4(5 * nsum + 2 * maxw + 2 * d)
+          + warps * _r4(8 * maxw))
+    return 4 * fl
+
+
+def inter_bounds_geometry(sizes, live: int, sms: int = 132,
+                          smem_limit: int = cuda_build.SMEM_LIMIT, _force=None) -> dict:
+    """Launch geometry of K8b over ``live`` boxes: warps a block, boxes a
+    block (``per``; the grid is ``ceil(live / per)`` blocks), shared memory
+    and the blocks an SM holds (``per_sm``).  At most ``sms`` live boxes
+    (Phase P's 2V role boxes, a small Phase-L block) are one box's critical
+    path: one box a block and a warp per column pair of the widest layer
+    past the first (at most K8B_MAX_WARPS and what shared memory holds: 16
+    at AC-S1).  More boxes take half the warps an SM holds at the register
+    cap (at most one per column pair), so that two blocks share an SM, and
+    as many boxes a block as make the grid one wave at two blocks an SM
+    while two still fit (at AC-S1, B = 512: 8 warps, 2 boxes, 256 blocks).
+    ``_force`` (``(warps, per)``) overrides the choice; a geometry that
+    does not fit raises."""
+    pairs = max([(n + 1) // 2 for n in sizes[2:]] or [1])
+    if _force is not None:
+        warps, per = int(_force[0]), int(_force[1])
+        if not (1 <= warps <= K8B_MAX_WARPS and per >= 1) or \
+                inter_bounds_smem(sizes, per, warps) > smem_limit:
+            raise ValueError(f"inter_bounds: {per} boxes and {warps} warps a block do not fit "
+                             "in shared memory")
+    elif live <= sms:
+        per = 1
+        warps = _fit_warps(lambda w: inter_bounds_smem(sizes, 1, w),
+                           min(K8B_MAX_WARPS, pairs), smem_limit)
+    else:
+        warps = _fit_warps(lambda w: inter_bounds_smem(sizes, 1, w),
+                           min(K6_SM_WARPS // 2, pairs), smem_limit)
+        per, want = 1, _ceil(live, 2 * sms)
+        while per < want and _per_sm(inter_bounds_smem(sizes, per + 1, warps), warps) >= 2:
+            per += 1
+    smem = inter_bounds_smem(sizes, per, warps)
+    return dict(warps=warps, threads=32 * warps, per=per, smem=smem,
+                per_sm=_per_sm(smem, warps))
+
+
+K10B_MAX_WARPS = 16  # csrc/role_bounds.cu
+RB_TW = (16, 8, 4)  # role boxes of a row-13 IBP warp tile, largest first
+RB_SM_WARPS = 8  # warps an SM the IBP tile is chosen to keep busy
+
+
+def role_bounds_smem(sizes, V: int, tw: int, warps: int, use_crown: bool = False) -> int:
+    """Bytes of dynamic shared memory of one row-13 block
+    (``role_bounds.cu:k10b_smem``).  IBP: the mbarrier's 16, the padded
+    net's forward part (``cuda_build.pad_layout``), per warp both interval
+    buffers (lo and hi) of ``tw`` role boxes — buffer 0 the widest even
+    hidden layer, buffer 1 the widest of the input and the odd hidden
+    layers.  CROWN: the mbarrier's 16, the odd-stride net, per role box
+    (2V) its widened bounds and their relaxation (5 nsum), IBP bounds (2
+    maxw) and box (2d), per warp a column pair's 8 maxw; every part rounded
+    up to 4 floats."""
+    if use_crown:
+        d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+        return 4 * (4 + cuda_build.odd_layout(sizes)["padded"]
+                    + 2 * V * _r4(5 * nsum + 2 * maxw + 2 * d) + warps * _r4(8 * maxw))
+    h = [0, sizes[0]]
+    for l in range(len(sizes) - 2):
+        h[l & 1] = max(h[l & 1], sizes[l + 1])
+    return 4 * (4 + cuda_build.pad_layout(sizes)["fwd"] + warps * 2 * (h[0] + h[1]) * tw)
+
+
+def role_bounds_geometry(sizes, V: int, rows: int, models: int = 1, use_crown: bool = False,
+                         sms: int = 132, smem_limit: int = cuda_build.SMEM_LIMIT,
+                         _force=None) -> dict:
+    """Launch geometry of rows 13 and 8 over ``rows`` live role boxes (both
+    roles, 2 x live boxes x V) of ``models`` models on a card of ``sms``
+    SMs.  IBP: warp tiles of ``tw`` role boxes, the largest of RB_TW whose
+    tiles give every SM RB_SM_WARPS warps while a block of K10B_MAX_WARPS
+    of them fits (else the smallest); warps a block enough to give each SM
+    its share (at most K10B_MAX_WARPS and what shared memory holds);
+    ``grid`` blocks a model, at most the blocks the SMs hold.  So the host
+    frontier's F = 512 (2,048 role boxes at V = 2) runs one 4-box tile a
+    warp on 128 blocks of 4 warps, and a 2,048-box AC-S1 chunk (8,192 role
+    boxes, one model or four) 4-box tiles on 16 warps a block.  CROWN: one block a box and model, 4V warps (one per α side, as
+    KB; at least 4, at most K10B_MAX_WARPS and what fits).  ``_force``
+    (IBP ``(tw, warps)``, CROWN warps) overrides the choice; a geometry
+    that does not fit raises."""
+    smem_of = lambda t, w: role_bounds_smem(sizes, V, t, w, use_crown)
+    if use_crown:
+        cap = K10B_MAX_WARPS if _force is not None else min(K10B_MAX_WARPS, max(4, 4 * V))
+        wmax = _fit_warps(lambda w: smem_of(0, w), cap, smem_limit)
+        warps = wmax if _force is None else int(_force)
+        if not 1 <= warps <= wmax:
+            raise ValueError(f"role_bounds: {warps} warps do not fit in shared memory")
+        smem = smem_of(0, warps)
+        return dict(tw=0, warps=warps, threads=32 * warps, smem=smem,
+                    per_sm=_per_sm(smem, warps), grid=0)
+    if _force is None:
+        tw = next((t for t in RB_TW if _ceil(rows, t) * models >= sms * RB_SM_WARPS
+                   and smem_of(t, K10B_MAX_WARPS) <= smem_limit), RB_TW[-1])
+    else:
+        tw = int(_force[0])
+        if tw < 4 or tw % 4 or tw > 64:
+            raise ValueError(f"role_bounds: a warp tile of {tw} role boxes")
+    wmax = _fit_warps(lambda w: smem_of(tw, w), K10B_MAX_WARPS, smem_limit)
+    tiles = _ceil(rows, tw)
+    if _force is None:
+        warps = min(max(_ceil(tiles * models, sms), 1), wmax)
+    else:
+        warps = int(_force[1])
+        if not 1 <= warps <= wmax:
+            raise ValueError(f"role_bounds: {warps} warps of {tw} role boxes do not fit")
+    smem = smem_of(tw, warps)
+    per_sm = _per_sm(smem, warps)
+    grid = max(1, min(_ceil(tiles, warps), _ceil(per_sm * sms, models)))
+    return dict(tw=tw, warps=warps, threads=32 * warps, smem=smem, per_sm=per_sm, grid=grid,
+                tiles=tiles)
+
+
 # The wrappers' geometry, computed once per shape (hashable arguments; the
 # returned dicts are shared and read only).
 _attack_logits_geometry = functools.lru_cache(maxsize=256)(attack_logits_geometry)
@@ -739,6 +906,8 @@ _pgd_geometry = functools.lru_cache(maxsize=256)(pgd_geometry)
 _bab_geometry = functools.lru_cache(maxsize=256)(bab_geometry)
 _kb_geometry = functools.lru_cache(maxsize=256)(kb_geometry)
 _sign_bound_geometry = functools.lru_cache(maxsize=256)(sign_bound_geometry)
+_inter_bounds_geometry = functools.lru_cache(maxsize=256)(inter_bounds_geometry)
+_role_bounds_geometry = functools.lru_cache(maxsize=256)(role_bounds_geometry)
 
 
 def attack_logits_plain(net, x_roles, xp_roles):
@@ -997,6 +1166,26 @@ def find_flips(enc: PairEncoding, logit_x, logit_p, valid_assign):
                                  torch.as_tensor(np.asarray(valid_assign, bool)),
                                  torch.as_tensor(np.asarray(enc.valid_pair, bool)))
     return found.numpy(), wit.numpy()
+
+
+def _live_rows(what: str, B: int, live) -> int:
+    """``live`` (None: all B rows) checked for a batch of B rows."""
+    live = B if live is None else int(live)
+    if not (1 <= live <= B or live == B == 0):
+        raise ValueError(f"{what}: live={live} for {B} rows")
+    return live
+
+
+def _fill_past(t: torch.Tensor, live: int, axis: int = 0) -> torch.Tensor:
+    """``t`` with the entries past ``live`` on ``axis`` replaced by entry
+    ``live - 1``: what the kernels' live-row launches give the padded rows."""
+    n = t.shape[axis]
+    if live >= n:
+        return t
+    shape = list(t.shape)
+    shape[axis] = n - live
+    return torch.cat([t.narrow(axis, 0, live), t.narrow(axis, live - 1, 1).expand(shape)],
+                     dim=axis)
 
 
 def _pad(arr: np.ndarray, n: int) -> np.ndarray:
@@ -1639,27 +1828,53 @@ def sample_role_logits(net, x_roles, xp_roles):
 sample_role_logits.launches = 0
 
 
-def inter_bounds(net, lo, hi):
+def inter_bounds(net, lo, hi, live=None):
     """K8b: CROWN pre-activation bounds of every layer for B boxes (B, d):
-    lists ``(ws_lb, ws_ub)`` of (B, n_k) tensors, widened outward.  CPU
-    tensors take :func:`ops.crown.crown_bounds`; CUDA tensors launch
-    ``csrc/inter_bounds.cu``."""
+    lists ``(ws_lb, ws_ub)`` of (B, n_k) tensors, widened outward.  ``live``
+    (default B): rows ``>= live`` get row ``live - 1``'s bounds — what a full
+    call returns for them when they repeat that row's inputs (:func:`_pad`).
+    CPU tensors take :func:`ops.crown.crown_bounds` on every row and the
+    same fill; CUDA tensors launch ``csrc/inter_bounds.cu`` over the live
+    rows only (the geometry from :func:`inter_bounds_geometry`)."""
+    B = lo.shape[0]
+    live = _live_rows("inter_bounds", B, live)
     if lo.device.type == "cpu":
         b = crown_ops.crown_bounds(net, lo, hi)
-        return list(b.ws_lb), list(b.ws_ub)
-    params, dims = cuda_build.pack_net(net)
+        return ([_fill_past(t, live) for t in b.ws_lb], [_fill_past(t, live) for t in b.ws_ub])
+    out = _inter_bounds_launch(net, lo, hi, live)
+    inter_bounds.launches += 1
+    return out
+
+
+def _inter_bounds_launch(net, lo, hi, live: int, _geometry_force=None):
+    """One launch of ``k8b_inter_bounds`` over the ``live`` first of the B
+    rows; ``_geometry_force`` (``(warps, boxes a block)``) forces the
+    geometry: the card's checks that the bounds do not depend on it."""
+    fn, args, out = _inter_bounds_prepare(net, lo, hi, live, _geometry_force)
+    cuda_build.check("k8b_inter_bounds", fn(*args, torch.cuda.current_stream().cuda_stream))
+    sizes = tuple(args[1])[1:]
+    return list(out[0].split(sizes, dim=1)), list(out[1].split(sizes, dim=1))
+
+
+def _inter_bounds_prepare(net, lo, hi, live: int, _geometry_force=None):
+    """``(entry point, its arguments but the stream, output tensor (2, B,
+    sum(n_k)): lower, upper)`` of one ``k8b_inter_bounds`` launch, the
+    geometry from :func:`inter_bounds_geometry`."""
+    params, dims = cuda_build.pack_odd(net)
     lo, hi = lo.contiguous(), hi.contiguous()
     cuda_build.require_cuda(params, lo, hi)
-    B = lo.shape[0]
-    sizes = list(net.layer_sizes)
-    out_lb = torch.empty((B, sum(sizes)), dtype=torch.float32, device=lo.device)
-    out_ub = torch.empty_like(out_lb)
-    cuda_build.call("inter_bounds", "k8b_inter_bounds", cuda_build.ptr(params), dims,
-                    ctypes.c_int(net.depth), cuda_build.ptr(lo), cuda_build.ptr(hi),
-                    ctypes.c_int(B), cuda_build.ptr(out_lb), cuda_build.ptr(out_ub),
-                    cuda_build.stream())
-    inter_bounds.launches += 1
-    return list(out_lb.split(sizes, dim=1)), list(out_ub.split(sizes, dim=1))
+    sizes = tuple(dims)
+    B, nsum = lo.shape[0], sum(sizes[1:])
+    sms = cuda_build.sm_count(lo.device)
+    # The geometry reads only whether live <= sms and ceil(live / 2 sms):
+    # one memoized shape per class.
+    key = sms if live <= sms else _ceil(live, 2 * sms) * 2 * sms
+    geo = _inter_bounds_geometry(sizes, key, sms, cuda_build.SMEM_LIMIT, _geometry_force)
+    out = torch.empty((2, B, nsum), dtype=torch.float32, device=lo.device)
+    args = (params.data_ptr(), dims, len(sizes) - 1, lo.data_ptr(), hi.data_ptr(), B, live,
+            out.data_ptr(), out.data_ptr() + 4 * B * nsum, geo["warps"], geo["per"],
+            geo["smem"])
+    return cuda_build.entry("inter_bounds", "k8b_inter_bounds", _K8B_ARGS), args, out
 
 
 inter_bounds.launches = 0
@@ -1706,14 +1921,11 @@ def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False, live
     (whose results for a row may depend on the batch's size in the last
     bits) and the same fill."""
     B = lo.shape[0]
-    live = B if live is None else int(live)
-    if not (1 <= live <= B or live == B == 0):
-        raise ValueError(f"sign_bound: live={live} for {B} rows")
+    live = _live_rows("sign_bound", B, live)
     if lo.device.type == "cpu":
         out, ab = sign_bound_plain(net, lo, hi, signs, alpha_iters)
         if live < B:
-            fill = lambda t: torch.cat([t[:live], t[live - 1:live].expand(
-                (B - live,) + t.shape[1:])])
+            fill = lambda t: _fill_past(t, live)
             out = (fill(out[0]), fill(out[1]), fill(out[2]), [fill(t) for t in out[3]],
                    [fill(t) for t in out[4]])
             ab = fill(ab)
@@ -1926,7 +2138,11 @@ def uniform_sign_bab(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConf
         pre_ub = [np.zeros((R, n), np.float32) for n in net.layer_sizes]
         for s in range(0, len(cand), F):
             blk = cand[s:s + F]
-            wl, wu = batched(inter_bounds, _pad(slo[blk].astype(np.float32), F),
+            # Unsharded, K8b computes the block's rows only; a mesh keeps
+            # its full padded shards.
+            live = None if sharded else len(blk)
+            wl, wu = batched(lambda m, lo, hi: inter_bounds(m, lo, hi, live=live),
+                             _pad(slo[blk].astype(np.float32), F),
                              _pad(shi[blk].astype(np.float32), F))
             for L, (a, b) in enumerate(zip(wl, wu)):
                 pre_lb[L][blk] = a[:len(blk)]
@@ -2374,6 +2590,7 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
     dev = net.device
     on = lambda a: torch.as_tensor(a, device=dev)
     fused = cfg.use_crown and mesh is None
+    sharded = mesh is not None
     # The non-fused branch's batches (numpy in, numpy out): one launch on
     # the net's device, or one per parts shard of the mesh.
     mesh, reps = mesh_mod.placement(net, mesh)
@@ -2431,9 +2648,12 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
                                                    valid, alpha_iters=alpha)
             certified, score = cert[:batch], score[:F]
         else:  # IBP: role bounds (row 13) first, then attack the undecided
+            # Unsharded, row 13 computes the batch's boxes only; a mesh
+            # keeps its full padded shards.
+            live_b = None if sharded else batch
             bounds = [t[:F] for t in mesh_mod.shard_map(
-                mesh, lambda m, *b: role_logit_bounds(m, *b, use_crown=False), reps,
-                x_lo, x_hi, xp_lo, xp_hi)]
+                mesh, lambda m, *b: role_logit_bounds(m, *b, use_crown=False, live=live_b),
+                reps, x_lo, x_hi, xp_lo, xp_hi)]
             certified = no_flip_certified(*bounds, valid, enc.valid_pair)[:batch]
         undecided = np.where(~certified & live)[0]
         if undecided.size:

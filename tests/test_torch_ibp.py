@@ -10,6 +10,12 @@ against the JAX package, on the CPU.
   (``ops.exact.exact_network_bounds``) on a sample of role boxes; CROWN
   bounds within rel 1e-4 of the case's largest bound + abs 1e-4 (as
   test_torch_crown.py) and containing the f64 logits of sampled points.
+* Row 13's live-row call (``role_logit_bounds(..., live=n)``) on a
+  ``_pad``-ded batch against ``_role_logit_bounds`` on that batch for boxes
+  < n, the boxes past ``live`` equal to box n - 1 (for a stacked family on
+  every model); chip_smoke.py's plain-order IBP reference (the kernel's own
+  fmaf order, held to it bit for bit on the card) and its library chain
+  (the centre-radius image) within tolerance of JAX's bounds.
 * Row 17, ``engine.attack_logits``, against ``_attack_logits``: within rel
   1e-5 of the box's largest |logit| + abs 1e-6 (f32 summation order); and
   chip_smoke.py's row-17 check passes JAX's logits and fails a moved one.
@@ -126,6 +132,63 @@ def test_role_logit_bounds_match_jax(kind, use_crown):
                                size=(64, lo.shape[0]))
             f = forward_np(ws, bs, pts, dead=[1.0 - m for m in ms[:-1]])
             assert (f >= lb).all() and (f <= ub).all()
+
+
+@pytest.mark.parametrize("use_crown", [False, True], ids=["ibp", "crown"])
+def test_role_logit_bounds_live_rows_match_jax(use_crown):
+    ws, bs, ms, boxes = _role_case("toy")
+    B = boxes[0].shape[0]
+    jn, tnet = jmlp.from_numpy(ws, bs, ms), tmlp.from_numpy(ws, bs, ms, device="cpu")
+    tst = tmesh.stack_models([tnet, tmlp.from_numpy(*_masked_net((4, 8, 6, 1), 7),
+                                                    device="cpu")])
+    T = torch.as_tensor
+    for n in (1, 5, B):
+        pb = [tengine._pad(b[:n], B) for b in boxes]
+        want = [np.asarray(v) for v in jengine._role_logit_bounds(
+            jn, *map(jnp.asarray, pb), use_crown)]
+        got = [t.numpy() for t in tengine.role_logit_bounds(tnet, *map(T, pb), use_crown,
+                                                             live=n)]
+        for role in (0, 2):
+            g, w = got[role:role + 2], [x[:n] for x in want[role:role + 2]]
+            if use_crown:
+                scale = max(np.abs(w[0]).max(), np.abs(w[1]).max())
+                for a, b in zip(g, w):
+                    np.testing.assert_allclose(a[:n], b, rtol=1e-4, atol=1e-4 * scale)
+            else:
+                _within_slack(g[0][:n], g[1][:n], w[0], w[1])
+        for g in got:
+            assert g.shape == boxes[0].shape[:-1] and (g[n:] == g[n - 1]).all()
+        full = tengine.role_logit_bounds(tst, *map(T, pb), use_crown)
+        part = tengine.role_logit_bounds(tst, *map(T, pb), use_crown, live=n)
+        for f, p in zip(full, part):
+            assert torch.equal(p[:, :n], f[:, :n]) and (p[:, n:] == p[:, n - 1:n]).all()
+    for bad in (0, B + 1):
+        with pytest.raises(ValueError):
+            tengine.role_logit_bounds(tnet, *map(T, boxes), use_crown, live=bad)
+
+
+def test_chip_smoke_ibp_references_match_jax():
+    """chip_smoke.py's plain-order IBP reference (``ibp_ordered``) within the
+    widening slack's scale of JAX's row-13 IBP bounds, and its library chain
+    (``library_interval``) within TOL_REL of the interval magnitude."""
+    import chip_smoke
+
+    ws, bs, ms, boxes = _role_case("ac_s1")
+    want = [np.asarray(v) for v in jengine._role_logit_bounds(
+        jmlp.from_numpy(ws, bs, ms), *map(jnp.asarray, boxes), False)]
+    tnet = tmlp.from_numpy(ws, bs, ms, device="cpu")
+    tb = [torch.as_tensor(b) for b in boxes]
+    lib = [t.numpy().reshape(boxes[0].shape[:-1]) for t in chip_smoke.library_interval(tnet, tb)]
+    d = boxes[0].shape[-1]
+    for role in (0, 1):
+        lo, hi = (tb[2 * role + i].reshape(-1, d) for i in (0, 1))
+        got = [t.numpy().reshape(boxes[0].shape[:-1]) for t in chip_smoke.ibp_ordered(tnet, lo,
+                                                                                     hi)]
+        w = want[2 * role:2 * role + 2]
+        _within_slack(got[0], got[1], w[0], w[1])
+        mag = np.maximum(np.abs(w[0]), np.abs(w[1]))
+        for a, b in zip(lib[2 * role:2 * role + 2], w):
+            assert (np.abs(a - b) <= chip_smoke.TOL_REL * mag + chip_smoke.TOL_ABS).all()
 
 
 def _attack_case(kind):

@@ -2,11 +2,14 @@
 
 ``engine.attack_logits_geometry``, ``engine.pgd_geometry``,
 ``engine.bab_geometry``, ``engine.sign_bound_geometry``,
-``engine.kb_geometry`` and ``lattice.lattice_geometry`` size the launches
-of ``csrc/attack_logits.cu`` (rows 17, 9, 21), ``csrc/pgd_attack.cu``
-(K5), ``csrc/bab_segment.cu`` (K6), ``csrc/sign_bound.cu`` (K8a),
-``csrc/stage0_certify.cu`` (KB: rows 4-7, 14, 15) and the lattice signs
-kernel of ``csrc/lattice_scan.cu`` (K9a/b/c), and the C entry points refuse
+``engine.kb_geometry``, ``engine.inter_bounds_geometry``,
+``engine.role_bounds_geometry`` and ``lattice.lattice_geometry`` size the
+launches of ``csrc/attack_logits.cu`` (rows 17, 9, 21),
+``csrc/pgd_attack.cu`` (K5), ``csrc/bab_segment.cu`` (K6),
+``csrc/sign_bound.cu`` (K8a), ``csrc/stage0_certify.cu`` (KB: rows 4-7, 14,
+15), ``csrc/inter_bounds.cu`` (K8b), ``csrc/role_bounds.cu`` (rows 13 and
+8) and the lattice signs kernel of ``csrc/lattice_scan.cu`` (K9a/b/c), and
+the C entry points refuse
 any other shared-memory size; so these tests hold the geometry at an
 H100's 132 SMs and 227 KB (232,448 bytes) of shared memory a block, for
 the nets the repo runs, without a card:
@@ -24,6 +27,11 @@ the nets the repo runs, without a card:
   SM, KB keeps two boxes resident per SM at AC-S1 widths, V = 2; the
   per-model odd-stride pack of a family of M = 1, 4 and 11 models is each
   model's own pack back to back;
+* K8b and rows 13/8 fit every net at V = 2 and 5, their shared-memory
+  sums those of the kernels' layouts; at AC-S1 K8b's many-box geometry
+  keeps two blocks an SM and a grid of one wave, Phase P's 2V role boxes
+  take its one-box-a-block geometry with a warp per column pair, and row
+  13's IBP tiles at the host frontier's F = 512 give every warp one tile;
 * a forced geometry that does not fit raises;
 * the padded and odd-stride packs are the layouts the kernels read, and
   every pack is built once per net: a net's ``with_masks`` copy gets its
@@ -367,3 +375,99 @@ def test_odd_pack_of_a_family_is_each_models_pack(M):
     assert one == 1 and single is cuda_build.pack_odd(nets[0])[0]
     with pytest.raises(TypeError):
         cuda_build.pack_odd(stack_models(nets))
+
+
+def _ib_smem_mirror(sizes, per, warps):
+    """inter_bounds.cu:ib_layout's bytes: the mbarrier's 4 floats, the
+    odd-stride net rounded up to 4 floats, per box a role workspace
+    (crown_warp.cuh:role_ws_floats) and per warp 8 maxw, rounded up."""
+    r4 = lambda v: (v + 3) // 4 * 4
+    d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+    net = sum(a * (b | 1) + 2 * b for a, b in zip(sizes[:-1], sizes[1:]))
+    return 4 * (4 + r4(net) + per * r4(5 * nsum + 2 * maxw + 2 * d) + warps * r4(8 * maxw))
+
+
+def _rb_smem_mirror(sizes, V, tw, warps, crown):
+    """role_bounds.cu:k10b_smem's bytes: CROWN as K8b's layout with the 2V
+    role boxes of a box; IBP the padded net's forward part and per warp
+    two interval buffers (lo, hi) of tw role boxes: buffer 0 the widest
+    even hidden layer, buffer 1 the widest of the input and odd hidden
+    layers."""
+    if crown:
+        return _ib_smem_mirror(sizes, 2 * V, warps)
+    r8 = lambda v: (v + 7) // 8 * 8
+    fwd = sum(a * r8(b) + 2 * r8(b) for a, b in zip(sizes[:-1], sizes[1:]))
+    hidden = sizes[1:-1]
+    h0 = max(hidden[0::2] or [0])
+    h1 = max([sizes[0]] + list(hidden[1::2]))
+    return 4 * (4 + fwd + warps * 2 * (h0 + h1) * tw)
+
+
+@pytest.mark.parametrize("V", [2, 5])
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_inter_bounds_and_role_bounds_geometry_fit_every_net(name, V):
+    sizes = NETS[name]
+    pairs = max([(n + 1) // 2 for n in sizes[2:]] or [1])
+    for live in (1, 2 * V, SMS, SMS + 1, 512, 2048):
+        g = engine.inter_bounds_geometry(sizes, live, sms=SMS, smem_limit=LIMIT)
+        assert g["smem"] == engine.inter_bounds_smem(sizes, g["per"], g["warps"]) \
+            == _ib_smem_mirror(sizes, g["per"], g["warps"]) <= LIMIT
+        assert 1 <= g["warps"] <= min(engine.K8B_MAX_WARPS, pairs)
+        assert g["threads"] == 32 * g["warps"] and 1 <= g["per"] <= live
+        assert g["per_sm"] >= 1 and g["per_sm"] * (g["smem"] + 1024) <= SM_BYTES
+        assert g["per_sm"] * g["warps"] <= engine.K6_SM_WARPS
+        if live <= SMS:  # one box a block, every warp on its column pairs
+            assert g["per"] == 1
+    for rows, models in ((2 * 512 * V, 1), (2 * 2048 * V, 1), (2 * 2048 * V, 4),
+                         (2 * 2048 * V, 11), (2 * V, 1)):
+        g = engine.role_bounds_geometry(sizes, V, rows, models, sms=SMS, smem_limit=LIMIT)
+        assert g["smem"] == engine.role_bounds_smem(sizes, V, g["tw"], g["warps"]) \
+            == _rb_smem_mirror(sizes, V, g["tw"], g["warps"], False) <= LIMIT
+        assert g["tw"] in engine.RB_TW and 1 <= g["warps"] <= engine.K10B_MAX_WARPS
+        assert g["tiles"] * g["tw"] >= rows and (g["grid"] - 1) * g["warps"] < g["tiles"]
+        assert g["grid"] * models <= g["per_sm"] * SMS + models - 1
+    g = engine.role_bounds_geometry(sizes, V, 0, 1, use_crown=True, sms=SMS, smem_limit=LIMIT)
+    assert g["smem"] == _rb_smem_mirror(sizes, V, 0, g["warps"], True) <= LIMIT
+    assert g["warps"] == min(engine.K10B_MAX_WARPS, 4 * V)
+
+
+def test_inter_bounds_and_role_bounds_geometry_at_ac_s1():
+    sizes = NETS["AC-S1"]
+    # Phase L's full block: two boxes a block at two blocks an SM, one wave.
+    g = engine.inter_bounds_geometry(sizes, 512, sms=SMS, smem_limit=LIMIT)
+    assert (g["warps"], g["per"], g["per_sm"]) == (8, 2, 2)
+    assert -(-512 // g["per"]) <= g["per_sm"] * SMS
+    # Phase P's 2V = 4 role boxes: one a block, a warp per column pair of
+    # the 64-unit layer (32 pairs), at most 16.
+    assert engine.inter_bounds_geometry(sizes, 4, sms=SMS, smem_limit=LIMIT)["warps"] == 16
+    # Row 13 at the host frontier's F = 512, V = 2: 4-box tiles, one a warp.
+    g = engine.role_bounds_geometry(sizes, 2, 2048, sms=SMS, smem_limit=LIMIT)
+    assert (g["tw"], g["tiles"]) == (4, 512) and g["grid"] * g["warps"] == g["tiles"]
+    # The M = 4 family chunk fills the card.
+    g = engine.role_bounds_geometry(sizes, 2, 8192, 4, sms=SMS, smem_limit=LIMIT)
+    assert g["grid"] * 4 >= SMS
+
+
+def test_forced_k8b_and_row13_geometry_is_checked():
+    sizes = NETS["AC-S1"]
+    for f in ((16, 1), (8, 2), (1, 1), (4, 4)):
+        g = engine.inter_bounds_geometry(sizes, 512, sms=SMS, _force=f)
+        assert (g["warps"], g["per"]) == f
+    for bad in ((17, 1), (0, 1), (8, 0), (16, 20)):  # (16, 20): 20 boxes > 227 KB
+        with pytest.raises(ValueError):
+            engine.inter_bounds_geometry(sizes, 512, sms=SMS, _force=bad)
+    g = engine.role_bounds_geometry(sizes, 2, 8192, sms=SMS, _force=(8, 12))
+    assert (g["tw"], g["warps"]) == (8, 12)
+    for bad in ((8, 16), (6, 1), (4, 17), (128, 1)):  # (8, 16): 249 KB
+        with pytest.raises(ValueError):
+            engine.role_bounds_geometry(sizes, 2, 8192, sms=SMS, _force=bad)
+    assert engine.role_bounds_geometry(sizes, 2, 0, use_crown=True, sms=SMS,
+                                       _force=16)["warps"] == 16
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.role_bounds_geometry(NETS["AC-S2"], 5, 0, use_crown=True, sms=SMS,
+                                    _force=engine.K10B_MAX_WARPS + 1)
+    wide = (13, 4096, 1)  # a net whose one warp or block exceeds shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.inter_bounds_geometry(wide, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.role_bounds_geometry(wide, 2, 2048)

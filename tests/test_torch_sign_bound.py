@@ -19,8 +19,10 @@ the CPU.
   B, at the widths above: the rows past ``live`` take row ``live - 1``'s
   outputs, which the full call gives them because they repeat its inputs.
 * ``inter_bounds`` (K8b's plain version) against ``_inter_bounds_kernel``
-  within the slack; ``sample_role_logits`` against ``_sample_role_logits``
-  to 1e-6 of the logits' rounding scale.
+  within the slack, and its live-row call (``inter_bounds(..., live=n)``)
+  on a ``_pad``-ded batch against JAX on that batch for rows < n, the rows
+  past ``live`` equal to row n - 1; ``sample_role_logits`` against
+  ``_sample_role_logits`` to 1e-6 of the logits' rounding scale.
 """
 import jax
 import jax.numpy as jnp
@@ -249,6 +251,36 @@ def test_inter_bounds_match_jax(sizes, B):
         mag = np.maximum(np.abs(np.asarray(b)), np.abs(np.asarray(e)))
         _slack_close(a.numpy(), b, mag)
         _slack_close(c.numpy(), e, mag)
+
+
+@pytest.mark.parametrize("sizes", SIZES)
+def test_inter_bounds_live_rows_match_jax(sizes):
+    """K8b's live-row call on a padded batch of 16: rows < n within the
+    slack of JAX's ``_inter_bounds_kernel`` on the same padded batch, rows
+    >= n equal to row n - 1 (what the card's launch over the live rows
+    gives them); ``live`` of 0 and B + 1 raise."""
+    ws, bs, ms = _params(sizes, 6)
+    jn, tn = _nets(ws, bs, ms)
+    rng = np.random.default_rng(9)
+    B = 16
+    lo = rng.integers(-2, 3, size=(B, sizes[0])).astype(np.float32)
+    hi = lo + rng.integers(0, 5, size=lo.shape).astype(np.float32)
+    for n in (1, 7, B):
+        plo, phi = tengine._pad(lo[:n], B), tengine._pad(hi[:n], B)
+        wl_j, wu_j = jengine._inter_bounds_kernel(jn, jnp.asarray(plo), jnp.asarray(phi))
+        wl_t, wu_t = tengine.inter_bounds(tn, torch.as_tensor(plo), torch.as_tensor(phi),
+                                          live=n)
+        assert len(wl_t) == len(wl_j) == len(sizes) - 1
+        for a, b, c, e in zip(wl_t, wl_j, wu_t, wu_j):
+            a, b, c, e = a.numpy(), np.asarray(b), c.numpy(), np.asarray(e)
+            assert a.shape == b.shape == (B, b.shape[1])
+            mag = np.maximum(np.abs(b), np.abs(e))[:n]
+            _slack_close(a[:n], b[:n], mag)
+            _slack_close(c[:n], e[:n], mag)
+            assert (a[n:] == a[n - 1]).all() and (c[n:] == c[n - 1]).all()
+    for bad in (0, B + 1):
+        with pytest.raises(ValueError):
+            tengine.inter_bounds(tn, torch.as_tensor(lo), torch.as_tensor(hi), live=bad)
 
 
 @pytest.mark.parametrize("sizes", SIZES)
