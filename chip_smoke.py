@@ -58,7 +58,17 @@ Phases (any failure exits nonzero and prints no result line):
    main path gives them — the GC grid (201 partitions, GC-1 twin 20-50-1)
    and one segment of the AC grid (16,000 partitions, AC-S1 widths
    13-128-64-32-16-8-1, seeded weights), and one relaxed-AC segment (ε = 5
-   on age, 5 race assignments) for the relaxed-attribute terms.
+   on age, 5 race assignments) for the relaxed-attribute terms.  KA and KD
+   timed two ways (the wrapper, and its C entry point alone,
+   ``time_split``) beside their library chains timed the same two ways
+   (events around the calls, and CUDA-graph replays: ``graph_ms``) and the
+   draw's floor from its SASS (``[draw SASS]``: a probe kernel's
+   instructions counted with ``cuobjdump``); on the GC grid and the
+   AC segment's first 512 partitions, at sim_size 1,000 and 37, KA, row 3
+   (KA's simulation half) and KD bit-equal (``torch.equal``) under four
+   forced geometries of both regimes (one block a partition at 16- and
+   32-row tiles, blocks of 5 tiles that span two partitions, one tile a
+   block), row 3 equal to KA's cand and pos ("[geometry ...]").
    Refinement kernels vs plain versions: K5 (pgd_attack) on one 2,048-box
    launch of real AC-S1 stage-0 leftovers (96 restarts, 60 steps, and
    again 0, 1 and 4 steps; at the heuristic retry's shape, 32 single-box
@@ -67,7 +77,9 @@ Phases (any failure exits nonzero and prints no result line):
    against its largest tile, bit-equal) and K6 (bab_segment) on one
    8-round segment of a 512-slot queue of them, with alpha_iters 0 and 8;
    both again on GC boxes and on relaxed-AC leftovers; K12's row
-   generator (sim_rows) on one partition's samples.  K5's trajectories
+   generator (sim_rows) on one partition's samples, and bit-equal on the
+   first partition, the whole domain (its widest spans) and a box with a
+   span-1 dimension (the draw KA, row 3 and KD share).  K5's trajectories
    may end elsewhere only where the plain path met a threshold, and at
    most 0.1% of them may;
    K6's segment must equal the plain version's in every queue buffer,
@@ -147,7 +159,12 @@ Phases (any failure exits nonzero and prints no result line):
    CSV, funnel); the AC grid's prune, stage 0 and parity in 8 launches
    each against the mega path's 2 (masks, bounds, parity, verdicts,
    witnesses, histograms equal); KA, KB, KC and KD on one 2,048-row chunk
-   against their plain versions.  (d) The host frontier: the ladder world
+   against their plain versions, and KA, row 3 and KD over 1 and 17 live
+   rows of it equal to the full launch ("[live rows ...]"); the chunk
+   loops' KA and KD launches by (kind, rows, live rows): GC-1's one
+   201-row chunk, the AC grid's last chunk over its 1,664 live rows of
+   2,048, timed beside a launch over all 2,048 ("[sim launches by shape,
+   chunk loops]").  (d) The host frontier: the ladder world
    at ``device_bab=False``, card = CPU = the device BaB's verdicts; KB at
    α = 8 and 0 with the branching score, and KC, on 512 AC-S1 stage-0
    leftovers (the frontier batch F = 512, 16 candidates) against their
@@ -218,7 +235,9 @@ Phases (any failure exits nonzero and prints no result line):
    card = CPU; the four AC-S1 twins through ``stage0_families`` and
    ``uniform_sign_bab`` over 3 shards equal to mesh=None's.  (9f) ``harsh_prune_grid`` over the whole AC grid:
    one row-3 launch, candidates equal to KA's full launch bit for bit, and
-   row 3 against its plain version by phase 2's KA rule.  (9g)
+   row 3 against its plain version by phase 2's KA rule, timed two ways
+   (``time_split``) beside the library chain over all 16,000 partitions'
+   samples (both ways) and the draw's floor.  (9g)
    ``alpha_crown_output_bounds`` (iters 8) on 512 AC-S1 leftovers: within
    the widening slack of its plain version (at most 1% of boxes excused),
    containing float64 sampled logits, no looser than plain CROWN.
@@ -230,8 +249,9 @@ without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
 Every ``run_sweep``/``counted`` window splits K8a's launches by (α, live
 rows up to the next power of two), KB's (rows 4-7, 14, 15) by (α, boxes,
 models), K8b's by (engine phase L or P, live rows) and row 13's (and 8's)
-by (mode, role boxes, live boxes, models) and fails unless the split adds
-up to the counters; after phase 9 every bucket is timed on its first
+by (mode, role boxes, live boxes, models), and KA's, row 3's and KD's by
+(kind, rows, live rows), and fails unless the split adds up to the
+counters; after phase 9 every bucket is timed on its first
 launch's inputs and each window's launches x (time - bound) printed
 ("[K8a by shape, ...]", "[KB by shape, ...]", "[K8b by shape, ...]",
 "[row 13 by shape, ...]"), and K8a's launch over the live rows of the
@@ -393,6 +413,116 @@ def macs(sizes) -> int:
 def bound(flops: float, nbytes: float):
     t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+# The draw's floor (common.cuh:draw_value, the draw KA, row 3, KD and K12
+# share) comes from the instructions of one value, counted in the SASS of a
+# probe built from the checkout's common.cuh: a kernel that draws one value
+# a thread, less one that only reads the same parameters and stores.  Per
+# SM and clock Hopper issues 128 thread-instructions and runs 64 integer
+# and 16 conversion or special-function ones (the CUDA programming guide's
+# throughput table, compute capability 9.0); 132 SMs at 1.98 GHz at most.
+DRAW_PROBE = r"""
+#include "common.cuh"
+extern "C" __global__ void draw_probe(SplitKey k, unsigned long long n, uint32_t minval,
+                                      uint32_t span, uint32_t mult, float* out) {
+  out[threadIdx.x] = draw_value(k, n + threadIdx.x, minval, span, mult);
+}
+extern "C" __global__ void draw_probe_base(SplitKey k, unsigned long long n, uint32_t minval,
+                                           uint32_t span, uint32_t mult, float* out) {
+  out[threadIdx.x] = (float)(int32_t)(minval + (uint32_t)(n + threadIdx.x) +
+                                      (k.hi0 ^ k.hi1 ^ k.lo0 ^ k.lo1 ^ span ^ mult));
+}
+"""
+SASS_INT = {"IMAD", "IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL", "SHR",
+            "ISETP", "IMNMX", "SEL", "LEA", "PRMT", "IABS", "POPC", "FLO", "BREV", "IMUL",
+            "IMUL32I", "ISCADD", "IMAD32I", "VIADD", "VIMNMX"}
+SASS_CVT = {"I2F", "F2I", "I2FP", "F2IP", "F2F", "I2I", "MUFU"}
+SASS_SKIP = {"NOP", "EXIT", "BRA", "RET"}
+SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9
+DRAW_SASS = None  # set by start_draw_probe / finish_draw_probe
+
+
+def start_draw_probe():
+    """Start building the draw probe (a cubin beside the kernels' libraries)
+    and return ``(process, cubin path)``; None where nvcc is missing."""
+    from fairify_tpu_torch.utils import cuda_build
+
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(cuda_build.BUILD_DIR, "draw_probe.cu")
+    with open(src, "w") as fp:
+        fp.write(DRAW_PROBE)
+    cubin = os.path.join(cuda_build.BUILD_DIR, "draw_probe.cubin")
+    cmd = [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-cubin", "-I", cuda_build.CSRC, "-o", cubin, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), cubin
+
+
+def sass_counts(text: str) -> dict:
+    """Per function of ``cuobjdump -sass`` output, its instructions by
+    class: ``int`` (integer arithmetic, logic, shifts, compares),
+    ``cvt`` (conversions and special functions) and ``all`` (every vector
+    instruction but NOP, EXIT and branches; uniform-datapath ones, U*,
+    excluded)."""
+    import re
+
+    res, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = res.setdefault(m.group(1), dict(int=0, cvt=0, all=0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur is None or not m:
+            continue
+        op = m.group(1).split(".")[0]
+        if op in SASS_SKIP or op.startswith("U"):
+            continue
+        cur["all"] += 1
+        cur["int"] += op in SASS_INT
+        cur["cvt"] += op in SASS_CVT
+    return res
+
+
+def finish_draw_probe(started) -> None:
+    """Count draw_value's SASS instructions (the probe less its base) into
+    DRAW_SASS, and print them; where the probe or cuobjdump fails, the
+    floor stays unmeasured (a note, not a failure: it is a measurement)."""
+    global DRAW_SASS
+    from fairify_tpu_torch.utils import cuda_build
+
+    proc, cubin = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        print(f"[draw SASS] not measured: the probe did not build:\n{log[-2000:]}", flush=True)
+        return
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True, timeout=120)
+    counts = sass_counts(out.stdout)
+    if out.returncode != 0 or not {"draw_probe", "draw_probe_base"} <= set(counts):
+        print(f"[draw SASS] not measured: cuobjdump returned {out.returncode} "
+              f"({out.stderr.strip()[-500:]})", flush=True)
+        return
+    d = {k: counts["draw_probe"][k] - counts["draw_probe_base"][k] for k in ("int", "cvt", "all")}
+    cycles = max(d["int"] / 64, d["cvt"] / 16, d["all"] / 128)  # a value, on one SM
+    DRAW_SASS = dict(d, sm_cycles=cycles)
+    print(f"[draw SASS] one simulation value (common.cuh:draw_value) compiles to {d['all']} "
+          f"instructions, {d['int']} integer and {d['cvt']} conversion or special-function "
+          f"ones: at least {cycles:.3f} SM clocks a value (the probe {counts['draw_probe']}, "
+          f"its base {counts['draw_probe_base']})", flush=True)
+
+
+def draw_floor(sizes, n: int, S: int):
+    """The draw's floor of n partitions of S samples: n S d values at
+    DRAW_SASS's clocks a value, spread over SM_COUNT SMs at SM_CLOCK_HZ
+    (the fp32 bound does not count it); None where the SASS was not
+    counted."""
+    if DRAW_SASS is None:
+        return None
+    values = n * S * sizes[0]
+    return dict(values=values, int_ops=values * DRAW_SASS["int"],
+                ms=values * DRAW_SASS["sm_cycles"] / (SM_COUNT * SM_CLOCK_HZ) * 1e3)
 
 
 def crown_flops(sizes) -> int:
@@ -646,9 +776,103 @@ def library_sim_forward(net, sim, alive=None):
         h = z * m if alive is None else (z.view(N, S, -1) * alive[i][:, None, :]).view(N * S, -1)
 
 
-def check_kernels(case, net, reps: int):
+# Forced geometries (rows a warp tile, warps a block, tiles a block; None:
+# a partition a block) of KA, row 3 and KD, both regimes: one block a
+# partition at both tile widths; blocks of 5 tiles, which span two
+# partitions; one tile a block, a partition over T blocks.
+SIM_FORCES = ((16, 4, None), (32, 2, None), (16, 8, 5), (32, 1, 1))
+SIM_RAGGED_S = 37  # a sim_size whose last tile is ragged at both tile widths
+SIM_INVARIANCE_ROWS = 512  # the AC case's partitions the forced launches run
+SIM_LIVE = (1, 17)  # live rows of the 2,048-row chunk
+
+
+def split_launches(ms: float) -> int:
+    """time_split's back-to-back launches for a kernel of ``ms`` ms:
+    SPLIT_LAUNCHES below a millisecond, else as many as take ~0.3 s (at
+    least 10)."""
+    return SPLIT_LAUNCHES if ms < 1.0 else max(10, int(300 / ms))
+
+
+def sim_invariance(name, net, keys, lo, hi, al, S: int) -> dict:
+    """KA, row 3 and KD at ``S`` samples on the partitions ``lo``/``hi``
+    (``al``: KD's packed alive masks): each default launch equal
+    (torch.equal) to its launches under SIM_FORCES — KA's cand, pos, wslb,
+    wsub and loos (one output buffer), row 3's cand and pos, KD's parity —
+    and row 3's output to KA's cand and pos.  Returns, per kernel, the
+    default geometry (tw, warps, tiles a block, grid) and the forced
+    launches' ms."""
+    import torch
+
+    from fairify_tpu_torch.utils import cuda_build
+    from fairify_tpu_torch.verify import pruning
+
+    n = lo.shape[0]
+    sizes = tuple([net.in_dim] + list(net.layer_sizes))
+    res, outs = {}, {}
+    for kind in pruning.SIM_KINDS:
+        kw = dict(alive=al) if kind == "kd" else {}
+        outs[kind] = pruning._sim_launch(net, keys, lo, hi, S, n, kind, **kw)
+        geo = pruning.sim_geometry(sizes, n, S, cuda_build.sm_count(lo.device), kind=kind,
+                                   regs=pruning.sim_regs(kind))
+        times = {}
+        for tw, warps, tpb in SIM_FORCES:
+            T = -(-S // tw)
+            f = (tw, warps, T if tpb is None else min(tpb, T))
+            o, times[str(f)] = timed(lambda: pruning._sim_launch(
+                net, keys, lo, hi, S, n, kind, _geometry_force=f, **kw), 1)
+            if not torch.equal(o, outs[kind]):
+                fail(f"{kind} {name} S={S}: the outputs under forced geometry {f} (tile rows, "
+                     "warps, tiles a block) differ from the default launch's")
+        res[kind] = dict(default=[geo["tw"], geo["warps"], geo["tpb"], geo["grid"]],
+                         forced_ms=times)
+    nsum = sum(sizes[1:])
+    if not torch.equal(outs["stats"], outs["ka"][:, :2 * nsum]):
+        fail(f"row 3 {name} S={S}: cand and pos differ from KA's")
+    print(f"[geometry {name} S={S}] sim_and_bounds, sim_stats, parity over {n} partitions: "
+          f"bit-equal under forced (tile rows, warps, tiles a block) "
+          f"{[list(f) for f in SIM_FORCES]} to their defaults "
+          f"{ {k: r['default'] for k, r in res.items()} } (registers a thread as built "
+          f"{ {k: pruning.sim_regs(k) for k in pruning.SIM_KINDS} }); row 3 = KA's cand, pos; ms "
+          f"{ {k: r['forced_ms'] for k, r in res.items()} }", flush=True)
+    return res
+
+
+def sim_live(name, net, keys, lo, hi, al, S: int) -> dict:
+    """KA, row 3 and KD over SIM_LIVE live rows of the B rows
+    ``lo``/``hi``: the live rows equal the full launch's bit for bit, the
+    rows past them row live - 1's.  Returns, per kernel and live count, the
+    launch's ms beside the full launch's."""
+    import torch
+
+    from fairify_tpu_torch.verify import pruning
+
+    B = lo.shape[0]
+    res = {}
+    for kind in pruning.SIM_KINDS:
+        kw = dict(alive=al) if kind == "kd" else {}
+        full, full_ms = timed(lambda: pruning._sim_launch(net, keys, lo, hi, S, B, kind, **kw), 3)
+        res[kind] = dict(full_ms=full_ms)
+        for live in SIM_LIVE:
+            part, ms = timed(lambda: pruning._sim_launch(net, keys, lo, hi, S, live, kind, **kw),
+                             3)
+            if not torch.equal(part[:live], full[:live]) or not torch.equal(
+                    part[live:], part[live - 1:live].expand_as(part[live:])):
+                fail(f"{kind} {name}: the launch over {live} of {B} rows differs from the full "
+                     "launch, or its rows past them from row live - 1")
+            res[kind][str(live)] = ms
+    print(f"[live rows {name}] sim_and_bounds, sim_stats, parity over {list(SIM_LIVE)} of {B} "
+          f"rows equal the full launch's; ms {res}", flush=True)
+    return res
+
+
+def check_kernels(case, net, reps: int, invariance: bool = False, live: bool = False):
     """Run KA–KD and their plain versions on one case; returns per-kernel
-    rows (KA's and KD's with the library forward of the same samples)."""
+    rows (KA's and KD's with the library forward of the same samples and
+    the time split of their C entry points).  ``invariance``: KA, row 3
+    and KD bit-equal under SIM_FORCES on the case's first
+    SIM_INVARIANCE_ROWS partitions, at its sim_size and at SIM_RAGGED_S;
+    ``live``: their launches over SIM_LIVE live rows of the case's rows
+    (:func:`sim_live`)."""
     import torch
 
     from fairify_tpu_torch.ops import masks as mask_ops
@@ -685,9 +909,16 @@ def check_kernels(case, net, reps: int):
     by = n * (8 + 8 * d) + pbytes + n * (16 * nsum + 4 * L)
     sim = simulate_boxes(ka["keys"], ka["lo"], ka["hi"], S_sim)
     _, lib_ka = timed(lambda: library_sim_forward(net, sim), reps)
+    split = time_split(lambda: pruning.sim_and_bounds(net, ka["keys"], ka["lo"], ka["hi"],
+                                                      ka["ok"], S_sim),
+                       pruning._sim_prepare(net, ka["keys"], ka["lo"], ka["hi"], S_sim, n, "ka"),
+                       split_launches(k_ms))
+    split["library_device_ms"] = graph_ms(lambda: library_sim_forward(net, sim),
+                                          split_launches(lib_ka))
     rows["sim_and_bounds"] = dict(max_abs_err=max(err_pos, err_abs_b), ms=k_ms,
                                   plain_ms=p_ms, library_ms=lib_ka, flops=fl, bytes=by,
-                                  near_diffs=near_diffs)
+                                  near_diffs=near_diffs, time_split=split,
+                                  draw=draw_floor(sizes, n, S_sim))
 
     # --- KB
     (cert_k, _score_k, margin_k), kb_ms = timed(lambda: engine.stage0_certify(net, **kb),
@@ -735,18 +966,43 @@ def check_kernels(case, net, reps: int):
     # Two forwards per sample that share layer 0's pre-activation.
     fl = 2 * n * S_sim * (2 * macs(sizes) - sizes[0] * sizes[1])
     by = n * (8 + 8 * d + 4 * (nsum - 1) + 4) + pbytes
-    _, lib_kd = timed(lambda: (library_sim_forward(net, sim),
-                               library_sim_forward(net, sim, alive)), reps)
-    del sim
+    lib_kd_fn = lambda: (library_sim_forward(net, sim), library_sim_forward(net, sim, alive))
+    _, lib_kd = timed(lib_kd_fn, reps)
+    lib_kd_dev = graph_ms(lib_kd_fn, split_launches(lib_kd))
+    del sim, lib_kd_fn
+    al = torch.cat(alive, dim=1).contiguous()
+    split = time_split(lambda: sweep.parity(net, ka["keys"], ka["lo"], ka["hi"], alive, S_sim),
+                       pruning._sim_prepare(net, ka["keys"], ka["lo"], ka["hi"], S_sim, n, "kd",
+                                            alive=al), split_launches(kd_ms))
+    split["library_device_ms"] = lib_kd_dev
     rows["parity"] = dict(max_abs_err=err_par, ms=kd_ms, plain_ms=kdp_ms, library_ms=lib_kd,
-                          flops=fl, bytes=by, near_diffs=int((par_k != par_p).sum()))
+                          flops=fl, bytes=by, near_diffs=int((par_k != par_p).sum()),
+                          time_split=split, draw=draw_floor(sizes, n, S_sim))
+    if invariance:
+        m = min(n, SIM_INVARIANCE_ROWS)
+        sub = lambda t: t[:m].contiguous()
+        rows["sim_and_bounds"]["geometry"] = {
+            str(S): sim_invariance(case["name"], net, sub(ka["keys"]), sub(ka["lo"]),
+                                   sub(ka["hi"]), sub(al), S)
+            for S in (S_sim, SIM_RAGGED_S)}
+    if live:
+        rows["sim_and_bounds"]["live_rows"] = sim_live(case["name"], net, ka["keys"], ka["lo"],
+                                                       ka["hi"], al, S_sim)
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"])
         lib = r.get("library_ms")
+        sp = r.get("time_split")
+        dr = r.get("draw")
         print(f"[kernel {case['name']}] {name}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms{'' if lib is None else f', library {lib:.4f} ms'}, "
               f"bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}, max_abs_err {r['max_abs_err']:.3g}, discrete "
+              f"{r['bound_by']}"
+              + ("" if sp is None else f"; C entry point alone {sp['entry_ms']:.4f} ms, "
+                 f"wrapper share {sp['wrapper_share']:.2f}, library chain device-only "
+                 f"{fmt_ms(sp.get('library_device_ms'))} (CUDA graph replays)")
+              + ("" if "draw" not in r else f"; the draw's floor from its SASS "
+                 f"{fmt_ms(None if dr is None else dr['ms'])}")
+              + f", max_abs_err {r['max_abs_err']:.3g}, discrete "
               f"outputs differing near a threshold {r['near_diffs']})", flush=True)
     return rows
 
@@ -1203,7 +1459,11 @@ def bab_invariance(name, net, st0, c, alpha_iters: int, rounds: int) -> list:
 def check_sim_rows(name, net, cfg, lo, hi, reps: int):
     """K12's row generator against its plain version
     (``prng.simulate_boxes`` on the card) at the heuristic retry's shape:
-    one partition's ``sim_size`` rows, bit-equal.  Returns the kernel row."""
+    one partition's ``sim_size`` rows, bit-equal, timed; then, bit-equal,
+    the rows of three boxes: the first partition, the preset's whole domain
+    (its widest spans) and the second partition with one dimension cut to
+    a single value (span 1) — the draw KA, row 3 and KD share.  Returns
+    the kernel row."""
     import numpy as np
     import torch
 
@@ -1211,13 +1471,25 @@ def check_sim_rows(name, net, cfg, lo, hi, reps: int):
     from fairify_tpu_torch.verify import pruning
 
     keys = grid_keys(cfg.seed, 0, 1, device=net.device)
-    box = lambda a: torch.as_tensor(np.asarray(a[:1], np.float32), device=net.device)
-    blo, bhi = box(lo), box(hi)
+    box = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=net.device)
+    blo, bhi = box(lo[:1]), box(hi[:1])
     k_out, k_ms = timed(lambda: pruning.sim_rows(keys, blo, bhi, cfg.sim_size), reps)
     p_out, p_ms = timed(lambda: simulate_boxes(keys, blo, bhi, cfg.sim_size), reps)
     if not torch.equal(k_out, p_out):
         fail(f"K12 sim_rows {name}: {int((k_out != p_out).sum())} sample values "
              "differ from the plain version's")
+    dlo, dhi = cfg.query().domain.lo_hi()
+    mlo = np.stack([np.asarray(lo[0], np.float32), dlo, np.asarray(lo[1], np.float32)])
+    mhi = np.stack([np.asarray(hi[0], np.float32), dhi, np.asarray(hi[1], np.float32)])
+    mhi[2, 0] = mlo[2, 0]
+    widest = int((dhi - dlo).max()) + 1
+    mkeys = grid_keys(cfg.seed, 0, 3, device=net.device)
+    mk, mp = (f(mkeys, box(mlo), box(mhi), cfg.sim_size)
+              for f in (pruning.sim_rows, simulate_boxes))
+    if not torch.equal(mk, mp):
+        fail(f"K12 sim_rows {name}: the first partition, the whole domain (widest span "
+             f"{widest}) and a box with a span-1 dimension: {int((mk != mp).sum())} values "
+             "differ")
     N, S, d = k_out.shape
     by = N * (8 + 2 * d * 4) + N * S * d * 4
     row = dict(max_abs_err=float((k_out - p_out).abs().max()), ms=k_ms, plain_ms=p_ms,
@@ -1225,7 +1497,8 @@ def check_sim_rows(name, net, cfg, lo, hi, reps: int):
     row["bound_ms"], row["bound_by"] = bound(0, by)
     print(f"[kernel {name}] sim_rows N={N} S={S} d={d}: {k_ms:.4f} ms (plain "
           f"{p_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
-          "bit-equal)", flush=True)
+          f"bit-equal, and on the first partition, the whole domain (widest span {widest}) "
+          "and a box with a span-1 dimension)", flush=True)
     return row
 
 
@@ -1522,12 +1795,12 @@ def kb_invariance(name, net, kb, alpha_iters: int) -> dict:
 SPLIT_LAUNCHES = 300
 
 
-def time_split(wrapper, prepared) -> dict:
+def time_split(wrapper, prepared, launches: int = SPLIT_LAUNCHES) -> dict:
     """How one launch's time splits between the device and the wrapper:
     ``wrapper_ms``, the Python wrapper timed as :func:`timed` times it (its
     host work between the two events), and ``entry_ms``, the C entry point
     alone (``prepared``: the launch helper's ``(entry point, arguments but
-    the stream, output)``), SPLIT_LAUNCHES launches back to back between two
+    the stream, output)``), ``launches`` launches back to back between two
     events, per launch.  The entry-point launches count nowhere."""
     import torch
 
@@ -1538,14 +1811,52 @@ def time_split(wrapper, prepared) -> dict:
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(SPLIT_LAUNCHES):
+    for _ in range(launches):
         err |= fn(*args, stream)
     b.record()
     torch.cuda.synchronize()
     if err:
         fail(f"time split: the entry point returned CUDA error {err}")
-    e_ms = a.elapsed_time(b) / SPLIT_LAUNCHES
+    e_ms = a.elapsed_time(b) / launches
     return dict(wrapper_ms=w_ms, entry_ms=e_ms, wrapper_share=max(0.0, 1.0 - e_ms / w_ms))
+
+
+def fmt_ms(ms) -> str:
+    """``ms`` as "x.xxxx ms", or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def graph_ms(fn, launches: int):
+    """The device time of ``fn``'s kernels alone, the library chain's
+    counterpart of :func:`time_split`'s entry point: ``fn`` captured once in
+    a CUDA graph, then ``launches`` replays back to back between two events,
+    per replay, so the host's Python between its calls is left out.  ``fn``
+    has run before (its libraries are initialized); the allocator's cached
+    blocks are released first, since the graph takes a pool of its own.
+    None where the capture runs out of device memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            fn()
+    except torch.cuda.OutOfMemoryError:
+        del g
+        torch.cuda.empty_cache()
+        return None
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del g
+    torch.cuda.empty_cache()
+    return a.elapsed_time(b) / launches
 
 
 def inter_bounds_cost(sizes, live: int):
@@ -2747,8 +3058,10 @@ def chunk_loop_checks(work: str, gc_net, gc_cfg, ac_net, ac_cfg, reps: int) -> d
     req = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity")
     gm = gc_cfg.with_(result_dir=os.path.join(work, "gc-mega"))
     gcl = gc_cfg.with_(result_dir=os.path.join(work, "gc-chunk"), mega_chunks=0)
-    rep_m, _launch_m, _ = run_sweep(gc_net, gm, "GC-1", required=req)
-    rep_c, gc_launch, wall_c = run_sweep(gc_net, gcl, "GC-1", required=req)
+    rep_m, _launch_m, _ = run_sweep(gc_net, gm, "GC-1", required=req, label="GC-1 mega path")
+    rep_c, gc_launch, wall_c = run_sweep(gc_net, gcl, "GC-1", required=req,
+                                         label="GC-1 chunk loop")
+    gc_sim = WINDOWS[-1][1].sim
     check_outputs(rep_c, gcl, gc_net, "GC-1", gc_launch)
     if (run_rows(gm, rep_m) != run_rows(gcl, rep_c) or rep_m.funnel["states"]
             != rep_c.funnel["states"] or rep_m.funnel["margin_hist"]
@@ -2789,11 +3102,64 @@ def chunk_loop_checks(work: str, gc_net, gc_cfg, ac_net, ac_cfg, reps: int) -> d
           f"per pass, chunk loop {[launch['chunk'][k] for k in req]} vs mega path "
           f"{[launch['mega'][k] for k in req]}; masks, bounds, parity, verdicts, witnesses "
           f"and histograms equal", flush=True)
+    ac_sim = next(log.sim for label, log, _ in WINDOWS if label == "AC grid passes, chunk")
+    sim_shapes = chunk_sim_shapes(ac_net, ac_cfg, gc_sim, ac_sim,
+                                  len(sweep.build_partitions(gc_cfg)[1]))
     rows = check_kernels(case_inputs("AC chunk", ac_net, ac_cfg.with_(mega_chunks=1),
-                                     canary=False), ac_net, reps)
+                                     canary=False), ac_net, reps, live=True)
     for k, r in rows.items():
         r["launches"] = launch["chunk"][k]
+    rows["sim_and_bounds"]["launch_shapes"] = sim_shapes
     return dict(rows=rows, gc_launch=gc_launch, ac_launch=launch["chunk"])
+
+
+def chunk_sim_shapes(ac_net, ac_cfg, gc_sim, ac_sim, n_gc: int) -> dict:
+    """The chunk loops' KA and KD launches by (kind, rows, live rows) from
+    their windows' ShapeLog: GC-1's one chunk of its n_gc partitions (a
+    chunk never exceeds the grid, so it is not padded), the AC grid's
+    chunks over their real rows, the last one (1,664 of 2,048) launched
+    over its live rows; fails otherwise.  Times KA and KD on that last
+    chunk over its live rows beside a launch over all its 2,048 padded
+    rows (what the chunk loop launched before ``live=``)."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.partition import grid as grid_mod
+    from fairify_tpu_torch.utils.prng import grid_keys
+    from fairify_tpu_torch.verify import pruning, sweep
+
+    _, lo, hi = sweep.build_partitions(ac_cfg)
+    P, chunk = len(lo), ac_cfg.grid_chunk
+    s0 = (P - 1) // chunk * chunk
+    last = P - s0
+    want_gc = {(k, n_gc, n_gc): 1 for k in ("ka", "kd")}
+    want_ac = {}
+    for k in ("ka", "kd"):
+        want_ac[(k, chunk, chunk)] = s0 // chunk
+        want_ac[(k, chunk, last)] = want_ac.get((k, chunk, last), 0) + 1
+    if gc_sim != want_gc or ac_sim != want_ac:
+        fail(f"chunk loop launches by (kind, rows, live): GC-1 {gc_sim} (want {want_gc}), AC "
+             f"grid {ac_sim} (want {want_ac})")
+    dev = ac_net.device
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    keys = grid_keys(ac_cfg.seed, s0, chunk, device=dev)
+    clo, chi = as_dev(grid_mod.pad_rows(lo[s0:], chunk)), as_dev(grid_mod.pad_rows(hi[s0:], chunk))
+    al = torch.ones((chunk, sum(ac_net.layer_sizes[:-1])), dtype=torch.float32, device=dev)
+    S = ac_cfg.sim_size
+    times = {}
+    for kind in ("ka", "kd"):
+        kw = dict(alive=al) if kind == "kd" else {}
+        _, t_live = timed(lambda: pruning._sim_launch(ac_net, keys, clo, chi, S, last, kind,
+                                                      **kw), 3)
+        _, t_all = timed(lambda: pruning._sim_launch(ac_net, keys, clo, chi, S, chunk, kind,
+                                                     **kw), 3)
+        times[kind] = dict(live_ms=t_live, padded_ms=t_all)
+    out = dict(gc={f"{k}:{r}:{l}": v for (k, r, l), v in gc_sim.items()},
+               ac={f"{k}:{r}:{l}": v for (k, r, l), v in ac_sim.items()}, ac_last_chunk=times)
+    print(f"[sim launches by shape, chunk loops] GC-1 {out['gc']}, AC grid {out['ac']} "
+          f"(kind:rows:live rows); the AC grid's last chunk over its {last} live rows vs all "
+          f"{chunk}, ms {times}", flush=True)
+    return out
 
 
 def split_orders(score, lo, hi, bd, n: int = 3):
@@ -3938,7 +4304,7 @@ def harsh_check(ac_net, ac_cfg, reps: int) -> dict:
     import numpy as np
     import torch
 
-    from fairify_tpu_torch.utils.prng import grid_keys
+    from fairify_tpu_torch.utils.prng import grid_keys, simulate_boxes
     from fairify_tpu_torch.verify import pruning, sweep
 
     _, lo, hi = sweep.build_partitions(ac_cfg)
@@ -3959,18 +4325,35 @@ def harsh_check(ac_net, ac_cfg, reps: int) -> dict:
     if cnt_bad or cand_bad:
         fail(f"row 3: activation counts off by more than their near-zero samples on "
              f"{cnt_bad} neurons, candidates inconsistent with counts on {cand_bad}")
+    split = time_split(lambda: pruning.sim_stats(ac_net, keys, lo_t, hi_t, S),
+                       pruning._sim_prepare(ac_net, keys, lo_t, hi_t, S, P, "stats"),
+                       split_launches(k_ms))
+    # The library yardstick at row 3's own shape: the samples' masked
+    # forward as a cuBLAS chain (rows 1 and 2's), over all P partitions.
+    torch.cuda.empty_cache()
+    sim = simulate_boxes(keys, lo_t, hi_t, S)
+    _, lib_ms = timed(lambda: library_sim_forward(ac_net, sim), reps)
+    split["library_device_ms"] = graph_ms(lambda: library_sim_forward(ac_net, sim),
+                                          split_launches(lib_ms))
+    del sim
+    torch.cuda.empty_cache()
     sizes = [ac_net.in_dim] + list(ac_net.layer_sizes)
     nsum = sum(sizes[1:])
     fl = 2 * P * S * macs(sizes)
     by = P * (8 + 8 * sizes[0]) + 4 * (macs(sizes) + 2 * nsum) + P * 8 * nsum
     row = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err, partitions=P, near_diffs=near,
-               launches=launch["sim_stats"], wall_s=wall,
+               launches=launch["sim_stats"], wall_s=wall, library_ms=lib_ms,
+               time_split=split, draw=draw_floor(sizes, P, S),
                dead=int(sum(float(h.sum()) for h in harsh)))
     row["bound_ms"], row["bound_by"] = bound(fl, by)
     print(f"[harsh AC grid] harsh_prune_grid over {P} partitions in {wall:.3f} s: one row-3 "
           f"launch, candidates = KA's full launch bit for bit ({row['dead']} dead); row 3 "
-          f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-          f"{row['bound_by']}); counts differing near zero on {near} neurons", flush=True)
+          f"{k_ms:.4f} ms (C entry point alone {split['entry_ms']:.4f} ms; plain "
+          f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}, library chain device-only "
+          f"{fmt_ms(split['library_device_ms'])}, the draw's floor from its SASS "
+          f"{fmt_ms(None if row['draw'] is None else row['draw']['ms'])}); counts "
+          f"differing near zero on {near} neurons", flush=True)
     return row
 
 
@@ -4066,24 +4449,36 @@ class ShapeLog:
     ``pair_lp_phase``) and of row 13 by mode, role boxes, live rows and
     models (``log.role_bounds``: ("ibp" or "crown", 2 B V, live_bucket, M)
     -> launches), the first launch of each K8a, KB, K8b and row-13 bucket's
-    inputs kept in CERT_CASES: the split of one run's launch count by
-    shape.  It wraps the launch helpers and counts beside the kernels' own
-    counters."""
+    inputs kept in CERT_CASES, and of KA, row 3 and KD by kind, rows and
+    live rows (``log.sim``: ("ka", "stats" or "kd", rows, live) ->
+    launches): the split of one run's launch count by shape.  It wraps the
+    launch helpers and counts beside the kernels' own counters."""
 
     def __enter__(self):
         import torch
 
         from fairify_tpu_torch.verify import engine
 
+        from fairify_tpu_torch.verify import pruning
+
         self.pgd, self.rows, self.bab, self.bab_case = {}, {}, {}, {}
         self.sign_bound, self.stage0_certify = {}, {}
-        self.inter_bounds, self.role_bounds = {}, {}
+        self.inter_bounds, self.role_bounds, self.sim = {}, {}, {}
         self._phase_p = False
         self._saved = (engine._pgd_attack_launch, engine._launch_attack_logits,
                        engine._bab_segment_launch, engine._sign_bound_launch,
                        engine._kb_launch, engine._inter_bounds_launch,
                        engine._role_bounds_launch, engine.pair_lp_phase)
+        self._saved_sim = pruning._sim_launch
         pgd, logits, bab, k8a, kb, k8b, k10b, phase_p = self._saved
+        sim = self._saved_sim
+
+        def sim_launch(net, keys, lo, hi, sim_size, live, kind, *args, **kw):
+            key = (kind, int(lo.shape[0]), int(live))
+            self.sim[key] = self.sim.get(key, 0) + 1
+            return sim(net, keys, lo, hi, sim_size, live, kind, *args, **kw)
+
+        pruning._sim_launch = sim_launch
         keep = lambda args: [a.clone() if torch.is_tensor(a) else
                              [t.clone() for t in a] if isinstance(a, list) else a
                              for a in args]
@@ -4149,8 +4544,9 @@ class ShapeLog:
         return self
 
     def __exit__(self, *exc):
-        from fairify_tpu_torch.verify import engine
+        from fairify_tpu_torch.verify import engine, pruning
 
+        pruning._sim_launch = self._saved_sim
         (engine._pgd_attack_launch, engine._launch_attack_logits, engine._bab_segment_launch,
          engine._sign_bound_launch, engine._kb_launch, engine._inter_bounds_launch,
          engine._role_bounds_launch, engine.pair_lp_phase) = self._saved
@@ -4172,7 +4568,14 @@ class ShapeLog:
     def check_cert(self, launch: dict, what: str) -> None:
         """Fails unless the K8a, KB, K8b and row-13 splits add up to the
         counters' sign_bound, stage0_certify + role_certify, inter_bounds and
-        role_bounds of the same run."""
+        role_bounds of the same run, and the KA, row-3 and KD launches by
+        (kind, rows, live rows) to sim_and_bounds, sim_stats and parity."""
+        for kind, counter in (("ka", "sim_and_bounds"), ("stats", "sim_stats"),
+                              ("kd", "parity")):
+            n = sum(v for k, v in self.sim.items() if k[0] == kind)
+            if n != launch[counter]:
+                fail(f"{what}: {kind} launches by shape {self.sim} do not add up to the "
+                     f"counter's {counter} {launch[counter]}")
         kb = launch["stage0_certify"] + launch["role_certify"]
         if sum(self.sign_bound.values()) != launch["sign_bound"] or sum(
                 self.stage0_certify.values()) != kb or sum(
@@ -4457,6 +4860,7 @@ def main() -> int:
     print(f"[env] {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     num.check_policy()
+    probe = start_draw_probe()
     info = cuda_build.build_all()
     print(f"[build] {len(cuda_build.SOURCES)} libraries in {info['seconds']:.2f} s "
           f"(compiled {info['compiled']})", flush=True)
@@ -4464,6 +4868,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
+    finish_draw_probe(probe)
 
     engine_cfg = EngineConfig(frontier_size=512, attack_samples=128,
                               bab_attack_samples=16, soft_timeout_s=10.0)
@@ -4498,9 +4903,9 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     ac_cfg = presets.get("AC").with_(result_dir=os.path.join(work, "ac"),
                                      exact_certify_masks=False, engine=engine_cfg)
     gc_net = flagship_net(device="cuda")
-    gc_rows = check_kernels(case_inputs("GC", gc_net, gc_cfg), gc_net, reps=5)
+    gc_rows = check_kernels(case_inputs("GC", gc_net, gc_cfg), gc_net, reps=5, invariance=True)
     ac_case = case_inputs("AC", ac_net, ac_cfg)
-    ac_rows = check_kernels(ac_case, ac_net, reps=3)
+    ac_rows = check_kernels(ac_case, ac_net, reps=3, invariance=True)
     ac_rows["stage0_certify"]["geometry"] = kb_invariance("AC", ac_net, ac_case["kb"], 0)
     del ac_case
     # Off the main path, for coverage of the kernels' ε-relaxed (RA) terms
@@ -4738,14 +5143,15 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                 r = harsh9 if name == "sim_stats" else k7
                 row = dict(launches=r["launches"])
                 row.update({k: r[k] for k in ("partitions", "boxes", "iters", "err_x_slack",
-                                              "excused") if k in r})
+                                              "excused", "time_split", "draw") if k in r})
             print(f"[summary] {name}: launches {row['launches']}; median {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})", flush=True)
             table.append(dict({"name": name, "route": "cuda", "source": SOURCES[name],
                                "replaces": REPLACES[name],
                                "also_replaces": ALSO_REPLACES.get(name, []),
-                               "library_ms": None, **{k: r[k] for k in keys}}, **row))
+                               "library_ms": r.get("library_ms"), **{k: r[k] for k in keys}},
+                              **row))
             continue
         if name in K10:
             r, fr = k10_rows[name], k10_fam[name]
@@ -4815,12 +5221,15 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             "launches_ac_grid": g_launch[name], "launches_gc1": gc_launch[name],
             "launches_stress_default": lat_launch["stress-AC"][name],
             "launches_relaxed_default": lat_launch["relaxed-AC"][name],
-            "gc": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                     "max_abs_err")},
+            "gc": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                     "library_ms", "time_split", "draw") if k in g},
         }
-        for extra in ("alpha0", "root", "role_boxes", "geometry", "live_rows", "time_split"):
+        for extra in ("alpha0", "root", "role_boxes", "geometry", "live_rows", "time_split",
+                      "draw"):
             if extra in r:
                 row[extra] = r[extra]
+        if name in ("sim_and_bounds", "parity"):
+            row["gc"]["geometry"] = g.get("geometry")
         if name == "pgd_attack":
             row["retry_shape"] = {k: r["retry_shape"][k] for k in keys + (
                 "boxes", "trajectories", "near_diffs")}
@@ -4838,7 +5247,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             row["gc"]["library_ms"] = g["library_ms"]
         if name in chunk["rows"]:  # rows 1, 10 and 15 (stage 0) at one chunk
             row["chunk_loop"] = {k: chunk["rows"][name].get(k) for k in keys + (
-                "launches", "library_ms")}
+                "launches", "library_ms", "time_split", "live_rows", "launch_shapes")
+                if k in chunk["rows"][name]}
             row["launches_chunk_loop_gc1"] = chunk["gc_launch"][name]
             row["also_replaces"] = ALSO_REPLACES[name]
         if name in fam_rows:  # rows 5 and 7 (families) and 15 (host frontier)

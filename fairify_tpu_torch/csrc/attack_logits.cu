@@ -105,6 +105,8 @@ k10a_kernel(PadDesc pd, const float* __restrict__ params, const float* __restric
       e.logit = om + row0;
       e.nvalid = (int)min((long long)tw, 2 * N - row0);
       e.bits = nullptr;
+      e.tw = tw;
+      e.smask = smask;
       warp_layer((tiles_f >> (3 * l)) & 7, cur, tw, smask, P + pd.w[l], pd.ldw[l], pd.in[l],
                  pd.out[l], lane, e);
       __syncwarp();

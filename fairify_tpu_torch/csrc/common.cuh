@@ -88,6 +88,31 @@ static inline cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaSuccess;
 }
 
+// The padded rows of a launch over its live rows: in each of `groups`
+// (rows, width) arrays laid end to end, rows live .. rows - 1 take row live
+// - 1 — what a launch over every row returns for padded rows that repeat
+// that row's inputs (engine.fill_past).  Blocks (x, group).
+template <typename T>
+__global__ void fill_past_kernel(T* __restrict__ out, int rows, int live, int width) {
+  T* g = out + (size_t)blockIdx.y * rows * width;
+  const T* src = g + (size_t)(live - 1) * width;
+  T* dst = g + (size_t)live * width;
+  const size_t n = (size_t)(rows - live) * width;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dst[i] = src[i % width];
+}
+
+// Launch fill_past_kernel (nothing when no row is padded); the caller reads
+// cudaGetLastError.
+template <typename T>
+static inline void fill_past(T* out, int groups, int rows, int live, int width, void* stream) {
+  if (live < 1 || live >= rows || width < 1 || groups < 1) return;
+  const size_t blocks = ((size_t)(rows - live) * width + 255) / 256;
+  fill_past_kernel<T><<<dim3((unsigned)(blocks < 264 ? blocks : 264), (unsigned)groups), 256, 0,
+                        (cudaStream_t)stream>>>(out, rows, live, width);
+}
+
 // ---------------------------------------------------------------------------
 // threefry2x32 (20 rounds), bit-identical to JAX's (jax/_src/prng.py) and to
 // utils/prng.py's torch version.
@@ -139,19 +164,34 @@ __device__ __forceinline__ uint32_t random_bits32(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
-// Element n (flat index into the (S, d) draw) of
-// jax.random.randint(key, (S, d), minval, maxval) — jax/_src/random.py:_randint.
-__device__ __forceinline__ float sample_value(const SplitKey& k, uint64_t n,
-                                              int minval, int maxval) {
-  uint32_t span = (uint32_t)maxval - (uint32_t)minval;
-  if (maxval <= minval) span = 1u;
-  uint32_t mult = 65536u % span;
-  mult = (mult * mult) % span;
+// The simulation draw: jax.random.randint(key, (S, d), minval, maxval)
+// (jax/_src/random.py:_randint), element n = s * d + j of it.  Per
+// dimension, the three constants of its reduction (DrawDim) depend on the
+// box alone, so a kernel computes them once per (partition, dimension)
+// (draw_dim) and each value takes two threefry draws and three `% span`
+// (draw_value).  KA, row 3, KD (sim_tile.cuh) and K12 (sim_rows.cu) draw
+// through these two helpers; utils/prng.py:draw_constants and draw_offset
+// are their Python mirror.
+struct DrawDim {
+  uint32_t minval, span, mult;  // mult = (65536 % span)^2 mod 2^32 % span
+};
+
+__host__ __device__ inline DrawDim draw_dim(int minval, int maxval) {
+  DrawDim c;
+  c.minval = (uint32_t)minval;
+  c.span = maxval <= minval ? 1u : (uint32_t)maxval - (uint32_t)minval;
+  const uint32_t m = 65536u % c.span;
+  c.mult = (m * m) % c.span;
+  return c;
+}
+
+__device__ __forceinline__ float draw_value(const SplitKey& k, uint64_t n, uint32_t minval,
+                                            uint32_t span, uint32_t mult) {
   const uint32_t hb = random_bits32(k.hi0, k.hi1, n);
   const uint32_t lb = random_bits32(k.lo0, k.lo1, n);
   uint32_t off = (hb % span) * mult + (lb % span);
   off %= span;
-  return (float)(int32_t)((uint32_t)minval + off);
+  return (float)(int32_t)(minval + off);
 }
 
 // One dense layer over a tile of T activation rows held in shared memory

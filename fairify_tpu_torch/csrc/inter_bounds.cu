@@ -83,16 +83,6 @@ k8b_kernel(NetDesc nd, const float* __restrict__ params, const float* __restrict
   }
 }
 
-// The padded rows live .. B - 1 (one block each) take row live - 1's outputs.
-__global__ void k8b_fill(int live, int ns, float* __restrict__ out_lb,
-                         float* __restrict__ out_ub) {
-  const size_t src = (size_t)(live - 1) * ns, dst = (size_t)(live + blockIdx.x) * ns;
-  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-    out_lb[dst + i] = out_lb[src + i];
-    out_ub[dst + i] = out_ub[src + i];
-  }
-}
-
 // Dynamic shared memory of one block (engine.inter_bounds_smem).
 static inline long long k8b_smem(const NetDesc& nd, int per, int warps) {
   return 4LL * ib_layout(nd, per, warps).total;
@@ -116,8 +106,7 @@ extern "C" int k8b_inter_bounds(const void* params, const int* dims, int L, cons
         nd, (const float*)params, (const float*)lo, (const float*)hi, live, per,
         (float*)out_lb, (float*)out_ub);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (live < B)
-    k8b_fill<<<B - live, 128, 0, (cudaStream_t)stream>>>(live, nd.nsum, (float*)out_lb,
-                                                          (float*)out_ub);
+  fill_past((float*)out_lb, 1, B, live, nd.nsum, stream);
+  fill_past((float*)out_ub, 1, B, live, nd.nsum, stream);
   return (int)cudaGetLastError();
 }

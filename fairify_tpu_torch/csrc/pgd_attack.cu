@@ -184,6 +184,8 @@ __global__ void __launch_bounds__(K5_MAX_WARPS * 32, 1) k5_kernel(PadDesc pd, Pg
         e.logit = LG;
         e.nvalid = tw;
         e.bits = hidden ? BITS + bit_off[l] : nullptr;
+        e.tw = tw;
+        e.smask = smask;
         warp_layer((tiles_f >> (3 * l)) & 7, cur, tw, smask, P + pd.w[l], pd.ldw[l], pd.in[l],
                    pd.out[l], lane, e);
         __syncwarp();
@@ -235,6 +237,8 @@ __global__ void __launch_bounds__(K5_MAX_WARPS * 32, 1) k5_kernel(PadDesc pd, Pg
         e.logit = nullptr;
         e.nvalid = 0;
         e.bits = l > 0 ? BITS + bit_off[l - 1] : nullptr;
+        e.tw = tw;
+        e.smask = smask;
         warp_layer((tiles_b >> (3 * l)) & 7, gcur, tw, smask, P + pd.wt[l], pd.ldt[l],
                    pd.out[l], pd.in[l], lane, e);
         __syncwarp();

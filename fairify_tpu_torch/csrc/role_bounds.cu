@@ -328,14 +328,6 @@ k10b_crown_kernel(NetDesc nd, const float* __restrict__ params, long long mstrid
   }
 }
 
-// The boxes live .. B - 1 of every (model, role, bound) take box live -
-// 1's V outputs; block (model, role, bound).
-__global__ void k10b_fill(int B, int V, int live, float* __restrict__ out) {
-  const size_t g = (size_t)blockIdx.x * B * V, src = g + (size_t)(live - 1) * V;
-  for (int q = threadIdx.x; q < (B - live) * V; q += blockDim.x)
-    out[g + (size_t)live * V + q] = out[src + q % V];
-}
-
 // ---------------------------------------------------------------------------
 // K7
 // ---------------------------------------------------------------------------
@@ -424,7 +416,8 @@ extern "C" int k10_role_bounds(const void* params, const int* dims, int L, const
           (const float*)phi, (long long)B * V, (long long)live * V, tw, (float*)out);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (live < B && M > 0)
-    k10b_fill<<<4 * M, 128, 0, (cudaStream_t)stream>>>(B, V, live, (float*)out);
+  // Boxes live .. B - 1 of every (model, role, bound) take box live - 1's V
+  // outputs.
+  fill_past((float*)out, 4 * M, B, live, V, stream);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,9 @@
 // work is integer arithmetic, which the fp32 bound does not count.
 //
 // Design: one grid row (blockIdx.y) per partition, threads striding over
-// its S·d values; each thread derives the split key once and calls KD's
-// sample_value on the value's flat index, so every value is bit-equal to
-// the prune pass's and KD's.
+// its S·d values; each thread derives the split key once and draws each
+// value through common.cuh's draw_dim and draw_value, the helpers KA, row 3
+// and KD draw through, so every value is bit-equal to theirs.
 #include "common.cuh"
 
 #define K12_THREADS 256
@@ -27,8 +27,8 @@ k12_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ lo,
   for (uint64_t n = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; n < total;
        n += (uint64_t)gridDim.x * blockDim.x) {
     const int j = (int)(n % (uint64_t)d);
-    row[n] = sample_value(key, n, (int)lo[(size_t)p * d + j],
-                          (int)hi[(size_t)p * d + j] + 1);
+    const DrawDim c = draw_dim((int)lo[(size_t)p * d + j], (int)hi[(size_t)p * d + j] + 1);
+    row[n] = draw_value(key, n, c.minval, c.span, c.mult);
   }
 }
 

@@ -129,9 +129,33 @@ __device__ __forceinline__ int act_off(int j, int r, int tw, int mask) {
 // One layer of a warp's tile.
 // ---------------------------------------------------------------------------
 
+// Store a lane's RR outputs o of unit j (rows 4 (rg + (r / 4) RG) + r % 4)
+// as RR / 4 16-byte chunks.
+template <int RR>
+__device__ __forceinline__ void tile_store(float* out, int j, int rg, int RG, int tw, int smask,
+                                           const float (&o)[RR]) {
+#pragma unroll
+  for (int p = 0; p < RR / 4; ++p)
+    *reinterpret_cast<float4*>(out + act_off(j, 4 * (rg + p * RG), tw, smask)) =
+        make_float4(o[4 * p], o[4 * p + 1], o[4 * p + 2], o[4 * p + 3]);
+}
+
+// A layer's epilogue is a functor E.  For each item (a lane's RR rows x RC
+// columns) warp_dense calls st = e.begin(item, lane), then
+// e.apply<RR, RC>(c, j, rg, RG, v, st) for each of the item's columns c
+// whose unit j is below nout (v: the column's sums; row r of v is 4 (rg +
+// (r / 4) RG) + r % 4), then e.end(item, lane, st).  st is 64 bits of
+// per-item state in registers (bit r * RC + c: Epi's ReLU' record); an
+// epilogue without state derives from NoItemState.
+struct NoItemState {
+  __device__ __forceinline__ uint64_t begin(int, int) const { return 0; }
+  __device__ __forceinline__ void end(int, int, uint64_t) const {}
+};
+
 enum { EPI_HIDDEN = 0, EPI_LOGIT = 1, EPI_BACKWARD = 2 };
 
-// What a layer does with its sums v of unit j, row r:
+// The attack forward's and K5's epilogue.  What a layer does with its sums
+// v of unit j, row r:
 //  EPI_HIDDEN:   out[act_off(j, r)] = max(v + bias[j], 0) * mask[j]; with
 //                `bits`, the lane records whether that value is positive
 //                (ReLU' of the masked net) in its own word of this pass.
@@ -148,6 +172,53 @@ struct Epi {
   float* logit;
   int nvalid;
   uint32_t* bits;  // 2 words per lane and pass
+  int tw, smask;   // the output tile's rows and swizzle
+
+  __device__ __forceinline__ uint32_t* word(int item, int lane) const {
+    return bits + 2 * ((item >> 5) * 32 + lane);
+  }
+  __device__ __forceinline__ uint64_t begin(int item, int lane) const {
+    if (mode != EPI_BACKWARD || bits == nullptr) return 0;
+    const uint32_t* bw = word(item, lane);
+    return (uint64_t)bw[0] | ((uint64_t)bw[1] << 32);
+  }
+  __device__ __forceinline__ void end(int item, int lane, uint64_t rec) const {
+    if (mode != EPI_HIDDEN || bits == nullptr) return;
+    uint32_t* bw = word(item, lane);
+    bw[0] = (uint32_t)rec;
+    bw[1] = (uint32_t)(rec >> 32);
+  }
+  template <int RR, int RC>
+  __device__ __forceinline__ void apply(int c, int j, int rg, int RG, const float (&v)[RR],
+                                        uint64_t& st) const {
+    if (mode == EPI_LOGIT) {
+      if (j != 0) return;
+      const float bj = bias[0];
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        const int row = 4 * (rg + (r / 4) * RG) + r % 4;
+        if (row < nvalid) logit[row] = v[r] + bj;
+      }
+      return;
+    }
+    float o[RR];
+    if (mode == EPI_HIDDEN) {
+      const float bj = bias[j], mj = mask[j];
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        o[r] = fmaxf(v[r] + bj, 0.f) * mj;
+        if (o[r] > 0.f) st |= 1ull << (r * RC + c);
+      }
+    } else {
+      const float mj = bits != nullptr ? mask[j] : 1.f;
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        o[r] = v[r];
+        if (bits != nullptr) o[r] = (st >> (r * RC + c)) & 1ull ? o[r] * mj : 0.f;
+      }
+    }
+    tile_store<RR>(out, j, rg, RG, tw, smask, o);
+  }
 };
 
 // The operands of one k-step of an item: RR activations (rows 4 (rg + p RG)
@@ -194,12 +265,11 @@ __device__ __forceinline__ void fma_step(float (&acc)[RR][RC], const float (&av)
     for (int c = 0; c < RC; ++c) acc[r][c] = fmaf(av[r], wv[c], acc[r][c]);
 }
 
-template <int RR, int RC>
+template <int RR, int RC, class E>
 __device__ __forceinline__ void warp_dense(const float* __restrict__ A, int tw, int smask,
                                            const float* __restrict__ W, int ldw, int K,
-                                           int nout, int lane, const Epi& e) {
+                                           int nout, int lane, const E& e) {
   constexpr int RCW = RC < 4 ? RC : 4;  // columns per chunk
-  constexpr int NP = RR / 4;            // row chunks
   // k-steps whose operands load together, ahead of their FMAs: G divides
   // 4, so a group shares one swizzle and its addresses are fixed offsets.
   constexpr int G = RR * RC >= 32 ? 2 : 4;
@@ -227,51 +297,18 @@ __device__ __forceinline__ void warp_dense(const float* __restrict__ A, int tw, 
       load_step<RR, RC>(A + k * tw, ((k >> 2) & smask) << 2, wp + k * ldw, CG, RG, rg, av, wv);
       fma_step<RR, RC>(acc, av, wv);
     }
-    // Epilogue.  Row of acc[r]: 4 (rg + (r / 4) RG) + r % 4; unit of
-    // acc[.][c]: RCW (cg + (c / RCW) CG) + c % RCW; bit r * RC + c.
-    uint32_t* bw = e.bits != nullptr ? e.bits + 2 * ((item >> 5) * 32 + lane) : nullptr;
-    uint64_t rec = 0, gate = 0;
-    if (e.mode == EPI_BACKWARD && bw != nullptr)
-      gate = (uint64_t)bw[0] | ((uint64_t)bw[1] << 32);
+    // Epilogue: unit of acc[.][c] RCW (cg + (c / RCW) CG) + c % RCW.
+    uint64_t st = e.begin(item, lane);
 #pragma unroll
     for (int c = 0; c < RC; ++c) {
       const int j = RCW * (cg + (c / RCW) * CG) + c % RCW;
       if (j >= nout) continue;
-      if (e.mode == EPI_LOGIT) {
-        if (j != 0) continue;
-        const float bj = e.bias[0];
+      float v[RR];
 #pragma unroll
-        for (int r = 0; r < RR; ++r) {
-          const int row = 4 * (rg + (r / 4) * RG) + r % 4;
-          if (row < e.nvalid) e.logit[row] = acc[r][c] + bj;
-        }
-        continue;
-      }
-      float o[RR];
-      if (e.mode == EPI_HIDDEN) {
-        const float bj = e.bias[j], mj = e.mask[j];
-#pragma unroll
-        for (int r = 0; r < RR; ++r) {
-          o[r] = fmaxf(acc[r][c] + bj, 0.f) * mj;
-          if (o[r] > 0.f) rec |= 1ull << (r * RC + c);
-        }
-      } else {
-        const float mj = bw != nullptr ? e.mask[j] : 1.f;
-#pragma unroll
-        for (int r = 0; r < RR; ++r) {
-          o[r] = acc[r][c];
-          if (bw != nullptr) o[r] = (gate >> (r * RC + c)) & 1ull ? o[r] * mj : 0.f;
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < NP; ++p)
-        *reinterpret_cast<float4*>(e.out + act_off(j, 4 * (rg + p * RG), tw, smask)) =
-            make_float4(o[4 * p], o[4 * p + 1], o[4 * p + 2], o[4 * p + 3]);
+      for (int r = 0; r < RR; ++r) v[r] = acc[r][c];
+      e.template apply<RR, RC>(c, j, rg, RG, v, st);
     }
-    if (e.mode == EPI_HIDDEN && bw != nullptr) {
-      bw[0] = (uint32_t)rec;
-      bw[1] = (uint32_t)(rec >> 32);
-    }
+    e.end(item, lane, st);
   }
 }
 
@@ -285,10 +322,12 @@ __device__ __forceinline__ uint32_t pick_tiles(int L, int tw, Width n) {
 }
 
 // One layer with tile `tile` (pick_tile(nout, tw)): K inputs (the rows of
-// the unit-major tile A), nout outputs, weights W with row stride ldw.
+// the unit-major tile A), nout outputs, weights W with row stride ldw, the
+// epilogue e.
+template <class E>
 __device__ __forceinline__ void warp_layer(int tile, const float* A, int tw, int smask,
                                            const float* W, int ldw, int K, int nout, int lane,
-                                           const Epi& e) {
+                                           const E& e) {
   switch (tile) {
     case 0: warp_dense<8, 8>(A, tw, smask, W, ldw, K, nout, lane, e); break;
     case 1: warp_dense<8, 4>(A, tw, smask, W, ldw, K, nout, lane, e); break;

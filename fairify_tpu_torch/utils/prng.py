@@ -22,7 +22,7 @@ than substituting a ``torch.Generator``:
 Everything here is plain torch on int64 tensors holding 32-bit values (torch
 has no full uint32 arithmetic); every add is masked back to 32 bits.  The
 CUDA kernels carry the same algorithm as a device function
-(``csrc/threefry.cuh``).
+(``csrc/common.cuh``).
 """
 from __future__ import annotations
 
@@ -91,6 +91,29 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return x0 ^ x1
 
 
+def draw_constants(minval: torch.Tensor, maxval: torch.Tensor):
+    """The per-dimension constants of ``jax.random.randint``'s reduction
+    over ``[minval, maxval)`` (int64 tensors of int32 values): ``(minval
+    mod 2^32, span, mult)``, ``span = maxval - minval`` mod 2^32 (1 where
+    ``maxval <= minval``) and ``mult = (65536 % span)^2 mod 2^32 % span``.
+    They depend on the box alone, so the kernels compute them once per
+    (partition, dimension): ``csrc/common.cuh:draw_dim`` is the same rule."""
+    span = (maxval - minval) & M32
+    span = torch.where(maxval <= minval, torch.ones_like(span), span)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & M32) % span
+    return minval & M32, span, mult
+
+
+def draw_offset(higher: torch.Tensor, lower: torch.Tensor, span: torch.Tensor,
+                mult: torch.Tensor) -> torch.Tensor:
+    """A draw's offset in ``[0, span)`` from its two 32-bit words and its
+    dimension's constants (:func:`draw_constants`), in uint32 arithmetic
+    (``csrc/common.cuh:draw_value``)."""
+    off = (((higher % span) * mult) & M32) + (lower % span)
+    return (off & M32) % span
+
+
 def randint_rows(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                  size: int) -> torch.Tensor:
     """``jax.random.randint(key, (size, d), lo, hi + 1)`` per row of a batch.
@@ -105,14 +128,8 @@ def randint_rows(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     k_hi, k_lo = split2(keys)
     higher = random_bits(k_hi, size * d).view(P, size, d)
     lower = random_bits(k_lo, size * d).view(P, size, d)
-    span = (maxval - minval) & M32
-    span = torch.where(maxval <= minval, torch.ones_like(span), span)
-    mult = (1 << 16) % span
-    mult = ((mult * mult) & M32) % span
-    span, mult = span[:, None, :], mult[:, None, :]
-    off = (((higher % span) * mult) & M32) + (lower % span)
-    off = (off & M32) % span
-    out = (minval[:, None, :] + off) & M32
+    base, span, mult = (c[:, None, :] for c in draw_constants(minval, maxval))
+    out = (base + draw_offset(higher, lower, span, mult)) & M32
     return torch.where(out >= 1 << 31, out - (1 << 32), out)
 
 

@@ -450,12 +450,12 @@ def role_logit_bounds(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool, live=None)
     shape = x_lo.shape[:-1]
     V = shape[-1] if len(shape) else 1
     B = x_lo.numel() // (x_lo.shape[-1] * V) if x_lo.shape[-1] else 0
-    live = _live_rows("role_logit_bounds", B, live)
+    live = live_rows("role_logit_bounds", B, live)
     lead = (net.n_models,) if isinstance(net, StackedMLP) else ()
     if x_lo.device.type == "cpu":
         out = role_logit_bounds_plain(net, x_lo, x_hi, xp_lo, xp_hi, use_crown)
         if live < B:
-            out = tuple(_fill_past(t.reshape(lead + (B, V)), live, len(lead)).reshape(t.shape)
+            out = tuple(fill_past(t.reshape(lead + (B, V)), live, len(lead)).reshape(t.shape)
                         for t in out)
         return out
     if not (x_lo.shape == x_hi.shape == xp_lo.shape == xp_hi.shape):
@@ -1168,7 +1168,7 @@ def find_flips(enc: PairEncoding, logit_x, logit_p, valid_assign):
     return found.numpy(), wit.numpy()
 
 
-def _live_rows(what: str, B: int, live) -> int:
+def live_rows(what: str, B: int, live) -> int:
     """``live`` (None: all B rows) checked for a batch of B rows."""
     live = B if live is None else int(live)
     if not (1 <= live <= B or live == B == 0):
@@ -1176,7 +1176,7 @@ def _live_rows(what: str, B: int, live) -> int:
     return live
 
 
-def _fill_past(t: torch.Tensor, live: int, axis: int = 0) -> torch.Tensor:
+def fill_past(t: torch.Tensor, live: int, axis: int = 0) -> torch.Tensor:
     """``t`` with the entries past ``live`` on ``axis`` replaced by entry
     ``live - 1``: what the kernels' live-row launches give the padded rows."""
     n = t.shape[axis]
@@ -1837,10 +1837,10 @@ def inter_bounds(net, lo, hi, live=None):
     same fill; CUDA tensors launch ``csrc/inter_bounds.cu`` over the live
     rows only (the geometry from :func:`inter_bounds_geometry`)."""
     B = lo.shape[0]
-    live = _live_rows("inter_bounds", B, live)
+    live = live_rows("inter_bounds", B, live)
     if lo.device.type == "cpu":
         b = crown_ops.crown_bounds(net, lo, hi)
-        return ([_fill_past(t, live) for t in b.ws_lb], [_fill_past(t, live) for t in b.ws_ub])
+        return ([fill_past(t, live) for t in b.ws_lb], [fill_past(t, live) for t in b.ws_ub])
     out = _inter_bounds_launch(net, lo, hi, live)
     inter_bounds.launches += 1
     return out
@@ -1921,11 +1921,11 @@ def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False, live
     (whose results for a row may depend on the batch's size in the last
     bits) and the same fill."""
     B = lo.shape[0]
-    live = _live_rows("sign_bound", B, live)
+    live = live_rows("sign_bound", B, live)
     if lo.device.type == "cpu":
         out, ab = sign_bound_plain(net, lo, hi, signs, alpha_iters)
         if live < B:
-            fill = lambda t: _fill_past(t, live)
+            fill = lambda t: fill_past(t, live)
             out = (fill(out[0]), fill(out[1]), fill(out[2]), [fill(t) for t in out[3]],
                    [fill(t) for t in out[4]])
             ab = fill(ab)

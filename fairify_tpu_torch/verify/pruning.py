@@ -5,12 +5,13 @@ partition, simulation statistics (candidate dead neurons, activation
 frequency) and widened IBP bounds, then bound-dead masks (candidacy
 required), the keep-one guard and the per-layer bound-looseness sums.  One
 device launch per segment on the mega path, one per grid chunk on the
-chunk loop — the hand-written kernel KA (``csrc/sim_and_bounds.cu``) on a
-CUDA device, its plain PyTorch version :func:`sim_and_bounds_plain` on the
-CPU; ``keep_sim`` regenerates the samples with K12's row generator
-(:func:`sim_rows`, ``csrc/sim_rows.cu``).  :func:`harsh_prune_grid`, the
-reference's unsound candidate-only pruning, runs KA's simulation half
-alone (:func:`sim_stats`).
+chunk loop — the hand-written kernel KA (``csrc/sim_and_bounds.cu`` on
+``csrc/sim_tile.cuh``'s warp tiles, its launch geometry from
+:func:`sim_geometry`) on a CUDA device, its plain PyTorch version
+:func:`sim_and_bounds_plain` on the CPU; ``keep_sim`` regenerates the
+samples with K12's row generator (:func:`sim_rows`, ``csrc/sim_rows.cu``).
+:func:`harsh_prune_grid`, the reference's unsound candidate-only pruning,
+runs KA's simulation half alone (:func:`sim_stats`).
 
 With ``exact_certify`` the host then re-derives every proposed dead
 neuron in exact rational arithmetic (:mod:`fairify_tpu_torch.ops.exact`:
@@ -22,6 +23,7 @@ and the heuristic retry, never a stage-0 verdict.
 from __future__ import annotations
 
 import ctypes
+import functools
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -37,6 +39,7 @@ from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, activation_stats, simulat
 from fairify_tpu_torch.partition.grid import chunk_spans, pad_rows, segment_spans
 from fairify_tpu_torch.utils import cuda_build
 from fairify_tpu_torch.utils.prng import grid_keys
+from fairify_tpu_torch.verify import engine
 
 @dataclass
 class PruneResult:
@@ -87,65 +90,255 @@ def sim_stats_plain(net, keys, lo, hi, sim_size: int):
     return cat(cand_p), cat(pos_p)
 
 
-def sim_and_bounds(net, keys, lo, hi, ok, sim_size: int):
+def sim_and_bounds(net, keys, lo, hi, ok, sim_size: int, live=None):
     """KA: simulation statistics + IBP bounds for N partitions, one launch.
 
-    On CPU tensors this is :func:`sim_and_bounds_plain`; on CUDA tensors it
-    launches ``csrc/sim_and_bounds.cu`` (and raises if it cannot).
+    ``live`` (default N): rows ``>= live`` get row ``live - 1``'s outputs
+    (``engine.fill_past``), what a full call returns for padded rows that
+    repeat that row's inputs; the looseness sums the ``ok`` rows of those
+    outputs.  On CPU tensors this is :func:`sim_and_bounds_plain` on every
+    row and the same fill; on CUDA tensors it launches
+    ``csrc/sim_and_bounds.cu`` over the live rows only (and raises if it
+    cannot), the geometry from :func:`sim_geometry`.
     """
+    N, L = lo.shape[0], net.depth
+    live = engine.live_rows("sim_and_bounds", N, live)
     if lo.device.type == "cpu":
-        return sim_and_bounds_plain(net, keys, lo, hi, ok, sim_size)
-    params, dims = cuda_build.pack_net(net)
-    k32 = cuda_build.u32_keys(keys)
-    lo, hi = lo.contiguous(), hi.contiguous()
-    cuda_build.require_cuda(params, k32, lo, hi, ok)
-    N, L, nsum = lo.shape[0], net.depth, sum(net.layer_sizes)
-    out = [torch.empty((N, nsum), dtype=torch.float32, device=lo.device)
-           for _ in range(4)]
-    loos_rows = torch.empty((N, L), dtype=torch.float32, device=lo.device)
-    cuda_build.call("sim_and_bounds", "ka_sim_and_bounds",
-                    cuda_build.ptr(params), dims, ctypes.c_int(L),
-                    cuda_build.ptr(k32), cuda_build.ptr(lo), cuda_build.ptr(hi),
-                    ctypes.c_int(N), ctypes.c_int(sim_size),
-                    *(cuda_build.ptr(t) for t in out),
-                    cuda_build.ptr(loos_rows), cuda_build.stream())
+        cand, pos, ws_lb, ws_ub, loos = sim_and_bounds_plain(net, keys, lo, hi, ok, sim_size)
+        if live < N:
+            fill = lambda ts: [engine.fill_past(t, live) for t in ts]
+            cand, pos, ws_lb, ws_ub = fill(cand), fill(pos), fill(ws_lb), fill(ws_ub)
+            okf = ok.to(torch.float32)[:, None]
+            loos = torch.stack([((ub - lb) * okf).sum() for lb, ub in zip(ws_lb, ws_ub)])
+        return cand, pos, ws_lb, ws_ub, loos
+    out = _sim_launch(net, keys, lo, hi, sim_size, live, "ka")
     sim_and_bounds.launches += 1
-    offs = np.cumsum([0] + list(net.layer_sizes))
-    split = lambda t: [t[:, offs[l]:offs[l + 1]] for l in range(L)]
-    cand, pos, ws_lb, ws_ub = (split(t) for t in out)
-    loos = (loos_rows * ok.to(torch.float32)[:, None]).sum(0)
-    return cand, pos, ws_lb, ws_ub, loos
+    sizes = net.layer_sizes
+    views = out.split(sizes * 4 + (L,), dim=1)
+    loos = (views[-1] * ok[:, None]).sum(0)
+    return (list(views[:L]), list(views[L:2 * L]), list(views[2 * L:3 * L]),
+            list(views[3 * L:4 * L]), loos)
 
 
 sim_and_bounds.launches = 0
 
 
-def sim_stats(net, keys, lo, hi, sim_size: int):
+def sim_stats(net, keys, lo, hi, sim_size: int, live=None):
     """Row 3: simulation statistics alone (the JAX package's ``_sim_stats``)
     for N partitions, one launch — KA with its IBP half skipped, so the
     samples, counts and ``pos_prob`` are KA's bit for bit.  Returns
-    per-layer (N, n_l) float32 ``(candidates, pos_prob)``.  CPU tensors
-    take :func:`sim_stats_plain`; CUDA tensors launch
-    ``csrc/sim_and_bounds.cu``'s ``ka_sim_stats``."""
+    per-layer (N, n_l) float32 ``(candidates, pos_prob)``; ``live`` as
+    :func:`sim_and_bounds`'s.  CPU tensors take :func:`sim_stats_plain`
+    and the fill; CUDA tensors launch ``csrc/sim_and_bounds.cu``'s
+    ``ka_sim_stats`` over the live rows."""
+    N = lo.shape[0]
+    live = engine.live_rows("sim_stats", N, live)
     if lo.device.type == "cpu":
-        return sim_stats_plain(net, keys, lo, hi, sim_size)
-    params, dims = cuda_build.pack_net(net)
-    k32 = cuda_build.u32_keys(keys)
-    lo, hi = lo.contiguous(), hi.contiguous()
-    cuda_build.require_cuda(params, k32, lo, hi)
-    N, L, nsum = lo.shape[0], net.depth, sum(net.layer_sizes)
-    cand, pos = (torch.empty((N, nsum), dtype=torch.float32, device=lo.device)
-                 for _ in range(2))
-    cuda_build.call("sim_and_bounds", "ka_sim_stats", cuda_build.ptr(params), dims,
-                    ctypes.c_int(L), cuda_build.ptr(k32), cuda_build.ptr(lo),
-                    cuda_build.ptr(hi), ctypes.c_int(N), ctypes.c_int(sim_size),
-                    cuda_build.ptr(cand), cuda_build.ptr(pos), cuda_build.stream())
+        cand, pos = sim_stats_plain(net, keys, lo, hi, sim_size)
+        return ([engine.fill_past(t, live) for t in cand],
+                [engine.fill_past(t, live) for t in pos])
+    out = _sim_launch(net, keys, lo, hi, sim_size, live, "stats")
     sim_stats.launches += 1
-    sizes = list(net.layer_sizes)
-    return list(cand.split(sizes, dim=1)), list(pos.split(sizes, dim=1))
+    views = out.split(net.layer_sizes * 2, dim=1)
+    return list(views[:net.depth]), list(views[net.depth:])
 
 
 sim_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry and launches of KA, row 3 and KD (csrc/sim_tile.cuh)
+# ---------------------------------------------------------------------------
+
+SIM_KINDS = ("ka", "stats", "kd")  # KA, row 3 (KA's simulation half), KD
+SIM_TW = (32, 16)  # rows of a warp tile, largest first
+SIM_MAX_WARPS = 16  # csrc/sim_tile.cuh: 512-thread launch bounds, at most 128 registers a thread
+SIM_MIN_WARPS = 8  # the larger tile only where a block of this many warps of it fits
+SIM_REGS = 128  # registers a thread when the build is not asked (the launch bounds' most)
+SIM_ALIGNED_WAVES = 4  # from this many waves of one-partition blocks on, a block is a partition
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sim_smem(sizes, kind: str, tw: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one KA, row-3 or KD block
+    (``sim_tile.cuh:sim_smem``): the mbarrier's 16; the padded net's
+    forward part (``cuda_build.pad_layout``); a head of 4 scalars and, per
+    slot (2), the split key (4), the draw constants (3d) and the counts
+    (nsum; KD 1), then KD's alive masks (2 nhid) or KA's IBP scratch (5
+    maxw), rounded up to 4 words; per warp buffer O (the d inputs and the
+    odd hidden layers), buffer E (the even hidden layers) and, for KD, a
+    second E and two logit rows, ``tw`` rows each."""
+    d, hidden = sizes[0], list(sizes[1:-1])
+    e, o = max(hidden[0::2] or [0]), max([d] + hidden[1::2])
+    counts = 1 if kind == "kd" else sum(sizes[1:])
+    head = 4 + 2 * (4 + 3 * d + counts)
+    head += 2 * sum(hidden) if kind == "kd" else 5 * max(sizes) if kind == "ka" else 0
+    warp = (o + 2 * e + 2) * tw if kind == "kd" else (o + e) * tw
+    return 4 * (4 + cuda_build.pad_layout(sizes)["fwd"] + _ceil(head, 4) * 4 + warps * warp)
+
+
+def sim_sm_warps(regs: int) -> int:
+    """Warps one SM holds at ``regs`` registers a thread: its 65,536
+    registers, allocated 256 at a time a warp, and at most 64 warps."""
+    return min(64, 65536 // (_ceil(32 * max(regs, 1), 256) * 256))
+
+
+def _sim_per_sm(smem: int, warps: int, regs: int) -> int:
+    """Blocks of ``smem`` bytes and ``warps`` warps of ``regs`` registers a
+    thread one SM holds (each block also takes 1,024 bytes)."""
+    return min(cuda_build.SMEM_PER_SM // (smem + 1024), sim_sm_warps(regs) // warps)
+
+
+def sim_geometry(sizes, rows: int, S: int, sms: int = 132,
+                 smem_limit: int = cuda_build.SMEM_LIMIT, kind: str = "ka",
+                 _force=None, regs: int = SIM_REGS) -> dict:
+    """Launch geometry of KA (``kind`` "ka"), row 3 ("stats") or KD ("kd")
+    over ``rows`` live partitions of ``S`` samples on a card of ``sms`` SMs.
+
+    ``tw``, rows a warp tile: the largest of SIM_TW at which a block of
+    SIM_MIN_WARPS warps fits in shared memory.  ``warps`` a block: the most
+    warps an SM then holds resident (its shared memory, and
+    :func:`sim_sm_warps` of ``regs``, the kernel's registers a thread as
+    built: :func:`sim_regs`), a tie to more blocks an SM (``per_sm``).  ``tpb``, tiles a block, of
+    ``T = ceil(S / tw)`` tiles a partition: with at least SIM_ALIGNED_WAVES
+    waves of one-partition blocks, ``T`` (one block a partition, counts in
+    shared memory); with fewer, the partitions' tiles spread evenly over
+    whole waves of the ``per_sm * sms`` blocks the card holds, so that the
+    grid fills every SM (``tpb < T``: a partition spans
+    ``blocks_per_partition`` blocks or one more, merged through device
+    memory).  ``grid = ceil(rows * T / tpb)``.  ``_force`` (``(tw, warps)``
+    or ``(tw, warps, tpb)``) overrides the choices; a geometry that does
+    not fit raises."""
+    if kind not in SIM_KINDS or S < 1 or rows < 0:
+        raise ValueError(f"sim_geometry: kind {kind!r}, S={S}, rows={rows}")
+    if _force is None:
+        tw = next((t for t in SIM_TW if sim_smem(sizes, kind, t, SIM_MIN_WARPS) <= smem_limit),
+                  SIM_TW[-1])
+        best = None
+        for w in range(1, SIM_MAX_WARPS + 1):
+            smem = sim_smem(sizes, kind, tw, w)
+            if smem > smem_limit:
+                break
+            n = _sim_per_sm(smem, w, regs)
+            if best is None or (n * w, n) > best[0]:
+                best = ((n * w, n), w)
+        if best is None:
+            raise ValueError(f"sim_geometry: one warp's tiles of {tw} rows need "
+                             f"{sim_smem(sizes, kind, tw, 1)} bytes of shared memory, "
+                             f"more than {smem_limit}")
+        warps = best[1]
+    else:
+        tw, warps = int(_force[0]), int(_force[1])
+        if tw < 4 or tw % 4 or tw > SIM_TW[0]:
+            raise ValueError(f"sim_geometry: a warp tile of {tw} rows")
+        if not 1 <= warps <= SIM_MAX_WARPS or sim_smem(sizes, kind, tw, warps) > smem_limit:
+            raise ValueError(f"sim_geometry: {warps} warps of {tw} rows do not fit in shared "
+                             "memory")
+    T = _ceil(S, tw)
+    smem = sim_smem(sizes, kind, tw, warps)
+    per_sm = _sim_per_sm(smem, warps, regs)
+    slots = per_sm * sms
+    if _force is not None and len(_force) > 2:
+        tpb = int(_force[2])
+        if not 1 <= tpb <= T:
+            raise ValueError(f"sim_geometry: {tpb} tiles a block of a partition's {T}")
+    elif rows == 0 or rows >= SIM_ALIGNED_WAVES * slots:
+        tpb = T
+    else:
+        tpb = min(T, _ceil(rows * T, _ceil(rows, slots) * slots))
+    return dict(tw=tw, warps=warps, threads=32 * warps, tpb=tpb, T=T,
+                grid=_ceil(rows * T, tpb), smem=smem, per_sm=per_sm,
+                blocks_per_partition=_ceil(T, tpb), regs=regs)
+
+
+_sim_geometry = functools.lru_cache(maxsize=256)(sim_geometry)
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+# ka_sim_and_bounds / ka_sim_stats(params, dims, L, keys, lo, hi, rows, live, S, out,
+# ws, tw, warps, tpb, grid, smem, stream)
+_KA_ARGS = ((_VP, ctypes.POINTER(_INT), _INT) + (_VP,) * 3 + (_INT,) * 3 + (_VP,) * 2
+            + (_INT,) * 4 + (ctypes.c_longlong, _VP))
+# kd_parity(params, dims, L, keys, lo, hi, alive, nhid, rows, live, S, out, ws, tw,
+# warps, tpb, grid, smem, stream)
+_KD_ARGS = ((_VP, ctypes.POINTER(_INT), _INT) + (_VP,) * 4 + (_INT,) * 4 + (_VP,) * 2
+            + (_INT,) * 4 + (ctypes.c_longlong, _VP))
+_ENTRY = {"ka": ("sim_and_bounds", "ka_sim_and_bounds", _KA_ARGS),
+          "stats": ("sim_and_bounds", "ka_sim_stats", _KA_ARGS),
+          "kd": ("parity", "kd_parity", _KD_ARGS)}
+_REGS = {"ka": ("sim_and_bounds", "ka_regs", 0), "stats": ("sim_and_bounds", "ka_regs", 1),
+         "kd": ("parity", "kd_regs", 0)}
+_workspaces = {}
+
+
+@functools.lru_cache(maxsize=None)
+def sim_regs(kind: str) -> int:
+    """Registers a thread of KA (``kind`` "ka"), row 3 ("stats") or KD
+    ("kd") uses as built (``cudaFuncGetAttributes`` through the library's
+    ``ka_regs``/``kd_regs``), which :func:`sim_geometry` turns into the
+    warps an SM holds."""
+    src, name, arg = _REGS[kind]
+    regs = cuda_build.entry(src, name, (_INT,))(arg)
+    if regs < 1:
+        raise RuntimeError(f"sim_regs: {name}({arg}) returned {regs}")
+    return regs
+
+
+def _workspace(dev: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` words on ``dev``, kept per
+    device: a launch whose partitions span blocks merges its counts there
+    and leaves it zeroed for the next launch on the stream."""
+    ws = _workspaces.get(dev)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _workspaces[dev] = ws
+    return ws
+
+
+def _sim_prepare(net, keys, lo, hi, sim_size: int, live: int, kind: str, alive=None,
+                 _geometry_force=None):
+    """``(entry point, its arguments but the stream, output tensor)`` of one
+    KA (``kind`` "ka"), row-3 ("stats") or KD ("kd") launch over the
+    ``live`` first of the rows of ``lo``/``hi``: the padded pack, the
+    geometry from :func:`sim_geometry`; the output (rows, 4 nsum + L),
+    (rows, 2 nsum) or (rows,)."""
+    params, dims, M = cuda_build.pack_padded(net)
+    if M != 1:
+        raise TypeError("KA and KD take one net, not a stacked family")
+    # The kernels read each int64 key's low 32-bit word (the uint32 value).
+    k64 = (keys if keys.dtype == torch.int64 else keys.to(torch.int64)).contiguous()
+    lo, hi = lo.contiguous(), hi.contiguous()
+    ins = (params, k64, lo, hi) + ((alive,) if alive is not None else ())
+    cuda_build.require_cuda(*ins)
+    dev = lo.device
+    sizes = tuple(dims)
+    rows, L, nsum = lo.shape[0], len(sizes) - 1, sum(sizes[1:])
+    geo = _sim_geometry(sizes, live, sim_size, cuda_build.sm_count(dev),
+                        cuda_build.SMEM_LIMIT, kind, _geometry_force, sim_regs(kind))
+    width = {"ka": (4 * nsum + L,), "stats": (2 * nsum,), "kd": ()}[kind]
+    out = torch.empty((rows,) + width, dtype=torch.float32, device=dev)
+    counts = 1 if kind == "kd" else nsum
+    ws = (_workspace(dev, live * (counts + 1)).data_ptr() if geo["tpb"] < geo["T"] else None)
+    head = (params.data_ptr(), dims, L, k64.data_ptr(), lo.data_ptr(), hi.data_ptr())
+    if kind == "kd":
+        head += (alive.data_ptr(), alive.shape[1])
+    args = head + (rows, live, sim_size, out.data_ptr(), ws, geo["tw"], geo["warps"],
+                   geo["tpb"], geo["grid"], geo["smem"])
+    src, name, types = _ENTRY[kind]
+    return cuda_build.entry(src, name, types), args, out
+
+
+def _sim_launch(net, keys, lo, hi, sim_size: int, live: int, kind: str, alive=None,
+                _geometry_force=None):
+    """One launch of KA, row 3 or KD (:func:`_sim_prepare`); its output.
+    ``_geometry_force`` forces the geometry: the card's checks that the
+    outputs do not depend on it."""
+    fn, args, out = _sim_prepare(net, keys, lo, hi, sim_size, live, kind, alive,
+                                 _geometry_force)
+    cuda_build.check(fn.__name__, fn(*args, torch.cuda.current_stream().cuda_stream))
+    return out
 
 
 def sim_rows(keys, lo, hi, sim_size: int):
@@ -187,8 +380,9 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     are launched, since the JAX package's padding exists to reuse compiled
     executables and never changes a real row's result.  Otherwise the
     chunk loop (``_sim_and_bounds``, row 1): one KA launch per chunk,
-    padded to ``chunk`` rows (last row repeated), the per-layer looseness
-    summed in f64 on the host over the real rows, as the JAX package does;
+    padded to ``chunk`` rows (last row repeated) and launched over its
+    real rows (``live``), the per-layer looseness summed in f64 on the
+    host over the real rows, as the JAX package does;
     with ``keep_sim`` the samples (P, sim_size, d) are regenerated from the
     same keys by K12's row generator (:func:`sim_rows`).
 
@@ -216,7 +410,7 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
         lo_t, hi_t = as_dev(pad_rows(lo[s:e], rows)), as_dev(pad_rows(hi[s:e], rows))
         ok = torch.arange(rows, device=dev) < n
         cand, pos, ws_lb, ws_ub, blk_loos = sim_and_bounds(net, keys, lo_t, hi_t, ok,
-                                                           sim_size)
+                                                           sim_size, live=n)
         parts.append([[t[:n].cpu().numpy() for t in group]
                       for group in (cand, pos, ws_lb, ws_ub)])
         if pad:

@@ -499,25 +499,19 @@ def parity_plain(net, keys, lo, hi, alive, sim_size: int):
     return torch.cat(out)
 
 
-def parity(net, keys, lo, hi, alive, sim_size: int):
-    """KD: pruned-vs-original parity of N partitions, one launch.  CPU
-    tensors take :func:`parity_plain`; CUDA tensors launch
-    ``csrc/parity.cu``."""
-    if lo.device.type == "cpu":
-        return parity_plain(net, keys, lo, hi, alive, sim_size)
-    params, dims = cuda_build.pack_net(net)
-    k32 = cuda_build.u32_keys(keys)
-    lo, hi = lo.contiguous(), hi.contiguous()
+def parity(net, keys, lo, hi, alive, sim_size: int, live=None):
+    """KD: pruned-vs-original parity of N partitions, one launch.  ``live``
+    (default N): rows ``>= live`` get row ``live - 1``'s parity
+    (``engine.fill_past``).  CPU tensors take :func:`parity_plain` on every
+    row and the same fill; CUDA tensors launch ``csrc/parity.cu`` over the
+    live rows (the geometry from :func:`pruning.sim_geometry`)."""
     N = lo.shape[0]
-    al = (torch.cat([a.to(torch.float32) for a in alive], dim=1).contiguous()
+    live = engine.live_rows("parity", N, live)
+    if lo.device.type == "cpu":
+        return engine.fill_past(parity_plain(net, keys, lo, hi, alive, sim_size), live)
+    al = (torch.cat([a.to(torch.float32) for a in alive], dim=1)
           if alive else torch.zeros((N, 0), dtype=torch.float32, device=lo.device))
-    cuda_build.require_cuda(params, k32, lo, hi, al)
-    out = torch.empty(N, dtype=torch.float32, device=lo.device)
-    cuda_build.call("parity", "kd_parity", cuda_build.ptr(params), dims,
-                    ctypes.c_int(net.depth), cuda_build.ptr(k32), cuda_build.ptr(lo),
-                    cuda_build.ptr(hi), cuda_build.ptr(al), ctypes.c_int(al.shape[1]),
-                    ctypes.c_int(N), ctypes.c_int(sim_size), cuda_build.ptr(out),
-                    cuda_build.stream())
+    out = pruning._sim_launch(net, keys, lo, hi, sim_size, live, "kd", alive=al)
     parity.launches += 1
     return out
 
@@ -574,7 +568,7 @@ def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0,
     path (:func:`use_mega`; always with a ``mesh``, whose parity the JAX
     package also runs unsharded) one per grid chunk padded to the chunk
     size (``_parity_grid_from_keys``, row 10), alive masks padded like the
-    boxes."""
+    boxes, launched over the chunk's real rows (``live``)."""
     P = lo.shape[0]
     dev = net.device
     out = np.zeros(P, dtype=np.float32)
@@ -589,8 +583,8 @@ def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0,
         keys = grid_keys(cfg.seed, index_offset + s, n, device=dev)
         alive = [torch.as_tensor(rows(1.0 - d), device=dev) for d in prune.st_deads[:-1]]
         out[s:e] = parity(net, keys, torch.as_tensor(rows(lo), device=dev),
-                          torch.as_tensor(rows(hi), device=dev), alive,
-                          cfg.sim_size).cpu().numpy()[: e - s]
+                          torch.as_tensor(rows(hi), device=dev), alive, cfg.sim_size,
+                          live=e - s).cpu().numpy()[: e - s]
     return out
 
 

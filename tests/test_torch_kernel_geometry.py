@@ -32,6 +32,11 @@ the nets the repo runs, without a card:
   keeps two blocks an SM and a grid of one wave, Phase P's 2V role boxes
   take its one-box-a-block geometry with a warp per column pair, and row
   13's IBP tiles at the host frontier's F = 512 give every warp one tile;
+* KA, row 3 and KD (``pruning.sim_geometry``, ``csrc/sim_tile.cuh``) fit
+  every net at GC-1's 201 partitions, a 2,048-row chunk, the AC segment's
+  8,192 and row 3's 16,000, their shared-memory sums that of the kernels'
+  layout; at GC-1 the grid covers every SM, at AC-S1 widths a block is one
+  partition;
 * a forced geometry that does not fit raises;
 * the padded and odd-stride packs are the layouts the kernels read, and
   every pack is built once per net: a net's ``with_masks`` copy gets its
@@ -44,7 +49,7 @@ import torch
 from fairify_tpu_torch.models.mlp import flagship_net, seeded_net
 from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.utils import cuda_build
-from fairify_tpu_torch.verify import engine
+from fairify_tpu_torch.verify import engine, pruning
 
 SMS = 132
 LIMIT = 232448
@@ -471,3 +476,86 @@ def test_forced_k8b_and_row13_geometry_is_checked():
         engine.inter_bounds_geometry(wide, 4)
     with pytest.raises(ValueError, match="shared memory"):
         engine.role_bounds_geometry(wide, 2, 2048)
+
+
+def _sim_smem_mirror(sizes, kind, tw, warps):
+    """sim_tile.cuh:sim_smem's bytes: the mbarrier's 4 words, the padded
+    net's forward part, a head (4 scalars; 2 slots of key 4, draw
+    constants 3d, counts nsum or 1; KD 2 nhid alive words or KA 5 maxw
+    IBP words; rounded up to 4) and per warp its tiles (d or the odd
+    hidden layers' widest, the even hidden layers' widest, and for KD the
+    masked net's even buffer and two logit rows)."""
+    r8 = lambda v: (v + 7) // 8 * 8
+    d, hidden = sizes[0], list(sizes[1:-1])
+    fwd = sum(a * r8(b) + 2 * r8(b) for a, b in zip(sizes[:-1], sizes[1:]))
+    counts = {"ka": sum(sizes[1:]), "stats": sum(sizes[1:]), "kd": 1}[kind]
+    head = 4 + 2 * (4 + 3 * d + counts) + {"ka": 5 * max(sizes), "stats": 0,
+                                           "kd": 2 * sum(hidden)}[kind]
+    head = (head + 3) // 4 * 4
+    even = max(hidden[0::2], default=0)
+    odd = max([d] + hidden[1::2])
+    per_warp = tw * (odd + even + (even + 2 if kind == "kd" else 0))
+    return 4 * (4 + fwd + head + warps * per_warp)
+
+
+@pytest.mark.parametrize("kind", pruning.SIM_KINDS)
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_sim_geometry_fits_every_net(name, kind):
+    sizes = NETS[name]
+    for rows in (1, 201, 2048, 8192, 16000):
+        for S in (1000, 37):
+            g = pruning.sim_geometry(sizes, rows, S, sms=SMS, smem_limit=LIMIT, kind=kind)
+            assert g["smem"] == pruning.sim_smem(sizes, kind, g["tw"], g["warps"]) \
+                == _sim_smem_mirror(sizes, kind, g["tw"], g["warps"]) <= LIMIT
+            assert g["tw"] in pruning.SIM_TW and 1 <= g["warps"] <= pruning.SIM_MAX_WARPS
+            assert g["T"] == -(-S // g["tw"]) and 1 <= g["tpb"] <= g["T"]
+            assert g["grid"] == -(-rows * g["T"] // g["tpb"])
+            assert g["per_sm"] >= 1 and g["per_sm"] * (g["smem"] + 1024) <= SM_BYTES
+            assert g["per_sm"] * g["warps"] <= pruning.sim_sm_warps(pruning.SIM_REGS)
+            if g["tpb"] < g["T"]:  # partitions spread over at most one wave a partition row
+                assert g["grid"] <= -(-rows // (g["per_sm"] * SMS)) * g["per_sm"] * SMS
+
+
+def test_sim_geometry_at_gc1_and_ac_s1():
+    for kind in pruning.SIM_KINDS:
+        # GC-1's 201 partitions: the grid covers every SM and no wave is
+        # left mostly empty.
+        g = pruning.sim_geometry(NETS["GC-1"], 201, 1000, sms=SMS, smem_limit=LIMIT, kind=kind)
+        assert g["grid"] >= SMS and g["tpb"] < g["T"]
+        assert g["grid"] > (-(-g["grid"] // (g["per_sm"] * SMS)) - 1) * g["per_sm"] * SMS \
+            + g["per_sm"] * SMS // 2
+        # AC-S1: one block a partition on the segment, the chunk and row 3's grid.
+        for rows in (2048, 8192, 16000):
+            g = pruning.sim_geometry(NETS["AC-S1"], rows, 1000, sms=SMS, smem_limit=LIMIT,
+                                     kind=kind)
+            assert g["tpb"] == g["T"] and g["grid"] == rows and g["tw"] == 16
+
+
+def test_sim_geometry_follows_the_register_count():
+    # An SM's 65,536 registers, 256 a warp at a time, at most 64 warps.
+    assert [pruning.sim_sm_warps(r) for r in (128, 127, 120, 96, 64, 32, 16, 255)] \
+        == [16, 16, 17, 21, 32, 64, 64, 8]
+    sizes = NETS["GC-1"]
+    for regs in (64, 96, 128):
+        g = pruning.sim_geometry(sizes, 201, 1000, sms=SMS, regs=regs)
+        assert g["regs"] == regs and g["per_sm"] * g["warps"] <= pruning.sim_sm_warps(regs)
+        assert g["grid"] >= SMS
+    # Fewer registers a thread: more warps resident an SM.
+    resident = lambda g: g["per_sm"] * g["warps"]
+    assert resident(pruning.sim_geometry(sizes, 201, 1000, sms=SMS, regs=64)) \
+        > resident(pruning.sim_geometry(sizes, 201, 1000, sms=SMS, regs=128))
+
+
+def test_forced_sim_geometry_is_checked():
+    sizes = NETS["AC-S1"]
+    g = pruning.sim_geometry(sizes, 201, 1000, sms=SMS, _force=(32, 4, 5))
+    assert (g["tw"], g["warps"], g["tpb"], g["grid"]) == (32, 4, 5, -(-201 * 32 // 5))
+    assert pruning.sim_geometry(sizes, 201, 37, sms=SMS, _force=(16, 2))["tw"] == 16
+    for bad in ((32, 8), (16, 15), (6, 1), (64, 1), (16, 0), (16, 17), (16, 4, 64),
+                (16, 4, 0)):  # (32, 8): 254 KB; (16, 15): 241 KB; 64 > T = 63 tiles
+        with pytest.raises(ValueError):
+            pruning.sim_geometry(sizes, 201, 1000, sms=SMS, _force=bad)
+    with pytest.raises(ValueError, match="shared memory"):
+        pruning.sim_geometry((13, 4096, 1), 201, 1000, kind="kd")
+    with pytest.raises(ValueError):
+        pruning.sim_geometry(sizes, 201, 0)

@@ -17,7 +17,9 @@ from fairify_tpu_torch.models import mlp as tmlp
 from fairify_tpu_torch.ops import interval as tinterval
 from fairify_tpu_torch.ops import simulate as tsim
 from fairify_tpu_torch.utils import prng as tprng
+from fairify_tpu_torch.verify import presets as tpresets
 from fairify_tpu_torch.verify import pruning as tpruning
+from fairify_tpu_torch.verify import sweep as tsweep
 
 
 def _net(sizes, seed):
@@ -125,3 +127,74 @@ def test_keep_one_alive_matches_jax():
     for d in cases:
         np.testing.assert_array_equal(tmasks.keep_one_alive([d])[0],
                                       np.asarray(jmasks.keep_one_alive([d])[0]))
+
+
+def _live_case(P=24, S=50):
+    ws, bs = _net((20, 16, 8, 1), 7)
+    net = tmlp.from_numpy(ws, bs, device="cpu")
+    _, lo, hi = tsweep.build_partitions(tpresets.get("GC"))
+    lo, hi = torch.as_tensor(lo[:P].astype(np.float32)), torch.as_tensor(hi[:P].astype(np.float32))
+    return net, tprng.grid_keys(11, 0, P), lo, hi, S
+
+
+@pytest.mark.parametrize("live", [1, 17, None])
+@pytest.mark.parametrize("kind", ["ka", "stats", "kd"])
+def test_live_rows_take_row_live_minus_one(kind, live):
+    """KA, row 3 and KD with ``live=`` on the CPU: the plain version on every
+    row, then rows >= live take row live - 1's outputs (what the card's
+    live-row launch and its fill give): rows below live equal the full
+    call's."""
+    net, keys, lo, hi, S = _live_case()
+    P = lo.shape[0]
+    n = P if live is None else live
+    ok = torch.arange(P) < n
+    if kind == "ka":
+        full = tpruning.sim_and_bounds(net, keys, lo, hi, ok, S)
+        got = tpruning.sim_and_bounds(net, keys, lo, hi, ok, S, live=live)
+        groups = list(zip(full[:4], got[:4]))
+        # The looseness sums the ok rows, all below live.
+        np.testing.assert_array_equal(got[4].numpy(), full[4].numpy())
+    elif kind == "stats":
+        full = tpruning.sim_stats(net, keys, lo, hi, S)
+        groups = list(zip(full, tpruning.sim_stats(net, keys, lo, hi, S, live=live)))
+    else:
+        dead = [(torch.arange(w) % 3 == 0).to(torch.float32).expand(P, w).clone()
+                for w in net.layer_sizes[:-1]]
+        alive = [1.0 - d for d in dead]
+        groups = [([tsweep.parity(net, keys, lo, hi, alive, S)],
+                   [tsweep.parity(net, keys, lo, hi, alive, S, live=live)])]
+    for want_l, got_l in groups:
+        for want, got in zip(want_l, got_l):
+            assert got.shape == want.shape
+            np.testing.assert_array_equal(got[:n].numpy(), want[:n].numpy())
+            np.testing.assert_array_equal(got[n:].numpy(),
+                                          want[n - 1:n].expand_as(got[n:]).numpy())
+    with pytest.raises(ValueError):
+        tpruning.sim_stats(net, keys, lo, hi, S, live=0)
+    with pytest.raises(ValueError):
+        tpruning.sim_stats(net, keys, lo, hi, S, live=P + 1)
+
+
+def test_chunk_loop_with_live_rows_matches_the_mega_path():
+    """The chunk loop (one launch per chunk padded to 16 rows, launched over
+    its real rows) on a 40-partition grid whose last chunk holds 8 gives the
+    mega path's masks, pos_prob, bounds and parity; the looseness (f64 on
+    the host against the f32 sums of the mega path) to rounding."""
+    ws, bs = _net((20, 16, 8, 1), 5)
+    net = tmlp.from_numpy(ws, bs, device="cpu")
+    _, lo, hi = tsweep.build_partitions(tpresets.get("GC"))
+    lo, hi = lo[:40], hi[:40]
+    cfg = tpresets.get("GC").with_(grid_chunk=16, sim_size=60, seed=42)
+    res = {}
+    for tag, mega in (("chunk", 0), ("mega", 2)):
+        c = cfg.with_(mega_chunks=mega)
+        prune = tpruning.sound_prune_grid(net, lo, hi, c.sim_size, c.seed, chunk=c.grid_chunk,
+                                          mega_chunks=c.mega_chunks)
+        res[tag] = (prune, tsweep.parity_pass(net, prune, lo, hi, c))
+    (pc, parc), (pm, parm) = res["chunk"], res["mega"]
+    for field in ("candidates", "b_deads", "st_deads", "pos_prob", "ws_lb", "ws_ub"):
+        for a, b in zip(getattr(pc, field), getattr(pm, field)):
+            np.testing.assert_array_equal(a, b, err_msg=field)
+    np.testing.assert_array_equal(parc, parm)
+    assert 0.0 < float(parc.min()) <= float(parc.max()) <= 1.0
+    np.testing.assert_allclose(pc.looseness, pm.looseness, rtol=1e-5)
