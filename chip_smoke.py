@@ -53,7 +53,10 @@ Phases (any failure exits nonzero and prints no result line):
    rest of phase 1b, phases 2-2c and 4, verdicts and witnesses equal.
 2. Stage-0 kernels vs plain versions: KA (sim_and_bounds), KB
    (stage0_certify; on the AC segment also its default launch bit for bit
-   under three forced geometries), KC (attack_flips) and KD (parity) at
+   under three forced geometries), KC (attack_flips; on the GC grid, the AC
+   segment and the AC chunk its default launch bit for bit under the four
+   KC_FORCES geometries, timed two ways beside its forward's cuBLAS chain,
+   ``kc_library``) and KD (parity) at
    the shapes the
    main path gives them — the GC grid (201 partitions, GC-1 twin 20-50-1)
    and one segment of the AC grid (16,000 partitions, AC-S1 widths
@@ -77,9 +80,16 @@ Phases (any failure exits nonzero and prints no result line):
    against its largest tile, bit-equal) and K6 (bab_segment) on one
    8-round segment of a 512-slot queue of them, with alpha_iters 0 and 8;
    both again on GC boxes and on relaxed-AC leftovers; K12's row
-   generator (sim_rows) on one partition's samples, and bit-equal on the
-   first partition, the whole domain (its widest spans) and a box with a
-   span-1 dimension (the draw KA, row 3 and KD share).  K5's trajectories
+   generator (sim_rows, from (seed, index), keys derived in the kernel) on
+   one partition's samples, timed through the wrapper and by its C entry
+   point alone, and bit-equal on the first partition, the whole domain
+   (its widest spans) and a box with a span-1 dimension (the draw KA, row
+   3 and KD share), at a seed past 2**32 from an index past 65,535 and
+   under key words with a nonzero high word; K12's key kernel (grid_keys)
+   bit-equal to the torch threefry on the card at a segment's keys, and
+   ``parity_resim``'s per-call split on 64 AC-S1 leftovers ("[parity_resim
+   split]": launch, sync, forwards; the parent path's eager key and box
+   copies beside them).  K5's trajectories
    may end elsewhere only where the plain path met a threshold, and at
    most 0.1% of them may;
    K6's segment must equal the plain version's in every queue buffer,
@@ -129,6 +139,8 @@ Phases (any failure exits nonzero and prints no result line):
    split by (α, live slot-rounds: the segment's nodes sum, up to the next
    power of two); each bucket is timed on its first launch's inputs, the
    slice-2 tail's most frequent one also against the plain version.
+   Both tails' ``parity_resim`` calls are clocked ("[parity_resim, ...]"),
+   one K12 launch each.
 
 6. This slice's main path: ``verify_model`` on the AC-S1 twin over
    stress-AC and relaxed-AC partitions 0-1,024 in the JAX engine's default
@@ -146,7 +158,8 @@ Phases (any failure exits nonzero and prints no result line):
    model's verdicts, witnesses and histograms equal its solo stage 0; per
    segment the family KB/KC outputs equal each model's solo launch bit for
    bit (fold = wraparound sum of the solo folds), and on the first segment
-   their plain versions within the tolerances of phase 2; CUDA-event times
+   their plain versions within the tolerances of phase 2 (KC also bit-equal
+   under KC_FORCES, timed two ways beside its library chain); CUDA-event times
    per family segment beside the sum of the four solo launches, with the
    bound; on one 2,048-row chunk (row 7) the family KB/KC times beside
    the solo sum, and a wide family of 11 AC-S1 twins bit-equal per model
@@ -171,7 +184,10 @@ Phases (any failure exits nonzero and prints no result line):
    plain versions: margins and scores within tolerance, and every box's
    first three split dims (``score·width``, stable) equal except at a
    near-tie within the score tolerance, on at most 1% of the boxes; KB's
-   default launch there bit for bit under three forced geometries.  (e)
+   default launch there bit for bit under three forced geometries; KC's
+   under KC_FORCES; KB and KC over 1 and 17 live boxes of the 512 equal to
+   the full launch's rows and their fill ("[live rows ...]"), KC timed two
+   ways beside its library chain.  (e)
    End to end, after the CPU worker: the family's stage-0 results of AC
    partitions 0-4,096 through ``verify_model(stage0=...)`` per model in the
    default configuration, 15 s hard: the stage-0-decided rows equal each
@@ -289,6 +305,7 @@ REPLACES = {
     "pgd_attack": "fairify_tpu/verify/engine.py:668",
     "bab_segment": "fairify_tpu/verify/engine.py:593",
     "sim_rows": "fairify_tpu/verify/sweep.py:1420",
+    "grid_keys": "fairify_tpu/utils/prng.py:19",
     "sign_bound": "fairify_tpu/verify/engine.py:957",
     "inter_bounds": "fairify_tpu/verify/engine.py:963",
     "role_logits": "fairify_tpu/verify/engine.py:1035",
@@ -317,7 +334,7 @@ ALSO_REPLACES = {
 }
 # Kernels of the slice-2 configuration's path (Phases S, L, P off).
 SLICE2 = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
-          "bab_segment", "sim_rows")
+          "bab_segment", "sim_rows", "grid_keys")
 # The three lattice kernels share one source; the preset whose default run
 # gives each its launch count, and the other one.
 LATTICE_KERNELS = {"lattice_scan": "stress-AC", "lattice_signs": "stress-AC",
@@ -325,15 +342,16 @@ LATTICE_KERNELS = {"lattice_scan": "stress-AC", "lattice_signs": "stress-AC",
 LATTICE_OTHER = {"lattice_scan": "relaxed-AC", "lattice_signs": "relaxed-AC",
                  "lattice_scan_ra": "stress-AC"}
 # The role-logit forward (row 21) launches row 17's kernel with one model;
-# rows 14 and 6 launch KB, row 3 KA's simulation half, K7 role_bounds.cu.
+# rows 14 and 6 launch KB, row 3 KA's simulation half, K7 role_bounds.cu,
+# the partition keys K12's key kernel.
 KERNEL_SOURCE = dict({k: "lattice_scan" for k in LATTICE_KERNELS}, role_logits="attack_logits",
                      role_certify="stage0_certify", sim_stats="sim_and_bounds",
-                     alpha_crown="role_bounds")
+                     alpha_crown="role_bounds", grid_keys="sim_rows")
 SOURCES = {k: f"fairify_tpu_torch/csrc/{KERNEL_SOURCE.get(k, k)}.cu" for k in REPLACES}
 # Kernels every default-configuration run (phase 6) must launch, besides
 # its preset's lattice scan: stage 0, the PGD, Phase S and the retry's rows.
 DEFAULT_PATH = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_attack",
-                "sign_bound", "role_logits")
+                "sign_bound", "role_logits", "grid_keys")
 DEFAULT_SOFT_S, DEFAULT_HARD_S = 0.1, 75.0
 # Hard budget of the AC-S1 tail runs in the slice-2 and slice-3
 # configurations (phase 5), short enough to leave room for phase 6.
@@ -422,6 +440,8 @@ def bound(flops: float, nbytes: float):
 # SM and clock Hopper issues 128 thread-instructions and runs 64 integer
 # and 16 conversion or special-function ones (the CUDA programming guide's
 # throughput table, compute capability 9.0); 132 SMs at 1.98 GHz at most.
+# The same probe counts one partition key (common.cuh:fold_in, K12's key
+# kernel) against a base that stores its inputs.
 DRAW_PROBE = r"""
 #include "common.cuh"
 extern "C" __global__ void draw_probe(SplitKey k, unsigned long long n, uint32_t minval,
@@ -433,6 +453,17 @@ extern "C" __global__ void draw_probe_base(SplitKey k, unsigned long long n, uin
   out[threadIdx.x] = (float)(int32_t)(minval + (uint32_t)(n + threadIdx.x) +
                                       (k.hi0 ^ k.hi1 ^ k.lo0 ^ k.lo1 ^ span ^ mult));
 }
+extern "C" __global__ void key_probe(uint32_t s0, uint32_t s1, uint32_t i0, long long* out) {
+  uint32_t f0, f1;
+  fold_in(s0, s1, i0 + threadIdx.x, f0, f1);
+  out[2 * threadIdx.x] = (long long)f0;
+  out[2 * threadIdx.x + 1] = (long long)f1;
+}
+extern "C" __global__ void key_probe_base(uint32_t s0, uint32_t s1, uint32_t i0,
+                                          long long* out) {
+  out[2 * threadIdx.x] = (long long)(s0 ^ (i0 + threadIdx.x));
+  out[2 * threadIdx.x + 1] = (long long)s1;
+}
 """
 SASS_INT = {"IMAD", "IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL", "SHR",
             "ISETP", "IMNMX", "SEL", "LEA", "PRMT", "IABS", "POPC", "FLO", "BREV", "IMUL",
@@ -441,6 +472,7 @@ SASS_CVT = {"I2F", "F2I", "I2FP", "F2IP", "F2F", "I2I", "MUFU"}
 SASS_SKIP = {"NOP", "EXIT", "BRA", "RET"}
 SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9
 DRAW_SASS = None  # set by start_draw_probe / finish_draw_probe
+KEY_SASS = None  # one partition key's, set by finish_draw_probe
 
 
 def start_draw_probe():
@@ -489,7 +521,7 @@ def finish_draw_probe(started) -> None:
     """Count draw_value's SASS instructions (the probe less its base) into
     DRAW_SASS, and print them; where the probe or cuobjdump fails, the
     floor stays unmeasured (a note, not a failure: it is a measurement)."""
-    global DRAW_SASS
+    global DRAW_SASS, KEY_SASS
     from fairify_tpu_torch.utils import cuda_build
 
     proc, cubin = started
@@ -504,13 +536,24 @@ def finish_draw_probe(started) -> None:
         print(f"[draw SASS] not measured: cuobjdump returned {out.returncode} "
               f"({out.stderr.strip()[-500:]})", flush=True)
         return
-    d = {k: counts["draw_probe"][k] - counts["draw_probe_base"][k] for k in ("int", "cvt", "all")}
-    cycles = max(d["int"] / 64, d["cvt"] / 16, d["all"] / 128)  # a value, on one SM
-    DRAW_SASS = dict(d, sm_cycles=cycles)
-    print(f"[draw SASS] one simulation value (common.cuh:draw_value) compiles to {d['all']} "
-          f"instructions, {d['int']} integer and {d['cvt']} conversion or special-function "
-          f"ones: at least {cycles:.3f} SM clocks a value (the probe {counts['draw_probe']}, "
-          f"its base {counts['draw_probe_base']})", flush=True)
+    for probe in ("draw", "key"):
+        if not {f"{probe}_probe", f"{probe}_probe_base"} <= set(counts):
+            print(f"[draw SASS] {probe}: not measured (no such function in the cubin)",
+                  flush=True)
+            continue
+        d = {k: counts[f"{probe}_probe"][k] - counts[f"{probe}_probe_base"][k]
+             for k in ("int", "cvt", "all")}
+        cycles = max(d["int"] / 64, d["cvt"] / 16, d["all"] / 128)  # one, on one SM
+        if probe == "draw":
+            DRAW_SASS = dict(d, sm_cycles=cycles)
+            what = "one simulation value (common.cuh:draw_value)"
+        else:
+            KEY_SASS = dict(d, sm_cycles=cycles)
+            what = "one partition key (common.cuh:fold_in)"
+        print(f"[draw SASS] {what} compiles to {d['all']} instructions, {d['int']} integer "
+              f"and {d['cvt']} conversion or special-function ones: at least {cycles:.3f} SM "
+              f"clocks each (the probe {counts[f'{probe}_probe']}, its base "
+              f"{counts[f'{probe}_probe_base']})", flush=True)
 
 
 def draw_floor(sizes, n: int, S: int):
@@ -736,6 +779,101 @@ def kc_check(name, net, kc, k_out, p_out, margin_p):
     return float((gap_k - gap_p).abs().max()), int(diff.sum())
 
 
+# Forced KC geometries (rows a warp tile, warps a block, warps a box): one
+# warp a box, groups of two and four, and eight warps on a box of 4-row
+# tiles.
+KC_FORCES = ((16, 4, 1), (8, 8, 2), (32, 4, 4), (4, 8, 8))
+
+
+def kc_launch(net, args, live=None, force=None):
+    """One KC launch through its launch helper, counted nowhere (``args``:
+    attack_flips' xr, pr, valid, valid_pair, cert, margin, ok): the
+    (wit, reason, gap, stats, fold) tensors."""
+    import torch
+
+    from fairify_tpu_torch.utils import cuda_build
+    from fairify_tpu_torch.verify import engine
+
+    live = args[0].shape[0] if live is None else live
+    fn, a, out = engine._attack_flips_prepare(net, *args, live, _geometry_force=force)
+    cuda_build.check("kc_attack_flips", fn(*a, torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def kc_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def kc_invariance(name, net, args) -> dict:
+    """KC's default launch against its launches under KC_FORCES: wit,
+    reason, gap, histogram and fold bit for bit; the time of each."""
+    from fairify_tpu_torch.verify import engine
+
+    xr = args[0]
+    N, S, V, _ = xr.shape
+    sizes = (net.in_dim,) + tuple(net.layer_sizes)
+    M = getattr(net, "n_models", 1)
+    default = engine.attack_flips_geometry(sizes, S, V, N, M)
+    base = kc_launch(net, args)
+    times = {}
+    for f in KC_FORCES:
+        out, ms = timed(lambda: kc_launch(net, args, force=f), 3)
+        if not kc_equal(out, base):
+            fail(f"KC {name}: the launch under the forced geometry {f} differs from the "
+                 f"default ({default['tw']}, {default['warps']}, {default['gw']})")
+        times[str(f)] = ms
+    print(f"[geometry {name}] KC (tw, warps, gw) default ({default['tw']}, {default['warps']}, "
+          f"{default['gw']}), {default['grid']} blocks a model: bit-equal under {KC_FORCES}; "
+          f"ms {times}", flush=True)
+    return dict(default=[default[k] for k in ("tw", "warps", "gw", "grid")], forced_ms=times)
+
+
+def kc_library(net, xr, pr, reps: int):
+    """The library yardstick of KC: its forward over the same 2 S V N rows
+    as a cuBLAS chain (:func:`library_forward`, ``addmm``/``baddbmm``), timed
+    by events and device-only (:func:`graph_ms`): ``(ms, device-only ms)``.
+    The flip scan has no library call."""
+    fn = lambda: (library_forward(net, xr), library_forward(net, pr))
+    _, ms = timed(fn, reps)
+    return ms, graph_ms(fn, split_launches(ms))
+
+
+def kc_live(name, net, args, reps: int, lives=(1, 17)) -> dict:
+    """KC over ``lives`` live boxes of the batch ``args``: the per-box
+    outputs of the live boxes equal the full launch's, the rest box live -
+    1's (``engine.fill_past``), the histogram the live ok rows' and the
+    fold the live boxes' buffers folded; timed through the wrapper and by
+    the C entry point alone."""
+    import torch
+
+    from fairify_tpu_torch.verify import engine
+
+    full = kc_launch(net, args)
+    cert, ok = args[4], args[6]
+    out = {}
+    for live in lives:
+        part = kc_launch(net, args, live=live)
+        want = [engine.fill_past(t, live) for t in full[:3]]
+        okl = ok & (torch.arange(ok.shape[0], device=ok.device) < live)
+        stats = engine.chunk_stats(args[5], full[2], okl)
+        fold = engine.fold_int32(cert[:live], full[0][:live], full[1][:live], stats)
+        if not (kc_equal(part[:3], want) and torch.equal(part[3], stats)
+                and int(part[4]) == fold):
+            fail(f"KC {name}: the launch over {live} live boxes differs from the full "
+                 "launch's first rows, its fill, histogram or fold")
+        _, ms = timed(lambda: engine.attack_flips(net, *args, live=live), reps)
+        split = time_split(lambda: engine.attack_flips(net, *args, live=live),
+                           engine._attack_flips_prepare(net, *args, live))
+        out[str(live)] = dict(ms=ms, entry_ms=split["entry_ms"])
+    print(f"[live rows {name}] KC over {list(lives)} live boxes of {args[0].shape[0]}: equal to "
+          f"the full launch's rows and fill; ms (wrapper, entry point alone) "
+          f"{ {k: (round(v['ms'], 4), round(v['entry_ms'], 4)) for k, v in out.items()} }",
+          flush=True)
+    return out
+
+
 def sim_counts_check(net, keys, lo, hi, S: int, k_out, p_out):
     """KA's simulation statistics (``(candidates, pos_prob)`` per layer)
     against the plain version's: the activation counts (pos_prob * S,
@@ -867,12 +1005,13 @@ def sim_live(name, net, keys, lo, hi, al, S: int) -> dict:
 
 def check_kernels(case, net, reps: int, invariance: bool = False, live: bool = False):
     """Run KA–KD and their plain versions on one case; returns per-kernel
-    rows (KA's and KD's with the library forward of the same samples and
-    the time split of their C entry points).  ``invariance``: KA, row 3
-    and KD bit-equal under SIM_FORCES on the case's first
-    SIM_INVARIANCE_ROWS partitions, at its sim_size and at SIM_RAGGED_S;
-    ``live``: their launches over SIM_LIVE live rows of the case's rows
-    (:func:`sim_live`)."""
+    rows (KA's, KC's and KD's with the library forward of the same samples
+    or candidates and the time split of their C entry points).
+    ``invariance``: KA, row 3 and KD bit-equal under SIM_FORCES on the
+    case's first SIM_INVARIANCE_ROWS partitions, at its sim_size and at
+    SIM_RAGGED_S; ``live``: their launches over SIM_LIVE live rows of the
+    case's rows (:func:`sim_live`); with either, KC bit-equal under
+    KC_FORCES."""
     import torch
 
     from fairify_tpu_torch.ops import masks as mask_ops
@@ -942,8 +1081,15 @@ def check_kernels(case, net, reps: int, invariance: bool = False, live: bool = F
     if k_res[4] != fold_own:
         fail(f"KC {case['name']}: fold {k_res[4]} vs own {fold_own} vs plain {p_res[4]}")
     fl, by = kc_cost(sizes, nb, case["S"], V)
+    lib_kc, lib_kc_dev = kc_library(net, kc["xr"], kc["pr"], reps)
+    split = time_split(lambda: engine.attack_flips(net, *args),
+                       engine._attack_flips_prepare(net, *args, nb), split_launches(kc_ms))
+    split["library_device_ms"] = lib_kc_dev
     rows["attack_flips"] = dict(max_abs_err=err_g, ms=kc_ms, plain_ms=kcp_ms, flops=fl,
-                                bytes=by, near_diffs=wit_diffs)
+                                bytes=by, near_diffs=wit_diffs, library_ms=lib_kc,
+                                time_split=split)
+    if invariance or live:
+        rows["attack_flips"]["geometry"] = kc_invariance(case["name"], net, args)
 
     # --- KD (alive masks from the KA bound-dead masks, as the sweep does)
     ibp_dead = [(u <= 0).to(torch.float32) for u in ub_p[:-1]]
@@ -1456,25 +1602,55 @@ def bab_invariance(name, net, st0, c, alpha_iters: int, rounds: int) -> list:
     return forces
 
 
+def k12_floor(values: int, blocks: int):
+    """A K12 launch's draw floor: ``values`` at DRAW_SASS's clocks a value
+    over the SMs its ``blocks`` occupy (at most SM_COUNT), at SM_CLOCK_HZ;
+    None where the SASS was not counted."""
+    if DRAW_SASS is None:
+        return None
+    sms = min(blocks, SM_COUNT)
+    return dict(values=values, sms=sms,
+                ms=values * DRAW_SASS["sm_cycles"] / (sms * SM_CLOCK_HZ) * 1e3)
+
+
+def key_floor(n: int):
+    """The key kernel's floor: ``n`` keys at KEY_SASS's clocks a key over
+    the SMs its 256-key blocks occupy; None where the SASS was not
+    counted."""
+    if KEY_SASS is None:
+        return None
+    sms = min(-(-n // 256), SM_COUNT)
+    return dict(keys=n, sms=sms, ms=n * KEY_SASS["sm_cycles"] / (sms * SM_CLOCK_HZ) * 1e3)
+
+
 def check_sim_rows(name, net, cfg, lo, hi, reps: int):
     """K12's row generator against its plain version
-    (``prng.simulate_boxes`` on the card) at the heuristic retry's shape:
-    one partition's ``sim_size`` rows, bit-equal, timed; then, bit-equal,
-    the rows of three boxes: the first partition, the preset's whole domain
-    (its widest spans) and the second partition with one dimension cut to
-    a single value (span 1) — the draw KA, row 3 and KD share.  Returns
-    the kernel row."""
+    (``prng.simulate_boxes`` of ``prng.fold_in_plain``'s keys, both on the
+    card) at the heuristic retry's shape: one partition's ``sim_size`` rows
+    from (seed, global index), bit-equal, timed through the wrapper (the
+    launch, its copy into pinned host memory and one sync) and by its C
+    entry point alone, with and without the copy (``time_split``); then,
+    bit-equal, the rows of three boxes — the first partition, the preset's
+    whole domain (its widest spans) and the second partition with one
+    dimension cut to a single value (span 1): the draw KA, row 3 and KD
+    share — at the preset's seed and index 0, at a seed past 2**32 with an
+    index past 65,535, and under key words whose high word is not 0.
+    Returns the kernel row; its bound is the larger of the bytes and the
+    draw's floor over the SMs the launch occupies."""
     import numpy as np
     import torch
 
-    from fairify_tpu_torch.utils.prng import grid_keys, simulate_boxes
+    from fairify_tpu_torch.utils import prng
+    from fairify_tpu_torch.utils.prng import simulate_boxes
     from fairify_tpu_torch.verify import pruning
 
-    keys = grid_keys(cfg.seed, 0, 1, device=net.device)
-    box = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=net.device)
-    blo, bhi = box(lo[:1]), box(hi[:1])
-    k_out, k_ms = timed(lambda: pruning.sim_rows(keys, blo, bhi, cfg.sim_size), reps)
-    p_out, p_ms = timed(lambda: simulate_boxes(keys, blo, bhi, cfg.sim_size), reps)
+    dev, S, d = net.device, cfg.sim_size, lo.shape[1]
+    on = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    plain = lambda words, index, l, h: simulate_boxes(
+        prng.fold_in_plain(words, index, len(l), dev), on(l), on(h), S).cpu()
+    blo, bhi = np.asarray(lo[:1], np.float32), np.asarray(hi[:1], np.float32)
+    k_out, k_ms = timed(lambda: pruning.sim_rows(cfg.seed, 0, blo, bhi, S, dev), reps)
+    p_out, p_ms = timed(lambda: plain(prng.key_words(cfg.seed), 0, blo, bhi), reps)
     if not torch.equal(k_out, p_out):
         fail(f"K12 sim_rows {name}: {int((k_out != p_out).sum())} sample values "
              "differ from the plain version's")
@@ -1483,23 +1659,158 @@ def check_sim_rows(name, net, cfg, lo, hi, reps: int):
     mhi = np.stack([np.asarray(hi[0], np.float32), dhi, np.asarray(hi[1], np.float32)])
     mhi[2, 0] = mlo[2, 0]
     widest = int((dhi - dlo).max()) + 1
-    mkeys = grid_keys(cfg.seed, 0, 3, device=net.device)
-    mk, mp = (f(mkeys, box(mlo), box(mhi), cfg.sim_size)
-              for f in (pruning.sim_rows, simulate_boxes))
-    if not torch.equal(mk, mp):
-        fail(f"K12 sim_rows {name}: the first partition, the whole domain (widest span "
-             f"{widest}) and a box with a span-1 dimension: {int((mk != mp).sum())} values "
-             "differ")
-    N, S, d = k_out.shape
+    big = (2**32 + cfg.seed, 70_000)
+    for seed, index in ((cfg.seed, 0), big):
+        mk, mp = (pruning.sim_rows(seed, index, mlo, mhi, S, dev),
+                  plain(prng.key_words(seed), index, mlo, mhi))
+        if not torch.equal(mk, mp):
+            fail(f"K12 sim_rows {name}, seed {seed}, index {index}: the first partition, the "
+                 f"whole domain (widest span {widest}) and a box with a span-1 dimension: "
+                 f"{int((mk != mp).sum())} values differ")
+    words = (0xDEADBEEF, cfg.seed)
+    mk = pruning.sim_rows_host(words, 65_536, mlo, mhi, S, dev).clone()
+    if not torch.equal(mk, plain(words, 65_536, mlo, mhi)):
+        fail(f"K12 sim_rows {name}: key words {words}: the rows differ from the plain "
+             "version's")
+    lo_i, hi_i = blo.astype(np.int32), bhi.astype(np.int32)
+    prep = lambda copy: pruning._sim_rows_prepare(prng.key_words(cfg.seed), 0, lo_i, hi_i, S,
+                                                  dev, copy=copy)
+    wrapper = lambda: pruning.sim_rows(cfg.seed, 0, blo, bhi, S, dev)
+    split = time_split(wrapper, prep(True))
+    split["entry_no_copy_ms"] = time_split(wrapper, prep(False))["entry_ms"]
+    geo = pruning.sim_rows_geometry(d, S)
+    N = k_out.shape[0]
     by = N * (8 + 2 * d * 4) + N * S * d * 4
     row = dict(max_abs_err=float((k_out - p_out).abs().max()), ms=k_ms, plain_ms=p_ms,
-               flops=0, bytes=by)
-    row["bound_ms"], row["bound_by"] = bound(0, by)
-    print(f"[kernel {name}] sim_rows N={N} S={S} d={d}: {k_ms:.4f} ms (plain "
-          f"{p_ms:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}; "
+               flops=0, bytes=by, time_split=split, geometry=geo,
+               draw=k12_floor(N * S * d, geo["grid_x"] * N))
+    b_ms, b_by = bound(0, by)
+    dr = row["draw"]
+    if dr is not None and dr["ms"] > b_ms:
+        b_ms, b_by = dr["ms"], "operations"
+    row["bound_ms"], row["bound_by"] = b_ms, b_by
+    print(f"[kernel {name}] sim_rows N={N} S={S} d={d} ({geo['grid_x']} blocks of "
+          f"{geo['rpp']} rows a pass): {k_ms:.4f} ms through the wrapper (launch, copy to "
+          f"pinned host memory, sync; plain {p_ms:.4f} ms); C entry point alone "
+          f"{split['entry_ms']:.4f} ms with the copy, {split['entry_no_copy_ms']:.4f} ms "
+          f"without (the launch latency); bound {row['bound_ms']:.5f} ms by "
+          f"{row['bound_by']} (draw floor over {fmt_ms(None if dr is None else dr['ms'])}); "
           f"bit-equal, and on the first partition, the whole domain (widest span {widest}) "
-          "and a box with a span-1 dimension)", flush=True)
+          f"and a box with a span-1 dimension at seeds {cfg.seed} and {big[0]} (index "
+          f"{big[1]}) and key words {words}", flush=True)
     return row
+
+
+def check_grid_keys(name, cfg, n: int, reps: int):
+    """K12's key kernel (``prng.grid_keys`` on the card) against its plain
+    version (``prng.grid_keys_plain``, the torch threefry, on the card):
+    ``n`` keys of a prune or parity segment, bit-equal and timed; bit-equal
+    also at a seed past 2**32 from an index past 65,535 and, through
+    ``prng.fold_in_launch``, under key words whose high word is not 0.
+    Returns the kernel row; its bound is the larger of the output's bytes
+    and the keys' integer floor from the SASS."""
+    import torch
+
+    from fairify_tpu_torch.utils import prng
+
+    k_out, k_ms = timed(lambda: prng.grid_keys(cfg.seed, 0, n, device="cuda"), reps)
+    p_out, p_ms = timed(lambda: prng.grid_keys_plain(cfg.seed, 0, n, device="cuda"), reps)
+    bad = int((k_out != p_out).sum())
+    for seed, index in ((2**32 + cfg.seed, 70_000), (cfg.seed, 65_530)):
+        bad += int((prng.grid_keys(seed, index, n, device="cuda")
+                    != prng.grid_keys_plain(seed, index, n, device="cuda")).sum())
+    words = (0xDEADBEEF, 0x12345678)
+    bad += int((prng.fold_in_launch(words, 65_530, n, "cuda")
+                != prng.fold_in_plain(words, 65_530, n, "cuda")).sum())
+    if bad:
+        fail(f"K12 keys {name}: {bad} key words differ from the torch threefry's")
+    by = 16 * n
+    row = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, flops=0, bytes=by, keys=n,
+               floor=key_floor(n))
+    b_ms, b_by = bound(0, by)
+    if row["floor"] is not None and row["floor"]["ms"] > b_ms:
+        b_ms, b_by = row["floor"]["ms"], "operations"
+    row["bound_ms"], row["bound_by"] = b_ms, b_by
+    print(f"[kernel {name}] grid_keys n={n}: {k_ms:.4f} ms, one launch (the torch threefry "
+          f"on the card {p_ms:.4f} ms), bound {b_ms:.5f} ms by {b_by}; bit-equal at seed "
+          f"{cfg.seed}, at seed {2**32 + cfg.seed} from index 70,000 and under key words "
+          f"{words} from index 65,530", flush=True)
+    return row
+
+
+def resim_split(net, cfg, lo, hi, n: int = 64) -> dict:
+    """The heuristic retry's ``parity_resim`` per call on the card, split
+    by the wall clock over ``n`` AC-S1 stage-0 leftover partitions at the
+    retry's shape (one partition, sim_size rows, random changed masks):
+    this path's launch (the C entry point: key derived in the kernel, box
+    by value, rows copied to pinned host memory on the stream; its device
+    time also by CUDA events), its one sync and the two host f64 forwards;
+    beside them, measured in the same process, the parts the parent's path
+    paid before its launch: the key by ``grid_keys``' torch threefry on the
+    card and two host-to-device copies of the box (each followed by a
+    sync).  Every split call's parity must equal ``sweep.parity_resim``'s."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.models.mlp import predict_np
+    from fairify_tpu_torch.utils import prng
+    from fairify_tpu_torch.verify import pruning, sweep
+
+    dev, S = net.device, cfg.sim_size
+    weights, biases = net.numpy_params()
+    rng = np.random.default_rng(0)
+    dead = [rng.random(w.shape[1]) > 0.7 for w in weights[:-1]] + [np.zeros(1, bool)]
+    words = prng.key_words(cfg.seed)
+    stream = torch.cuda.current_stream()
+    parts = {k: 0.0 for k in ("launch", "sync", "forwards", "device", "total",
+                              "old_keys", "old_copies")}
+    for p in range(n + 1):  # the first call warms up
+        lo_i = np.asarray(lo[p:p + 1], np.int32)
+        hi_i = np.asarray(hi[p:p + 1], np.int32)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn, args, (_rows, host) = pruning._sim_rows_prepare(words, p, lo_i, hi_i, S, dev)
+        a.record()
+        err = fn(*args, stream.cuda_stream)
+        b.record()
+        t1 = time.perf_counter()
+        stream.synchronize()
+        t2 = time.perf_counter()
+        sim = host[:S * lo_i.shape[1]].view(S, -1).numpy()
+        acc = float((predict_np(weights, biases, sim)
+                     == predict_np(weights, biases, sim, dead=dead)).mean())
+        t3 = time.perf_counter()
+        want = sweep.parity_resim(weights, biases, dead, cfg.seed, p, lo[p], hi[p], S,
+                                  device=dev)
+        t4 = time.perf_counter()
+        sweep.parity_resim(weights, biases, dead, cfg.seed, p, lo[p], hi[p], S, device=dev)
+        t5 = time.perf_counter()
+        prng.grid_keys_plain(cfg.seed, p, 1, device=dev)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        for arr in (lo[p], hi[p]):
+            torch.as_tensor(np.asarray(arr, np.float32), device=dev)
+        torch.cuda.synchronize()
+        t7 = time.perf_counter()
+        if err or acc != want:
+            fail(f"parity_resim split, partition {p}: CUDA error {err}, parity {acc} against "
+                 f"the wrapper's {want}")
+        if p == 0:
+            continue
+        for k, v in (("launch", t1 - t0), ("sync", t2 - t1), ("forwards", t3 - t2),
+                     ("device", a.elapsed_time(b) / 1e3), ("total", t5 - t4),
+                     ("old_keys", t6 - t5), ("old_copies", t7 - t6)):
+            parts[k] += v / n
+    ms = {k: v * 1e3 for k, v in parts.items()}
+    print(f"[parity_resim split] {n} AC-S1 partitions at the retry's shape (S = {S}), ms a "
+          f"call: parity_resim {ms['total']:.4f} = launch (host, entry point) "
+          f"{ms['launch']:.4f} + sync {ms['sync']:.4f} + two host f64 forwards "
+          f"{ms['forwards']:.4f}; the launch and its copy on the device (events) "
+          f"{ms['device']:.4f}; no key derivation or host-to-device copy left; the parent "
+          f"path's key by grid_keys' torch threefry on the card {ms['old_keys']:.4f} and its "
+          f"two box copies {ms['old_copies']:.4f}", flush=True)
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -2903,6 +3214,14 @@ def family_grid(nets, cfg, reps: int):
                  for m, net in enumerate(nets)]
         if k_out[4] != engine.fold_int32(cert_p, k_out[0], k_out[1], k_out[3]):
             fail("family KC: the fold is not the kernel's own buffers folded")
+        fargs = kargs(cert_f, margin_f)
+        lib, lib_dev = kc_library(stack, kc["xr"], kc["pr"], 1)
+        split = time_split(lambda: engine.attack_flips(stack, *fargs),
+                           engine._attack_flips_prepare(stack, *fargs, case["n_boxes"]),
+                           split_launches(times["kc"][0]))
+        split["library_device_ms"] = lib_dev
+        kc_extra = dict(library_ms=lib, time_split=split,
+                        geometry=kc_invariance(f"family segment {si} (M = {M})", stack, fargs))
         plain = dict(kb_ms=kbp_ms, kc_ms=kcp_ms, nb=case["n_boxes"], S=case["S"],
                      kb_err=max(e[0] for e in errs), kc_err=max(e[0] for e in kerrs),
                      near=sum(e[1] for e in errs) + sum(e[1] for e in kerrs))
@@ -2916,6 +3235,8 @@ def family_grid(nets, cfg, reps: int):
                  flops=cost[0], bytes=cost[1], M=M, boxes=plain["nb"],
                  launches=launch[key])
         r["bound_ms"], r["bound_by"] = bound(*cost)
+        if key == "attack_flips":
+            r.update(kc_extra)
         rows[key] = r
         print(f"[family AC grid] {key} (M = {M}, {plain['nb']} boxes per segment): "
               f"{r['ms']:.3f} ms per segment (segments {[round(t, 3) for t in times[k]]}; "
@@ -2952,6 +3273,11 @@ def family_chunk(nets, cfg, reps: int) -> dict:
     (cp, _sp, mp), kbp_ms = timed(lambda: engine.each_model(
         stack, lambda n: engine.certify_impl(n, **kb)), 1)
     kcp_ms = timed(lambda: engine.attack_flips_plain(stack, *kargs(cp, mp)), 1)[1]
+    lib, lib_dev = kc_library(stack, kc["xr"], kc["pr"], reps)
+    kc_split = time_split(lambda: engine.attack_flips(stack, *kargs(c, mg)),
+                          engine._attack_flips_prepare(stack, *kargs(c, mg), case["n_boxes"]),
+                          split_launches(kc_ms))
+    kc_split["library_device_ms"] = lib_dev
     kb_solo = kc_solo = 0.0
     for net in nets:
         (c1, _s1, m1), t = timed(lambda: engine.stage0_certify(net, **kb), reps)
@@ -2966,10 +3292,15 @@ def family_chunk(nets, cfg, reps: int) -> dict:
         r = dict(ms=ms, solo_sum_ms=solo, plain_ms=plain, M=M, boxes=nb, flops=cost[0],
                  bytes=cost[1])
         r["bound_ms"], r["bound_by"] = bound(*cost)
+        if key == "attack_flips":
+            r.update(library_ms=lib, time_split=kc_split)
         rows[key] = r
         print(f"[family chunk] {key} (M = {M}, {nb} boxes): {ms:.3f} ms ({M} solo launches "
               f"{solo:.3f} ms), plain {plain:.3f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}", flush=True)
+              f"{r['bound_by']}" + ("" if key != "attack_flips" else
+                                    f"; C entry point alone {kc_split['entry_ms']:.4f} ms, "
+                                    f"library {lib:.4f} ms, device-only {fmt_ms(lib_dev)}"),
+              flush=True)
     wide = [seeded_net(AC_SIZES, seed=s, device="cuda") for s in range(ZOO_MODELS)]
     wstack = stack_models(wide)
     for alpha in (0, 8):
@@ -3162,6 +3493,26 @@ def chunk_sim_shapes(ac_net, ac_cfg, gc_sim, ac_sim, n_gc: int) -> dict:
     return out
 
 
+def kb_live(name, net, kb, alpha: int, full, reps: int, lives=SIM_LIVE) -> dict:
+    """KB over ``lives`` live boxes of the batch ``kb`` (the host
+    frontier's launches): the live boxes' certificate, score and margin
+    equal the full launch's ``full``, the rest box live - 1's
+    (``engine.fill_past``); timed through the wrapper."""
+    from fairify_tpu_torch.verify import engine
+
+    out = {}
+    for live in lives:
+        part, ms = timed(lambda: engine.stage0_certify(net, **kb, alpha_iters=alpha,
+                                                       live=live), reps)
+        if not kc_equal(part, [engine.fill_past(t, live) for t in full]):
+            fail(f"KB {name}: the launch over {live} live boxes differs from the full "
+                 "launch's first rows or their fill")
+        out[str(live)] = dict(ms=ms)
+    print(f"[live rows {name}] KB over {list(lives)} live boxes: equal to the full launch's "
+          f"rows and fill; ms {out}", flush=True)
+    return out
+
+
 def split_orders(score, lo, hi, bd, n: int = 3):
     """Per box, the host frontier's first ``n`` split dims: the branch dims
     by ``score·width`` descending (stable; widths when every product is 0),
@@ -3262,7 +3613,9 @@ def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) ->
                  alpha_iters=alpha, boxes=F, score_err_x_tol=err_s,
                  split_order_excused=excused, certified=int(cert_k.sum()),
                  cert_near_diffs=near,
-                 geometry=kb_invariance(f"host frontier F={F}", ac_net, kb, alpha))
+                 geometry=kb_invariance(f"host frontier F={F}", ac_net, kb, alpha),
+                 live_rows=kb_live(f"host frontier F={F} alpha={alpha}", ac_net, kb, alpha,
+                                   (cert_k, score_k, margin_k), reps))
         r["bound_ms"], r["bound_by"] = bound(fl, by)
         out[f"kb_alpha{alpha}"] = r
         print(f"[host frontier KB alpha={alpha}] F={F} AC-S1 leftovers: {k_ms:.4f} ms "
@@ -3278,12 +3631,21 @@ def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) ->
             err_g, wd = kc_check("host-frontier KC", ac_net, kc, k_res[:4], p_res[:4],
                                  margin_p)
             fl, by = kc_cost(sizes, F, S, V)
+            lib, lib_dev = kc_library(ac_net, kc["xr"], kc["pr"], reps)
+            split = time_split(lambda: engine.attack_flips(ac_net, *args),
+                               engine._attack_flips_prepare(ac_net, *args, F))
+            split["library_device_ms"] = lib_dev
             r = dict(ms=kc_ms, plain_ms=kcp_ms, max_abs_err=err_g, flops=fl, bytes=by,
-                     boxes=F, S=S, near_diffs=wd)
+                     boxes=F, S=S, near_diffs=wd, library_ms=lib, time_split=split,
+                     geometry=kc_invariance(f"host frontier F={F}", ac_net, args),
+                     live_rows=kc_live(f"host frontier F={F}", ac_net, args, reps))
             r["bound_ms"], r["bound_by"] = bound(fl, by)
+            r["live_bound_ms"] = {str(n): bound(*kc_cost(sizes, n, S, V))[0] for n in SIM_LIVE}
             out["kc"] = r
             print(f"[host frontier KC] F={F}, S={S}: {kc_ms:.4f} ms (plain {kcp_ms:.4f} "
-                  f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})", flush=True)
+                  f"ms, library {lib:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']}; C entry point alone {split['entry_ms']:.4f} ms, library "
+                  f"chain device-only {fmt_ms(lib_dev)})", flush=True)
     out["launches"] = rep_d.kernel_launches
     return out
 
@@ -4426,9 +4788,9 @@ def live_bucket(n: int) -> int:
 
 
 # The first launch's inputs of every K8a bucket (alpha_iters, live_bucket),
-# KB bucket (alpha_iters, boxes, models), K8b bucket (phase, live_bucket)
-# and row-13 bucket (mode, role boxes, live_bucket, models) met in any
-# window of the run.
+# KB bucket (alpha_iters, boxes, models, live_bucket), K8b bucket (phase,
+# live_bucket) and row-13 bucket (mode, role boxes, live_bucket, models) met
+# in any window of the run.
 CERT_CASES = {"sign_bound": {}, "stage0_certify": {}, "inter_bounds": {},
               "role_bounds": {}}
 # Every window of the run (run_sweep, counted): (label, ShapeLog, launches).
@@ -4442,10 +4804,11 @@ class ShapeLog:
     :func:`slot_round_bucket` of the segment's ``nodes`` sum) -> launches,
     with the first launch of each bucket's inputs in ``log.bab_case``), of
     K8a by α and live rows (``log.sign_bound``: (alpha_iters,
-    :func:`live_bucket`) -> launches) and of KB by α, boxes and models
-    (``log.stage0_certify``: (alpha_iters, N, M) -> launches; rows 14 and
-    6 included), of K8b by engine phase and live rows (``log.inter_bounds``:
-    ("L" or "P", :func:`live_bucket`) -> launches; "P" inside
+    :func:`live_bucket`) -> launches) and of KB by α, boxes, models and
+    live boxes (``log.stage0_certify``: (alpha_iters, N, M,
+    :func:`live_bucket`) -> launches; rows 14 and 6 included), of K8b by
+    engine phase and live rows (``log.inter_bounds``: ("L" or "P",
+    :func:`live_bucket`) -> launches; "P" inside
     ``pair_lp_phase``) and of row 13 by mode, role boxes, live rows and
     models (``log.role_bounds``: ("ibp" or "crown", 2 B V, live_bucket, M)
     -> launches), the first launch of each K8a, KB, K8b and row-13 bucket's
@@ -4508,10 +4871,12 @@ class ShapeLog:
             return k8a(net, *args, **kw)
 
         def kb_launch(net, *args, **kw):  # the role and partition boxes, ..., alpha_iters
-            key = (int(args[-1]), int(args[10].shape[0]), getattr(net, "n_models", 1))
+            n = int(args[10].shape[0])
+            live = n if kw.get("live") is None else int(kw["live"])
+            key = (int(args[-1]), n, getattr(net, "n_models", 1), live_bucket(live))
             self.stage0_certify[key] = self.stage0_certify.get(key, 0) + 1
             if key not in CERT_CASES["stage0_certify"]:
-                CERT_CASES["stage0_certify"][key] = (net, keep(args))
+                CERT_CASES["stage0_certify"][key] = (net, keep(args), live)
             return kb(net, *args, **kw)
 
         def k8b_launch(net, lo, hi, live, **kw):
@@ -4589,6 +4954,43 @@ class ShapeLog:
                  f"{launch['role_bounds']}")
 
 
+class ResimClock:
+    """Within ``with ResimClock() as c``, the wall time of every
+    ``sweep.parity_resim`` call (the heuristic retry's parity of one
+    partition: its K12 launch, the one sync and the two host forwards) in
+    ``c.calls``."""
+
+    def __enter__(self):
+        from fairify_tpu_torch.verify import sweep
+
+        self.calls = []
+        self._saved = sweep.parity_resim
+
+        def clocked(*args, **kw):
+            t0 = time.perf_counter()
+            out = self._saved(*args, **kw)
+            self.calls.append(time.perf_counter() - t0)
+            return out
+
+        sweep.parity_resim = clocked
+        return self
+
+    def __exit__(self, *exc):
+        from fairify_tpu_torch.verify import sweep
+
+        sweep.parity_resim = self._saved
+        return False
+
+    def summary(self, label: str) -> dict:
+        n = len(self.calls)
+        out = dict(calls=n, total_s=sum(self.calls),
+                   mean_ms=1e3 * sum(self.calls) / n if n else None,
+                   median_ms=1e3 * sorted(self.calls)[n // 2] if n else None)
+        print(f"[parity_resim, {label}] {n} calls, {out['total_s']:.4f} s in all; ms a call "
+              f"mean {fmt_ms(out['mean_ms'])}, median {fmt_ms(out['median_ms'])}", flush=True)
+        return out
+
+
 def bab_by_shape(tails: dict) -> dict:
     """K6 at the shapes of the AC-S1 tails' launches (``tails``: tag ->
     ShapeLog): every (α, slot-round bucket) timed on its first launch's
@@ -4638,7 +5040,7 @@ def cert_by_shape(live_window: str = "AC-S1 tail, slice 3") -> dict:
 
     sizes_of = lambda net: [net.in_dim] + list(net.layer_sizes)
     name = {"sign_bound": lambda k: f"alpha{k[0]}:<={k[1]}",
-            "stage0_certify": lambda k: f"alpha{k[0]}:N{k[1]}:M{k[2]}",
+            "stage0_certify": lambda k: f"alpha{k[0]}:N{k[1]}:M{k[2]}:<={k[3]}",
             "inter_bounds": lambda k: f"{k[0]}:<={k[1]}",
             "role_bounds": lambda k: f"{k[0]}:R{k[1]}:<={k[2]}:M{k[3]}"}
     buckets = {k: {} for k in name}
@@ -4649,11 +5051,12 @@ def cert_by_shape(live_window: str = "AC-S1 tail, slice 3") -> dict:
         b_ms, b_by = bound(*sign_bound_cost(sizes_of(net), live, alpha))
         buckets["sign_bound"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, live=live,
                                           rows=int(lo.shape[0]))
-    for key, (net, args) in sorted(CERT_CASES["stage0_certify"].items()):
-        _, ms = timed(lambda: engine._kb_launch(net, *args), 3)
+    for key, (net, args, live) in sorted(CERT_CASES["stage0_certify"].items()):
+        _, ms = timed(lambda: engine._kb_launch(net, *args, live=live), 3)
         V = int(args[10].shape[1])
-        b_ms, b_by = bound(*kb_cost(sizes_of(net), key[1], V, key[2], key[0]))
-        buckets["stage0_certify"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, V=V)
+        b_ms, b_by = bound(*kb_cost(sizes_of(net), live, V, key[2], key[0]))
+        buckets["stage0_certify"][key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, V=V,
+                                              live=live)
     for key, (net, (lo, hi, live)) in sorted(CERT_CASES["inter_bounds"].items()):
         _, ms = timed(lambda: engine._inter_bounds_launch(net, lo, hi, live), 3)
         b_ms, b_by = bound(*inter_bounds_cost(sizes_of(net), live))
@@ -4943,6 +5346,12 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     check_bab("relaxed-AC", ac_net, st, c, 8, rounds=8, reps=1)
     ac_rows["sim_rows"] = check_sim_rows("AC", ac_net, ac_cfg, lo, hi, reps=5)
     gc_rows["sim_rows"] = check_sim_rows("GC", gc_net, gc_cfg, glo, ghi, reps=5)
+    ac_rows["sim_rows"]["resim_split"] = resim_split(ac_net, ac_cfg, lo, hi)
+    # K12's key kernel at a segment's keys: the AC grid's first, GC-1's one.
+    seg_rows = lambda cfg, n: grid_mod.segment_spans(n, cfg.grid_chunk, cfg.mega_chunks)[1][0]
+    n_ac = len(sweep.build_partitions(ac_cfg)[1])
+    ac_rows["grid_keys"] = check_grid_keys("AC", ac_cfg, seg_rows(ac_cfg, n_ac)[1], reps=5)
+    gc_rows["grid_keys"] = check_grid_keys("GC", gc_cfg, len(glo), reps=5)
     print(f"[tiny] {tiny_oracle_case()} oracle roots agree through K5/K6", flush=True)
 
     # --- phase 2c: the Phase-S/L/P kernels on real AC-S1 leftovers, then on
@@ -4999,7 +5408,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     # --- phase 3: the GC-1 main path (stage 0 decides every partition)
     rep, gc_launch, wall = run_sweep(gc_net, gc_cfg, "GC-1",
                                      required=("sim_and_bounds", "stage0_certify",
-                                               "attack_flips", "parity"))
+                                               "attack_flips", "parity", "grid_keys"))
     if rep.counts != {"sat": 2, "unsat": 199, "unknown": 0}:
         fail(f"GC-1 counts {rep.counts}, expected sat=2 unsat=199 unknown=0")
     thr = check_outputs(rep, gc_cfg, gc_net, "GC-1", gc_launch)
@@ -5030,16 +5439,20 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
           f"{thr_g['bab_decided']}; decided_fraction {thr_g['decided_fraction']}) in "
           f"{wall_g:.3f} s under a 30 s hard budget; funnel {thr_g['funnel']}; "
           f"phases {thr_g['phases_s']}; launches {g_launch}", flush=True)
-    tail_launch, tail_shapes = {}, {}
+    tail_launch, tail_shapes, tail_resim = {}, {}, {}
     for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3)):
         tail_cfg = ac_cfg.with_(
             result_dir=os.path.join(work, f"ac-tail-{len(phases)}"), soft_timeout_s=0.02,
             hard_timeout_s=TAIL_HARD_S, engine=EngineConfig(**phases, max_nodes=1000))
-        with ShapeLog() as shapes:
+        with ShapeLog() as shapes, ResimClock() as resim:
             rep_ac, launch, wall_ac = run_sweep(
                 ac_net, tail_cfg, "AC-S1-twin", span=(0, 2048),
                 required=SLICE2 if phases is TAIL else SLICE3_PATH, label=f"AC-S1 tail, {tag}")
         shapes.check(launch, f"AC-S1 tail, {tag}")
+        if len(resim.calls) != launch["sim_rows"]:
+            fail(f"AC-S1 tail, {tag}: {len(resim.calls)} parity_resim calls but "
+                 f"{launch['sim_rows']} K12 launches (one each)")
+        tail_resim[tag] = resim.summary(f"AC-S1 tail, {tag}")
         tail_launch[tag] = launch
         tail_shapes[tag] = shapes
         thr = check_outputs(rep_ac, tail_cfg, ac_net, "AC-S1-twin", launch)
@@ -5225,11 +5638,13 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                                      "library_ms", "time_split", "draw") if k in g},
         }
         for extra in ("alpha0", "root", "role_boxes", "geometry", "live_rows", "time_split",
-                      "draw"):
+                      "draw", "resim_split", "floor", "keys"):
             if extra in r:
                 row[extra] = r[extra]
-        if name in ("sim_and_bounds", "parity"):
+        if name in ("sim_and_bounds", "parity", "attack_flips"):
             row["gc"]["geometry"] = g.get("geometry")
+        if name == "sim_rows":
+            row["parity_resim_tails"] = tail_resim
         if name == "pgd_attack":
             row["retry_shape"] = {k: r["retry_shape"][k] for k in keys + (
                 "boxes", "trajectories", "near_diffs")}
@@ -5247,7 +5662,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             row["gc"]["library_ms"] = g["library_ms"]
         if name in chunk["rows"]:  # rows 1, 10 and 15 (stage 0) at one chunk
             row["chunk_loop"] = {k: chunk["rows"][name].get(k) for k in keys + (
-                "launches", "library_ms", "time_split", "live_rows", "launch_shapes")
+                "launches", "library_ms", "time_split", "live_rows", "launch_shapes", "geometry")
                 if k in chunk["rows"][name]}
             row["launches_chunk_loop_gc1"] = chunk["gc_launch"][name]
             row["also_replaces"] = ALSO_REPLACES[name]
@@ -5255,9 +5670,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
             fr = fam_rows[name]
             row["family_segment"] = {k: fr[k] for k in keys + (
                 "solo_sum_ms", "ms_segments", "solo_sum_ms_segments", "M", "boxes",
-                "launches")}
+                "launches", "library_ms", "time_split", "geometry") if k in fr}
             row["family_chunk"] = dict({k: fam_chunk[name][k] for k in (
-                "ms", "solo_sum_ms", "plain_ms", "bound_ms", "bound_by", "M", "boxes")},
+                "ms", "solo_sum_ms", "plain_ms", "bound_ms", "bound_by", "M", "boxes",
+                "library_ms", "time_split") if k in fam_chunk[name]},
                 launches={z: zoo_launch[z][name] for z in zoo_launch})
             row["launches_family_tail"] = fam_launch[name]
             hk = ("kb_alpha8", "kb_alpha0") if name == "stage0_certify" else ("kc",)

@@ -27,20 +27,10 @@
 
 #define AL_MAX_WARPS 12
 
-// Unit capacities of the two hidden-activation buffers: hidden layer l's
-// output goes to buffer l % 2.
-__host__ __device__ inline void al_buffers(const PadDesc& pd, int& h0, int& h1) {
-  h0 = h1 = 0;
-  for (int l = 0; l + 1 < pd.L; ++l) {
-    int& h = (l & 1) ? h1 : h0;
-    if (pd.out[l] > h) h = pd.out[l];
-  }
-}
-
 // Floats of one warp's tiles: two input tiles, two activation buffers.
 __host__ __device__ inline long long al_warp_floats(const PadDesc& pd, int tw) {
   int h0, h1;
-  al_buffers(pd, h0, h1);
+  hidden_buffers(pd, h0, h1);
   return (long long)(2 * pd.in[0] + h0 + h1) * tw;
 }
 
@@ -73,7 +63,7 @@ k10a_kernel(PadDesc pd, const float* __restrict__ params, const float* __restric
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const int d = pd.in[0], smask = swz_mask(tw);
   int h0, h1;
-  al_buffers(pd, h0, h1);
+  hidden_buffers(pd, h0, h1);
   float* base = P + pd.fwd + warp * al_warp_floats(pd, tw);
   float* X[2] = {base, base + d * tw};
   float* H[2] = {base + 2 * d * tw, base + (2 * d + h0) * tw};

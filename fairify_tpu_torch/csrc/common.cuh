@@ -157,6 +157,16 @@ __device__ __forceinline__ SplitKey split_key(uint32_t k0, uint32_t k1) {
   return s;
 }
 
+// jax.random.fold_in(key, index): threefry2x32(key, (0, index)), the key
+// of partition `index` under the seed's key words (k0, k1)
+// (utils/prng.py:grid_keys).
+__device__ __forceinline__ void fold_in(uint32_t k0, uint32_t k1, uint32_t index,
+                                        uint32_t& f0, uint32_t& f1) {
+  f0 = 0u;
+  f1 = index;
+  threefry2x32(k0, k1, f0, f1);
+}
+
 __device__ __forceinline__ uint32_t random_bits32(uint32_t k0, uint32_t k1,
                                                   uint64_t n) {
   uint32_t x0 = (uint32_t)(n >> 32), x1 = (uint32_t)n;
@@ -194,92 +204,8 @@ __device__ __forceinline__ float draw_value(const SplitKey& k, uint64_t n, uint3
   return (float)(int32_t)(minval + off);
 }
 
-// One dense layer over a tile of T activation rows held in shared memory
-// (row stride ld), register-blocked: each thread owns RT_ROWS rows x
-// RT_COLS columns of the output and keeps their sums in registers, so
-// every k-step loads RT_ROWS activations (broadcast across the warp) and
-// RT_COLS weights (neighbouring threads on neighbouring columns: the
-// thread's columns are cg, cg + CG, cg + 2 CG, ...) for RT_ROWS * RT_COLS
-// FMAs — two shared-memory loads per FMA become half a load.  Each sum is
-// the index-ordered FMA chain from 0, so the result is bit-identical to a
-// one-unit-per-thread loop.  Rows past T (the ragged last tile) and
-// columns past nout are computed on stale/clamped operands and never
-// passed on.  `epi(s0, nrows, j, v)` receives the pre-bias sums v[r] of
-// column j for rows s0 .. s0 + nrows - 1.  Callers __syncthreads() after.
-#define RT_ROWS 4
-#define RT_COLS 4
-
-template <typename Epi>
-__device__ __forceinline__ void dense_tile(const float* __restrict__ cur, int ld,
-                                           const float* __restrict__ W, int nin,
-                                           int nout, int T, Epi epi) {
-  const int CG = (nout + RT_COLS - 1) / RT_COLS;
-  const int RG = (T + RT_ROWS - 1) / RT_ROWS;
-  for (int item = threadIdx.x; item < RG * CG; item += blockDim.x) {
-    const int cg = item % CG, s0 = (item / CG) * RT_ROWS;
-    int jc[RT_COLS];
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c) jc[c] = min(cg + c * CG, nout - 1);
-    float acc[RT_COLS][RT_ROWS];
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c)
-#pragma unroll
-      for (int r = 0; r < RT_ROWS; ++r) acc[c][r] = 0.f;
-    const float* x = cur + s0 * ld;
-    for (int i = 0; i < nin; ++i) {
-      float xv[RT_ROWS], wv[RT_COLS];
-#pragma unroll
-      for (int r = 0; r < RT_ROWS; ++r) xv[r] = x[r * ld + i];
-#pragma unroll
-      for (int c = 0; c < RT_COLS; ++c) wv[c] = W[i * nout + jc[c]];
-#pragma unroll
-      for (int c = 0; c < RT_COLS; ++c)
-#pragma unroll
-        for (int r = 0; r < RT_ROWS; ++r) acc[c][r] = fmaf(xv[r], wv[c], acc[c][r]);
-    }
-    const int nrows = min(RT_ROWS, T - s0);
-#pragma unroll
-    for (int c = 0; c < RT_COLS; ++c)
-      if (cg + c * CG < nout) epi(s0, nrows, cg + c * CG, acc[c]);
-  }
-}
-
-// One forward pass of a tile of T input rows X (row stride nd.ld) through
-// the net: hidden activations alternate between the scratch tiles A0 and
-// A1 (X is only read, so a second pass can reuse it).  `alive` (hidden
-// layers, packed) replaces the net's masks when given.  Writes each row's
-// logit (the last layer has one unit) to logit[s].
-__device__ __forceinline__ void tile_forward(const NetDesc& nd, const float* P,
-                                             const float* alive, const float* X,
-                                             float* A0, float* A1, int T,
-                                             float* logit) {
-  const int L = nd.L;
-  int aoff = 0;
-  for (int l = 0; l < L; ++l) {
-    const float* B = P + nd.b[l];
-    const bool hidden = l < L - 1;
-    const float* M = alive != nullptr && hidden ? alive + aoff : P + nd.m[l];
-    const float* cur = l == 0 ? X : (l & 1 ? A0 : A1);
-    float* nxt = l & 1 ? A1 : A0;
-    const int ld = nd.ld;
-    dense_tile(cur, ld, P + nd.w[l], nd.in[l], nd.out[l], T,
-               [&](int s0, int nrows, int j, const float* v) {
-#pragma unroll
-                 for (int r = 0; r < RT_ROWS; ++r) {
-                   if (r >= nrows) break;
-                   const float z = v[r] + B[j];
-                   if (hidden)
-                     nxt[(s0 + r) * ld + j] = fmaxf(z, 0.f) * M[j];
-                   else if (j == 0)
-                     logit[s0 + r] = z;
-                 }
-               });
-    __syncthreads();
-    if (hidden) aoff += nd.out[l];
-  }
-}
-
-// Block-wide reductions through shared scratch of >= 32 floats.
+// Warp-wide reductions, and a block-wide minimum through shared scratch of
+// >= 32 floats.
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -298,22 +224,6 @@ __device__ __forceinline__ float block_min(float v, float* scratch) {
   const int nw = (blockDim.x + 31) >> 5;
   float r = threadIdx.x < nw ? scratch[threadIdx.x] : FLT_MAX;
   if (wid == 0) r = warp_min(r);
-  if (threadIdx.x == 0) scratch[0] = r;
-  __syncthreads();
-  r = scratch[0];
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  v = warp_max(v);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) scratch[wid] = v;
-  __syncthreads();
-  const int nw = (blockDim.x + 31) >> 5;
-  float r = threadIdx.x < nw ? scratch[threadIdx.x] : -FLT_MAX;
-  if (wid == 0) r = warp_max(r);
   if (threadIdx.x == 0) scratch[0] = r;
   __syncthreads();
   r = scratch[0];

@@ -219,28 +219,34 @@ static inline long long kb_smem(const NetDesc& nd, int V, int warps) {
 // The launch geometry comes from the wrapper (engine.kb_geometry: warps per
 // block, shared-memory bytes) and is checked here against the net and the
 // kernel's limits.  params is cuda_build.pack_odd_models's buffer: M packs
-// of mstride floats (a multiple of 4), each padded to 16 bytes.
+// of mstride floats (a multiple of 4), each padded to 16 bytes.  The
+// launch covers boxes 0 .. live - 1 of N; fill_past gives the boxes past
+// them box live - 1's outputs (engine.fill_past).
 extern "C" int kb_stage0_certify(const void* params, const int* dims, int L, long long mstride,
                                  const void* xlo, const void* xhi, const void* plo,
                                  const void* phi, const void* blo, const void* bhi,
                                  const void* assign, const void* pam, const void* ram,
                                  float eps, const void* valid, const void* vpair,
-                                 int N, int V, int M, int alpha_iters, void* cert,
+                                 int N, int V, int M, int live, int alpha_iters, void* cert,
                                  void* score, void* margin, int warps, long long smem,
                                  void* stream) {
   const NetDesc nd = make_desc(dims, L, /*odd_rows=*/true);
   if (warps < 1 || warps > KB_MAX_WARPS || V < 1 || smem != kb_smem(nd, V, warps) ||
       smem > SMEM_LIMIT || nd.out[L - 1] != 1 || mstride != cw_round4(nd.total) ||
-      alpha_iters < 0 || M > 65535)
+      alpha_iters < 0 || M > 65535 || live < 0 || live > N)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem(kb_kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
-  if (N > 0 && M > 0)
-    kb_kernel<<<dim3(N, M), 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+  if (live > 0 && M > 0) {
+    kb_kernel<<<dim3(live, M), 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
         nd, (const float*)params, mstride, (const float*)xlo, (const float*)xhi,
         (const float*)plo, (const float*)phi, (const float*)blo, (const float*)bhi,
         (const float*)assign, (const float*)pam, (const float*)ram, eps,
         (const uint8_t*)valid, (const uint8_t*)vpair, V, N, alpha_iters,
         (uint8_t*)cert, (float*)score, (float*)margin);
+    fill_past((uint8_t*)cert, M, N, live, 1, stream);
+    fill_past((float*)score, M, N, live, nd.in[0], stream);
+    fill_past((float*)margin, M, N, live, 1, stream);
+  }
   return (int)cudaGetLastError();
 }

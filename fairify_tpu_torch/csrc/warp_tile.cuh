@@ -1,5 +1,6 @@
-// Warp-owned dense layers for the attack forward (attack_logits.cu) and the
-// PGD attack (pgd_attack.cu): the H100 layout of both.
+// Warp-owned dense layers for the attack forward (attack_logits.cu), the
+// attack with its flip scan (attack_flips.cu) and the PGD attack
+// (pgd_attack.cu): the H100 layout of all three.
 //
 // A warp carries its own tile of TW rows (TW a multiple of 4) through every
 // layer of the net.  A row's activations depend only on that row, so the
@@ -26,8 +27,7 @@
 // vectors per k-step for RR * RC FMAs, and keeps its sums in registers.
 // Every sum is the index-ordered fmaf chain from 0 (over the layer's inputs
 // forward, over its outputs backward), so a row's result does not depend
-// on the tile, the warp or the block that carries it, and equals
-// common.cuh:dense_tile's.
+// on the tile, the warp or the block that carries it.
 #pragma once
 
 #include "common.cuh"
@@ -73,6 +73,16 @@ static inline PadDesc make_pad_desc(const int* dims, int L) {
   }
   pd.total = off;
   return pd;
+}
+
+// Unit capacities of a forward pass's two hidden-activation buffers: hidden
+// layer l's output goes to buffer l % 2.
+__host__ __device__ inline void hidden_buffers(const PadDesc& pd, int& h0, int& h1) {
+  h0 = h1 = 0;
+  for (int l = 0; l + 1 < pd.L; ++l) {
+    int& h = (l & 1) ? h1 : h0;
+    if (pd.out[l] > h) h = pd.out[l];
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -9,8 +9,13 @@ those exact bits, so this module reproduces JAX's threefry2x32 algorithm
 (the ``jax_threefry_partitionable`` path, JAX's default) bit for bit rather
 than substituting a ``torch.Generator``:
 
-* ``key(seed)``            → ``(seed >> 32, seed & 0xFFFFFFFF)``
-* ``fold_in(k, i)``        → ``threefry2x32(k, (0, i))``
+* ``key(seed)``            → ``(0, seed & 0xFFFFFFFF)``: JAX in its default
+  32-bit mode (``jax_enable_x64`` off, as the JAX package runs) takes the
+  seed as a 32-bit integer, so a seed ``>= 2**32`` keeps its low word
+* ``fold_in(k, i)``        → ``threefry2x32(k, (0, i))``; the key of
+  partition ``i`` is ``fold_in(key(seed), i)`` (:func:`grid_keys`), which
+  ``csrc/common.cuh:fold_in`` computes on the card from the key's two
+  words and the index
 * ``split(k)``             → ``threefry2x32(k, (0, 0))``, ``threefry2x32(k, (0, 1))``
 * ``random_bits(k)[n]``    → ``x0 ^ x1`` of ``threefry2x32(k, (n >> 32, n & M))``
 * ``randint(k, lo, hi)``   → two draws (``higher_bits``, ``lower_bits``) from
@@ -22,7 +27,9 @@ than substituting a ``torch.Generator``:
 Everything here is plain torch on int64 tensors holding 32-bit values (torch
 has no full uint32 arithmetic); every add is masked back to 32 bits.  The
 CUDA kernels carry the same algorithm as a device function
-(``csrc/common.cuh``).
+(``csrc/common.cuh``); :func:`grid_keys` on a CUDA device is one launch of
+``csrc/sim_rows.cu``'s key kernel, its torch version
+(:func:`grid_keys_plain`) the plain version.
 """
 from __future__ import annotations
 
@@ -52,25 +59,66 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+def key_words(seed: int):
+    """The two 32-bit words of ``jax.random.key(seed)`` as the JAX package
+    makes it (32-bit mode): ``(0, seed mod 2**32)``."""
+    return 0, int(seed) & M32
+
+
 def seed_key(seed: int, device="cpu") -> torch.Tensor:
     """Raw key data of ``jax.random.key(seed)`` (and of
     ``jax.random.PRNGKey(seed)``, which holds the same bits): a (2,) int64
-    tensor."""
-    seed = int(seed)
-    return torch.tensor([(seed >> 32) & M32, seed & M32], dtype=torch.int64,
-                        device=device)
+    tensor of :func:`key_words`."""
+    return torch.tensor(key_words(seed), dtype=torch.int64, device=device)
+
+
+def fold_in_plain(words, index_offset: int, n: int, device="cpu") -> torch.Tensor:
+    """``fold_in((k0, k1), i)`` for i in [offset, offset+n) in torch ops:
+    (n, 2) int64."""
+    idx = torch.arange(index_offset, index_offset + n, dtype=torch.int64,
+                       device=device) & M32
+    k0, k1 = threefry2x32(int(words[0]) & M32, int(words[1]) & M32, torch.zeros_like(idx),
+                          idx)
+    return torch.stack([k0, k1], dim=1)
+
+
+def grid_keys_plain(seed: int, index_offset: int, n: int, device="cpu") -> torch.Tensor:
+    """Plain torch version of :func:`grid_keys` on any device."""
+    return fold_in_plain(key_words(seed), index_offset, n, device)
 
 
 def grid_keys(seed: int, index_offset: int, n: int, device="cpu") -> torch.Tensor:
     """Per-partition keys for global indices [offset, offset+n): (n, 2) int64.
 
     Equal to ``jax.random.key_data(fairify_tpu.utils.prng.grid_keys(...))``.
-    """
-    base = seed_key(seed, device)
-    idx = torch.arange(index_offset, index_offset + n, dtype=torch.int64,
-                       device=device) & M32
-    k0, k1 = threefry2x32(base[0], base[1], torch.zeros_like(idx), idx)
-    return torch.stack([k0, k1], dim=1)
+    On the CPU :func:`grid_keys_plain`; on a CUDA device one launch of
+    ``csrc/sim_rows.cu:k12_grid_keys`` (:func:`fold_in_launch`)."""
+    if torch.device(device).type == "cpu":
+        return grid_keys_plain(seed, index_offset, n, device)
+    out = fold_in_launch(key_words(seed), index_offset, n, device)
+    grid_keys.launches += 1
+    return out
+
+
+def fold_in_launch(words, index_offset: int, n: int, device) -> torch.Tensor:
+    """One launch of the key kernel on a CUDA device: :func:`fold_in_plain`'s
+    keys, for any key words (the card's checks take a nonzero high word)."""
+    import ctypes
+
+    from fairify_tpu_torch.utils import cuda_build
+
+    if not 0 <= n < 1 << 31 or not 0 <= index_offset < 1 << 32:
+        raise ValueError(f"grid_keys: {n} keys from index {index_offset}")
+    out = torch.empty((n, 2), dtype=torch.int64, device=device)
+    cuda_build.require_cuda(out)
+    u32 = lambda v: ctypes.c_uint32(int(v) & M32)
+    cuda_build.call("sim_rows", "k12_grid_keys", u32(words[0]), u32(words[1]),
+                    u32(index_offset), ctypes.c_int(n), cuda_build.ptr(out),
+                    cuda_build.stream())
+    return out
+
+
+grid_keys.launches = 0
 
 
 def split2(keys: torch.Tensor):

@@ -192,7 +192,7 @@ def each_model(net, fn):
 
 
 def stage0_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
-                   ra_mask, eps: float, valid, valid_pair, alpha_iters: int = 0):
+                   ra_mask, eps: float, valid, valid_pair, alpha_iters: int = 0, live=None):
     """KB: the certificate of N boxes, one launch.
 
     Role boxes (N, V, d), partition boxes (N, d), encoding tensors
@@ -200,12 +200,14 @@ def stage0_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
     and ``valid_pair`` (V, V) bool.  Returns ``(cert (N,) bool, score (N,
     d) float32, margin (N,) float32)`` (:func:`certify_impl`); for a
     ``StackedMLP`` of M models every output gains a leading M axis (the
-    kernel's ``blockIdx.y``).  ``alpha_iters > 0`` runs α-CROWN.  CPU
-    tensors take :func:`certify_impl`; CUDA tensors launch
-    ``csrc/stage0_certify.cu``.
+    kernel's ``blockIdx.y``).  ``alpha_iters > 0`` runs α-CROWN.  ``live``
+    (default N): boxes ``>= live`` get box ``live - 1``'s outputs
+    (:func:`fill_past`).  CPU tensors take :func:`certify_impl` on every
+    box and the same fill; CUDA tensors launch ``csrc/stage0_certify.cu``
+    over the live boxes.
     """
     return _kb(stage0_certify, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals,
-               pa_mask, ra_mask, eps, valid, valid_pair, alpha_iters)
+               pa_mask, ra_mask, eps, valid, valid_pair, alpha_iters, live)
 
 
 def role_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
@@ -222,27 +224,32 @@ def role_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
 
 
 def _kb(counter, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
-        eps: float, valid, valid_pair, alpha_iters: int):
+        eps: float, valid, valid_pair, alpha_iters: int, live=None):
     """KB's body for the wrapper ``counter``: :func:`certify_impl` on CPU
-    tensors, else one launch of ``kb_stage0_certify``, counted on
-    ``counter``."""
+    tensors (and :func:`fill_past` past ``live``), else one launch of
+    ``kb_stage0_certify`` over the live boxes, counted on ``counter``."""
+    live = live_rows(counter.__name__, lo.shape[0], live)
     if lo.device.type == "cpu":
-        return each_model(net, lambda m: certify_impl(
+        out = each_model(net, lambda m: certify_impl(
             m, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask, eps,
             valid, valid_pair, alpha_iters))
+        axis = 1 if isinstance(net, StackedMLP) else 0
+        return tuple(fill_past(t, live, axis) for t in out)
     if net.layer_sizes[-1] != 1:
         raise ValueError(f"{counter.__name__}: the net must have one output logit")
     out = _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
-                     eps, valid, valid_pair, alpha_iters)
+                     eps, valid, valid_pair, alpha_iters, live=live)
     counter.launches += 1
     return out
 
 
 def _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
-               eps: float, valid, valid_pair, alpha_iters: int, _geometry_force=None):
-    """One launch of ``kb_stage0_certify`` on CUDA tensors (the geometry
-    from :func:`kb_geometry`); ``_geometry_force`` (warps a block) forces
-    it: the card's checks that the certificate does not depend on it."""
+               eps: float, valid, valid_pair, alpha_iters: int, live=None,
+               _geometry_force=None):
+    """One launch of ``kb_stage0_certify`` on CUDA tensors over the ``live``
+    first boxes (default all; the geometry from :func:`kb_geometry`);
+    ``_geometry_force`` (warps a block) forces it: the card's checks that
+    the certificate does not depend on it."""
     params, dims, M = cuda_build.pack_odd_models(net)
     u8 = lambda t: t.to(torch.uint8).contiguous()
     ins = [t.contiguous() for t in (x_lo, x_hi, xp_lo, xp_hi, lo, hi,
@@ -261,7 +268,8 @@ def _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_m
                     ctypes.c_longlong(params.numel() // M),
                     *(cuda_build.ptr(t) for t in ins), ctypes.c_float(eps),
                     cuda_build.ptr(vb), cuda_build.ptr(vp), ctypes.c_int(N),
-                    ctypes.c_int(V), ctypes.c_int(M), ctypes.c_int(int(alpha_iters)),
+                    ctypes.c_int(V), ctypes.c_int(M), ctypes.c_int(N if live is None else live),
+                    ctypes.c_int(int(alpha_iters)),
                     cuda_build.ptr(cert), cuda_build.ptr(score), cuda_build.ptr(margin),
                     ctypes.c_int(geo["warps"]), ctypes.c_longlong(geo["smem"]),
                     cuda_build.stream())
@@ -336,7 +344,7 @@ def fold_int32(*bufs) -> int:
     return total - (1 << 32) if total >= 1 << 31 else total
 
 
-def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok):
+def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok, live=None):
     """Plain PyTorch version of KC.
 
     ``xr``/``pr``: (N, S, V, d) candidates; ``cert``/``margin``: KB's
@@ -344,8 +352,17 @@ def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok):
     (N, 3) int32, reason (N,) int8, gap (N,) float32, stats (2, 14) int32,
     fold int)``.  For a ``StackedMLP`` every model attacks the same
     candidates: ``cert``/``margin`` and every output but the fold gain a
-    leading model axis, and the fold covers all models' buffers.
+    leading model axis, and the fold covers all models' buffers.  ``live``
+    (default N): what the kernel's launch over the first ``live`` boxes
+    returns — the per-box outputs past it box ``live - 1``'s
+    (:func:`fill_past`), the histogram of the live rows of ``ok`` and the
+    fold of the live boxes' buffers.
     """
+    N = xr.shape[0]
+    live = N if live is None else live
+    if live < N:
+        ok = ok & (torch.arange(N, device=ok.device) < live)
+
     def one(m, c, mg):
         lx, lp = attack_logits_plain(m, xr, pr)
         found, wit = find_flips_impl(lx, lp, valid, valid_pair)
@@ -358,42 +375,90 @@ def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok):
         wit, reason, gap, stats = (torch.stack(o) for o in zip(*outs))
     else:
         wit, reason, gap, stats = one(net, cert, margin)
-    return wit, reason, gap, stats, fold_int32(cert, wit, reason, stats)
+    axis = 1 if isinstance(net, StackedMLP) else 0
+    wit, reason, gap = (fill_past(t, live, axis) for t in (wit, reason, gap))
+    head = lambda t: t.narrow(axis, 0, live)
+    return wit, reason, gap, stats, fold_int32(head(cert), head(wit), head(reason), stats)
 
 
-def attack_flips(net, xr, pr, valid, valid_pair, cert, margin, ok):
+def attack_flips(net, xr, pr, valid, valid_pair, cert, margin, ok, live=None):
     """KC: the attack of N boxes, one launch (see :func:`attack_flips_plain`
     for the contract, stacked nets included: the kernel's ``blockIdx.y``
-    is the model).  CUDA tensors launch ``csrc/attack_flips.cu``; the
-    histogram and fold accumulate with device atomics."""
+    is the model).  ``live`` (default N): boxes ``>= live`` are not
+    attacked: their per-box outputs are box ``live - 1``'s and the
+    histogram and fold cover the live boxes (:func:`attack_flips_plain`).  CUDA tensors launch
+    ``csrc/attack_flips.cu`` (the geometry from
+    :func:`attack_flips_geometry`); the histogram and fold accumulate with
+    device atomics."""
+    live = live_rows("attack_flips", xr.shape[0], live)
     if xr.device.type == "cpu":
-        return attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok)
+        return attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok, live)
     if net.layer_sizes[-1] != 1:
         raise ValueError("attack_flips: the net must have one output logit")
-    params, dims, M = cuda_build.pack_models(net)
-    u8 = lambda t: t.to(torch.uint8).contiguous()
+    fn, args, out = _attack_flips_prepare(net, xr, pr, valid, valid_pair, cert, margin, ok,
+                                          live)
+    cuda_build.check("kc_attack_flips", fn(*args, torch.cuda.current_stream().cuda_stream))
+    attack_flips.launches += 1
+    wit, reason, gap, stats, fold = out
+    return wit, reason, gap, stats, int(fold.item())
+
+
+# kc_attack_flips(params, dims, L, xr, pr, valid, vpair, cert, margin, okrow, edges,
+# N, S, V, M, live, wit, reason, gap, stats, fold, tw, warps, gw, grid, smem, stream)
+_KC_ARGS = ((ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int)
+            + (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 5
+            + (ctypes.c_int,) * 4 + (ctypes.c_longlong, ctypes.c_void_p))
+
+
+def _attack_flips_prepare(net, xr, pr, valid, valid_pair, cert, margin, ok, live: int,
+                          _geometry_force=None):
+    """``(entry point, its arguments but the stream, (wit, reason, gap,
+    stats, fold) tensors)`` of one ``kc_attack_flips`` launch over the
+    ``live`` first boxes: the padded pack of every model, the geometry from
+    :func:`attack_flips_geometry`; ``_geometry_force`` (``(tw, warps,
+    gw)``) forces it: the card's checks that the outputs do not depend on
+    it."""
+    params, dims, M = cuda_build.pack_padded(net)
     xr, pr, margin = xr.contiguous(), pr.contiguous(), margin.contiguous()
-    vb, vp, cb, okb = u8(valid), u8(valid_pair), u8(cert), u8(ok)
-    edges = torch.as_tensor(funnel_mod.EDGES, device=xr.device)
+    vb, vp, cb, okb = (_bytes(t) for t in (valid, valid_pair, cert, ok))
+    dev = xr.device
+    edges = _edges(dev)
     cuda_build.require_cuda(params, xr, pr, vb, vp, cb, margin, okb, edges)
     N, S, V, _ = xr.shape
-    dev = xr.device
+    geo = _attack_flips_geometry(tuple(dims), S, V, live, M, cuda_build.sm_count(dev),
+                                 cuda_build.SMEM_LIMIT, _geometry_force)
     lead = (M,) if isinstance(net, StackedMLP) else ()
     wit = torch.empty(lead + (N, 3), dtype=torch.int32, device=dev)
     reason = torch.empty(lead + (N,), dtype=torch.int8, device=dev)
     gap = torch.empty(lead + (N,), dtype=torch.float32, device=dev)
-    stats = torch.zeros(lead + (2, funnel_mod.N_BUCKETS), dtype=torch.int32, device=dev)
-    fold = torch.zeros(1, dtype=torch.int32, device=dev)
-    cuda_build.call("attack_flips", "kc_attack_flips",
-                    cuda_build.ptr(params), dims, ctypes.c_int(net.depth),
-                    cuda_build.ptr(xr), cuda_build.ptr(pr), cuda_build.ptr(vb),
-                    cuda_build.ptr(vp), cuda_build.ptr(cb), cuda_build.ptr(margin),
-                    cuda_build.ptr(okb), cuda_build.ptr(edges), ctypes.c_int(N),
-                    ctypes.c_int(S), ctypes.c_int(V), ctypes.c_int(M),
-                    cuda_build.ptr(wit), cuda_build.ptr(reason), cuda_build.ptr(gap),
-                    cuda_build.ptr(stats), cuda_build.ptr(fold), cuda_build.stream())
-    attack_flips.launches += 1
-    return wit, reason, gap, stats, int(fold.item())
+    counts = torch.zeros(M * 2 * funnel_mod.N_BUCKETS + 1, dtype=torch.int32, device=dev)
+    stats = counts[:-1].view(lead + (2, funnel_mod.N_BUCKETS))
+    fold = counts[-1:]
+    args = (params.data_ptr(), dims, len(dims) - 1, xr.data_ptr(), pr.data_ptr(),
+            vb.data_ptr(), vp.data_ptr(), cb.data_ptr(), margin.data_ptr(), okb.data_ptr(),
+            edges.data_ptr(), N, S, V, M, live, wit.data_ptr(), reason.data_ptr(),
+            gap.data_ptr(), stats.data_ptr(), fold.data_ptr(), geo["tw"], geo["warps"],
+            geo["gw"], geo["grid"], geo["smem"])
+    return (cuda_build.entry("attack_flips", "kc_attack_flips", _KC_ARGS), args,
+            (wit, reason, gap, stats, fold))
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A bool or uint8 tensor as contiguous uint8 (a bool tensor's bytes
+    viewed, not copied)."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool else t.to(torch.uint8)
+
+
+_edges_on = {}
+
+
+def _edges(dev) -> torch.Tensor:
+    """The funnel's histogram edges on ``dev``, copied there once."""
+    t = _edges_on.get(dev)
+    if t is None:
+        t = _edges_on[dev] = torch.as_tensor(funnel_mod.EDGES, device=dev)
+    return t
 
 
 attack_flips.launches = 0
@@ -401,21 +466,23 @@ attack_flips.launches = 0
 
 def certify_attack(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
                    ra_mask, eps: float, valid, valid_pair, xr, pr,
-                   alpha_iters: int = 0):
+                   alpha_iters: int = 0, live=None):
     """Certificate + attack + flip detection of B boxes: the JAX package's
     ``_certify_attack_kernel`` (row 15; vmapped over a stacked family,
     ``_family_stage0_kernel``, row 7).  One KB launch
     (:func:`stage0_certify`, α-CROWN when ``alpha_iters > 0``) and one KC
     launch (:func:`attack_flips`, no histogram rows) on the card, their
-    plain versions on the CPU.  Returns ``(cert (B,) bool, score (B, d)
-    f32, found (B,) bool, wit (B, 3) int32, margin (B,) f32, gap (B,)
-    f32)``, each with a leading model axis for a ``StackedMLP``."""
+    plain versions on the CPU.  ``live`` (default B): both cover the first
+    ``live`` boxes and the rest get box ``live - 1``'s outputs
+    (:func:`fill_past`).  Returns ``(cert (B,) bool, score (B, d) f32,
+    found (B,) bool, wit (B, 3) int32, margin (B,) f32, gap (B,) f32)``,
+    each with a leading model axis for a ``StackedMLP``."""
     cert, score, margin = stage0_certify(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi,
                                          assign_vals, pa_mask, ra_mask, eps, valid,
-                                         valid_pair, alpha_iters)
+                                         valid_pair, alpha_iters, live=live)
     no_rows = torch.zeros(lo.shape[0], dtype=torch.bool, device=lo.device)
     wit, reason, gap, _stats, _fold = attack_flips(net, xr, pr, valid, valid_pair,
-                                                   cert, margin, no_rows)
+                                                   cert, margin, no_rows, live=live)
     return cert, score, reason >= 2, wit, margin, gap
 
 
@@ -572,6 +639,85 @@ def attack_logits_geometry(sizes, rows: int, models: int = 1, sms: int = 132,
     grid = max(1, min(_ceil(tiles, warps), _ceil(sms, models)))
     return dict(tw=tw, warps=warps, threads=32 * warps, grid=grid, blocks=grid * models,
                 smem=attack_logits_smem(sizes, tw, warps), tiles=tiles)
+
+
+KC_TW = 16  # rows of a KC warp tile
+KC_MAX_WARPS = 12  # csrc/attack_flips.cu
+KC_MAX_GROUP = 8  # warps that may share one box
+
+
+def attack_flips_smem(sizes, S: int, V: int, tw: int, warps: int, gw: int = 1) -> int:
+    """Bytes of dynamic shared memory of one KC block
+    (``attack_flips.cu:kc_smem``): the mbarrier's 16 and the block's 28
+    histogram bins and fold (rounded up to 144 bytes in all), the padded
+    net's forward part, per warp two input tiles and the two hidden buffers
+    (:func:`attack_logits_smem`'s), and per group of ``gw`` warps one box's
+    2 S V logits (rounded up to 4 floats)."""
+    h = [0, 0]
+    for l in range(len(sizes) - 2):
+        h[l & 1] = max(h[l & 1], sizes[l + 1])
+    fwd = cuda_build.pad_layout(sizes)["fwd"]
+    return 4 * (36 + fwd + warps * (2 * sizes[0] + h[0] + h[1]) * tw
+                + warps // gw * _r4(2 * S * V))
+
+
+def attack_flips_geometry(sizes, S: int, V: int, boxes: int, models: int = 1,
+                          sms: int = 132, smem_limit: int = cuda_build.SMEM_LIMIT,
+                          _force=None) -> dict:
+    """Launch geometry of KC for ``boxes`` live boxes of ``S`` samples and
+    ``V`` assignments (``tiles`` = 2 S V / ``tw`` warp tiles a box) and
+    ``models`` models on a card of ``sms`` SMs.  A box belongs to a group of
+    ``gw`` warps (a power of two at most KC_MAX_GROUP and the box's tiles),
+    which split its tiles; a block holds the most warps, a multiple of
+    ``gw`` at most KC_MAX_WARPS, that shared memory holds.  ``gw`` is the
+    one that minimises the rounds of boxes a group takes times the tiles a
+    warp carries per box, ceil(boxes·models / groups on the card) ·
+    ceil(tiles / gw), the smallest on a tie: two at AC-S1 widths on an AC
+    segment or chunk (a group shares one strip of logits, so 12 warps fit
+    a block where 11 would alone), four for the host frontier's few live
+    boxes of 4 tiles, which spread a box over the card.  Then only as many groups a block as give each
+    SM its share, and ``grid`` blocks a model, at most one an SM.
+    ``_force`` (``(tw, warps, gw)``) overrides the choice; a geometry that
+    does not fit raises."""
+    tw = KC_TW if _force is None else int(_force[0])
+    if tw < 4 or tw % 4 or tw > 64:
+        raise ValueError(f"attack_flips: a warp tile of {tw} rows")
+    tiles = _ceil(2 * S * V, tw)
+    units = max(boxes * models, 1)
+
+    def most(gw: int) -> int:  # the most warps, a multiple of gw, that fit
+        w = KC_MAX_WARPS // gw * gw
+        while w >= gw and attack_flips_smem(sizes, S, V, tw, w, gw) > smem_limit:
+            w -= gw
+        return w
+
+    if _force is None:
+        best = None
+        gw = 1
+        while gw <= min(KC_MAX_GROUP, tiles):
+            w = most(gw)
+            if w >= gw:
+                cost = _ceil(units, sms * (w // gw)) * _ceil(tiles, gw)
+                if best is None or cost < best[0]:
+                    best = (cost, gw, w)
+            gw *= 2
+        if best is None:
+            raise ValueError(f"attack_flips: one warp's tiles need "
+                             f"{attack_flips_smem(sizes, S, V, tw, 1)} bytes of shared "
+                             f"memory, more than {smem_limit}")
+        _, gw, wmax = best
+        warps = min(_ceil(units, sms), wmax // gw) * gw
+    else:
+        warps, gw = int(_force[1]), int(_force[2])
+        if not (1 <= gw <= KC_MAX_GROUP and 1 <= warps <= KC_MAX_WARPS and warps % gw == 0
+                and attack_flips_smem(sizes, S, V, tw, warps, gw) <= smem_limit):
+            raise ValueError(f"attack_flips: {warps} warps of {tw} rows in groups of {gw} "
+                             "do not fit")
+    groups = warps // gw
+    grid = max(1, min(_ceil(boxes, groups), _ceil(sms, models)))
+    return dict(tw=tw, warps=warps, gw=gw, groups=groups, threads=32 * warps, grid=grid,
+                blocks=grid * models, smem=attack_flips_smem(sizes, S, V, tw, warps, gw),
+                tiles=tiles)
 
 
 def pgd_smem(sizes, ttw: int, tw: int, warps: int) -> int:
@@ -902,6 +1048,7 @@ def role_bounds_geometry(sizes, V: int, rows: int, models: int = 1, use_crown: b
 # The wrappers' geometry, computed once per shape (hashable arguments; the
 # returned dicts are shared and read only).
 _attack_logits_geometry = functools.lru_cache(maxsize=256)(attack_logits_geometry)
+_attack_flips_geometry = functools.lru_cache(maxsize=256)(attack_flips_geometry)
 _pgd_geometry = functools.lru_cache(maxsize=256)(pgd_geometry)
 _bab_geometry = functools.lru_cache(maxsize=256)(bab_geometry)
 _kb_geometry = functools.lru_cache(maxsize=256)(kb_geometry)
@@ -2559,9 +2706,11 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
     """The host-frontier input-split BaB (``decide_many``'s batch loop):
     every still-undecided root's sub-boxes share one deque, popped
     ``frontier_size`` at a time.  On the CROWN path (the fused branch) one
-    :func:`certify_attack` per batch (KB + KC on the card) with
-    ``bab_attack_samples`` candidates per box from ``default_rng(cfg.seed)``,
-    α-CROWN once a fifth of ``deadline_s`` is spent.  On the IBP path
+    :func:`certify_attack` per batch (KB + KC on the card, over the batch's
+    boxes only: ``live``) with ``bab_attack_samples`` candidates per box
+    from ``default_rng(cfg.seed)`` (drawn for the batch padded to
+    ``frontier_size``, as the JAX package draws them), α-CROWN once a fifth
+    of ``deadline_s`` is spent.  On the IBP path
     (``use_crown=False``, the non-fused branch) the batch's role-logit
     bounds (:func:`role_logit_bounds`, row 13) and
     :func:`no_flip_certified` first, then candidates drawn for the
@@ -2636,9 +2785,12 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
         if fused:
             xr, pr = build_attack_candidates(enc, rng, _pad(blo, F), _pad(bhi, F),
                                              cfg.bab_attack_samples)
+            # KB and KC launch over the batch's boxes; the padded rows
+            # (the numpy draw keeps them, so the RNG stream stays JAX's)
+            # take box batch - 1's outputs.
             out = certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(plo),
                                  on(phi), av, pm, rm, float(enc.eps), on(valid), vpair,
-                                 on(xr), on(pr), alpha_iters=alpha)
+                                 on(xr), on(pr), alpha_iters=alpha, live=batch)
             cert, score, found_all, wit_all, _margin, _gap = (t.cpu().numpy()
                                                                for t in out)
             certified = cert[:batch]

@@ -37,7 +37,7 @@ from fairify_tpu_torch.ops import interval as interval_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, activation_stats, simulate_boxes
 from fairify_tpu_torch.partition.grid import chunk_spans, pad_rows, segment_spans
-from fairify_tpu_torch.utils import cuda_build
+from fairify_tpu_torch.utils import cuda_build, prng
 from fairify_tpu_torch.utils.prng import grid_keys
 from fairify_tpu_torch.verify import engine
 
@@ -341,29 +341,103 @@ def _sim_launch(net, keys, lo, hi, sim_size: int, live: int, kind: str, alive=No
     return out
 
 
-def sim_rows(keys, lo, hi, sim_size: int):
+K12_THREADS = 256  # csrc/sim_rows.cu: threads of a K12 block
+K12_MAX_VALUES = 256  # box values (boxes x d) one K12 launch takes by value
+_K12_ARGS = ((ctypes.c_uint32,) * 3 + (_VP,) * 2 + (_INT,) * 4 + (_VP,) * 3)
+_k12_buffers = {}
+
+
+def sim_rows_geometry(d: int, S: int, boxes: int = 1) -> dict:
+    """Launch geometry of K12 (``csrc/sim_rows.cu``) for ``boxes``
+    partitions of ``S`` samples in ``d`` dimensions: a 256-thread block
+    draws ``rpp = 256 // d`` rows a pass (thread t column t % d, so its
+    column's draw constants are taken once), ``grid_x = ceil(S / rpp)``
+    blocks a partition, one value a thread (53 blocks for AC-S1's 1,000 x
+    13), and ``per_launch = K12_MAX_VALUES // d`` boxes a launch by value
+    (``launches`` of them).  Raises past the kernel's limits: ``d`` above
+    the block, and ``S·d >= 2**31`` (its 32-bit index arithmetic)."""
+    if not 1 <= d <= K12_THREADS:
+        raise ValueError(f"sim_rows: d = {d}; K12 draws at most {K12_THREADS} dimensions")
+    if not 1 <= S or S * d >= 1 << 31:
+        raise ValueError(f"sim_rows: S·d = {S * d} values a partition; K12's 32-bit index "
+                         "arithmetic takes fewer than 2**31")
+    rpp = K12_THREADS // d
+    per = K12_MAX_VALUES // d
+    return dict(rpp=rpp, grid_x=min(_ceil(S, rpp), 65535), threads=K12_THREADS,
+                per_launch=per, launches=_ceil(boxes, per))
+
+
+def sim_rows(seed: int, index: int, lo, hi, sim_size: int, device="cpu") -> torch.Tensor:
     """K12's row generator: the ``sim_size`` simulation samples (N, S, d)
-    f32 of N partitions, regenerated from their keys (the rows of the
-    prune pass and of KD).  CPU tensors take
-    :func:`utils.prng.simulate_boxes`; CUDA tensors launch
-    ``csrc/sim_rows.cu``."""
-    if lo.device.type == "cpu":
-        return simulate_boxes(keys, lo, hi, sim_size)
-    k32 = cuda_build.u32_keys(keys)
-    lo, hi = lo.contiguous(), hi.contiguous()
-    cuda_build.require_cuda(k32, lo, hi)
+    f32 of the N partitions of the boxes ``lo``/``hi`` (N, d) (host
+    arrays), partition p's key ``grid_keys(seed, index + p)`` — the rows of
+    the prune pass and of KD — as a host tensor.  On the CPU
+    :func:`utils.prng.simulate_boxes`; on a CUDA ``device`` K12
+    (:func:`sim_rows_host`, whose pinned buffer this copies)."""
+    lo, hi = (np.asarray(a, np.float32).reshape(-1, np.shape(a)[-1]) for a in (lo, hi))
+    if torch.device(device).type == "cpu":
+        return simulate_boxes(grid_keys(seed, index, lo.shape[0]), torch.as_tensor(lo),
+                              torch.as_tensor(hi), sim_size)
+    return sim_rows_host(prng.key_words(seed), index, lo, hi, sim_size, device).clone()
+
+
+def sim_rows_host(words, index: int, lo: np.ndarray, hi: np.ndarray, sim_size: int,
+                  device) -> torch.Tensor:
+    """K12 on a CUDA device for the key words ``words``
+    (``prng.key_words``): the keys are derived on the card
+    (``common.cuh:fold_in``), the boxes (N, d) go as a by-value argument,
+    one launch per ``sim_rows_geometry``'s ``per_launch`` boxes (one for a
+    retry row), each copying its rows into a persistent pinned host buffer
+    on the stream; then one sync.  Returns a (N, S, d) view of that buffer,
+    valid until the next call on the device."""
     N, d = lo.shape
-    if N > 65535:
-        raise ValueError("sim_rows: at most 65,535 partitions per launch")
-    out = torch.empty((N, sim_size, d), dtype=torch.float32, device=lo.device)
-    cuda_build.call("sim_rows", "k12_sim_rows", cuda_build.ptr(k32), cuda_build.ptr(lo),
-                    cuda_build.ptr(hi), ctypes.c_int(N), ctypes.c_int(d),
-                    ctypes.c_int(sim_size), cuda_build.ptr(out), cuda_build.stream())
-    sim_rows.launches += 1
-    return out
+    per = _sim_rows_geometry(d, sim_size, N)["per_launch"]
+    lo_i = np.ascontiguousarray(lo, dtype=np.int32)
+    hi_i = np.ascontiguousarray(hi, dtype=np.int32)
+    stream = torch.cuda.current_stream(device)
+    host = None
+    for p0 in range(0, N, per):
+        fn, args, (_rows, host) = _sim_rows_prepare(words, index, lo_i, hi_i, sim_size, device,
+                                                    first=p0, count=min(per, N - p0))
+        cuda_build.check("k12_sim_rows", fn(*args, stream.cuda_stream))
+        sim_rows.launches += 1
+    stream.synchronize()
+    return host[:N * sim_size * d].view(N, sim_size, d)
+
+
+def _sim_rows_prepare(words, index: int, lo_i: np.ndarray, hi_i: np.ndarray, sim_size: int,
+                      device, first: int = 0, count: Optional[int] = None, copy: bool = True):
+    """``(entry point, its arguments but the stream, (device buffer, pinned
+    host buffer))`` of one ``k12_sim_rows`` launch of boxes ``first`` ..
+    ``first + count - 1`` of the int32 boxes ``lo_i``/``hi_i`` (N, d) into
+    the device's persistent buffers, at their offset; ``copy=False`` leaves
+    out the copy to the host."""
+    N, d = lo_i.shape
+    count = N - first if count is None else count
+    geo = _sim_rows_geometry(d, sim_size, count)
+    if geo["launches"] != 1:
+        raise ValueError(f"sim_rows: {count} boxes of {d} values exceed one launch's "
+                         f"{K12_MAX_VALUES}")
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    n = N * sim_size * d
+    bufs = _k12_buffers.get(dev.index)
+    if bufs is None or bufs[0].numel() < n:
+        bufs = (torch.empty(n, dtype=torch.float32, device=dev),
+                torch.empty(n, dtype=torch.float32, pin_memory=True))
+        _k12_buffers[dev.index] = bufs
+    cuda_build.require_cuda(bufs[0])
+    off = 4 * first * sim_size * d
+    u32 = lambda v: int(v) & 0xFFFFFFFF
+    args = (u32(words[0]), u32(words[1]), u32(index + first), lo_i[first:].ctypes.data,
+            hi_i[first:].ctypes.data, count, d, sim_size, geo["grid_x"],
+            bufs[0].data_ptr() + off, bufs[1].data_ptr() + off if copy else None)
+    return cuda_build.entry("sim_rows", "k12_sim_rows", _K12_ARGS), args, bufs
 
 
 sim_rows.launches = 0
+_sim_rows_geometry = functools.lru_cache(maxsize=64)(sim_rows_geometry)
 
 
 def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
@@ -384,7 +458,8 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     real rows (``live``), the per-layer looseness summed in f64 on the
     host over the real rows, as the JAX package does;
     with ``keep_sim`` the samples (P, sim_size, d) are regenerated from the
-    same keys by K12's row generator (:func:`sim_rows`).
+    same keys by K12's row generator (:func:`sim_rows`: the keys from the
+    seed and the global index, derived on the card).
 
     ``exact_certify`` (the sweep passes ``exact_certify_masks``; off by
     default here, on in the JAX package's signature) runs the exact pass
@@ -420,7 +495,8 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
             per = blk_loos.cpu().numpy().astype(np.float64)
         loos = per if loos is None else loos + per
         if keep_sim:
-            sims.append(sim_rows(keys[:n], lo_t[:n], hi_t[:n], sim_size).cpu().numpy())
+            sims.append(sim_rows(seed, index_offset + s, lo[s:e], hi[s:e], sim_size,
+                                 dev).numpy())
     L = net.depth
     cat = lambda g: [np.concatenate([p[g][l] for p in parts]) for l in range(L)]
     candidates, pos_prob, ws_lb, ws_ub = cat(0), cat(1), cat(2), cat(3)

@@ -92,7 +92,7 @@ from fairify_tpu_torch.parallel import mesh as mesh_mod
 from fairify_tpu_torch.partition import grid as grid_mod
 from fairify_tpu_torch.resilience import integrity as integrity_mod
 from fairify_tpu_torch.resilience.journal import JournalWriter
-from fairify_tpu_torch.utils import cuda_build
+from fairify_tpu_torch.utils import cuda_build, prng
 from fairify_tpu_torch.utils.num import resolve_device
 from fairify_tpu_torch.utils.prng import grid_keys, shuffled_order, simulate_boxes
 from fairify_tpu_torch.verify import csvio, engine, pruning
@@ -519,13 +519,21 @@ def parity(net, keys, lo, hi, alive, sim_size: int, live=None):
 parity.launches = 0
 
 
-def parity_resim(weights, biases, dead, key, lo_p, hi_p, sim_size: int) -> float:
-    """Pruned-vs-original parity of ONE partition whose masks changed after
-    the parity pass (the heuristic retry): its ``sim_size`` samples (one
-    :func:`verify.pruning.sim_rows` launch on ``key``'s device) through two host f64
-    forwards."""
-    box = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=key.device)[None]
-    sim = pruning.sim_rows(key[None], box(lo_p), box(hi_p), sim_size)[0].cpu().numpy()
+def parity_resim(weights, biases, dead, seed: int, index: int, lo_p, hi_p, sim_size: int,
+                 device="cpu") -> float:
+    """Pruned-vs-original parity of ONE partition (global ``index``) whose
+    masks changed after the parity pass (the heuristic retry): its
+    ``sim_size`` samples of key ``grid_keys(seed, index)`` through two
+    host f64 forwards.  On a CUDA ``device`` the samples come from one K12
+    launch (:func:`verify.pruning.sim_rows_host`: key derived on the card,
+    box by value, one copy to pinned host memory, one sync); on the CPU
+    from its plain version (:func:`verify.pruning.sim_rows`)."""
+    lo_p, hi_p = (np.asarray(a, np.float32)[None] for a in (lo_p, hi_p))
+    if torch.device(device).type == "cpu":
+        sim = pruning.sim_rows(seed, index, lo_p, hi_p, sim_size)[0].numpy()
+    else:
+        sim = pruning.sim_rows_host(prng.key_words(seed), index, lo_p, hi_p, sim_size,
+                                    device)[0].numpy()
     return float((predict_np(weights, biases, sim)
                   == predict_np(weights, biases, sim, dead=dead)).mean())
 
@@ -538,6 +546,7 @@ KERNELS = {
     "pgd_attack": engine.pgd_attack_kernel,
     "bab_segment": engine.bab_segment,
     "sim_rows": pruning.sim_rows,
+    "grid_keys": grid_keys,
     "sign_bound": engine.sign_bound,
     "inter_bounds": engine.inter_bounds,
     "role_logits": engine.sample_role_logits,
@@ -894,10 +903,8 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
             if verdict == "sat":
                 c_check, v_accurate = c_check_np(weights, biases, dead, ce)
             if h_attempt:  # masks changed after the parity pass
-                pruned_acc = parity_resim(weights, biases, dead,
-                                          grid_keys(cfg.seed, span_start + p, 1,
-                                                    device=dev)[0],
-                                          lo[p], hi[p], cfg.sim_size)
+                pruned_acc = parity_resim(weights, biases, dead, cfg.seed, span_start + p,
+                                          lo[p], hi[p], cfg.sim_size, device=dev)
             else:
                 pruned_acc = float(parity_col[p])
             counts[verdict] += 1

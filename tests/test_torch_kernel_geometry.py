@@ -37,6 +37,15 @@ the nets the repo runs, without a card:
   8,192 and row 3's 16,000, their shared-memory sums that of the kernels'
   layout; at GC-1 the grid covers every SM, at AC-S1 widths a block is one
   partition;
+* KC (``engine.attack_flips_geometry``, ``csrc/attack_flips.cu``) fits
+  every net at S = 16 and 128, V = 2 and 5, one model or four, its
+  shared-memory sum that of the kernel's layout; its grid fills the card
+  when the boxes do, every group of warps has a box, an AC segment or
+  chunk takes one or two warps a box and the host frontier's few live
+  boxes spread a box over four;
+* K12 (``pruning.sim_rows_geometry``) draws one value a thread over
+  ceil(S / (256 // d)) blocks a partition, and refuses what its 32-bit
+  index arithmetic and its by-value boxes cannot take;
 * a forced geometry that does not fit raises;
 * the padded and odd-stride packs are the layouts the kernels read, and
   every pack is built once per net: a net's ``with_masks`` copy gets its
@@ -559,3 +568,79 @@ def test_forced_sim_geometry_is_checked():
         pruning.sim_geometry((13, 4096, 1), 201, 1000, kind="kd")
     with pytest.raises(ValueError):
         pruning.sim_geometry(sizes, 201, 0)
+
+
+def _kc_smem_mirror(sizes, S, V, tw, warps, gw):
+    # attack_flips.cu:kc_smem: 36 floats of head (mbarrier, 28 bins, fold),
+    # the padded net's forward part, per warp two input tiles of d and the
+    # two hidden buffers, per group a strip of 2 S V logits (to 4 floats).
+    fwd = sum(a * -(-b // 8) * 8 + 2 * -(-b // 8) * 8 for a, b in zip(sizes[:-1], sizes[1:]))
+    hidden = list(sizes[1:-1])
+    h0, h1 = max(hidden[0::2], default=0), max(hidden[1::2], default=0)
+    return 4 * (36 + fwd + warps * (2 * sizes[0] + h0 + h1) * tw
+                + warps // gw * -(-2 * S * V // 4) * 4)
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_attack_flips_geometry_fits_and_fills_the_card(name):
+    sizes = NETS[name]
+    for S in (16, 128):
+        for V in (2, 5):
+            for M in (1, 4):
+                for boxes in (1, 17, 201, 512, 2048, 10240):
+                    g = engine.attack_flips_geometry(sizes, S, V, boxes, M, sms=SMS,
+                                                     smem_limit=LIMIT)
+                    assert g["smem"] == engine.attack_flips_smem(
+                        sizes, S, V, g["tw"], g["warps"], g["gw"]) == _kc_smem_mirror(
+                        sizes, S, V, g["tw"], g["warps"], g["gw"]) <= LIMIT
+                    gw = g["gw"]
+                    assert gw & (gw - 1) == 0 and 1 <= gw <= min(engine.KC_MAX_GROUP,
+                                                                g["tiles"])
+                    assert g["warps"] % gw == 0 and 1 <= g["warps"] <= engine.KC_MAX_WARPS
+                    assert g["tiles"] == -(-2 * S * V // g["tw"])
+                    # Every group of the grid has a box; at most one block an SM.
+                    assert (g["grid"] - 1) * g["groups"] < boxes
+                    assert g["grid"] <= -(-SMS // M) and g["blocks"] == g["grid"] * M
+                    if boxes * M >= SMS * g["groups"]:  # enough boxes: every SM busy
+                        assert g["blocks"] >= SMS
+
+
+def test_attack_flips_geometry_at_the_main_path_shapes():
+    ac, gc = NETS["AC-S1"], NETS["GC-1"]
+    geo = lambda sizes, S, B, M=1: engine.attack_flips_geometry(sizes, S, 2, B, M, sms=SMS)
+    for B, M in ((10240, 1), (10240, 4), (2048, 1), (2048, 4)):
+        g = geo(ac, 128, B, M)  # the AC segment and chunk, one model or four
+        assert g["blocks"] == SMS and g["warps"] >= 8
+        assert g["gw"] <= (2 if M == 1 else 4)
+    g = geo(ac, 16, 512)  # the host frontier's F = 512, 4 tiles a box
+    assert g["blocks"] >= 128 and g["groups"] * g["blocks"] >= 512
+    for live in (1, 17):  # its live rows: a box's 4 tiles on 4 warps
+        g = geo(ac, 16, live)
+        assert g["gw"] == 4 and g["blocks"] == live
+    g = geo(gc, 128, 201)  # GC-1: 201 boxes of 32 tiles over 101 blocks
+    assert g["gw"] == 4 and g["blocks"] * g["groups"] >= 201 and g["blocks"] >= 100
+
+
+def test_forced_kc_geometry_is_checked():
+    sizes = NETS["AC-S1"]
+    g = engine.attack_flips_geometry(sizes, 128, 2, 2048, sms=SMS, _force=(8, 4, 2))
+    assert (g["tw"], g["warps"], g["gw"], g["groups"]) == (8, 4, 2, 2)
+    for bad in ((16, 12, 1),  # 12 warps, 12 strips of 512 logits: 245 KB
+                (16, 6, 4), (16, 13, 1), (6, 4, 1), (68, 1, 1), (16, 16, 16), (16, 0, 1)):
+        with pytest.raises(ValueError):
+            engine.attack_flips_geometry(sizes, 128, 2, 2048, sms=SMS, _force=bad)
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.attack_flips_geometry((13, 4096, 1), 128, 2, 2048)
+
+
+def test_sim_rows_geometry_and_its_index_limit():
+    g = pruning.sim_rows_geometry(13, 1000)  # AC-S1's retry row: one value a thread
+    assert (g["rpp"], g["grid_x"], g["per_launch"], g["launches"]) == (19, 53, 19, 1)
+    assert g["rpp"] * 13 * g["grid_x"] >= 13 * 1000 > g["rpp"] * 13 * (g["grid_x"] - 1)
+    g = pruning.sim_rows_geometry(20, 1000, boxes=16)  # GC: a 16-box chunk, 12 a launch
+    assert (g["rpp"], g["grid_x"], g["per_launch"], g["launches"]) == (12, 84, 12, 2)
+    assert pruning.sim_rows_geometry(256, 37)["rpp"] == 1
+    assert pruning.sim_rows_geometry(13, (2**31 - 1) // 13)["grid_x"] == 65535
+    for d, S in ((257, 10), (0, 10), (13, 0), (13, 2**31 // 13 + 1), (1, 2**31)):
+        with pytest.raises(ValueError):
+            pruning.sim_rows_geometry(d, S)

@@ -24,7 +24,8 @@ def _partitionable():
         "jax_threefry_partitionable is off: the port's RNG would not match"
 
 
-@pytest.mark.parametrize("seed,offset,n", [(42, 0, 7), (0, 1000, 5), (7, 16000, 3)])
+@pytest.mark.parametrize("seed,offset,n", [(42, 0, 7), (0, 1000, 5), (7, 16000, 3),
+                                           (2**32 + 5, 70_000, 4), (2**40 + 123, 65_530, 9)])
 def test_grid_keys_bit_equal(seed, offset, n):
     _partitionable()
     want = np.asarray(jax.random.key_data(jprng.grid_keys(seed, offset, n)))
@@ -59,3 +60,19 @@ def test_simulate_box_bit_equal(name):
 def test_shuffled_order_matches():
     np.testing.assert_array_equal(tprng.shuffled_order(201, 42),
                                   jprng.shuffled_order(201, 42))
+
+
+@pytest.mark.parametrize("words", [(0, 42), (1, 5), (0xDEADBEEF, 0x12345678)])
+def test_fold_in_of_any_key_words(words):
+    """``fold_in_plain`` (the plain version the card's key kernel is held
+    against, ``csrc/common.cuh:fold_in``) equals ``jax.random.fold_in`` of
+    the raw key ``words`` — a nonzero high word included — at indices past
+    65,535."""
+    _partitionable()
+    key = jax.random.wrap_key_data(np.asarray(words, np.uint32))
+    idx = np.arange(65_530, 65_545)
+    want = np.stack([np.asarray(jax.random.key_data(jax.random.fold_in(key, int(i))))
+                     for i in idx])
+    got = tprng.fold_in_plain(words, 65_530, idx.size).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    assert tprng.key_words(2**32 + 5) == (0, 5)

@@ -173,3 +173,99 @@ def test_funnel_copy_matches_reference():
     for args in (("unsat", "stage0"), ("sat", "stage0"), ("unknown", "bab", None, "deadline"),
                  ("unknown", "degraded", "launch.decode:fatal")):
         assert tfunnel.classify(*args) == jfunnel.classify(*args)
+
+
+# --------------------------------------------------------------------------
+# certify_attack over live rows (the host frontier's batches) and the
+# lowest flat witness
+
+
+def _frontier_case(preset, ws, bs, F, S, seed):
+    """A host-frontier batch of ``F`` grid boxes of ``preset`` with ``S``
+    attack candidates each (numpy ``default_rng(seed)``), as tensors for
+    both packages."""
+    cfg = tpresets.get(preset)
+    tenc, jenc = tencode(cfg.query()), jencode(jpresets.get(preset).query())
+    _, lo, hi = tsweep.build_partitions(cfg)
+    lo, hi = lo[:F], hi[:F]
+    flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
+    from fairify_tpu_torch.verify.property import role_boxes
+    boxes = role_boxes(tenc, flo, fhi)  # x_lo, x_hi, xp_lo, xp_hi, valid
+    xr, pr = tengine.build_attack_candidates(tenc, np.random.default_rng(seed), lo, hi, S)
+    av, pm, rm = tengine.enc_tensors(tenc, lo.shape[1])
+    ins = (*boxes[:4], flo, fhi, av, pm, rm)
+    return tenc, jenc, ins, boxes[4], xr, pr
+
+
+def _certify_attack_both(ws, bs, tenc, jenc, ins, valid, xr, pr, live=None):
+    T = torch.as_tensor
+    tout = tengine.certify_attack(
+        tmlp.from_numpy(ws, bs, device="cpu"), *(T(a) for a in ins), float(tenc.eps),
+        T(valid), T(tenc.valid_pair), T(xr), T(pr), live=live)
+    jout = jengine._certify_attack_kernel(
+        jmlp.from_numpy(ws, bs), *(jnp.asarray(a) for a in ins), float(jenc.eps),
+        jnp.asarray(valid), jnp.asarray(jenc.valid_pair), jnp.asarray(xr),
+        jnp.asarray(pr), alpha_iters=0)
+    return [t.numpy() for t in tout], [np.asarray(a) for a in jout]
+
+
+@pytest.mark.parametrize("live", [1, 17])
+def test_certify_attack_live_rows(live):
+    """``certify_attack(..., live=k)`` (the host frontier's batch of k real
+    boxes in an F-row pad) equals the full call on its first k rows and
+    JAX's ``_certify_attack_kernel`` there (cert, found, witness equal;
+    margin, gap and score within TOL_REL of their scale + TOL_ABS); the
+    rows past k are ``fill_past``'s."""
+    ws, bs = _net((13, 16, 8, 1), 11)
+    tenc, jenc, ins, valid, xr, pr = _frontier_case("AC", ws, bs, 32, 16, 5)
+    full, jfull = _certify_attack_both(ws, bs, tenc, jenc, ins, valid, xr, pr)
+    part, _ = _certify_attack_both(ws, bs, tenc, jenc, ins, valid, xr, pr, live=live)
+    for f, p, j in zip(full, part, jfull):
+        np.testing.assert_array_equal(p[:live], f[:live])
+        np.testing.assert_array_equal(p[live:], np.repeat(f[live - 1:live], 32 - live, 0))
+        np.testing.assert_array_equal(
+            p, tengine.fill_past(torch.as_tensor(f), live).numpy())
+    cert, score, found, wit, margin, gap = (a[:live] for a in part)
+    jc, js, jf, jw, jm, jg = (a[:live] for a in jfull)
+    np.testing.assert_array_equal(cert, jc)
+    np.testing.assert_array_equal(found, jf)
+    np.testing.assert_array_equal(wit, jw)
+    _within(margin, jm, np.abs(jm))
+    _within(gap, jg, np.abs(jg))
+    _within(score, js, np.abs(js).max(axis=1, keepdims=True))
+
+
+def test_many_flips_take_the_lowest_flat_witness():
+    """A box with many strict flips returns JAX's witness, the lowest flat
+    (s, a, b) index among its hits (the kernel's ballot scan and the plain
+    version's minimum hit index both give it)."""
+    rng = np.random.default_rng(3)
+    d, pa = 13, 8
+    g = rng.normal(size=d).astype(np.float32)
+    g[pa] = 0.0
+    # A logit 10 x_pa + g.x - c (through two ReLU units): x with the
+    # protected value 1 and x' with 0 flip wherever c - 10 < g.x < c.
+    z = np.concatenate([g[:, None], -g[:, None]], 1)
+    z[pa] = (10.0, -10.0)
+    ws = [z, np.array([[1.0], [-1.0]], np.float32)]
+    tenc, jenc, ins, valid, xr, pr = _frontier_case("AC", ws, [np.zeros(2, np.float32),
+                                                              np.zeros(1, np.float32)],
+                                                    24, 64, 9)
+    gx = (xr[..., 0, :] * g).sum(-1)  # (B, S): g.x of each sample
+    c = np.float32(np.median(gx) + 5.0)
+    bs = [np.array([-c, c], np.float32), np.zeros(1, np.float32)]
+    tout, jout = _certify_attack_both(ws, bs, tenc, jenc, ins, valid, xr, pr)
+    found, wit = tout[2], tout[3]
+    np.testing.assert_array_equal(found, jout[2])
+    np.testing.assert_array_equal(wit, jout[3])
+    logit = lambda x: (np.maximum(x @ ws[0] + bs[0], 0) @ ws[1] + bs[1])[..., 0]
+    lx, lp = logit(xr), logit(pr)  # (B, S, V)
+    hits = ((lx[..., :, None] > 0) & (lp[..., None, :] < 0)) | (
+        (lx[..., :, None] < 0) & (lp[..., None, :] > 0))
+    hits &= valid[:, None, :, None] & valid[:, None, None, :] & tenc.valid_pair
+    flat = hits.reshape(hits.shape[0], -1)
+    many = flat.sum(1) >= 8
+    assert many.sum() >= 4 and (wit[many, 0] > 0).any()
+    first = flat.argmax(1)
+    np.testing.assert_array_equal((wit[:, 0] * 2 + wit[:, 1]) * 2 + wit[:, 2],
+                                  np.where(flat.any(1), first, 0))

@@ -150,17 +150,18 @@ def test_parity_matches_jax(sizes, P):
     assert (want < 1.0).any()  # the random masks do change predictions
 
 
-@pytest.mark.parametrize("P,sim_size", [(1, 1000), (3, 37)])
-def test_sim_rows_and_parity_resim_match_jax(P, sim_size):
-    """K12's row generator (its plain version) is bit-equal to the JAX
-    package's ``_sim_rows``, row by row; the retry's parity on changed masks
-    equals ``_parity_resim`` exactly."""
+@pytest.mark.parametrize("P,sim_size,seed,index", [(1, 1000, 42, 5), (3, 37, 42, 5),
+                                                   (2, 64, 2**32 + 9, 70_000)])
+def test_sim_rows_and_parity_resim_match_jax(P, sim_size, seed, index):
+    """K12's row generator (its plain version), which takes the seed and
+    the first global index, is bit-equal to the JAX package's ``_sim_rows``
+    on ``grid_keys(seed, index + p)``, row by row; the retry's parity on
+    changed masks equals ``_parity_resim`` exactly — with a seed past
+    2**32 (JAX keeps its low word) and an index past 65,535 too."""
     _, lo, hi = jsweep.build_partitions(jpresets.get("GC"))
     lo, hi = lo[5:5 + P], hi[5:5 + P]
-    got = tpruning.sim_rows(tprng.grid_keys(42, 5, P),
-                            torch.as_tensor(lo.astype(np.float32)),
-                            torch.as_tensor(hi.astype(np.float32)), sim_size).numpy()
-    jkeys = jprng.grid_keys(42, 5, P)
+    got = tpruning.sim_rows(seed, index, lo, hi, sim_size).numpy()
+    jkeys = jprng.grid_keys(seed, index, P)
     for p in range(P):
         want = np.asarray(jsweep._sim_rows(jkeys[p], jnp.asarray(lo[p], jnp.float32),
                                            jnp.asarray(hi[p], jnp.float32), sim_size))
@@ -172,6 +173,5 @@ def test_sim_rows_and_parity_resim_match_jax(P, sim_size):
     bs = [rng.normal(scale=0.1, size=(b,)).astype(np.float32) for b in sizes[1:]]
     dead = [rng.random(n) > 0.6 for n in sizes[1:-1]] + [np.zeros(1, bool)]
     want = jsweep._parity_resim(ws, bs, dead, jkeys[0], lo[0], hi[0], sim_size)
-    got = tsweep.parity_resim(ws, bs, dead, tprng.grid_keys(42, 5, 1)[0], lo[0], hi[0],
-                              sim_size)
+    got = tsweep.parity_resim(ws, bs, dead, seed, index, lo[0], hi[0], sim_size)
     assert got == want
