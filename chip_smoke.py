@@ -254,13 +254,38 @@ Phases (any failure exits nonzero and prints no result line):
    row 3 against its plain version by phase 2's KA rule, timed two ways
    (``time_split``) beside the library chain over all 16,000 partitions'
    samples (both ways) and the draw's floor.  (9g)
-   ``alpha_crown_output_bounds`` (iters 8) on 512 AC-S1 leftovers: within
-   the widening slack of its plain version (at most 1% of boxes excused),
-   containing float64 sampled logits, no looser than plain CROWN.
+   ``alpha_crown_output_bounds`` (K7, iters 8) on 512 AC-S1 leftovers:
+   within the widening slack of its plain version (at most 1% of boxes
+   excused), containing float64 sampled logits, no looser than plain
+   CROWN, timed two ways (``time_split``); the same boxes under the three
+   K7_FORCES geometries bit-equal to the default launch, the C entry point
+   refusing a wrong shared-memory size and a block of no boxes,
+   ``widen=False`` against its plain version, boxes with leading axes
+   bit-equal to the flat launch; and K7 at B = 1, 17 and 2,048 held and
+   timed the same way.
+10. The trained nets (``fairify_tpu_torch/models/scaled/*.npz``, loaded
+   with numpy only: AC-S1, AC-S2, BM-S1, BM-S2).  (10a) Trained AC-S1's
+   stage 0 (prune, certificate + attack, parity) over AC partitions
+   0-256 on the card, which the CPU worker repeats: rows (id, verdict,
+   witness) equal; partitions whose dead masks or parity differ counted.
+   (10b) After phase 6, trained AC-S1 in phase 6's configuration
+   (``EngineConfig(max_nodes=1000)``, 0.1 s soft, 75 s hard) on its
+   stress-AC cell (partitions 0-1,024) and on stress-AC partitions
+   1,024-4,096 (with the cell, the prefix the JAX package's
+   stress-AC-scaled AC-S1 row attempted): counts, decided fraction,
+   first-pass decisions by engine phase,
+   and (``LatticeTally``, from outside the package) how Phase E0's and
+   E's roots end — a certain flip, a margin cell, unsat, an evidence
+   mismatch (the masked-net quirk on the heuristic retry's masked nets) or
+   the deadline — and how often ``_EvidenceMismatch`` was raised.  (10c)
+   After 9g, K7 on trained AC-S1's stage-0 leftovers by 9g's rule.  (10d)
+   Row 17 of each trained net on 4,096 seeded domain points per role
+   against the float64 forward.
 
 Phase 4 runs before phase 3, and the run waits for the CPU worker before
-phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e and 9 run
-without it (7a-7d and phase 8's kernel checks, 8c and 8d run beside it).
+phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e, 9, 10b
+and 10c run without it (10a's card side, 7a-7d and phase 8's kernel
+checks, 8c and 8d run beside it).
 
 Every ``run_sweep``/``counted`` window splits K8a's launches by (α, live
 rows up to the next power of two), KB's (rows 4-7, 14, 15) by (α, boxes,
@@ -2858,8 +2883,10 @@ def lattice_cpu_worker(path_in: str, path_out: str) -> int:
     """``chip_smoke.py --lattice-cpu IN OUT``: the CPU plain path's
     decide_box_exhaustive on the boxes of IN (the AC-S1 twin, per preset,
     and the crossing twin on its box, one chunk in flight: it decides at
-    its first chunk) into OUT.  Runs in its own process beside the rest
-    of phase 1b, phases 2-2c and the ladder world."""
+    its first chunk), then trained AC-S1's stage 0 over AC partitions
+    0-TRAINED_S0_SPAN (:func:`trained_stage0`), into OUT.  Runs in its own
+    process beside the rest of phase 1b, phases 2-2c and the ladder
+    world."""
     import numpy as np
     import torch
 
@@ -2878,6 +2905,10 @@ def lattice_cpu_worker(path_in: str, path_out: str) -> int:
         xnet = crossing_twin(net, enc, scale, shift, "cpu")
         res[f"{name}/crossing"] = decide_boxes(xnet, enc, boxes[f"{name}/xlo"][None],
                                                boxes[f"{name}/xhi"][None], pipeline_depth=1)
+    t = time.perf_counter()
+    res["trained"] = trained_stage0(trained_nets("cpu")["AC-S1"], trained_stage0_cfg(),
+                                    TRAINED_S0_SPAN)
+    res["trained_s"] = time.perf_counter() - t
     with open(path_out, "w") as fp:
         json.dump(res, fp)
     return 0
@@ -3031,10 +3062,11 @@ def lattice_kernel_checks(net, lat: dict) -> dict:
     return rows
 
 
-def lattice_card_vs_cpu(worker, card, path_out: str) -> None:
+def lattice_card_vs_cpu(worker, card, path_out: str, trained_card: dict) -> dict:
     """Wait for the CPU worker; its verdicts and witnesses must equal the
     card's on every box (the crossing twin's box: sat), and no box may
-    stay unknown."""
+    stay unknown; trained AC-S1's stage-0 rows must equal the card's
+    (:func:`trained_stage0_vs_cpu`), whose summary this returns."""
     t = time.perf_counter()
     rc = worker.wait(timeout=900)
     print(f"[card = CPU] waited {time.perf_counter() - t:.3f} s for the CPU worker",
@@ -3057,6 +3089,9 @@ def lattice_card_vs_cpu(worker, card, path_out: str) -> None:
               f"witnesses equal, card {t_card:.3f} s, CPU worker {t_cpu:.3f} s; the "
               f"crossing twin's box: sat through a first flip on both, witness equal, "
               f"CPU {xt_cpu:.3f} s", flush=True)
+    out = trained_stage0_vs_cpu(trained_card, cpu["trained"])
+    out["cpu_s"] = cpu["trained_s"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4414,6 +4449,12 @@ def ibp_grid(work: str, ac_net, ac_cfg) -> dict:
 MESH_AC_SPAN, MESH_AC_HARD_S = (0, 2048), 15.0
 GC_COUNTS = {"sat": 2, "unsat": 199, "unknown": 0}
 K7_ITERS, K7_BOXES = 8, 512
+# K7's other launch shapes (boxes), each held and timed: one box, a few
+# boxes, every leftover the AC-S1 tails take.
+K7_SIZES = (1, 17, 2048)
+# Forced K7 geometries (boxes a block, warps): one box on two warps, two
+# boxes on four, eight boxes on sixteen; the bounds must not depend on them.
+K7_FORCES = ((1, 2), (2, 4), (8, 16))
 # Of K7's boxes at most this share may differ from the plain version by
 # more than the widening slack (an α path that met a zero gradient, where
 # the two versions' rounding may step differently); every box stays sound
@@ -4719,56 +4760,379 @@ def harsh_check(ac_net, ac_cfg, reps: int) -> dict:
     return row
 
 
-def k7_check(ac_net, lo, hi, reps: int) -> dict:
-    """Phase 9g: ``alpha_crown_output_bounds`` (K7, ``iters`` = 8) on 512
-    AC-S1 stage-0 leftover boxes against its plain version: within the
-    widening slack on all but K7_EXCUSE_SHARE of the boxes, containing the
-    float64 logits of 32 seeded points per box, and no looser than plain
-    CROWN (the kernel's own ``iters = 0`` launch exactly, the plain
-    version's within the slack).  Returns the row."""
-    import numpy as np
+def k7_hold(name, net, lo_t, hi_t, reps: int, widen: bool = True, sound: bool = True) -> dict:
+    """K7 on (B, d) boxes against its plain version, ``widen`` passed to
+    both: within the widening slack on all but K7_EXCUSE_SHARE of the
+    boxes, no looser than plain CROWN (the kernel's own ``iters = 0``
+    launch exactly, the plain version's within the slack) and, with
+    ``sound``, containing the float64 logits of 32 seeded points per box.
+    Times the wrapper (median of ``reps``) and the C entry point alone
+    (``time_split``).  Returns the row."""
     import torch
 
     from fairify_tpu_torch.ops import crown
     from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
 
-    F = min(K7_BOXES, len(lo))
-    lo_t, hi_t = (torch.as_tensor(a[:F].astype(np.float32), device="cuda") for a in (lo, hi))
-    _, launch, wall = counted(lambda: crown.alpha_crown_output_bounds(ac_net, lo_t, hi_t,
-                                                                      iters=K7_ITERS))
-    (klo, khi), k_ms = timed(lambda: crown.alpha_crown_output_bounds(
-        ac_net, lo_t, hi_t, iters=K7_ITERS), reps)
+    F = len(lo_t)
+    run = lambda: crown.alpha_crown_output_bounds(net, lo_t, hi_t, iters=K7_ITERS, widen=widen)
+    (klo, khi), k_ms = timed(run, reps)
     (plo, phi), p_ms = timed(lambda: crown.alpha_crown_output_bounds_plain(
-        ac_net, lo_t, hi_t, iters=K7_ITERS), 1)
-    c_lo, c_hi = crown.alpha_crown_output_bounds(ac_net, lo_t, hi_t, iters=0)
-    cp_lo, cp_hi = crown.crown_output_bounds(ac_net, lo_t, hi_t)
-    ref_lo, ref_hi = f64_sampled_range(ac_net, lo_t, hi_t)
+        net, lo_t, hi_t, iters=K7_ITERS, widen=widen), 1)
+    split = time_split(run, crown._alpha_crown_prepare(net, lo_t, hi_t, K7_ITERS, widen))
+    c_lo, c_hi = crown.alpha_crown_output_bounds(net, lo_t, hi_t, iters=0)
+    cp_lo, cp_hi = crown.crown_output_bounds(net, lo_t, hi_t)
     slack = SOUND_SLACK_REL * torch.maximum(plo.abs(), phi.abs()) + SOUND_SLACK_ABS
     ratio = torch.maximum((klo - plo).abs(), (khi - phi).abs()) / slack
     excused = int((ratio > 1.0).sum())
-    unsound = int((klo.double() > ref_lo).sum() + (khi.double() < ref_hi).sum())
+    unsound = 0
+    if sound:
+        ref_lo, ref_hi = f64_sampled_range(net, lo_t, hi_t)
+        unsound = int((klo.double() > ref_lo).sum() + (khi.double() < ref_hi).sum())
     looser = int((klo < c_lo).sum() + (khi > c_hi).sum()
                  + (klo < cp_lo - slack).sum() + (khi > cp_hi + slack).sum())
-    if launch["alpha_crown"] != 1 or unsound or looser or excused > K7_EXCUSE_SHARE * F:
-        fail(f"K7: launches {launch}; {unsound} bounds miss a float64 sample, {looser} are "
-             f"looser than plain CROWN, {excused} of {F} boxes differ from the plain "
-             "version by more than the widening slack")
-    sizes = [ac_net.in_dim] + list(ac_net.layer_sizes)
+    if unsound or looser or excused > K7_EXCUSE_SHARE * F:
+        fail(f"K7 {name}: {unsound} bounds miss a float64 sample, {looser} are looser than "
+             f"plain CROWN, {excused} of {F} boxes differ from the plain version by more "
+             "than the widening slack")
+    sizes = [net.in_dim] + list(net.layer_sizes)
     hidden = macs(sizes[:-1])
     fl = F * (crown_flops(sizes) + K7_ITERS * 8 * hidden + 4 * hidden)
     by = F * (2 * sizes[0] * 4 + 8) + 4 * (macs(sizes) + 2 * sum(sizes[1:]))
     tight = float(((khi - klo) / (c_hi - c_lo)).mean())
     row = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=float(torch.maximum(
         (klo - plo).abs(), (khi - phi).abs()).max()), err_x_slack=float(ratio.max()),
-        excused=excused, boxes=F, iters=K7_ITERS, width_vs_crown=tight,
-        launches=launch["alpha_crown"])
+        excused=excused, boxes=F, iters=K7_ITERS, width_vs_crown=tight, time_split=split,
+        out=(klo, khi))
     row["bound_ms"], row["bound_by"] = bound(fl, by)
-    print(f"[kernel K7] alpha_crown_output_bounds iters={K7_ITERS} on {F} AC-S1 leftovers: "
-          f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-          f"{row['bound_by']}); error {row['err_x_slack']:.3f} x the widening slack "
-          f"({excused} boxes past it); every box contains its float64 samples and is no "
+    print(f"[kernel K7 {name}] alpha_crown_output_bounds iters={K7_ITERS}"
+          f"{'' if widen else ', widen=False'} on {F} boxes: {k_ms:.4f} ms (C entry point "
+          f"alone {split['entry_ms']:.4f} ms, wrapper share {split['wrapper_share']:.3f}; "
+          f"plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}); error "
+          f"{row['err_x_slack']:.3f} x the widening slack ({excused} boxes past it); "
+          f"{'every box contains its float64 samples and ' if sound else ''}no box is "
           f"looser than CROWN (mean width {tight:.4f} of CROWN's)", flush=True)
     return row
+
+
+def k7_geometry_checks(name, net, lo_t, hi_t, want) -> dict:
+    """K7's bounds under the K7_FORCES geometries (boxes a block, warps)
+    must equal the default launch's ``want`` bit for bit; the C entry point
+    must refuse a shared-memory size that is not its geometry's and a block
+    of no boxes.  Launches of the entry point count nowhere."""
+    import torch
+
+    from fairify_tpu_torch.ops import crown
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for f in K7_FORCES:
+        fn, args, out = crown._alpha_crown_prepare(net, lo_t, hi_t, K7_ITERS, True,
+                                                   _geometry_force=f)
+        err = fn(*args, stream)
+        torch.cuda.synchronize()
+        if err or not (torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])):
+            fail(f"K7 {name}: (boxes a block, warps) {f} gives other bounds than the default "
+                 f"geometry (error {err})")
+    fn, args, out = crown._alpha_crown_prepare(net, lo_t, hi_t, K7_ITERS, True)
+    bad = {"smem + 16": args[:-1] + (args[-1] + 16,),
+           "no boxes a block": args[:-3] + (0,) + args[-2:]}
+    refused = {k: fn(*a, stream) for k, a in bad.items()}
+    torch.cuda.synchronize()
+    if not all(refused.values()):
+        fail(f"K7 {name}: the C entry point accepted a wrong geometry ({refused})")
+    print(f"[geometry {name}] K7 at (boxes a block, warps) {list(K7_FORCES)}: bit-equal to the "
+          f"default; the entry point refuses {sorted(refused)} (errors "
+          f"{sorted(refused.values())})", flush=True)
+    return dict(forced=[list(f) for f in K7_FORCES], refused=refused)
+
+
+def k7_check(name, net, lo, hi, reps: int, more: bool = True) -> dict:
+    """Phase 9g: ``alpha_crown_output_bounds`` (K7, ``iters`` = 8) on up to
+    512 stage-0 leftover boxes (:func:`k7_hold`), one launch through the
+    launch counters.  With ``more``: the same boxes under the forced
+    geometries (:func:`k7_geometry_checks`), with ``widen=False`` and with
+    extra leading axes (bit-equal to the flat launch), and the launch
+    shapes K7_SIZES each held and timed.  Returns the row."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.ops import crown
+
+    F = min(K7_BOXES, len(lo))
+    lo_all, hi_all = (torch.as_tensor(a.astype(np.float32), device="cuda") for a in (lo, hi))
+    lo_t, hi_t = lo_all[:F], hi_all[:F]
+    _, launch, _ = counted(lambda: crown.alpha_crown_output_bounds(net, lo_t, hi_t,
+                                                                   iters=K7_ITERS),
+                           f"K7 {name}")
+    if launch["alpha_crown"] != 1:
+        fail(f"K7 {name}: launches {launch}")
+    row = k7_hold(name, net, lo_t, hi_t, reps)
+    row["launches"] = launch["alpha_crown"]
+    if not more:
+        row.pop("out")
+        return row
+    row["geometry"] = k7_geometry_checks(name, net, lo_t, hi_t, row.pop("out"))
+    un = k7_hold(f"{name} unwidened", net, lo_t, hi_t, 1, widen=False, sound=False)
+    row["unwidened"] = {k: un[k] for k in ("ms", "max_abs_err", "err_x_slack", "excused")}
+    if F % 8 == 0:
+        flat = crown.alpha_crown_output_bounds(net, lo_t, hi_t, iters=K7_ITERS)
+        lead = crown.alpha_crown_output_bounds(net, lo_t.view(8, F // 8, -1),
+                                               hi_t.view(8, F // 8, -1), iters=K7_ITERS)
+        if lead[0].shape != (8, F // 8) or not all(torch.equal(a.reshape(-1), b)
+                                                    for a, b in zip(lead, flat)):
+            fail(f"K7 {name}: boxes of shape (8, {F // 8}, d) give other bounds than (B, d)")
+    shapes = {}
+    for B in K7_SIZES:
+        if B <= len(lo_all):
+            r = k7_hold(f"{name} B={B}", net, lo_all[:B], hi_all[:B], reps)
+            r.pop("out")
+            shapes[str(B)] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "max_abs_err", "err_x_slack", "time_split")}
+    row["launch_shapes"] = shapes
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the trained nets (fairify_tpu_torch/models/scaled/*.npz)
+# ---------------------------------------------------------------------------
+
+# AC partitions whose stage 0 the CPU worker repeats on trained AC-S1.
+TRAINED_S0_SPAN = 256
+# Seeded domain points per role of each trained net's row-17 check.
+TRAINED_POINTS = 4096
+
+
+def smoke_engine_cfg():
+    """The engine configuration of phases 2-4 and of the trained stage 0."""
+    from fairify_tpu_torch.verify.config import EngineConfig
+
+    return EngineConfig(frontier_size=512, attack_samples=128, bab_attack_samples=16,
+                        soft_timeout_s=10.0)
+
+
+def trained_stage0_cfg():
+    """The AC preset as phases 2-9 run it (exact-certify off)."""
+    from fairify_tpu_torch.verify import presets
+
+    return presets.get("AC").with_(exact_certify_masks=False, engine=smoke_engine_cfg())
+
+
+def trained_stage0(net, cfg, span: int) -> dict:
+    """Stage 0 of ``net`` over the grid's first ``span`` partitions as
+    verify_model runs it before its tail: the prune (KA), the certificate
+    and attack (KB + KC) and the parity pass (KD).  Returns JSON-ready rows
+    (partition id, verdict: unsat, sat or open, witness), the sound dead
+    masks (per layer, per partition) and the parity column."""
+    import numpy as np
+
+    from fairify_tpu_torch.obs import funnel as funnel_mod
+    from fairify_tpu_torch.verify import pruning, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    enc = encode(cfg.query())
+    _, lo, hi = sweep.build_partitions(cfg)
+    lo, hi = lo[:span], hi[:span]
+    prune = pruning.sound_prune_grid(net, lo, hi, cfg.sim_size, cfg.seed, chunk=cfg.grid_chunk,
+                                     mega_chunks=cfg.mega_chunks if sweep.use_mega(cfg, None)
+                                     else 0, exact_certify=False)
+    unsat, sat, wit = sweep.stage0_certify_and_attack(net, enc, lo, hi, cfg,
+                                                      stats=funnel_mod.StageStats(), failed={})
+    parity = sweep.parity_pass(net, prune, lo, hi, cfg)
+    rows = [[p + 1, "unsat" if unsat[p] else "sat" if sat[p] else "open",
+             [np.asarray(c).tolist() for c in wit[p]] if p in wit else None]
+            for p in range(len(lo))]
+    return json.loads(json.dumps(dict(
+        rows=rows, dead=[np.asarray(d).astype(int).tolist() for d in prune.st_deads],
+        parity=np.asarray(parity, dtype=np.float64).tolist())))
+
+
+def trained_stage0_vs_cpu(card: dict, cpu: dict) -> dict:
+    """Card = CPU on trained AC-S1's stage 0: rows (id, verdict, witness)
+    equal, or the run fails; the partitions whose dead masks or parity
+    differ are counted and printed."""
+    if card["rows"] != cpu["rows"]:
+        bad = [(g, w) for g, w in zip(card["rows"], cpu["rows"]) if g != w]
+        fail(f"trained AC-S1 stage 0, card vs CPU: {len(bad)} rows differ, first {bad[:3]}")
+    n = len(card["rows"])
+    masks = sum(1 for p in range(n) if any(c[p] != w[p] for c, w in zip(card["dead"],
+                                                                         cpu["dead"])))
+    parity = sum(1 for a, b in zip(card["parity"], cpu["parity"]) if a != b)
+    counts = {v: sum(1 for r in card["rows"] if r[1] == v) for v in ("unsat", "sat", "open")}
+    print(f"[card = CPU trained AC-S1] stage 0 over AC partitions 0-{n}: {counts}; ledger "
+          f"rows (id, verdict, witness) equal; dead masks differ on {masks}, parity on "
+          f"{parity} partitions", flush=True)
+    return dict(counts=counts, masks_differ=masks, parity_differ=parity)
+
+
+def trained_nets(device: str) -> dict:
+    """The four trained nets from their ``.npz`` exports (numpy only)."""
+    from fairify_tpu_torch.models import ingest
+
+    return {name: ingest.load_trained(name, device) for name in sorted(ingest.TRAINED)}
+
+
+def trained_forward_checks(nets: dict) -> dict:
+    """Row 17 (``attack_logits``) of each trained net on TRAINED_POINTS
+    seeded integer points per role of its domain (adult for AC, bank for
+    BM), held against the float64 forward (``forward_np``): every logit
+    within TOL_REL of its rounding scale |h| @ |W| + |b| + TOL_ABS.
+    Returns per net the error as a multiple of the tolerance."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.data.domains import get_domain
+    from fairify_tpu_torch.models.mlp import forward_np
+    from fairify_tpu_torch.verify import engine
+
+    out = {}
+    for name, net in nets.items():
+        lo, hi = get_domain("adult" if name.startswith("AC") else "bank").lo_hi()
+        rng = np.random.default_rng(0)
+        x = rng.integers(lo.astype(np.int64), hi.astype(np.int64) + 1,
+                         size=(2, TRAINED_POINTS, len(lo))).astype(np.float32)
+        xt = torch.as_tensor(x, device="cuda")
+        k = engine.attack_logits(net, xt[0], xt[1])
+        ws, bs = net.numpy_params()
+        err = 0.0
+        for r in range(2):
+            f64 = torch.as_tensor(forward_np(ws, bs, x[r]), device="cuda")
+            scale = logit_scale(net, xt[r]).double()
+            tol = TOL_REL * torch.maximum(f64.abs(), scale) + TOL_ABS
+            err = max(err, float(((k[r].double() - f64).abs() / tol).max()))
+        if not err <= 1.0:
+            fail(f"trained {name}: row-17 logits {err} x the tolerance from float64")
+        out[name] = err
+    print(f"[trained nets] row 17 on {TRAINED_POINTS} seeded domain points per role, against "
+          f"float64: error x tolerance {json.dumps(out)}", flush=True)
+    return out
+
+
+class LatticeTally:
+    """How Phase E0's and Phase E's roots end, counted from outside the
+    package: ``ops.lattice.decide_box_exhaustive``, its margin resolvers
+    and ``_EvidenceMismatch`` are swapped for counting wrappers (a counting
+    subclass of the exception: every raise counts), and
+    ``engine.lattice_phase`` marks Phase E.  A root's end: ``sat_flip`` (a
+    certain flip of the scan, exact-validated), ``sat_margin`` (a margin
+    cell settled by the host ladder), ``unsat``, ``unknown_mismatch`` (an
+    evidence mismatch: the masked-net quirk where the net is masked),
+    ``unknown_deadline``; keyed by phase and by whether the net is masked
+    (the heuristic retry's nets).  With relaxed attributes a flip and a
+    margin cell both end in ``engine.decide_leaf`` inside the scan's
+    closures, so an RA root's SAT counts as ``sat_ra``."""
+
+    def __enter__(self):
+        from fairify_tpu_torch.ops import lattice as lat
+        from fairify_tpu_torch.verify import engine
+
+        self.ends, self.mismatches, self._in_e, self._cur = {}, 0, False, None
+        self._saved = (lat._EvidenceMismatch, lat.decide_box_exhaustive, lat._resolve_margin,
+                       lat._resolve_signs, engine.lattice_phase)
+        mismatch, decide, margin, signs, phase_e = self._saved
+        tally = self
+
+        class Counting(mismatch):
+            def __init__(self, *args):
+                super().__init__(*args)
+                tally.mismatches += 1
+                if tally._cur is not None:
+                    tally._cur["mismatch"] = True
+
+        def settled(fn):
+            def wrapped(*args, **kw):
+                out = fn(*args, **kw)
+                if out is not None and tally._cur is not None:
+                    tally._cur["margin"] = True
+                return out
+            return wrapped
+
+        def decide_counted(net, enc, *args, **kw):
+            outer, self._cur = self._cur, {"margin": False, "mismatch": False}
+            try:
+                verdict, ce = decide(net, enc, *args, **kw)
+                cur = self._cur
+            finally:
+                self._cur = outer
+            sat = "sat_ra" if enc.eps and len(enc.ra_idx) else (
+                "sat_margin" if cur["margin"] else "sat_flip")
+            end = {"sat": sat, "unsat": "unsat"}.get(
+                verdict, "unknown_mismatch" if cur["mismatch"] else "unknown_deadline")
+            masked = any(bool((m == 0).any()) for m in net.masks)
+            key = f"{'E' if self._in_e else 'E0'}{' masked' if masked else ''}"
+            self.ends.setdefault(key, {}).setdefault(end, 0)
+            self.ends[key][end] += 1
+            return verdict, ce
+
+        def phase_e_marked(*args, **kw):
+            self._in_e = True
+            try:
+                return phase_e(*args, **kw)
+            finally:
+                self._in_e = False
+
+        lat._EvidenceMismatch = Counting
+        lat.decide_box_exhaustive = decide_counted
+        lat._resolve_margin = settled(margin)
+        lat._resolve_signs = settled(signs)
+        engine.lattice_phase = phase_e_marked
+        return self
+
+    def __exit__(self, *exc):
+        from fairify_tpu_torch.ops import lattice as lat
+        from fairify_tpu_torch.verify import engine
+
+        (lat._EvidenceMismatch, lat.decide_box_exhaustive, lat._resolve_margin,
+         lat._resolve_signs, engine.lattice_phase) = self._saved
+
+
+# Phase 10b's runs of trained AC-S1 in the default configuration: phase 6's
+# stress-AC cell, then the rest of the 4,096-partition prefix that the JAX
+# package's stress-AC-scaled AC-S1 row attempted (VARIANTS.md), whose
+# decided counts the two runs must add up to when they decide everything.
+TRAINED_DEFAULT = (("stress-AC", (0, 1024)), ("stress-AC", (1024, 4096)))
+# That row's decided counts (VARIANTS.md:198-199: 4,096 partitions attempted,
+# none unknown).
+JAX_STRESS_AC_S1 = {"sat": 993, "unsat": 3103, "unknown": 0}
+
+
+def trained_default(work: str, net, preset: str, span) -> dict:
+    """Phase 10b: trained AC-S1 in phase 6's configuration on ``preset``
+    partitions ``span`` (``EngineConfig(max_nodes=1000)``, 0.1 s soft, 75 s
+    hard), under :class:`LatticeTally`: the counts, decided fraction,
+    first-pass decisions by engine phase (E0's ``lattice_first``, Phase
+    P's ``pair``), how E0's and E's roots end and how often
+    ``_EvidenceMismatch`` was raised.  Returns the summary."""
+    from fairify_tpu_torch.verify import presets
+    from fairify_tpu_torch.verify.config import EngineConfig
+
+    cfg = presets.get(preset).with_(
+        result_dir=os.path.join(work, f"default-{preset}-trained-{span[0]}"),
+        exact_certify_masks=False, soft_timeout_s=DEFAULT_SOFT_S,
+        hard_timeout_s=DEFAULT_HARD_S, engine=EngineConfig(max_nodes=1000))
+    label = f"{preset} default, trained AC-S1, {span[0]}-{span[1]}"
+    with LatticeTally() as tally:
+        rep, launch, wall = run_sweep(net, cfg, "AC-S1", span=span, required=DEFAULT_PATH[:4],
+                                      label=label)
+    thr = check_outputs(rep, cfg, net, "AC-S1", launch)
+    c, ph = rep.counts, thr["phases_s"]
+    e0 = tally.ends.get("E0", {})
+    out = dict(counts=c, decided_fraction=thr["decided_fraction"], wall_s=wall,
+               first_pass=thr["engine_decided"], lattice_ends=tally.ends,
+               evidence_mismatches=tally.mismatches, stage0_decided=thr["stage0_decided"],
+               bab_decided=thr["bab_decided"], launches=launch,
+               retry=[sum(o.h_success for o in rep.outcomes),
+                      sum(o.h_attempt for o in rep.outcomes)],
+               t_pair=ph.get("engine_pair", 0.0))
+    print(f"[{label}] sat {c['sat']} unsat {c['unsat']} unknown {c['unknown']}, "
+          f"decided_fraction {thr['decided_fraction']} in {wall:.3f} s (stage 0 + PGD "
+          f"decided {thr['stage0_decided']}; the engine and the retry {thr['bab_decided']}; "
+          f"first pass by phase {thr['engine_decided']}; retry {out['retry'][0]} of "
+          f"{out['retry'][1]} tried); E0 roots end {json.dumps(e0)} (certain flips "
+          f"{e0.get('sat_flip', 0)}, margin cells {e0.get('sat_margin', 0)}); every lattice "
+          f"root by phase {json.dumps(tally.ends)}; _EvidenceMismatch raised "
+          f"{tally.mismatches} times; engine t_lattice {ph.get('engine_lattice', 0.0):.3f} s, "
+          f"t_pair {ph.get('engine_pair', 0.0):.3f} s, t_lp {ph.get('engine_lp', 0.0):.3f} s; "
+          f"funnel {thr['funnel']}; launches {launch}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5256,7 +5620,6 @@ def main() -> int:
         return 2
     from fairify_tpu_torch.models.mlp import seeded_net
     from fairify_tpu_torch.utils import cuda_build, num
-    from fairify_tpu_torch.verify.config import EngineConfig
 
     # --- phase 1
     smi = smi_line()
@@ -5273,8 +5636,7 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
     finish_draw_probe(probe)
 
-    engine_cfg = EngineConfig(frontier_size=512, attack_samples=128,
-                              bab_attack_samples=16, soft_timeout_s=10.0)
+    engine_cfg = smoke_engine_cfg()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     ac_net = seeded_net(AC_SIZES, seed=0, device="cuda")
     # --- phase 1b: the lattice kernels; the CPU side of card = CPU runs in
@@ -5298,6 +5660,15 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     from fairify_tpu_torch.verify import presets, sweep
     from fairify_tpu_torch.verify.config import EngineConfig
     from fairify_tpu_torch.verify.property import encode
+
+    # --- phase 10a, its card side: the trained nets load from their .npz
+    # exports; trained AC-S1's stage 0, which the CPU worker repeats
+    tnets = trained_nets("cuda")
+    t = time.perf_counter()
+    trained_s0 = trained_stage0(tnets["AC-S1"], trained_stage0_cfg(), TRAINED_S0_SPAN)
+    print(f"[trained nets] {sorted(tnets)} loaded from their .npz exports; trained AC-S1's "
+          f"stage 0 over AC partitions 0-{TRAINED_S0_SPAN} on the card in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
 
     # --- phase 2: the stage-0 kernels
     gc_cfg = presets.get("GC").with_(result_dir=os.path.join(work, "gc"),
@@ -5403,7 +5774,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
 
     # The CPU side of card = CPU ran beside phases 1b-2c, 4 and 7's checks;
     # the timed end-to-end phases 3, 5, 6 and 7's family run go without it.
-    lattice_card_vs_cpu(worker, lat_card, lat_out)
+    trained_cmp = lattice_card_vs_cpu(worker, lat_card, lat_out, trained_s0)
 
     # --- phase 3: the GC-1 main path (stage 0 decides every partition)
     rep, gc_launch, wall = run_sweep(gc_net, gc_cfg, "GC-1",
@@ -5517,6 +5888,15 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"{ph.get('engine_bab', 0.0):.3f} s, t_pair {ph.get('engine_pair', 0.0):.3f} "
               f"s; unknown reasons {reasons}; funnel {thr['funnel']}; phases {ph}; "
               f"launches {launch}", flush=True)
+    # --- phase 10b: trained AC-S1 in phase 6's configuration
+    trained6 = {f"{p} {a}-{b}": trained_default(work, tnets["AC-S1"], p, (a, b))
+                for p, (a, b) in TRAINED_DEFAULT}
+    both = {v: sum(r["counts"][v] for r in trained6.values()) for v in JAX_STRESS_AC_S1}
+    if both["unknown"] == 0 and both != JAX_STRESS_AC_S1:
+        fail(f"trained AC-S1, stress-AC 0-4,096: {both}, the JAX package's row "
+             f"{JAX_STRESS_AC_S1}")
+    print(f"[stress-AC default, trained AC-S1, 0-4096] {both}; the JAX package's "
+          f"stress-AC-scaled AC-S1 row {JAX_STRESS_AC_S1}", flush=True)
     # --- phase 7, end to end: the AC-S1 family through verify_model(stage0=)
     fam_launch = family_tail(work, fam_nets, ac_cfg, fam_res, solo_res)
     # --- phase 8, end to end: GC-1 and the AC grid on the IBP path; the
@@ -5531,7 +5911,12 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     k9 = mesh_kernels(ac_net, ac_cfg, fam_nets, enc, lo, hi, reps=3)
     worlds9 = mesh_worlds(work, fam_nets, ac_cfg)
     harsh9 = harsh_check(ac_net, ac_cfg, reps=3)
-    k7 = k7_check(ac_net, lo, hi, reps=3)
+    k7 = k7_check("AC-S1 twin", ac_net, lo, hi, reps=3)
+    # --- phase 10c, 10d: K7 on trained AC-S1's stage-0 leftovers; row 17
+    # of the four trained nets against float64
+    _, tlo, thi = leftovers(tnets["AC-S1"], ac_cfg, None, 8192)
+    k7["trained"] = k7_check("AC-S1 trained", tnets["AC-S1"], tlo, thi, reps=3, more=False)
+    trained17 = trained_forward_checks(tnets)
     shutil.rmtree(work, ignore_errors=True)
     # K8a and KB by shape in every window of the run
     cert_shapes = cert_by_shape()
@@ -5556,7 +5941,9 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                 r = harsh9 if name == "sim_stats" else k7
                 row = dict(launches=r["launches"])
                 row.update({k: r[k] for k in ("partitions", "boxes", "iters", "err_x_slack",
-                                              "excused", "time_split", "draw") if k in r})
+                                              "excused", "time_split", "draw", "geometry",
+                                              "unwidened", "launch_shapes", "trained")
+                            if k in r})
             print(f"[summary] {name}: launches {row['launches']}; median {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})", flush=True)
@@ -5684,6 +6071,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     print(f"[exact-certify] AC grid sv_time_s {exact8['sv_time_s']:.3f} s; GC-1 "
           f"sv_time_s IBP {gc8['thr']['phases_s'].get('prune_exact_certify')} s, CROWN "
           f"{gc8['crown_exact']['phases'].get('prune_exact_certify')} s", flush=True)
+    print(f"[trained summary] {json.dumps(dict(stage0_card_vs_cpu=trained_cmp, stress_ac_default=trained6, row17_err_x_tol=trained17), default=str)}", flush=True)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,53 +1,86 @@
-// Warp-owned CROWN and α-CROWN of one role box: the H100 layout of K6
-// (bab_segment.cu), KB (stage0_certify.cu), K8b (inter_bounds.cu) and row
-// 13's CROWN mode (role_bounds.cu), which share its forms stage
-// (role_forms_stage).  crown.cuh runs the same arithmetic with a whole
-// block on one role box (K7 keeps it); here a block takes its role boxes
-// (KB: all 2V of one box) side by side, and every sum of a role box is
-// carried by one warp.
+// Warp-owned CROWN and α-CROWN of one role box: the port's one CROWN on the
+// card, shared by K6 (bab_segment.cu), KB (stage0_certify.cu), K8b
+// (inter_bounds.cu), row 13's CROWN mode and K7 (role_bounds.cu) through
+// their forms stage (role_forms_stage), and by K8a (sign_bound.cu) through
+// its helpers.  A block takes its role boxes (KB: all 2V of one box; K7 and
+// K8b: several boxes) side by side, and every sum of a role box is carried
+// by one warp.
 //
-// CROWN (crown.cuh:crown_role_forms).  Layer k's backward pass is out_k
-// independent columns: column c starts from W_k[:, c] and goes down to the
-// input one layer at a time (relax, add the constant terms, multiply by
-// W_j).  A warp carries two columns of one role box through every step
-// with __syncwarp only; its workspace is the columns' current vectors
-// (two floats per row, both columns) and their relaxed copies, not the
-// rows x cols matrix, and the first step relaxes W_k as it reads it.  The
-// IBP of layer k is one thread per (role box, unit).  Block barriers
-// remain only between layers: layer k's widened bounds must exist before
-// layer k + 1's relaxation.
+// CROWN (ops/crown.py:crown_bounds and the plain set of
+// crown_output_form_sets): IBP for layer 0, then for every deeper layer a
+// backward pass (triangle ReLU relaxation, adaptive lower slope) from that
+// layer to the input, concretized over the role box, intersected with IBP
+// and widened outward.  Layer k's backward pass is out_k independent
+// columns: column c starts from W_k[:, c] and goes down to the input one
+// layer at a time (relax, add the constant terms, multiply by W_j).  A warp
+// carries two columns of one role box through every step with __syncwarp
+// only; its workspace is the columns' current vectors (two floats per row,
+// both columns) and their relaxed copies, not the rows x cols matrix, and
+// the first step relaxes W_k as it reads it.  The IBP of layer k is one
+// thread per (role box, unit).  Block barriers remain only between layers:
+// layer k's widened bounds must exist before layer k + 1's relaxation.
 //
-// α-CROWN (crown.cuh:alpha_role_forms).  The lower bound depends only on
-// the slopes al and the upper only on au, so each (role box, side) is one
-// warp's chain of vectors of width <= maxw: alpha_chain's forward pass and
-// alpha_step's reverse pass, iters signed-gradient steps.
+// α-CROWN (ops/crown.py:optimize_relaxation on the output logit, with
+// alpha_iters > 0): the lower (upper) form's backward pass is a chain of
+// vectors, one per hidden layer, because the last layer has one unit.  The
+// lower bound depends only on the slopes al and the upper only on au, so
+// each (role box, side) is one warp's chain of vectors of width <= maxw:
+// alpha_chain_side's forward pass and alpha_step_side's hand-written
+// reverse pass through the chain and the concretization — with JAX's tie
+// rule, max(a, 0) and min(a, 0) each pass half of the gradient at a == 0 —
+// then the signed step α ← clip(α ∓ lr·sign(g), 0, 1), iters times.
 //
-// Relaxation.  Each unit's relaxation (crown.cuh:relax) is computed once,
-// when its bounds are widened, and read by every later column step and α
-// pass of the role box.
+// Relaxation.  Each unit's relaxation (relax below) is computed once, when
+// its bounds are widened, and read by every later column step and α pass
+// of the role box.
 //
 // Sums.  The IBP sums, the row sums of every backward step (a lane per row,
 // two columns and both forms at once) and of every α pass are index-ordered
-// fmaf chains, as in crown.cuh, except that a layer of at most 16 rows
-// splits each row's sum over the two half-warps (even and odd terms, each
-// in index order, added even + odd).  The constant terms of every step and
-// every concretization are summed where the lane holds the terms:
-// lane-strided partials and a warp XOR tree.  So these forms and bounds
-// may differ from crown.cuh's in the last bits; the card's checks hold K6
-// to the plain version's decisions, and KB's margins and the bounds of K8b
-// and row 13's CROWN mode to the plain version's within tolerance.
+// fmaf chains, except that a layer of at most 16 rows splits each row's sum
+// over the two half-warps (even and odd terms, each in index order, added
+// even + odd).  The constant terms of every step and every concretization
+// are summed where the lane holds the terms: lane-strided partials and a
+// warp XOR tree.  So these forms and bounds may differ from the plain
+// version's (torch's matmul order) in the last bits; the card's checks hold
+// K6 to the plain version's decisions, and KB's margins and the bounds of
+// K8b, row 13's CROWN mode and K7 to the plain version's within tolerance.
+// No sum depends on the block's geometry (warps, role boxes a block).
 #pragma once
 
 #include "common.cuh"
-#include "crown.cuh"
 
 #define CW_FULL 0xffffffffu
+
+// CROWN relaxation of one neuron (ops/crown.py:relu_relaxation), masked:
+// upper slope, upper intercept, adaptive lower slope.
+struct Relax {
+  float us, ui, ls;
+  bool unst;
+};
+
+__device__ __forceinline__ Relax relax(float lo, float hi, float m) {
+  Relax r;
+  r.unst = lo < 0.f && hi > 0.f;
+  const float den = r.unst ? hi - lo : 1.f;
+  const float us = r.unst ? hi / den : (lo >= 0.f ? 1.f : 0.f);
+  const float ui = r.unst ? -hi * lo / den : 0.f;
+  const float ls = r.unst ? (hi >= -lo ? 1.f : 0.f) : us;
+  r.us = us * m;
+  r.ui = ui * m;
+  r.ls = ls * m;
+  return r;
+}
+
+// d max(a, 0)/da and d min(a, 0)/da with JAX's tie rule (half at a == 0).
+__device__ __forceinline__ float dpos(float a) { return a > 0.f ? 1.f : (a == 0.f ? 0.5f : 0.f); }
+__device__ __forceinline__ float dneg(float a) { return a < 0.f ? 1.f : (a == 0.f ? 0.5f : 0.f); }
+__device__ __forceinline__ float sgnf(float g) { return g > 0.f ? 1.f : (g < 0.f ? -1.f : 0.f); }
 
 __host__ __device__ inline int cw_round4(int v) { return (v + 3) & ~3; }
 
 // One role box's shared workspace: the widened bounds of every layer and
-// their CROWN relaxation (crown.cuh:relax: upper slope, intercept, lower
-// slope, masked; offset nd.n[k]), the current layer's IBP bounds, the box.
+// their CROWN relaxation (relax: upper slope, intercept, lower slope,
+// masked; offset nd.n[k]), the current layer's IBP bounds, the box.
 struct RoleWs {
   float *wslb, *wsub, *us, *ui, *ls, *zlo, *zhi, *inlo, *inhi;
 };
@@ -80,7 +113,7 @@ __host__ __device__ inline int warp_ws_floats(const NetDesc& nd) {
 }
 
 // Widen the bounds (zl, zh) of unit c of layer k into R.wslb/R.wsub and
-// record their relaxation, as crown.cuh does before the next layer.
+// record their relaxation, before the next layer reads them.
 __device__ __forceinline__ void widen_unit(const NetDesc& nd, const float* P, const RoleWs& R,
                                            int k, int c, float zl, float zh) {
   const float slack = SLACK_REL * fmaxf(fabsf(zl), fabsf(zh)) + SLACK_ABS;
@@ -375,8 +408,9 @@ __device__ __forceinline__ AlphaSide alpha_side_ws(float* ws, const NetDesc& nd)
   return a;
 }
 
-// crown.cuh:alpha_chain for one side (0: the lower form with slopes al, 1:
-// the upper with au): returns the concretized bound, c the constant.  The
+// One evaluation of one side's output form (0: the lower form with slopes
+// al, 1: the upper with au), the chain vectors left in aw.C (the input
+// level at offset nsum): returns the concretized bound, c the constant.  The
 // constant terms and the concretization are summed where the lane holds
 // the terms (lane-strided partials, a XOR tree).
 __device__ float alpha_chain_side(const NetDesc& nd, const float* P, const RoleWs& R,
@@ -421,9 +455,11 @@ __device__ float alpha_chain_side(const NetDesc& nd, const float* P, const RoleW
   return (warp_sum(s0) + warp_sum(s1)) + c;
 }
 
-// crown.cuh:alpha_step for one side: the reverse pass of alpha_chain_side
-// (its chain vectors still in aw.C) and the signed step of the side's
-// slopes, sl <- clip(sl - lr sign(d(width)/d sl), 0, 1).
+// The reverse pass of alpha_chain_side (its chain vectors still in aw.C)
+// and the signed step of the side's slopes, sl <- clip(sl - lr
+// sign(d(width)/d sl), 0, 1).  Layer j's slopes are stepped after its own
+// adjoint has been taken, so every layer's gradient is that of the current
+// α.
 __device__ void alpha_step_side(const NetDesc& nd, const float* P, const RoleWs& R,
                                 const AlphaSide& aw, int side, float lr) {
   const int lane = threadIdx.x & 31, k = nd.L - 1, d = nd.in[0];
@@ -467,8 +503,8 @@ __device__ void alpha_step_side(const NetDesc& nd, const float* P, const RoleWs&
   }
 }
 
-// crown.cuh:alpha_role_forms for one side, after the role box's CROWN
-// bounds are in R: iters steps from the adaptive slopes, keeping the best
+// α-CROWN of one side (ops/crown.py:crown_output_form_sets with
+// alpha_iters > 0), after the role box's CROWN bounds are in R: iters steps from the adaptive slopes, keeping the best
 // bound.  Writes the tuned set's side (ft[side d, side d + d) = A,
 // ft[2d + side] = c) and the best bound to *best; the caller widens both
 // sides' best bounds and intersects them with the plain set's.
@@ -500,8 +536,8 @@ __device__ void alpha_side(const NetDesc& nd, const float* P, const RoleWs& R, f
 }
 
 // ---------------------------------------------------------------------------
-// The forms stage of K6's slot phase and of KB: every role box's CROWN (and
-// α-CROWN) forms, side by side
+// The forms stage of K6's slot phase, KB, K8b, row 13's CROWN mode and K7:
+// every role box's CROWN (and α-CROWN) forms, side by side
 // ---------------------------------------------------------------------------
 
 // The output-logit forms of nrv role boxes (R.inlo/R.inhi of each, at roles
@@ -512,14 +548,16 @@ __device__ void alpha_side(const NetDesc& nd, const float* P, const RoleWs& R, f
 // 0 (plain) of role box rv lands at F + rv * FS, set 1 (α-tuned) at F +
 // (nrv + rv) * FS, each A_low (d), A_up (d), c_low, c_up, lb, ub; with α
 // both sets' bounds are the widened best α bounds intersected with the
-// plain ones (crown.cuh:alpha_role_forms).  With F null (and iters 0) no
+// plain ones (ops/crown.py:crown_output_form_sets; with `widen` false the
+// best α bounds are intersected unwidened, ops/crown.py:
+// alpha_crown_output_bounds(widen=False)).  With F null (and iters 0) no
 // forms are written: the stage leaves every layer's widened bounds in each
 // role box's R.wslb/R.wsub (K8b, row 13's CROWN mode).  warps: the block's
 // warps' scratch, wws floats each; best: 2 nrv floats.  About 2L block
 // barriers; ends with one.
 __device__ void role_forms_stage(const NetDesc& nd, const float* P, float* roles, int rws,
                                  float* warps, int wws, int nrv, float* F, int FS,
-                                 float* best, int iters) {
+                                 float* best, int iters, bool widen = true) {
   const int d = nd.in[0], L = nd.L, tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, nw = nt >> 5;
   float* ws = warps + warp * wws;
@@ -561,8 +599,9 @@ __device__ void role_forms_stage(const NetDesc& nd, const float* P, float* roles
       float* ft = F + (nrv + rv) * FS;
       const float blo = best[2 * rv], bhi = best[2 * rv + 1];
       const float slack = SLACK_REL * fmaxf(fabsf(blo), fabsf(bhi)) + SLACK_ABS;
-      const float lb = fmaxf(blo - slack, fp[2 * d + 2]);
-      const float ub = fminf(bhi + slack, fp[2 * d + 3]);
+      const float w = widen ? slack : 0.f;
+      const float lb = fmaxf(blo - w, fp[2 * d + 2]);
+      const float ub = fminf(bhi + w, fp[2 * d + 3]);
       fp[2 * d + 2] = ft[2 * d + 2] = lb;
       fp[2 * d + 3] = ft[2 * d + 3] = ub;
     }

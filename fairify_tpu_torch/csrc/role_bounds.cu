@@ -46,22 +46,32 @@
 // + v, its upper bound B * V further.
 //
 // K7 (k7_alpha_output_bounds) — α-CROWN output bounds of B plain boxes:
-// fairify_tpu/ops/crown.py:alpha_crown_output_bounds.  Per box,
-// crown.cuh:crown_role_forms (plain CROWN, widened) and then
-// crown.cuh:alpha_role_forms, KB's α mode: iters signed-gradient steps on
-// the lower slopes of the unstable neurons from the adaptive slopes, the
-// best bounds kept over every iterate including the final one, widened once
-// and intersected with plain CROWN, so never looser than it.  Bound: fp32
-// FMA throughput of 2 * iters + 1 chain evaluations and iters reverse
-// passes per box on top of the CROWN passes; one block per box, the packed
-// net and the block-wide CROWN workspace in shared memory.
+// fairify_tpu/ops/crown.py:alpha_crown_output_bounds, run once at its own
+// entry point.  Per box, plain CROWN (widened) and then KB's α mode: iters
+// signed-gradient steps on the lower slopes of the unstable neurons, a set
+// for the lower and one for the upper bound, from the adaptive slopes; the
+// best bounds over every iterate, the final one included, widened once
+// (unless widen is 0) and intersected with plain CROWN, so never looser than
+// it.  Bound on the H100: fp32 FMA throughput of the CROWN backward passes
+// and 2 * iters + 1 chain evaluations and iters reverse passes a box; every
+// iterate depends on the one before, so at a few boxes an SM the kernel is
+// bound by one box's chain of dependent sums, not by the peak.  Design: a
+// block takes `per` boxes side by side and runs crown_warp.cuh:
+// role_forms_stage on them with a form buffer (a warp per backward-pass
+// column pair, then a warp per α side), as KB does for its 2V role boxes;
+// the odd-stride net (cuda_build.pack_odd) is staged once per block by one
+// bulk copy.  Each box's bounds are its plain set's lb/ub, which the stage
+// has intersected with the α best.  The geometry (boxes and warps a block)
+// comes from the wrapper (engine.k7_geometry: enough boxes a block that one
+// wave of blocks covers B on the card's SMs, at most K7_MAX_WARPS / 2 so
+// that each α side has its own warp) and the entry point refuses any other
+// shared-memory size.
 #include "common.cuh"
-#include "crown.cuh"
 #include "crown_warp.cuh"
 #include "warp_tile.cuh"
 
 #define K10B_MAX_WARPS 16
-#define K7_THREADS 256
+#define K7_MAX_WARPS 16
 
 // ---------------------------------------------------------------------------
 // IBP mode on warp tiles
@@ -332,44 +342,82 @@ k10b_crown_kernel(NetDesc nd, const float* __restrict__ params, long long mstrid
 // K7
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(K7_THREADS)
-k7_kernel(NetDesc nd, int maxA, const float* __restrict__ params,
-          const float* __restrict__ lo, const float* __restrict__ hi, int iters,
+// Float offsets of one K7 block: the mbarrier's 4, the odd-stride net, the
+// `per` boxes' workspaces, the warps' scratch (a column pair or an α side),
+// both form sets of every box (2d + 4 floats each), the α best bounds
+// (engine.k7_smem is the same sum).
+struct K7Layout {
+  int net, roles, rws, warps, wws, F, FS, best, total;
+};
+
+__host__ __device__ inline K7Layout k7_layout(const NetDesc& nd, int per, int warps) {
+  K7Layout o;
+  o.FS = 2 * nd.in[0] + 4;
+  o.net = 4;
+  o.roles = o.net + cw_round4(nd.total);
+  o.rws = role_ws_floats(nd);
+  o.warps = o.roles + per * o.rws;
+  o.wws = warp_ws_floats(nd);
+  o.F = o.warps + warps * o.wws;
+  o.best = o.F + cw_round4(2 * per * o.FS);
+  o.total = o.best + cw_round4(2 * per);
+  return o;
+}
+
+__global__ void __launch_bounds__(K7_MAX_WARPS * 32)
+k7_kernel(NetDesc nd, const float* __restrict__ params, const float* __restrict__ lo,
+          const float* __restrict__ hi, int B, int per, int iters, int widen,
           float* __restrict__ out_lo, float* __restrict__ out_hi) {
-  extern __shared__ float smem[];
-  const int d = nd.in[0], tid = threadIdx.x, nt = blockDim.x, b = blockIdx.x;
-  float* P = smem;
-  for (int i = tid; i < nd.total; i += nt) P[i] = params[i];
-  CrownWs ws;
-  AlphaWs aw;
-  float* fp = crown_ws_carve(ws, P + nd.total, nd, maxA);  // plain set: 2d + 4
-  float* ft = fp + 2 * d + 4;                                // tuned set: 2d + 4
-  alpha_ws_carve(aw, ft + 2 * d + 4, nd);
-  for (int i = tid; i < d; i += nt) {
-    ws.inlo[i] = lo[(size_t)b * d + i];
-    ws.inhi[i] = hi[(size_t)b * d + i];
+  extern __shared__ __align__(16) float smem[];
+  const int d = nd.in[0], tid = threadIdx.x, nt = blockDim.x;
+  const K7Layout o = k7_layout(nd, per, nt >> 5);
+  float* P = smem + o.net;
+  float* roles = smem + o.roles;
+  float* F = smem + o.F;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int b0 = blockIdx.x * per, nb = min(per, B - b0);
+
+  stage_net(P, params, cw_round4(nd.total), bar);
+  for (int q = tid; q < nb * d; q += nt) {
+    const int rv = q / d, i = q - rv * d;
+    const RoleWs R = role_ws(roles + rv * o.rws, nd);
+    R.inlo[i] = lo[(size_t)(b0 + rv) * d + i];
+    R.inhi[i] = hi[(size_t)(b0 + rv) * d + i];
   }
+  mbar_wait(bar, 0);
   __syncthreads();
-  crown_role_forms(nd, maxA, P, ws, fp);
-  if (iters > 0 && nd.L > 1) alpha_role_forms(nd, P, ws, aw, iters, fp, ft);
-  if (tid == 0) {
-    out_lo[b] = fp[2 * d + 2];
-    out_hi[b] = fp[2 * d + 3];
+  role_forms_stage(nd, P, roles, o.rws, smem + o.warps, o.wws, nb, F, o.FS, smem + o.best,
+                   iters, widen != 0);
+  for (int rv = tid; rv < nb; rv += nt) {
+    out_lo[b0 + rv] = F[rv * o.FS + 2 * d + 2];
+    out_hi[b0 + rv] = F[rv * o.FS + 2 * d + 3];
   }
 }
 
+// Dynamic shared memory of one K7 block (engine.k7_smem).
+static inline long long k7_smem(const NetDesc& nd, int per, int warps) {
+  return 4LL * k7_layout(nd, per, warps).total;
+}
+
+// The launch geometry comes from the wrapper (engine.k7_geometry: boxes a
+// block, warps a block, shared-memory bytes) and is checked here against
+// the net and the kernel's limits.  params is cuda_build.pack_odd's buffer,
+// padded to 16 bytes; lo, hi: (B, d); widen 0 leaves the best α bounds
+// unwidened.  Blocks: ceil(B / per).
 extern "C" int k7_alpha_output_bounds(const void* params, const int* dims, int L,
                                       const void* lo, const void* hi, int B, int iters,
-                                      void* out_lo, void* out_hi, void* stream) {
-  const NetDesc nd = make_desc(dims, L);
-  const int maxA = crown_max_a(nd), d = nd.in[0];
-  const size_t smem = sizeof(float) * (nd.total + crown_ws_floats(nd, maxA)
-                                       + 2 * (2 * d + 4) + alpha_ws_floats(nd));
-  cudaError_t err = set_smem(k7_kernel, smem);
+                                      int widen, void* out_lo, void* out_hi, int per, int warps,
+                                      long long smem, void* stream) {
+  if (L < 1 || L > MAX_LAYERS || dims[L] != 1 || B < 0 || iters < 0 || per < 1 ||
+      warps < 1 || warps > K7_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  const NetDesc nd = make_desc(dims, L, /*odd_rows=*/true);
+  if (smem != k7_smem(nd, per, warps) || smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(k7_kernel, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   if (B > 0)
-    k7_kernel<<<B, K7_THREADS, smem, (cudaStream_t)stream>>>(
-        nd, maxA, (const float*)params, (const float*)lo, (const float*)hi, iters,
+    k7_kernel<<<(B + per - 1) / per, 32 * warps, (size_t)smem, (cudaStream_t)stream>>>(
+        nd, (const float*)params, (const float*)lo, (const float*)hi, B, per, iters, widen,
         (float*)out_lo, (float*)out_hi);
   return (int)cudaGetLastError();
 }

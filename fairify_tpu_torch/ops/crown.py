@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from fairify_tpu_torch.ops.interval import LayerBounds, affine_interval, widen
+from fairify_tpu_torch.ops.interval import widen as _widen  # where `widen` is a flag
 from fairify_tpu_torch.utils import cuda_build
 
 def _pos(a):
@@ -217,15 +218,16 @@ def crown_output_bounds(net, lb, ub, widen: bool = True):
     return bounds.ws_lb[-1][..., 0], bounds.ws_ub[-1][..., 0]
 
 
-def alpha_crown_output_bounds_plain(net, lb, ub, iters: int = 8):
+def alpha_crown_output_bounds_plain(net, lb, ub, iters: int = 8, widen: bool = True):
     """Plain PyTorch version of :func:`alpha_crown_output_bounds`: plain
     CROWN bounds (``crown_bounds``, widened) fix every intermediate layer;
     the final backward pass is re-run with free lower slopes α in [0, 1]
     for the unstable neurons, separate sets for the lower and the upper
     bound, tuned by :func:`optimize_relaxation` from the adaptive slopes.
     The best bounds over every iterate (the final one included) are
-    widened once and intersected with plain CROWN, so they are never
-    looser.  With ``iters`` 0 (or no hidden layer) they are plain CROWN's."""
+    widened once (``widen``) and intersected with plain CROWN, so they are
+    never looser.  With ``iters`` 0 (or no hidden layer) they are plain
+    CROWN's."""
     bounds = crown_bounds(net, lb, ub)
     k = net.depth - 1
     pre_lbs, pre_ubs = bounds.ws_lb[:k], bounds.ws_ub[:k]
@@ -239,34 +241,60 @@ def alpha_crown_output_bounds_plain(net, lb, ub, iters: int = 8):
 
     init = [(pre_ubs[j] >= -pre_lbs[j]).to(lb.dtype) for j in range(k)]
     opt_lo, opt_hi, _, _ = optimize_relaxation(width, init, iters)
-    opt_lo, opt_hi = widen(opt_lo, opt_hi)
+    if widen:
+        opt_lo, opt_hi = _widen(opt_lo, opt_hi)
     return torch.maximum(opt_lo, lo0), torch.minimum(opt_hi, hi0)
 
 
-def alpha_crown_output_bounds(net, lb, ub, iters: int = 8):
-    """K7: α-CROWN bounds ``(lo, hi)`` (B,) of the output logit over B boxes
-    (B, d), widened, the JAX package's ``ops/crown.py:alpha_crown_output_bounds``
-    (with its default ``widen=True``, the only value its callers use), one
-    launch.  CPU tensors take :func:`alpha_crown_output_bounds_plain`; CUDA
-    tensors launch ``csrc/role_bounds.cu``'s ``k7_alpha_output_bounds``."""
+def alpha_crown_output_bounds(net, lb, ub, iters: int = 8, widen: bool = True):
+    """K7: α-CROWN bounds ``(lo, hi)`` of the output logit over boxes with
+    any leading axes (..., d), the JAX package's
+    ``ops/crown.py:alpha_crown_output_bounds`` with its full signature:
+    ``widen`` False leaves the best α bounds unwidened before they are
+    intersected with (widened) plain CROWN.  One launch.  CPU tensors take
+    :func:`alpha_crown_output_bounds_plain`; CUDA tensors launch
+    ``csrc/role_bounds.cu``'s ``k7_alpha_output_bounds`` on the boxes
+    flattened to (B, d) (the geometry from ``engine.k7_geometry``)."""
     if lb.device.type == "cpu":
-        return alpha_crown_output_bounds_plain(net, lb, ub, iters)
+        return alpha_crown_output_bounds_plain(net, lb, ub, iters, widen)
+    lead = lb.shape[:-1]
+    fn, args, out = _alpha_crown_prepare(net, lb.reshape(-1, lb.shape[-1]),
+                                         ub.reshape(-1, ub.shape[-1]), iters, widen)
+    cuda_build.check("k7_alpha_output_bounds",
+                     fn(*args, torch.cuda.current_stream().cuda_stream))
+    alpha_crown_output_bounds.launches += 1
+    return out[0].reshape(lead), out[1].reshape(lead)
+
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_K7_ARGS = ((_VP, ctypes.POINTER(_INT), _INT, _VP, _VP) + (_INT,) * 3 + (_VP, _VP, _INT, _INT,
+            ctypes.c_longlong, _VP))
+
+
+def _alpha_crown_prepare(net, lb, ub, iters: int, widen: bool, _geometry_force=None):
+    """``(entry point, its arguments but the stream, output tensor (2, B):
+    lower, upper)`` of one ``k7_alpha_output_bounds`` launch on (B, d) CUDA
+    boxes, the geometry from ``engine.k7_geometry``; ``_geometry_force``
+    (``(boxes a block, warps)``) forces it: the card's checks that the
+    bounds do not depend on it."""
+    from fairify_tpu_torch.verify import engine  # engine imports this module
+
     if net.layer_sizes[-1] != 1:
         raise ValueError("alpha_crown_output_bounds: the net must have one output logit")
-    if lb.dim() != 2:
-        raise ValueError("alpha_crown_output_bounds: the kernel takes (B, d) boxes")
-    params, dims = cuda_build.pack_net(net)
+    if lb.shape != ub.shape or lb.dtype != torch.float32 or ub.dtype != torch.float32:
+        raise ValueError("alpha_crown_output_bounds: lb and ub must be float32 of one shape")
+    params, dims = cuda_build.pack_odd(net)
     lb, ub = lb.contiguous(), ub.contiguous()
     cuda_build.require_cuda(params, lb, ub)
+    sizes = tuple(dims)
     B = lb.shape[0]
-    out_lo = torch.empty(B, dtype=torch.float32, device=lb.device)
-    out_hi = torch.empty_like(out_lo)
-    cuda_build.call("role_bounds", "k7_alpha_output_bounds", cuda_build.ptr(params),
-                    dims, ctypes.c_int(net.depth), cuda_build.ptr(lb), cuda_build.ptr(ub),
-                    ctypes.c_int(B), ctypes.c_int(int(iters)), cuda_build.ptr(out_lo),
-                    cuda_build.ptr(out_hi), cuda_build.stream())
-    alpha_crown_output_bounds.launches += 1
-    return out_lo, out_hi
+    geo = engine._k7_geometry(sizes, B, cuda_build.sm_count(lb.device), cuda_build.SMEM_LIMIT,
+                              _geometry_force)
+    out = torch.empty((2, B), dtype=torch.float32, device=lb.device)
+    args = (params.data_ptr(), dims, len(sizes) - 1, lb.data_ptr(), ub.data_ptr(), B,
+            int(iters), int(bool(widen)), out.data_ptr(), out.data_ptr() + 4 * B, geo["per"],
+            geo["warps"], geo["smem"])
+    return cuda_build.entry("role_bounds", "k7_alpha_output_bounds", _K7_ARGS), args, out
 
 
 alpha_crown_output_bounds.launches = 0

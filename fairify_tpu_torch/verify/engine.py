@@ -1045,6 +1045,52 @@ def role_bounds_geometry(sizes, V: int, rows: int, models: int = 1, use_crown: b
                 tiles=tiles)
 
 
+K7_MAX_WARPS = 16  # csrc/role_bounds.cu
+K7_MAX_PER = K7_MAX_WARPS // 2  # boxes a K7 block whose α sides each get a warp
+
+
+def k7_smem(sizes, per: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one K7 block
+    (``role_bounds.cu:k7_layout``): the mbarrier's 16; the odd-stride net
+    (``cuda_build.odd_layout``); per box (``per``) its widened bounds and
+    their relaxation (5 nsum), IBP bounds (2 maxw) and box (2d); per warp
+    the larger of the CROWN column pair's 8 maxw and the α side's 2 nsum +
+    d + 3 maxw; both form sets of every box (2 per (2d + 4)) and the α best
+    bounds (2 per); every part rounded up to 4 floats."""
+    d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+    fl = (4 + cuda_build.odd_layout(sizes)["padded"] + per * _r4(5 * nsum + 2 * maxw + 2 * d)
+          + warps * _r4(max(8 * maxw, 2 * nsum + d + 3 * maxw))
+          + _r4(2 * per * (2 * d + 4)) + _r4(2 * per))
+    return 4 * fl
+
+
+def k7_geometry(sizes, B: int, sms: int = 132, smem_limit: int = cuda_build.SMEM_LIMIT,
+                _force=None) -> dict:
+    """Launch geometry of K7 over B boxes on a card of ``sms`` SMs: ``per``
+    boxes a block, the fewest that let one wave of blocks, one an SM, cover
+    B (so B = 512 takes 4 boxes a block on 128 of 132 SMs), at most
+    K7_MAX_PER and what shared memory holds with a warp for each α side
+    (2 per warps); and the most warps that fit, at most K7_MAX_WARPS (the
+    column-pair stage spreads over all of them, the α stage over 2 per).
+    ``grid`` = ceil(B / per) blocks, ``per_sm`` the blocks an SM holds.
+    ``_force`` (``(per, warps)``) overrides the choice; a geometry that does
+    not fit raises."""
+    if _force is not None:
+        per, warps = int(_force[0]), int(_force[1])
+        if not (per >= 1 and 1 <= warps <= K7_MAX_WARPS) or \
+                k7_smem(sizes, per, warps) > smem_limit:
+            raise ValueError(f"alpha_crown_output_bounds: {per} boxes and {warps} warps a "
+                             "block do not fit in shared memory")
+    else:
+        per = max(1, min(_ceil(B, sms), K7_MAX_PER))
+        while per > 1 and k7_smem(sizes, per, 2 * per) > smem_limit:
+            per -= 1
+        warps = _fit_warps(lambda w: k7_smem(sizes, per, w), K7_MAX_WARPS, smem_limit)
+    smem = k7_smem(sizes, per, warps)
+    return dict(per=per, warps=warps, threads=32 * warps, smem=smem,
+                per_sm=_per_sm(smem, warps), grid=_ceil(B, per))
+
+
 # The wrappers' geometry, computed once per shape (hashable arguments; the
 # returned dicts are shared and read only).
 _attack_logits_geometry = functools.lru_cache(maxsize=256)(attack_logits_geometry)
@@ -1055,6 +1101,7 @@ _kb_geometry = functools.lru_cache(maxsize=256)(kb_geometry)
 _sign_bound_geometry = functools.lru_cache(maxsize=256)(sign_bound_geometry)
 _inter_bounds_geometry = functools.lru_cache(maxsize=256)(inter_bounds_geometry)
 _role_bounds_geometry = functools.lru_cache(maxsize=256)(role_bounds_geometry)
+_k7_geometry = functools.lru_cache(maxsize=256)(k7_geometry)
 
 
 def attack_logits_plain(net, x_roles, xp_roles):

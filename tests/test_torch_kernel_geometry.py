@@ -3,12 +3,13 @@
 ``engine.attack_logits_geometry``, ``engine.pgd_geometry``,
 ``engine.bab_geometry``, ``engine.sign_bound_geometry``,
 ``engine.kb_geometry``, ``engine.inter_bounds_geometry``,
-``engine.role_bounds_geometry`` and ``lattice.lattice_geometry`` size the
+``engine.role_bounds_geometry``, ``engine.k7_geometry`` and
+``lattice.lattice_geometry`` size the
 launches of ``csrc/attack_logits.cu`` (rows 17, 9, 21),
 ``csrc/pgd_attack.cu`` (K5), ``csrc/bab_segment.cu`` (K6),
 ``csrc/sign_bound.cu`` (K8a), ``csrc/stage0_certify.cu`` (KB: rows 4-7, 14,
 15), ``csrc/inter_bounds.cu`` (K8b), ``csrc/role_bounds.cu`` (rows 13 and
-8) and the lattice signs kernel of ``csrc/lattice_scan.cu`` (K9a/b/c), and
+8, and K7) and the lattice signs kernel of ``csrc/lattice_scan.cu`` (K9a/b/c), and
 the C entry points refuse
 any other shared-memory size; so these tests hold the geometry at an
 H100's 132 SMs and 227 KB (232,448 bytes) of shared memory a block, for
@@ -32,6 +33,10 @@ the nets the repo runs, without a card:
   keeps two blocks an SM and a grid of one wave, Phase P's 2V role boxes
   take its one-box-a-block geometry with a warp per column pair, and row
   13's IBP tiles at the host frontier's F = 512 give every warp one tile;
+* K7 fits every net at B = 1, 17, 132, 133, 512 and 2,048, its
+  shared-memory sum that of the kernel's layout, each α side on a warp of
+  its own; up to 8 boxes an SM the blocks make one wave, and at AC-S1, B =
+  512, 4 boxes a block fill 128 of the 132 SMs;
 * KA, row 3 and KD (``pruning.sim_geometry``, ``csrc/sim_tile.cuh``) fit
   every net at GC-1's 201 partitions, a 2,048-row chunk, the AC segment's
   8,192 and row 3's 16,000, their shared-memory sums that of the kernels'
@@ -485,6 +490,66 @@ def test_forced_k8b_and_row13_geometry_is_checked():
         engine.inter_bounds_geometry(wide, 4)
     with pytest.raises(ValueError, match="shared memory"):
         engine.role_bounds_geometry(wide, 2, 2048)
+
+
+def _k7_smem_mirror(sizes, per, warps):
+    """role_bounds.cu:k7_layout's bytes: K8b's layout (``_ib_smem_mirror``)
+    with per warp the larger of a column pair's 8 maxw and an α side's 2
+    nsum + d + 3 maxw, then both form sets of every box (2d + 4 floats
+    each) and the α best bounds (2 a box), each rounded up to 4 floats."""
+    r4 = lambda v: (v + 3) // 4 * 4
+    d, nsum, maxw = sizes[0], sum(sizes[1:]), max(sizes)
+    wws = r4(max(8 * maxw, 2 * nsum + d + 3 * maxw))
+    return (_ib_smem_mirror(sizes, per, 0) + 4 * warps * wws
+            + 4 * (r4(2 * per * (2 * d + 4)) + r4(2 * per)))
+
+
+K7_BOXES = (1, 17, SMS, SMS + 1, 512, 2048)
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_k7_geometry_fits_every_net(name):
+    sizes = NETS[name]
+    for B in K7_BOXES:
+        g = engine.k7_geometry(sizes, B, sms=SMS, smem_limit=LIMIT)
+        assert g["smem"] == engine.k7_smem(sizes, g["per"], g["warps"]) \
+            == _k7_smem_mirror(sizes, g["per"], g["warps"]) <= LIMIT
+        assert 1 <= g["per"] <= engine.K7_MAX_PER and g["threads"] == 32 * g["warps"]
+        # Every α side of the block's boxes has a warp of its own.
+        assert 2 * g["per"] <= g["warps"] <= engine.K7_MAX_WARPS
+        assert g["grid"] == -(-B // g["per"]) and (g["grid"] - 1) * g["per"] < B
+        assert g["per_sm"] >= 1 and g["per_sm"] * (g["smem"] + 1024) <= SM_BYTES
+        assert g["per_sm"] * g["warps"] <= engine.K6_SM_WARPS
+        if B <= SMS:  # one box a block, every warp on its column pairs
+            assert g["per"] == 1
+        if B <= engine.K7_MAX_PER * SMS:  # one wave of blocks, one an SM
+            assert g["grid"] <= SMS
+
+
+def test_k7_fills_the_card_at_ac_s1():
+    sizes = NETS["AC-S1"]
+    # The 512 stage-0 leftovers: 4 boxes a block on 128 of the 132 SMs, all
+    # in one wave, 16 warps (8 on the α sides, all 16 on the column pairs).
+    g = engine.k7_geometry(sizes, 512, sms=SMS, smem_limit=LIMIT)
+    assert (g["per"], g["warps"], g["grid"], g["per_sm"]) == (4, 16, 128, 1)
+    assert g["grid"] >= SMS - g["per"] and g["grid"] <= g["per_sm"] * SMS
+    # One box takes one block of 16 warps.
+    g = engine.k7_geometry(sizes, 1, sms=SMS, smem_limit=LIMIT)
+    assert (g["per"], g["warps"], g["grid"]) == (1, 16, 1)
+
+
+def test_forced_k7_geometry_is_checked():
+    sizes = NETS["AC-S1"]
+    for f in ((1, 1), (1, 16), (4, 8), (8, 16), (2, 3)):
+        g = engine.k7_geometry(sizes, 512, sms=SMS, _force=f)
+        assert (g["per"], g["warps"]) == f and g["grid"] == -(-512 // f[0])
+        assert g["smem"] == _k7_smem_mirror(sizes, *f)
+    for bad in ((0, 8), (4, 0), (4, engine.K7_MAX_WARPS + 1), (64, 16)):  # (64, 16): 486 KB
+        with pytest.raises(ValueError, match="shared memory"):
+            engine.k7_geometry(sizes, 512, sms=SMS, _force=bad)
+    wide = (13, 4096, 1)  # a net whose one warp exceeds shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.k7_geometry(wide, 512)
 
 
 def _sim_smem_mirror(sizes, kind, tw, warps):

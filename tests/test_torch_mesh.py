@@ -36,7 +36,9 @@ The JAX side runs on conftest's 8 virtual CPU devices; the port's mesh is a
   world) and against the port's own ``sound_prune_grid(...).candidates``.
 * ``alpha_crown_output_bounds`` against JAX's on tests/test_crown.py's
   worlds at ``iters=8``: within the widening slack, containing the f64
-  logits of every lattice point, never looser than plain CROWN.
+  logits of every lattice point, never looser than plain CROWN; also with
+  ``widen=False`` (no looser than the widened bounds) and on boxes with
+  extra leading axes.
 """
 import csv
 import json
@@ -471,9 +473,18 @@ def _grid_points(lo, hi):
     return np.array(list(itertools.product(*axes)), dtype=np.float64)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-@pytest.mark.parametrize("sizes", [(3, 8, 1), (3, 6, 6, 1), (4, 10, 5, 5, 1)])
-def test_alpha_crown_output_bounds_match_jax(sizes, seed):
+_K7_SIZES = [(3, 8, 1), (3, 6, 6, 1), (4, 10, 5, 5, 1)]
+
+
+@pytest.mark.parametrize(
+    "sizes,seed,mode",
+    [pytest.param(z, seed, "widen", id=f"sizes{i}-{seed}")
+     for seed in range(4) for i, z in enumerate(_K7_SIZES)]
+    + [pytest.param(z, 0, "unwidened", id=f"sizes{i}-unwidened")
+       for i, z in enumerate(_K7_SIZES)]
+    + [pytest.param(z, 1, "leading axes", id=f"sizes{i}-leading-axes")
+       for i, z in enumerate(_K7_SIZES)])
+def test_alpha_crown_output_bounds_match_jax(sizes, seed, mode):
     rng = np.random.default_rng(100 + seed)
     ws = [rng.normal(size=(sizes[i], sizes[i + 1])).astype(np.float32)
           for i in range(len(sizes) - 1)]
@@ -482,13 +493,24 @@ def test_alpha_crown_output_bounds_match_jax(sizes, seed):
     lo = np.zeros((3, sizes[0]), np.float32)
     hi = np.stack([np.full(sizes[0], 2.0), np.full(sizes[0], 1.0),
                    rng.integers(1, 3, size=sizes[0])]).astype(np.float32)
+    widen = mode != "unwidened"
     jlb, jub = (np.asarray(v) for v in jcrown.alpha_crown_output_bounds(
-        jmlp.from_numpy(ws, bs), jnp.asarray(lo), jnp.asarray(hi), iters=8))
+        jmlp.from_numpy(ws, bs), jnp.asarray(lo), jnp.asarray(hi), iters=8, widen=widen))
     tnet = tmlp.from_numpy(ws, bs, device="cpu")
     T = torch.as_tensor
-    tlb, tub = (t.numpy() for t in tcrown.alpha_crown_output_bounds(tnet, T(lo), T(hi),
-                                                                    iters=8))
+    if mode == "leading axes":  # (3, d) boxes as (3, 1, d): the (3, 1) bounds
+        tlb, tub = tcrown.alpha_crown_output_bounds(tnet, T(lo[:, None]), T(hi[:, None]),
+                                                    iters=8)
+        assert tlb.shape == tub.shape == (3, 1)
+        tlb, tub = tlb[:, 0], tub[:, 0]
+    else:
+        tlb, tub = tcrown.alpha_crown_output_bounds(tnet, T(lo), T(hi), iters=8, widen=widen)
+    tlb, tub = tlb.numpy(), tub.numpy()
     clb, cub = (t.numpy() for t in tcrown.crown_output_bounds(tnet, T(lo), T(hi)))
+    if not widen:  # the best α bounds unwidened: no looser than the widened ones
+        wlb, wub = (t.numpy() for t in tcrown.alpha_crown_output_bounds(tnet, T(lo), T(hi),
+                                                                        iters=8))
+        assert (tlb >= wlb).all() and (tub <= wub).all()
     mag = np.maximum(np.abs(jlb), np.abs(jub))
     assert (np.abs(tlb - jlb) <= SOUND_SLACK_REL * mag + SOUND_SLACK_ABS).all()
     assert (np.abs(tub - jub) <= SOUND_SLACK_REL * mag + SOUND_SLACK_ABS).all()
