@@ -102,12 +102,14 @@ Phases (any failure exits nonzero and prints no result line):
    Phase-S/L/P kernels vs plain versions (2c) on 512 real AC-S1 stage-0
    leftovers' sign boxes: K8a (sign_bound) at alpha_iters 8 and 0 on the
    root pattern and on branches of depth 1-8 that one plain
-   ``uniform_sign_bab`` frontier over those roots bounded — its final
-   α/β must equal the plain version's on every box not excused (a box is
-   excused only where a gradient on the plain path has another sign in
-   f32 than in f64, and at most 1% may be), and there the bounds and
-   scores agree to tolerance, ``feasible`` and ``resolved`` are equal and
-   the bounds contain the f64 bounds of the same relaxations; on the
+   ``uniform_sign_bab`` frontier over those roots bounded (64 nodes a
+   root, so every run bounds the same branches) — its final α/β must
+   equal the plain version's on every box not excused (a box is excused
+   only where a gradient on the plain path has another sign in f32 than
+   in f64, and at most 1% may be), and there the bounds and scores agree to
+   tolerance, ``feasible`` and ``resolved`` are equal and the bounds
+   contain the f64 bounds of the same relaxations up to that tolerance
+   (a failing check writes its boxes under chiprun_out/chip_smoke/); on the
    AC-S1 frontier branches at α 8 and 0 its default launch bit for bit
    under three forced geometries (warps a block); K8b
    (inter_bounds) at B = 512, over 1 and 17 live rows of a 512-row pad
@@ -281,6 +283,34 @@ Phases (any failure exits nonzero and prints no result line):
    After 9g, K7 on trained AC-S1's stage-0 leftovers by 9g's rule.  (10d)
    Row 17 of each trained net on 4,096 seeded domain points per role
    against the float64 forward.
+11. The runtime contracts (the launch pipeline on CUDA events, the
+   supervisor and fault injection, the obs layer, the sampled recheck).
+   (11a) Pipeline depths 1, 2 and 4: GC-1 end to end on the chunk loop
+   (``grid_chunk=26``: 8 chunks) and on the mega path (2 segments of 4
+   chunks) — ledger rows, CSVs (less time columns), funnels, histograms
+   and launch counts equal at every depth and between the paths — and the
+   AC grid's stage 0 and parity passes through one pipeline, 8 chunks
+   and 2 segments — verdicts, witnesses, parity and histograms equal —
+   with ``launches_in_flight`` max and mean and the stage-0 and parity
+   seconds at each depth ("[pipeline depth ...]").  (11b) One submit of
+   each pipelined path (prune block, mega segment, fused chunk, IBP
+   chunk, 3-shard mesh chunk, family segment, parity block, PGD chunk,
+   device-BaB segment) and its fetch's start under
+   ``torch.cuda.set_sync_debug_mode("error")``: no implicit sync
+   ("[sync check]").  (11c) GC-1 under ``launch.decode:transient:1``
+   (absorbed: one retry, rows equal the fault-free run's; a re-dispatched
+   segment payload bit-equal to the first), ``launch.submit:fatal:1``,
+   ``launch.decode:corrupt:1`` (caught by the fold or the canary) and
+   ``ledger.append:corrupt:1`` (caught by the CRC on reload), each
+   followed by a resume that must give the fault-free rows ("[faults
+   ...]").  (11d) GC-1 with ``trace_out``, ``heartbeat_s`` and
+   ``profile_dir``: the event log loads and holds every phase span and
+   the verdict events; the ``torch.profiler`` trace holds KA under
+   ``stage0_prune``, KB and KC under ``stage0_decide`` and KD under
+   ``stage0_parity`` ("[trace and profiler]").  (11e) GC-1 at
+   ``integrity_recheck=1.0``: every chunk rechecked, no violation, and the
+   exact oracle confirms each chunk's first certified partition or leaves
+   it inconclusive, never refutes it ("[sampled recheck]").
 
 Phase 4 runs before phase 3, and the run waits for the CPU worker before
 phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e, 9, 10b
@@ -1562,8 +1592,10 @@ def check_bab(name, net, st0, c, alpha_iters: int, rounds: int, reps: int,
     timed.  Returns the kernel row."""
     from fairify_tpu_torch.verify import engine
 
+    live = int(st0["q_live"].sum())
     seg, k_ms = timed(lambda: engine.bab_segment(
-        net, *seg_args(st0, c), rounds=rounds, alpha_iters=alpha_iters), reps)
+        net, *seg_args(st0, c), rounds=rounds, alpha_iters=alpha_iters, live_slots=live),
+        reps)
     p_ms = err = None
     if plain:
         ref, p_ms = timed(lambda: engine.bab_segment_plain(
@@ -1609,15 +1641,16 @@ def bab_invariance(name, net, st0, c, alpha_iters: int, rounds: int) -> list:
     from fairify_tpu_torch.verify import engine
 
     args = seg_args(st0, c)
-    base = engine._bab_segment_launch(net, *args, rounds, alpha_iters)
+    live = int(st0["q_live"].sum())
+    base = engine._bab_segment_launch(net, *args, rounds, alpha_iters, live_slots=live)
     sizes = tuple([net.in_dim] + list(net.layer_sizes))
     V, Qs = c["assign_vals"].shape[0], st0["q_lo"].shape[0]
     default = engine.bab_geometry(sizes, V, Qs, cuda_build.sm_count(net.device),
-                                  live=int(st0["q_live"].sum()))
+                                  live=live)
     forces = [(4, 1), (default["warps"], 1), (engine.K6_MAX_WARPS, 1)]
     for force in forces:
         seg = engine._bab_segment_launch(net, *args, rounds, alpha_iters,
-                                         _geometry_force=force)
+                                         live_slots=live, _geometry_force=force)
         bad = [k for k in integrity.BAB_FOLD_KEYS if not torch.equal(seg[k], base[k])]
         if bad or seg["csum"] != base["csum"]:
             fail(f"K6 {name} alpha={alpha_iters}: geometry {force} changes {bad or 'the fold'}")
@@ -1847,6 +1880,12 @@ def resim_split(net, cfg, lo, hi, n: int = 64) -> dict:
 # from the plain version's after a gradient whose f32 sign differs from its
 # f64 sign on the plain path).
 SIGN_EXCUSE_SHARE = 0.01
+# The plain sign frontier K8a's branches come from: a node cap per root, so
+# every run bounds the same branches, and a guard on its time.
+FRONTIER_NODES = 64
+FRONTIER_GUARD_S = 60.0
+# Where a failing K8a check writes the boxes it failed on.
+FAILURE_DIR = os.path.join("chiprun_out", "chip_smoke")
 # Forced launch geometries (warps a block) of K8a and KB's invariance checks.
 SIGN_BOUND_FORCES = (2, 8, 16)
 KB_FORCES = (4, 8, 16)
@@ -1943,7 +1982,8 @@ def sign_bound_verdict(k_out, k_ab, ref):
     is not excused, and at most SIGN_EXCUSE_SHARE of the boxes may be; on
     every other box the bounds and scores agree to the tolerance of their
     magnitude, ``feasible`` and ``resolved`` are equal, and the bounds
-    contain the f64 bounds of the same relaxations."""
+    contain the f64 bounds of the same relaxations up to that same
+    tolerance (:func:`sign_bound_band`)."""
     import torch
 
     (p_lo, p_hi, p_feas, p_scores, p_res), p_ab, excused, f64_lo, f64_hi, scale = ref
@@ -1966,10 +2006,66 @@ def sign_bound_verdict(k_out, k_ab, ref):
     n_res = sum(int((a != b)[ok].sum()) for a, b in zip(res, p_res))
     if n_res:
         return f"resolved signs differ on {n_res} neurons"
-    bad = int(((out_lo.double() > f64_lo) | (out_hi.double() < f64_hi))[ok].sum())
+    bad = int(sign_bound_misses(out_lo, out_hi, p_lo, p_hi, f64_lo, f64_hi)[ok].sum())
     if bad:
-        return f"{bad} bounds do not contain the f64 bounds of their relaxations"
+        return f"{bad} bounds miss the f64 bounds of their relaxations by more than " \
+               "the tolerance"
     return None
+
+
+def sign_bound_band(p_lo, p_hi):
+    """Per box, how far K8a's bounds may lie inside the f64 bounds of their
+    relaxations: the tolerance that holds them to the plain version's
+    (TOL_REL of the plain bounds' magnitude, plus TOL_ABS).  Both are f32
+    sums of the same terms in another order, and where the terms cancel
+    each rounds past the f64 bound on either side: on an H100, over the
+    AC-S1 twin's node-capped frontiers, the kernel misses by up to 0.22 of
+    this band and the plain version by up to 0.62 of the 1e-5 outward
+    widening (``probes/k8a_containment.py``)."""
+    import torch
+
+    return TOL_REL * torch.maximum(p_lo.abs(), p_hi.abs()).double() + TOL_ABS
+
+
+def sign_bound_misses(out_lo, out_hi, p_lo, p_hi, f64_lo, f64_hi):
+    """(B,) boxes whose bounds miss the f64 ones by more than
+    :func:`sign_bound_band`."""
+    band = sign_bound_band(p_lo, p_hi)
+    return (out_lo.double() - f64_lo > band) | (f64_hi - out_hi.double() > band)
+
+
+def dump_sign_bound_case(name, alpha_iters: int, lo, hi, pats, k_out, k_ab, ref) -> str:
+    """Write the boxes K8a's check fails on (at most 32: α/β that differ
+    without an excuse, bounds or scores past tolerance, bounds that miss
+    the f64 ones) with their patterns, the kernel's, the plain version's
+    and the f64 bounds into a JSON file under FAILURE_DIR; returns its
+    path.  ``python probes/k8a_containment.py --replay <file>`` reruns
+    such a file."""
+    import torch
+
+    (p_lo, p_hi, p_feas, _, _), p_ab, excused, f64_lo, f64_hi, _ = ref
+    out_lo, out_hi, feas = k_out[:3]
+    same = (k_ab == p_ab).all(-1) if p_ab.shape[-1] else torch.ones_like(excused)
+    mag = torch.maximum(p_lo.abs(), p_hi.abs())
+    off = lambda a, b: (a - b).abs() > TOL_REL * torch.maximum(b.abs(), mag) + TOL_ABS
+    bad = (~same & ~excused) | off(out_lo, p_lo) | off(out_hi, p_hi) | (feas != p_feas) \
+        | sign_bound_misses(out_lo, out_hi, p_lo, p_hi, f64_lo, f64_hi)
+    idx = torch.nonzero(bad).flatten()[:32].tolist()
+    col = lambda t: [float(v) for v in t[idx].double().cpu()]
+    case = dict(name=name, alpha_iters=int(alpha_iters), layer_sizes=list(
+        map(int, [lo.shape[1]] + [p.shape[1] for p in pats])), rows=idx,
+        lo=lo[idx].cpu().tolist(), hi=hi[idx].cpu().tolist(),
+        signs=torch.cat([p[idx] for p in pats], dim=1).cpu().tolist(),
+        kernel_lo=col(out_lo), kernel_hi=col(out_hi), plain_lo=col(p_lo),
+        plain_hi=col(p_hi), f64_lo=col(f64_lo), f64_hi=col(f64_hi),
+        feasible=[bool(v) for v in feas[idx].cpu()],
+        excused=[bool(v) for v in excused[idx].cpu()])
+    os.makedirs(FAILURE_DIR, exist_ok=True)
+    path = os.path.join(FAILURE_DIR, "k8a_" + "".join(
+        c if c.isalnum() else "_" for c in name) + f"_alpha{alpha_iters}.json")
+    with open(path, "w") as f:
+        json.dump(case, f)
+    return path
 
 
 def sign_bound_mutants(k_out, ref):
@@ -1985,21 +2081,21 @@ def sign_bound_mutants(k_out, ref):
     yield "a resolved sign flipped", (out_lo, out_hi, feas, scores, res_m)
     lo_m = out_lo.clone()
     f64_lo = ref[3]
-    lo_m[b] = float(f64_lo[b] + 1e-3 * (1.0 + f64_lo[b].abs()))
+    band = sign_bound_band(ref[0][0][b], ref[0][1][b])
+    lo_m[b] = float(f64_lo[b] + 2 * band + 1e-3 * (1.0 + f64_lo[b].abs()))
     yield "a lower bound raised past its f64 bound", (lo_m, out_hi, feas, scores, res)
 
 
-def frontier_patterns(net, enc, lo, hi, n: int, deadline_s: float = 10.0):
-    """Sign boxes and patterns from one plain ``uniform_sign_bab`` frontier
-    over the roots ``lo``/``hi`` (int64): the frontier runs with K8a's
-    plain version in place of the kernel (alpha_iters 0, Phase L off, so
-    every candidate root branches), and every (box, pattern) it bounds is
-    recorded.  ``n`` distinct ones are taken round-robin over the depths
-    (split counts) 1-8, each depth's order drawn from ``default_rng(5)``.
-    Returns (lo, hi, per-layer patterns, depth histogram), or None when
-    the frontier never split (no root is a candidate, or every candidate
+def frontier_rows(net, enc, lo, hi, max_nodes: int = FRONTIER_NODES):
+    """Every distinct (box, pattern) one plain ``uniform_sign_bab``
+    frontier over the roots ``lo``/``hi`` (int64) bounds: the frontier runs
+    with K8a's plain version in place of the kernel (alpha_iters 0, Phase
+    L off, so every candidate root branches) and stops each root at
+    ``max_nodes`` nodes, so the same roots give the same rows on every
+    run (FRONTIER_GUARD_S only guards the time).  Returns (rows (R, 2d +
+    hidden) as lo | hi | signs, depths (R,) numpy), or None when the
+    frontier never split (no root is a candidate, or every candidate
     certifies at its root)."""
-    import numpy as np
     import torch
 
     from fairify_tpu_torch.verify import engine
@@ -2013,15 +2109,38 @@ def frontier_patterns(net, enc, lo, hi, n: int, deadline_s: float = 10.0):
 
     kernel, engine.sign_bound = engine.sign_bound, plain
     try:
-        engine.uniform_sign_bab(net, enc, lo, hi, EngineConfig(lp_sign=False, alpha_iters=0),
-                                deadline_s=deadline_s)
+        engine.uniform_sign_bab(net, enc, lo, hi,
+                                EngineConfig(lp_sign=False, alpha_iters=0,
+                                             sign_max_nodes=max_nodes),
+                                deadline_s=FRONTIER_GUARD_S)
     finally:
         engine.sign_bound = kernel
     if not recorded:
         return None
     rows = torch.unique(torch.cat(recorded), dim=0)
     d = lo.shape[1]
-    depth = (rows[:, 2 * d:] != 0).sum(dim=1).cpu().numpy()
+    return rows, (rows[:, 2 * d:] != 0).sum(dim=1).cpu().numpy()
+
+
+def frontier_split(net, rows, d: int):
+    """(lo, hi, per-layer patterns) of :func:`frontier_rows` rows."""
+    pats = list(rows[:, 2 * d:].split(list(net.layer_sizes[:-1]), dim=1))
+    return rows[:, :d].contiguous(), rows[:, d:2 * d].contiguous(), \
+        [p.contiguous() for p in pats]
+
+
+def frontier_patterns(net, enc, lo, hi, n: int):
+    """``n`` distinct (box, pattern)s of :func:`frontier_rows`, taken
+    round-robin over the depths (split counts) 1-8, each depth's order
+    drawn from ``default_rng(5)``.  Returns (lo, hi, per-layer patterns,
+    depth histogram), or None when the frontier never split."""
+    import numpy as np
+    import torch
+
+    found = frontier_rows(net, enc, lo, hi)
+    if found is None:
+        return None
+    rows, depth = found
     rng = np.random.default_rng(5)
     queues = [list(rng.permutation(np.nonzero(depth == k)[0])) for k in range(1, 9)]
     chosen = []
@@ -2033,9 +2152,7 @@ def frontier_patterns(net, enc, lo, hi, n: int, deadline_s: float = 10.0):
         return None
     sel = rows[torch.as_tensor(chosen, device=rows.device)]
     hist = np.bincount(depth[chosen], minlength=9)[1:].tolist()
-    pats = list(sel[:, 2 * d:].split(list(net.layer_sizes[:-1]), dim=1))
-    return sel[:, :d].contiguous(), sel[:, d:2 * d].contiguous(), \
-        [p.contiguous() for p in pats], hist
+    return frontier_split(net, sel, lo.shape[1]) + (hist,)
 
 
 def check_sign_bound(name, net, lo, hi, pats, alpha_iters: int, reps: int,
@@ -2052,7 +2169,8 @@ def check_sign_bound(name, net, lo, hi, pats, alpha_iters: int, reps: int,
     k_out, k_ab = k_res[:5], k_res[5]
     why = sign_bound_verdict(k_out, k_ab, ref)
     if why:
-        fail(f"K8a {name} alpha={alpha_iters}: {why}")
+        path = dump_sign_bound_case(name, alpha_iters, lo, hi, pats, k_out, k_ab, ref)
+        fail(f"K8a {name} alpha={alpha_iters}: {why} (the boxes: {path})")
     if mutate:
         for what, mut in sign_bound_mutants(k_out, ref):
             if sign_bound_verdict(mut, k_ab, ref) is None:
@@ -2068,7 +2186,7 @@ def check_sign_bound(name, net, lo, hi, pats, alpha_iters: int, reps: int,
     print(f"[kernel {name}] sign_bound alpha={alpha_iters} B={B}: {k_ms:.3f} ms (plain "
           f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
           f"{infeas} infeasible branches; excused {int(ref[2].sum())}; α/β, feasible and "
-          f"resolved equal, bounds within tolerance and around the f64 bounds"
+          f"resolved equal, bounds within tolerance of the plain and the f64 bounds"
           f"{'; every mutant fails' if mutate else ''})", flush=True)
     return row
 
@@ -2808,6 +2926,7 @@ def lattice_overflow_case(net, enc, lo, hi):
     import torch
 
     from fairify_tpu_torch.models.mlp import from_numpy
+    from fairify_tpu_torch.obs import launches
     from fairify_tpu_torch.ops import lattice as lattice_ops
 
     ws, bs = net.numpy_params()
@@ -2823,9 +2942,9 @@ def lattice_overflow_case(net, enc, lo, hi):
     dropped = torch.cat([k_scan[2][1:], k_scan[2].new_full((1,), -1)])
     if torch_equal(dropped, p_scan[2]):
         fail("overflow case: a dropped margin index goes unnoticed")
-    n0 = lattice_ops.lattice_signs.launches
+    n0 = launches.counts()["lattice_signs"]
     card = lattice_ops.decide_box_exhaustive(zero, enc, lo, hi, chunk=1 << 18)
-    launched = lattice_ops.lattice_signs.launches - n0
+    launched = launches.counts()["lattice_signs"] - n0
     cpu = lattice_ops.decide_box_exhaustive(cpu_copy(zero), enc, lo, hi, chunk=1 << 18)
     if card != ("unsat", None) or cpu != ("unsat", None) or launched < 1:
         fail(f"overflow case: card {card[0]}, CPU {cpu[0]}, K9b launched {launched}")
@@ -3122,16 +3241,16 @@ def counted(fn, label: str = "counted"):
     whose K8a and KB launches by shape add up to the counters."""
     import torch
 
-    from fairify_tpu_torch.verify import sweep
+    from fairify_tpu_torch.obs import launches
 
     torch.cuda.synchronize()
-    sweep.reset_launches()
+    launches.reset()
     t0 = time.perf_counter()
     with ShapeLog() as shapes:
         res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = sweep.launch_counts()
+    counts = launches.counts()
     shapes.check_cert(counts, label)
     WINDOWS.append((label, shapes, counts))
     return res, counts, wall
@@ -3229,7 +3348,7 @@ def family_grid(nets, cfg, reps: int):
             if not same:
                 fail(f"family grid, segment {si}: model {m}'s family KB/KC outputs are "
                      "not bit-equal to its solo launch")
-            folds += o[4]
+            folds += int(o[4])
         folds = (folds + (1 << 31)) % (1 << 32) - (1 << 31)
         if out_f[4] != folds:
             fail(f"family grid, segment {si}: family fold {out_f[4]}, solo folds {folds}")
@@ -5483,18 +5602,19 @@ def run_sweep(net, cfg, model_name: str, required=(), span=None, mesh=None, labe
     and mesh), whose K8a and KB launches by shape add up to the counters."""
     import torch
 
+    from fairify_tpu_torch.obs import launches
     from fairify_tpu_torch.verify import sweep
 
     shutil.rmtree(cfg.result_dir, ignore_errors=True)
     torch.cuda.synchronize()
-    sweep.reset_launches()
+    launches.reset()
     t0 = time.perf_counter()
     with ShapeLog() as shapes:
         rep = sweep.verify_model(net, cfg, model_name=model_name, resume=False,
                                  partition_span=span, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = sweep.launch_counts()
+    counts = launches.counts()
     label = label or f"{model_name} {cfg.name}" + (
         f" {span[0]}-{span[1]}" if span else "") + (" mesh" if mesh is not None else "")
     shapes.check_cert(counts, label)
@@ -5610,6 +5730,385 @@ def tiny_oracle_case() -> int:
                                                              *dec.counterexample):
             fail(f"tiny case seed {seed}: witness fails its exact replay")
     return 6
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the runtime contracts — the launch pipeline on CUDA events, the
+# sync check, the fault schedules, the trace / heartbeat / profiler, the
+# sampled recheck
+# ---------------------------------------------------------------------------
+
+DEPTHS = (1, 2, 4)
+DEPTH_CHUNK = 26  # GC-1's 201 partitions in 8 grid chunks
+DEPTH_MEGA = 4  # 2 segments of 4 chunks
+FAULT_SPECS = ("launch.decode:transient:1", "launch.submit:fatal:1",
+               "launch.decode:corrupt:1", "ledger.append:corrupt:1")
+RUN_COUNTERS = ("fault_injected", "launch_retries", "chunks_degraded", "integrity_violations",
+                "integrity_rechecks", "ledger_crc_mismatch")
+PHASE_KERNELS = {"stage0_prune": ("ka_kernel",), "stage0_decide": ("kb_kernel", "kc_kernel"),
+                 "stage0_parity": ("kd_kernel",)}
+
+
+def depth_cfg(work: str, gc_cfg, tag: str, **kw):
+    """GC-1's configuration of phase 11: 8 grid chunks, 2 segments on the
+    mega path."""
+    return gc_cfg.with_(**dict(dict(result_dir=os.path.join(work, tag), grid_chunk=DEPTH_CHUNK,
+                                    mega_chunks=DEPTH_MEGA), **kw))
+
+
+def outcome_rows(rep) -> list:
+    """(id, verdict, witness) of every partition of a report."""
+    return [(o.partition_id, o.verdict,
+             None if o.counterexample is None else [list(map(int, c))
+                                                    for c in o.counterexample])
+            for o in rep.outcomes]
+
+
+def depth_gc(work: str, gc_net, gc_cfg, smi: str) -> dict:
+    """11a, GC-1 end to end: the chunk loop and the mega path at every
+    depth; rows, funnels, histograms and launches equal."""
+    out = {}
+    for path, mega in (("chunk", 0), ("mega", DEPTH_MEGA)):
+        for depth in DEPTHS:
+            cfg = depth_cfg(work, gc_cfg, f"depth-{path}-{depth}", mega_chunks=mega,
+                            pipeline_depth=depth)
+            rep, launch, wall = run_sweep(gc_net, cfg, "GC-1",
+                                          label=f"GC-1 {path} loop depth {depth}")
+            thr = check_outputs(rep, cfg, gc_net, "GC-1", launch)
+            out[(path, depth)] = dict(rows=run_rows(cfg, rep), funnel=rep.funnel["states"],
+                                      hist=rep.funnel["margin_hist"], launch=launch,
+                                      wall=wall, thr=thr, counts=rep.counts)
+    ref = out[("chunk", 1)]
+    for (path, depth), r in out.items():
+        if (r["rows"] != ref["rows"] or r["funnel"] != ref["funnel"]
+                or r["hist"] != ref["hist"] or r["launch"] != out[(path, 1)]["launch"]):
+            fail(f"pipeline depth {depth}, GC-1 {path}: rows, funnel, histograms or "
+                 f"launches differ from depth 1 / the chunk loop ({r['counts']}, "
+                 f"{r['launch']})")
+        thr = r["thr"]
+        print(f"[pipeline depth {depth}, GC-1 {path}] {r['counts']} in {r['wall']:.4f} s; "
+              f"launches_in_flight max {thr['launches_in_flight_max']} mean "
+              f"{thr['launches_in_flight_mean']}; stage0_decide "
+              f"{thr['phases_s']['stage0_decide']} s, stage0_parity "
+              f"{thr['phases_s']['stage0_parity']} s; launches {sum(r['launch'].values())}; "
+              f"rows equal depth 1 and the chunk loop; {smi}", flush=True)
+    return out
+
+
+def depth_ac(ac_net, ac_cfg, smi: str) -> dict:
+    """11a, the AC grid: stage 0 and parity through one pipeline at every
+    depth, 8 chunks and 2 segments; verdicts, witnesses, parity and
+    histograms equal; in-flight statistics and seconds per pass."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.obs import funnel as funnel_mod
+    from fairify_tpu_torch.parallel.pipeline import LaunchPipeline
+    from fairify_tpu_torch.verify import pruning, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    enc = encode(ac_cfg.query())
+    _, lo, hi = sweep.build_partitions(ac_cfg)
+    prune = pruning.sound_prune_grid(ac_net, lo, hi, ac_cfg.sim_size, ac_cfg.seed,
+                                     chunk=ac_cfg.grid_chunk, mega_chunks=ac_cfg.mega_chunks)
+    out = {}
+    for path, cfg in (("chunk", ac_cfg.with_(mega_chunks=0)), ("mega", ac_cfg)):
+        for depth in DEPTHS:
+            pipe = LaunchPipeline(depth, supervisor=sweep._supervisor(cfg))
+            st = funnel_mod.StageStats()
+
+            def passes(cfg=cfg, pipe=pipe, st=st):
+                t0 = time.perf_counter()
+                s0 = sweep.stage0_certify_and_attack(ac_net, enc, lo, hi, cfg, st, {},
+                                                     pipe=pipe)
+                t1 = time.perf_counter()
+                par = sweep.parity_pass(ac_net, prune, lo, hi, cfg, pipe=pipe)
+                torch.cuda.synchronize()
+                return s0, par, t1 - t0, time.perf_counter() - t1
+
+            (s0, par, t_s0, t_par), launch, _ = counted(
+                passes, f"AC grid stage 0 + parity, {path} depth {depth}")
+            out[(path, depth)] = dict(s0=s0, par=par, hist=st.hist.copy(), launch=launch,
+                                      t_s0=t_s0, t_par=t_par, flight=pipe.stats.summary())
+    ref = out[("chunk", 1)]
+    for (path, depth), r in out.items():
+        if (not same_stage0(r["s0"], ref["s0"]) or not np.array_equal(r["par"], ref["par"])
+                or not np.array_equal(r["hist"], ref["hist"])
+                or r["launch"] != out[(path, 1)]["launch"]):
+            fail(f"pipeline depth {depth}, AC grid {path}: stage 0, parity, histograms or "
+                 f"launches differ ({r['launch']})")
+        print(f"[pipeline depth {depth}, AC grid {path}] stage 0 {r['t_s0']:.4f} s, parity "
+              f"{r['t_par']:.4f} s; launches_in_flight max {r['flight']['max']} mean "
+              f"{r['flight']['mean']}; launches {sum(r['launch'].values())}; verdicts, "
+              f"witnesses, parity and histograms equal depth 1 and the chunk loop; {smi}",
+              flush=True)
+    return out
+
+
+def bab_submit_args(net, enc, lo, hi, Q: int = 64):
+    """The host queue, root validity (on the card) and constants of one
+    device-BaB group of ``Q // 4`` roots, as ``engine.device_bab_phase``
+    builds them."""
+    import numpy as np
+
+    from fairify_tpu_torch.parallel.pipeline import stage
+    from fairify_tpu_torch.verify import engine
+
+    d, V, G = lo.shape[1], enc.n_assign, max(1, Q // 4)
+    Qs = Q + 1
+    q = [np.zeros((Qs, d), np.float32), np.zeros((Qs, d), np.float32),
+         np.zeros(Qs, np.int32), np.zeros(Qs, bool), np.zeros(Qs, bool),
+         np.zeros(Qs, np.int32), np.zeros(Qs, np.int32), np.zeros((Qs, d), np.float32)]
+    g = min(G, lo.shape[0])
+    q[0][:g], q[1][:g], q[2][:g], q[3][:g] = lo[:g], hi[:g], np.arange(g), True
+    pa = np.asarray(enc.pa_idx)
+    root_valid = np.zeros((G, V), bool)
+    root_valid[:g] = ((enc.assignments[None] >= lo[:g, None, pa])
+                      & (enc.assignments[None] <= hi[:g, None, pa])).all(-1)
+    slot_ok = np.zeros(Qs, bool)
+    slot_ok[:Q] = True
+    bm = np.zeros(d, np.float32)
+    bm[engine._branch_dims(enc, d)] = 1.0
+    return q, stage(root_valid, net.device), engine.bab_consts(net, enc, d, slot_ok, bm)
+
+
+def sync_check(gc_net, gc_cfg, smi: str) -> dict:
+    """11b: one submit of every pipelined path, and the start of its fetch,
+    under ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up call
+    of each; then the fetch."""
+    import numpy as np
+    import torch
+
+    from dataclasses import replace
+
+    from fairify_tpu_torch.parallel import mesh as mesh_mod
+    from fairify_tpu_torch.parallel import pipeline
+    from fairify_tpu_torch.partition import grid as grid_mod
+    from fairify_tpu_torch.verify import engine, pruning, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    cfg = gc_cfg.with_(grid_chunk=DEPTH_CHUNK, mega_chunks=DEPTH_MEGA)
+    ibp = cfg.with_(engine=replace(cfg.engine, use_crown=False))
+    enc = encode(cfg.query())
+    _, lo, hi = sweep.build_partitions(cfg)
+    step, segs = grid_mod.segment_spans(len(lo), cfg.grid_chunk, cfg.mega_chunks)
+    n = cfg.grid_chunk
+    mesh = mesh_mod.submesh(["cuda:0"] * 3)
+    reps = mesh_mod.replicated(mesh, gc_net)
+    stack = mesh_mod.stack_models([gc_net, gc_net])
+    prune = pruning.sound_prune_grid(gc_net, lo, hi, cfg.sim_size, cfg.seed,
+                                     chunk=cfg.grid_chunk, mega_chunks=0)
+    q, root_valid, consts = bab_submit_args(gc_net, enc, lo, hi)
+    submits = {
+        "prune block": lambda: pruning.prune_block_submit(gc_net, lo[:n], hi[:n], cfg.sim_size,
+                                                          cfg.seed, 0, n),
+        "mega segment": lambda: sweep.mega_segment_submit(gc_net, enc, lo, hi, cfg,
+                                                          segs[0][2], step, 0)[0],
+        "fused chunk": lambda: sweep.stage0_block_submit(gc_net, enc, lo[:n], hi[:n], cfg, 7,
+                                                         n)[0],
+        "IBP chunk": lambda: sweep.stage0_block_submit(gc_net, enc, lo[:n], hi[:n], ibp, 7,
+                                                       n)[0],
+        "mesh chunk": lambda: sweep.stage0_block_submit(gc_net, enc, lo[:n], hi[:n], cfg, 7, n,
+                                                        mesh=mesh, replicas=reps)[0],
+        "family segment": lambda: sweep.mega_segment_submit(stack, enc, lo, hi, cfg,
+                                                            segs[0][2], step, 0)[0],
+        "parity block": lambda: sweep.parity_submit(gc_net, prune, lo, hi, cfg, 0, n, n),
+        "PGD chunk": lambda: engine.pgd_attack_submit(
+            gc_net, enc, lo[:16], hi[:16], np.random.default_rng(1),
+            steps=cfg.engine.pgd_steps, restarts=cfg.engine.pgd_restarts)[0],
+        "device-BaB segment": lambda: engine.bab_segment_submit(
+            gc_net, q, root_valid, consts, cfg.engine.bab_rounds_per_segment, 8),
+    }
+    bad, times = {}, {}
+    for name, fn in submits.items():
+        pipeline.fetch(fn())  # warm: packs, constants, the first launch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            flight = pipeline.start_fetch(fn())
+        except RuntimeError as exc:
+            bad[name] = str(exc).splitlines()[0]
+            flight = None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        times[name] = time.perf_counter() - t0
+        if flight is not None:
+            pipeline.finish_fetch(*flight)
+    if bad:
+        fail(f"sync check: implicit syncs in the submit half of {bad}")
+    print(f"[sync check] {len(submits)} pipelined submits and their fetch starts under "
+          f"set_sync_debug_mode('error'), no implicit sync; host seconds of each submit "
+          f"{ {k: round(v, 5) for k, v in times.items()} }; {smi}", flush=True)
+    return {"paths": list(submits), "submit_s": times}
+
+
+def counter_totals() -> dict:
+    from fairify_tpu_torch import obs
+
+    return {n: obs.registry().counter(n).total() for n in RUN_COUNTERS}
+
+
+def fault_schedules(work: str, gc_net, gc_cfg, smi: str) -> dict:
+    """11c: GC-1 under each of FAULT_SPECS, then a resume; the fault-free
+    rows from a run of the same configuration."""
+    import numpy as np
+
+    from fairify_tpu_torch.parallel.pipeline import fetch
+    from fairify_tpu_torch.partition import grid as grid_mod
+    from fairify_tpu_torch.verify import sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    base = depth_cfg(work, gc_cfg, "faults-free", launch_backoff_s=1e-3)
+    want = outcome_rows(sweep.verify_model(gc_net, base, model_name="GC-1", resume=False))
+    # A re-dispatched segment (a decode retry's relaunch) is bit-equal to
+    # the first dispatch.
+    enc = encode(base.query())
+    _, lo, hi = sweep.build_partitions(base)
+    step, segs = grid_mod.segment_spans(len(lo), base.grid_chunk, base.mega_chunks)
+    first, again = (fetch(sweep.mega_segment_submit(gc_net, enc, lo, hi, base, segs[0][2],
+                                                    step, 0)[0]) for _ in range(2))
+    if any(not np.array_equal(first[k], again[k]) for k in first):
+        fail("faults: a re-dispatched segment differs from its first dispatch")
+    out = {}
+    for spec in FAULT_SPECS:
+        cfg = base.with_(result_dir=os.path.join(work, f"faults-{spec}"), inject_faults=(spec,))
+        c0 = counter_totals()
+        t0 = time.perf_counter()
+        rep = sweep.verify_model(gc_net, cfg, model_name="GC-1", resume=False)
+        wall = time.perf_counter() - t0
+        c1 = counter_totals()
+        resumed = sweep.verify_model(gc_net, cfg.with_(inject_faults=()), model_name="GC-1",
+                                     resume=True)
+        c2 = counter_totals()
+        run = {k: c1[k] - c0[k] for k in c0}
+        reload = {k: c2[k] - c1[k] for k in c0}
+        got = outcome_rows(rep)
+        ok = outcome_rows(resumed) == want and resumed.degraded == 0 and run["fault_injected"]
+        kind = spec.split(":")[1]
+        if spec.startswith("launch.decode:transient"):
+            ok = ok and got == want and rep.degraded == 0 and run["launch_retries"] == 1
+        elif kind == "fatal":
+            ok = ok and rep.degraded > 0
+        elif spec.startswith("launch.decode:corrupt"):
+            ok = ok and rep.degraded > 0 and run["integrity_violations"] >= 1
+        else:  # the ledger row mutates after its CRC: caught on reload
+            ok = ok and got == want and reload["ledger_crc_mismatch"] >= 1
+        if not ok:
+            fail(f"faults {spec}: degraded {rep.degraded}, counters {run}, on resume "
+                 f"{reload}, resume equals the fault-free rows "
+                 f"{outcome_rows(resumed) == want}")
+        out[spec] = dict(degraded=rep.degraded, counters=run, resume_counters=reload,
+                         wall_s=wall)
+        print(f"[faults {spec}] GC-1 in {wall:.4f} s: degraded {rep.degraded}, counters "
+              f"{ {k: v for k, v in run.items() if v} }, on resume "
+              f"{ {k: v for k, v in reload.items() if v} }; the resume gives the "
+              f"fault-free rows; {smi}", flush=True)
+    return out
+
+
+def trace_and_profiler(work: str, gc_net, gc_cfg, smi: str) -> dict:
+    """11d: GC-1 with ``trace_out``, ``heartbeat_s`` and ``profile_dir``."""
+    import collections
+    import glob
+
+    from fairify_tpu_torch import obs
+    from fairify_tpu_torch.verify import sweep
+
+    trace = os.path.join(work, "trace", "run.jsonl")
+    prof = os.path.join(work, "trace", "prof")
+    cfg = depth_cfg(work, gc_cfg, "trace", trace_out=trace, heartbeat_s=0.5, profile_dir=prof)
+    t0 = time.perf_counter()
+    rep = sweep.verify_model(gc_net, cfg, model_name="GC-1", resume=False)
+    wall = time.perf_counter() - t0
+    recs, skipped = obs.load_events(trace, count_skipped=True)
+    spans = collections.Counter(r["name"] for r in recs if r["type"] == "span")
+    verdicts = [r for r in recs if r["type"] == "event" and r["name"] == "verdict"]
+    need = ("verify_model", "stage0_prune", "prune.sim_and_bounds", "stage0_decide",
+            "stage0_parity", "pipeline.drain")
+    if skipped or any(spans[k] == 0 for k in need) or len(verdicts) != rep.partitions_total:
+        fail(f"trace: skipped {skipped}, spans {dict(spans)}, verdict events {len(verdicts)}")
+    (path,) = glob.glob(os.path.join(prof, "trace-*.json"))
+    with open(path) as fp:
+        events = json.load(fp)["traceEvents"]
+    under = {}
+    ranges = {ph: [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("name") == ph and e.get("cat") in ("user_annotation",
+                                                               "gpu_user_annotation")]
+              for ph in PHASE_KERNELS}
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    for ph, names in PHASE_KERNELS.items():
+        for name in names:
+            hits = 0
+            for k in kernels:
+                if name not in k.get("name", ""):
+                    continue
+                ts = launch_ts.get(k.get("args", {}).get("correlation"), k["ts"])
+                hits += any(a <= ts <= b for a, b in ranges[ph])
+            under[f"{name} under {ph}"] = hits
+    if any(v == 0 for v in under.values()):
+        fail(f"profiler: kernels under the phase annotations {under}; annotations "
+             f"{ {k: len(v) for k, v in ranges.items()} }, {len(kernels)} kernel events")
+    print(f"[trace and profiler] GC-1 in {wall:.4f} s with trace_out, heartbeat_s and "
+          f"profile_dir: {sum(spans.values())} spans ({dict(spans)}), "
+          f"{len(verdicts)} verdict events; profiler trace {os.path.getsize(path)} bytes, "
+          f"{len(kernels)} kernel events, {under}; {smi}", flush=True)
+    return {"spans": dict(spans), "kernels_under_phases": under, "wall_s": wall}
+
+
+def sampled_recheck(work: str, gc_net, gc_cfg, smi: str) -> dict:
+    """11e: GC-1 at ``integrity_recheck=1.0``."""
+    from fairify_tpu_torch import obs
+    from fairify_tpu_torch.partition import grid as grid_mod
+    from fairify_tpu_torch.verify import exact_check, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    cfg = depth_cfg(work, gc_cfg, "recheck", integrity_recheck=1.0)
+    rc = obs.registry().counter("integrity_rechecks")
+    before = {s["labels"]["kind"]: s["value"] for s in rc.snapshot()}
+    c0 = counter_totals()
+    t0 = time.perf_counter()
+    rep = sweep.verify_model(gc_net, cfg, model_name="GC-1", resume=False)
+    wall = time.perf_counter() - t0
+    c1 = counter_totals()
+    kinds = {s["labels"]["kind"]: s["value"] - before.get(s["labels"]["kind"], 0)
+             for s in rc.snapshot()}
+    enc = encode(cfg.query())
+    _, lo, hi = sweep.build_partitions(cfg)
+    _, spans = grid_mod.chunk_spans(len(lo), cfg.grid_chunk)
+    unsat = {o.partition_id - 1 for o in rep.outcomes if o.verdict == "unsat"}
+    weights, biases = gc_net.numpy_params()
+    tally = {}
+    for s, e in spans:
+        first = next((p for p in range(s, e) if p in unsat), None)
+        if first is not None:
+            v = exact_check.decide_pair_box_exact(weights, biases, enc, lo[first], hi[first],
+                                                  max_nodes=2000)["verdict"]
+            tally[v] = tally.get(v, 0) + 1
+    violations = c1["integrity_violations"] - c0["integrity_violations"]
+    if (kinds.get("chunk") != len(spans) or violations or rep.degraded or "refuted" in tally
+            or kinds.get("exact", 0) != sum(tally.values())):
+        fail(f"sampled recheck: rechecks {kinds}, violations {violations}, degraded "
+             f"{rep.degraded}, exact oracle {tally}")
+    print(f"[sampled recheck] GC-1 at integrity_recheck=1.0 in {wall:.4f} s: {rep.counts}; "
+          f"rechecks {kinds} of {len(spans)} chunks, 0 violations; the exact oracle on each "
+          f"chunk's first certified partition {tally}; {smi}", flush=True)
+    return {"rechecks": kinds, "exact": tally, "wall_s": wall}
+
+
+def runtime_contracts(work: str, gc_net, gc_cfg, ac_net, ac_cfg, smi: str) -> dict:
+    """Phase 11 (11a-11e)."""
+    t0 = time.perf_counter()
+    out = {"gc": depth_gc(work, gc_net, gc_cfg, smi), "ac": depth_ac(ac_net, ac_cfg, smi),
+           "sync": sync_check(gc_net, gc_cfg, smi),
+           "faults": fault_schedules(work, gc_net, gc_cfg, smi),
+           "trace": trace_and_profiler(work, gc_net, gc_cfg, smi),
+           "recheck": sampled_recheck(work, gc_net, gc_cfg, smi)}
+    print(f"[phase 11] runtime contracts in {time.perf_counter() - t0:.3f} s; {smi}",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -5917,6 +6416,8 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     _, tlo, thi = leftovers(tnets["AC-S1"], ac_cfg, None, 8192)
     k7["trained"] = k7_check("AC-S1 trained", tnets["AC-S1"], tlo, thi, reps=3, more=False)
     trained17 = trained_forward_checks(tnets)
+    # --- phase 11: the runtime contracts
+    runtime_contracts(work, gc_net, gc_cfg, ac_net, ac_cfg, smi)
     shutil.rmtree(work, ignore_errors=True)
     # K8a and KB by shape in every window of the run
     cert_shapes = cert_by_shape()

@@ -186,9 +186,12 @@ def is_decided(state: str) -> bool:
 
 
 class FunnelCounts:
-    """Per-run terminal-state counter: the tally that rides the throughput
-    JSON.  (The JAX package also mirrors it into its metrics registry; the
-    port's obs layer is ROADMAP queue 1, item 4.)"""
+    """Per-run terminal-state counter, mirrored into the metrics registry.
+
+    Every ``add`` increments the labelled ``funnel_states`` counter of the
+    process registry, so the heartbeat sees the live funnel; the instance
+    itself is the per-run tally that rides the throughput JSON and the
+    per-model ``funnel`` event."""
 
     def __init__(self) -> None:
         self.counts: Dict[str, int] = {}
@@ -197,6 +200,9 @@ class FunnelCounts:
         if n <= 0:
             return
         self.counts[state] = self.counts.get(state, 0) + n
+        from fairify_tpu_torch.obs.metrics import registry
+
+        registry().counter("funnel_states").inc(n, state=state)
 
     @property
     def total(self) -> int:
@@ -213,3 +219,14 @@ class FunnelCounts:
 
     def to_dict(self) -> Dict[str, int]:
         return {s: self.counts[s] for s in sorted(self.counts)}
+
+
+def live_decided() -> int:
+    """Process-wide decided count from the mirrored ``funnel_states`` counter
+    (the heartbeat's live-funnel source; pair with a baseline captured at
+    init)."""
+    from fairify_tpu_torch.obs.metrics import registry
+
+    snap = registry().counter("funnel_states").snapshot()
+    return int(sum(s["value"] for s in snap
+                   if is_decided(s["labels"].get("state", ""))))

@@ -28,6 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
+from fairify_tpu_torch.obs import launches
 from fairify_tpu_torch.ops.interval import LayerBounds, affine_interval, widen
 from fairify_tpu_torch.ops.interval import widen as _widen  # where `widen` is a flag
 from fairify_tpu_torch.utils import cuda_build
@@ -258,11 +259,11 @@ def alpha_crown_output_bounds(net, lb, ub, iters: int = 8, widen: bool = True):
     if lb.device.type == "cpu":
         return alpha_crown_output_bounds_plain(net, lb, ub, iters, widen)
     lead = lb.shape[:-1]
-    fn, args, out = _alpha_crown_prepare(net, lb.reshape(-1, lb.shape[-1]),
-                                         ub.reshape(-1, ub.shape[-1]), iters, widen)
-    cuda_build.check("k7_alpha_output_bounds",
-                     fn(*args, torch.cuda.current_stream().cuda_stream))
-    alpha_crown_output_bounds.launches += 1
+    with launches.launching("alpha_crown", (tuple(lb.shape), int(iters))):
+        fn, args, out = _alpha_crown_prepare(net, lb.reshape(-1, lb.shape[-1]),
+                                             ub.reshape(-1, ub.shape[-1]), iters, widen)
+        cuda_build.check("k7_alpha_output_bounds",
+                         fn(*args, torch.cuda.current_stream().cuda_stream))
     return out[0].reshape(lead), out[1].reshape(lead)
 
 
@@ -297,7 +298,6 @@ def _alpha_crown_prepare(net, lb, ub, iters: int, widen: bool, _geometry_force=N
     return cuda_build.entry("role_bounds", "k7_alpha_output_bounds", _K7_ARGS), args, out
 
 
-alpha_crown_output_bounds.launches = 0
 
 
 def sign_constrained_output_bounds(net, lb, ub, signs, alpha_iters: int = 0,

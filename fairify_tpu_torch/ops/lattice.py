@@ -55,6 +55,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from fairify_tpu_torch.obs import launches
 from fairify_tpu_torch.utils import cuda_build
 from fairify_tpu_torch.verify.property import shared_dims, valid_assignments
 
@@ -451,13 +452,12 @@ def lattice_scan(net, start, n_total, strides, widths, lo_shared, bases, valid_m
     if bases.device.type == "cpu":
         return lattice_scan_plain(net, start, n_total, strides, widths, lo_shared, bases,
                                   valid_mask, valid_pair_f, chunk, dims_tuple, d)
-    out = _launch(_MODE_SCAN, net, start, n_total, strides, widths, lo_shared, bases,
-                  valid_mask, valid_pair_f, chunk, dims_tuple, d)
-    lattice_scan.launches += 1
+    with launches.launching("lattice_scan", (int(n_total), int(chunk))):
+        out = _launch(_MODE_SCAN, net, start, n_total, strides, widths, lo_shared, bases,
+                      valid_mask, valid_pair_f, chunk, dims_tuple, d)
     return out
 
 
-lattice_scan.launches = 0
 
 
 def lattice_signs(net, start, strides, widths, lo_shared, bases, chunk: int,
@@ -470,14 +470,13 @@ def lattice_signs(net, start, strides, widths, lo_shared, bases, chunk: int,
                                   dims_tuple, d, with_fe=with_fe)
     V = int(bases.shape[0])
     ones = torch.ones(V, dtype=torch.bool, device=bases.device)
-    out = _launch(_MODE_SIGNS, net, start, 0, strides, widths, lo_shared, bases, ones,
-                  torch.zeros((V, V), dtype=torch.float32, device=bases.device), chunk,
-                  dims_tuple, d, with_fe=with_fe)
-    lattice_signs.launches += 1
+    with launches.launching("lattice_signs", (int(chunk), bool(with_fe))):
+        out = _launch(_MODE_SIGNS, net, start, 0, strides, widths, lo_shared, bases, ones,
+                      torch.zeros((V, V), dtype=torch.float32, device=bases.device), chunk,
+                      dims_tuple, d, with_fe=with_fe)
     return out
 
 
-lattice_signs.launches = 0
 
 
 def lattice_scan_ra(net, start, n_total, strides, widths, lo_shared, bases, valid_mask,
@@ -490,13 +489,12 @@ def lattice_scan_ra(net, start, n_total, strides, widths, lo_shared, bases, vali
         return lattice_scan_ra_plain(net, start, n_total, strides, widths, lo_shared,
                                      bases, valid_mask, valid_pair_f, chunk, dims_tuple,
                                      d, ra_ws, eps)
-    out = _launch(_MODE_RA, net, start, n_total, strides, widths, lo_shared, bases,
-                  valid_mask, valid_pair_f, chunk, dims_tuple, d, ra_ws=ra_ws, eps=eps)
-    lattice_scan_ra.launches += 1
+    with launches.launching("lattice_scan_ra", (int(n_total), int(chunk))):
+        out = _launch(_MODE_RA, net, start, n_total, strides, widths, lo_shared, bases,
+                      valid_mask, valid_pair_f, chunk, dims_tuple, d, ra_ws=ra_ws, eps=eps)
     return out
 
 
-lattice_scan_ra.launches = 0
 
 
 # ---------------------------------------------------------------------------

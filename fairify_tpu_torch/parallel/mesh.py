@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from fairify_tpu_torch.models.mlp import MLP, StackedMLP
+from fairify_tpu_torch.parallel.pipeline import fetch, stage
 from fairify_tpu_torch.utils import cuda_build, num
 from fairify_tpu_torch.utils.num import resolve_device
 
@@ -181,8 +182,7 @@ def shard_parts(mesh: Mesh, *arrays: np.ndarray):
     if len(set(lengths)) != 1:
         raise ValueError(f"shard_parts: arrays of unequal lengths {lengths}")
     per = padded[0].shape[0] // p
-    shards = [tuple(torch.as_tensor(a[i * per:(i + 1) * per], device=dev)
-                    for a in padded)
+    shards = [tuple(stage(a[i * per:(i + 1) * per], dev) for a in padded)
               for i, dev in enumerate(mesh.parts_devices)]
     return shards, lengths[0]
 
@@ -219,32 +219,38 @@ def on_device(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def _gather(outs, axis: int):
+def _gather(outs, axis: int, home):
     first = outs[0]
     if isinstance(first, torch.Tensor):
-        return np.concatenate([o.cpu().numpy() for o in outs], axis=axis)
+        return torch.cat([o.to(home, non_blocking=True) for o in outs], dim=axis)
     if isinstance(first, (tuple, list)):
-        return type(first)(_gather([o[i] for o in outs], axis) for i in range(len(first)))
+        return type(first)(_gather([o[i] for o in outs], axis, home)
+                           for i in range(len(first)))
     raise TypeError(f"shard_map: cannot gather {type(first).__name__}")
 
 
-def shard_map(mesh: Mesh, fn, replicas: dict, *arrays, axis: int = 0):
+def shard_launch(mesh: Mesh, fn, replicas: dict, *arrays, axis: int = 0):
     """``fn(net, *pieces)`` on every parts shard of the arrays (numpy,
-    sharded by :func:`shard_parts`), each on its shard's device with that
-    device's replica of the net and current stream; one synchronisation,
-    then every output tensor (nested in tuples and lists as ``fn`` returns
-    them) concatenated over the shards along ``axis`` (1 for a stacked
-    family's model-first outputs) on the host.  The result keeps the shard
-    padding: the caller trims."""
+    sharded by :func:`shard_parts`, staged through pinned buffers), each on
+    its shard's device with that device's replica of the net and current
+    stream; every output tensor (nested in tuples and lists as ``fn``
+    returns them) concatenated over the shards along ``axis`` (1 for a
+    stacked family's model-first outputs) on the mesh's first device,
+    without a sync.  The result keeps the shard padding: the caller
+    trims."""
     shards, _n = shard_parts(mesh, *arrays)
     outs = []
     for dev, pieces in zip(mesh.parts_devices, shards):
         with on_device(dev):
             outs.append(fn(replicas[dev], *pieces))
-    for dev in mesh.distinct:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    return _gather(outs, axis)
+    with on_device(mesh.home):
+        return _gather(outs, axis, mesh.home)
+
+
+def shard_map(mesh: Mesh, fn, replicas: dict, *arrays, axis: int = 0):
+    """:func:`shard_launch`, then one fetch: the gathered outputs as numpy
+    arrays on the host (shard padding kept)."""
+    return fetch(shard_launch(mesh, fn, replicas, *arrays, axis=axis))
 
 
 def stack_models(nets: Sequence[MLP]) -> StackedMLP:

@@ -1,12 +1,18 @@
-"""Result-integrity detectors: fold checksum, canary, ledger-row CRC.
+"""Result-integrity detectors and injected bit flips.
 
-Copy of the detection half of ``fairify_tpu/resilience/integrity.py``: the
-host mirror of the kernels' wrapping int32 fold (:func:`fold_host`), the
-known-answer canary checks (:func:`check_canary` for stage-0 segments,
-:func:`check_bab_canary` for device-BaB segments), their combinations
-(:func:`verify_segment`, :func:`verify_bab_segment`), and the per-row ledger CRC (:func:`record_crc`,
-:func:`verify_records`).  Fault injection and the sampled recheck are not
-ported yet (ROADMAP queue 1, item 4).
+Copy of ``fairify_tpu/resilience/integrity.py``: the host mirror of the
+kernels' wrapping int32 fold (:func:`fold_host`), the known-answer canary
+checks (:func:`check_canary` for stage-0 segments, :func:`check_bab_canary`
+for device-BaB segments), their combinations (:func:`verify_segment`,
+:func:`verify_bab_segment`), and the per-row ledger CRC
+(:func:`record_crc`, :func:`verify_records`); the deterministic bit flips
+that ``corrupt`` fault specs inject (:func:`flip_bit`,
+:func:`corrupt_host`, :func:`corrupt_record`, :func:`corrupt_witness`: the
+flip is keyed on the corruption arrival number, so a schedule reproduces
+the same wrong bit every run); and the hash-keyed selection of the sampled
+recheck (:func:`sampled`).  Containment on any mismatch rides the
+degradation contract: the affected span demotes to
+``unknown:failure:integrity.*`` and is re-attempted on resume.
 """
 from __future__ import annotations
 
@@ -28,6 +34,82 @@ FOLD_KEYS = ("cert", "wit", "reason", "stats")
 # buffers fold equal on any backend.
 BAB_FOLD_KEYS = ("q_lo", "q_hi", "q_root", "q_live", "found",
                  "wit_a", "wit_b", "wit_pt", "nodes", "splits", "overflow")
+
+
+# --------------------------------------------------------------------------
+# deterministic corruption (chaos injection side)
+
+def flip_bit(arr: np.ndarray, n: int) -> np.ndarray:
+    """Return a copy of ``arr`` with one deterministically-chosen bit flipped.
+
+    ``n`` (the corruption arrival number) picks the element and the bit,
+    so a chaos schedule reproduces the same flip every run.  Booleans are
+    inverted wholesale (their one semantic bit); floats get their exponent
+    MSB flipped (a magnitude-scale error — the classic SDC signature — so
+    downstream range checks cannot accidentally absorb it); integers get
+    a low-order XOR.
+    """
+    out = np.array(arr, copy=True)
+    flat = out.reshape(-1)
+    if flat.size == 0:
+        return out
+    i = n % flat.size
+    if out.dtype == np.bool_:
+        flat[i] = not flat[i]
+        return out
+    if np.issubdtype(out.dtype, np.floating):
+        bits = flat.view(np.uint32 if out.dtype.itemsize == 4 else np.uint64)
+        bits[i] ^= np.asarray(1 << (out.dtype.itemsize * 8 - 2), bits.dtype)
+        return out
+    nbits = out.dtype.itemsize * 8
+    flat[i] = flat[i] ^ np.asarray(1 << (n % max(nbits - 1, 1)), out.dtype)
+    return out
+
+
+def corrupt_host(payload: Dict[str, np.ndarray], n: int) -> Dict[str, np.ndarray]:
+    """Flip one bit in a fetched device payload (``launch.decode:corrupt``).
+
+    Targets the data buffers, never the riding ``csum`` scalar — the model
+    is a flipped bit in the result the host is about to *trust*; the
+    checksum is the detector.  (A flipped checksum with intact data would
+    also be flagged, conservatively, as a corrupt transfer.)
+    """
+    keys = sorted(k for k, v in payload.items()
+                  if k != "csum" and isinstance(v, np.ndarray) and v.size)
+    if not keys:
+        return payload
+    key = keys[n % len(keys)]
+    out = dict(payload)
+    out[key] = flip_bit(payload[key], n)
+    return out
+
+
+def corrupt_record(rec: dict, n: int) -> dict:
+    """Mutate a ledger row (``ledger.append:corrupt``) post-CRC.
+
+    The nastiest possible flip is chosen on purpose: a decided verdict
+    inverts (``unsat`` <-> ``sat``), anything else gets its partition id
+    bit-flipped.  The row stays valid JSON — this is a *corrupt* row, not
+    a torn line, and must be caught by the CRC, not the JSON parser.
+    """
+    out = dict(rec)
+    v = out.get("verdict")
+    if v == "unsat":
+        out["verdict"] = "sat"
+    elif v == "sat":
+        out["verdict"] = "unsat"
+    elif isinstance(out.get("partition_id"), int):
+        out["partition_id"] = out["partition_id"] ^ (1 << (n % 8))
+    return out
+
+
+def corrupt_witness(ce: Tuple[np.ndarray, np.ndarray],
+                    n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Flip one bit in an SMT counterexample pair (``smt.query:corrupt``)."""
+    x, xp = np.asarray(ce[0], dtype=np.float64), np.asarray(ce[1], np.float64)
+    if n % 2 == 0:
+        return flip_bit(x, n), xp
+    return x, flip_bit(xp, n)
 
 
 def fold_host(payload: Dict[str, np.ndarray],
@@ -140,3 +222,22 @@ def verify_records(recs: Iterable[dict]) -> Tuple[List[dict], int]:
         else:
             bad += 1
     return good, bad
+
+
+# --------------------------------------------------------------------------
+# sampled recheck selection
+
+def sampled(seed: int, key: str, rate: float) -> bool:
+    """Deterministic Bernoulli(rate) draw keyed on ``(seed, key)``.
+
+    Hash-based (CRC-32 of the key string), not RNG-state-based, so the
+    selection is independent of arrival order, thread interleaving, and
+    resume — the same chunk is rechecked in the original run and its
+    resume, which is what makes recheck results comparable.
+    """
+    if rate <= 0.0:
+        return False
+    if rate >= 1.0:
+        return True
+    h = zlib.crc32(f"{seed}:{key}".encode("utf-8"))
+    return (h % 1_000_000) / 1_000_000.0 < rate

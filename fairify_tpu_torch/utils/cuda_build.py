@@ -11,8 +11,18 @@ hash of the sources and flags, so an edited kernel is rebuilt.
 
 Every C entry point takes its device pointers as ``void*``, the launch
 stream last, and returns ``cudaGetLastError()`` right after the launch;
-:func:`call` declares the argument types and turns a nonzero code into an
-exception.
+:func:`call` declares the argument types and turns a nonzero code into a
+:class:`resilience.supervisor.CudaLaunchError`, which the supervisor
+classifies by its code (a sticky error propagates, any other is fatal).
+
+The build is the ``compile`` fault site: each attempt first counts one
+arrival there, a transient failure is retried by a
+:class:`resilience.supervisor.Supervisor`, and a build that fails or runs
+out of retries raises :class:`KernelBuildError`, which every supervisor
+propagates: a kernel never falls back to its plain version.  While
+``nvcc`` runs, the live heartbeat prints a "building <source>" flag, and
+the launch registry (``obs.launches``) counts the sources compiled and
+their seconds.
 """
 from __future__ import annotations
 
@@ -42,12 +52,17 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_info: Dict[str, object] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """The kernels could not be built: ``nvcc`` failed, or the ``compile``
+    site's retries ran out.  Supervisors propagate it."""
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                       "machine with the CUDA toolkit")
+    raise KernelBuildError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
 
 
 def _digest() -> str:
@@ -59,12 +74,52 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
-def build_all() -> Dict[str, object]:
+def _compile(nvcc: str, tag: str) -> tuple:
+    """One build attempt: a ``compile`` fault-site arrival, then every
+    missing library compiled in parallel.  Returns ``(compiled, logs)``."""
+    from fairify_tpu_torch.obs import heartbeat
+    from fairify_tpu_torch.resilience import faults
+
+    faults.check("compile")
+    procs = {}
+    for name in SOURCES:
+        out = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
+        if os.path.isfile(out):
+            continue
+        heartbeat.notify_build(f"{name}.cu")
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        detail = "\n".join(f"--- {n} ---\n{logs[n]}" for n in failed)
+        raise KernelBuildError(f"nvcc failed for {failed}:\n{detail}")
+    return sorted(procs), logs
+
+
+def build_all(supervisor=None) -> Dict[str, object]:
     """Compile every kernel source (in parallel) and load the libraries.
 
     Idempotent; returns ``build_info`` with the wall seconds of the build
-    and each library's ``ptxas`` resource report.
+    and each library's ``ptxas`` resource report.  ``supervisor`` (default
+    :class:`resilience.supervisor.Supervisor` with its default retries)
+    retries a transient failure at the ``compile`` site; exhaustion raises
+    :class:`KernelBuildError`.
     """
+    from fairify_tpu_torch.obs import launches
+    from fairify_tpu_torch.resilience.supervisor import ChunkDegraded, Supervisor
+
     with _lock:
         if _libs:
             return build_info
@@ -72,34 +127,17 @@ def build_all() -> Dict[str, object]:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tag = _digest()
         t0 = time.perf_counter()
-        procs = {}
-        for name in SOURCES:
-            out = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
-            if os.path.isfile(out):
-                continue
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-                   os.path.join(CSRC, f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True),
-                           tmp, out)
-        logs = {}
-        failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            logs[name] = log
-            if proc.returncode != 0:
-                failed.append(name)
-            else:
-                os.replace(tmp, out)
-        if failed:
-            detail = "\n".join(f"--- {n} ---\n{logs[n]}" for n in failed)
-            raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
+        sup = supervisor if supervisor is not None else Supervisor()
+        try:
+            compiled, logs = sup.run(lambda: _compile(nvcc, tag), site="compile")
+        except ChunkDegraded as exc:
+            raise KernelBuildError(f"kernel build failed: {exc}") from exc
         for name in SOURCES:
             _libs[name] = ctypes.CDLL(os.path.join(BUILD_DIR,
                                                    f"lib{name}-{tag}.so"))
-        build_info.update(seconds=time.perf_counter() - t0, tag=tag,
-                          compiled=sorted(procs), ptxas=logs)
+        seconds = time.perf_counter() - t0
+        launches.record_build(len(compiled), seconds)
+        build_info.update(seconds=seconds, tag=tag, compiled=compiled, ptxas=logs)
         return build_info
 
 
@@ -128,9 +166,12 @@ def entry(src: str, name: str, types: tuple):
 
 
 def check(name: str, err: int) -> None:
-    """Raise if C entry point ``name`` returned a nonzero CUDA error code."""
+    """Raise :class:`resilience.supervisor.CudaLaunchError` if C entry point
+    ``name`` returned a nonzero CUDA error code."""
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}")
+        from fairify_tpu_torch.resilience.supervisor import CudaLaunchError
+
+        raise CudaLaunchError(name, err)
 
 
 def call(src: str, name: str, *args) -> None:

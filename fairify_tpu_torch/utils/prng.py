@@ -36,6 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fairify_tpu_torch.obs import launches
+
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -95,8 +97,8 @@ def grid_keys(seed: int, index_offset: int, n: int, device="cpu") -> torch.Tenso
     ``csrc/sim_rows.cu:k12_grid_keys`` (:func:`fold_in_launch`)."""
     if torch.device(device).type == "cpu":
         return grid_keys_plain(seed, index_offset, n, device)
-    out = fold_in_launch(key_words(seed), index_offset, n, device)
-    grid_keys.launches += 1
+    with launches.launching("grid_keys", (n,)):
+        out = fold_in_launch(key_words(seed), index_offset, n, device)
     return out
 
 
@@ -118,7 +120,6 @@ def fold_in_launch(words, index_offset: int, n: int, device) -> torch.Tensor:
     return out
 
 
-grid_keys.launches = 0
 
 
 def split2(keys: torch.Tensor):

@@ -40,11 +40,11 @@ Port of ``fairify_tpu/verify/engine.py`` for the phases the port runs:
   and 8) and the attack logits (:func:`attack_logits`, rows 17 and 9) on
   the card, the certificate (:func:`no_flip_certified`), its margin
   (:func:`role_bound_margin`), the flips and the gap on the host
-  (:func:`split_certify_attack`); the host frontier's non-fused branch,
+  (:func:`split_certify_attack_decode`); the host frontier's non-fused branch,
   which splits the widest dims;
 * the mesh branches (``parallel.mesh``): stage 0's certificate alone
   (:func:`role_certify`, rows 14 and 6) sharded over a mesh's ``parts``
-  axis before the attack forward (:func:`split_certify_attack`), Phase
+  axis before the attack forward (:func:`split_certify_attack_submit`), Phase
   S's K8 batches sharded, and :func:`decide_many`'s BaB the host
   frontier's non-fused branch with its batches sharded;
 * :func:`decide_many` / :func:`decide_box`;
@@ -67,6 +67,16 @@ Eight device kernels carry it: KB :func:`stage0_certify`
 beside its
 plain PyTorch version, which the CPU tests run; Phases E0/E run the three
 lattice kernels of ``ops/lattice.py``.
+
+Launches follow the runtime contracts of ``parallel.pipeline``: Phase A's
+K5 chunks ride a pipeline at ``pipeline_depth`` with a supervisor
+(:func:`attack_phase`; the shared RNG stream is consumed at submit time),
+the device BaB's K6 segments a depth-1 supervised pipeline
+(:func:`device_bab_phase`), both on the ``launch.submit`` /
+``launch.decode`` fault sites; each phase of :func:`decide_many` runs in
+an ``engine.*`` span (``engine.attack``, ``engine.sign_bab``,
+``engine.lattice_first``, ``engine.device_bab``, ``engine.bab``,
+``engine.pair_lp``, ``engine.lattice``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -82,8 +92,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from fairify_tpu_torch import obs
 from fairify_tpu_torch.models.mlp import StackedMLP, forward_np, local_affine_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
+from fairify_tpu_torch.obs import launches
 from fairify_tpu_torch.ops import crown as crown_ops
 from fairify_tpu_torch.ops import exact_native
 from fairify_tpu_torch.ops import interval as interval_ops
@@ -91,6 +103,7 @@ from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.ops import lp as lp_ops
 from fairify_tpu_torch.ops.interval import SOUND_SLACK_ABS, SOUND_SLACK_REL
 from fairify_tpu_torch.parallel import mesh as mesh_mod
+from fairify_tpu_torch.parallel.pipeline import LaunchPipeline, fetch, stage
 from fairify_tpu_torch.resilience import integrity as integrity_mod
 from fairify_tpu_torch.utils import cuda_build, prng
 from fairify_tpu_torch.verify.config import EngineConfig
@@ -237,9 +250,10 @@ def _kb(counter, net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra
         return tuple(fill_past(t, live, axis) for t in out)
     if net.layer_sizes[-1] != 1:
         raise ValueError(f"{counter.__name__}: the net must have one output logit")
-    out = _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
-                     eps, valid, valid_pair, alpha_iters, live=live)
-    counter.launches += 1
+    sig = (lo.shape[0], valid.shape[1], int(alpha_iters), live)
+    with launches.launching(counter.__name__, sig):
+        out = _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_mask,
+                         eps, valid, valid_pair, alpha_iters, live=live)
     return out
 
 
@@ -277,8 +291,7 @@ def _kb_launch(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask, ra_m
     return out if isinstance(net, StackedMLP) else tuple(t[0] for t in out)
 
 
-stage0_certify.launches = 0
-role_certify.launches = 0
+
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +363,11 @@ def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok, live=No
     ``xr``/``pr``: (N, S, V, d) candidates; ``cert``/``margin``: KB's
     outputs; ``ok`` (N,) rows counted in the histogram.  Returns ``(wit
     (N, 3) int32, reason (N,) int8, gap (N,) float32, stats (2, 14) int32,
-    fold int)``.  For a ``StackedMLP`` every model attacks the same
-    candidates: ``cert``/``margin`` and every output but the fold gain a
-    leading model axis, and the fold covers all models' buffers.  ``live``
+    fold)``, the fold a 0-d int32 tensor (on the card it is fetched with
+    the other outputs, never synchronised on alone).  For a
+    ``StackedMLP`` every model attacks the same candidates:
+    ``cert``/``margin`` and every output but the fold gain a leading model
+    axis, and the fold covers all models' buffers.  ``live``
     (default N): what the kernel's launch over the first ``live`` boxes
     returns — the per-box outputs past it box ``live - 1``'s
     (:func:`fill_past`), the histogram of the live rows of ``ok`` and the
@@ -378,7 +393,8 @@ def attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok, live=No
     axis = 1 if isinstance(net, StackedMLP) else 0
     wit, reason, gap = (fill_past(t, live, axis) for t in (wit, reason, gap))
     head = lambda t: t.narrow(axis, 0, live)
-    return wit, reason, gap, stats, fold_int32(head(cert), head(wit), head(reason), stats)
+    fold = fold_int32(head(cert), head(wit), head(reason), stats)
+    return wit, reason, gap, stats, torch.tensor(fold, dtype=torch.int32)
 
 
 def attack_flips(net, xr, pr, valid, valid_pair, cert, margin, ok, live=None):
@@ -395,12 +411,12 @@ def attack_flips(net, xr, pr, valid, valid_pair, cert, margin, ok, live=None):
         return attack_flips_plain(net, xr, pr, valid, valid_pair, cert, margin, ok, live)
     if net.layer_sizes[-1] != 1:
         raise ValueError("attack_flips: the net must have one output logit")
-    fn, args, out = _attack_flips_prepare(net, xr, pr, valid, valid_pair, cert, margin, ok,
-                                          live)
-    cuda_build.check("kc_attack_flips", fn(*args, torch.cuda.current_stream().cuda_stream))
-    attack_flips.launches += 1
+    with launches.launching("attack_flips", (tuple(xr.shape), live)):
+        fn, args, out = _attack_flips_prepare(net, xr, pr, valid, valid_pair, cert, margin, ok,
+                                              live)
+        cuda_build.check("kc_attack_flips", fn(*args, torch.cuda.current_stream().cuda_stream))
     wit, reason, gap, stats, fold = out
-    return wit, reason, gap, stats, int(fold.item())
+    return wit, reason, gap, stats, fold[0]
 
 
 # kc_attack_flips(params, dims, L, xr, pr, valid, vpair, cert, margin, okrow, edges,
@@ -457,11 +473,10 @@ def _edges(dev) -> torch.Tensor:
     """The funnel's histogram edges on ``dev``, copied there once."""
     t = _edges_on.get(dev)
     if t is None:
-        t = _edges_on[dev] = torch.as_tensor(funnel_mod.EDGES, device=dev)
+        t = _edges_on[dev] = stage(funnel_mod.EDGES, dev)
     return t
 
 
-attack_flips.launches = 0
 
 
 def certify_attack(net, x_lo, x_hi, xp_lo, xp_hi, lo, hi, assign_vals, pa_mask,
@@ -527,8 +542,8 @@ def role_logit_bounds(net, x_lo, x_hi, xp_lo, xp_hi, use_crown: bool, live=None)
         return out
     if not (x_lo.shape == x_hi.shape == xp_lo.shape == xp_hi.shape):
         raise ValueError("role_logit_bounds: the four role-box tensors need one shape")
-    out = _role_bounds_launch(net, (x_lo, x_hi, xp_lo, xp_hi), B, V, live, use_crown)
-    role_logit_bounds.launches += 1
+    with launches.launching("role_bounds", (B, V, live, bool(use_crown))):
+        out = _role_bounds_launch(net, (x_lo, x_hi, xp_lo, xp_hi), B, V, live, use_crown)
     return out.view(lead + (4,) + shape).unbind(len(lead))
 
 
@@ -578,7 +593,6 @@ def _role_bounds_prepare(net, boxes, B: int, V: int, live: int, use_crown: bool,
     return cuda_build.entry("role_bounds", "k10_role_bounds", _K10B_ARGS), args, out
 
 
-role_logit_bounds.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1123,8 +1137,8 @@ def attack_logits(net, x_roles, xp_roles):
         raise ValueError("attack_logits: the net must have one output logit")
     if x_roles.shape != xp_roles.shape:
         raise ValueError("attack_logits: both role tensors need one shape")
-    out = _launch_attack_logits(net, x_roles, xp_roles, None)
-    attack_logits.launches += 1
+    with launches.launching("attack_logits", (tuple(x_roles.shape),)):
+        out = _launch_attack_logits(net, x_roles, xp_roles, None)
     return out
 
 
@@ -1153,7 +1167,6 @@ def _launch_attack_logits(net, x_roles, xp_roles, models, _geometry_force=None):
     return out[:, :n].reshape(shape), out[:, n:].reshape(shape)
 
 
-attack_logits.launches = 0
 
 
 def no_flip_certified(lb_x, ub_x, lb_p, ub_p, valid_assign, valid_pair) -> np.ndarray:
@@ -1185,77 +1198,83 @@ def role_bound_margin(lb_x, ub_x, lb_p, ub_p, valid, valid_pair) -> np.ndarray:
     return np.where(pair_ok, np.minimum(m1, m2), big).min(axis=(-2, -1))
 
 
-def split_certify_attack(net, enc: PairEncoding, x_lo, x_hi, xp_lo, xp_hi, lo, hi,
-                         valid, xr, pr, use_crown: bool, mesh=None, replicas=None):
-    """Stage 0 of N boxes in two launches, the JAX package's non-fused
-    kinds of ``_stage0_block_submit`` / ``_family_block_submit``: the
-    certificate — on the CROWN path :func:`role_certify` (rows 14 and 6),
-    on the IBP path :func:`role_logit_bounds` (rows 13 and 8) with the
-    certificate and margin taken on the host — then the attack forward
-    :func:`attack_logits` (rows 17 and 9) and the flips and gap on the host.
+def split_certify_attack_submit(net, enc: PairEncoding, x_lo, x_hi, xp_lo, xp_hi, lo, hi,
+                                valid, xr, pr, use_crown: bool, mesh=None, replicas=None):
+    """Launch stage 0 of N boxes in two launches, the JAX package's
+    non-fused kinds of ``_stage0_block_submit`` / ``_family_block_submit``,
+    without a sync: the certificate — on the CROWN path :func:`role_certify`
+    (rows 14 and 6), on the IBP path :func:`role_logit_bounds` (rows 13 and
+    8) — then the attack forward :func:`attack_logits` (rows 17 and 9).
 
     Inputs are numpy: role boxes (N, V, d), partition boxes ``lo``/``hi``
-    (N, d) f32, ``valid`` (N, V), candidates (N, S, V, d).  With a
-    ``mesh`` (``parallel.mesh.Mesh``, ``replicas`` the net's
+    (N, d) f32, ``valid`` (N, V), candidates (N, S, V, d).  With a ``mesh``
+    (``parallel.mesh.Mesh``, ``replicas`` the net's
     ``parallel.mesh.replicated`` copies) the certificate's inputs are
-    sharded over its ``parts`` axis and its outputs trimmed back to N rows;
-    the attack forward runs unsharded on the mesh's first device, as in
-    JAX.  Without one everything runs on the net's device.  Returns per
-    model ``(cert (N,), margin (N,), found (N,), wit (N, 3), gap (N,))`` —
-    a list with one entry per model of a ``StackedMLP``, else one tuple.
-    """
+    sharded over its ``parts`` axis and its outputs gathered on the mesh's
+    first device, trimmed back to N rows; the attack forward runs unsharded
+    there, as in JAX.  Without one everything runs on the net's device.
+    Returns the payload of JAX's kinds: ``{"cert", "margin", "lx", "lp"}``
+    (CROWN) or ``{"lb_x", "ub_x", "lb_p", "ub_p", "lx", "lp"}`` (IBP),
+    tensors with a leading model axis for a ``StackedMLP``."""
     n = lo.shape[0]
-    stacked = isinstance(net, StackedMLP)
+    axis = int(isinstance(net, StackedMLP))
     if mesh is None:
         mesh, replicas = mesh_mod.placement(net)
     boxes = (x_lo, x_hi, xp_lo, xp_hi)
+    trim = lambda t: t.narrow(axis, 0, n)
     if use_crown:
-        cert, _score, margin = sharded_certify(mesh, replicas, enc, boxes, lo, hi, valid,
-                                               axis=int(stacked))
-        bounds = None
+        cert, _score, margin = shard_certify(mesh, replicas, enc, boxes, lo, hi, valid,
+                                             axis=axis)
+        payload = {"cert": trim(cert), "margin": trim(margin)}
     else:
-        bounds = mesh_mod.shard_map(
+        bounds = mesh_mod.shard_launch(
             mesh, lambda m, *b: role_logit_bounds(m, *b, use_crown=False), replicas,
-            *boxes, axis=int(stacked))
+            *boxes, axis=axis)
+        payload = dict(zip(("lb_x", "ub_x", "lb_p", "ub_p"), (trim(b) for b in bounds)))
     home = replicas[mesh.home]
     with mesh_mod.on_device(mesh.home):
-        on = lambda a: torch.as_tensor(a, device=mesh.home)
-        lx, lp = (t.cpu() for t in attack_logits(home, on(xr), on(pr)))
-    if not stacked:
-        lx, lp = lx[None], lp[None]
-        if bounds is None:
-            cert, margin = cert[None], margin[None]
-        else:
-            bounds = [b[None] for b in bounds]
+        payload["lx"], payload["lp"] = attack_logits(home, stage(xr, mesh.home),
+                                                     stage(pr, mesh.home))
+    return payload
+
+
+def split_certify_attack_decode(host, enc: PairEncoding, valid, stacked: bool) -> list:
+    """Host decode of a fetched :func:`split_certify_attack_submit` payload:
+    per model ``(cert (N,), margin (N,), found (N,), wit (N, 3), gap (N,))``
+    (the IBP path's certificate and margin taken here from the bounds)."""
+    lift = (lambda a: a) if stacked else (lambda a: a[None])
+    lx, lp = lift(host["lx"]), lift(host["lp"])
     va, vp = torch.as_tensor(valid), torch.as_tensor(enc.valid_pair)
     out = []
     for m in range(lx.shape[0]):
-        if bounds is None:
-            cert_m, margin_m = cert[m, :n], margin[m, :n]
+        if "cert" in host:
+            cert_m, margin_m = lift(host["cert"])[m], lift(host["margin"])[m]
         else:
-            b = tuple(v[m, :n] for v in bounds)
+            b = tuple(lift(host[k])[m] for k in ("lb_x", "ub_x", "lb_p", "ub_p"))
             cert_m = no_flip_certified(*b, valid, enc.valid_pair)
             margin_m = role_bound_margin(*b, valid, enc.valid_pair)
-        found, wit = find_flips_impl(lx[m], lp[m], va, vp)
+        lxm, lpm = torch.as_tensor(lx[m]), torch.as_tensor(lp[m])
+        found, wit = find_flips_impl(lxm, lpm, va, vp)
         out.append((cert_m, margin_m, found.numpy(), wit.numpy(),
-                    attack_gap_impl(lx[m], lp[m], va, vp).numpy()))
-    return out if stacked else out[0]
+                    attack_gap_impl(lxm, lpm, va, vp).numpy()))
+    return out
 
 
-def sharded_certify(mesh, replicas, enc: PairEncoding, boxes, lo, hi, valid,
-                    alpha_iters: int = 0, axis: int = 0):
-    """:func:`role_certify` of numpy role boxes ``boxes`` (x_lo, x_hi,
-    xp_lo, xp_hi), partition boxes and ``valid`` over ``mesh``'s ``parts``
-    shards (``replicas`` the net's copies): numpy ``(cert, score, margin)``
-    gathered along ``axis`` (1 for a stacked family), shard padding kept."""
+def shard_certify(mesh, replicas, enc: PairEncoding, boxes, lo, hi, valid,
+                  alpha_iters: int = 0, axis: int = 0):
+    """Launch :func:`role_certify` of numpy role boxes ``boxes`` (x_lo,
+    x_hi, xp_lo, xp_hi), partition boxes and ``valid`` over ``mesh``'s
+    ``parts`` shards (``replicas`` the net's copies), without a sync:
+    ``(cert, score, margin)`` tensors gathered along ``axis`` (1 for a
+    stacked family) on the mesh's first device, shard padding kept."""
     av, pm, rm = enc_tensors(enc, lo.shape[1])
 
     def certify(m, x_lo, x_hi, xp_lo, xp_hi, plo, phi, va):
-        to = lambda t: torch.as_tensor(t, device=plo.device)
+        to = lambda a: stage(a, plo.device)
         return role_certify(m, x_lo, x_hi, xp_lo, xp_hi, plo, phi, to(av), to(pm), to(rm),
                             float(enc.eps), va, to(enc.valid_pair), alpha_iters=alpha_iters)
 
-    return mesh_mod.shard_map(mesh, certify, replicas, *boxes, lo, hi, valid, axis=axis)
+    return mesh_mod.shard_launch(mesh, certify, replicas, *boxes, lo, hi, valid, axis=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -1481,9 +1500,9 @@ def pgd_attack_kernel(net, lo, hi, assign_vals, pa_mask, ra_mask, valid, eps,
         return pgd_attack_plain(net, lo, hi, assign_vals, pa_mask, ra_mask, valid,
                                 eps, key, steps, restarts)
     cuda_build.require_cuda(lo)
-    out = _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid,
-                             eps, key, steps, restarts)
-    pgd_attack_kernel.launches += 1
+    with launches.launching("pgd_attack", (lo.shape[0], int(steps), int(restarts))):
+        out = _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid,
+                                 eps, key, steps, restarts)
     return out
 
 
@@ -1491,7 +1510,7 @@ def pgd_attack_kernel(net, lo, hi, assign_vals, pa_mask, ra_mask, valid, eps,
 def _pgd_schedule_on(eps: float, steps: int, device) -> torch.Tensor:
     """:func:`pgd_schedule` as one (2, steps) f32 tensor on ``device``,
     copied there once per (eps, steps)."""
-    return torch.as_tensor(np.stack(pgd_schedule(eps, steps)), device=device)
+    return stage(np.stack(pgd_schedule(eps, steps)), device)
 
 
 def _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid, eps,
@@ -1531,7 +1550,6 @@ def _pgd_attack_launch(net, lo, hi, assign_vals, pa_mask, ra_mask, valid, eps,
     return fx, fp, x, xp
 
 
-pgd_attack_kernel.launches = 0
 
 
 def pgd_inputs(enc: PairEncoding, lo, hi, device):
@@ -1539,9 +1557,10 @@ def pgd_inputs(enc: PairEncoding, lo, hi, device):
 
     The batch is padded to the next power of two (last row repeated), as in
     the JAX package.  Returns ``(args, valid)``: ``args`` = (lo, hi,
-    assign_vals, pa_mask, ra_mask, valid, eps) on ``device``, as
-    :func:`pgd_attack_kernel` takes them, and ``valid`` the (pad, V) numpy
-    mask of the assignments each box admits.
+    assign_vals, pa_mask, ra_mask, valid, eps) on ``device`` (staged through
+    pinned buffers on a card: no sync), as :func:`pgd_attack_kernel` takes
+    them, and ``valid`` the (pad, V) numpy mask of the assignments each box
+    admits.
     """
     lo = np.asarray(lo, dtype=np.int64)
     hi = np.asarray(hi, dtype=np.int64)
@@ -1555,35 +1574,41 @@ def pgd_inputs(enc: PairEncoding, lo, hi, device):
                  ).all(axis=-1)
     else:
         valid = np.zeros((pad_to, enc.n_assign), dtype=bool)
-    on = lambda a: torch.as_tensor(a, device=device)
+    on = lambda a: stage(a, device)
     args = (on(lo_p.astype(np.float32)), on(hi_p.astype(np.float32)), on(assign_vals),
             on(pa_mask), on(ra_mask), on(valid), float(enc.eps))
     return args, valid
 
 
-def pgd_attack(net, enc: PairEncoding, lo, hi, rng: np.random.Generator,
-               steps: int = 30, restarts: int = 32, return_points: bool = False):
-    """Gradient attack over a batch of boxes: one K5 launch (key
-    ``PRNGKey(rng.integers(2**31))``, as in the JAX package), then the
-    host's flip extraction and exact checks.
+def pgd_attack_submit(net, enc: PairEncoding, lo, hi, rng: np.random.Generator,
+                      steps: int = 30, restarts: int = 32):
+    """Launch one gradient attack over a batch of boxes without syncing on
+    its results: one K5 launch (key ``PRNGKey(rng.integers(2**31))``, as in
+    the JAX package).  Returns ``(payload, ctx)`` for
+    :class:`parallel.pipeline.LaunchPipeline`: ``payload`` the kernel's
+    ``(fx, fp, x, xp)``, ``ctx`` what :func:`pgd_attack_decode` needs."""
+    args, valid = pgd_inputs(enc, lo, hi, net.device)
+    key = stage(prng.seed_key(int(rng.integers(2**31))), net.device)
+    payload = pgd_attack_kernel(net, *args, key, steps, restarts)
+    return payload, {"enc": enc, "valid": valid, "B": len(lo)}
+
+
+def pgd_attack_decode(host, ctx, weights, biases, return_points: bool = False):
+    """Host decode of a fetched K5 launch (numpy ``host`` payload): flip
+    extraction and exact checks on the net's host ``weights``/``biases``.
 
     Returns ``{box: (x, x')}`` of exact-validated witnesses; with
     ``return_points`` also, per box, the role point with the smallest
     |logit| among valid assignments and that |logit| (the slab search's
-    seed).
-    """
-    B = len(lo)
-    args, valid = pgd_inputs(enc, lo, hi, net.device)
-    key = prng.seed_key(int(rng.integers(2**31))).to(net.device)
-    fx, fp, x, xp = (t.detach().cpu().numpy()
-                     for t in pgd_attack_kernel(net, *args, key, steps, restarts))
+    seed)."""
+    fx, fp, x, xp = host
+    enc, valid, B = ctx["enc"], ctx["valid"], ctx["B"]
     found, wit = find_flips(enc, fx, fp, valid)
-    weights, biases = net.numpy_params()
     witnesses = extract_witnesses(found, wit, x, xp, weights, biases, limit=B)
     if not return_points:
         return witnesses
     pad_to = valid.shape[0]
-    fx_abs = np.abs(fx.astype(np.float64))
+    fx_abs = np.abs(np.asarray(fx, dtype=np.float64))
     fx_abs = np.where(valid[:, None, :], fx_abs, np.inf)
     flat = fx_abs.reshape(pad_to, -1)
     idx = flat.argmin(axis=1)
@@ -1591,6 +1616,17 @@ def pgd_attack(net, enc: PairEncoding, lo, hi, rng: np.random.Generator,
     pts = x[np.arange(pad_to), si, vi][:B]
     best_abs = flat[np.arange(pad_to), idx][:B]
     return witnesses, pts, best_abs
+
+
+def pgd_attack(net, enc: PairEncoding, lo, hi, rng: np.random.Generator,
+               steps: int = 30, restarts: int = 32, return_points: bool = False):
+    """Gradient attack over a batch of boxes: synchronous
+    :func:`pgd_attack_submit` + :func:`pgd_attack_decode` (pipelined callers
+    use the split form)."""
+    payload, ctx = pgd_attack_submit(net, enc, lo, hi, rng, steps=steps, restarts=restarts)
+    weights, biases = net.numpy_params()
+    return pgd_attack_decode(fetch(payload), ctx, weights, biases,
+                             return_points=return_points)
 
 
 # ---------------------------------------------------------------------------
@@ -1897,7 +1933,8 @@ def bab_segment_plain(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
     ``wit_a``/``wit_b`` (Qs,) int32, ``wit_pt`` (Qs, d) f32; ``root_valid``
     (G, V) bool.  Returns a dict over ``integrity.BAB_FOLD_KEYS`` (the
     updated queue and the per-root (G,) int32 ``nodes``/``splits``/
-    ``overflow``) plus ``csum``, the int32 fold of those buffers.
+    ``overflow``) plus ``csum``, the int32 fold of those buffers (a 0-d
+    int32 tensor).
     """
     G = root_valid.shape[0]
     st = dict(zip(QUEUE_KEYS, (q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
@@ -1917,34 +1954,37 @@ def bab_segment_plain(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
     out = {k: st[k] for k in QUEUE_KEYS}
     out["wit_a"], out["wit_b"] = out["wit_a"].to(torch.int32), out["wit_b"].to(torch.int32)
     out.update(counts)
-    out["csum"] = fold_int32(*(out[k] for k in integrity_mod.BAB_FOLD_KEYS))
+    out["csum"] = torch.tensor(fold_int32(*(out[k] for k in integrity_mod.BAB_FOLD_KEYS)),
+                               dtype=torch.int32)
     return out
 
 
 def bab_segment(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b, wit_pt,
                 slot_ok, root_valid, assign_vals, pa_mask, ra_mask, eps,
-                valid_pair, branch_mask, rounds: int, alpha_iters: int):
+                valid_pair, branch_mask, rounds: int, alpha_iters: int, live_slots: int):
     """K6: one device BaB segment, one launch (contract of
     :func:`bab_segment_plain`).  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/bab_segment.cu`` cooperatively (a grid-wide sync
     between each round's per-slot phase and its compaction, the geometry
     from :func:`bab_geometry`), updating copies of the queue tensors in
-    place."""
+    place.  ``live_slots``: the live slots of ``q_live``, which the
+    geometry reads, counted by the caller on the host (the device BaB
+    keeps its queue there), so the launch does not sync."""
     args = (net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b, wit_pt, slot_ok,
             root_valid, assign_vals, pa_mask, ra_mask, eps, valid_pair, branch_mask,
             rounds, alpha_iters)
     if q_lo.device.type == "cpu":
         return bab_segment_plain(*args)
     cuda_build.require_cuda(q_lo)
-    out = _bab_segment_launch(*args)
-    bab_segment.launches += 1
+    with launches.launching("bab_segment", (q_lo.shape[0], int(rounds), int(alpha_iters))):
+        out = _bab_segment_launch(*args, live_slots=live_slots)
     return out
 
 
 def _bab_segment_launch(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
                         wit_pt, slot_ok, root_valid, assign_vals, pa_mask, ra_mask,
                         eps, valid_pair, branch_mask, rounds: int, alpha_iters: int,
-                        _geometry_force=None):
+                        live_slots: int, _geometry_force=None):
     """One K6 launch; ``_geometry_force`` (``(warps, blocks per SM)``)
     forces the launch geometry: the card's checks that a segment does not
     depend on it."""
@@ -1967,7 +2007,10 @@ def _bab_segment_launch(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
     dev = q_lo.device
     # Live slots at the start, counted up to one past K6_FEW_LIVE (all the
     # geometry reads; it keeps the memoized shapes few).
-    live = min(int(out["q_live"].sum()), K6_FEW_LIVE + 1) if _geometry_force is None else None
+    if _geometry_force is not None:
+        live = None
+    else:
+        live = min(int(live_slots), K6_FEW_LIVE + 1)
     geo = _bab_geometry(tuple(dims), V, Q, cuda_build.sm_count(dev), cuda_build.SMEM_LIMIT,
                         _geometry_force, live)
     # One zeroed buffer: nodes, splits, overflow (G each), the fold, each
@@ -1989,11 +2032,10 @@ def _bab_segment_launch(net, q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b,
                     ctypes.c_int(geo["grid"]), ctypes.c_longlong(geo["smem"]),
                     cuda_build.stream())
     out["q_live"], out["found"] = out["q_live"].bool(), out["found"].bool()
-    out["csum"] = int(fold.item())
+    out["csum"] = fold[0]
     return out
 
 
-bab_segment.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -2014,12 +2056,11 @@ def sample_role_logits(net, x_roles, xp_roles):
         raise ValueError("sample_role_logits: the net must have one output logit")
     if x_roles.shape != xp_roles.shape:
         raise ValueError("sample_role_logits: both role tensors need one shape")
-    out = _launch_attack_logits(net, x_roles, xp_roles, 1)
-    sample_role_logits.launches += 1
+    with launches.launching("role_logits", (tuple(x_roles.shape),)):
+        out = _launch_attack_logits(net, x_roles, xp_roles, 1)
     return out
 
 
-sample_role_logits.launches = 0
 
 
 def inter_bounds(net, lo, hi, live=None):
@@ -2035,8 +2076,8 @@ def inter_bounds(net, lo, hi, live=None):
     if lo.device.type == "cpu":
         b = crown_ops.crown_bounds(net, lo, hi)
         return ([fill_past(t, live) for t in b.ws_lb], [fill_past(t, live) for t in b.ws_ub])
-    out = _inter_bounds_launch(net, lo, hi, live)
-    inter_bounds.launches += 1
+    with launches.launching("inter_bounds", (B, live)):
+        out = _inter_bounds_launch(net, lo, hi, live)
     return out
 
 
@@ -2071,7 +2112,6 @@ def _inter_bounds_prepare(net, lo, hi, live: int, _geometry_force=None):
     return cuda_build.entry("inter_bounds", "k8b_inter_bounds", _K8B_ARGS), args, out
 
 
-inter_bounds.launches = 0
 
 
 def sign_bound_plain(net, lo, hi, signs, alpha_iters: int, trace=None):
@@ -2126,8 +2166,9 @@ def sign_bound(net, lo, hi, signs, alpha_iters: int, with_ab: bool = False, live
         return out + (ab,) if with_ab else out
     if net.layer_sizes[-1] != 1:
         raise ValueError("sign_bound: the net must have one output logit")
-    out = _sign_bound_launch(net, lo, hi, signs, alpha_iters, with_ab, live)
-    sign_bound.launches += 1
+    sig = (lo.shape[0], int(alpha_iters), bool(with_ab), live)
+    with launches.launching("sign_bound", sig):
+        out = _sign_bound_launch(net, lo, hi, signs, alpha_iters, with_ab, live)
     return out
 
 
@@ -2174,7 +2215,6 @@ def _sign_bound_launch(net, lo, hi, signs, alpha_iters: int, with_ab: bool, live
     return out + (ab,) if with_ab else out
 
 
-sign_bound.launches = 0
 
 
 def leaf_sign_lp(weights, biases, masks, pattern, lo, hi, want_positive: bool):
@@ -2571,6 +2611,26 @@ def _scan_root(net, enc, roots_lo, roots_hi, r, cfg, deadline_s, verdicts, ces,
     return True
 
 
+def bab_segment_submit(net, q, root_valid, consts: dict, rounds: int, alpha_iters: int):
+    """Launch one device-BaB segment without a sync: the host queue ``q``
+    (``q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b, wit_pt`` numpy
+    arrays) staged to the net's device, the live-slot count taken on the
+    host; returns :func:`bab_segment`'s output dict."""
+    on = lambda a: stage(a, net.device)
+    return bab_segment(net, *(on(a) for a in q), root_valid=root_valid, rounds=rounds,
+                       alpha_iters=alpha_iters, live_slots=int(np.sum(q[3])), **consts)
+
+
+def bab_consts(net, enc, d: int, slot_ok, branch_mask) -> dict:
+    """The device BaB's per-run constant tensors, staged to the net's
+    device: the slot mask, the encoding tensors and the branch mask."""
+    av, pm, rm = enc_tensors(enc, d)
+    on = lambda a: stage(a, net.device)
+    return dict(slot_ok=on(slot_ok), assign_vals=on(av), pa_mask=on(pm), ra_mask=on(rm),
+                eps=float(enc.eps), valid_pair=on(enc.valid_pair),
+                branch_mask=on(branch_mask))
+
+
 def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
                      verdicts, settle, nodes, leaves, cost_s):
     """Drive the device-resident BaB over every still-undecided root.
@@ -2579,18 +2639,21 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
     ``Q = bab_frontier_cap``, plus a canary slot when integrity is on);
     each group runs :func:`bab_segment` segments — segment 0 plain CROWN,
     later segments α-CROWN — until every root settles, the queue stalls,
-    the node budget trips or the deadline does.  Between segments the
-    host does what must be exact: fold and canary checks (a tripped check
-    leaves the group's roots unknown), exact validation of witness
-    latches (smallest candidate first, so the settled counterexample is
+    the node budget trips or the deadline does.  Each segment is one entry
+    of a depth-1 :class:`parallel.pipeline.LaunchPipeline` with a
+    supervisor (the ``launch.submit`` / ``launch.decode`` sites, retries,
+    ``launch.decode:corrupt``).  Between segments the host does what must
+    be exact: the fold and canary checks at every decode (a tripped check
+    or a failed segment degrades exactly the group's roots: the queue
+    never advances on a failed fetch), exact validation of witness latches
+    (smallest candidate first, so the settled counterexample is
     capacity-invariant), :func:`decide_leaf` on point leaves, UNSAT for
-    roots whose boxes all closed, and slot recycling.  Segments run
-    synchronously (the launch pipeline and supervisor are ROADMAP queue 1,
-    item 4).
+    roots whose boxes all closed, and slot recycling.
     """
+    from fairify_tpu_torch.resilience.supervisor import ChunkFailure, Supervisor
+
     d = roots_lo.shape[1]
     V = enc.n_assign
-    dev = net.device
     Q = max(4, int(cfg.bab_frontier_cap))
     Qs = Q + 1 if cfg.integrity else Q
     G = max(1, Q // 4)
@@ -2603,12 +2666,12 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
     slot_ok = np.zeros(Qs, bool)
     slot_ok[:Q] = True
     weights, biases = net.numpy_params()
-    av, pm, rm = enc_tensors(enc, d)
-    on = lambda a: torch.as_tensor(a, device=dev)
-    consts = dict(slot_ok=on(slot_ok), assign_vals=on(av), pa_mask=on(pm),
-                  ra_mask=on(rm), eps=float(enc.eps), valid_pair=on(enc.valid_pair),
-                  branch_mask=on(branch_mask))
+    consts = bab_consts(net, enc, d, slot_ok, branch_mask)
     pending = [r for r in range(roots_lo.shape[0]) if verdicts[r] is None]
+    pipe = LaunchPipeline(1, gauge=False,
+                          supervisor=Supervisor(max_retries=cfg.max_launch_retries,
+                                                backoff_s=cfg.launch_backoff_s,
+                                                seed=cfg.seed))
     for g0 in range(0, len(pending), G):
         group = pending[g0:g0 + G]
         if (time.perf_counter() - t0) > deadline_s:
@@ -2631,7 +2694,7 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
             q_lo[k], q_hi[k], q_root[k], q_live[k] = lo_r, hi_r, k, True
             root_valid[k] = ((assignments >= lo_r[pa_idx][None, :])
                              & (assignments <= hi_r[pa_idx][None, :])).all(axis=-1)
-        root_valid_dev = on(root_valid)
+        root_valid_dev = stage(root_valid, net.device)
         overflowed = np.zeros(g, bool)
         deadline_hit = False
         seg = 0
@@ -2647,14 +2710,32 @@ def device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
             # Segment-indexed escalation: segment 0 plain CROWN, later
             # segments α-CROWN, so verdicts do not depend on host speed.
             seg_alpha = 0 if seg == 0 else int(cfg.alpha_iters)
-            out = bab_segment(net, on(q_lo), on(q_hi), on(q_root), on(q_live),
-                              on(q_found), on(wit_a), on(wit_b), on(wit_pt),
-                              root_valid=root_valid_dev,
-                              rounds=int(cfg.bab_rounds_per_segment),
-                              alpha_iters=seg_alpha, **consts)
-            host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
-                    for k, v in out.items()}
-            if cfg.integrity and integrity_mod.verify_bab_segment(host) is not None:
+
+            def fn(q=(q_lo, q_hi, q_root, q_live, q_found, wit_a, wit_b, wit_pt),
+                   seg_alpha=seg_alpha):
+                return bab_segment_submit(net, q, root_valid_dev, consts,
+                                          int(cfg.bab_rounds_per_segment), seg_alpha), None
+
+            items = list(pipe.submit(fn))
+            items.extend(pipe.drain())
+            _meta, _ctx, host = items[0]
+            failure = host if isinstance(host, ChunkFailure) else None
+            if failure is None and cfg.integrity:
+                tripped = integrity_mod.verify_bab_segment(host)
+                if tripped is not None:
+                    obs.registry().counter("integrity_violations").inc(
+                        1, site="launch.decode")
+                    obs.event("integrity_violation", site="launch.decode",
+                              detector=tripped, phase="engine.device_bab")
+                    failure = ChunkFailure(
+                        site="integrity.launch.decode", kind="fatal",
+                        error="IntegrityViolation",
+                        detail=f"{tripped} mismatch (launch.decode)", retries=0)
+            if failure is not None:
+                # Blast radius: exactly this segment's root group.
+                obs.registry().counter("chunks_degraded").inc(1, site=failure.site)
+                obs.event("degraded", **failure.to_record(),
+                          phase="engine.device_bab", partitions=len(group))
                 for r in group:
                     settle(r, "unknown")
                 break
@@ -2842,9 +2923,9 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
                                                                for t in out)
             certified = cert[:batch]
         elif cfg.use_crown:  # the mesh branch: row 14, sharded
-            cert, score, _margin = sharded_certify(mesh, reps, enc,
-                                                   (x_lo, x_hi, xp_lo, xp_hi), plo, phi,
-                                                   valid, alpha_iters=alpha)
+            cert, score, _margin = fetch(shard_certify(mesh, reps, enc,
+                                                       (x_lo, x_hi, xp_lo, xp_hi), plo,
+                                                       phi, valid, alpha_iters=alpha))
             certified, score = cert[:batch], score[:F]
         else:  # IBP: role bounds (row 13) first, then attack the undecided
             # Unsharded, row 13 computes the batch's boxes only; a mesh
@@ -2930,6 +3011,72 @@ def host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
             settle(r, "unsat" if open_boxes[r] == 0 else "unknown", reason="deadline")
 
 
+def attack_phase(net, enc, roots_lo, roots_hi, cfg, deadline_s, verdicts, ces, decided_by,
+                 attack_cost) -> None:
+    """Phase A: one K5 launch per chunk of at most 1,024 roots on a
+    :class:`parallel.pipeline.LaunchPipeline` at ``cfg.pipeline_depth``
+    with a supervisor (chunk N+1's launch is in flight while chunk N's
+    witnesses go through exact validation), within a quarter of the
+    deadline.  The chunks share one RNG stream, consumed at submit time, so
+    it does not depend on the depth; a supervised retry replays the stream
+    state of its first dispatch.  A degraded chunk leaves its roots
+    unattacked, with their full certificate and BaB path."""
+    from fairify_tpu_torch.resilience.supervisor import ChunkFailure, Supervisor
+
+    R = roots_lo.shape[0]
+    t_a = time.perf_counter()
+    rng_a = np.random.default_rng(cfg.seed + 17)
+    CH = min(1024, 1 << max(R - 1, 0).bit_length())
+    weights, biases = net.numpy_params()
+    pipe = LaunchPipeline(cfg.pipeline_depth, gauge=False,
+                          supervisor=Supervisor(max_retries=cfg.max_launch_retries,
+                                                backoff_s=cfg.launch_backoff_s,
+                                                seed=cfg.seed))
+
+    def consume(meta, ctx, host):
+        if isinstance(host, ChunkFailure):
+            obs.event("degraded", **host.to_record(), phase="engine.attack")
+            return
+        s_blk, n_blk = meta
+        for i, ce in pgd_attack_decode(host, ctx, weights, biases).items():
+            if i < n_blk and verdicts[s_blk + i] is None:
+                verdicts[s_blk + i] = "sat"
+                ces[s_blk + i] = ce
+                decided_by[s_blk + i] = "attack"
+
+    def replayable_submit(blk):
+        state = {}
+
+        def fn():
+            if "s" not in state:
+                state["s"] = rng_a.bit_generator.state
+                r = rng_a
+            else:
+                r = np.random.default_rng()
+                r.bit_generator.state = state["s"]
+            return pgd_attack_submit(net, enc, np.asarray(roots_lo[blk], dtype=np.int64),
+                                     np.asarray(roots_hi[blk], dtype=np.int64), r,
+                                     steps=cfg.pgd_steps, restarts=cfg.pgd_restarts)
+        return fn
+
+    attack_deadline = 0.25 * deadline_s
+    submitted = 0
+    for s in range(0, R, CH):
+        # In-flight chunks drain (and decode) past any break, so the deadline
+        # gates the elapsed time plus the estimated backlog.
+        elapsed = time.perf_counter() - t_a
+        est = elapsed / max(submitted, 1)
+        if elapsed + len(pipe) * est > attack_deadline:
+            break
+        submitted += 1
+        blk = np.arange(s, min(s + CH, R))
+        for item in pipe.submit(replayable_submit(blk), meta=(s, len(blk))):
+            consume(*item)
+    for item in pipe.drain():
+        consume(*item)
+    attack_cost[:] = (time.perf_counter() - t_a) / R
+
+
 def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
                 deadline_s: Optional[float] = None, mesh=None,
                 attacked: bool = False) -> list:
@@ -2968,22 +3115,10 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
 
     attack_cost = np.zeros(R, dtype=np.float64)
     if cfg.pgd_phase and not attacked and len(enc.pa_idx) and R:
-        t_a = time.perf_counter()
-        rng_a = np.random.default_rng(cfg.seed + 17)
-        CH = min(1024, 1 << max(R - 1, 0).bit_length())
-        for s in range(0, R, CH):
-            if time.perf_counter() - t_a > 0.25 * deadline_s:
-                break
-            blk = np.arange(s, min(s + CH, R))
-            wit = pgd_attack(net, enc, np.asarray(roots_lo[blk], dtype=np.int64),
-                             np.asarray(roots_hi[blk], dtype=np.int64), rng_a,
-                             steps=cfg.pgd_steps, restarts=cfg.pgd_restarts)
-            for i, ce in wit.items():
-                if i < len(blk) and verdicts[s + i] is None:
-                    verdicts[s + i] = "sat"
-                    ces[s + i] = ce
-                    decided_by[s + i] = "attack"
-        attack_cost[:] = (time.perf_counter() - t_a) / R
+        with obs.span("engine.attack", roots=R) as sp_a:
+            attack_phase(net, enc, roots_lo, roots_hi, cfg, deadline_s, verdicts, ces,
+                         decided_by, attack_cost)
+            sp_a.set(sat=sum(1 for v in verdicts if v == "sat"))
 
     # Phase S (with L inside): the uniform-sign BaB under sign_bab_frac of
     # the deadline.  Its nodes and time go into the Decisions, not into
@@ -2993,19 +3128,21 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
     sign_lp_cost = np.zeros(R, dtype=np.float64)
     open_idx = np.array([r for r in range(R) if verdicts[r] is None], dtype=np.int64)
     if cfg.sign_bab and cfg.use_crown and cfg.alpha_iters > 0 and open_idx.size:
-        sv, sn, sc, slp = uniform_sign_bab(
-            net, enc, np.asarray(roots_lo)[open_idx].astype(np.int64),
-            np.asarray(roots_hi)[open_idx].astype(np.int64), cfg,
-            deadline_s=cfg.sign_bab_frac * deadline_s, mesh=mesh)
-        sign_nodes[open_idx] = sn
-        sign_cost[open_idx] = sc
-        sign_lp_cost[open_idx] = slp
-        for k, v in enumerate(sv):
-            if v == "unsat":
-                r = int(open_idx[k])
-                verdicts[r] = "unsat"
-                # Phase L settles a root before the frontier sees it.
-                decided_by[r] = "lp" if sign_cost[r] == sign_lp_cost[r] else "sign"
+        with obs.span("engine.sign_bab", roots=int(open_idx.size)) as sp_s:
+            sv, sn, sc, slp = uniform_sign_bab(
+                net, enc, np.asarray(roots_lo)[open_idx].astype(np.int64),
+                np.asarray(roots_hi)[open_idx].astype(np.int64), cfg,
+                deadline_s=cfg.sign_bab_frac * deadline_s, mesh=mesh)
+            sign_nodes[open_idx] = sn
+            sign_cost[open_idx] = sc
+            sign_lp_cost[open_idx] = slp
+            for k, v in enumerate(sv):
+                if v == "unsat":
+                    r = int(open_idx[k])
+                    verdicts[r] = "unsat"
+                    # Phase L settles a root before the frontier sees it.
+                    decided_by[r] = "lp" if sign_cost[r] == sign_lp_cost[r] else "sign"
+            sp_s.set(unsat=sum(1 for v in sv if v == "unsat"), nodes=int(np.sum(sn)))
     # Phase E0: a time-boxed exhaustive enumeration of the cheap enumerable
     # roots (lattice at most lattice_first_max points), smallest first,
     # before the device BaB; the scan exits on the first flip.  It stops
@@ -3017,14 +3154,16 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
         cheap = sorted((r for r in range(R) if verdicts[r] is None
                         and lat_sizes.get(r, np.inf) <= cfg.lattice_first_max),
                        key=lambda r: lat_sizes[r])
-        for r in cheap:
-            spent = time.perf_counter() - t0
-            if spent > 0.4 * deadline_s:
-                break
-            if _scan_root(net, enc, roots_lo, roots_hi, r, cfg,
-                          min(deadline_s - spent, cfg.lattice_first_cap_s), verdicts, ces,
-                          lat_cost):
-                decided_by[r] = "lattice_first"
+        with obs.span("engine.lattice_first", roots=len(cheap)) as sp_e0:
+            for r in cheap:
+                spent = time.perf_counter() - t0
+                if spent > 0.4 * deadline_s:
+                    break
+                if _scan_root(net, enc, roots_lo, roots_hi, r, cfg,
+                              min(deadline_s - spent, cfg.lattice_first_cap_s), verdicts,
+                              ces, lat_cost):
+                    decided_by[r] = "lattice_first"
+            sp_e0.set(decided=sum(1 for r in cheap if decided_by[r] == "lattice_first"))
     open_roots = [r for r in range(R) if verdicts[r] is None]
 
     nodes = np.zeros(R, dtype=np.int64)
@@ -3049,14 +3188,20 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
             if verdict == "unknown":
                 unknown_reasons[r] = reason or "frontier"
 
-    if open_roots:
-        if cfg.device_bab and cfg.use_crown and mesh is None and len(enc.pa_idx):
+    use_dev_bab = bool(open_roots and cfg.device_bab and cfg.use_crown and mesh is None
+                       and len(enc.pa_idx))
+    if use_dev_bab:
+        with obs.span("engine.device_bab", roots=len(open_roots)) as sp_d:
             device_bab_phase(net, enc, roots_lo, roots_hi, cfg, t0, main_deadline,
                              verdicts, settle, nodes, leaves, cost_s)
-        else:
+            sp_d.set(decided=len(open_roots) - sum(1 for v in verdicts if v == "unknown"),
+                     nodes=int(nodes.sum()))
+    with obs.span("engine.bab", roots=0 if use_dev_bab else len(open_roots)) as sp_bab:
+        if open_roots and not use_dev_bab:
             host_frontier_phase(net, enc, roots_lo, roots_hi, cfg, t0, deadline_s,
                                 main_deadline, verdicts, settle, nodes, leaves, cost_s,
                                 mesh=mesh)
+            sp_bab.set(nodes=int(nodes.sum()))
     def mark(phase: str) -> None:
         for r in range(R):
             if decided_by[r] is None and verdicts[r] in ("sat", "unsat"):
@@ -3065,14 +3210,20 @@ def decide_many(net, enc: PairEncoding, roots_lo, roots_hi, cfg: EngineConfig,
     mark("bab")
     pair_cost = np.zeros(R, dtype=np.float64)
     if use_pair and any(v == "unknown" for v in verdicts):
-        pair_lp_phase(net, enc, roots_lo, roots_hi, verdicts, ces, nodes, pair_cost,
-                      cfg, t0, pair_deadline)
+        n_unk = sum(1 for v in verdicts if v == "unknown")
+        with obs.span("engine.pair_lp", roots=n_unk) as sp_p:
+            pair_lp_phase(net, enc, roots_lo, roots_hi, verdicts, ces, nodes, pair_cost,
+                          cfg, t0, pair_deadline)
+            sp_p.set(decided=n_unk - sum(1 for v in verdicts if v == "unknown"))
         mark("pair")
     # Phase E: the roots still unknown, smallest lattice first, while more
     # than a second of the deadline is left.
     if lat_sizes and any(v == "unknown" for v in verdicts):
-        lattice_phase(net, enc, roots_lo, roots_hi, verdicts, ces, lat_cost, cfg, t0,
-                      deadline_s, lat_sizes=lat_sizes)
+        n_unk = sum(1 for v in verdicts if v == "unknown")
+        with obs.span("engine.lattice", roots=n_unk) as sp_e:
+            lattice_phase(net, enc, roots_lo, roots_hi, verdicts, ces, lat_cost, cfg, t0,
+                          deadline_s, lat_sizes=lat_sizes)
+            sp_e.set(decided=n_unk - sum(1 for v in verdicts if v == "unknown"))
         mark("lattice")
     # Per-root attribution: A = PGD, S = the sign frontier, L = its host
     # LP, bab = the device BaB, P = the pair LP, E0 + E = the lattice

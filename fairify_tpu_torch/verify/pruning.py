@@ -31,11 +31,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from fairify_tpu_torch import obs
+from fairify_tpu_torch.obs import launches
 from fairify_tpu_torch.ops import exact as exact_ops
 from fairify_tpu_torch.ops import exact_native
 from fairify_tpu_torch.ops import interval as interval_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, activation_stats, simulate_boxes
+from fairify_tpu_torch.parallel.pipeline import LaunchPipeline, stage
 from fairify_tpu_torch.partition.grid import chunk_spans, pad_rows, segment_spans
 from fairify_tpu_torch.utils import cuda_build, prng
 from fairify_tpu_torch.utils.prng import grid_keys
@@ -111,8 +114,8 @@ def sim_and_bounds(net, keys, lo, hi, ok, sim_size: int, live=None):
             okf = ok.to(torch.float32)[:, None]
             loos = torch.stack([((ub - lb) * okf).sum() for lb, ub in zip(ws_lb, ws_ub)])
         return cand, pos, ws_lb, ws_ub, loos
-    out = _sim_launch(net, keys, lo, hi, sim_size, live, "ka")
-    sim_and_bounds.launches += 1
+    with launches.launching("sim_and_bounds", (lo.shape[0], live, sim_size)):
+        out = _sim_launch(net, keys, lo, hi, sim_size, live, "ka")
     sizes = net.layer_sizes
     views = out.split(sizes * 4 + (L,), dim=1)
     loos = (views[-1] * ok[:, None]).sum(0)
@@ -120,7 +123,6 @@ def sim_and_bounds(net, keys, lo, hi, ok, sim_size: int, live=None):
             list(views[3 * L:4 * L]), loos)
 
 
-sim_and_bounds.launches = 0
 
 
 def sim_stats(net, keys, lo, hi, sim_size: int, live=None):
@@ -137,13 +139,12 @@ def sim_stats(net, keys, lo, hi, sim_size: int, live=None):
         cand, pos = sim_stats_plain(net, keys, lo, hi, sim_size)
         return ([engine.fill_past(t, live) for t in cand],
                 [engine.fill_past(t, live) for t in pos])
-    out = _sim_launch(net, keys, lo, hi, sim_size, live, "stats")
-    sim_stats.launches += 1
+    with launches.launching("sim_stats", (lo.shape[0], live, sim_size)):
+        out = _sim_launch(net, keys, lo, hi, sim_size, live, "stats")
     views = out.split(net.layer_sizes * 2, dim=1)
     return list(views[:net.depth]), list(views[net.depth:])
 
 
-sim_stats.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -397,10 +398,11 @@ def sim_rows_host(words, index: int, lo: np.ndarray, hi: np.ndarray, sim_size: i
     stream = torch.cuda.current_stream(device)
     host = None
     for p0 in range(0, N, per):
-        fn, args, (_rows, host) = _sim_rows_prepare(words, index, lo_i, hi_i, sim_size, device,
-                                                    first=p0, count=min(per, N - p0))
-        cuda_build.check("k12_sim_rows", fn(*args, stream.cuda_stream))
-        sim_rows.launches += 1
+        with launches.launching("sim_rows", (min(per, N - p0), d, sim_size)):
+            fn, args, (_rows, host) = _sim_rows_prepare(words, index, lo_i, hi_i, sim_size,
+                                                        device, first=p0,
+                                                        count=min(per, N - p0))
+            cuda_build.check("k12_sim_rows", fn(*args, stream.cuda_stream))
     stream.synchronize()
     return host[:N * sim_size * d].view(N, sim_size, d)
 
@@ -436,14 +438,26 @@ def _sim_rows_prepare(words, index: int, lo_i: np.ndarray, hi_i: np.ndarray, sim
     return cuda_build.entry("sim_rows", "k12_sim_rows", _K12_ARGS), args, bufs
 
 
-sim_rows.launches = 0
 _sim_rows_geometry = functools.lru_cache(maxsize=64)(sim_rows_geometry)
+
+
+def prune_block_submit(net, lo, hi, sim_size: int, seed: int, index: int, rows: int):
+    """Launch KA over one block of the grid (global index ``index`` of its
+    first row), padded to ``rows`` rows and launched over its real ones,
+    without a sync: ``(cand, pos, ws_lb, ws_ub, looseness)`` tensors."""
+    dev = net.device
+    n = lo.shape[0]
+    as_dev = lambda a: stage(np.asarray(a, np.float32), dev)
+    keys = grid_keys(seed, index, rows, device=dev)
+    ok = torch.arange(rows, device=dev) < n
+    return sim_and_bounds(net, keys, as_dev(pad_rows(lo, rows)), as_dev(pad_rows(hi, rows)), ok,
+                          sim_size, live=n)
 
 
 def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
                      seed: int, chunk: int, mega_chunks: int,
                      index_offset: int = 0, keep_sim: bool = False,
-                     exact_certify: bool = False) -> PruneResult:
+                     exact_certify: bool = False, pipeline_depth: int = 2) -> PruneResult:
     """Sound pruning for a (P, d) box grid.
 
     Each partition's key is ``grid_keys(seed, global index)`` (row index
@@ -459,7 +473,13 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     host over the real rows, as the JAX package does;
     with ``keep_sim`` the samples (P, sim_size, d) are regenerated from the
     same keys by K12's row generator (:func:`sim_rows`: the keys from the
-    seed and the global index, derived on the card).
+    seed and the global index, derived on the card).  The launches ride a
+    micro-pipeline of ``pipeline_depth`` (the host slicing of one block
+    overlaps the next block's launch) without a gauge and without fault
+    sites: the sweep supervises the whole pass as one unit
+    (``site="prune"``), so its launches consume no ``launch.submit`` /
+    ``launch.decode`` arrivals.  The device passes run in a
+    ``prune.sim_and_bounds`` span, the exact pass in ``prune.exact_certify``.
 
     ``exact_certify`` (the sweep passes ``exact_certify_masks``; off by
     default here, on in the JAX package's signature) runs the exact pass
@@ -471,32 +491,39 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     """
     dev = net.device
     P = lo.shape[0]
-    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     parts, sims = [], []
     loos = None
+    _, spans = chunk_spans(P, chunk)
     if mega_chunks > 0 and not keep_sim:
         _, segs = segment_spans(P, chunk, mega_chunks)
         pad, blocks = 0, [(s, e) for s, e, _chunks in segs]
     else:
         pad, blocks = chunk_spans(P, chunk)
-    for s, e in blocks:
-        n, rows = e - s, max(pad, e - s)
-        keys = grid_keys(seed, index_offset + s, rows, device=dev)
-        lo_t, hi_t = as_dev(pad_rows(lo[s:e], rows)), as_dev(pad_rows(hi[s:e], rows))
-        ok = torch.arange(rows, device=dev) < n
-        cand, pos, ws_lb, ws_ub, blk_loos = sim_and_bounds(net, keys, lo_t, hi_t, ok,
-                                                           sim_size, live=n)
-        parts.append([[t[:n].cpu().numpy() for t in group]
-                      for group in (cand, pos, ws_lb, ws_ub)])
+    submit = lambda s, e: (prune_block_submit(net, lo[s:e], hi[s:e], sim_size, seed,
+                                              index_offset + s, max(pad, e - s)), (s, e))
+
+    def decode(span, host) -> None:
+        nonlocal loos
+        s, e = span
+        cand, pos, ws_lb, ws_ub, blk_loos = host
+        parts.append([[t[:e - s] for t in group] for group in (cand, pos, ws_lb, ws_ub)])
         if pad:
             per = np.asarray([(ub.astype(np.float64) - lb.astype(np.float64)).sum()
                               for lb, ub in zip(parts[-1][2], parts[-1][3])])
         else:
-            per = blk_loos.cpu().numpy().astype(np.float64)
+            per = blk_loos.astype(np.float64)
         loos = per if loos is None else loos + per
         if keep_sim:
             sims.append(sim_rows(seed, index_offset + s, lo[s:e], hi[s:e], sim_size,
                                  dev).numpy())
+
+    with obs.span("prune.sim_and_bounds", partitions=P, chunks=len(spans)):
+        pipe = LaunchPipeline(depth=pipeline_depth, gauge=False, fault_sites=False)
+        for s, e in blocks:
+            for _meta, span, host in pipe.submit(lambda s=s, e=e: submit(s, e)):
+                decode(span, host)
+        for _meta, span, host in pipe.drain():
+            decode(span, host)
     L = net.depth
     cat = lambda g: [np.concatenate([p[g][l] for p in parts]) for l in range(L)]
     candidates, pos_prob, ws_lb, ws_ub = cat(0), cat(1), cat(2), cat(3)
@@ -511,8 +538,9 @@ def sound_prune_grid(net, lo: np.ndarray, hi: np.ndarray, sim_size: int,
     s_deads = [np.zeros_like(c) for c in candidates]
     certified = b_deads
     if exact_certify:
-        certified = exact_masks(net, lo, hi, candidates)
-        s_deads = [np.maximum(c - b, 0.0) for c, b in zip(certified, b_deads)]
+        with obs.span("prune.exact_certify", partitions=P):
+            certified = exact_masks(net, lo, hi, candidates)
+            s_deads = [np.maximum(c - b, 0.0) for c, b in zip(certified, b_deads)]
     sv_time = time.perf_counter() - t0
     merged = [np.maximum(b, s) for b, s in zip(b_deads, s_deads)]
     st_deads = mask_ops.keep_one_alive(merged)

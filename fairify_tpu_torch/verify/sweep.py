@@ -13,7 +13,9 @@ ledger and histograms.
 * **Prune pass** — :func:`verify.pruning.sound_prune_grid`: KA
   (``csrc/sim_and_bounds.cu``), then with ``exact_certify_masks`` (the
   default) the exact-rational mask pass on the host (the native exact
-  core, ``ops/exact_native.py``).
+  core, ``ops/exact_native.py``).  One supervised unit (``site="prune"``):
+  losing it degrades no verdict, only the mask columns and the heuristic
+  retry.
 * **Stage 0, IBP path** — per chunk one row-13 launch (role-logit bounds,
   ``csrc/role_bounds.cu``) and one row-17 launch (attack logits,
   ``csrc/attack_logits.cu``), each with a model axis for a stacked family;
@@ -22,13 +24,13 @@ ledger and histograms.
   and one KC launch (attack, flips, histograms, fold,
   ``csrc/attack_flips.cu``) per segment (the stacked chunks plus the
   integrity canary chunk; the host checks the fold and the canary) or per
-  chunk (:func:`stage0_block`; histograms binned on the host); the host
-  replays every flip exactly before it counts as SAT.
+  chunk (:func:`stage0_block_submit`; histograms binned on the host); the
+  host replays every flip exactly before it counts as SAT.
 * **Stage 0 with a mesh** — per chunk the certificate alone (KB as rows
   14 and 6, :func:`engine.role_certify`; row 13 on the IBP path) over the
   mesh's ``parts`` shards, then the attack forward (row 17) unsharded on
   the mesh's first device, the flips and gap on the host
-  (:func:`engine.split_certify_attack`).  For a stacked
+  (:func:`engine.split_certify_attack_submit`).  For a stacked
   family (:func:`stage0_families`) the same launches carry a model axis:
   every model attacks the same candidates and replays its witnesses on its
   own weights; :func:`verify_model` then takes each model's result as
@@ -63,15 +65,24 @@ ledger and histograms.
   and the throughput JSON with per-phase ``phases_s`` and, per engine
   phase, the partitions it decided on the first pass (``engine_decided``).
 
-Launches run synchronously (the async pipeline, supervisor and obs spans
-are ROADMAP queue 1, item 4).  What the port does not run yet — the
-runtime contracts' settings (:func:`check_supported`), the SMT tier —
-raises ``NotImplementedError`` naming its ROADMAP item where it would run.
+The runtime contracts are the JAX package's: stage 0, the parity pass and
+``stage0_pgd`` share one :class:`parallel.pipeline.LaunchPipeline` of
+``pipeline_depth`` launches in flight (the host decode of one launch
+overlaps the next launch; its drain is the only sync point) and one
+:class:`resilience.supervisor.Supervisor` (``max_launch_retries``,
+``launch_backoff_s``, ``chunk_deadline_s``); a fault that exhausts it
+degrades exactly its chunk or segment to UNKNOWN with a ``failure``
+record, and ``resume=True`` re-attempts it.  ``inject_faults`` arms the
+fault schedule (``resilience.faults``), ``integrity_recheck`` re-runs a
+sampled share of the decided chunks (:func:`_sampled_recheck`),
+``trace_out`` writes the span/event log, ``heartbeat_s`` the progress
+line and ``profile_dir`` a ``torch.profiler`` trace.  The SMT tier is not
+ported yet: it raises ``NotImplementedError`` naming its ROADMAP item
+where it would run.
 """
 from __future__ import annotations
 
 import csv
-import ctypes
 import json
 import os
 import time
@@ -81,26 +92,40 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from fairify_tpu_torch import obs
 from fairify_tpu_torch.models.mlp import StackedMLP, predict_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
-from fairify_tpu_torch.ops import crown as crown_ops
+from fairify_tpu_torch.obs import launches
 from fairify_tpu_torch.ops import heuristic as heur_ops
-from fairify_tpu_torch.ops import lattice as lattice_ops
 from fairify_tpu_torch.ops import masks as mask_ops
 from fairify_tpu_torch.ops.simulate import PLAIN_ROWS, mean_scale
 from fairify_tpu_torch.parallel import mesh as mesh_mod
+from fairify_tpu_torch.parallel.pipeline import LaunchPipeline, fetch, stage
 from fairify_tpu_torch.partition import grid as grid_mod
+from fairify_tpu_torch.resilience import faults as faults_mod
 from fairify_tpu_torch.resilience import integrity as integrity_mod
 from fairify_tpu_torch.resilience.journal import JournalWriter
-from fairify_tpu_torch.utils import cuda_build, prng
+from fairify_tpu_torch.resilience.supervisor import (ChunkDegraded, ChunkFailure,
+                                                     Supervisor, classify)
+from fairify_tpu_torch.utils import cuda_build, prng, profiling
 from fairify_tpu_torch.utils.num import resolve_device
 from fairify_tpu_torch.utils.prng import grid_keys, shuffled_order, simulate_boxes
+from fairify_tpu_torch.utils.timing import PhaseTimer
 from fairify_tpu_torch.verify import csvio, engine, pruning
 from fairify_tpu_torch.verify.config import SweepConfig
 from fairify_tpu_torch.verify.property import PairEncoding, encode, role_boxes
 
 SMT_NOT_PORTED = ("the SMT UNKNOWN-retry tier (smt_retry_timeouts_s) is not "
                   "ported yet: ROADMAP queue 1, item 5")
+
+# Every kernel entry point of the port (``obs.launches``' names).
+KERNELS = launches.KERNELS
+
+# The runtime counters whose per-run deltas the throughput JSON reports.
+RUN_COUNTERS = ("fault_injected", "launch_retries", "chunks_degraded",
+                "integrity_violations", "integrity_rechecks", "unknown_retries",
+                "unknown_retry_success", "ledger_crc_mismatch",
+                "ledger_append_failures")
 
 
 @dataclass
@@ -128,10 +153,12 @@ class ModelReport:
     partitions_total: int = 0
     sink_name: str = ""
     ledger_skipped_lines: int = 0
+    # Partitions answered UNKNOWN because a runtime fault degraded their
+    # chunk (each carries a ledger ``failure`` record; resume re-attempts).
     degraded: int = 0
     funnel: Optional[dict] = None
     # Kernel launches of this run by kernel name (0 on the CPU, where the
-    # plain PyTorch versions run instead).
+    # plain PyTorch versions run instead): ``obs.launches``' counts.
     kernel_launches: Dict[str, int] = field(default_factory=dict)
 
     @property
@@ -164,40 +191,15 @@ def build_partitions(cfg: SweepConfig):
     return grid_mod.BoxList(lo, hi, domain.columns), lo, hi
 
 
-# Settings with which the JAX package writes or changes an output the port
-# does not produce yet: a span trace, an XLA trace, a heartbeat line, and a
-# per-chunk retry deadline that changes which chunks are retried.
-OUTPUT_SETTINGS = ("trace_out", "profile_dir", "heartbeat_s", "chunk_deadline_s")
-RUNTIME_NOT_PORTED = ("the runtime contracts (pipeline, supervisor, faults, "
-                      "integrity recheck, obs) are not ported yet: ROADMAP queue 1, "
-                      "item 4")
-
-
 def check_supported(cfg: SweepConfig, mesh=None) -> None:
-    """Reject every configuration the port does not run yet, naming its
-    ROADMAP item: fault injection, the sampled integrity
-    recheck (only with ``integrity`` on: with it off the JAX package runs
-    no recheck) and a non-default value of a setting in
-    :data:`OUTPUT_SETTINGS`, with which the JAX package writes or changes
-    an output (item 4).
-
-    The port accepts, and does not act on yet, ``pipeline_depth``,
-    ``max_launch_retries`` and ``launch_backoff_s``: its launches run
-    synchronously and see no faults, where these settings change only
-    timing (the stress presets set the first two).  ``partition_metrics``
-    acts in the JAX package only with a ``dataset``, which the port's
-    :func:`verify_model` does not take yet (ROADMAP queue 1, item 6).
-    A ``mesh`` that is not a ``parallel.mesh.Mesh`` raises ``TypeError``.
-    """
+    """Reject what the port cannot run before any work starts: a ``mesh``
+    that is not a ``parallel.mesh.Mesh`` raises ``TypeError``.  Every
+    setting of ``SweepConfig`` runs; the SMT tier (ROADMAP queue 1, item 5)
+    raises ``NotImplementedError`` where a root would reach it.
+    ``partition_metrics`` acts in the JAX package only with a ``dataset``,
+    which the port's :func:`verify_model` does not take yet (ROADMAP queue
+    1, item 6)."""
     mesh_mod.require_mesh(mesh)
-    if cfg.inject_faults:
-        raise NotImplementedError(f"inject_faults: {RUNTIME_NOT_PORTED}")
-    if cfg.integrity and cfg.integrity_recheck > 0.0:
-        raise NotImplementedError(f"integrity_recheck: {RUNTIME_NOT_PORTED}")
-    default = SweepConfig(name="", dataset="", protected=())
-    for name in OUTPUT_SETTINGS:
-        if getattr(cfg, name) != getattr(default, name):
-            raise NotImplementedError(f"{name}: {RUNTIME_NOT_PORTED}")
 
 
 def use_mega(cfg: SweepConfig, mesh=None) -> bool:
@@ -206,6 +208,52 @@ def use_mega(cfg: SweepConfig, mesh=None) -> bool:
     device has one, so the IBP path and a mesh take the chunk loop
     whatever ``mega_chunks`` says."""
     return cfg.mega_chunks > 0 and cfg.engine.use_crown and mesh is None
+
+
+# ---------------------------------------------------------------------------
+# The run's runtime pieces: supervisor, failure records, progress ticks
+# ---------------------------------------------------------------------------
+
+
+def _supervisor(cfg: SweepConfig) -> Supervisor:
+    """The run's launch supervisor, configured from the sweep's settings."""
+    return Supervisor(max_retries=cfg.max_launch_retries, backoff_s=cfg.launch_backoff_s,
+                      deadline_s=cfg.chunk_deadline_s, seed=cfg.seed)
+
+
+def _unretried_failure(site: str, exc: BaseException) -> ChunkFailure:
+    """Failure record of a fault caught outside the supervisor's retry loop
+    (the sequential engine phases): a transient-class error is
+    ``transient-exhausted`` at ``retries=0``."""
+    kind = "transient-exhausted" if classify(exc) == "transient" else "fatal"
+    return ChunkFailure(site=site, kind=kind, error=type(exc).__name__,
+                        detail=str(exc), retries=0)
+
+
+def _integrity_failure(site: str, detector: str) -> ChunkFailure:
+    """Record one tripped integrity detector (``integrity_violations``
+    counter and event) and return the failure that contains it: its
+    partitions land in ``unknown:failure:integrity.<site>``, ``kind=fatal``
+    (a corrupted payload is never retried in place; a resume re-runs the
+    launch)."""
+    obs.registry().counter("integrity_violations").inc(site=site)
+    obs.event("integrity_violation", site=site, detector=detector)
+    return ChunkFailure(site=f"integrity.{site}", kind="fatal",
+                        error="IntegrityViolation",
+                        detail=f"{detector} mismatch ({site})", retries=0)
+
+
+def _segment_tick(phase: str, done: int, total: int, partitions: int,
+                  in_flight: int = 0) -> None:
+    """Segment-granular progress: a ``segment`` event and a throttled
+    heartbeat line (a long launch's partitions are invisible to the host
+    until it drains)."""
+    from fairify_tpu_torch.obs import heartbeat as hb_mod
+
+    obs.event("segment", phase=phase, done=done, total=total, partitions=partitions)
+    hb = hb_mod.active()
+    if hb is not None:
+        hb.segment(phase, done, total, in_flight=in_flight)
 
 
 # ---------------------------------------------------------------------------
@@ -252,17 +300,17 @@ def mega_chunk_inputs(enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
     return tuple(np.stack(b) for b in bufs) + (np.asarray(n_real, np.int32),)
 
 
-def mega_segment(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
-                 step: int, seed_offset: int):
-    """Run one segment's stage 0 on the net's device: ``(host, ctx)``.
+def mega_segment_submit(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
+                        step: int, seed_offset: int):
+    """Launch one segment's stage 0 on the net's device without a sync:
+    ``(payload, ctx)`` for the launch pipeline.
 
-    ``host`` holds the packed buffers the JAX package's mega kernel returns
-    — ``cert (C, P) bool``, ``wit (C, P, 3) int32``, ``reason (C, P) int8``,
-    ``stats (2, 14) int32`` and, with integrity on, the device fold
-    ``csum`` — with C the real chunks plus the canary.  For a stacked
-    family (``_mega_family_stage0_kernel``) one KB and one KC launch cover
-    chunks × models × rows: ``cert (C, M, P)``, ``wit (C, M, P, 3)``,
-    ``reason (C, M, P)``, ``stats (M, 2, 14)``, and the fold covers every
+    ``payload`` holds the launches' outputs, flat over chunks × rows —
+    ``cert``, ``wit``, ``reason``, ``stats`` and, with integrity on, the
+    device fold ``csum`` (a 0-d tensor); :func:`mega_segment_host` lays
+    the fetched buffers out as the JAX package's mega kernel returns them.
+    For a stacked family (``_mega_family_stage0_kernel``) one KB and one
+    KC launch cover chunks × models × rows and the fold covers every
     model's buffers.
     """
     dev = net.device
@@ -271,28 +319,48 @@ def mega_segment(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
                              canary=cfg.integrity)
     C, P = valid.shape[:2]
     av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
-    on_dev = lambda a: torch.as_tensor(a, device=dev)
-    flat = lambda a: on_dev(a.reshape((C * P,) + a.shape[2:]))
+    on = lambda a: stage(a, dev)
+    flat = lambda a: on(a.reshape((C * P,) + a.shape[2:]))
     ok = (np.arange(P)[None, :] < nv[:, None]).reshape(-1)
-    valid_t, vpair = flat(valid), on_dev(enc.valid_pair)
+    valid_t, vpair = flat(valid), on(enc.valid_pair)
     cert, _score, margin = engine.stage0_certify(
         net, flat(x_lo), flat(x_hi), flat(xp_lo), flat(xp_hi), flat(plo),
-        flat(phi), on_dev(av), on_dev(pm), on_dev(rm), float(enc.eps),
-        valid_t, vpair)
+        flat(phi), on(av), on(pm), on(rm), float(enc.eps), valid_t, vpair)
     wit, reason, _gap, stats, fold = engine.attack_flips(
-        net, flat(xr), flat(pr), valid_t, vpair, cert, margin, on_dev(ok))
+        net, flat(xr), flat(pr), valid_t, vpair, cert, margin, on(ok))
+    payload = {"cert": cert, "wit": wit, "reason": reason, "stats": stats}
+    if cfg.integrity:
+        payload["csum"] = fold
+    return payload, {"chunks": chunks, "xr": xr, "pr": pr, "C": C, "P": P,
+                     "stacked": isinstance(net, StackedMLP)}
 
-    def chunk_major(t):  # (M?, C*P, ...) -> (C, M?, P, ...)
-        a = t.cpu().numpy()
-        lead = a.shape[:1] if isinstance(net, StackedMLP) else ()
+
+def mega_segment_host(raw, ctx) -> dict:
+    """A fetched :func:`mega_segment_submit` payload in the JAX package's
+    layout: ``cert (C, P) bool``, ``wit (C, P, 3) int32``, ``reason (C, P)
+    int8``, ``stats (2, 14) int32`` (``(C, M, P)``, ``(C, M, P, 3)``,
+    ``(C, M, P)``, ``(M, 2, 14)`` for a stacked family) and ``csum``, with
+    C the real chunks plus the canary."""
+    C, P, stacked = ctx["C"], ctx["P"], ctx["stacked"]
+
+    def chunk_major(a):  # (M?, C*P, ...) -> (C, M?, P, ...)
+        lead = a.shape[:1] if stacked else ()
         a = a.reshape(lead + (C, P) + a.shape[len(lead) + 1:])
         return np.moveaxis(a, 0, 1) if lead else a
 
-    host = {"cert": chunk_major(cert), "wit": chunk_major(wit),
-            "reason": chunk_major(reason), "stats": stats.cpu().numpy()}
-    if cfg.integrity:
-        host["csum"] = np.int32(fold)
-    return host, {"chunks": chunks, "xr": xr, "pr": pr}
+    host = {k: chunk_major(raw[k]) for k in ("cert", "wit", "reason")}
+    host["stats"] = raw["stats"]
+    if "csum" in raw:
+        host["csum"] = np.int32(raw["csum"])
+    return host
+
+
+def mega_segment(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, chunks,
+                 step: int, seed_offset: int):
+    """One segment's stage 0, synchronously: ``(host, ctx)`` with ``host``
+    as :func:`mega_segment_host` lays it out (tests, tooling)."""
+    payload, ctx = mega_segment_submit(net, enc, lo, hi, cfg, chunks, step, seed_offset)
+    return mega_segment_host(fetch(payload), ctx), ctx
 
 
 def decode_flips(cert, found, wit, xr, pr, weights, biases):
@@ -318,87 +386,86 @@ def mega_segment_decode(host, ctx, models):
             for ci in range(len(ctx["chunks"]))]
 
 
-def stage0_block(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, rng_seed: int,
-                 pad_to: int, mesh=None, replicas=None):
-    """One grid chunk's stage 0 (``_stage0_block_submit`` + ``_decode``;
-    ``_family_block_*`` for a stacked family): the chunk is padded to
-    ``pad_to`` rows BEFORE the attack candidates are drawn from
-    ``default_rng(rng_seed)``.  The CROWN path (the fused branch) is one
-    :func:`engine.certify_attack` (one KB + one KC launch); the IBP path
-    (``use_crown=False``) and, on either path, a ``mesh`` (``replicas``
-    the net's copies on it) take :func:`engine.split_certify_attack`: the
-    certificate alone (row 13, or with a mesh on the CROWN path row 14 /
-    row 6) over the mesh's ``parts`` shards, then the attack forward (row
-    17) unsharded, the flips and gap on the host.  Returns per model
-    ``(unsat, sat, witnesses, margin, gap)``, chunk padding rows included
-    (the shard padding trimmed)."""
+def stage0_block_submit(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, rng_seed: int,
+                        pad_to: int, mesh=None, replicas=None):
+    """Launch one grid chunk's stage 0 without a sync (``_stage0_block_submit``;
+    ``_family_block_submit`` for a stacked family): ``(payload, ctx)``.
+    The chunk is padded to ``pad_to`` rows BEFORE the attack candidates are
+    drawn from ``default_rng(rng_seed)``.  The CROWN path (the fused
+    branch) is one :func:`engine.certify_attack` (one KB + one KC launch;
+    payload ``cert``, ``found``, ``wit``, ``margin``, ``gap``); the IBP
+    path (``use_crown=False``) and, on either path, a ``mesh``
+    (``replicas`` the net's copies on it) take
+    :func:`engine.split_certify_attack_submit`: the certificate alone (row
+    13, or with a mesh on the CROWN path row 14 / row 6) over the mesh's
+    ``parts`` shards, then the attack forward (row 17) unsharded."""
     lo, hi = grid_mod.pad_rows(lo, pad_to), grid_mod.pad_rows(hi, pad_to)
     flo, fhi = lo.astype(np.float32), hi.astype(np.float32)
     x_lo, x_hi, xp_lo, xp_hi, valid = role_boxes(enc, flo, fhi)
     xr, pr = engine.build_attack_candidates(enc, np.random.default_rng(rng_seed),
                                             lo, hi, cfg.engine.attack_samples)
-    models = _model_params(net)
+    ctx = {"enc": enc, "valid": valid, "xr": xr, "pr": pr,
+           "stacked": isinstance(net, StackedMLP)}
     if mesh is not None or not cfg.engine.use_crown:
-        out = engine.split_certify_attack(net, enc, x_lo, x_hi, xp_lo, xp_hi, flo, fhi,
-                                          valid, xr, pr, cfg.engine.use_crown,
-                                          mesh=mesh, replicas=replicas)
-        per_model = out if isinstance(net, StackedMLP) else [out]
+        ctx["kind"] = "split"
+        return engine.split_certify_attack_submit(
+            net, enc, x_lo, x_hi, xp_lo, xp_hi, flo, fhi, valid, xr, pr,
+            cfg.engine.use_crown, mesh=mesh, replicas=replicas), ctx
+    on = lambda a: stage(a, net.device)
+    av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
+    cert, _score, found, wit, margin, gap = engine.certify_attack(
+        net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(flo), on(fhi), on(av), on(pm),
+        on(rm), float(enc.eps), on(valid), on(enc.valid_pair), on(xr), on(pr),
+        alpha_iters=0)
+    ctx["kind"] = "fused"
+    return {"cert": cert, "found": found, "wit": wit, "margin": margin, "gap": gap}, ctx
+
+
+def stage0_block_decode(host, ctx, models) -> list:
+    """Host decode of a fetched :func:`stage0_block_submit` payload: per
+    model ``(unsat, sat, witnesses, margin, gap)``, chunk padding rows
+    included; ``models`` the per-model host parameters."""
+    xr, pr = ctx["xr"], ctx["pr"]
+    if ctx["kind"] == "split":
+        per_model = engine.split_certify_attack_decode(host, ctx["enc"], ctx["valid"],
+                                                       ctx["stacked"])
         return [decode_flips(cert, found, wit, xr, pr, w, b) + (margin, gap)
                 for (cert, margin, found, wit, gap), (w, b) in zip(per_model, models)]
-    on = lambda a: torch.as_tensor(a, device=net.device)
-    av, pm, rm = engine.enc_tensors(enc, lo.shape[1])
-    out = engine.certify_attack(net, on(x_lo), on(x_hi), on(xp_lo), on(xp_hi), on(flo),
-                                on(fhi), on(av), on(pm), on(rm), float(enc.eps), on(valid),
-                                on(enc.valid_pair), on(xr), on(pr), alpha_iters=0)
-    cert, _score, found, wit, margin, gap = (t.cpu().numpy() for t in out)
-    if not isinstance(net, StackedMLP):
-        cert, found, wit, margin, gap = (a[None] for a in (cert, found, wit, margin, gap))
+    lift = (lambda a: a) if ctx["stacked"] else (lambda a: a[None])
+    cert, found, wit, margin, gap = (lift(host[k])
+                                     for k in ("cert", "found", "wit", "margin", "gap"))
     return [decode_flips(cert[m], found[m], wit[m], xr, pr, w, b) + (margin[m], gap[m])
             for m, (w, b) in enumerate(models)]
 
 
-def integrity_failure(detector: str) -> dict:
-    """Failure record of a segment whose fold or canary check tripped (the
-    JAX package's ``ChunkFailure.to_record`` layout): its partitions land
-    in ``unknown:failure:integrity.launch.decode`` and a resume re-attempts
-    them."""
-    site = "integrity.launch.decode"
-    return {"reason": f"{site}:fatal", "site": site, "kind": "fatal",
-            "error": "IntegrityViolation",
-            "detail": f"{detector} mismatch (launch.decode)", "retries": 0}
+def stage0_block(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, rng_seed: int,
+                 pad_to: int, mesh=None, replicas=None):
+    """One grid chunk's stage 0, synchronously (tests, tooling, the sampled
+    recheck): :func:`stage0_block_submit`, a fetch, then
+    :func:`stage0_block_decode`."""
+    payload, ctx = stage0_block_submit(net, enc, lo, hi, cfg, rng_seed, pad_to,
+                                       mesh=mesh, replicas=replicas)
+    return stage0_block_decode(fetch(payload), ctx, _model_params(net))
 
 
-def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
-                    seed_offset: int = 0, stats=None, mesh=None, failed=None):
-    """Stage 0 of several stacked families (``stage0_families``): one
-    result list per entry of ``stacks``, each holding per model ``(unsat
-    (P,), sat (P,), witnesses {p: (x, x')})``.
-
-    ``mega_chunks > 0``: one KB + one KC launch per (family, segment) over
-    chunks × models × rows (:func:`mega_segment`); with integrity on, a
-    tripped fold or canary check leaves that (family, segment) undecided
-    (and, when ``failed`` is a dict, records the failure of each of its
-    rows — the single-model caller's contract).  ``mega_chunks = 0`` or a
-    ``mesh`` (``parallel.mesh.Mesh``: the family is replicated over it and
-    each chunk's certificate sharded, :func:`stage0_block`): one
-    :func:`stage0_block` per (family, chunk).  Every model attacks the same
-    candidates, drawn once per chunk from ``default_rng(engine.seed +
-    seed_offset + chunk_start)``, and each model's witnesses replay on its
-    own weights.  ``stats`` (a dict) receives one ``StageStats`` per
-    ``(family index, model index)``: the kernel's histograms on the mega
-    path, host-binned margins and gaps on the chunk path — equal bit for
-    bit.  The IBP path (``use_crown=False``) and a mesh always take the
-    chunk loop (:func:`use_mega`) and, like the JAX package's IBP and mesh
-    family branches, bank no statistics for a stacked family (a single
-    net's chunks bank theirs, as ``_stage0_block_decode`` does).  A single
-    (unstacked) net
-    in ``stacks`` counts as one model.  Launches run synchronously.
-    """
+def _stage0(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig, seed_offset: int,
+            stats, mesh, pipe, on_failure, phase: str, drained_chunks: list):
+    """Stage 0 of several nets or stacked families through one launch queue
+    (``_stage0_certify_and_attack`` / ``stage0_families``): one pipeline
+    entry per (net, segment) on the mega path, per (net, chunk) on the
+    chunk loop.  ``on_failure(s, e, failure)`` receives a degraded entry's
+    rows (single-model callers); without it the degradation is counted
+    (``chunks_degraded``) and logged (``degraded``) and the rows stay
+    undecided.  ``drained_chunks`` receives the chunks that drained clean
+    (the sampled recheck's candidates)."""
     mesh_mod.require_mesh(mesh)
     P = lo.shape[0]
+    if pipe is None:
+        pipe = LaunchPipeline(cfg.pipeline_depth, supervisor=_supervisor(cfg))
     n_models = [net.n_models if isinstance(net, StackedMLP) else 1 for net in stacks]
     accs = [[(np.zeros(P, bool), np.zeros(P, bool), {}) for _ in range(M)]
             for M in n_models]
+    models = [_model_params(net) for net in stacks]
     bank = lambda gi, m: (stats.setdefault((gi, m), funnel_mod.StageStats())
                           if stats is not None else funnel_mod.StageStats())
 
@@ -407,41 +474,119 @@ def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
         unsat[s:e], sat[s:e] = u[: e - s], sa[: e - s]
         wits.update({s + k: v for k, v in w.items() if k < e - s})
 
+    def degrade(s, e, failure):
+        if on_failure is not None:
+            on_failure(s, e, failure)
+        else:
+            obs.registry().counter("chunks_degraded").inc(site=failure.site)
+            obs.event("degraded", **failure.to_record(), phase=phase, partitions=e - s)
+
     if use_mega(cfg, mesh):
         step, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
-        for gi, net in enumerate(stacks):
-            models = _model_params(net)
-            for seg_s, seg_e, chunks in segs:
-                host, ctx = mega_segment(net, enc, lo, hi, cfg, chunks, step, seed_offset)
+        total = len(segs) * len(stacks)
+        done = {"n": 0}
+
+        def consume_seg(meta, ctx, raw):
+            gi, seg_s, seg_e, chunks = meta
+            done["n"] += 1
+            drained = 0
+            host = raw
+            if not isinstance(raw, ChunkFailure):
+                host = mega_segment_host(raw, ctx)
                 if cfg.integrity:
+                    # Verify before decoding: a corrupted buffer must never
+                    # reach witness extraction or the verdict arrays.
                     tripped = integrity_mod.verify_segment(host)
                     if tripped is not None:
-                        if failed is not None:
-                            rec = integrity_failure(tripped)
-                            failed.update({i: rec for i in range(seg_s, seg_e)})
-                        continue
+                        host = _integrity_failure("launch.decode", tripped)
+            if isinstance(host, ChunkFailure):
+                degrade(seg_s, seg_e, host)
+            else:
+                drained = seg_e - seg_s
                 seg_stats = host["stats"].reshape((-1,) + host["stats"].shape[-2:])
                 for m in range(n_models[gi]):
                     bank(gi, m).add_packed(seg_stats[m])
                 for (s, e), per_model in zip(chunks, mega_segment_decode(host, ctx,
-                                                                         models)):
+                                                                         models[gi])):
                     for m, (u, sa, w) in enumerate(per_model):
                         store(gi, m, s, e, u, sa, w)
-    else:
-        step, spans = grid_mod.chunk_spans(P, cfg.grid_chunk)
+                drained_chunks.extend(chunks)
+            _segment_tick(phase, done["n"], total, drained, in_flight=len(pipe))
+
         for gi, net in enumerate(stacks):
-            banked = not isinstance(net, StackedMLP) or (cfg.engine.use_crown
-                                                         and mesh is None)
-            reps = None if mesh is None else mesh_mod.replicated(mesh, net)
-            for s, e in spans:
-                per_model = stage0_block(net, enc, lo[s:e], hi[s:e], cfg,
-                                         cfg.engine.seed + seed_offset + s, step,
-                                         mesh=mesh, replicas=reps)
-                for m, (u, sa, w, margin, gap) in enumerate(per_model):
-                    if banked:
-                        bank(gi, m).add_values(margin[: e - s], gap[: e - s])
-                    store(gi, m, s, e, u, sa, w)
+            for si, (seg_s, seg_e, chunks) in enumerate(segs):
+                for item in pipe.submit(
+                        lambda net=net, chunks=chunks, si=si: profiling.annotate_step(
+                            phase, si, lambda: mega_segment_submit(
+                                net, enc, lo, hi, cfg, chunks, step, seed_offset)),
+                        meta=(gi, seg_s, seg_e, chunks)):
+                    consume_seg(*item)
+        for item in pipe.drain():
+            consume_seg(*item)
+        return accs
+
+    step, spans = grid_mod.chunk_spans(P, cfg.grid_chunk)
+    reps = [None if mesh is None else mesh_mod.replicated(mesh, net) for net in stacks]
+
+    def consume(meta, ctx, host):
+        gi, s, e = meta
+        if isinstance(host, ChunkFailure):
+            degrade(s, e, host)
+            return
+        banked = not isinstance(stacks[gi], StackedMLP) or (cfg.engine.use_crown
+                                                            and mesh is None)
+        for m, (u, sa, w, margin, gap) in enumerate(stage0_block_decode(host, ctx,
+                                                                        models[gi])):
+            if banked:
+                bank(gi, m).add_values(margin[: e - s], gap[: e - s])
+            store(gi, m, s, e, u, sa, w)
+        drained_chunks.append((s, e))
+
+    for gi, net in enumerate(stacks):
+        for ci, (s, e) in enumerate(spans):
+            for item in pipe.submit(
+                    lambda gi=gi, net=net, s=s, e=e, ci=ci: profiling.annotate_step(
+                        phase, ci, lambda: stage0_block_submit(
+                            net, enc, lo[s:e], hi[s:e], cfg,
+                            cfg.engine.seed + seed_offset + s, step, mesh=mesh,
+                            replicas=reps[gi])),
+                    meta=(gi, s, e)):
+                consume(*item)
+    for item in pipe.drain():
+        consume(*item)
     return accs
+
+
+def stage0_families(stacks, enc: PairEncoding, lo, hi, cfg: SweepConfig,
+                    seed_offset: int = 0, stats=None, mesh=None, pipe=None):
+    """Stage 0 of several stacked families (``stage0_families``): one
+    result list per entry of ``stacks``, each holding per model ``(unsat
+    (P,), sat (P,), witnesses {p: (x, x')})``.
+
+    Every (family, segment) — (family, chunk) on the chunk loop — is one
+    entry of one launch pipeline (``pipe``, or one at
+    ``cfg.pipeline_depth`` with the run's supervisor), so one family's host
+    decode overlaps the next launch.  ``mega_chunks > 0``: one KB + one KC
+    launch per (family, segment) over chunks × models × rows; with
+    integrity on, a tripped fold or canary check, like a degraded launch,
+    leaves that (family, segment) undecided (counted in
+    ``chunks_degraded``, logged as a ``degraded`` event).  ``mega_chunks =
+    0`` or a ``mesh`` (``parallel.mesh.Mesh``: the family is replicated over
+    it and each chunk's certificate sharded): one
+    :func:`stage0_block_submit` per (family, chunk).  Every model attacks
+    the same candidates, drawn once per chunk from
+    ``default_rng(engine.seed + seed_offset + chunk_start)``, and each
+    model's witnesses replay on its own weights.  ``stats`` (a dict)
+    receives one ``StageStats`` per ``(family index, model index)``: the
+    kernel's histograms on the mega path, host-binned margins and gaps on
+    the chunk path — equal bit for bit.  The IBP path (``use_crown=False``)
+    and a mesh always take the chunk loop (:func:`use_mega`) and, like the
+    JAX package's IBP and mesh family branches, bank no statistics for a
+    stacked family (a single net's chunks bank theirs).  A single
+    (unstacked) net in ``stacks`` counts as one model.
+    """
+    return _stage0(stacks, enc, lo, hi, cfg, seed_offset, stats, mesh, pipe, None,
+                   "stage0_family", [])
 
 
 def stage0_family(stacked, enc: PairEncoding, lo, hi, cfg: SweepConfig,
@@ -454,27 +599,97 @@ def stage0_family(stacked, enc: PairEncoding, lo, hi, cfg: SweepConfig,
 
 
 def stage0_certify_and_attack(net, enc: PairEncoding, lo, hi, cfg: SweepConfig,
-                              stats, failed, seed_offset: int = 0, mesh=None):
-    """Root certificates + attack for the whole grid of one net: one
-    KB + KC pair per segment (the mega path, :func:`use_mega`) or per grid
-    chunk (the chunk loop), or on the IBP path one row-13 + row-17 pair per
-    grid chunk; with a ``mesh``, per grid chunk one row-14 (row-13) launch
-    per shard and one row-17 launch; :func:`stage0_families` with one
-    model.
+                              stats, failed=None, seed_offset: int = 0, mesh=None,
+                              pipe=None, on_failure=None):
+    """Root certificates + attack for the whole grid of one net
+    (``_stage0_certify_and_attack``): one KB + KC pair per segment (the
+    mega path, :func:`use_mega`) or per grid chunk (the chunk loop), or on
+    the IBP path one row-13 + row-17 pair per grid chunk; with a ``mesh``,
+    per grid chunk one row-14 (row-13) launch per shard and one row-17
+    launch — each one entry of the launch pipeline ``pipe`` (or one at
+    ``cfg.pipeline_depth`` with the run's supervisor).
 
     Returns ``(unsat (P,), sat (P,), witnesses {p: (x, x')})``; ``stats``
     (an ``obs.funnel.StageStats``) accumulates the margin and gap
-    histograms; ``failed`` (dict) receives the failure record of every
-    partition of a segment whose fold or canary check trips.
+    histograms.  A degraded entry — retries exhausted, a fatal error, a
+    tripped fold or canary check — calls ``on_failure(s, e, failure)``, or
+    records the failure record of each of its rows in the dict ``failed``.
     ``seed_offset`` (a partition span's start) offsets the attack streams,
-    as in the JAX package.
+    as in the JAX package.  With ``integrity`` on and ``integrity_recheck >
+    0`` a sampled share of the chunks that drained clean is rechecked
+    (:func:`_sampled_recheck`).
     """
+    if on_failure is None and failed is not None:
+        on_failure = lambda s, e, f: failed.update({i: f.to_record() for i in range(s, e)})
     fam_stats: dict = {}
-    (res,) = stage0_families([net], enc, lo, hi, cfg, seed_offset=seed_offset,
-                             stats=fam_stats, failed=failed, mesh=mesh)[0]
+    drained: list = []
+    unsat, sat, wits = _stage0([net], enc, lo, hi, cfg, seed_offset, fam_stats, mesh,
+                               pipe, on_failure, "stage0_decide", drained)[0][0]
     if (0, 0) in fam_stats:
         stats.merge(fam_stats[(0, 0)])
-    return res
+    if cfg.integrity and cfg.integrity_recheck > 0.0 and drained:
+        with obs.span("integrity.recheck", chunks=len(drained), rate=cfg.integrity_recheck):
+            _sampled_recheck(net, enc, lo, hi, cfg, mesh, seed_offset, drained, unsat,
+                             sat, wits, on_failure)
+    return unsat, sat, wits
+
+
+def _sampled_recheck(net, enc, lo, hi, cfg: SweepConfig, mesh, seed_offset, drained,
+                     unsat, sat, witnesses, on_failure):
+    """Re-run a deterministic sample of decided chunks; require bit-equality.
+
+    Each selected chunk (``integrity.sampled`` keyed on ``(seed, global
+    chunk start)``, so a resume rechecks the same chunks) is re-executed
+    through the per-chunk path (:func:`stage0_block`, bit-equal to the mega
+    decode) and its ``(unsat, sat, witnesses)`` must match the banked one
+    exactly; a mismatch demotes the chunk to
+    ``unknown:failure:integrity.recheck``.  Each clean recheck escalates
+    the chunk's first certified partition to the exact-rational oracle
+    (``verify/exact_check.py``); a refuted certificate demotes just that
+    partition, an inconclusive one (``budget``) demotes nothing.
+    """
+    from fairify_tpu_torch.verify import exact_check
+
+    rechecks = obs.registry().counter("integrity_rechecks")
+    step, _spans = grid_mod.chunk_spans(lo.shape[0], cfg.grid_chunk)
+    reps = None if mesh is None else mesh_mod.replicated(mesh, net)
+    weights = biases = None
+    for s, e in drained:
+        if not integrity_mod.sampled(cfg.seed, f"chunk:{seed_offset + s}",
+                                     cfg.integrity_recheck):
+            continue
+        rechecks.inc(kind="chunk")
+        ((u2, s2, w2, _m, _g),) = stage0_block(net, enc, lo[s:e], hi[s:e], cfg,
+                                               cfg.engine.seed + seed_offset + s, step,
+                                               mesh=mesh, replicas=reps)
+        n = e - s
+        w2 = {k: v for k, v in w2.items() if k < n}
+        have = {k - s: v for k, v in witnesses.items() if s <= k < e}
+        clean = (np.array_equal(u2[:n], unsat[s:e]) and np.array_equal(s2[:n], sat[s:e])
+                 and set(w2) == set(have)
+                 and all(np.array_equal(w2[k][0], have[k][0])
+                         and np.array_equal(w2[k][1], have[k][1]) for k in w2))
+        if not clean:
+            unsat[s:e] = False
+            sat[s:e] = False
+            for k in range(s, e):
+                witnesses.pop(k, None)
+            if on_failure is not None:
+                on_failure(s, e, _integrity_failure("recheck", "bit-equality"))
+            continue
+        cert_idx = np.flatnonzero(unsat[s:e])
+        if not cert_idx.size:
+            continue
+        if weights is None:
+            weights, biases = net.numpy_params()
+        p = s + int(cert_idx[0])
+        rechecks.inc(kind="exact")
+        res = exact_check.decide_pair_box_exact(weights, biases, enc, lo[p], hi[p],
+                                                max_nodes=2000)
+        if res["verdict"] == "refuted":
+            unsat[p] = False
+            if on_failure is not None:
+                on_failure(p, p + 1, _integrity_failure("exact", "refuted-certificate"))
 
 
 # ---------------------------------------------------------------------------
@@ -511,12 +726,9 @@ def parity(net, keys, lo, hi, alive, sim_size: int, live=None):
         return engine.fill_past(parity_plain(net, keys, lo, hi, alive, sim_size), live)
     al = (torch.cat([a.to(torch.float32) for a in alive], dim=1)
           if alive else torch.zeros((N, 0), dtype=torch.float32, device=lo.device))
-    out = pruning._sim_launch(net, keys, lo, hi, sim_size, live, "kd", alive=al)
-    parity.launches += 1
+    with launches.launching("parity", (N, live, sim_size)):
+        out = pruning._sim_launch(net, keys, lo, hi, sim_size, live, "kd", alive=al)
     return out
-
-
-parity.launches = 0
 
 
 def parity_resim(weights, biases, dead, seed: int, index: int, lo_p, hi_p, sim_size: int,
@@ -538,62 +750,56 @@ def parity_resim(weights, biases, dead, seed: int, index: int, lo_p, hi_p, sim_s
                   == predict_np(weights, biases, sim, dead=dead)).mean())
 
 
-KERNELS = {
-    "sim_and_bounds": pruning.sim_and_bounds,
-    "stage0_certify": engine.stage0_certify,
-    "attack_flips": engine.attack_flips,
-    "parity": parity,
-    "pgd_attack": engine.pgd_attack_kernel,
-    "bab_segment": engine.bab_segment,
-    "sim_rows": pruning.sim_rows,
-    "grid_keys": grid_keys,
-    "sign_bound": engine.sign_bound,
-    "inter_bounds": engine.inter_bounds,
-    "role_logits": engine.sample_role_logits,
-    "lattice_scan": lattice_ops.lattice_scan,
-    "lattice_signs": lattice_ops.lattice_signs,
-    "lattice_scan_ra": lattice_ops.lattice_scan_ra,
-    "role_bounds": engine.role_logit_bounds,
-    "attack_logits": engine.attack_logits,
-    "role_certify": engine.role_certify,
-    "sim_stats": pruning.sim_stats,
-    "alpha_crown": crown_ops.alpha_crown_output_bounds,
-}
-
-
-def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def parity_submit(net, prune, lo, hi, cfg: SweepConfig, s: int, e: int, rows: int,
+                  index_offset: int = 0):
+    """Launch KD over grid rows ``[s, e)`` padded to ``rows`` rows (alive
+    masks padded like the boxes) without a sync: the (rows,) parity
+    tensor."""
+    dev = net.device
+    pad = lambda a: grid_mod.pad_rows(np.asarray(a[s:e], np.float32), rows)
+    keys = grid_keys(cfg.seed, index_offset + s, rows, device=dev)
+    alive = [stage(pad(1.0 - d), dev) for d in prune.st_deads[:-1]]
+    return parity(net, keys, stage(pad(lo), dev), stage(pad(hi), dev), alive, cfg.sim_size,
+                  live=e - s)
 
 
 def parity_pass(net, prune, lo, hi, cfg: SweepConfig, index_offset: int = 0,
-                mesh=None):
+                mesh=None, pipe=None, on_failure=None):
     """The grid's parity column (keys of the global partition index: row
     plus ``index_offset``): one KD launch per segment, or off the mega
     path (:func:`use_mega`; always with a ``mesh``, whose parity the JAX
     package also runs unsharded) one per grid chunk padded to the chunk
     size (``_parity_grid_from_keys``, row 10), alive masks padded like the
-    boxes, launched over the chunk's real rows (``live``)."""
+    boxes, launched over the chunk's real rows (``live``).  Each launch is
+    one entry of ``pipe`` (or of a pipeline at ``cfg.pipeline_depth`` with
+    the run's supervisor); a degraded one calls ``on_failure(s, e,
+    failure)`` and leaves its rows' parity 0."""
     P = lo.shape[0]
-    dev = net.device
     out = np.zeros(P, dtype=np.float32)
+    if pipe is None:
+        pipe = LaunchPipeline(cfg.pipeline_depth, supervisor=_supervisor(cfg))
     if use_mega(cfg, mesh):
         _, segs = grid_mod.segment_spans(P, cfg.grid_chunk, cfg.mega_chunks)
         pad, blocks = 0, [(s, e) for s, e, _chunks in segs]
     else:
         pad, blocks = grid_mod.chunk_spans(P, cfg.grid_chunk)
+
+    submit = lambda s, e: (parity_submit(net, prune, lo, hi, cfg, s, e, max(pad, e - s),
+                                         index_offset), None)
+
+    def consume(meta, _ctx, host):
+        s, e = meta
+        if isinstance(host, ChunkFailure):
+            if on_failure is not None:
+                on_failure(s, e, host)
+            return
+        out[s:e] = host[: e - s]
+
     for s, e in blocks:
-        n = max(pad, e - s)
-        rows = lambda a: grid_mod.pad_rows(np.asarray(a[s:e], np.float32), n)
-        keys = grid_keys(cfg.seed, index_offset + s, n, device=dev)
-        alive = [torch.as_tensor(rows(1.0 - d), device=dev) for d in prune.st_deads[:-1]]
-        out[s:e] = parity(net, keys, torch.as_tensor(rows(lo), device=dev),
-                          torch.as_tensor(rows(hi), device=dev), alive, cfg.sim_size,
-                          live=e - s).cpu().numpy()[: e - s]
+        for item in pipe.submit(lambda s=s, e=e: submit(s, e), meta=(s, e)):
+            consume(*item)
+    for item in pipe.drain():
+        consume(*item)
     return out
 
 
@@ -607,7 +813,9 @@ def ledger_path(cfg: SweepConfig, model_name: str) -> str:
 
 
 def read_ledger(path: str):
-    """Records of one ledger (CRC-verified) and the torn-line count."""
+    """Records of one ledger and the torn-line count.  Rows whose ``_crc``
+    does not match are dropped and counted (``ledger_crc_mismatch``), so a
+    resume re-decides them."""
     if not os.path.isfile(path):
         return [], 0
     recs, skipped = [], 0
@@ -619,7 +827,10 @@ def read_ledger(path: str):
                 recs.append(json.loads(line))
             except json.JSONDecodeError:
                 skipped += 1
-    recs, _bad = integrity_mod.verify_records(recs)
+    recs, bad = integrity_mod.verify_records(recs)
+    if bad:
+        obs.registry().counter("ledger_crc_mismatch").inc(bad)
+        obs.event("ledger_crc_mismatch", path=path, rows=bad)
     return recs, skipped
 
 
@@ -668,31 +879,37 @@ def _write_ce(path: str, columns, pid: int, ce) -> None:
 
 
 def stage0_pgd(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, pending,
-               span_start: int, budget_left):
+               span_start: int, budget_left, pipe=None, on_failure=None):
     """The deep PGD attack over the stage-0 leftovers ``pending`` (grid row
-    indices), one K5 launch per ``grid_chunk`` of them, then the exact
-    flip-slab search from each box's near-zero PGD point, the box midpoint
-    and six seeded lattice points — within a quarter of the remaining hard
-    budget (``budget_left()`` seconds).  Returns ``(witnesses {row: (x,
-    x')}, covered_all)``: ``covered_all`` False when the hard budget cut the
+    indices), one K5 launch per ``grid_chunk`` of them (each one entry of
+    ``pipe``, or of a pipeline at ``cfg.pipeline_depth`` with the run's
+    supervisor: chunk N+1's launch is in flight while chunk N's witnesses
+    are replayed and its slabs searched), then the exact flip-slab search
+    from each box's near-zero PGD point, the box midpoint and six seeded
+    lattice points — within a quarter of the remaining hard budget
+    (``budget_left()`` seconds).  A degraded chunk calls
+    ``on_failure(rows, failure)``.  Returns ``(witnesses {row: (x, x')},
+    covered_all)``: ``covered_all`` False when the hard budget cut the
     launch loop, so the engine must not skip its own Phase A.
     """
     weights, biases = net.numpy_params()
+    if pipe is None:
+        pipe = LaunchPipeline(cfg.pipeline_depth, supervisor=_supervisor(cfg))
     pgd_wit: Dict[int, tuple] = {}
     slab_budget = 0.25 * max(budget_left(), 0.0)
     slab_spent = 0.0
     covered_all = True
     step = min(cfg.grid_chunk, len(pending)) if cfg.grid_chunk > 0 else len(pending)
-    for s in range(0, len(pending), step):
-        if budget_left() < 0.0:
-            covered_all = False
-            break
-        blk = pending[s:s + step]
-        w, near_zero, near_abs = engine.pgd_attack(
-            net, enc, lo[blk], hi[blk],
-            np.random.default_rng(cfg.engine.seed + 1 + span_start + s),
-            steps=cfg.engine.pgd_steps, restarts=cfg.engine.pgd_restarts,
-            return_points=True)
+
+    def consume(meta, ctx, host):
+        nonlocal slab_spent
+        s, blk = meta
+        if isinstance(host, ChunkFailure):
+            if on_failure is not None:
+                on_failure(blk, host)
+            return
+        w, near_zero, near_abs = engine.pgd_attack_decode(host, ctx, weights, biases,
+                                                          return_points=True)
         pgd_wit.update({blk[k]: v for k, v in w.items()})
         seed_rng = np.random.default_rng(cfg.engine.seed + 77 + span_start + s)
         for k, p_g in enumerate(blk):
@@ -709,6 +926,22 @@ def stage0_pgd(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, pending,
                     pgd_wit[p_g] = ce
                     break
             slab_spent += time.perf_counter() - t_slab
+
+    for s in range(0, len(pending), step):
+        if budget_left() < 0.0:
+            # Chunks already in flight drain below: they were attacked.
+            covered_all = False
+            break
+        blk = pending[s:s + step]
+        for item in pipe.submit(
+                lambda s=s, blk=blk: engine.pgd_attack_submit(
+                    net, enc, lo[blk], hi[blk],
+                    np.random.default_rng(cfg.engine.seed + 1 + span_start + s),
+                    steps=cfg.engine.pgd_steps, restarts=cfg.engine.pgd_restarts),
+                meta=(s, blk)):
+            consume(*item)
+    for item in pipe.drain():
+        consume(*item)
     return pgd_wit, covered_all
 
 
@@ -731,11 +964,39 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
     :func:`stage0_families` — ``(unsat, sat, witnesses)`` or, with the
     family's ``StageStats`` forwarded, ``(unsat, sat, witnesses,
     stats)`` — over the same grid rows; stage 0's own launches are then
-    skipped and the forwarded histograms merged.  Configurations the port
-    does not run raise ``NotImplementedError`` (:func:`check_supported`,
-    and the engine where an unported phase would run).
+    skipped and the forwarded histograms merged.
+
+    ``cfg.trace_out`` traces the call (unless an outer scope owns a
+    tracer): a ``verify_model`` span carrying the final counts, a span per
+    phase, ``verdict`` and ``degraded`` events; ``cfg.inject_faults`` is
+    armed for the call (seeded by ``cfg.seed``).  The SMT tier raises
+    ``NotImplementedError`` where a root would reach it.
     """
+    from fairify_tpu_torch.obs import heartbeat as hb_mod
+
     check_supported(cfg, mesh)
+    with obs.maybe_tracing(cfg.trace_out, run_id=f"{cfg.name}-{model_name}"):
+        with obs.span("verify_model", model=model_name, dataset=cfg.dataset,
+                      preset=cfg.name) as sp, \
+                faults_mod.armed(cfg.inject_faults, seed=cfg.seed):
+            try:
+                rep = _verify_model_impl(net, cfg, model_name, resume, mesh, device,
+                                         partition_span, stage0)
+            except BaseException:
+                # The impl registers this run's heartbeat as the live one;
+                # a raise would otherwise leak it.
+                hb = hb_mod.active()
+                if hb is not None:
+                    hb.close()
+                raise
+            sp.set(partitions=rep.partitions_total, **rep.counts)
+            if rep.degraded:
+                sp.set(degraded=rep.degraded)
+            return rep
+
+
+def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mesh,
+                       device, partition_span, stage0) -> ModelReport:
     if mesh is not None and device is None:
         device = mesh.home
     dev = resolve_device(device)
@@ -743,10 +1004,9 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
         raise ValueError(f"verify_model: device {dev} is not the mesh's first "
                          f"device {mesh.home}")
     net = net.to(dev)
-    t_run = time.perf_counter()
-    phases: Dict[str, float] = {}
-    total = lambda: time.perf_counter() - t_run  # the hard budget's clock
-    launches0 = launch_counts()
+    timer = PhaseTimer()
+    launches0 = launches.snapshot()
+    counters0 = {name: obs.registry().counter(name).total() for name in RUN_COUNTERS}
     enc = encode(cfg.query())
     p_list, lo, hi = build_partitions(cfg)
     span_start, sink_name = 0, model_name
@@ -763,86 +1023,144 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
         done, _degraded_prev, led_skipped = merge_ledgers([led_path])
     csv_path = os.path.join(cfg.result_dir, f"{sink_name}.csv")
     ce_path = os.path.join(cfg.result_dir, f"{sink_name}-counterexamples.csv")
+    counter = profiling.ThroughputCounter(n_devices=1 if mesh is None else mesh.size)
     stage_stats = funnel_mod.StageStats()
     funnel = funnel_mod.FunnelCounts()
-    failed: Dict[int, dict] = {}
+    heartbeat = (obs.Heartbeat(cfg.heartbeat_s, total=P, label=sink_name)
+                 if cfg.heartbeat_s > 0 else None)
+    # One launch pipeline and one supervisor for the run: stage 0, the
+    # parity pass and stage0_pgd share them, so the pipeline's FlightStats
+    # are the run's overlap record.  Exhaustion degrades exactly the
+    # affected chunk's partitions (``failed``, ledgered below).
+    sup = _supervisor(cfg)
+    pipe = LaunchPipeline(cfg.pipeline_depth, supervisor=sup)
+    failed: Dict[int, dict] = {}  # local partition index -> failure record
 
-    t0 = time.perf_counter()
-    prune = pruning.sound_prune_grid(net, lo, hi, cfg.sim_size, cfg.seed,
-                                     chunk=cfg.grid_chunk,
-                                     mega_chunks=cfg.mega_chunks if use_mega(cfg, mesh)
-                                     else 0,
-                                     index_offset=span_start,
-                                     exact_certify=cfg.exact_certify_masks)
-    phases["stage0_prune"] = time.perf_counter() - t0
-    if cfg.exact_certify_masks:  # the host's exact mask pass, inside the prune
-        phases["prune_exact_certify"] = prune.sv_time_s
-    t0 = time.perf_counter()
-    if stage0 is not None:  # precomputed by the stacked family kernels
-        unsat0, sat0, witnesses = stage0[:3]
-        if len(stage0) == 4:  # the family path forwarded its StageStats
-            stage_stats.merge(stage0[3])
-        witnesses = dict(witnesses)
-    else:
-        unsat0, sat0, witnesses = stage0_certify_and_attack(
-            net, enc, lo, hi, cfg, stats=stage_stats, failed=failed,
-            seed_offset=span_start, mesh=mesh)
-    unsat0, sat0 = np.array(unsat0, dtype=bool), np.array(sat0, dtype=bool)
-    phases["stage0_decide"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    parity_col = parity_pass(net, prune, lo, hi, cfg, index_offset=span_start, mesh=mesh)
-    phases["stage0_parity"] = time.perf_counter() - t0
+    def _degrade(idxs, failure: ChunkFailure, phase: str) -> None:
+        rec = failure.to_record()
+        n_new = 0
+        for i in idxs:
+            if 0 <= i < P and i not in failed:
+                failed[i] = rec
+                n_new += 1
+        if n_new:  # a chunk already degraded in an earlier phase counts once
+            obs.registry().counter("chunks_degraded").inc(site=failure.site)
+            obs.event("degraded", **rec, phase=phase, partitions=n_new)
 
-    # The refinement tail: every stage-0 leftover goes through the deep PGD
-    # attack + slab search, then the engine's BaB.
-    pending = [p for p in range(P) if (span_start + p + 1) not in done
-               and not sat0[p] and not unsat0[p] and p not in failed]
-    pgd_covered_all = False
-    if pending:
-        t0 = time.perf_counter()
-        pgd_wit, pgd_covered_all = stage0_pgd(
-            net, enc, lo, hi, cfg, pending, span_start,
-            lambda: cfg.hard_timeout_s - total())
-        for p, ce in pgd_wit.items():
-            sat0[p] = True
-            witnesses[p] = ce
-        pending = [p for p in pending if not sat0[p]]
-        phases["stage0_pgd"] = time.perf_counter() - t0
-    stage0_per_part = sum(phases.get(k, 0.0) for k in (
-        "stage0_prune", "stage0_decide", "stage0_parity", "stage0_pgd")) / max(P, 1)
-    bab: Dict[int, engine.Decision] = {}
-    engine_decided: Dict[str, int] = {}
-    if pending:
-        hard_left = max(cfg.hard_timeout_s - total(), 1.0)
-        deadline = min(cfg.soft_timeout_s * len(pending), hard_left)
-        t0 = time.perf_counter()
-        decisions = engine.decide_many(
-            net, enc, lo[pending], hi[pending],
-            replace(cfg.engine, device_bab=cfg.device_bab and cfg.engine.device_bab,
-                    integrity=cfg.integrity and cfg.engine.integrity),
-            deadline_s=deadline, mesh=mesh, attacked=pgd_covered_all)
-        phases["bab"] = time.perf_counter() - t0
-        bab = dict(zip(pending, decisions))
-        for ph in ("t_attack", "t_sign", "t_lp", "t_bab", "t_pair", "t_lattice"):
-            tot = sum(dd.stats.get(ph, 0.0) for dd in decisions)
-            if tot > 0.0:
-                phases[f"engine_{ph[2:]}"] = tot
-        for dd in decisions:
-            if dd.phase is not None:
-                engine_decided[dd.phase] = engine_decided.get(dd.phase, 0) + 1
-    if cfg.smt_retry_timeouts_s and total() <= cfg.hard_timeout_s and any(
-            dd.verdict == "unknown" for dd in bab.values()):
+    if dev.type == "cuda":
+        # The kernels build (or load) under the run's supervisor: the
+        # ``compile`` site retries with the run's budget, and a build that
+        # cannot finish fails the run.
+        cuda_build.build_all(sup)
+    weights, biases = net.numpy_params()
+    with profiling.xla_trace(cfg.profile_dir):
+        with obs.timed_span(timer, "stage0_prune", partitions=P):
+            try:
+                prune = sup.run(lambda: pruning.sound_prune_grid(
+                    net, lo, hi, cfg.sim_size, cfg.seed, chunk=cfg.grid_chunk,
+                    mega_chunks=cfg.mega_chunks if use_mega(cfg, mesh) else 0,
+                    index_offset=span_start, exact_certify=cfg.exact_certify_masks),
+                    site="prune")
+            except ChunkDegraded as exc:
+                # The masks feed only the CSV's mask columns, the parity
+                # column and the heuristic retry: no verdict depends on them.
+                prune = None
+                obs.registry().counter("chunks_degraded").inc(site=exc.failure.site)
+                obs.event("degraded", **exc.failure.to_record(), phase="stage0_prune",
+                          partitions=0)
+        if prune is not None and cfg.exact_certify_masks:
+            timer.phases["prune_exact_certify"] = prune.sv_time_s
+        with obs.timed_span(timer, "stage0_decide", partitions=P) as sp0:
+            if stage0 is not None:  # precomputed by the stacked family kernels
+                unsat0, sat0, witnesses = stage0[:3]
+                if len(stage0) == 4:  # the family path forwarded its StageStats
+                    stage_stats.merge(stage0[3])
+                witnesses = dict(witnesses)
+                sp0.set(precomputed=True)
+            else:
+                unsat0, sat0, witnesses = stage0_certify_and_attack(
+                    net, enc, lo, hi, cfg, stats=stage_stats, seed_offset=span_start,
+                    mesh=mesh, pipe=pipe,
+                    on_failure=lambda s, e, f: _degrade(range(s, e), f, "stage0_decide"))
+            unsat0, sat0 = np.array(unsat0, dtype=bool), np.array(sat0, dtype=bool)
+            sp0.set(unsat=int(unsat0.sum()), sat=int(sat0.sum()))
+        with obs.timed_span(timer, "stage0_parity"):
+            if prune is not None:
+                # A lost parity launch loses only the pruned_acc column:
+                # partitions stage 0 decided keep their verdicts, the
+                # undecided ones degrade (their path shares the sick device).
+                parity_col = parity_pass(
+                    net, prune, lo, hi, cfg, index_offset=span_start, mesh=mesh, pipe=pipe,
+                    on_failure=lambda s, e, f: _degrade(
+                        [i for i in range(s, e) if not sat0[i] and not unsat0[i]], f,
+                        "stage0_parity"))
+            else:
+                parity_col = np.zeros(P, dtype=np.float32)
+
+        # The refinement tail: every stage-0 leftover goes through the deep
+        # PGD attack + slab search, then the engine's BaB.
+        pending = [p for p in range(P) if (span_start + p + 1) not in done
+                   and not sat0[p] and not unsat0[p] and p not in failed]
+        pgd_covered_all = False
+        if pending:
+            with obs.timed_span(timer, "stage0_pgd", pending=len(pending)):
+                pgd_wit, pgd_covered_all = stage0_pgd(
+                    net, enc, lo, hi, cfg, pending, span_start,
+                    lambda: cfg.hard_timeout_s - timer.total(), pipe=pipe,
+                    on_failure=lambda blk, f: _degrade(blk, f, "stage0_pgd"))
+            for p, ce in pgd_wit.items():
+                sat0[p] = True
+                witnesses[p] = ce
+            pending = [p for p in pending if not sat0[p] and p not in failed]
+        stage0_per_part = sum(timer.get(k) for k in (
+            "stage0_prune", "stage0_decide", "stage0_parity", "stage0_pgd")) / max(P, 1)
+        bab: Dict[int, engine.Decision] = {}
+        engine_decided: Dict[str, int] = {}
+        if pending:
+            hard_left = max(cfg.hard_timeout_s - timer.total(), 1.0)
+            deadline = min(cfg.soft_timeout_s * len(pending), hard_left)
+            with obs.timed_span(timer, "bab", roots=len(pending),
+                                deadline_s=round(deadline, 3)):
+                try:
+                    decisions = engine.decide_many(
+                        net, enc, lo[pending], hi[pending],
+                        replace(cfg.engine, pipeline_depth=cfg.pipeline_depth,
+                                max_launch_retries=cfg.max_launch_retries,
+                                launch_backoff_s=cfg.launch_backoff_s,
+                                device_bab=cfg.device_bab and cfg.engine.device_bab,
+                                integrity=cfg.integrity and cfg.engine.integrity),
+                        deadline_s=deadline, mesh=mesh, attacked=pgd_covered_all)
+                except BaseException as exc:
+                    # A fault escaping the engine's sequential phases has no
+                    # finer blast radius than the batch: degrade every
+                    # pending root and keep the run alive.
+                    if classify(exc) == "propagate":
+                        raise
+                    _degrade(pending, _unretried_failure("bab", exc), "bab")
+                    decisions, pending = [], []
+            bab = dict(zip(pending, decisions))
+            for ph in ("t_attack", "t_sign", "t_lp", "t_bab", "t_pair", "t_lattice"):
+                tot = sum(dd.stats.get(ph, 0.0) for dd in decisions)
+                if tot > 0.0:
+                    timer.phases[f"engine_{ph[2:]}"] = tot
+            for dd in decisions:
+                if dd.phase is not None:
+                    engine_decided[dd.phase] = engine_decided.get(dd.phase, 0) + 1
+    if cfg.smt_retry_timeouts_s and timer.total() <= cfg.hard_timeout_s and any(
+            dd.verdict == "unknown" and p not in failed for p, dd in bab.items()):
         raise NotImplementedError(SMT_NOT_PORTED)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    cumulative = total()
+    cumulative = timer.total()
 
     t_report = time.perf_counter()
-    weights, biases = net.numpy_params()
     outcomes: List[PartitionOutcome] = []
     counts = {"sat": 0, "unsat": 0, "unknown": 0}
-    counter = {"decided": 0, "stage0_decided": 0, "unknown": 0}
-    ledger = JournalWriter(led_path, crc=cfg.integrity)
+    degraded = 0
+    beat = lambda: heartbeat.beat(decided=counts["sat"] + counts["unsat"],
+                                  attempted=len(outcomes), unknown=counts["unknown"])
+    ledger = JournalWriter(led_path, fault_site="ledger.append", supervisor=sup,
+                           crc=cfg.integrity)
     try:
         for p in range(P):
             pid = span_start + p + 1
@@ -853,13 +1171,17 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
                         tuple(np.asarray(c, dtype=np.int64) for c in rec["ce"])
                         if rec.get("ce") else None)))
                 counts[rec["verdict"]] += 1
+                obs.event("verdict", model=model_name, partition_id=pid,
+                          verdict=rec["verdict"], via="ledger")
                 funnel.add(funnel_mod.classify(
                     rec["verdict"], "ledger",
                     failure=(rec.get("failure") or {}).get("reason")))
+                if heartbeat is not None:
+                    beat()
                 continue
             t_part = time.perf_counter()
             fail_rec = failed.get(p)
-            dead = pruning.partition_masks(prune, p)
+            dead = pruning.partition_masks(prune, p) if prune is not None else None
             h_attempt = h_success = 0
             sv_time = hv_time = h_time = 0.0
             ce = None
@@ -874,69 +1196,88 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
                 dec = bab[p]
                 sv_time, nodes = dec.elapsed_s, dec.nodes
                 verdict, ce = dec.verdict, dec.counterexample
-                if verdict == "unknown" and cumulative <= cfg.hard_timeout_s:
+                if verdict == "unknown" and prune is not None \
+                        and cumulative <= cfg.hard_timeout_s:
                     # Heuristic retry: kill borderline-quiet neurons and
                     # re-decide on the masked net (src/GC/Verify-GC.py:172-211).
                     h_attempt = 1
+                    obs.registry().counter("unknown_retries").inc()
                     t_h = time.perf_counter()
-                    _h_dead, merged = heur_ops.heuristic_prune(
-                        [l[p] for l in prune.ws_lb], [l[p] for l in prune.ws_ub],
-                        [l[p] for l in prune.candidates],
-                        [l[p] for l in prune.surviving], dead,
-                        cfg.heuristic_threshold)
-                    dec2 = engine.decide_box(
-                        mask_ops.apply_dead_masks(net, merged), enc, lo[p], hi[p],
-                        replace(cfg.engine, soft_timeout_s=cfg.soft_timeout_s))
-                    hv_time = dec2.elapsed_s
-                    h_time = time.perf_counter() - t_h
-                    nodes += dec2.nodes
-                    if dec2.verdict != "unknown":
-                        h_success = 1
-                        verdict, ce = dec2.verdict, dec2.counterexample
-                        # A SAT of the pruned net counts only if it replays
-                        # on the original (the reference's V-accurate check).
-                        if verdict == "sat" and not engine.validate_pair(
-                                weights, biases, *ce):
-                            verdict, ce, h_success = "unknown", None, 0
-                    dead = merged
+                    try:
+                        _h_dead, merged = heur_ops.heuristic_prune(
+                            [l[p] for l in prune.ws_lb], [l[p] for l in prune.ws_ub],
+                            [l[p] for l in prune.candidates],
+                            [l[p] for l in prune.surviving], dead,
+                            cfg.heuristic_threshold)
+                        dec2 = engine.decide_box(
+                            mask_ops.apply_dead_masks(net, merged), enc, lo[p], hi[p],
+                            replace(cfg.engine, soft_timeout_s=cfg.soft_timeout_s))
+                    except BaseException as exc:
+                        # A fault in the retry loses only the retry.
+                        if classify(exc) == "propagate":
+                            raise
+                        _degrade([p], _unretried_failure("bab", exc), "heuristic_retry")
+                        fail_rec = failed.get(p)
+                        h_time = time.perf_counter() - t_h
+                    else:
+                        hv_time = dec2.elapsed_s
+                        h_time = time.perf_counter() - t_h
+                        nodes += dec2.nodes
+                        if dec2.verdict != "unknown":
+                            h_success = 1
+                            verdict, ce = dec2.verdict, dec2.counterexample
+                            # A SAT of the pruned net counts only if it
+                            # replays on the original (the V-accurate check).
+                            if verdict == "sat" and not engine.validate_pair(
+                                    weights, biases, *ce):
+                                verdict, ce, h_success = "unknown", None, 0
+                        dead = merged
             c_check = v_accurate = 0
-            if verdict == "sat":
+            if verdict == "sat" and ce is not None and dead is not None:
                 c_check, v_accurate = c_check_np(weights, biases, dead, ce)
-            if h_attempt:  # masks changed after the parity pass
+            if h_attempt and fail_rec is None:  # masks changed after the parity pass
                 pruned_acc = parity_resim(weights, biases, dead, cfg.seed, span_start + p,
                                           lo[p], hi[p], cfg.sim_size, device=dev)
             else:
                 pruned_acc = float(parity_col[p])
             counts[verdict] += 1
-            via_stage0 = bool(sat0[p] or unsat0[p]) and fail_rec is None
-            if verdict != "unknown":
-                counter["decided"] += 1
-                counter["stage0_decided"] += int(via_stage0)
-            else:
-                counter["unknown"] += 1
-            engine_reason = None
-            if verdict == "unknown" and fail_rec is None and p in bab:
-                engine_reason = bab[p].reason
+            degraded += fail_rec is not None
+            via_stage0 = bool(sat0[p] or unsat0[p])
+            counter.record(verdict, via_stage0=via_stage0)
+            if h_success:
+                obs.registry().counter("unknown_retry_success").inc()
+            extra = {"failure": fail_rec["reason"]} if fail_rec is not None else {}
+            if verdict == "unknown" and fail_rec is None and p in bab \
+                    and bab[p].reason is not None:
+                extra["engine_reason"] = bab[p].reason
             via = ("degraded" if fail_rec is not None else "stage0" if via_stage0
                    else "heuristic" if h_success else "bab")
+            obs.event("verdict", model=model_name, partition_id=pid, verdict=verdict,
+                      via=via, **extra)
             funnel.add(funnel_mod.classify(
                 verdict, via, failure=fail_rec["reason"] if fail_rec else None,
-                engine_reason=engine_reason))
+                engine_reason=extra.get("engine_reason")))
             total_time = stage0_per_part + sv_time + (time.perf_counter() - t_part)
             cumulative += time.perf_counter() - t_part
-            comp = {
-                "b": mask_ops.compression_ratio([l[p] for l in prune.b_deads]),
-                "s": mask_ops.compression_ratio([l[p] for l in prune.s_deads]),
-                "st": mask_ops.compression_ratio([l[p] for l in prune.st_deads]),
-                "h": mask_ops.compression_ratio(dead) if h_attempt else 0.0,
-                "t": mask_ops.compression_ratio(dead),
-            }
+            obs.registry().histogram("partition_latency_s").observe(total_time)
+            if prune is not None:
+                comp = {
+                    "b": mask_ops.compression_ratio([l[p] for l in prune.b_deads]),
+                    "s": mask_ops.compression_ratio([l[p] for l in prune.s_deads]),
+                    "st": mask_ops.compression_ratio([l[p] for l in prune.st_deads]),
+                    "h": mask_ops.compression_ratio(dead) if h_attempt else 0.0,
+                    "t": mask_ops.compression_ratio(dead),
+                }
+            else:  # the prune pass degraded: no masks exist for this span
+                comp = {"b": 0.0, "s": 0.0, "st": 0.0, "h": 0.0, "t": 0.0}
             outcomes.append(PartitionOutcome(
                 pid, verdict, ce, h_attempt, h_success, nodes,
                 times={"sv": sv_time, "s": stage0_per_part + sv_time, "hv": hv_time,
                        "h": h_time, "total": total_time},
                 compressions=comp, c_check=c_check, v_accurate=v_accurate,
                 pruned_acc=pruned_acc))
+            if heartbeat is not None:
+                beat()
             csvio.append_row(csv_path, csvio.PartitionRow(
                 partition_id=pid, verdict=verdict, sat_count=counts["sat"],
                 unsat_count=counts["unsat"], unk_count=counts["unknown"],
@@ -953,51 +1294,69 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
                        "time_s": round(total_time, 4)}
             if fail_rec is not None:
                 led_rec["failure"] = fail_rec
-            if engine_reason is not None:
-                led_rec["engine_reason"] = engine_reason
+            if "engine_reason" in extra:
+                led_rec["engine_reason"] = extra["engine_reason"]
             ledger.append(led_rec)
             if ce is not None:
                 _write_ce(ce_path, cfg.query().columns, pid, ce)
     finally:
         ledger.close()
 
-    phases["report"] = time.perf_counter() - t_report
-    elapsed = time.perf_counter() - t_run
-    kernel_launches = {k: v - launches0[k] for k, v in launch_counts().items()}
+    timer.phases["report"] = time.perf_counter() - t_report
+    elapsed = timer.total()
+    run_launches = launches.delta(launches0)
+    kernel_launches = {k: v - launches0["launches"][k]
+                       for k, v in launches.counts().items()}
     funnel_payload = {
         "states": funnel.to_dict(), "total": funnel.total,
         "decided": funnel.decided, "decided_fraction": funnel.decided_fraction,
         "margin_hist": stage_stats.to_payload() if stage_stats.boxes else None,
-        "looseness": (None if prune.looseness is None
+        "looseness": (None if prune is None or prune.looseness is None
                       else [float(v) for v in prune.looseness]),
     }
-    pps = counter["decided"] / max(elapsed, 1e-9)
+    obs.event("funnel", model=model_name, **funnel_payload)
+    pps = counter.decided / max(elapsed, 1e-9)
+    run_counters = {name: int(obs.registry().counter(name).total() - counters0[name])
+                    for name in RUN_COUNTERS}
+    flight = pipe.stats.summary()
     thr = {
-        "elapsed_s": round(elapsed, 3), "decided": counter["decided"],
-        "stage0_decided": counter["stage0_decided"],
-        "bab_decided": counter["decided"] - counter["stage0_decided"],
+        "elapsed_s": round(elapsed, 3), "decided": counter.decided,
+        "stage0_decided": counter.stage0_decided,
+        "bab_decided": counter.bab_decided,
         "engine_decided": engine_decided,
-        "unknown": counter["unknown"], "partitions_per_sec": round(pps, 4),
+        "unknown": counter.unknown, "partitions_per_sec": round(pps, 4),
         "partitions_per_sec_per_chip": round(pps / (1 if mesh is None else mesh.size), 4),
         "launches_per_model": sum(kernel_launches.values()),
         "kernel_launches": kernel_launches,
+        "launches": run_launches,
         "device": {"platform": "gpu" if dev.type == "cuda" else "cpu",
                    "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                             else "cpu")},
         "decided_fraction": round(float(funnel.decided_fraction), 6),
         "funnel": funnel.to_dict(),
-        "phases_s": {k: round(v, 3) for k, v in phases.items()},
+        "phases_s": {k: round(v, 3) for k, v in timer.phases.items()},
+        "pipeline_depth": int(cfg.pipeline_depth),
+        "launches_in_flight_max": int(flight["max"]),
+        "launches_in_flight_mean": float(flight["mean"]),
+        "counters": run_counters,
     }
     if funnel_payload["margin_hist"]:
         thr["margin_hist"] = funnel_payload["margin_hist"]
     if funnel_payload["looseness"] is not None:
         thr["looseness"] = [round(v, 3) for v in funnel_payload["looseness"]]
-    degraded = sum(1 for p in failed if (span_start + p + 1) not in done)
-    if degraded or led_skipped:
-        thr["resilience"] = {"degraded": degraded, "ledger_skipped_lines": led_skipped}
+    resilience = {"degraded": degraded, "ledger_skipped_lines": led_skipped,
+                  **{k: run_counters[k] for k in ("integrity_violations",
+                                                  "integrity_rechecks",
+                                                  "ledger_crc_mismatch")}}
+    if any(resilience.values()):
+        thr["resilience"] = resilience
     with open(os.path.join(cfg.result_dir,
                            f"{cfg.name}-{sink_name}.throughput.json"), "w") as fp:
         json.dump(thr, fp, indent=1)
+    if heartbeat is not None:  # final line regardless of throttle state
+        heartbeat.beat(decided=counts["sat"] + counts["unsat"], attempted=len(outcomes),
+                       unknown=counts["unknown"], force=True)
+        heartbeat.close()
     return ModelReport(model=model_name, dataset=cfg.dataset, outcomes=outcomes,
                        total_time_s=elapsed, partitions_total=P,
                        sink_name=sink_name, ledger_skipped_lines=led_skipped,

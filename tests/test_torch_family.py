@@ -194,16 +194,16 @@ def test_family_integrity_failure_leaves_segment_undecided(monkeypatch):
     nets = [_tnet(n) for n in _jnets((lo.shape[1], 8, 1), (0, 1, 2))]
     stack = tmesh.stack_models(nets)
     clean = tsweep.stage0_family(stack, enc, lo, hi, cfg)
-    real = tsweep.mega_segment
+    real = tsweep.mega_segment_host
 
-    def flipped(net, *args):
-        host, ctx = real(net, *args)
+    def flipped(raw, ctx):
+        host = real(raw, ctx)
         if ctx["chunks"][0][0] == 0:  # first segment: one bit of model 1's row
             host["wit"] = host["wit"].copy()
             host["wit"][(0, 1, 3, 0) if host["wit"].ndim == 4 else (0, 3, 0)] ^= 1
-        return host, ctx
+        return host
 
-    monkeypatch.setattr(tsweep, "mega_segment", flipped)
+    monkeypatch.setattr(tsweep, "mega_segment_host", flipped)
     stats = {}
     got = tsweep.stage0_family(stack, enc, lo, hi, cfg, stats=stats)
     for (u, s, w), (uc, sc, wc) in zip(got, clean):

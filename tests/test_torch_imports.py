@@ -3,11 +3,10 @@
 * Every module of ``fairify_tpu_torch`` (and ``chip_smoke.py``) imports with
   ``jax`` blocked, and none imports ``jax`` or any ``fairify_tpu`` module.
 * The numeric policy holds after import: no TF32 anywhere.
-* Configurations the port does not run yet raise ``NotImplementedError``
-  naming their ROADMAP item (and those it runs now, under the ids they had
-  when they raised, equal the JAX package or the port's other path); the
-  settings it accepts without acting on them change no outcome; a CUDA
-  entry point without CUDA raises.
+* Configurations the port once rejected run now, under the ids they had
+  when they raised, and equal the JAX package or the port's other path;
+  settings that change only timing (depth, retries) change no outcome; a
+  CUDA entry point without CUDA raises.
 """
 import ast
 import os
@@ -22,6 +21,17 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "fairify_tpu_torch"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The worlds here are small: torch's intra-op threads only contend with
+    each other and with the other test workers.  One thread for this
+    module, the count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _modules():
@@ -50,7 +60,7 @@ def test_package_imports_with_jax_blocked():
         from fairify_tpu_torch.verify import engine, pruning, sweep
         for mod, names in ((mesh, ("Mesh", "make_mesh", "submesh", "pad_to_multiple",
                                    "shard_parts", "replicated", "shard_map")),
-                           (engine, ("role_certify", "split_certify_attack")),
+                           (engine, ("role_certify", "split_certify_attack_submit")),
                            (pruning, ("sim_stats", "harsh_prune_grid")),
                            (crown, ("alpha_crown_output_bounds",))):
             missing = [n for n in names if not hasattr(mod, n)]
@@ -128,40 +138,41 @@ def _jax_outcomes(tmp_path, **kw):
     # JAX's outcomes, compression columns included.  Its id is the one it
     # had when it raised.
     pytest.param("exact_certify_masks", True, "jax", id="exact_certify_masks-True-exact-certify"),
-    # The runtime contracts are ROADMAP queue 1, item 4 (these ids named
-    # item 7, the number the item had before the ROADMAP was re-anchored).
-    pytest.param("inject_faults", ("launch.decode:transient:1",), "item 4",
+    # The runtime contracts (ROADMAP queue 1, item 4) are ported: each case
+    # now runs and requires JAX's outcomes.  The ids are the ones they had
+    # when they raised (the first two named item 7, the number the item had
+    # before the ROADMAP was re-anchored).
+    pytest.param("inject_faults", ("launch.decode:transient:1",), "jax",
                  id="inject_faults-value2-item 7"),
-    pytest.param("integrity_recheck", 0.05, "item 4", id="integrity_recheck-0.05-item 7"),
-    # Settings with which the JAX package writes or changes an output.
-    ("trace_out", "trace.jsonl", "item 4"),
-    ("profile_dir", "prof", "item 4"),
-    ("heartbeat_s", 1.0, "item 4"),
-    ("chunk_deadline_s", 5.0, "item 4"),
+    pytest.param("integrity_recheck", 0.05, "jax", id="integrity_recheck-0.05-item 7"),
+    # Settings with which the JAX package writes or changes an output (the
+    # paths are taken under the test's directory, one per package).
+    pytest.param("trace_out", "trace.jsonl", "jax", id="trace_out-trace.jsonl-item 4"),
+    pytest.param("profile_dir", "prof", "jax", id="profile_dir-prof-item 4"),
+    pytest.param("heartbeat_s", 1.0, "jax", id="heartbeat_s-1.0-item 4"),
+    pytest.param("chunk_deadline_s", 5.0, "jax", id="chunk_deadline_s-5.0-item 4"),
 ])
 def test_unported_config_raises(tmp_path, field, value, item):
-    from fairify_tpu_torch.models.mlp import flagship_net
-    from fairify_tpu_torch.verify import sweep
-
     kw = {"exact_certify_masks": False, field: value}
     if item is None:
         outs = {v: _outcomes(tmp_path, str(v), **dict(kw, **{field: v})) for v in (value, 4)}
         assert outs[value] == outs[4] and len(outs[4][0]) == 40
         return
-    if item == "jax":
-        got = _outcomes(tmp_path, "port", **kw)
-        assert got == _jax_outcomes(tmp_path, **kw) and len(got[0]) == 40
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        sweep.verify_model(flagship_net(device="cpu"), _cfg(tmp_path, **kw),
-                           resume=False, device="cpu")
+    path = field in ("trace_out", "profile_dir")
+    got = _outcomes(tmp_path, "port",
+                    **dict(kw, **({field: str(tmp_path / "port" / value)} if path else {})))
+    want = _jax_outcomes(tmp_path,
+                         **dict(kw, **({field: str(tmp_path / "jax" / value)} if path else {})))
+    assert got == want and len(got[0]) == 40
+    if path:
+        assert os.path.exists(tmp_path / "port" / value)
 
 
 @pytest.mark.parametrize("kw", [
     # With integrity off the JAX package runs no recheck: the port accepts it.
     dict(integrity=False, integrity_recheck=0.05),
-    # No-ops for the port's synchronous, fault-free launches (the stress
-    # presets' values).
+    # Timing-only settings (the stress presets' values): the pipeline depth
+    # and the retry budget change no outcome of a fault-free run.
     dict(pipeline_depth=4, max_launch_retries=3, launch_backoff_s=0.5),
 ], ids=["recheck-without-integrity", "pipeline-and-retries"])
 def test_accepted_settings_run_unchanged(tmp_path, kw):
