@@ -192,7 +192,7 @@ Phases (any failure exits nonzero and prints no result line):
    ways beside its library chain.  (e)
    End to end, after the CPU worker: the family's stage-0 results of AC
    partitions 0-4,096 through ``verify_model(stage0=...)`` per model in the
-   default configuration, 15 s hard: the stage-0-decided rows equal each
+   default configuration, 8 s hard: the stage-0-decided rows equal each
    model's solo stage 0; the rest are deadline-bound and reported.
 
 8. The IBP path (``use_crown=False``: K10's rows 13 and 17, ``role_bounds``
@@ -243,7 +243,7 @@ Phases (any failure exits nonzero and prints no result line):
    same over ``submesh([cuda:0] * 3)`` (ragged shard padding): rows equal
    9a's.  (9c) The AC-S1 twin, AC partitions 0-2,048: stage 0 over a 1 x 1
    mesh bit-equal to the fused mesh=None stage 0; then verify_model both
-   ways in the slice-3 configuration, 15 s hard, decided fractions
+   ways in the slice-3 configuration, 10 s hard, decided fractions
    printed.  (9d) Row 14 on one 2,048-row AC chunk at α = 0 and on the
    host frontier's F = 512 leftovers at α = 8 against its plain version
    (phase 7's KB rule); row 6 (M = 4) on the chunk bit-equal per model to
@@ -311,11 +311,40 @@ Phases (any failure exits nonzero and prints no result line):
    ``integrity_recheck=1.0``: every chunk rechecked, no violation, and the
    exact oracle confirms each chunk's first certified partition or leaves
    it inconclusive, never refutes it ("[sampled recheck]").
+12. The SMT tier and ``run_sweep``.  (12a) SMT_SPAWNS fresh SMT workers
+   spawned one after another from this process (CUDA live), their seconds
+   to hello; tests/test_torch_bab.py's world (20-4-1, seed 3; the GC-1
+   twin's stage 0 and BaB leave the tier no root) on the GC preset with
+   its domain shrunk to 8-16-pair boxes, ``EngineConfig(max_nodes=1,
+   attack_samples=4)`` with Phases S, L, P, E0/E off, ``smt_retry_timeouts_s
+   =(10.0,)``, a pool of 2 workers capped at 2,048 MB (a worker that
+   touched CUDA would die under it) shared by a blocking run at
+   ``integrity_recheck=1.0`` and an ``smt_defer`` run (its first dispatch
+   hung: at least one root deferred): at least
+   SMT_MIN_QUERIES queries; verdict map, ledger rows, CSV rows and
+   ``smt_reason`` fields equal the CPU worker's; every SMT UNSAT rechecked
+   and confirmed by ``decide_pair_box_exact``; no live worker maps
+   ``libcuda`` or ``libtorch``; the drain converges to the blocking map;
+   ``smt.worker.crash``, ``.hang`` and ``.memout`` (``transient:1``) each
+   retried exactly as on the CPU; and a world whose stage 0, PGD, BaB and
+   retry are stubbed to decide nothing, through a brute-backend pool whose
+   pair cap concedes its 16-pair boxes: card = CPU, its SMT SAT witnesses
+   replayed.  Where z3 is installed (the ``auto`` backend is then z3), the
+   in-process ``decide_box_smt`` gives the pool's verdicts, and the SAT
+   world through a z3 pool decides every root, its witnesses replaying.
+   (12b) ``run_sweep`` over a model root of the GC-1 twin and a second
+   20-50-1 twin (``.npz``; stacked as a family: KB and KC as rows 5 and 7)
+   and a synthetic ``german.data`` of 1,000 rows, ``partition_metrics`` on:
+   reports, ledgers, CSVs and metrics CSVs (to 1e-6) equal the CPU
+   worker's; two host slices' ledgers make the whole run; ``retry_unknown``
+   leaves one row per partition; ``n_shards`` raises naming item 7.  The
+   CPU side of both runs in the CPU worker.
 
-Phase 4 runs before phase 3, and the run waits for the CPU worker before
-phase 3, so the timed end-to-end phases 3, 5, 6, 7e, 8a, 8b, 8e, 9, 10b
-and 10c run without it (10a's card side, 7a-7d and phase 8's kernel
-checks, 8c and 8d run beside it).
+Phase 4 runs before phase 3, and the run waits for the CPU worker's card
+= CPU results before phase 3, so the timed end-to-end phases 3, 5, 6, 7e,
+8a, 8b, 8e, 9, 10b, 10c and 11 run beside only its phase-12 CPU side, on
+two threads, which phase 12 waits for (10a's card side, 7a-7d and phase
+8's kernel checks, 8c and 8d run beside the whole worker).
 
 Every ``run_sweep``/``counted`` window splits K8a's launches by (α, live
 rows up to the next power of two), KB's (rows 4-7, 14, 15) by (α, boxes,
@@ -342,6 +371,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -419,6 +449,14 @@ MESH_KERNELS = ("role_certify", "sim_stats", "alpha_crown")
 SLICE3_PATH = tuple(k for k in REPLACES if k not in LATTICE_KERNELS
                     and k not in ("role_bounds", "attack_logits") + MESH_KERNELS)
 AC_SIZES = (13, 128, 64, 32, 16, 8, 1)  # models_scaled/adult/AC-S1.h5 widths
+
+
+T0 = time.perf_counter()
+
+
+def clock(label: str) -> None:
+    """Where the run's time goes: each phase's start, seconds into the run."""
+    print(f"[clock] {label} at {time.perf_counter() - T0:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -3003,9 +3041,10 @@ def lattice_cpu_worker(path_in: str, path_out: str) -> int:
     decide_box_exhaustive on the boxes of IN (the AC-S1 twin, per preset,
     and the crossing twin on its box, one chunk in flight: it decides at
     its first chunk), then trained AC-S1's stage 0 over AC partitions
-    0-TRAINED_S0_SPAN (:func:`trained_stage0`), into OUT.  Runs in its own
-    process beside the rest of phase 1b, phases 2-2c and the ladder
-    world."""
+    0-TRAINED_S0_SPAN (:func:`trained_stage0`), into OUT; then phase 12's
+    CPU side (:func:`phase12_cpu`, on two threads) into OUT.p12.  Runs in
+    its own process beside the rest of phase 1b, phases 2-2c and the ladder
+    world, and its phase-12 part beside phases 3-11."""
     import numpy as np
     import torch
 
@@ -3028,9 +3067,21 @@ def lattice_cpu_worker(path_in: str, path_out: str) -> int:
     res["trained"] = trained_stage0(trained_nets("cpu")["AC-S1"], trained_stage0_cfg(),
                                     TRAINED_S0_SPAN)
     res["trained_s"] = time.perf_counter() - t
-    with open(path_out, "w") as fp:
-        json.dump(res, fp)
+    write_json(path_out, res)
+    # Phase 12's CPU side after the card = CPU results are out: the card
+    # reads them before phase 3 and this at phase 12.  Two threads, beside
+    # the card's timed phases.
+    torch.set_num_threads(2)
+    write_json(path_out + ".p12", phase12_cpu(os.path.join(os.path.dirname(path_out),
+                                                           "cpu12")))
     return 0
+
+
+def write_json(path: str, obj) -> None:
+    """Write ``obj`` whole or not at all (a reader polls for ``path``)."""
+    with open(path + ".tmp", "w") as fp:
+        json.dump(obj, fp)
+    os.replace(path + ".tmp", path)
 
 
 def lattice_card_side(net, engine_cfg, work: str) -> dict:
@@ -3080,9 +3131,11 @@ def lattice_card_side(net, engine_cfg, work: str) -> dict:
     path_in = os.path.join(work, "lattice_boxes.npz")
     path_out = os.path.join(work, "lattice_cpu.json")
     np.savez(path_in, **boxes)
+    # Its own process group: the group's kill also stops the SMT workers its
+    # phase-12 part spawns.
     worker = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lattice-cpu",
                                path_in, path_out], cwd=os.path.dirname(os.path.abspath(
-                                   __file__)))
+                                   __file__)), process_group=0)
     return dict(presets=lat, worker=worker, card=card, out=path_out)
 
 
@@ -3187,11 +3240,12 @@ def lattice_card_vs_cpu(worker, card, path_out: str, trained_card: dict) -> dict
     stay unknown; trained AC-S1's stage-0 rows must equal the card's
     (:func:`trained_stage0_vs_cpu`), whose summary this returns."""
     t = time.perf_counter()
-    rc = worker.wait(timeout=900)
+    while not os.path.exists(path_out):
+        if worker.poll() is not None or time.perf_counter() - t > 900:
+            fail(f"the CPU lattice worker wrote no results (exit {worker.poll()})")
+        time.sleep(0.2)
     print(f"[card = CPU] waited {time.perf_counter() - t:.3f} s for the CPU worker",
           flush=True)
-    if rc != 0:
-        fail(f"the CPU lattice worker exited with {rc}")
     with open(path_out) as fp:
         cpu = json.load(fp)
     for name, (got, t_card, sizes, skipped, xcard) in card.items():
@@ -3222,7 +3276,9 @@ FAMILY_SEEDS = (0, 1, 2, 3)
 # their own presets: CP-1..11 are 6-32-32-1, DF-1..11 30-16-16-16-1.
 ZOO_FAMILIES = (("CP", (6, 32, 32, 1)), ("DF", (30, 16, 16, 16, 1)))
 ZOO_MODELS = 11
-FAMILY_SPAN, FAMILY_HARD_S = (0, 4096), 15.0
+# Phase 7e's hard budget (15 s before phase 12 joined the run; its checks
+# do not depend on it).
+FAMILY_SPAN, FAMILY_HARD_S = (0, 4096), 8.0
 # The branching score agrees to TOL_REL of the box's largest score + this
 # (its coefficients come from backward passes summed in another order).
 SCORE_ABS = 1e-6
@@ -3807,7 +3863,7 @@ def host_frontier_checks(work: str, ac_net, enc, lo, hi, reps: int, rows_dev) ->
 def family_tail(work: str, nets, ac_cfg, fam, solo) -> dict:
     """Phase 7 end to end: the AC-S1 family's stage-0 results of
     partitions 0-4,096 through ``verify_model(stage0=...)`` per model
-    (default engine configuration, 0.02 s soft, 15 s hard): the rows stage
+    (default engine configuration, 0.02 s soft, 8 s hard): the rows stage
     0 decided equal the model's solo stage-0 verdicts and witnesses; the
     rest are deadline-bound and reported.  Returns the launch counts."""
     import numpy as np
@@ -4565,7 +4621,9 @@ def ibp_grid(work: str, ac_net, ac_cfg) -> dict:
 # standalone α-CROWN bounds (K7)
 # ---------------------------------------------------------------------------
 
-MESH_AC_SPAN, MESH_AC_HARD_S = (0, 2048), 15.0
+# Phase 9c's hard budget (15 s before phase 12 joined the run; its checks
+# do not depend on it).
+MESH_AC_SPAN, MESH_AC_HARD_S = (0, 2048), 10.0
 GC_COUNTS = {"sat": 2, "unsat": 199, "unknown": 0}
 K7_ITERS, K7_BOXES = 8, 512
 # K7's other launch shapes (boxes), each held and timed: one box, a few
@@ -4635,7 +4693,7 @@ def mesh_ac(work: str, ac_net, ac_cfg) -> dict:
     and without one.  Stage 0 (the mesh's row 14 + row 17 against the fused
     KB + KC, whose forwards share ``tile_forward``) is bit-equal; then
     verify_model in the slice-3 configuration
-    (0.02 s soft, 15 s hard) both ways — the mesh run's BaB is the host
+    (0.02 s soft, 10 s hard) both ways — the mesh run's BaB is the host
     frontier with row 14 — with the decided fractions printed.  Returns
     the mesh run's launches and both throughput records."""
     from fairify_tpu_torch.obs import funnel as funnel_mod
@@ -6098,6 +6156,545 @@ def sampled_recheck(work: str, gc_net, gc_cfg, smi: str) -> dict:
     return {"rechecks": kinds, "exact": tally, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the SMT tier and run_sweep
+# ---------------------------------------------------------------------------
+
+# The German Credit file's codes (UCI ``german.data``, 21 space-separated
+# fields): per column, the codes or the integer range a synthetic row draws.
+GERMAN_CODES = (
+    ("A11", "A12", "A13", "A14"), (4, 72), ("A30", "A31", "A32", "A33", "A34"),
+    ("A40", "A41", "A42", "A43", "A44", "A45", "A46", "A48", "A49", "A410"), (250, 18424),
+    ("A61", "A62", "A63", "A64", "A65"), ("A71", "A72", "A73", "A74", "A75"), (1, 4),
+    ("A91", "A92", "A93", "A94", "A95"), ("A101", "A102", "A103"), (1, 4),
+    ("A121", "A122", "A123", "A124"), (19, 75), ("A141", "A142", "A143"),
+    ("A151", "A152", "A153"), (1, 4), ("A171", "A172", "A173", "A174"), (1, 2),
+    ("A191", "A192"), ("A201", "A202"), (1, 2))
+
+
+def write_german(path: str, rows: int, seed: int) -> None:
+    """A synthetic ``german/german.data`` of ``rows`` rows in the loader's
+    format (the UCI file's codes and ranges, drawn from ``default_rng(seed)``;
+    the real file has 1,000 rows)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fp:
+        for _ in range(rows):
+            fields = [str(c[rng.integers(len(c))]) if isinstance(c[0], str)
+                      else str(int(rng.integers(c[0], c[1] + 1))) for c in GERMAN_CODES]
+            fp.write(" ".join(fields) + "\n")
+
+
+# Phase 12a's world: tests/test_torch_bab.py's 20-4-1 net (seed 3) on the GC
+# preset with the domain shrunk to boxes of 8-16 integer pairs, which the
+# brute backend enumerates (the GC-1 twin's stage 0 and BaB decide every
+# such box and leave the tier nothing).  A hung dispatch waits the first
+# tier (SMT_SOFT_S) plus the pool's grace before its SIGKILL.
+SMT_NET_SEED = 3
+SMT_SOFT_S = 2.0
+SMT_RETRY_S = (10.0,)
+SMT_WORKERS, SMT_CAP_MB = 2, 2048
+SMT_MIN_QUERIES = 8
+SMT_FAULTS = ("smt.worker.crash:transient:1", "smt.worker.hang:transient:1",
+              "smt.worker.memout:transient:1")
+# The fault runs' worker cap: a memout directive's allocation reaches it
+# well inside the first tier's deadline (at 2,048 MB it may not).
+SMT_FAULT_CAP_MB = 256
+SMT_SPAWNS = 8
+# 12a's SAT world: tests/test_torch_smt.py's net, stage 0, PGD, BaB and the
+# retry stubbed to decide nothing, a pool whose pair cap concedes the
+# 16-pair boxes: the tier decides sat, unsat and unknown roots.
+SMT_SAT_SEED, SMT_SAT_CAP = 2, 8
+# 12b's world: the GC-1 twin and a second 20-50-1 twin (a family of two)
+# over the whole GC grid, with a synthetic German file of the real file's
+# 1,000 rows.
+FAMILY12_SEEDS = (0, 1)
+GERMAN_ROWS, GERMAN_SEED = 1000, 16
+CARD = "cuda"  # phase 12's device (a rehearsal on the CPU sets "cpu")
+TIME_COLS = ("SV-time", "S-time", "HV-Time", "H-Time", "Total-Time")
+
+
+def smt_cfg(work: str, tag: str, **kw):
+    """Phase 12a's configuration (``tag`` names its result directory)."""
+    from fairify_tpu_torch.data.domains import get_domain
+    from fairify_tpu_torch.verify import presets
+    from fairify_tpu_torch.verify.config import EngineConfig
+
+    ov = {c: (0, 0) for c in get_domain("german").columns}
+    ov.update(age=(0, 1), month=(0, 5), purpose=(0, 5), credit_amount=(0, 2))
+    d = os.path.join(work, "smt", tag)
+    return presets.get("GC").with_(**dict(dict(
+        result_dir=d, trace_out=os.path.join(d, "trace.jsonl"), exact_certify_masks=False,
+        sim_size=16, grid_chunk=8, domain_overrides=ov, partition_threshold=2,
+        soft_timeout_s=SMT_SOFT_S, hard_timeout_s=600.0, smt_retry_timeouts_s=SMT_RETRY_S,
+        smt_workers=SMT_WORKERS, smt_memory_cap_mb=SMT_CAP_MB, launch_backoff_s=1e-3,
+        engine=EngineConfig(attack_samples=4, bab_frontier_cap=64, max_nodes=1, **TAIL)),
+        **kw))
+
+
+def smt_pool_for(cfg, **kw):
+    """A pool configured as the sweep's own tier would be (shared runs)."""
+    from fairify_tpu_torch.smt import pool as pool_mod
+
+    return pool_mod.SmtPool(pool_mod.PoolConfig(**dict(dict(
+        workers=SMT_WORKERS, memory_cap_mb=SMT_CAP_MB, seed=cfg.seed,
+        max_retries=cfg.max_launch_retries, backoff_s=cfg.launch_backoff_s), **kw)))
+
+
+def smt_sat_net(device: str):
+    import numpy as np
+
+    from fairify_tpu_torch.models.mlp import from_numpy
+
+    rng = np.random.default_rng(SMT_SAT_SEED)
+    ws = [rng.normal(scale=0.5, size=s).astype(np.float32) for s in ((20, 4), (4, 1))]
+    bs = [rng.normal(scale=0.5, size=s).astype(np.float32) for s in ((4,), (1,))]
+    return from_numpy(ws, bs, device=device)
+
+
+class DecideNothing:
+    """Stage 0, the PGD pass, the engine and the heuristic retry decide
+    nothing while this is open: every root reaches the SMT tier (12a's SAT
+    world; the same stubs as tests/test_torch_smt.py)."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from fairify_tpu_torch.verify import engine, sweep
+
+        def nothing(net, enc, lo, hi, cfg, *a, **kw):
+            return np.zeros(lo.shape[0], bool), np.zeros(lo.shape[0], bool), {}
+
+        self.saved = [(sweep, "stage0_certify_and_attack"), (sweep, "stage0_pgd"),
+                      (engine, "decide_many"), (engine, "decide_box")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        sweep.stage0_certify_and_attack = nothing
+        sweep.stage0_pgd = lambda *a, **kw: ({}, True)
+        engine.decide_many = lambda net, enc, lo, hi, cfg, **kw: [
+            engine.Decision("unknown", reason="deadline") for _ in range(lo.shape[0])]
+        engine.decide_box = lambda *a, **kw: engine.Decision("unknown")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def sink_rows(cfg, rep, csvs=("",)) -> dict:
+    """A run's ledger rows (less time and CRC) and its CSVs' rows (less the
+    time columns): ``csvs`` the suffixes after the sink name (``""`` the
+    24-column CSV, ``"-metrics"`` the group-metrics CSV)."""
+    import csv
+
+    from fairify_tpu_torch.verify import sweep
+
+    with open(sweep.ledger_path(cfg, rep.sink_name)) as fp:
+        out = {"ledger": [{k: v for k, v in json.loads(line).items()
+                           if k not in ("time_s", "_crc")} for line in fp if line.strip()]}
+    for suffix in csvs:
+        with open(os.path.join(cfg.result_dir, f"{rep.sink_name}{suffix}.csv"),
+                  newline="") as fp:
+            rows = list(csv.reader(fp))
+        keep = [i for i, c in enumerate(rows[0]) if c not in TIME_COLS]
+        out["csv" + suffix] = [[r[i] for i in keep] for r in rows]
+    return out
+
+
+def smt_rows(cfg, rep) -> dict:
+    """One 12a run's comparable outputs: the verdict map, ledger and CSV rows
+    (:func:`sink_rows`), and per partition the verdict event's ``via``,
+    ``smt_reason`` and ``failure``."""
+    with open(cfg.trace_out) as fp:
+        events = [json.loads(line) for line in fp if line.strip()]
+    why = {str(e["attrs"]["partition_id"]): [e["attrs"]["via"], e["attrs"].get("smt_reason"),
+                                             e["attrs"].get("failure")]
+           for e in events if e.get("type") == "event" and e.get("name") == "verdict"}
+    return dict(sink_rows(cfg, rep), why=why,
+                map={str(o.partition_id): o.verdict for o in rep.outcomes})
+
+
+def smt_counters() -> dict:
+    from fairify_tpu_torch import obs
+
+    reg = obs.registry()
+    return {"crash": reg.counter("smt_worker_crashes").value(kind="crash"),
+            "hang": reg.counter("smt_worker_crashes").value(kind="hang"),
+            "memout": reg.counter("smt_memouts").total(),
+            "queries": reg.counter("smt_queries").total()}
+
+
+def smt_runs(work: str, device: str, pool=None) -> dict:
+    """12a's runs both sides make: the blocking run (``integrity_recheck``
+    1.0; ``pool`` shared when given), one run per fault schedule (the run's
+    own pool) and the SAT world; rows and SMT counters of each."""
+    from fairify_tpu_torch import obs
+    from fairify_tpu_torch.models.mlp import init_mlp
+    from fairify_tpu_torch.verify import sweep
+
+    out = {}
+    net = init_mlp((20, 4, 1), seed=SMT_NET_SEED, device=device)
+    runs = [("block", dict(integrity_recheck=1.0), pool)]
+    runs += [(spec, dict(inject_faults=(spec,), smt_memory_cap_mb=SMT_FAULT_CAP_MB), None)
+             for spec in SMT_FAULTS]
+    for tag, kw, shared in runs:
+        cfg = smt_cfg(work, tag.replace(":", "_"), **kw)
+        obs.registry().reset()
+        t = time.perf_counter()
+        rep = sweep.verify_model(net, cfg, model_name="smt", resume=False, device=device,
+                                 smt_pool=shared)
+        out[tag] = dict(smt_rows(cfg, rep), counters=smt_counters(),
+                        seconds=time.perf_counter() - t)
+    cfg = smt_cfg(work, "sat")
+    obs.registry().reset()
+    with DecideNothing(), smt_pool_for(cfg, backend="brute", pair_cap=SMT_SAT_CAP) as sat_pool:
+        rep = sweep.verify_model(smt_sat_net(device), cfg, model_name="sat", resume=False,
+                                 device=device, smt_pool=sat_pool)
+    out["sat"] = dict(smt_rows(cfg, rep), counters=smt_counters())
+    return out
+
+
+def family12_files(work: str) -> tuple:
+    """12b's model root (the two twins' .npz exports) and data root (the
+    synthetic German file), written from their seeds."""
+    import numpy as np
+
+    from fairify_tpu_torch.models import ingest
+
+    models, data = os.path.join(work, "p12-models"), os.path.join(work, "p12-data")
+    os.makedirs(os.path.join(models, "german"), exist_ok=True)
+    for k, seed in enumerate(FAMILY12_SEEDS):
+        rng = np.random.default_rng(seed)  # the GC-1 twin's draws (flagship_net)
+        ws = [rng.normal(scale=0.3, size=s).astype(np.float32) for s in ((20, 50), (50, 1))]
+        bs = [rng.normal(scale=0.1, size=s).astype(np.float32) for s in ((50,), (1,))]
+        ingest.save_npz((ws, bs), os.path.join(models, "german", f"GC-{k + 1}.npz"))
+    write_german(os.path.join(data, "german", "german.data"), GERMAN_ROWS, GERMAN_SEED)
+    return models, data
+
+
+def family12_cfg(work: str, tag: str):
+    from fairify_tpu_torch.verify import presets
+
+    return presets.get("GC").with_(result_dir=os.path.join(work, "p12", tag),
+                                   soft_timeout_s=10.0, hard_timeout_s=600.0,
+                                   exact_certify_masks=False, partition_metrics=True,
+                                   engine=smoke_engine_cfg())
+
+
+def family12_rows(cfg, rep) -> dict:
+    """One 12b report's comparable outputs: counts, original accuracy, rows
+    and witnesses, and :func:`sink_rows`' ledger, CSV and metrics CSV."""
+    return dict(sink_rows(cfg, rep, ("", "-metrics")), model=rep.model, counts=rep.counts,
+                original_acc=rep.original_acc,
+                rows=[[o.partition_id, o.verdict, None if o.counterexample is None
+                       else [c.tolist() for c in o.counterexample]] for o in rep.outcomes])
+
+
+def family12_runs(work: str, device: str):
+    """12b's run both sides make: ``run_sweep`` over the family, the
+    dataset and ``partition_metrics``.  Returns ``(reports, rows)``."""
+    from fairify_tpu_torch.verify import sweep
+
+    models, data = family12_files(work)
+    cfg = family12_cfg(work, "whole")
+    reps = sweep.run_sweep(cfg, model_root=models, data_root=data, device=device)
+    return reps, [family12_rows(cfg, r) for r in reps]
+
+
+def phase12_cpu(work: str) -> dict:
+    """Phase 12's CPU side (in the CPU worker): 12a's runs and 12b's
+    ``run_sweep`` on the plain path."""
+    t = time.perf_counter()
+    out = {"smt": smt_runs(work, "cpu")}
+    out["smt_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["family"] = family12_runs(work, "cpu")[1]
+    out["family_s"] = time.perf_counter() - t
+    return out
+
+
+def cuda_maps(pid: int) -> list:
+    """The CUDA and torch libraries a process maps (none for an SMT worker)."""
+    with open(f"/proc/{pid}/maps") as fp:
+        return sorted({line.split()[-1] for line in fp
+                       if "libcuda" in line or "libtorch" in line})
+
+
+def smt_spawns() -> list:
+    """SMT_SPAWNS fresh workers, one after another, from this process (CUDA
+    live): each one's seconds to its hello, and the backends they report
+    (``auto``: z3 where it is installed, else brute); fails if one maps a
+    CUDA or torch library."""
+    from fairify_tpu_torch.smt import pool as pool_mod
+
+    cfg = pool_mod.PoolConfig(workers=1, memory_cap_mb=SMT_CAP_MB)
+    times, backends = [], set()
+    for _ in range(SMT_SPAWNS):
+        t = time.perf_counter()
+        w = pool_mod._Worker(cfg, SMT_CAP_MB)
+        times.append(time.perf_counter() - t)
+        backends.add(w.backend)
+        try:
+            bad = cuda_maps(w.proc.pid)
+        finally:
+            w.kill()
+        if bad:
+            fail(f"an SMT worker maps {bad}")
+    return times, sorted(backends)
+
+
+def z3_checks(work: str, net, rows: dict, srep, snet) -> str:
+    """Where ``z3-solver`` is installed (the pool's ``auto`` backend is then
+    z3): the in-process ``decide_box_smt`` gives the pool's verdict on every
+    root the tier decided in 12a's world, and the SAT world through a z3
+    pool (no pair cap) decides every root, its SAT witnesses replay on the
+    net, and it agrees with the brute backend wherever that decided."""
+    import numpy as np
+
+    from fairify_tpu_torch.verify import engine, smt, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    if not smt.HAVE_Z3:
+        return "z3 absent"
+    cfg = smt_cfg(work, "block")
+    enc = encode(cfg.query())
+    _, lo, hi = sweep.build_partitions(cfg)
+    roots = [int(p) for p, (via, _r, _f) in rows["why"].items() if via == "smt"]
+    inproc = {p: smt.decide_box_smt(net, enc, lo[p - 1], hi[p - 1], soft_timeout_s=10.0)[0]
+              for p in roots}
+    if any(v != rows["map"][str(p)] for p, v in inproc.items()):
+        fail(f"decide_box_smt {inproc} against the pool's {rows['map']}")
+    zcfg = smt_cfg(work, "sat-z3")
+    with DecideNothing(), smt_pool_for(zcfg, backend="z3") as pool:
+        zrep = sweep.verify_model(snet, zcfg, model_name="sat", resume=False, device=CARD,
+                                  smt_pool=pool)
+    w, b = snet.numpy_params()
+    brute = {o.partition_id: o.verdict for o in srep.outcomes}
+    bad = [o.partition_id for o in zrep.outcomes
+           if o.verdict == "unknown" or (brute[o.partition_id] != "unknown"
+                                         and o.verdict != brute[o.partition_id])
+           or (o.verdict == "sat" and not engine.validate_pair(
+               w, b, *(np.asarray(c, np.int64) for c in o.counterexample)))]
+    if bad:
+        fail(f"SAT world through z3: partitions {bad} ({zrep.counts})")
+    return (f"z3: decide_box_smt = the pool on {len(roots)} roots; the SAT world through z3 "
+            f"{zrep.counts}, witnesses replayed, = brute where it decided")
+
+
+def smt_tier_phase(work: str, smi: str, cpu: dict) -> dict:
+    """Phase 12a: the SMT tier on the card (see the module docstring)."""
+    import numpy as np
+
+    from fairify_tpu_torch import obs
+    from fairify_tpu_torch.models.mlp import init_mlp
+    from fairify_tpu_torch.verify import engine, exact_check, sweep
+    from fairify_tpu_torch.verify.property import encode
+
+    t0 = time.perf_counter()
+    spawn, backends = smt_spawns()
+    cfg = smt_cfg(work, "block", integrity_recheck=1.0)
+    net = init_mlp((20, 4, 1), seed=SMT_NET_SEED, device=CARD)
+    with smt_pool_for(cfg) as pool:
+        obs.registry().reset()
+        rep, launch, wall = counted(lambda: sweep.verify_model(
+            net, cfg, model_name="smt", resume=False, device=CARD, smt_pool=pool),
+            "SMT tier")
+        rows, counters = smt_rows(cfg, rep), smt_counters()
+        rechecks = obs.registry().counter("integrity_rechecks").value(kind="smt")
+        violations = obs.registry().counter("integrity_violations").total()
+        live = pool.live_workers()
+        mapped = {p.pid: cuda_maps(p.pid) for p in live}
+        # smt_defer through the same pool, its first dispatch hung past the
+        # first tier: that root is deferred, and the drain converges to the
+        # blocking map.
+        dcfg = smt_cfg(work, "defer", inject_faults=("smt.worker.hang:transient:1",))
+        drep = sweep.verify_model(net, dcfg, model_name="smt", resume=False, device=CARD,
+                                  smt_pool=pool, smt_defer=True)
+        pending = 0 if drep.smt_pending is None else drep.smt_pending.pending
+        if pending == 0:
+            fail("SMT tier: the smt_defer run deferred no root")
+        drep.smt_pending.drain()
+    thr = check_outputs(rep, cfg, net, "SMT tier", launch)
+    want = cpu["block"]
+    if {k: want[k] for k in rows} != rows:
+        bad = [k for k in rows if rows[k] != want[k]]
+        fail(f"SMT tier: card and CPU differ in {bad}")
+    if counters["queries"] < SMT_MIN_QUERIES or counters["queries"] != want["counters"]["queries"]:
+        fail(f"SMT tier: {counters['queries']} queries (CPU {want['counters']['queries']}, "
+             f"at least {SMT_MIN_QUERIES} asked)")
+    if any(mapped.values()) or not live:
+        fail(f"SMT tier: live workers {[p.pid for p in live]} map {mapped}")
+    missing = [k for k in SLICE2 if launch[k] == 0]
+    if missing:
+        fail(f"SMT tier: kernels never launched: {missing} ({launch})")
+    # Every SMT UNSAT: the sampled recheck (rate 1.0) ran on it, and the
+    # exact oracle confirms it here.
+    enc = encode(cfg.query())
+    _, lo, hi = sweep.build_partitions(cfg)
+    w, b = net.numpy_params()
+    smt_unsat = [int(p) for p, (via, _r, _f) in rows["why"].items()
+                 if via == "smt" and rows["map"][p] == "unsat"]
+    verdicts = {exact_check.decide_pair_box_exact(w, b, enc, lo[p - 1], hi[p - 1],
+                                                  max_nodes=2000)["verdict"]
+                for p in smt_unsat}
+    if rechecks != len(smt_unsat) or violations or verdicts - {"unsat_confirmed"}:
+        fail(f"SMT tier: {len(smt_unsat)} SMT UNSATs, {rechecks} rechecked, {violations} "
+             f"violations, oracle {verdicts}")
+    if {o.partition_id: o.verdict for o in drep.outcomes} != \
+            {o.partition_id: o.verdict for o in rep.outcomes}:
+        fail("SMT tier: the smt_defer run's drain did not converge to the blocking run")
+    # One schedule per fault site: as on the CPU (rows and worker counters).
+    faults = {}
+    for spec in SMT_FAULTS:
+        fcfg = smt_cfg(work, spec.replace(":", "_"), inject_faults=(spec,),
+                       smt_memory_cap_mb=SMT_FAULT_CAP_MB)
+        obs.registry().reset()
+        frep = sweep.verify_model(net, fcfg, model_name="smt", resume=False, device=CARD)
+        got = dict(smt_rows(fcfg, frep), counters=smt_counters())
+        ref = cpu[spec]
+        if any(got[k] != ref[k] for k in ("map", "ledger", "csv", "why", "counters")):
+            fail(f"SMT tier under {spec}: card {got['counters']} vs CPU {ref['counters']}, "
+                 f"maps equal {got['map'] == ref['map']}")
+        faults[spec] = got["counters"]
+    # The SAT world: SAT witnesses from out of process replay on the card's
+    # net; rows equal the CPU's.
+    scfg = smt_cfg(work, "sat")
+    obs.registry().reset()
+    snet = smt_sat_net(CARD)
+    with DecideNothing(), smt_pool_for(scfg, backend="brute",
+                                       pair_cap=SMT_SAT_CAP) as sat_pool:
+        srep = sweep.verify_model(snet, scfg, model_name="sat", resume=False, device=CARD,
+                                  smt_pool=sat_pool)
+    sgot = smt_rows(scfg, srep)
+    sw, sb = snet.numpy_params()
+    sats = [o for o in srep.outcomes if o.verdict == "sat"]
+    differ = [k for k in ("map", "ledger", "csv", "why") if sgot[k] != cpu["sat"][k]]
+    if differ or not sats or not all(
+            engine.validate_pair(sw, sb, *(np.asarray(c, np.int64) for c in o.counterexample))
+            for o in sats):
+        fail(f"SMT SAT world: card and CPU differ in {differ}: card {sgot['map']} / "
+             f"{sgot['why']} vs CPU {cpu['sat']['map']} / {cpu['sat']['why']}")
+    z3_note = z3_checks(work, net, rows, srep, snet)
+    counts = rep.counts
+    print(f"[SMT tier] {counters['queries']} SMT queries of {rep.partitions_total} "
+          f"partitions (tests/test_torch_bab.py's 20-4-1 world; the GC-1 twin leaves the "
+          f"tier no root): {counts}, card = CPU (map, ledger, CSV, smt_reason); "
+          f"{len(smt_unsat)} SMT UNSATs rechecked and confirmed by the exact oracle; "
+          f"smt_defer ({pending} deferred) drained to the blocking map; faults {faults}; "
+          f"SAT world {srep.counts} ({len(sats)} witnesses replayed); {z3_note}; worker "
+          f"spawn median "
+          f"{np.median(spawn):.3f} s, max {max(spawn):.3f} s over {len(spawn)} (backend "
+          f"{backends}), no "
+          f"libcuda/libtorch mapped; fan-out {thr['phases_s'].get('smt_fanout', 0.0):.3f} s "
+          f"of a {wall:.3f} s run; phases {thr['phases_s']}; launches {launch}; "
+          f"12a in {time.perf_counter() - t0:.3f} s; {smi}", flush=True)
+    return {"queries": counters["queries"], "counts": counts, "spawn_s": spawn,
+            "fanout_s": thr["phases_s"].get("smt_fanout", 0.0), "wall_s": wall,
+            "launch": launch, "seconds": time.perf_counter() - t0}
+
+
+def family12_phase(work: str, smi: str, cpu: list) -> dict:
+    """Phase 12b: ``run_sweep`` on the card (see the module docstring)."""
+    import numpy as np
+
+    from fairify_tpu_torch.data import loaders
+    import csv
+
+    from fairify_tpu_torch.models.ingest import load_npz, npz_arrays
+    from fairify_tpu_torch.models.mlp import forward_np
+    from fairify_tpu_torch.verify import sweep
+
+    t0 = time.perf_counter()
+    (reps, rows), launch, wall = counted(lambda: family12_runs(work, CARD), "run_sweep GC")
+    models, data = family12_files(work)
+    cfg = family12_cfg(work, "whole")
+    ds = loaders.load("german", root=data)
+    for rep, got, want in zip(reps, rows, cpu):
+        path = os.path.join(models, "german", f"{rep.model}.npz")
+        check_outputs(rep, cfg, load_npz(path, device=CARD), rep.model, rep.kernel_launches)
+        w, b, _, _ = npz_arrays(path)
+        excused = np.flatnonzero(np.abs(forward_np(w, b, ds.X_test)) < 1e-5)
+        acc_ok = abs(got["original_acc"] - want["original_acc"]) <= len(excused) / len(ds.y_test)
+        gm, wm = (np.array([[float(v) for v in r] for r in x["csv-metrics"][1:]])
+                  for x in (got, want))
+        metrics_ok = gm.shape == wm.shape and np.allclose(
+            gm, wm, rtol=0.0, atol=1e-6 + len(excused) / len(ds.y_test), equal_nan=True)
+        same = all(got[k] == want[k] for k in ("model", "counts", "rows", "ledger", "csv"))
+        if not (same and acc_ok and metrics_ok
+                and got["csv-metrics"][0] == want["csv-metrics"][0]):
+            fail(f"run_sweep {rep.model}: card and CPU differ (rows {same}, original_acc "
+                 f"{got['original_acc']} vs {want['original_acc']}, metrics {metrics_ok})")
+        if any(rep.kernel_launches.get(k, 0) for k in ("stage0_certify", "attack_flips")):
+            fail(f"run_sweep {rep.model}: its own stage-0 launches {rep.kernel_launches}")
+    # The family's stage 0: KB and KC as rows 5 and 7 (M = 2), the models'
+    # verify_model runs took it as stage0= and launched neither.
+    fam = {k: launch[k] - sum(r.kernel_launches.get(k, 0) for r in reps)
+           for k in ("stage0_certify", "attack_flips")}
+    if min(fam.values()) < 1 or len(reps) != len(FAMILY12_SEEDS):
+        fail(f"run_sweep: family launches {fam} of {launch}, {len(reps)} reports")
+    # Two host slices: their ledgers' union is the whole run's verdicts.
+    union = {r.model: {} for r in reps}
+    for i in range(2):
+        hcfg = family12_cfg(work, f"host{i}")
+        for rep in sweep.run_sweep(hcfg, model_root=models, data_root=data, host_index=i,
+                                   host_count=2, device=CARD):
+            with open(sweep.ledger_path(hcfg, rep.sink_name)) as fp:
+                union[rep.model].update({r["partition_id"]: r["verdict"]
+                                         for r in map(json.loads, fp)})
+    if union != {r.model: {o.partition_id: o.verdict for o in r.outcomes} for r in reps}:
+        fail("run_sweep: the two host slices' ledgers do not make the whole run")
+    # retry_unknown on the finished run: one CSV and metrics row per partition.
+    retry = sweep.run_sweep(cfg, model_root=models, data_root=data, retry_unknown=True,
+                            device=CARD)
+    for rep in retry:
+        for name in (f"{rep.sink_name}.csv", f"{rep.sink_name}-metrics.csv"):
+            with open(os.path.join(cfg.result_dir, name), newline="") as fp:
+                ids = [int(r[0]) for r in list(csv.reader(fp))[1:]]
+            if ids != list(range(1, rep.partitions_total + 1)):
+                fail(f"run_sweep retry_unknown: {name} has {len(ids)} rows")
+    try:
+        sweep.run_sweep(cfg, model_root=models, data_root=data, n_shards=2, device=CARD)
+        fail("run_sweep: n_shards=2 ran")
+    except NotImplementedError as exc:
+        if "item 7" not in str(exc):
+            fail(f"run_sweep: n_shards=2 raised {exc!r}")
+    decided = sum(r.counts["sat"] + r.counts["unsat"] for r in reps)
+    print(f"[run_sweep] GC grid x {len(reps)} twins (family of two, synthetic German file "
+          f"of {GERMAN_ROWS} rows, partition_metrics): {[r.counts for r in reps]}, original "
+          f"accuracy {[round(r.original_acc, 6) for r in reps]}, card = CPU (rows, ledgers, "
+          f"CSVs, metrics to 1e-6); {decided} decided in {wall:.3f} s = "
+          f"{decided / wall:.2f} partitions/s; family launches (rows 5, 7) {fam}; launches "
+          f"{launch}; host slices 2 = the whole run; retry_unknown one row per partition; "
+          f"n_shards raises (item 7); 12b in {time.perf_counter() - t0:.3f} s; {smi}",
+          flush=True)
+    return {"launch": launch, "family": fam, "wall_s": wall, "decided": decided,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase12_worker(worker, path: str) -> dict:
+    """Wait for the CPU worker's exit; its phase-12 results."""
+    t = time.perf_counter()
+    rc = worker.wait(timeout=600)
+    if rc != 0 or not os.path.exists(path):
+        fail(f"the CPU worker exited with {rc} before phase 12's CPU side was out")
+    print(f"[card = CPU] waited {time.perf_counter() - t:.3f} s for phase 12's CPU side",
+          flush=True)
+    with open(path) as fp:
+        return json.load(fp)
+
+
+def smt_and_run_sweep(work: str, smi: str, cpu: dict) -> dict:
+    """Phase 12 (12a, 12b)."""
+    t0 = time.perf_counter()
+    out = {"smt": smt_tier_phase(work, smi, cpu["smt"]),
+           "family": family12_phase(work, smi, cpu["family"])}
+    print(f"[phase 12] SMT tier and run_sweep in {time.perf_counter() - t0:.3f} s (CPU side "
+          f"in the worker: {cpu['smt_s']:.3f} + {cpu['family_s']:.3f} s); {smi}", flush=True)
+    return out
+
+
 def runtime_contracts(work: str, gc_net, gc_cfg, ac_net, ac_cfg, smi: str) -> dict:
     """Phase 11 (11a-11e)."""
     t0 = time.perf_counter()
@@ -6138,6 +6735,7 @@ def main() -> int:
     engine_cfg = smoke_engine_cfg()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     ac_net = seeded_net(AC_SIZES, seed=0, device="cuda")
+    clock("phase 1b")
     # --- phase 1b: the lattice kernels; the CPU side of card = CPU runs in
     # a worker process beside the rest of phase 1b, phases 2-2c and 4
     lat = lattice_card_side(ac_net, engine_cfg, work)
@@ -6147,9 +6745,11 @@ def main() -> int:
         return run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat["card"],
                           lat["out"])
     finally:
-        if worker.poll() is None:
-            worker.kill()
-            worker.wait()
+        try:
+            os.killpg(worker.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        worker.wait()
 
 
 def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
@@ -6160,6 +6760,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     from fairify_tpu_torch.verify.config import EngineConfig
     from fairify_tpu_torch.verify.property import encode
 
+    clock("phase 10a")
     # --- phase 10a, its card side: the trained nets load from their .npz
     # exports; trained AC-S1's stage 0, which the CPU worker repeats
     tnets = trained_nets("cuda")
@@ -6169,6 +6770,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
           f"stage 0 over AC partitions 0-{TRAINED_S0_SPAN} on the card in "
           f"{time.perf_counter() - t:.3f} s", flush=True)
 
+    clock("phase 2")
     # --- phase 2: the stage-0 kernels
     gc_cfg = presets.get("GC").with_(result_dir=os.path.join(work, "gc"),
                                      soft_timeout_s=10.0, hard_timeout_s=600.0,
@@ -6188,6 +6790,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                                              mega_chunks=2)
     check_kernels(case_inputs("relaxed-AC", ac_net, rx_cfg), ac_net, reps=1)
 
+    clock("phase 2b")
     # --- phase 2b: the refinement kernels on real AC-S1 stage-0 leftovers
     enc, lo, hi = leftovers(ac_net, ac_cfg, 2048, 8192)
     ac_rows["pgd_attack"] = check_pgd("AC", ac_net, enc, lo, hi, reps=3, steps=60,
@@ -6224,6 +6827,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     gc_rows["grid_keys"] = check_grid_keys("GC", gc_cfg, len(glo), reps=5)
     print(f"[tiny] {tiny_oracle_case()} oracle roots agree through K5/K6", flush=True)
 
+    clock("phase 2c")
     # --- phase 2c: the Phase-S/L/P kernels on real AC-S1 leftovers, then on
     # relaxed-AC (ε = 5) leftovers for the RA widening
     ac_rows.update(check_phase_s_kernels("AC", ac_net, enc, lo[:512], hi[:512],
@@ -6234,6 +6838,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
                                          reps=3, frontier=False))
     check_phase_s_kernels("relaxed-AC", ac_net, renc, rlo, rhi, reps=1)
 
+    clock("phase 4")
     # --- phase 4: the bench's BaB ladder world on the card vs the CPU
     ladder_rows = {}
     for tag, phases in (("slice 2", TAIL), ("slice 3", SLICE3), ("default", {})):
@@ -6253,6 +6858,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"h_attempt {sum(o.h_attempt for o in rep_h.outcomes)}, launches "
               f"{rep_h.kernel_launches}", flush=True)
 
+    clock("phase 7a-7d")
     # --- phase 7, its untimed checks: the AC-S1 family on the whole grid,
     # the zoo's CP and DF families, the chunk loop and the host frontier
     fam_nets = [ac_net] + [seeded_net(AC_SIZES, seed=s, device="cuda")
@@ -6263,6 +6869,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     chunk = chunk_loop_checks(work, gc_net, gc_cfg, ac_net, ac_cfg, reps=3)
     hf = host_frontier_checks(work, ac_net, enc, lo, hi, reps=3,
                               rows_dev=ladder_rows["slice 2"])
+    clock("phase 8 kernels")
     # --- phase 8, its untimed checks: rows 13 and 17 at the chunk loop's and
     # the host frontier's shapes, the IBP family (rows 8 and 9) on the AC
     # grid, the ladder world on the IBP path; the native exact core loaded
@@ -6275,6 +6882,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     # the timed end-to-end phases 3, 5, 6 and 7's family run go without it.
     trained_cmp = lattice_card_vs_cpu(worker, lat_card, lat_out, trained_s0)
 
+    clock("phase 3")
     # --- phase 3: the GC-1 main path (stage 0 decides every partition)
     rep, gc_launch, wall = run_sweep(gc_net, gc_cfg, "GC-1",
                                      required=("sim_and_bounds", "stage0_certify",
@@ -6286,6 +6894,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
           f"{(rep.counts['sat'] + rep.counts['unsat']) / wall:.2f} partitions/s; "
           f"phases {thr['phases_s']}; launches {gc_launch}", flush=True)
 
+    clock("phase 5")
     # --- phase 5: real size.  The whole AC grid (16,000 partitions, two
     # mega-segments) through verify_model with a short hard budget, then
     # the main path of this slice at depth: the first 2,048 partitions
@@ -6351,6 +6960,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     # K6 at the tails' launch shapes: every bucket timed on its first launch.
     bab_shapes = bab_by_shape(tail_shapes)
 
+    clock("phase 6")
     # --- phase 6: this slice's main path.  The JAX engine's default
     # configuration (lattice phases on; max_nodes cut to 1,000) on the
     # AC-S1 twin over stress-AC and relaxed-AC partitions 0-1,024.
@@ -6387,6 +6997,7 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
               f"{ph.get('engine_bab', 0.0):.3f} s, t_pair {ph.get('engine_pair', 0.0):.3f} "
               f"s; unknown reasons {reasons}; funnel {thr['funnel']}; phases {ph}; "
               f"launches {launch}", flush=True)
+    clock("phase 10b")
     # --- phase 10b: trained AC-S1 in phase 6's configuration
     trained6 = {f"{p} {a}-{b}": trained_default(work, tnets["AC-S1"], p, (a, b))
                 for p, (a, b) in TRAINED_DEFAULT}
@@ -6396,13 +7007,16 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
              f"{JAX_STRESS_AC_S1}")
     print(f"[stress-AC default, trained AC-S1, 0-4096] {both}; the JAX package's "
           f"stress-AC-scaled AC-S1 row {JAX_STRESS_AC_S1}", flush=True)
+    clock("phase 7e")
     # --- phase 7, end to end: the AC-S1 family through verify_model(stage0=)
     fam_launch = family_tail(work, fam_nets, ac_cfg, fam_res, solo_res)
+    clock("phase 8a, 8b, 8e")
     # --- phase 8, end to end: GC-1 and the AC grid on the IBP path; the
     # exact-certify pass over the AC grid
     gc8 = ibp_gc(work, gc_net, gc_cfg)
     grid8 = ibp_grid(work, ac_net, ac_cfg)
     exact8 = exact_pass_check(ac_net, ac_cfg)
+    clock("phase 9")
     # --- phase 9: the mesh path (rows 14 and 6) end to end and at its
     # kernels' shapes, harsh pruning (row 3) and K7
     gc9 = mesh_gc(work, gc_net, gc_cfg)
@@ -6411,16 +7025,23 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     worlds9 = mesh_worlds(work, fam_nets, ac_cfg)
     harsh9 = harsh_check(ac_net, ac_cfg, reps=3)
     k7 = k7_check("AC-S1 twin", ac_net, lo, hi, reps=3)
+    clock("phase 10c")
     # --- phase 10c, 10d: K7 on trained AC-S1's stage-0 leftovers; row 17
     # of the four trained nets against float64
     _, tlo, thi = leftovers(tnets["AC-S1"], ac_cfg, None, 8192)
     k7["trained"] = k7_check("AC-S1 trained", tnets["AC-S1"], tlo, thi, reps=3, more=False)
     trained17 = trained_forward_checks(tnets)
+    clock("phase 11")
     # --- phase 11: the runtime contracts
     runtime_contracts(work, gc_net, gc_cfg, ac_net, ac_cfg, smi)
+    clock("phase 12")
+    # --- phase 12: the SMT tier and run_sweep, card = the CPU worker's runs
+    smt_and_run_sweep(work, smi, phase12_worker(worker, lat_out + ".p12"))
     shutil.rmtree(work, ignore_errors=True)
     # K8a and KB by shape in every window of the run
+    clock("shapes")
     cert_shapes = cert_by_shape()
+    clock("summary")
 
     table = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")

@@ -174,6 +174,26 @@ def init_mlp(sizes, seed: int = 0, scale: float = 0.1, device=None) -> MLP:
     return from_numpy(ws, bs, device=device)
 
 
+def excise(net: MLP) -> MLP:
+    """Materialize the masks as a dense smaller network on the CPU (the JAX
+    package's ``excise``): each hidden layer keeps only its alive neurons
+    (mask > 0.5), with the next layer's rows cut to match.  Works on the
+    numpy parameters; the result has the same dense widths as the JAX
+    package's and computes what ``forward`` computes on the masked net.
+    Used to feed the SMT emitter the small matrices the reference produces
+    with ``prune_neurons`` (``utils/prune.py:950-977``)."""
+    ws, bs = net.numpy_params()
+    ms = [m.detach().cpu().numpy() for m in net.masks]
+    n = len(ws)
+    for i in range(n):
+        keep = ms[i] > 0.5
+        ws[i] = ws[i][:, keep]
+        bs[i] = bs[i][keep]
+        if i + 1 < n:
+            ws[i + 1] = ws[i + 1][keep, :]
+    return from_numpy(ws, bs, device="cpu")
+
+
 def forward_np(weights, biases, x: np.ndarray, dead=None) -> np.ndarray:
     """Host float64 logit replay; ``dead`` = per-hidden-layer dead masks."""
     h = np.asarray(x, dtype=np.float64)

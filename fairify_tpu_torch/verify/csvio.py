@@ -79,3 +79,35 @@ def append_row(path: str, row: PartitionRow) -> None:
         if not exists:
             wr.writerow(RES_COLS)
         wr.writerow(row.to_list())
+
+
+def rewrite_deduped(path: str) -> None:
+    """Rewrite a partition CSV keeping the LAST row per Partition_ID, sorted,
+    with the cumulative SAT/UNSAT/UNK counter columns recomputed.
+
+    ``retry_unknown`` re-decides budget-exhausted partitions and appends
+    their fresh rows; this restores the one-row-per-partition, ascending-id
+    shape — and counters consistent with the final verdicts — that
+    row-for-row comparisons expect (the csv module handles the multi-line
+    quoted counterexample cells).
+    """
+    if not os.path.isfile(path):
+        return
+    with open(path, newline="") as fp:
+        rows = list(csv.reader(fp))
+    if not rows:
+        return
+    header, body = rows[0], rows[1:]
+    last = {}
+    for row in body:
+        last[int(row[0])] = row
+    counts = {"sat": 0, "unsat": 0, "unknown": 0}
+    with open(path, "w", newline="") as fp:
+        wr = csv.writer(fp)
+        wr.writerow(header)
+        for pid in sorted(last):
+            row = last[pid]
+            verdict = row[1] if row[1] in counts else "unknown"
+            counts[verdict] += 1
+            row[2:5] = [counts["sat"], counts["unsat"], counts["unknown"]]
+            wr.writerow(row)

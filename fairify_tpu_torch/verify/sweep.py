@@ -60,10 +60,24 @@ ledger and histograms.
   :func:`verify.engine.decide_box`); a SAT must replay on the original net,
   and the partition's parity is taken again on its new masks from samples
   regenerated on the card (K12's row generator, ``csrc/sim_rows.cu``).
+* **SMT tier** (``smt_retry_timeouts_s``) — after the BaB phase's last
+  device sync, every root still unknown fans its SMT-LIB query
+  (:func:`verify.smt.build_query`) out over the worker pool
+  (:mod:`fairify_tpu_torch.smt`, worker subprocesses that never touch
+  CUDA) while the reporting loop runs (:class:`_SmtTier`); a root the
+  heuristic retry decides has its query cancelled, a SAT witness must
+  replay on the host net, a sampled SMT UNSAT is rechecked by the exact
+  oracle, and a root whose worker died degrades as ``smt.worker:*``.
+  ``smt_defer`` hands the answers still in flight to an :class:`SmtDrain`.
 * **Reporting** — CRC-checked JSONL ledger (unknown rows carry the
-  engine's ``engine_reason``), the 24-column CSV, the counterexample CSV
-  and the throughput JSON with per-phase ``phases_s`` and, per engine
-  phase, the partitions it decided on the first pass (``engine_decided``).
+  engine's ``engine_reason``), the 24-column CSV, the counterexample CSV,
+  with a ``dataset`` the original accuracy and, with
+  ``partition_metrics``, the per-partition group-metrics CSV, and the
+  throughput JSON with per-phase ``phases_s`` and, per engine phase, the
+  partitions it decided on the first pass (``engine_decided``).
+* :func:`run_sweep` — the verification scripts' outer loop over a model family
+  (``models.zoo``), with its dataset (``data.loaders``): architecture
+  groups share one stacked stage 0, then ``verify_model`` per model.
 
 The runtime contracts are the JAX package's: stage 0, the parity pass and
 ``stage0_pgd`` share one :class:`parallel.pipeline.LaunchPipeline` of
@@ -76,9 +90,7 @@ record, and ``resume=True`` re-attempts it.  ``inject_faults`` arms the
 fault schedule (``resilience.faults``), ``integrity_recheck`` re-runs a
 sampled share of the decided chunks (:func:`_sampled_recheck`),
 ``trace_out`` writes the span/event log, ``heartbeat_s`` the progress
-line and ``profile_dir`` a ``torch.profiler`` trace.  The SMT tier is not
-ported yet: it raises ``NotImplementedError`` naming its ROADMAP item
-where it would run.
+line and ``profile_dir`` a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
@@ -93,7 +105,9 @@ import numpy as np
 import torch
 
 from fairify_tpu_torch import obs
-from fairify_tpu_torch.models.mlp import StackedMLP, predict_np
+from fairify_tpu_torch.data import loaders
+from fairify_tpu_torch.models import zoo
+from fairify_tpu_torch.models.mlp import StackedMLP, excise, predict_np
 from fairify_tpu_torch.obs import funnel as funnel_mod
 from fairify_tpu_torch.obs import launches
 from fairify_tpu_torch.ops import heuristic as heur_ops
@@ -114,9 +128,6 @@ from fairify_tpu_torch.utils.timing import PhaseTimer
 from fairify_tpu_torch.verify import csvio, engine, pruning
 from fairify_tpu_torch.verify.config import SweepConfig
 from fairify_tpu_torch.verify.property import PairEncoding, encode, role_boxes
-
-SMT_NOT_PORTED = ("the SMT UNKNOWN-retry tier (smt_retry_timeouts_s) is not "
-                  "ported yet: ROADMAP queue 1, item 5")
 
 # Every kernel entry point of the port (``obs.launches``' names).
 KERNELS = launches.KERNELS
@@ -160,6 +171,10 @@ class ModelReport:
     # Kernel launches of this run by kernel name (0 on the CPU, where the
     # plain PyTorch versions run instead): ``obs.launches``' counts.
     kernel_launches: Dict[str, int] = field(default_factory=dict)
+    # Deferred SMT answers (``smt_defer``): an :class:`SmtDrain` whose
+    # ``drain()`` consumes the pool futures still in flight and patches the
+    # outcomes and the ledger; None when the tier finished inline or never ran.
+    smt_pending: Optional[object] = None
 
     @property
     def counts(self) -> Dict[str, int]:
@@ -194,11 +209,7 @@ def build_partitions(cfg: SweepConfig):
 def check_supported(cfg: SweepConfig, mesh=None) -> None:
     """Reject what the port cannot run before any work starts: a ``mesh``
     that is not a ``parallel.mesh.Mesh`` raises ``TypeError``.  Every
-    setting of ``SweepConfig`` runs; the SMT tier (ROADMAP queue 1, item 5)
-    raises ``NotImplementedError`` where a root would reach it.
-    ``partition_metrics`` acts in the JAX package only with a ``dataset``,
-    which the port's :func:`verify_model` does not take yet (ROADMAP queue
-    1, item 6)."""
+    setting of ``SweepConfig`` runs."""
     mesh_mod.require_mesh(mesh)
 
 
@@ -254,6 +265,191 @@ def _segment_tick(phase: str, done: int, total: int, partitions: int,
     hb = hb_mod.active()
     if hb is not None:
         hb.segment(phase, done, total, in_flight=in_flight)
+
+
+# ---------------------------------------------------------------------------
+# The SMT tier: out-of-process second opinions on the roots BaB left unknown
+# ---------------------------------------------------------------------------
+
+
+class _SmtTier:
+    """The sweep's out-of-process SMT tier (the JAX package's ``_SmtTier``).
+
+    Created after the BaB phase's last device sync: every still-unknown
+    root's SMT-LIB query fans out across the worker pool at once, and the
+    reporting loop takes each answer when it reaches that partition, so
+    host solving overlaps the loop's own work; no solver thread runs beside
+    a CUDA call of the sweep.  The queries are built from a host copy of
+    the net (:func:`models.mlp.excise`).  A partition the heuristic retry
+    decides meanwhile has its query cancelled, never awaited.
+    """
+
+    def __init__(self, net, enc, lo, hi, candidates, cfg, pool=None):
+        from fairify_tpu_torch.smt import pool as pool_mod
+
+        self._owns = pool is None
+        if pool is None:
+            pool = pool_mod.SmtPool(pool_mod.PoolConfig(
+                workers=max(int(cfg.smt_workers), 1),
+                memory_cap_mb=cfg.smt_memory_cap_mb,
+                portfolio=cfg.smt_portfolio, seed=cfg.seed,
+                # Worker deaths spend the same retry budget as any other
+                # transient fault of the run.
+                max_retries=cfg.max_launch_retries,
+                backoff_s=cfg.launch_backoff_s))
+        self.pool = pool
+        host_net = excise(net)
+        self._futures = {
+            p: pool_mod.submit_box(pool, host_net, enc, lo[p], hi[p],
+                                   soft_timeout_s=cfg.soft_timeout_s,
+                                   retry_timeouts_s=cfg.smt_retry_timeouts_s)
+            for p in candidates}
+
+    def __contains__(self, p) -> bool:
+        return p in self._futures
+
+    def done(self, p) -> bool:
+        """Non-blocking: is this partition's answer already in?"""
+        fut = self._futures.get(p)
+        return fut is None or fut.done()
+
+    def result(self, p):
+        """Blocking ``(verdict, ce, reason)`` of one partition, bounded by
+        the pool's hard per-dispatch deadlines.  Anything that escapes the
+        pool's own containment, short of a propagate-class error, is one
+        more worker-crash UNKNOWN."""
+        from concurrent.futures import CancelledError
+
+        from fairify_tpu_torch.smt import protocol
+
+        fut = self._futures.pop(p)
+        try:
+            v, ce, reason = fut.result().triple
+        except CancelledError:
+            return "unknown", None, protocol.REASON_SPAWN
+        except BaseException as exc:
+            if classify(exc) == "propagate":
+                raise
+            return "unknown", None, protocol.REASON_CRASH
+        n = faults_mod.corruption("smt.query")
+        if n is not None and v == "sat" and ce is not None:
+            # Data-plane chaos (smt.query:corrupt): one bit flipped in the
+            # witness crossing the pool boundary; the host replay catches it.
+            ce = integrity_mod.corrupt_witness(ce, n)
+        return v, ce, reason
+
+    def cancel(self, p) -> None:
+        fut = self._futures.pop(p, None)
+        if fut is not None:
+            fut.cancel()
+
+    def close(self) -> None:
+        for fut in self._futures.values():
+            fut.cancel()
+        self._futures.clear()
+        if self._owns:
+            self.pool.close()
+
+
+@dataclass
+class SmtDrain:
+    """Deferred SMT finalization (``smt_defer``; the JAX package's
+    ``SmtDrain``).
+
+    The reporting loop never blocks on a pool future: a partition whose
+    query is still in flight gets a provisional UNKNOWN outcome whose
+    LEDGER row is withheld (a crash before the drain leaves it unledgered,
+    so ``resume=True`` re-attempts it).  :meth:`drain` blocks on the
+    remaining futures, replays SAT witnesses on the host net, appends the
+    final ledger records and patches the report's outcomes in place.  The
+    CSV keeps the provisional UNKNOWN rows, as in the JAX package.
+    """
+
+    tier: _SmtTier
+    items: List  # (local index, pid, PartitionOutcome) still in flight
+    report: "ModelReport"
+    cfg: SweepConfig
+    weights: List
+    biases: List
+    ledger_path: str
+    model_name: str
+    sink_name: str
+
+    @property
+    def pending(self) -> int:
+        return len(self.items)
+
+    def drain(self) -> Dict[str, int]:
+        """Consume every deferred answer; returns decided/degraded counts."""
+        decided = degraded = 0
+        ledger = JournalWriter(self.ledger_path, fault_site="ledger.append",
+                               crc=self.cfg.integrity)
+        try:
+            with obs.span("smt.drain", queries=len(self.items)):
+                for p, pid, out in self.items:
+                    v, ce, reason, failure = _smt_answer(self.tier, p, self.weights,
+                                                         self.biases, self.cfg)
+                    fail_rec, extra = None, {}
+                    if failure is not None:
+                        fail_rec = failure.to_record()
+                        degraded += 1
+                        self.report.degraded += 1
+                        obs.registry().counter("chunks_degraded").inc(site=failure.site)
+                        obs.event("degraded", **fail_rec, phase="smt_drain", partitions=1)
+                    if v != "unknown":
+                        out.verdict = v
+                        out.counterexample = ce
+                        decided += 1
+                        via = "smt"
+                    elif fail_rec is not None:
+                        extra = {"failure": fail_rec["reason"]}
+                        via = "degraded"
+                    else:
+                        via = "bab"
+                        if reason is not None:
+                            extra = {"smt_reason": reason}
+                    # Last record wins downstream: this verdict event
+                    # supersedes the loop's provisional one, and this append
+                    # is the partition's first ledger row.
+                    obs.event("verdict", model=self.model_name, partition_id=pid,
+                              verdict=out.verdict, via=via, **extra)
+                    rec = {"partition_id": pid, "verdict": out.verdict,
+                           "ce": [out.counterexample[0].tolist(),
+                                  out.counterexample[1].tolist()]
+                           if out.counterexample else None,
+                           "time_s": round(out.times.get("total", 0.0), 4)}
+                    if fail_rec is not None:
+                        rec["failure"] = fail_rec
+                    ledger.append(rec)
+                    if out.counterexample is not None:
+                        # The reporting loop writes the counterexample CSV
+                        # only for rows it ledgers itself.
+                        _write_ce(os.path.join(self.cfg.result_dir,
+                                               f"{self.sink_name}-counterexamples.csv"),
+                                  self.cfg.query().columns, pid, out.counterexample)
+        finally:
+            ledger.close()
+            self.tier.close()
+            self.items = []
+        return {"decided": decided, "degraded": degraded}
+
+
+def _smt_answer(tier: _SmtTier, p: int, weights, biases, cfg: SweepConfig):
+    """One root's SMT answer as ``(verdict, ce, reason, failure)``.
+    ``failure`` is the ChunkFailure that degrades the root: a SAT witness
+    that fails its host replay (an integrity violation: a sound backend
+    never gives one; reason ``invalid-witness``), or a worker death that
+    exhausted the pool's retries (reason ``smt.worker:<kind>``).  A
+    degraded root is re-attempted by ``resume=True``."""
+    v, ce, reason = tier.result(p)
+    if v == "sat" and ce is not None and not engine.validate_pair(weights, biases, *ce):
+        return "unknown", None, "invalid-witness", _integrity_failure("smt.query",
+                                                                      "invalid-witness")
+    if v == "unknown" and reason is not None and reason.startswith("smt.worker:"):
+        return v, None, reason, ChunkFailure(
+            site="smt.worker", kind=reason.split(":", 1)[1], error="WorkerDied",
+            detail=reason, retries=cfg.max_launch_retries)
+    return v, ce, reason, None
 
 
 # ---------------------------------------------------------------------------
@@ -946,31 +1142,45 @@ def stage0_pgd(net, enc: PairEncoding, lo, hi, cfg: SweepConfig, pending,
 
 
 def verify_model(net, cfg: SweepConfig, model_name: str = "model",
-                 resume: bool = True, mesh=None, device=None,
-                 partition_span=None, stage0=None) -> ModelReport:
+                 dataset: Optional[loaders.LoadedDataset] = None, mesh=None,
+                 resume: bool = True, retry_unknown: bool = False, stage0=None,
+                 partition_span=None, host_index=None, host_count=None, sink_name=None,
+                 smt_pool=None, smt_defer: bool = False, device=None) -> ModelReport:
     """Run the sweep for one model; write CSV + ledger rows.
 
+    The JAX package's parameters, in its order, then the port's ``device``.
     ``device`` defaults to ``cuda`` (``device="cpu"`` runs the plain PyTorch
-    versions of the kernels); the net is moved there.  ``mesh`` (a
-    ``parallel.mesh.Mesh``; anything else raises ``TypeError``) shards
-    stage 0's certificates and the engine's BaB batches over its ``parts``
-    axis and runs the rest on its first device, which ``device`` must name
-    if given (``ValueError`` otherwise); the throughput record's
-    ``partitions_per_sec_per_chip`` is divided by the mesh's size, as in
-    the JAX package.  ``partition_span``
-    ``(start, stop)`` runs a contiguous slice of the shuffled grid, with
-    global partition ids and keys, and sinks named ``model@start-stop``.
-    ``stage0``: this model's precomputed stage-0 result from
+    versions of the kernels); the net is moved there.  ``dataset`` (a
+    ``data.loaders.LoadedDataset``) adds the original accuracy on its test
+    split (an f32 forward on ``device``) and, with ``cfg.partition_metrics``
+    and a protected attribute, the per-partition group-metrics CSV
+    ``<sink>-metrics.csv``.  ``mesh`` (a ``parallel.mesh.Mesh``; anything
+    else raises ``TypeError``) shards stage 0's certificates and the
+    engine's BaB batches over its ``parts`` axis and runs the rest on its
+    first device, which ``device`` must name if given (``ValueError``
+    otherwise); the throughput record's ``partitions_per_sec_per_chip`` is
+    divided by the mesh's size, as in the JAX package.  ``retry_unknown``
+    re-attempts the ledger's budget UNKNOWNs (decided rows stay settled)
+    and then rewrites the CSV and the metrics CSV to one row per
+    partition.  ``stage0``: this model's precomputed stage-0 result from
     :func:`stage0_families` — ``(unsat, sat, witnesses)`` or, with the
     family's ``StageStats`` forwarded, ``(unsat, sat, witnesses,
     stats)`` — over the same grid rows; stage 0's own launches are then
-    skipped and the forwarded histograms merged.
+    skipped and the forwarded histograms merged.  ``partition_span``
+    ``(start, stop)`` runs a contiguous slice of the shuffled grid, with
+    global partition ids and keys, and sinks named ``model@start-stop``;
+    ``host_index``/``host_count`` take that slice from
+    :func:`parallel.multihost.host_slice`.  ``sink_name`` overrides the
+    sink base name.  ``smt_pool`` shares an existing
+    :class:`fairify_tpu_torch.smt.SmtPool` with the SMT tier (None: the
+    run owns a pool of ``cfg.smt_workers`` when the tier has candidates);
+    ``smt_defer`` returns the answers still in flight on
+    ``report.smt_pending`` (an :class:`SmtDrain`) instead of waiting.
 
     ``cfg.trace_out`` traces the call (unless an outer scope owns a
     tracer): a ``verify_model`` span carrying the final counts, a span per
     phase, ``verdict`` and ``degraded`` events; ``cfg.inject_faults`` is
-    armed for the call (seeded by ``cfg.seed``).  The SMT tier raises
-    ``NotImplementedError`` where a root would reach it.
+    armed for the call (seeded by ``cfg.seed``).
     """
     from fairify_tpu_torch.obs import heartbeat as hb_mod
 
@@ -980,8 +1190,10 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
                       preset=cfg.name) as sp, \
                 faults_mod.armed(cfg.inject_faults, seed=cfg.seed):
             try:
-                rep = _verify_model_impl(net, cfg, model_name, resume, mesh, device,
-                                         partition_span, stage0)
+                rep = _verify_model_impl(
+                    net, cfg, model_name, dataset, mesh, resume, retry_unknown, stage0,
+                    partition_span, host_index, host_count, sink_name, smt_pool,
+                    smt_defer, device)
             except BaseException:
                 # The impl registers this run's heartbeat as the live one;
                 # a raise would otherwise leak it.
@@ -995,8 +1207,10 @@ def verify_model(net, cfg: SweepConfig, model_name: str = "model",
             return rep
 
 
-def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mesh,
-                       device, partition_span, stage0) -> ModelReport:
+def _verify_model_impl(net, cfg: SweepConfig, model_name: str, dataset, mesh,
+                       resume: bool, retry_unknown: bool, stage0, partition_span,
+                       host_index, host_count, sink_override, smt_pool, smt_defer: bool,
+                       device) -> ModelReport:
     if mesh is not None and device is None:
         device = mesh.home
     dev = resolve_device(device)
@@ -1010,17 +1224,31 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
     enc = encode(cfg.query())
     p_list, lo, hi = build_partitions(cfg)
     span_start, sink_name = 0, model_name
+    if host_count is not None and partition_span is None:
+        from fairify_tpu_torch.parallel.multihost import host_slice
+
+        partition_span = host_slice(len(p_list), host_index, host_count)
     if partition_span is not None:
         span_start, span_stop = partition_span
         p_list = p_list[span_start:span_stop]
         lo, hi = lo[span_start:span_stop], hi[span_start:span_stop]
         sink_name = f"{model_name}@{span_start}-{span_stop}"
+    if sink_override is not None:
+        sink_name = sink_override
     P = len(p_list)
+    if P == 0:  # e.g. more hosts than partitions: an empty but valid span
+        return ModelReport(model=model_name, dataset=cfg.dataset, outcomes=[],
+                           partitions_total=0, sink_name=sink_name)
     os.makedirs(cfg.result_dir, exist_ok=True)
     led_path = ledger_path(cfg, sink_name)
     done, led_skipped = {}, 0
     if resume:
         done, _degraded_prev, led_skipped = merge_ledgers([led_path])
+    if retry_unknown:
+        # Re-attempt the budget UNKNOWNs; decided verdicts stay settled.  The
+        # re-decided rows are appended, and the decided-wins merge makes
+        # the retry the record of truth on the next resume.
+        done = {pid: rec for pid, rec in done.items() if rec["verdict"] != "unknown"}
     csv_path = os.path.join(cfg.result_dir, f"{sink_name}.csv")
     ce_path = os.path.join(cfg.result_dir, f"{sink_name}-counterexamples.csv")
     counter = profiling.ThroughputCounter(n_devices=1 if mesh is None else mesh.size)
@@ -1146,11 +1374,40 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
             for dd in decisions:
                 if dd.phase is not None:
                     engine_decided[dd.phase] = engine_decided.get(dd.phase, 0) + 1
-    if cfg.smt_retry_timeouts_s and timer.total() <= cfg.hard_timeout_s and any(
-            dd.verdict == "unknown" and p not in failed for p, dd in bab.items()):
-        raise NotImplementedError(SMT_NOT_PORTED)
+    orig_acc = 0.0
+    pm = None  # the per-partition group-metrics sink (src/CP/Verify-CP.py:398-458)
+    if dataset is not None:
+        # The original net's accuracy on the test split: an f32 forward on
+        # the run's device (TF32 off), thresholded at logit 0 as the JAX
+        # package's ``predict`` does.
+        x_test = torch.as_tensor(np.asarray(dataset.X_test, np.float32), device=dev)
+        with torch.no_grad():
+            pred = (net(x_test) > 0.0).cpu().numpy()
+        orig_acc = float((pred.astype(int) == dataset.y_test).mean())
+        if cfg.partition_metrics and len(enc.pa_idx):
+            from fairify_tpu_torch.analysis import metrics as gm
+
+            pm = {"path": os.path.join(cfg.result_dir, f"{sink_name}-metrics.csv"),
+                  "X": np.asarray(dataset.X_test, dtype=np.float64),
+                  "y": np.asarray(dataset.y_test).astype(int),
+                  # The protected column of the test matrix, privileged value
+                  # 1 (src/CP/Verify-CP.py:402-417); the first PA dim.
+                  "prot": np.asarray(dataset.X_test)[:, int(enc.pa_idx[0])],
+                  "orig_f1": gm.f1_score(dataset.y_test, pred.astype(int)),
+                  "gm": gm}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    # The SMT tier fans out after the last device sync of the BaB phase:
+    # the pool's lane threads only write to pipes and read from them.
+    smt_tier: Optional[_SmtTier] = None
+    smt_deferred_items: List = []
+    smt_transfer = False
+    if cfg.smt_retry_timeouts_s and timer.total() <= cfg.hard_timeout_s:
+        smt_candidates = [p for p, dd in bab.items()
+                          if dd.verdict == "unknown" and p not in failed]
+        if smt_candidates:
+            with obs.timed_span(timer, "smt_fanout", queries=len(smt_candidates)):
+                smt_tier = _SmtTier(net, enc, lo, hi, smt_candidates, cfg, pool=smt_pool)
     cumulative = timer.total()
 
     t_report = time.perf_counter()
@@ -1183,6 +1440,8 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
             fail_rec = failed.get(p)
             dead = pruning.partition_masks(prune, p) if prune is not None else None
             h_attempt = h_success = 0
+            smt_decided = smt_deferred_this = False
+            smt_unknown_reason = None
             sv_time = hv_time = h_time = 0.0
             ce = None
             nodes = 0
@@ -1232,6 +1491,41 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
                                     weights, biases, *ce):
                                 verdict, ce, h_success = "unknown", None, 0
                         dead = merged
+                if smt_tier is not None and p in smt_tier:
+                    if verdict != "unknown" or fail_rec is not None \
+                            or cumulative > cfg.hard_timeout_s:
+                        # The retry decided it (or its chunk degraded, or the
+                        # budget tripped): cancel the query, never await it.
+                        smt_tier.cancel(p)
+                    elif smt_defer and not smt_tier.done(p):
+                        # Still solving: a provisional UNKNOWN whose ledger
+                        # row the SmtDrain writes once the answer lands.
+                        smt_deferred_this = True
+                    else:
+                        smt_verdict, smt_ce, smt_reason, smt_fail = _smt_answer(
+                            smt_tier, p, weights, biases, cfg)
+                        if smt_fail is not None:
+                            _degrade([p], smt_fail, "smt")
+                            fail_rec = failed.get(p)
+                        if smt_verdict != "unknown":
+                            verdict, ce = smt_verdict, smt_ce
+                            smt_decided = True
+                            if verdict == "unsat" and cfg.integrity and integrity_mod.sampled(
+                                    cfg.seed, f"smt:{pid}", cfg.integrity_recheck):
+                                # Sampled cross-check of SMT UNSATs by the
+                                # exact-rational oracle.
+                                obs.registry().counter("integrity_rechecks").inc(kind="smt")
+                                from fairify_tpu_torch.verify import exact_check
+
+                                xres = exact_check.decide_pair_box_exact(
+                                    weights, biases, enc, lo[p], hi[p], max_nodes=2000)
+                                if xres["verdict"] == "refuted":
+                                    verdict, ce, smt_decided = "unknown", None, False
+                                    _degrade([p], _integrity_failure(
+                                        "exact", "refuted-smt-unsat"), "smt")
+                                    fail_rec = failed.get(p)
+                        elif not (smt_reason or "").startswith("smt.worker:"):
+                            smt_unknown_reason = smt_reason
             c_check = v_accurate = 0
             if verdict == "sat" and ce is not None and dead is not None:
                 c_check, v_accurate = c_check_np(weights, biases, dead, ce)
@@ -1247,11 +1541,13 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
             if h_success:
                 obs.registry().counter("unknown_retry_success").inc()
             extra = {"failure": fail_rec["reason"]} if fail_rec is not None else {}
+            if smt_unknown_reason is not None:
+                extra["smt_reason"] = smt_unknown_reason
             if verdict == "unknown" and fail_rec is None and p in bab \
                     and bab[p].reason is not None:
                 extra["engine_reason"] = bab[p].reason
             via = ("degraded" if fail_rec is not None else "stage0" if via_stage0
-                   else "heuristic" if h_success else "bab")
+                   else "smt" if smt_decided else "heuristic" if h_success else "bab")
             obs.event("verdict", model=model_name, partition_id=pid, verdict=verdict,
                       via=via, **extra)
             funnel.add(funnel_mod.classify(
@@ -1270,14 +1566,19 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
                 }
             else:  # the prune pass degraded: no masks exist for this span
                 comp = {"b": 0.0, "s": 0.0, "st": 0.0, "h": 0.0, "t": 0.0}
-            outcomes.append(PartitionOutcome(
+            out = PartitionOutcome(
                 pid, verdict, ce, h_attempt, h_success, nodes,
                 times={"sv": sv_time, "s": stage0_per_part + sv_time, "hv": hv_time,
                        "h": h_time, "total": total_time},
                 compressions=comp, c_check=c_check, v_accurate=v_accurate,
-                pruned_acc=pruned_acc))
+                pruned_acc=pruned_acc)
+            outcomes.append(out)
+            if smt_deferred_this:
+                smt_deferred_items.append((p, pid, out))
             if heartbeat is not None:
                 beat()
+            if pm is not None and fail_rec is None and dead is not None:
+                _append_metrics_row(pm, weights, biases, dead, pid, orig_acc)
             csvio.append_row(csv_path, csvio.PartitionRow(
                 partition_id=pid, verdict=verdict, sat_count=counts["sat"],
                 unsat_count=counts["unsat"], unk_count=counts["unknown"],
@@ -1287,7 +1588,7 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
                 t_compression=comp["t"], sv_time=sv_time,
                 s_time=stage0_per_part + sv_time, hv_time=hv_time, h_time=h_time,
                 total_time=total_time, c_check=c_check, v_accurate=v_accurate,
-                pruned_acc=pruned_acc, c1=ce[0] if ce else None,
+                original_acc=orig_acc, pruned_acc=pruned_acc, c1=ce[0] if ce else None,
                 c2=ce[1] if ce else None))
             led_rec = {"partition_id": pid, "verdict": verdict,
                        "ce": [ce[0].tolist(), ce[1].tolist()] if ce else None,
@@ -1296,11 +1597,25 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
                 led_rec["failure"] = fail_rec
             if "engine_reason" in extra:
                 led_rec["engine_reason"] = extra["engine_reason"]
-            ledger.append(led_rec)
+            if not smt_deferred_this:
+                # A deferred partition's row is the SmtDrain's to write.
+                ledger.append(led_rec)
             if ce is not None:
                 _write_ce(ce_path, cfg.query().columns, pid, ce)
+        smt_transfer = bool(smt_deferred_items)
     finally:
         ledger.close()
+        if smt_tier is not None and not smt_transfer:
+            # Unconsumed futures are cancelled and a run-owned pool's workers
+            # reaped, even when the loop raised; under smt_defer a clean exit
+            # hands the tier to the report's SmtDrain instead.
+            smt_tier.close()
+    if retry_unknown:
+        # Re-decided rows were appended after their 'unknown' rows: restore
+        # one row per partition in ascending order, in both CSVs.
+        csvio.rewrite_deduped(csv_path)
+        if pm is not None:
+            _dedupe_metrics(pm["path"])
 
     timer.phases["report"] = time.perf_counter() - t_report
     elapsed = timer.total()
@@ -1357,8 +1672,154 @@ def _verify_model_impl(net, cfg: SweepConfig, model_name: str, resume: bool, mes
         heartbeat.beat(decided=counts["sat"] + counts["unsat"], attempted=len(outcomes),
                        unknown=counts["unknown"], force=True)
         heartbeat.close()
-    return ModelReport(model=model_name, dataset=cfg.dataset, outcomes=outcomes,
-                       total_time_s=elapsed, partitions_total=P,
-                       sink_name=sink_name, ledger_skipped_lines=led_skipped,
-                       degraded=degraded, funnel=funnel_payload,
-                       kernel_launches=kernel_launches)
+    report = ModelReport(model=model_name, dataset=cfg.dataset, outcomes=outcomes,
+                         original_acc=orig_acc, total_time_s=elapsed, partitions_total=P,
+                         sink_name=sink_name, ledger_skipped_lines=led_skipped,
+                         degraded=degraded, funnel=funnel_payload,
+                         kernel_launches=kernel_launches)
+    if smt_deferred_items:
+        report.smt_pending = SmtDrain(
+            tier=smt_tier, items=smt_deferred_items, report=report, cfg=cfg,
+            weights=weights, biases=biases, ledger_path=led_path, model_name=model_name,
+            sink_name=sink_name)
+    return report
+
+
+METRICS_HEADER = ["Partition ID", "Original Accuracy", "Original F1 Score", "Pruned Accuracy",
+                  "Pruned F1", "DI", "SPD", "EOD", "AOD", "ERD", "CNT", "TI"]
+
+
+def _append_metrics_row(pm: dict, weights, biases, dead, pid: int, orig_acc: float) -> None:
+    """One row of the per-partition group-metrics CSV
+    (``src/CP/Verify-CP.py:448-458``): the original and the partition's
+    pruned net's test accuracy and F1, then the group metrics of the
+    partition's masked net (the JAX package's deliberate delta from the
+    reference, which recomputes them from the unpruned net every row)."""
+    gm = pm["gm"]
+    p_pred = predict_np(weights, biases, pm["X"], dead=dead)
+    rep = gm.group_report(pm["X"], pm["y"], p_pred, pm["prot"], privileged_value=1)
+    new_file = not os.path.isfile(pm["path"])
+    with open(pm["path"], "a", newline="") as fp:
+        wr = csv.writer(fp)
+        if new_file:
+            wr.writerow(METRICS_HEADER)
+        wr.writerow([pid, round(orig_acc, 6), round(pm["orig_f1"], 6),
+                     round(float((p_pred == pm["y"]).mean()), 6),
+                     round(gm.f1_score(pm["y"], p_pred), 6),
+                     round(rep.disparate_impact, 6),
+                     round(rep.statistical_parity_difference, 6),
+                     round(rep.equal_opportunity_difference, 6),
+                     round(rep.average_odds_difference, 6),
+                     round(rep.error_rate_difference, 6), round(rep.consistency, 6),
+                     round(rep.theil_index, 6)])
+
+
+def _dedupe_metrics(path: str) -> None:
+    """Keep the last metrics row per partition, in ascending id order."""
+    if not os.path.isfile(path):
+        return
+    with open(path, newline="") as fp:
+        rows = list(csv.reader(fp))
+    last = {r[0]: r for r in rows[1:]}
+    with open(path, "w", newline="") as fp:
+        wr = csv.writer(fp)
+        wr.writerow(rows[0])
+        for k in sorted(last, key=int):
+            wr.writerow(last[k])
+
+
+# ---------------------------------------------------------------------------
+# run_sweep: the verification scripts' outer loop over a model family
+# ---------------------------------------------------------------------------
+
+SHARDS_NOT_PORTED = ("run_sweep: n_shards routes through the sharded runtime "
+                     "(parallel.shards), which is not ported yet: ROADMAP queue 1, item 7")
+
+
+def run_sweep(cfg: SweepConfig, model_root=None, data_root=None, mesh=None, stack: bool = True,
+              host_index=None, host_count=None, retry_unknown: bool = False, n_shards=None,
+              device=None) -> List[ModelReport]:
+    """Sweep every model of the configured family (the JAX package's
+    ``run_sweep``; its parameters in its order, then the port's ``device``).
+
+    The dataset comes from ``data.loaders.load(cfg.dataset, data_root)``
+    and the nets from ``models.zoo.load_matching`` (``.npz`` exports or
+    Keras ``.h5`` files under ``model_root``; nets whose input width is not
+    the domain's are skipped with a message on stderr).  With ``stack``,
+    every architecture shared by two or more models gets its stage 0 from
+    one stacked family launch per segment (:func:`stage0_families`, all
+    groups through one launch pipeline), forwarded with its histograms to
+    each model's ``verify_model(stage0=...)``.  ``host_count`` sweeps only
+    this host's :func:`parallel.multihost.host_slice` span of every model
+    (stacking off: a family's stage 0 is grid-global).  ``n_shards`` (the
+    sharded runtime) raises ``NotImplementedError`` naming ROADMAP item 7,
+    after the JAX package's argument checks.
+    """
+    if n_shards and host_count is not None:
+        raise ValueError("run_sweep: n_shards and host_count are mutually "
+                         "exclusive (call shards.sweep_sharded with "
+                         "partition_span to shard inside a host slice)")
+    if n_shards and retry_unknown:
+        raise ValueError("run_sweep: retry_unknown is not supported with "
+                         "n_shards yet — resume=True re-attempts degraded "
+                         "partitions; budget UNKNOWNs stay settled")
+    if n_shards:
+        raise NotImplementedError(SHARDS_NOT_PORTED)
+    with obs.maybe_tracing(cfg.trace_out, run_id=cfg.name):
+        with obs.span("run_sweep", preset=cfg.name, dataset=cfg.dataset) as sp:
+            reports = _run_sweep_impl(cfg, model_root, data_root, mesh, stack, host_index,
+                                      host_count, retry_unknown, device)
+            sp.set(models=len(reports))
+            return reports
+
+
+def _run_sweep_impl(cfg, model_root, data_root, mesh, stack, host_index, host_count,
+                    retry_unknown, device) -> List[ModelReport]:
+    import sys
+    from collections import defaultdict
+
+    if mesh is not None and device is None:
+        device = mesh.home
+    dev = resolve_device(device)
+    dataset = loaders.load(cfg.dataset, root=data_root)
+    n_attrs = len(cfg.query().columns)
+    nets, skipped = zoo.load_matching(cfg.dataset, n_attrs, models=cfg.models,
+                                      root=model_root, device=dev)
+    for name in skipped:
+        print(f"skipping {name}: input dim != domain dim {n_attrs}", file=sys.stderr)
+    if not nets:
+        return []
+    stage0_by_model = {}
+    if host_count is not None:
+        stack = False  # a family's stage 0 would be grid-global
+    if stack:
+        groups = defaultdict(list)
+        for name, net in nets.items():
+            groups[(net.in_dim,) + net.layer_sizes].append(name)
+        multi = [names for names in groups.values() if len(names) >= 2]
+        if multi:
+            if dev.type == "cuda":
+                cuda_build.build_all(_supervisor(cfg))
+            enc = encode(cfg.query())
+            _, lo, hi = build_partitions(cfg)
+            stacks = [mesh_mod.stack_models([nets[n] for n in names]) for names in multi]
+            # One launch pipeline across every architecture group: the
+            # device queue never drains between families.
+            fam_pipe = LaunchPipeline(cfg.pipeline_depth, supervisor=_supervisor(cfg))
+            fam_stats: Dict = {}
+            with obs.span("stage0_family", models=sum(len(n) for n in multi),
+                          groups=len(multi), partitions=int(lo.shape[0])) as sp:
+                fams = stage0_families(stacks, enc, lo, hi, cfg, mesh=mesh, pipe=fam_pipe,
+                                       stats=fam_stats)
+                sp.set(in_flight_max=fam_pipe.stats.max,
+                       in_flight_mean=round(fam_pipe.stats.mean(), 3))
+            for gi, (names, fam) in enumerate(zip(multi, fams)):
+                for m, (name, s0) in enumerate(zip(names, fam)):
+                    # The family kernels' per-model histograms, forwarded so
+                    # the model's funnel equals an unstacked run's.
+                    st = fam_stats.get((gi, m))
+                    stage0_by_model[name] = s0 + (st,) if st is not None else s0
+    return [verify_model(net, cfg, model_name=name, dataset=dataset, mesh=mesh,
+                         stage0=stage0_by_model.get(name), host_index=host_index,
+                         host_count=host_count, retry_unknown=retry_unknown, device=dev)
+            for name, net in nets.items()]

@@ -14,7 +14,8 @@ S, L, P, E0/E off).
   takes the heuristic-retry path and the rows still equal JAX's.
 * The BaB integrity detectors: fold checksum and canary slot.
 * The phases ported since (S, P, E0/E, the host frontier) run the world
-  where an unported phase once raised, and equal JAX.
+  where an unported phase once raised, and equal JAX; so does the SMT tier
+  on the world whose roots reach it.
 """
 import csv
 import json
@@ -319,13 +320,42 @@ def test_unported_phases_raise_where_they_would_run(kw, item):
 
 
 def test_smt_tier_raises_when_reached(tmp_path):
+    # The SMT tier (ROADMAP queue 1, item 5) is ported: the world whose
+    # roots reach it now runs, and its verdict map, ledger rows, CSV rows
+    # and smt_reason fields equal JAX's.  The id is the one the case had
+    # when it raised.
     ov = {c: (0, 0) for c in get_domain("german").columns}
     ov.update(age=(0, 1), month=(0, 5), purpose=(0, 5), credit_amount=(0, 2))
-    cfg = tpresets.get("GC").with_(
-        result_dir=str(tmp_path), exact_certify_masks=False, sim_size=16, grid_chunk=8,
-        domain_overrides=ov, partition_threshold=2, smt_retry_timeouts_s=(1.0,),
-        engine=EngineConfig(attack_samples=4, bab_frontier_cap=64, max_nodes=1, **TAIL))
-    net = tmlp.init_mlp((len(cfg.query().columns), 4, 1), seed=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsweep.verify_model(net, cfg, model_name="m", resume=False, device="cpu",
-                            partition_span=(0, 8))
+    kw = dict(exact_certify_masks=False, sim_size=16, grid_chunk=8, domain_overrides=ov,
+              partition_threshold=2, smt_retry_timeouts_s=(1.0,))
+    ekw = dict(attack_samples=4, bab_frontier_cap=64, max_nodes=1, **TAIL)
+    outs = []
+    for pkg in ("jax", "torch"):
+        rdir = tmp_path / pkg
+        if pkg == "jax":
+            cfg = jpresets.get("GC").with_(result_dir=str(rdir), trace_out=str(rdir / "t.jsonl"),
+                                           engine=jengine.EngineConfig(**ekw), **kw)
+            rep = jsweep.verify_model(init_mlp((len(cfg.query().columns), 4, 1), seed=3), cfg,
+                                      model_name="m", resume=False, partition_span=(0, 8))
+        else:
+            cfg = tpresets.get("GC").with_(result_dir=str(rdir), trace_out=str(rdir / "t.jsonl"),
+                                           engine=EngineConfig(**ekw), **kw)
+            net = tmlp.init_mlp((len(cfg.query().columns), 4, 1), seed=3, device="cpu")
+            rep = tsweep.verify_model(net, cfg, model_name="m", resume=False, device="cpu",
+                                      partition_span=(0, 8))
+        with open(rdir / "GC-m@0-8.ledger.jsonl") as fp:
+            ledger = [{k: v for k, v in json.loads(line).items()
+                       if k not in ("time_s", "_crc", "engine_reason")} for line in fp]
+        with open(rdir / "m@0-8.csv", newline="") as fp:
+            rows = list(csv.reader(fp))
+        keep = [i for i, c in enumerate(rows[0])
+                if c not in ("SV-time", "S-time", "HV-Time", "H-Time", "Total-Time")]
+        with open(rdir / "t.jsonl") as fp:
+            events = [json.loads(line) for line in fp]
+        vias = {e["attrs"]["partition_id"]: (e["attrs"]["via"], e["attrs"].get("smt_reason"))
+                for e in events if e.get("type") == "event" and e.get("name") == "verdict"}
+        outs.append(({o.partition_id: o.verdict for o in rep.outcomes}, ledger,
+                     [[r[i] for i in keep] for r in rows], vias))
+    assert outs[1] == outs[0]
+    # Every root reached the tier and the tier decided it.
+    assert {v for v, _r in outs[1][3].values()} == {"smt"} and len(outs[1][0]) == 8

@@ -57,9 +57,11 @@ def test_package_imports_with_jax_blocked():
         import chip_smoke
         from fairify_tpu_torch.ops import crown
         from fairify_tpu_torch.parallel import mesh
-        from fairify_tpu_torch.verify import engine, pruning, sweep
+        from fairify_tpu_torch.verify import engine, pruning, smt, sweep
         for mod, names in ((mesh, ("Mesh", "make_mesh", "submesh", "pad_to_multiple",
                                    "shard_parts", "replicated", "shard_map")),
+                           (sweep, ("run_sweep", "SmtDrain", "verify_model")),
+                           (smt, ("to_smtlib", "build_query", "decide_box_smt")),
                            (engine, ("role_certify", "split_certify_attack_submit")),
                            (pruning, ("sim_stats", "harsh_prune_grid")),
                            (crown, ("alpha_crown_output_bounds",))):
@@ -90,6 +92,35 @@ def test_no_jax_or_reference_imports(path):
         else:
             continue
         assert not any(_is_forbidden(n) for n in names), (path, node.lineno, names)
+
+
+def test_worker_and_loaders_import_without_torch():
+    """The SMT worker's whole import chain and the loaders stand without
+    torch, JAX, pandas and sklearn: a worker never initialises CUDA (its
+    RLIMIT_AS cap would kill it), and the port needs neither pandas nor
+    sklearn."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("torch", "jax", "pandas", "sklearn"):
+            sys.modules[name] = None
+        for name in ("fairify_tpu_torch.smt.worker", "fairify_tpu_torch.smt.protocol",
+                     "fairify_tpu_torch.smt.brute", "fairify_tpu_torch.data.loaders"):
+            importlib.import_module(name)
+        from fairify_tpu_torch import smt
+        assert "fairify_tpu_torch.smt.pool" not in sys.modules
+        assert sorted(smt.__all__) == ["PoolConfig", "SmtPool", "SmtResult", "WorkerDied",
+                                       "solve_box", "submit_box"]
+        bad = [m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "pandas",
+                                                            "sklearn", "fairify_tpu")
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_tf32_is_off_after_import():
