@@ -339,12 +339,38 @@ Phases (any failure exits nonzero and prints no result line):
    worker's; two host slices' ledgers make the whole run; ``retry_unknown``
    leaves one row per partition; ``n_shards`` raises naming item 7.  The
    CPU side of both runs in the CPU worker.
+13. The experiment path and its training kernels (rows 25-28,
+   ``csrc/train_step.cu``).  The real Adult file is not in the repository:
+   30,000 training and 5,000 test rows are drawn from the AC preset's adult
+   domain, labelled by trained AC-S1 with 10% of the labels flipped, from a
+   seed (``synthetic_adult``).  (13c) ``run_experiment`` on trained AC-S1,
+   ``repair_mode="both"``, over the AC preset capped at max_partitions=512
+   (288 partitions) with the slice-2 tail, node cap 200, under a 300 s hard
+   budget; its card side runs right after 10a, every count zeroed before
+   it, and writes the repaired weights for the CPU worker, which runs the
+   same experiment (without the re-verification) and then re-verifies and
+   audits the card's weights (``experiment.audit``): the first sweep's
+   counts, ledger and CSV rows, pairs and localization equal; the repaired
+   weights and the repair histories within tolerance, ``floor_ok``,
+   ``group_ok`` and ``selected`` equal; on the card's weights
+   ``fairer_verdicts``, ``routing``, ``metrics`` and ``causal_rates``
+   equal.  (13b) ``train_mlp`` from ``init_mlp`` at AC-S1's widths, 3
+   epochs at B = 128 (702 launches of row 25): epoch losses within
+   tolerance of the CPU worker's, test predictions equal on >= 99.5%.
+   (13a) rows 25 (B = 128), 26 (B = 32 and the ragged last batch, masked
+   by 13c's localized neurons), 27 (B = 64 on 13c's pairs) and 28 (all of
+   them): one step from one state within tolerance of the plain version,
+   100 steps' losses, two launches bit-equal, every masked entry
+   bit-unchanged, mutants rejected; each timed beside its bound, its plain
+   version, and the library step (autograd + ``Adam(fused=True)``, a CUDA
+   graph).
 
 Phase 4 runs before phase 3, and the run waits for the CPU worker's card
 = CPU results before phase 3, so the timed end-to-end phases 3, 5, 6, 7e,
-8a, 8b, 8e, 9, 10b, 10c and 11 run beside only its phase-12 CPU side, on
-two threads, which phase 12 waits for (10a's card side, 7a-7d and phase
-8's kernel checks, 8c and 8d run beside the whole worker).
+8a, 8b, 8e, 9, 10b, 10c and 11 run beside only its phase-12 and phase-13
+CPU sides, on two threads, which phases 12 and 13 wait for (10a's and
+13c's card sides, 7a-7d and phase 8's kernel checks, 8c and 8d run beside
+the whole worker).
 
 Every ``run_sweep``/``counted`` window splits K8a's launches by (α, live
 rows up to the next power of two), KB's (rows 4-7, 14, 15) by (α, boxes,
@@ -402,6 +428,10 @@ REPLACES = {
     "role_certify": "fairify_tpu/verify/engine.py:283",
     "sim_stats": "fairify_tpu/verify/pruning.py:107",
     "alpha_crown": "fairify_tpu/ops/crown.py:369",
+    "train_step": "fairify_tpu/models/train.py:66",
+    "fit_step": "fairify_tpu/analysis/repair.py:68",
+    "pair_step": "fairify_tpu/analysis/repair.py:284",
+    "pair_inconsistency": "fairify_tpu/analysis/repair.py:303",
 }
 # The other TPU kernel sites each kernel replaces: the chunk loop's
 # one-chunk forms (rows 1, 10, 15), the family kernels (rows 5, 7) and
@@ -431,7 +461,8 @@ LATTICE_OTHER = {"lattice_scan": "relaxed-AC", "lattice_signs": "relaxed-AC",
 # the partition keys K12's key kernel.
 KERNEL_SOURCE = dict({k: "lattice_scan" for k in LATTICE_KERNELS}, role_logits="attack_logits",
                      role_certify="stage0_certify", sim_stats="sim_and_bounds",
-                     alpha_crown="role_bounds", grid_keys="sim_rows")
+                     alpha_crown="role_bounds", grid_keys="sim_rows", fit_step="train_step",
+                     pair_step="train_step", pair_inconsistency="train_step")
 SOURCES = {k: f"fairify_tpu_torch/csrc/{KERNEL_SOURCE.get(k, k)}.cu" for k in REPLACES}
 # Kernels every default-configuration run (phase 6) must launch, besides
 # its preset's lattice scan: stage 0, the PGD, Phase S and the retry's rows.
@@ -444,10 +475,13 @@ TAIL_HARD_S = 45.0
 # Phase 9's kernels: row 14 (and 6) of the mesh path, row 3 and K7 of their
 # own entry points.
 MESH_KERNELS = ("role_certify", "sim_stats", "alpha_crown")
+# Rows 25-28, the experiment path's training kernels (phase 13).
+TRAIN_KERNELS = ("train_step", "fit_step", "pair_step", "pair_inconsistency")
 # Kernels of the slice-3 configuration's path (lattice phases off; K10 is
-# the IBP path's, phase 8; MESH_KERNELS phase 9's).
+# the IBP path's, phase 8; MESH_KERNELS phase 9's; TRAIN_KERNELS phase 13's).
 SLICE3_PATH = tuple(k for k in REPLACES if k not in LATTICE_KERNELS
-                    and k not in ("role_bounds", "attack_logits") + MESH_KERNELS)
+                    and k not in ("role_bounds", "attack_logits") + MESH_KERNELS
+                    + TRAIN_KERNELS)
 AC_SIZES = (13, 128, 64, 32, 16, 8, 1)  # models_scaled/adult/AC-S1.h5 widths
 
 
@@ -3074,6 +3108,8 @@ def lattice_cpu_worker(path_in: str, path_out: str) -> int:
     torch.set_num_threads(2)
     write_json(path_out + ".p12", phase12_cpu(os.path.join(os.path.dirname(path_out),
                                                            "cpu12")))
+    write_json(path_out + ".p13", phase13_cpu(os.path.join(os.path.dirname(path_out), "cpu13"),
+                                              path_out + ".card13.npz"))
     return 0
 
 
@@ -6673,13 +6709,587 @@ def family12_phase(work: str, smi: str, cpu: list) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def phase12_worker(worker, path: str) -> dict:
-    """Wait for the CPU worker's exit; its phase-12 results."""
+# ---------------------------------------------------------------------------
+# Phase 13: the experiment path (verify -> localize -> repair -> re-verify ->
+# hybrid audit) and its training kernels, rows 25-28
+# ---------------------------------------------------------------------------
+
+# Phase 13's dataset: the real Adult file is not in the repository, so rows
+# are drawn from the AC preset's adult domain, labelled by trained AC-S1
+# with EXP_FLIP of the labels flipped, all from default_rng(EXP_SEED).
+EXP_TRAIN, EXP_TEST, EXP_FLIP, EXP_SEED = 30_000, 5_000, 0.1, 17
+# run_experiment's grid: the AC preset capped at max_partitions (the
+# experiment command's --max-partitions: 288 partitions of the adult
+# domain), the slice-2 tail with a node cap, under a hard budget.
+EXP_MAX_PARTITIONS, EXP_HARD_S, EXP_MAX_NODES = 512, 300.0, 200
+# Rows 25-28 against their plain versions on the card.  One step from one
+# state: theta, m and v within STEP_REL * |v| + STEP_ABS * max |v| (the two
+# sum a batch's products in other orders; Adam is the same f32 operations
+# in both), the loss within STEP_REL; over 100 steps from one state the
+# losses within RUN_REL (the per-step differences carry along).
+STEP_REL, STEP_ABS, RUN_REL = 1e-5, 1e-6, 1e-4
+# Card vs CPU worker over whole trainings (thousands of steps, each summed
+# in another order): weights within EXP_W_REL * |w| + EXP_W_ABS, history
+# losses and inconsistencies within EXP_H_REL, val_acc within EXP_ACC_ABS
+# (10 of the 5,000 test rows).
+EXP_W_REL, EXP_W_ABS, EXP_H_REL, EXP_ACC_ABS = 1e-3, 1e-4, 1e-3, 2e-3
+# 13b: train_mlp at AC-S1's widths, 3 epochs at B = 128; the final test-set
+# predictions of card and CPU agree on at least TRAIN_AGREE of the rows.
+TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_AGREE = 3, 128, 0.995
+# Launches of a kernel's timing loop (ms: median of single launches).
+STEP_REPS = 30
+
+
+def synthetic_adult():
+    """Phase 13's dataset (numpy only: the same rows on the card and in the
+    CPU worker): EXP_TRAIN + EXP_TEST rows drawn uniformly from the AC
+    preset's adult domain, labelled by trained AC-S1's float64 forward with
+    EXP_FLIP of the labels flipped."""
+    import numpy as np
+
+    from fairify_tpu_torch.data import loaders
+    from fairify_tpu_torch.models import ingest
+    from fairify_tpu_torch.models.mlp import predict_np
+    from fairify_tpu_torch.verify import presets
+
+    dom = presets.get("AC").query().domain
+    lo, hi = (a.astype(np.int64) for a in dom.lo_hi())
+    rng = np.random.default_rng(EXP_SEED)
+    n = EXP_TRAIN + EXP_TEST
+    X = rng.integers(lo, hi + 1, size=(n, len(lo))).astype(np.float64)
+    ws, bs = ingest.load_trained("AC-S1", "cpu").numpy_params()
+    y = predict_np(ws, bs, X).astype(int)
+    y = np.where(rng.random(n) < EXP_FLIP, 1 - y, y)
+    frame = {c: X[:, i] for i, c in enumerate(dom.columns)}
+    frame[dom.label] = y
+    return loaders.LoadedDataset("adult", frame, X[:EXP_TRAIN], y[:EXP_TRAIN], X[EXP_TRAIN:],
+                                 y[EXP_TRAIN:], dom.label)
+
+
+def experiment_cfg(work: str, tag: str):
+    from fairify_tpu_torch.verify import presets
+    from fairify_tpu_torch.verify.config import EngineConfig
+
+    return presets.get("AC").with_(
+        result_dir=os.path.join(work, f"exp-{tag}"), exact_certify_masks=False,
+        capped_partitions=True, max_partitions=EXP_MAX_PARTITIONS, hard_timeout_s=EXP_HARD_S,
+        engine=EngineConfig(frontier_size=512, attack_samples=128, bab_attack_samples=16,
+                            soft_timeout_s=10.0, max_nodes=EXP_MAX_NODES, **TAIL))
+
+
+def net_lists(net) -> dict:
+    ws, bs = net.numpy_params()
+    return {"weights": [w.tolist() for w in ws], "biases": [b.tolist() for b in bs]}
+
+
+def experiment_record(res, cfg) -> dict:
+    """The comparable outputs of one run_experiment: the first sweep's
+    counts, ledger and CSV rows, the pairs, the localization, the repaired
+    weights and the repair histories (JSON-ready)."""
+    import numpy as np
+
+    loc = res.localization
+    return json.loads(json.dumps(dict(
+        counts=res.report.counts, rows=sink_rows(cfg, res.report),
+        pairs=[[np.asarray(a).tolist(), np.asarray(b).tolist()] for a, b in res.ce_pairs],
+        ranked=[[l, j] for l, j, _ in loc.ranked] if loc else [],
+        scores=[s for _, _, s in loc.ranked] if loc else [],
+        history=res.repair_history, net=net_lists(res.fairer_net)), default=float))
+
+
+def audit_record(out: dict) -> dict:
+    """``experiment.audit``'s outputs, JSON-normalised (NaN metrics kept)."""
+    return json.loads(json.dumps(out))
+
+
+def train_record(ds, device: str) -> dict:
+    """13b: train_mlp from init_mlp at AC-S1's widths on the synthetic rows:
+    per-epoch losses and the final test-set predictions."""
+    import torch
+
+    from fairify_tpu_torch.models.mlp import predict
+    from fairify_tpu_torch.models.train import train_mlp
+
+    hist = []
+    net = train_mlp(ds.X_train, ds.y_train, hidden=AC_SIZES[1:-1], epochs=TRAIN_EPOCHS,
+                    batch_size=TRAIN_BATCH, seed=0, device=device, history=hist)
+    with torch.no_grad():
+        pred = predict(net, torch.tensor(ds.X_test, dtype=torch.float32, device=device))
+    return {"history": hist, "pred": pred.cpu().numpy().astype(int).tolist()}
+
+
+def phase13_cpu(work: str, card_weights: str) -> dict:
+    """Phase 13's CPU side (in the CPU worker): run_experiment on trained
+    AC-S1 without the re-verification, 13b's train_mlp, then, once the card
+    has written its repaired weights to ``card_weights``, the
+    re-verification and audit of those weights (``experiment.audit``)."""
+    import numpy as np
+
+    from fairify_tpu_torch.analysis import experiment
+    from fairify_tpu_torch.models import ingest
+    from fairify_tpu_torch.models.mlp import from_numpy
+
     t = time.perf_counter()
-    rc = worker.wait(timeout=600)
-    if rc != 0 or not os.path.exists(path):
-        fail(f"the CPU worker exited with {rc} before phase 12's CPU side was out")
-    print(f"[card = CPU] waited {time.perf_counter() - t:.3f} s for phase 12's CPU side",
+    ds = synthetic_adult()
+    cfg = experiment_cfg(work, "cpu")
+    net = ingest.load_trained("AC-S1", "cpu")
+    res = experiment.run_experiment(net, cfg, "AC-S1", dataset=ds, repair_mode="both",
+                                    verify_repaired=False, device="cpu")
+    out = {"first": experiment_record(res, cfg), "first_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    out["train"] = train_record(ds, "cpu")
+    out["train_s"] = time.perf_counter() - t
+    deadline = time.perf_counter() + 1200.0
+    while not os.path.exists(card_weights):
+        if time.perf_counter() > deadline:
+            raise RuntimeError("phase 13: the card's repaired weights never came")
+        time.sleep(0.5)
+    t = time.perf_counter()
+    z = np.load(card_weights)
+    L = len(z.files) // 2
+    fairer = from_numpy([z[f"w{i}"] for i in range(L)], [z[f"b{i}"] for i in range(L)],
+                        device="cpu")
+    out["audit"] = audit_record(experiment.audit(
+        net, fairer, cfg.with_(result_dir=os.path.join(work, "exp-carried")), "AC-S1", ds,
+        res.report, device="cpu"))
+    out["audit_s"] = time.perf_counter() - t
+    return out
+
+
+def experiment_card(work: str, weights_out: str) -> dict:
+    """13c's card side: run_experiment on trained AC-S1 with repair_mode
+    "both", every launch count zeroed just before it and read just after;
+    the repaired weights written to ``weights_out`` for the CPU worker."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.analysis import experiment
+    from fairify_tpu_torch.models import ingest
+    from fairify_tpu_torch.obs import launches
+
+    ds = synthetic_adult()
+    cfg = experiment_cfg(work, "card")
+    net = ingest.load_trained("AC-S1", "cuda")
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    res = experiment.run_experiment(net, cfg, "AC-S1", dataset=ds, repair_mode="both",
+                                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches.counts()
+    ws, bs = res.fairer_net.numpy_params()
+    tmp = weights_out + ".tmp.npz"
+    np.savez(tmp, **{f"w{i}": w for i, w in enumerate(ws)},
+             **{f"b{i}": b for i, b in enumerate(bs)})
+    os.replace(tmp, weights_out)
+    for k in TRAIN_KERNELS[1:]:
+        if counts[k] == 0:
+            fail(f"13c: run_experiment launched no {k}")
+    print(f"[13c card] run_experiment on trained AC-S1 over {len(res.report.outcomes)} "
+          f"partitions in {wall:.3f} s: first sweep {res.report.counts}, repaired "
+          f"{res.fairer_verdicts}; {len(res.ce_pairs)} pairs; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return dict(ds=ds, cfg=cfg, net=net, res=res, launch=counts, wall=wall,
+                record=experiment_record(res, cfg),
+                audit=audit_record(dict(fairer_verdicts=res.fairer_verdicts,
+                                        metrics=res.metrics, routing=res.routing,
+                                        causal_rates=res.causal_rates)))
+
+
+def history_diffs(card: dict, cpu: dict) -> dict:
+    """Card vs CPU repair histories: keys, bools and labels equal, losses and
+    inconsistencies within EXP_H_REL, val_acc within EXP_ACC_ABS; the
+    largest relative loss difference."""
+    worst = 0.0
+    if card.keys() != cpu.keys():
+        fail(f"13c: repair arms {sorted(card)} vs {sorted(cpu)}")
+    for arm in card:
+        if len(card[arm]) != len(cpu[arm]):
+            fail(f"13c: {arm} history lengths {len(card[arm])} vs {len(cpu[arm])}")
+        for a, b in zip(card[arm], cpu[arm]):
+            if a.keys() != b.keys():
+                fail(f"13c: {arm} history records {a} vs {b}")
+            for k in a:
+                if k == "val_acc":
+                    ok = abs(a[k] - b[k]) <= EXP_ACC_ABS
+                elif isinstance(a[k], float):
+                    rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                    worst = max(worst, rel)
+                    ok = rel <= EXP_H_REL
+                else:
+                    ok = a[k] == b[k]
+                if not ok:
+                    fail(f"13c: {arm} history {k}: card {a} vs CPU {b}")
+    return {"max_rel_loss_diff": worst}
+
+
+def weight_err(card: dict, cpu: dict) -> float:
+    """Largest |card - CPU| weight difference over EXP_W_REL * |w| + EXP_W_ABS."""
+    import numpy as np
+
+    worst = 0.0
+    for k in ("weights", "biases"):
+        for a, b in zip(card[k], cpu[k]):
+            a, b = np.asarray(a), np.asarray(b)
+            worst = max(worst, float((np.abs(a - b) / (EXP_W_REL * np.abs(b) + EXP_W_ABS)).max()))
+    return worst
+
+
+def experiment_vs_cpu(exp: dict, cpu: dict, smi: str) -> dict:
+    """13c's checks: the first sweep's counts, ledger and CSV rows, pairs and
+    localization ranking card = CPU; the repaired weights and histories
+    within tolerance; on the card's repaired weights the CPU worker's
+    re-verification and audit equal the card's."""
+    import numpy as np
+
+    card, first = exp["record"], cpu["first"]
+    for k in ("counts", "rows", "pairs", "ranked"):
+        if card[k] != first[k]:
+            fail(f"13c: first sweep {k} differ, card vs CPU")
+    sc, sp = np.asarray(card["scores"]), np.asarray(first["scores"])
+    if sc.shape != sp.shape or not np.allclose(sc, sp, rtol=1e-5, atol=0):
+        fail(f"13c: localization scores {sc} vs {sp}")
+    werr = weight_err(card["net"], first["net"])
+    if werr > 1.0:
+        fail(f"13c: repaired weights card vs CPU at {werr:.3f} x tolerance")
+    hist = history_diffs(card["history"], first["history"])
+    if exp["audit"] != cpu["audit"]:
+        bad = {k: (exp["audit"][k], cpu["audit"][k]) for k in exp["audit"]
+               if exp["audit"][k] != cpu["audit"][k]}
+        fail(f"13c: audit of the card's repaired weights, card vs CPU: {bad}")
+    res = exp["res"]
+    print(f"[13c card = CPU] first sweep {card['counts']}, ledger and CSV rows, "
+          f"{len(card['pairs'])} pairs and the localization {card['ranked']} equal; repaired "
+          f"weights within {werr:.4f} x tolerance, history {hist}; on the card's repaired "
+          f"weights: fairer_verdicts {res.fairer_verdicts}, routing {res.routing}, "
+          f"causal_rates {res.causal_rates} equal (CPU first part {cpu['first_s']:.1f} s, "
+          f"audit {cpu['audit_s']:.1f} s); success {res.success}; selected "
+          f"{[h.get('selected') for h in card['history'].get('retrain', []) if 'selected' in h]}"
+          f"; {smi}", flush=True)
+    return dict(weight_err_x_tol=werr, **hist)
+
+
+def train_vs_cpu(ds, cpu: dict, smi: str) -> dict:
+    """13b: train_mlp on the card (every count zeroed before it) against the
+    CPU worker's: per-epoch losses within EXP_H_REL, test predictions equal on
+    at least TRAIN_AGREE of the rows."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.obs import launches
+
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    rec = train_record(ds, "cuda")
+    wall = time.perf_counter() - t0
+    counts = launches.counts()
+    want = (EXP_TRAIN // TRAIN_BATCH) * TRAIN_EPOCHS
+    if counts["train_step"] != want:
+        fail(f"13b: {counts['train_step']} train_step launches, expected {want}")
+    hc, hp = np.asarray(rec["history"]), np.asarray(cpu["history"])
+    rel = float((np.abs(hc - hp) / np.abs(hp)).max())
+    agree = int((np.asarray(rec["pred"]) == np.asarray(cpu["pred"])).sum())
+    n = len(rec["pred"])
+    if rel > EXP_H_REL or agree < TRAIN_AGREE * n:
+        fail(f"13b: losses {hc} vs {hp} (rel {rel:.2e}), predictions agree on {agree}/{n}")
+    print(f"[13b train_mlp] AC-S1 widths from init_mlp, {TRAIN_EPOCHS} epochs at B = "
+          f"{TRAIN_BATCH} on {EXP_TRAIN} synthetic rows: {counts['train_step']} launches in "
+          f"{wall:.3f} s; epoch losses card {hc.tolist()} / CPU {hp.tolist()} (max rel "
+          f"{rel:.2e}); test predictions equal on {agree} of {n}; {smi}", flush=True)
+    return dict(launches=counts["train_step"], wall_s=wall, loss_rel=rel, agree=agree, rows=n)
+
+
+def step_err(got, want) -> float:
+    """Largest |got - want| over STEP_REL * |want| + STEP_ABS * max |want|."""
+    scale = float(want.abs().max()) or 1.0
+    return float(((got - want).abs() / (STEP_REL * want.abs() + STEP_ABS * scale)).max())
+
+
+def step_verdict(k, p) -> float:
+    """A kernel step's (theta, m, v, losses) against the plain version's, as
+    a multiple of the tolerance (<= 1 passes)."""
+    loss = float(((k[3] - p[3]).abs() / (STEP_REL * p[3].abs())).max())
+    return max(step_err(k[0], p[0]), step_err(k[1], p[1]), step_err(k[2], p[2]), loss)
+
+
+def library_step_ms(flat, loss_fn, lr: float, launches: int = 50):
+    """The library yardstick of one training step: ``torch.autograd`` of the
+    same loss on a leaf copy of theta (``flat``) and
+    ``torch.optim.Adam(fused=True, capturable=True)``, captured once in a
+    CUDA graph after three warm-up steps on a side stream, then
+    ``launches`` replays between two events, per replay (device only).  None
+    if the capture fails (the reason printed)."""
+    import torch
+
+    try:
+        opt = torch.optim.Adam([flat], lr=lr, fused=True, capturable=True)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            for _ in range(3):
+                opt.zero_grad(set_to_none=True)
+                loss_fn().backward()
+                opt.step()
+        torch.cuda.current_stream().wait_stream(s)
+        g = torch.cuda.CUDAGraph()
+        opt.zero_grad(set_to_none=True)
+        with torch.cuda.graph(g):
+            loss_fn().backward()
+            opt.step()
+        g.replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / launches
+    except Exception as exc:  # the yardstick only: report it and go on
+        print(f"[library step] capture failed: {exc!r}", flush=True)
+        return None
+
+
+def run_steps(state, fn, steps: int = 1):
+    """``steps`` steps of ``fn(theta, m, v, t, i)`` on copies of ``state``
+    ``(theta, m, v, t)``: ``(theta, m, v, losses)``."""
+    import torch
+
+    th, m, v = (a.clone() for a in state[:3])
+    losses = [fn(th, m, v, state[3] + i + 1, i).reshape(1) for i in range(steps)]
+    return th, m, v, torch.cat(losses)
+
+
+def check_step(name: str, state, launch, plain, prepare=None, cost=None, library=None,
+               frozen=None, run100: bool = True, reps: int = STEP_REPS) -> dict:
+    """13a on one training kernel at one shape.  One step from ``state``
+    against the plain version; two launches bit-equal; a mutant (theta's
+    largest entry moved by 1e-3) rejected; over 100 steps the losses within
+    RUN_REL; with ``frozen`` (the masked entries, whose m and v are 0 in
+    ``state``) every masked entry of theta, m and v bit-unchanged and a
+    launch without its mask rejected; then, with ``prepare``, the times:
+    the wrapper's median, its C entry point alone, the plain version's, the
+    library step's and the bound of ``cost`` (flops, bytes)."""
+    import torch
+
+    k, p, k2 = run_steps(state, launch), run_steps(state, plain), run_steps(state, launch)
+    err = step_verdict(k, p)
+    if err > 1.0:
+        fail(f"{name}: kernel vs plain at {err:.3f} x tolerance")
+    if not all(torch.equal(a, b) for a, b in zip(k, k2)):
+        fail(f"{name}: two launches on the same inputs differ")
+    bad = k[0].clone()
+    bad[int(torch.argmax(bad.abs()))] += 1e-3
+    if step_verdict((bad,) + tuple(k[1:]), p) <= 1.0:
+        fail(f"{name}: the mutant theta passed the check")
+    out = {"err_x_tol": err, "max_abs_err": float((k[0] - p[0]).abs().max())}
+    notes = ["bit-equal twice", "mutant rejected"]
+    if frozen is not None:
+        th0 = state[0]
+
+        def untouched(r):
+            return (torch.equal(r[0][frozen], th0[frozen]) and not r[1][frozen].any()
+                    and not r[2][frozen].any())
+
+        if not untouched(k):
+            fail(f"{name}: a masked entry of theta, m or v moved")
+        if untouched(run_steps(state, lambda th, m, v, t, i: launch(th, m, v, t, i, False))):
+            fail(f"{name}: the launch without its mask kept every masked entry")
+        out["frozen"] = int(frozen.sum())
+        notes.append(f"{out['frozen']} masked entries bit-unchanged, the unmasked launch "
+                     f"rejected")
+    if run100:
+        lk, lp = run_steps(state, launch, 100)[3], run_steps(state, plain, 100)[3]
+        out["run100_loss_rel"] = float(((lk - lp).abs() / lp.abs()).max())
+        if out["run100_loss_rel"] > RUN_REL:
+            fail(f"{name}: 100-step losses differ by {out['run100_loss_rel']:.2e} relative")
+        notes.append(f"100-step losses within {out['run100_loss_rel']:.2e}")
+    if prepare is not None:
+        th, m, v = (a.clone() for a in state[:3])
+        t = state[3] + 1
+        _, ms = timed(lambda: launch(th, m, v, t, 0), reps)
+        _, plain_ms = timed(lambda: plain(th, m, v, t, 0), 5)
+        split = time_split(lambda: launch(th, m, v, t, 0), prepare(th, m, v, t))
+        b_ms, b_by = bound(*cost)
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, time_split=split,
+                   library_ms=library() if library else None)
+        notes.append(f"{ms:.4f} ms (C entry point alone {split['entry_ms']:.4f} ms), plain "
+                     f"{plain_ms:.4f} ms, library {fmt_ms(out['library_ms'])}, bound "
+                     f"{b_ms:.6f} ms ({b_by})")
+    print(f"[kernel {name}] kernel vs plain {err:.3f} x tolerance (max |dtheta| "
+          f"{out['max_abs_err']:.3g}); " + "; ".join(notes), flush=True)
+    return out
+
+
+def train_kernel_checks(exp: dict) -> dict:
+    """13a: rows 25-28 against their plain versions at the path's shapes —
+    row 25 at train_mlp's B = 128 (standardized synthetic rows, init_mlp at
+    AC-S1's widths, 5 plain steps in), row 26 at masked_repair's B = 32 and
+    its ragged last batch (trained AC-S1, raw rows, the mask of 13c's
+    localized neurons, 5 masked plain steps in), row 27 at B = 64 on 13c's
+    pairs with their consensus labels (anchored at trained AC-S1, 5 plain
+    steps in), row 28 over all of 13c's pairs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fairify_tpu_torch.analysis import repair
+    from fairify_tpu_torch.models.mlp import alive_flat, init_mlp, pack_params
+    from fairify_tpu_torch.ops import train_step as ts
+
+    ds, res, net = exp["ds"], exp["res"], exp["net"]
+    sizes, dev, lr = list(AC_SIZES), net.device, 1e-3
+    alive = alive_flat(net)
+    f32 = lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+    zeros = lambda th: (torch.zeros_like(th), torch.zeros_like(th))
+    rows = {}
+
+    # Row 25.
+    X = ds.X_train.astype(np.float32)
+    sd = X.std(axis=0)
+    sd[sd == 0] = 1.0
+    Xs, y = f32((X - X.mean(axis=0)) / sd), f32(ds.y_train)
+    order = torch.tensor(np.random.default_rng(0).permutation(EXP_TRAIN), device=dev)
+    B = TRAIN_BATCH
+    bat = lambda i: order[(i % (EXP_TRAIN // B)) * B:(i % (EXP_TRAIN // B) + 1) * B]
+    th = pack_params(init_mlp(sizes, 0, device=dev))
+    st = (th,) + zeros(th)
+    for i in range(5):
+        ts.bce_adam_step_plain(*st, Xs, y, bat(i), sizes, alive, i + 1, lr)
+    st = st + (5,)
+    flat = st[0].clone().requires_grad_(True)
+    rows["train_step"] = check_step(
+        "row 25 train_step B=128", st,
+        lambda th, m, v, t, i, masked=True: ts.bce_adam_step(
+            th, m, v, Xs, y, bat(5 + i), sizes, alive, t, lr, kernel="train_step"),
+        lambda th, m, v, t, i: ts.bce_adam_step_plain(th, m, v, Xs, y, bat(5 + i), sizes,
+                                                      alive, t, lr),
+        prepare=lambda th, m, v, t: ts._bce_launch(th, m, v, Xs, y, bat(5), sizes, alive, t,
+                                                   lr, None, torch.empty(1, device=dev))
+        + (None,),
+        cost=ts.step_cost(sizes, B),
+        library=lambda: library_step_ms(flat, lambda: F.binary_cross_entropy_with_logits(
+            ts.forward_flat(flat, sizes, alive, Xs[bat(5)]), y[bat(5)]), lr))
+
+    # Row 26.
+    Xr, yr = f32(ds.X_train), f32(ds.y_train)
+    targets = [(l, j) for l, j, _ in res.localization.ranked]
+    mask = pack_params(repair.neuron_gradient_masks(net, targets))
+    frozen = mask == 0
+    order = torch.tensor(np.random.default_rng(1).permutation(EXP_TRAIN), device=dev)
+    B = 32
+    fb = lambda i: order[(i % (EXP_TRAIN // B)) * B:(i % (EXP_TRAIN // B) + 1) * B]
+    th = pack_params(net)
+    st = (th,) + zeros(th)
+    for i in range(5):
+        ts.bce_adam_step_plain(*st, Xr, yr, fb(i), sizes, alive, i + 1, lr, mask=mask)
+    st = st + (5,)
+    fit = lambda idx: (
+        lambda th, m, v, t, i, masked=True: ts.bce_adam_step(
+            th, m, v, Xr, yr, idx(i), sizes, alive, t, lr, mask=mask if masked else None,
+            kernel="fit_step"),
+        lambda th, m, v, t, i: ts.bce_adam_step_plain(th, m, v, Xr, yr, idx(i), sizes, alive,
+                                                      t, lr, mask=mask))
+    flat = st[0].clone().requires_grad_(True)
+    rows["fit_step"] = check_step(
+        "row 26 fit_step B=32", st, *fit(lambda i: fb(5 + i)), frozen=frozen,
+        prepare=lambda th, m, v, t: ts._bce_launch(th, m, v, Xr, yr, fb(5), sizes, alive, t,
+                                                   lr, mask, torch.empty(1, device=dev))
+        + (None,),
+        cost=ts.step_cost(sizes, B, masked=True),
+        library=lambda: library_step_ms(flat, lambda: F.binary_cross_entropy_with_logits(
+            ts.forward_flat(flat, sizes, alive, Xr[fb(5)]), yr[fb(5)]), lr))
+    ragged = order[(EXP_TRAIN // B) * B:]
+    rows["fit_step"]["ragged"] = check_step(
+        f"row 26 fit_step ragged B={ragged.numel()}", st, *fit(lambda i: ragged),
+        frozen=frozen, run100=False)
+
+    # Row 27.
+    pairs = res.ce_pairs
+    xs = f32(np.stack([p[0] for p in pairs]))
+    xps = f32(np.stack([p[1] for p in pairs]))
+    with torch.no_grad():
+        yl = ((0.5 * (torch.sigmoid(net(xs)) + torch.sigmoid(net(xps)))) > 0.5).float()
+    n = xs.shape[0]
+    B = min(64, n)
+    rng = np.random.default_rng(2)
+    pidx = [torch.tensor(rng.integers(0, n, size=B), device=dev) for _ in range(106)]
+    anchor = pack_params(net)
+    wts = (0.5, 4.0, 1e-4)
+    st = (anchor.clone(),) + zeros(anchor)
+    for i in range(5):
+        ts.pair_adam_step_plain(*st, anchor, xs, xps, yl, pidx[i], sizes, alive, i + 1, 5e-3,
+                                *wts)
+    st = st + (5,)
+    flat = st[0].clone().requires_grad_(True)
+    rows["pair_step"] = check_step(
+        f"row 27 pair_step B={B}", st,
+        lambda th, m, v, t, i, masked=True: ts.pair_adam_step(
+            th, m, v, anchor, xs, xps, yl, pidx[5 + i], sizes, alive, t, 5e-3, *wts),
+        lambda th, m, v, t, i: ts.pair_adam_step_plain(
+            th, m, v, anchor, xs, xps, yl, pidx[5 + i], sizes, alive, t, 5e-3, *wts),
+        prepare=lambda th, m, v, t: ts._pair_launch(
+            th, m, v, anchor, xs, xps, yl, pidx[5], sizes, alive, t, 5e-3, wts,
+            torch.empty(1, device=dev)) + (None,),
+        cost=ts.step_cost(sizes, B, pair=True),
+        library=lambda: library_step_ms(flat, lambda: ts.pair_loss(
+            flat, anchor, xs[pidx[5]], xps[pidx[5]], yl[pidx[5]], sizes, alive, *wts), 5e-3))
+
+    # Row 28.
+    theta = st[0]
+    k = ts.pair_inconsistency(theta, xs, xps, sizes, alive)
+    k2 = ts.pair_inconsistency(theta, xs, xps, sizes, alive)
+    p = ts.pair_inconsistency_plain(theta, xs, xps, sizes, alive).reshape(1)
+    err = float((k - p).abs() / (STEP_REL * p.abs()))
+    if err > 1.0 or not torch.equal(k, k2):
+        fail(f"row 28: kernel {k.item()} vs plain {p.item()} ({err:.3f} x tolerance), "
+             f"again {k2.item()}")
+    if float(((k + 1e-3) - p).abs() / (STEP_REL * p.abs())) <= 1.0:
+        fail("row 28: the mutant passed the check")
+    _, ms = timed(lambda: ts.pair_inconsistency(theta, xs, xps, sizes, alive), STEP_REPS)
+    _, plain_ms = timed(lambda: ts.pair_inconsistency_plain(theta, xs, xps, sizes, alive), 5)
+    out = torch.empty(1, device=dev)
+    split = time_split(lambda: ts.pair_inconsistency(theta, xs, xps, sizes, alive),
+                       ts._inc_launch(theta, xs, xps, sizes, alive, out) + (None,))
+    lib = graph_ms(lambda: ts.pair_inconsistency_plain(theta, xs, xps, sizes, alive), 50)
+    b_ms, b_by = bound(*ts.inconsistency_cost(sizes, n))
+    rows["pair_inconsistency"] = dict(err_x_tol=err, max_abs_err=float((k - p).abs()),
+                                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=lib, time_split=split, pairs=n)
+    print(f"[kernel row 28 pair_inconsistency n={n}] kernel vs plain {err:.3f} x tolerance, "
+          f"bit-equal twice, mutant rejected; {ms:.4f} ms (C entry point alone "
+          f"{split['entry_ms']:.4f} ms), plain {plain_ms:.4f} ms, library (the plain "
+          f"forwards device-only) {fmt_ms(lib)}, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return rows
+
+
+def experiment_phase(exp: dict, cpu: dict, smi: str) -> dict:
+    """Phase 13 (13a-13c) after the CPU worker's side is out."""
+    t0 = time.perf_counter()
+    out = {"13c": experiment_vs_cpu(exp, cpu, smi), "13b": train_vs_cpu(exp["ds"], cpu["train"],
+                                                                         smi),
+           "13a": train_kernel_checks(exp)}
+    print(f"[phase 13] the experiment path in {time.perf_counter() - t0:.3f} s (13c's card "
+          f"side earlier: {exp['wall']:.3f} s; CPU side in the worker: "
+          f"{cpu['first_s']:.3f} + {cpu['train_s']:.3f} + {cpu['audit_s']:.3f} s); {smi}",
+          flush=True)
+    return out
+
+
+def worker_part(worker, path: str, phase: str, last: bool = False) -> dict:
+    """Wait for the CPU worker's results of ``phase`` at ``path`` (for the
+    last part, its exit too); fail if it exits without them."""
+    t = time.perf_counter()
+    while not os.path.exists(path):
+        if worker.poll() is not None or time.perf_counter() - t > 900:
+            fail(f"the CPU worker exited with {worker.poll()} before {phase}'s CPU side "
+                 f"was out")
+        time.sleep(0.2)
+    if last and worker.wait(timeout=60) != 0:
+        fail(f"the CPU worker exited with {worker.returncode}")
+    print(f"[card = CPU] waited {time.perf_counter() - t:.3f} s for {phase}'s CPU side",
           flush=True)
     with open(path) as fp:
         return json.load(fp)
@@ -6769,6 +7379,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     print(f"[trained nets] {sorted(tnets)} loaded from their .npz exports; trained AC-S1's "
           f"stage 0 over AC partitions 0-{TRAINED_S0_SPAN} on the card in "
           f"{time.perf_counter() - t:.3f} s", flush=True)
+    clock("phase 13c, card side")
+    # --- phase 13c's card side, early: the CPU worker re-verifies and
+    # audits the card's repaired weights beside phases 3-11
+    exp_card = experiment_card(work, lat_out + ".card13.npz")
 
     clock("phase 2")
     # --- phase 2: the stage-0 kernels
@@ -7036,7 +7650,12 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     runtime_contracts(work, gc_net, gc_cfg, ac_net, ac_cfg, smi)
     clock("phase 12")
     # --- phase 12: the SMT tier and run_sweep, card = the CPU worker's runs
-    smt_and_run_sweep(work, smi, phase12_worker(worker, lat_out + ".p12"))
+    smt_and_run_sweep(work, smi, worker_part(worker, lat_out + ".p12", "phase 12"))
+    clock("phase 13")
+    # --- phase 13: the experiment path, card = the CPU worker's runs; the
+    # training kernels (rows 25-28) at its shapes
+    exp13 = experiment_phase(exp_card, worker_part(worker, lat_out + ".p13", "phase 13",
+                                                   last=True), smi)
     shutil.rmtree(work, ignore_errors=True)
     # K8a and KB by shape in every window of the run
     clock("shapes")
@@ -7046,6 +7665,20 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     table = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     for name in REPLACES:
+        if name in TRAIN_KERNELS:
+            r = exp13["13a"][name]
+            n = exp13["13b"]["launches"] if name == "train_step" else exp_card["launch"][name]
+            path = "train_mlp (13b)" if name == "train_step" else "run_experiment (13c)"
+            print(f"[summary] {name}: launches {path} {n}; median {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+            table.append(dict({"name": name, "route": "cuda", "source": SOURCES[name],
+                               "replaces": REPLACES[name], "launches": n, "path": path,
+                               "library_ms": r["library_ms"], **{k: r[k] for k in keys}},
+                              **{k: r[k] for k in ("err_x_tol", "time_split", "frozen",
+                                                   "run100_loss_rel", "ragged", "pairs")
+                                 if k in r}))
+            continue
         if name in MESH_KERNELS:
             if name == "role_certify":
                 r = k9["chunk"]

@@ -55,11 +55,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logit for ``(..., d)`` inputs; the size-1 logit axis is dropped."""
-        h = x
-        n = self.depth
-        for i, (w, b, m) in enumerate(zip(self.weights, self.biases, self.masks)):
-            z = h @ w + b
-            h = z if i == n - 1 else torch.relu(z) * m
+        *_, h = iter_layers(self.weights, self.biases, self.masks, x)
         return h.squeeze(-1)
 
     def numpy_params(self):
@@ -172,6 +168,111 @@ def init_mlp(sizes, seed: int = 0, scale: float = 0.1, device=None) -> MLP:
         ws.append(rng.normal(scale=std, size=(sizes[i], sizes[i + 1])).astype(np.float32))
         bs.append(np.zeros(sizes[i + 1], dtype=np.float32))
     return from_numpy(ws, bs, device=device)
+
+
+def predict(net: MLP, x: torch.Tensor) -> torch.Tensor:
+    """Boolean class decision ``logit > 0`` (sigmoid > 0.5), as the JAX
+    package's ``predict``."""
+    return net(x) > 0.0
+
+
+def predict_rows(net: MLP, X) -> np.ndarray:
+    """:func:`predict` of host rows (cast to f32) on the net's device, back
+    as a host bool array."""
+    x = torch.tensor(np.asarray(X, dtype=np.float32), device=net.device)
+    with torch.no_grad():
+        return predict(net, x).cpu().numpy()
+
+
+def iter_layers(weights, biases, masks, x: torch.Tensor):
+    """Post-activation output of each layer in turn: ``relu(z)·m`` on the
+    hidden layers, the final one linear."""
+    h, n = x, len(weights)
+    for i, (w, b, m) in enumerate(zip(weights, biases, masks)):
+        z = h @ w + b
+        h = z if i == n - 1 else torch.relu(z) * m
+        yield h
+
+
+def layer_outputs(net: MLP, x: torch.Tensor) -> list:
+    """Post-activation outputs of every layer (the final one linear), as
+    the JAX package's ``layer_outputs``."""
+    return list(iter_layers(net.weights, net.biases, net.masks, x))
+
+
+# The flat parameter layout of the training kernels (csrc/train_step.cu):
+# per layer W (in, out) row-major, then b, all layers in one f32 buffer.
+
+def param_offsets(sizes: Sequence[int]):
+    """``([(w_offset, b_offset) per layer], P)`` of the flat layout for
+    widths ``(d, h1, ..., 1)``."""
+    offs, off = [], 0
+    for i in range(len(sizes) - 1):
+        offs.append((off, off + sizes[i] * sizes[i + 1]))
+        off += sizes[i] * sizes[i + 1] + sizes[i + 1]
+    return offs, off
+
+
+def unflatten(theta: torch.Tensor, sizes: Sequence[int]):
+    """Views ``(weights, biases)`` of a flat buffer."""
+    offs, _ = param_offsets(sizes)
+    ws = [theta[wo:bo].view(sizes[i], sizes[i + 1]) for i, (wo, bo) in enumerate(offs)]
+    bs = [theta[bo:bo + sizes[i + 1]] for i, (_, bo) in enumerate(offs)]
+    return ws, bs
+
+
+def widths(net: MLP) -> list:
+    """``[d, h1, ..., 1]``: the widths :func:`param_offsets` takes."""
+    return [net.in_dim] + list(net.layer_sizes)
+
+
+def _pack(weights, biases, device) -> torch.Tensor:
+    sizes = [int(weights[0].shape[0])] + [int(w.shape[1]) for w in weights]
+    flat = torch.empty(param_offsets(sizes)[1], dtype=torch.float32, device=device)
+    ws, bs = unflatten(flat, sizes)
+    for dst, src in zip(ws + bs, list(weights) + list(biases)):
+        dst.copy_(src.detach())
+    return flat
+
+
+def pack_params(net: MLP) -> torch.Tensor:
+    """The trainable parameters as one flat f32 buffer on the net's device,
+    in the layout of :func:`param_offsets`.  A copy."""
+    return _pack(net.weights, net.biases, net.device)
+
+
+def unpack_params(flat: torch.Tensor, net: MLP) -> MLP:
+    """An :class:`MLP` with ``net``'s shape and masks and the parameters of
+    ``flat`` (copied out of it)."""
+    ws, bs = unflatten(flat, widths(net))
+    return MLP([w.clone() for w in ws], [b.clone() for b in bs],
+               [m.detach() for m in net.masks])
+
+
+def alive_flat(net: MLP) -> torch.Tensor:
+    """The layers' alive masks end to end, one flat f32 buffer."""
+    return torch.cat([m.detach().reshape(-1) for m in net.masks]).to(torch.float32).contiguous()
+
+
+def carry_params(weights, biases, masks=None, adam=None, device=None):
+    """Carry a net, and optionally its Adam state, across from host arrays.
+
+    ``weights``, ``biases`` (and ``masks``) as :func:`from_numpy` takes
+    them; ``adam`` is optax's ``ScaleByAdamState`` as numpy arrays,
+    ``(count, mu, nu)`` with ``mu`` and ``nu`` each ``(weights, biases)``
+    leaves of the params pytree ``(net.weights, net.biases)``.  Returns the
+    :class:`MLP` alone, or with ``adam`` ``(net, m, v, t)``: the flat
+    first and second moments in :func:`pack_params`' layout and the step
+    count.  The port keeps no optax object: this is how two runs, one per
+    package, start from one state.
+    """
+    net = from_numpy(weights, biases, masks, device=device)
+    if adam is None:
+        return net
+    count, mu, nu = adam
+    as_t = lambda leaves: [torch.as_tensor(np.asarray(a, dtype=np.float32)) for a in leaves]
+    flat = lambda tree: _pack(as_t(tree[0]), as_t(tree[1]), net.device)
+    return net, flat(mu), flat(nu), int(np.asarray(count))
 
 
 def excise(net: MLP) -> MLP:

@@ -42,7 +42,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), ".build_torch")
 SOURCES = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity",
            "pgd_attack", "bab_segment", "sim_rows", "sign_bound", "inter_bounds",
-           "lattice_scan", "role_bounds", "attack_logits")
+           "lattice_scan", "role_bounds", "attack_logits", "train_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 MAX_LAYERS = 8  # keep in sync with csrc/common.cuh

@@ -58,16 +58,30 @@ def test_package_imports_with_jax_blocked():
         from fairify_tpu_torch.ops import crown
         from fairify_tpu_torch.parallel import mesh
         from fairify_tpu_torch.verify import engine, pruning, smt, sweep
+        from fairify_tpu_torch.ops import train_step
+        from fairify_tpu_torch.models import train
+        from fairify_tpu_torch.analysis import causal, experiment, hybrid, localize, repair
         for mod, names in ((mesh, ("Mesh", "make_mesh", "submesh", "pad_to_multiple",
                                    "shard_parts", "replicated", "shard_map")),
                            (sweep, ("run_sweep", "SmtDrain", "verify_model")),
                            (smt, ("to_smtlib", "build_query", "decide_box_smt")),
                            (engine, ("role_certify", "split_certify_attack_submit")),
                            (pruning, ("sim_stats", "harsh_prune_grid")),
-                           (crown, ("alpha_crown_output_bounds",))):
+                           (crown, ("alpha_crown_output_bounds",)),
+                           (train_step, ("bce_adam_step", "pair_adam_step",
+                                         "pair_inconsistency", "bce_adam_step_plain",
+                                         "pair_adam_step_plain", "pair_inconsistency_plain")),
+                           (train, ("train_mlp",)),
+                           (repair, ("masked_repair", "same_label_relabel_retrain",
+                                     "counterexample_retrain", "neuron_gradient_masks")),
+                           (localize, ("localize", "global_index_map")),
+                           (hybrid, ("route_points", "hybrid_predict", "evaluate_hybrid")),
+                           (causal, ("causal_discrimination", "discrimination_search")),
+                           (experiment, ("run_experiment", "repair_success", "audit"))):
             missing = [n for n in names if not hasattr(mod, n)]
             assert not missing, (mod.__name__, missing)
-        assert {{"role_certify", "sim_stats", "alpha_crown"}} <= set(sweep.KERNELS)
+        assert {{"role_certify", "sim_stats", "alpha_crown", "train_step", "fit_step",
+                 "pair_step", "pair_inconsistency"}} <= set(sweep.KERNELS)
         bad = [m for m in sys.modules if m == "fairify_tpu"
                or m.startswith("fairify_tpu.") or m == "jax" and sys.modules[m]]
         assert not bad, bad
