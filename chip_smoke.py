@@ -364,6 +364,27 @@ Phases (any failure exits nonzero and prints no result line):
    bit-unchanged, mutants rejected; each timed beside its bound, its plain
    version, and the library step (autograd + ``Adam(fused=True)``, a CUDA
    graph).
+14. The synthetic-data path and the synthesizer's kernels (rows 29-30,
+   ``csrc/synth_step.cu``).  (14b) ``fairify_tpu_torch.scripts.
+   synthetic_models`` at the JAX script's defaults (SYN_ARGS: copula, ar
+   and bootstrap, 2,000 rows, 200 AR epochs, 20-50-1 nets, 30 epochs) on
+   a synthetic German file (``write_german``); its card side runs right
+   after 13c's, every count zeroed before it (800 launches of row 29, one
+   of row 30), and writes the AR fit's inputs and outputs, the draw and
+   the nets' files for a worker of its own (``--synth-cpu``), which runs
+   the same fit (initial weights bit-equal; its first SYN_TIGHT_EPOCHS
+   epochs within phase 13's tolerance, every epoch's loss within
+   SYN_HIST_REL), the plain draw from the card's fitted weights (rows
+   equal but at near ties, at most SYN_TIE_CAP of them) and
+   ``verify_model`` of each net the card wrote (counts, ledger and CSV
+   rows, accuracy equal).  (14a) row 29 at the fit's shape (B = 256 and
+   the ragged last batch) and row 30 at n = 2,000 on the card's fitted
+   weights: one step within tolerance, 100 steps' losses, bit-equal
+   twice, padded-class entries bit-unchanged, the draw under the
+   near-tie rule, one column's uniforms bit-equal to ``prng.uniform``,
+   mutants (a moved θ entry, a moved padded entry, a shifted key, a
+   shifted logit) rejected; each timed beside its bound, its plain
+   version and its library yardstick.
 
 Phase 4 runs before phase 3, and the run waits for the CPU worker's card
 = CPU results before phase 3, so the timed end-to-end phases 3, 5, 6, 7e,
@@ -432,6 +453,8 @@ REPLACES = {
     "fit_step": "fairify_tpu/analysis/repair.py:68",
     "pair_step": "fairify_tpu/analysis/repair.py:284",
     "pair_inconsistency": "fairify_tpu/analysis/repair.py:303",
+    "synth_step": "fairify_tpu/models/synth.py:283",
+    "synth_draw": "fairify_tpu/models/synth.py:315",
 }
 # The other TPU kernel sites each kernel replaces: the chunk loop's
 # one-chunk forms (rows 1, 10, 15), the family kernels (rows 5, 7) and
@@ -462,7 +485,8 @@ LATTICE_OTHER = {"lattice_scan": "relaxed-AC", "lattice_signs": "relaxed-AC",
 KERNEL_SOURCE = dict({k: "lattice_scan" for k in LATTICE_KERNELS}, role_logits="attack_logits",
                      role_certify="stage0_certify", sim_stats="sim_and_bounds",
                      alpha_crown="role_bounds", grid_keys="sim_rows", fit_step="train_step",
-                     pair_step="train_step", pair_inconsistency="train_step")
+                     pair_step="train_step", pair_inconsistency="train_step",
+                     synth_draw="synth_step")
 SOURCES = {k: f"fairify_tpu_torch/csrc/{KERNEL_SOURCE.get(k, k)}.cu" for k in REPLACES}
 # Kernels every default-configuration run (phase 6) must launch, besides
 # its preset's lattice scan: stage 0, the PGD, Phase S and the retry's rows.
@@ -477,11 +501,14 @@ TAIL_HARD_S = 45.0
 MESH_KERNELS = ("role_certify", "sim_stats", "alpha_crown")
 # Rows 25-28, the experiment path's training kernels (phase 13).
 TRAIN_KERNELS = ("train_step", "fit_step", "pair_step", "pair_inconsistency")
+# Rows 29-30, the synthesizer's kernels (phase 14).
+SYNTH_KERNELS = ("synth_step", "synth_draw")
 # Kernels of the slice-3 configuration's path (lattice phases off; K10 is
-# the IBP path's, phase 8; MESH_KERNELS phase 9's; TRAIN_KERNELS phase 13's).
+# the IBP path's, phase 8; MESH_KERNELS phase 9's; TRAIN_KERNELS phase 13's;
+# SYNTH_KERNELS phase 14's).
 SLICE3_PATH = tuple(k for k in REPLACES if k not in LATTICE_KERNELS
                     and k not in ("role_bounds", "attack_logits") + MESH_KERNELS
-                    + TRAIN_KERNELS)
+                    + TRAIN_KERNELS + SYNTH_KERNELS)
 AC_SIZES = (13, 128, 64, 32, 16, 8, 1)  # models_scaled/adult/AC-S1.h5 widths
 
 
@@ -7278,6 +7305,414 @@ def experiment_phase(exp: dict, cpu: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the synthetic-data path (synthesize -> train -> export -> verify)
+# and the synthesizer's kernels, rows 29-30
+# ---------------------------------------------------------------------------
+
+# 14b: fairify_tpu_torch.scripts.synthetic_models at its defaults on phase
+# 12's synthetic German file (the real file is not in the repository).
+SYN_ARGS = ("--preset", "GC", "--generators", "copula,ar,bootstrap", "--n", "2000",
+            "--ar-epochs", "200", "--hidden", "50", "--epochs", "30", "--seed", "42")
+# A draw may differ from the plain version's only at a near tie: a row whose
+# first differing column has the reference's top two perturbed logits within
+# SYN_TIE_REL * max(1, |top|) (the two sum the logits in other orders and
+# their logarithms may differ by an ulp); at most SYN_TIE_CAP of the rows.
+SYN_TIE_REL, SYN_TIE_CAP = 1e-5, 0.01
+# The synthesizer's fit, card vs CPU.  Two orders of summation keep the
+# trajectories within a few ulps until a pre-activation near 0 takes the
+# other side of its ReLU in one of them; from then on the fits part (Adam
+# turns the small gradients of rare one-hot slots into steps of lr).  On the
+# host, the kernel's arithmetic against the plain version parts at epoch 11
+# of the pipeline's fit, the JAX package against the plain version at epoch
+# 23, and after 200 epochs the losses differ by 6.5e-3 and 2.6e-3 relative.
+# So the fit's first SYN_TIGHT_EPOCHS epochs are held to EXP_W_REL * |w| +
+# EXP_W_ABS and EXP_H_REL, as phase 13's trainings are; every epoch's loss of
+# the whole fit to SYN_HIST_REL; its weights' distance is reported, not held.
+# Row 29's 100-step losses (14a) are held to SYN_RUN_REL for the same reason.
+SYN_TIGHT_EPOCHS, SYN_HIST_REL, SYN_RUN_REL = 5, 2e-2, 1e-3
+# 14a's logit mutant: one class's bias in the first column moved by this.
+SYN_LOGIT_SHIFT = 0.1
+# 14a's row-29 shape: synthesize's hidden width and fit's batch.
+SYN_HIDDEN, SYN_BATCH = 64, 256
+# Worker processes besides the lattice worker (stopped when the run ends).
+EXTRA_WORKERS = []
+
+
+class SynthCapture:
+    """What the CPU worker needs from one run of the pipeline script, taken
+    by swapping recording wrappers into ``models.synth.ARColumnModel`` and
+    ``verify.sweep`` from outside for the run: the autoregressive model's
+    ``fit`` (its inputs, keywords, initial and final θ, loss history), its
+    ``sample`` (seed, rows as class codes) and every ``verify_model``'s
+    ``(model name, config, report)``."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from fairify_tpu_torch.models import synth
+        from fairify_tpu_torch.verify import sweep
+
+        self.fit, self.draw, self.reports = {}, {}, []
+        self._orig = fit0, sample0, verify0 = (synth.ARColumnModel.fit,
+                                               synth.ARColumnModel.sample, sweep.verify_model)
+        cap = self
+
+        def fit(model, X, **kw):
+            host = lambda: model.theta.detach().cpu().numpy().copy()
+            cap.fit.update(X=np.asarray(X), kw=kw, init=host(), card=model.card.copy(),
+                           hidden=model.shape.H)
+            hist = fit0(model, X, **kw)
+            cap.fit.update(hist=list(hist), theta=host())
+            return hist
+
+        def sample(model, n, seed=0):
+            rows = sample0(model, n, seed=seed)
+            cap.draw.update(n=int(n), seed=int(seed), rows=rows - model.lo[None, :])
+            return rows
+
+        def verify(net, cfg, model_name="model", **kw):
+            rep = verify0(net, cfg, model_name=model_name, **kw)
+            cap.reports.append((model_name, cfg, rep))
+            return rep
+
+        synth.ARColumnModel.fit, synth.ARColumnModel.sample = fit, sample
+        sweep.verify_model = verify
+        return self
+
+    def __exit__(self, *exc):
+        from fairify_tpu_torch.models import synth
+        from fairify_tpu_torch.verify import sweep
+
+        synth.ARColumnModel.fit, synth.ARColumnModel.sample, sweep.verify_model = self._orig
+        return False
+
+
+def synth_card(work: str) -> dict:
+    """14b's card side: the pipeline script at its defaults (SYN_ARGS) on a
+    synthetic German file, every launch count zeroed just before it and read
+    just after; then its outputs written for the CPU side, which starts in a
+    worker process of its own (``--synth-cpu``)."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.data import loaders
+    from fairify_tpu_torch.obs import launches
+    from fairify_tpu_torch.scripts import synthetic_models
+
+    base = os.path.join(work, "p14")
+    data, out = os.path.join(base, "data"), os.path.join(base, "card")
+    write_german(os.path.join(data, "german", "german.data"), GERMAN_ROWS, GERMAN_SEED)
+    root = loaders.DEFAULT_DATA_ROOT
+    loaders.DEFAULT_DATA_ROOT = data  # the script loads from the loaders' default root
+    try:
+        with SynthCapture() as cap:
+            torch.cuda.synchronize()
+            launches.reset()
+            t0 = time.perf_counter()
+            records = synthetic_models.main(list(SYN_ARGS) + ["--out", out, "--device", CARD])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launches.counts()
+    finally:
+        loaders.DEFAULT_DATA_ROOT = root
+    fit, draw = cap.fit, cap.draw
+    steps = fit["kw"]["epochs"] * -(-len(fit["X"]) // SYN_BATCH)
+    if counts["synth_step"] != steps or counts["synth_draw"] != 1 or not counts["train_step"]:
+        fail(f"14b: launches {counts}, expected {steps} synth_step and 1 synth_draw")
+    for rec in records:
+        print(f"[14b record] {json.dumps(rec)}", flush=True)
+    print(f"[14b card] the pipeline at its defaults in {wall:.3f} s: {steps} synth_step, "
+          f"1 synth_draw, {counts['train_step']} train_step launches; AR fit on "
+          f"{len(fit['X'])} rows of {len(fit['card'])} columns (D = {int(fit['card'].sum())}), "
+          f"loss {fit['hist'][0]:.6f} -> {fit['hist'][-1]:.6f}", flush=True)
+    cfg0 = cap.reports[0][1]
+    path_in, path_out = os.path.join(base, "synth_in.json"), os.path.join(base, "synth_cpu.json")
+    np.savez(path_in + ".npz", X=fit["X"], init=fit["init"], theta=fit["theta"],
+             card=fit["card"], rows=draw["rows"])
+    write_json(path_in, dict(data=data, hidden=fit["hidden"], kw=fit["kw"], n=draw["n"],
+                             seed=draw["seed"], soft=cfg0.soft_timeout_s,
+                             hard=cfg0.hard_timeout_s, preset=SYN_ARGS[1],
+                             models=[[r["model"], r["h5"]] for r in records if "h5" in r]))
+    worker = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--synth-cpu",
+                               path_in, path_out],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), process_group=0)
+    EXTRA_WORKERS.append(worker)
+    return dict(records=records, cap=cap, launch=counts, wall=wall, worker=worker,
+                out=path_out, rows={name: sink_rows(cfg, rep) for name, cfg, rep in cap.reports})
+
+
+def synth_cpu_worker(path_in: str, path_out: str) -> int:
+    """``chip_smoke.py --synth-cpu IN OUT``: 14b's CPU side on the card's
+    outputs (IN, from :func:`synth_card`): the same ``fit`` from the same
+    inputs (the initial θ must equal the card's bit for bit); the plain draw
+    from the card's fitted θ, judged against the card's rows by the
+    near-tie rule; ``verify_model`` of each net the card trained, loaded from
+    the file the pipeline wrote.  Results into OUT (θ into OUT.npz)."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.data import loaders
+    from fairify_tpu_torch.models import ingest, synth
+    from fairify_tpu_torch.ops import synth_step as ss
+    from fairify_tpu_torch.verify import presets, sweep
+
+    torch.set_num_threads(2)
+    with open(path_in) as fp:
+        spec = json.load(fp)
+    z = np.load(path_in + ".npz")
+    card = z["card"]
+    res = {}
+    t = time.perf_counter()
+    m = synth.ARColumnModel.init(np.zeros_like(card), card - 1, hidden=spec["hidden"],
+                                 seed=spec["kw"]["seed"], device="cpu")
+    res["init_equal"] = bool(np.array_equal(m.theta.numpy(), z["init"]))
+    res["hist"] = m.fit(z["X"], **spec["kw"])
+    theta = m.theta.numpy()
+    m = synth.ARColumnModel.init(np.zeros_like(card), card - 1, hidden=spec["hidden"],
+                                 seed=spec["kw"]["seed"], device="cpu")
+    res["hist_tight"] = m.fit(z["X"], **dict(spec["kw"], epochs=SYN_TIGHT_EPOCHS))
+    np.savez(path_out + ".npz", theta=theta, theta_tight=m.theta.numpy())
+    res["fit_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    theta, shp = torch.from_numpy(z["theta"]), ss.Shape(card, spec["hidden"], "cpu")
+    keys = ss.column_keys(spec["seed"], len(card))
+    rows = ss.synth_draw_plain(theta, shp, keys, spec["n"])
+    pert = ss.perturbed_logits(theta, shp, keys, rows)
+    ties, bad = ss.near_ties(z["rows"], rows.numpy(), pert.numpy(), card, SYN_TIE_REL)
+    res["draw"] = dict(ties=ties, bad=bad[:20], n_bad=len(bad),
+                       differ=int((z["rows"] != rows.numpy()).any(axis=1).sum()))
+    res["draw_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ds = loaders.load("german", root=spec["data"])
+    cfg = presets.get(spec["preset"]).with_(
+        soft_timeout_s=spec["soft"], hard_timeout_s=spec["hard"],
+        result_dir=os.path.join(os.path.dirname(path_out), "cpu"))
+    res["models"] = {}
+    for name, path in spec["models"]:
+        net = (ingest.load_npz if path.endswith(".npz") else ingest.load_keras_h5)(path, "cpu")
+        rep = sweep.verify_model(net, cfg, model_name=name, dataset=ds, resume=False,
+                                 device="cpu")
+        res["models"][name] = dict(counts=rep.counts, rows=sink_rows(cfg, rep),
+                                   partitions=rep.partitions_total,
+                                   test_acc=round(rep.original_acc, 4))
+    res["verify_s"] = time.perf_counter() - t
+    write_json(path_out, res)
+    return 0
+
+
+def synth_vs_cpu(card: dict, smi: str) -> dict:
+    """14b's checks against the CPU worker: the initial θ bit-equal; the
+    pipeline's fit, its loss history within SYN_HIST_REL (its weights'
+    distance reported); the same fit over its first SYN_TIGHT_EPOCHS epochs
+    (run again on the card, uncounted), losses within EXP_H_REL and weights
+    within EXP_W_REL * |w| + EXP_W_ABS; the card's draw equal to the plain
+    draw from the card's weights up to near ties (at most SYN_TIE_CAP of the
+    rows); per trained net the counts, ledger and CSV rows, partitions and
+    test accuracy equal."""
+    import numpy as np
+
+    from fairify_tpu_torch.models import synth
+
+    fit = card["cap"].fit
+    m = synth.ARColumnModel.init(np.zeros_like(fit["card"]), fit["card"] - 1,
+                                 hidden=fit["hidden"], seed=fit["kw"]["seed"], device=CARD)
+    tight = m.fit(fit["X"], **dict(fit["kw"], epochs=SYN_TIGHT_EPOCHS))
+    tight_w = m.theta.cpu().numpy()
+    cpu = worker_part(card["worker"], card["out"], "phase 14", last=True)
+    if not cpu["init_equal"]:
+        fail("14b: the CPU's initial synthesizer weights differ from the card's")
+    rel = lambda a, b: float((np.abs(np.asarray(a) - b) / np.abs(b)).max())
+    z = np.load(card["out"] + ".npz")
+    h_rel, t_rel = rel(fit["hist"], cpu["hist"]), rel(tight, cpu["hist_tight"])
+    w_err = float((np.abs(tight_w - z["theta_tight"])
+                   / (EXP_W_REL * np.abs(z["theta_tight"]) + EXP_W_ABS)).max())
+    drift = float(np.linalg.norm(fit["theta"] - z["theta"]) / np.linalg.norm(z["theta"]))
+    if t_rel > EXP_H_REL or w_err > 1.0 or h_rel > SYN_HIST_REL:
+        fail(f"14b: fit card vs CPU: the first {SYN_TIGHT_EPOCHS} epochs' losses at {t_rel:.2e} "
+             f"relative and weights at {w_err:.3f} x tolerance; the whole fit's losses at "
+             f"{h_rel:.2e} relative")
+    dr, n = cpu["draw"], card["cap"].draw["n"]
+    if dr["n_bad"] or dr["ties"] > SYN_TIE_CAP * n:
+        fail(f"14b: the card's draw vs the plain draw from its weights: {dr}")
+    for rec in card["records"]:
+        name = rec["model"]
+        c = cpu["models"][name]
+        mine = {"counts": {k: rec[k] for k in ("sat", "unsat", "unknown")},
+                "partitions": rec["partitions"], "test_acc": rec["test_acc"],
+                "rows": card["rows"][name]}
+        theirs = {k: c[k] for k in ("counts", "partitions", "test_acc", "rows")}
+        if mine != theirs:
+            bad = [k for k in mine if mine[k] != theirs[k]]
+            fail(f"14b: {name} card vs CPU differ in {bad}")
+    print(f"[14b card = CPU] AR fit: its first {SYN_TIGHT_EPOCHS} epochs' losses within "
+          f"{t_rel:.2e} relative and weights within {w_err:.4f} x tolerance; all "
+          f"{len(fit['hist'])} epochs' losses within {h_rel:.2e} relative, weights "
+          f"{drift:.4f} apart in relative L2 (CPU {cpu['fit_s']:.1f} s); the card's "
+          f"draw of {n} rows = the plain draw from its weights, {dr['differ']} rows differing, "
+          f"{dr['ties']} at near ties (CPU {cpu['draw_s']:.1f} s); "
+          f"{len(card['records'])} nets' counts, ledger and CSV rows, accuracy equal (CPU "
+          f"verify {cpu['verify_s']:.1f} s); {smi}", flush=True)
+    return dict(loss_rel=h_rel, tight_loss_rel=t_rel, tight_weight_err_x_tol=w_err,
+                weight_drift=drift, draw=dr, fit_s=cpu["fit_s"], verify_s=cpu["verify_s"])
+
+
+def synth_step_checks(card14: dict) -> dict:
+    """14a, row 29 at the path's shape (the fit's 21 quantized columns, H =
+    64, B = 256 and the ragged last batch), 5 plain steps in from synthesize's
+    initial weights: :func:`check_step` (one step vs plain, bit-equal twice,
+    a mutant, the times), 100 steps' losses within SYN_RUN_REL, then the
+    padded classes' entries of θ, m and v bit-unchanged, a θ with one of
+    them moved rejected."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.ops import synth_step as ss
+
+    fit = card14["cap"].fit
+    dev, lr = CARD, 3e-3
+    shp = ss.Shape(fit["card"], fit["hidden"], dev)
+    codes = torch.from_numpy(fit["X"].astype(np.int32)).to(dev)
+    n = codes.shape[0]
+    nb = n // SYN_BATCH
+    order = torch.tensor(np.random.default_rng(0).permutation(n), device=dev)
+    bat = lambda i: order[(i % nb) * SYN_BATCH:(i % nb + 1) * SYN_BATCH]
+    th = torch.from_numpy(fit["init"]).to(dev)
+    st = (th, torch.zeros_like(th), torch.zeros_like(th))
+    for i in range(5):
+        ss.synth_step_plain(*st, codes, bat(i), shp, i + 1, lr)
+    st = st + (5,)
+    pad = ss.padded_mask(shp).to(dev)
+
+    def padded_kept(r) -> bool:
+        return (torch.equal(r[0][pad], st[0][pad]) and not r[1][pad].any()
+                and not r[2][pad].any())
+
+    flat = st[0].clone().requires_grad_(True)
+
+    def steps(idx):
+        """check_step's launch and plain version on the batches idx(5 + i)."""
+        return (lambda th, m, v, t, i, masked=True: ss.synth_step(
+                    th, m, v, codes, idx(5 + i), shp, t, lr),
+                lambda th, m, v, t, i: ss.synth_step_plain(
+                    th, m, v, codes, idx(5 + i), shp, t, lr))
+
+    rows = {}
+    for tag, idx, full in (("B=256", bat, True), (f"ragged B={n - nb * SYN_BATCH}",
+                                                   lambda i: order[nb * SYN_BATCH:], False)):
+        launch, plain = steps(idx)
+        extra = {}
+        if full:
+            extra = dict(
+                prepare=lambda th, m, v, t: ss._step_launch(
+                    th, m, v, codes, bat(5), shp, t, lr, torch.empty(1, device=dev)) + (None,),
+                cost=ss.step_cost(shp, SYN_BATCH),
+                library=lambda: library_step_ms(flat, lambda: ss.synth_loss(
+                    ss.views(flat, shp), codes[bat(5)], shp), lr))
+        r = check_step(f"row 29 synth_step {tag}", st, launch, plain, run100=False, **extra)
+        if full:
+            lk, lp = run_steps(st, launch, 100)[3], run_steps(st, plain, 100)[3]
+            r["run100_loss_rel"] = float(((lk - lp).abs() / lp.abs()).max())
+            if r["run100_loss_rel"] > SYN_RUN_REL:
+                fail(f"row 29: 100-step losses differ by {r['run100_loss_rel']:.2e} relative")
+        k = run_steps(st, launch)
+        if not padded_kept(k):
+            fail(f"row 29 {tag}: a padded class's entry of theta, m or v moved")
+        bad = k[0].clone()
+        bad[int(torch.nonzero(pad)[0])] += 1e-3
+        if padded_kept((bad,) + tuple(k[1:])):
+            fail(f"row 29 {tag}: the padded-entry mutant passed the check")
+        r["padded"] = int(pad.sum())
+        print(f"[kernel row 29 synth_step {tag}] {r['padded']} padded-class entries of theta, "
+              f"m, v bit-unchanged; their mutant rejected"
+              + (f"; 100-step losses within {r['run100_loss_rel']:.2e}" if full else ""),
+              flush=True)
+        rows[tag] = r
+    out = rows["B=256"]
+    out["ragged"] = rows[f"ragged B={n - nb * SYN_BATCH}"]
+    return out
+
+
+def synth_draw_checks(card14: dict) -> dict:
+    """14a, row 30 at the path's shape (n = 2,000 rows from the card's fitted
+    weights, the pipeline's seed): the kernel's rows against the plain
+    version's under the near-tie rule, bit-equal twice, the uniforms of the
+    widest column bit-equal to ``utils/prng.uniform``; a key moved by one
+    and a logit moved by SYN_LOGIT_SHIFT both rejected; the times beside
+    the bound, the plain version and the plain draw as a CUDA graph."""
+    import numpy as np
+    import torch
+
+    from fairify_tpu_torch.ops import synth_step as ss
+    from fairify_tpu_torch.utils import cuda_build
+
+    fit, draw = card14["cap"].fit, card14["cap"].draw
+    n, dev = draw["n"], CARD
+    shp = ss.Shape(fit["card"], fit["hidden"], dev)
+    kmax = shp.kmax
+    th = torch.from_numpy(fit["theta"]).to(dev)
+    keys = ss.column_keys(draw["seed"], shp.d)
+    keys_d = keys.to(dev)
+    col = int(np.argmax(fit["card"]))
+    uni = torch.zeros((n, kmax), device=dev)
+    k = ss.synth_draw(th, shp, keys, n, uni, col).long()
+    k2 = ss.synth_draw(th, shp, keys, n).long()
+    p = ss.synth_draw_plain(th, shp, keys_d, n)
+    pert = ss.perturbed_logits(th, shp, keys_d, p).cpu().numpy()
+    want = p.cpu().numpy()
+    verdict = lambda got: ss.near_ties(got.cpu().numpy(), want, pert, fit["card"], SYN_TIE_REL)
+    ties, bad = verdict(k)
+    if bad or ties > SYN_TIE_CAP * n:
+        fail(f"row 30: kernel vs plain: {len(bad)} rows off a near tie (first {bad[:5]}), "
+             f"{ties} near ties")
+    if not torch.equal(k, k2):
+        fail("row 30: two launches on the same inputs differ")
+    ref = ss.prng.uniform(keys_d[col], (n, kmax), minval=ss.TINY, maxval=1.0)
+    real = (torch.arange(kmax, device=dev) < shp.card[col])[None, :].expand(n, -1)
+    if not torch.equal(uni[real], ref[real]):
+        fail(f"row 30: column {col}'s uniform draws differ from utils/prng.uniform")
+    moved = keys.clone()
+    moved[0, 1] = (moved[0, 1] + 1) & 0xFFFFFFFF
+    mk = verdict(ss.synth_draw(th, shp, moved, n))
+    th_bad = th.clone()
+    c0 = int(np.bincount(want[:, 0]).argmax())
+    th_bad[shp.layout["bh"][0] + c0] += SYN_LOGIT_SHIFT
+    ml = verdict(ss.synth_draw(th_bad, shp, keys, n))
+    for name, (mt, mb) in (("shifted key", mk), ("shifted logit", ml)):
+        if not mb and mt <= SYN_TIE_CAP * n:
+            fail(f"row 30: the {name} mutant passed the check")
+    out8 = torch.empty((n, shp.d), dtype=torch.int32, device=dev)
+    k32 = cuda_build.u32_keys(keys).to(dev)
+    _, ms = timed(lambda: ss.synth_draw(th, shp, keys, n), STEP_REPS)
+    _, plain_ms = timed(lambda: ss.synth_draw_plain(th, shp, keys_d, n), 5)
+    split = time_split(lambda: ss.synth_draw(th, shp, keys, n),
+                       ss._draw_launch(th, shp, k32, n, out8) + (None,))
+    lib = graph_ms(lambda: ss.synth_draw_plain(th, shp, keys_d, n), 20)
+    b_ms, b_by = bound(*ss.draw_cost(shp, n))
+    err = float((uni[real] - ref[real]).abs().max())
+    differ = int((k.cpu().numpy() != want).any(axis=1).sum())
+    print(f"[kernel row 30 synth_draw n={n}] kernel vs plain: {differ} rows differ, {ties} at "
+          f"near ties; bit-equal twice; column {col}'s uniforms bit-equal to prng.uniform; "
+          f"the shifted key ({mk[0]} ties, {len(mk[1])} other rows) and the shifted logit "
+          f"({ml[0]} ties, {len(ml[1])} other rows) rejected; {ms:.4f} ms (C entry point alone "
+          f"{split['entry_ms']:.4f} ms), plain {plain_ms:.4f} ms, library (the plain draw as a "
+          f"CUDA graph) {fmt_ms(lib)}, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, time_split=split, rows=n, differing_rows=differ,
+                near_tie_rows=ties)
+
+
+def synth_phase(card14: dict, smi: str) -> dict:
+    """Phase 14 (14a, 14b) after 14b's card side ran early."""
+    t0 = time.perf_counter()
+    out = {"14b": synth_vs_cpu(card14, smi),
+           "14a": {"synth_step": synth_step_checks(card14),
+                   "synth_draw": synth_draw_checks(card14)}}
+    print(f"[phase 14] the synthetic-data path in {time.perf_counter() - t0:.3f} s (14b's card "
+          f"side earlier: {card14['wall']:.3f} s); {smi}", flush=True)
+    return out
+
+
 def worker_part(worker, path: str, phase: str, last: bool = False) -> dict:
     """Wait for the CPU worker's results of ``phase`` at ``path`` (for the
     last part, its exit too); fail if it exits without them."""
@@ -7355,11 +7790,12 @@ def main() -> int:
         return run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat["card"],
                           lat["out"])
     finally:
-        try:
-            os.killpg(worker.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        worker.wait()
+        for w in [worker] + EXTRA_WORKERS:
+            try:
+                os.killpg(w.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            w.wait()
 
 
 def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
@@ -7383,6 +7819,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     # --- phase 13c's card side, early: the CPU worker re-verifies and
     # audits the card's repaired weights beside phases 3-11
     exp_card = experiment_card(work, lat_out + ".card13.npz")
+    clock("phase 14b, card side")
+    # --- phase 14b's card side, early: its CPU side runs in a worker of its
+    # own beside phases 2-13
+    syn_card = synth_card(work)
 
     clock("phase 2")
     # --- phase 2: the stage-0 kernels
@@ -7656,6 +8096,10 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     # training kernels (rows 25-28) at its shapes
     exp13 = experiment_phase(exp_card, worker_part(worker, lat_out + ".p13", "phase 13",
                                                    last=True), smi)
+    clock("phase 14")
+    # --- phase 14: the synthetic-data path, card = its CPU worker's runs; the
+    # synthesizer's kernels (rows 29-30) at its shapes
+    syn14 = synth_phase(syn_card, smi)
     shutil.rmtree(work, ignore_errors=True)
     # K8a and KB by shape in every window of the run
     clock("shapes")
@@ -7665,6 +8109,20 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
     table = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     for name in REPLACES:
+        if name in SYNTH_KERNELS:
+            r, n = syn14["14a"][name], syn_card["launch"][name]
+            print(f"[summary] {name}: launches the pipeline (14b) {n}; median {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+            table.append(dict({"name": name, "route": "cuda", "source": SOURCES[name],
+                               "replaces": REPLACES[name], "launches": n,
+                               "path": "scripts.synthetic_models (14b)",
+                               "library_ms": r["library_ms"], **{k: r[k] for k in keys}},
+                              **{k: r[k] for k in ("err_x_tol", "time_split", "padded",
+                                                   "run100_loss_rel", "ragged", "rows",
+                                                   "differing_rows", "near_tie_rows")
+                                 if k in r}))
+            continue
         if name in TRAIN_KERNELS:
             r = exp13["13a"][name]
             n = exp13["13b"]["launches"] if name == "train_step" else exp_card["launch"][name]
@@ -7838,4 +8296,6 @@ def run_phases(torch, smi, engine_cfg, work, ac_net, lat_rows, worker, lat_card,
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--lattice-cpu":
         sys.exit(lattice_cpu_worker(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--synth-cpu":
+        sys.exit(synth_cpu_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -33,7 +33,8 @@ KERNELS = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity", "pgd_at
            "bab_segment", "sim_rows", "grid_keys", "sign_bound", "inter_bounds",
            "role_logits", "lattice_scan", "lattice_signs", "lattice_scan_ra",
            "role_bounds", "attack_logits", "role_certify", "sim_stats", "alpha_crown",
-           "train_step", "fit_step", "pair_step", "pair_inconsistency")
+           "train_step", "fit_step", "pair_step", "pair_inconsistency", "synth_step",
+           "synth_draw")
 
 
 class LaunchRegistry:

@@ -131,8 +131,6 @@ def step_smem(sizes, pair: bool, rows: int = ROWS) -> int:
 # ---------------------------------------------------------------------------
 
 _dims_cache: Dict[tuple, object] = {}
-_scratch: Dict[object, torch.Tensor] = {}
-_entries: Dict[str, object] = {}
 
 
 def _dims(sizes):
@@ -141,27 +139,6 @@ def _dims(sizes):
         cuda_build._check_depth(len(key) - 1)
         _dims_cache[key] = cuda_build._dims(key)
     return _dims_cache[key]
-
-
-def _work(device, n: int) -> torch.Tensor:
-    """A scratch buffer of at least ``n`` floats on ``device`` (launches on
-    one stream reuse it in turn)."""
-    buf = _scratch.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(max(n, 1 << 16), dtype=torch.float32, device=device)
-        _scratch[device] = buf
-    return buf
-
-
-def _entry(name: str, args):
-    """C entry point ``name`` of ``train_step.cu``, typed for ``args`` and
-    the stream (as ``cuda_build.call`` types them), looked up once."""
-    fn = _entries.get(name)
-    if fn is None:
-        types = tuple(ctypes.POINTER(ctypes.c_int) if isinstance(a, ctypes.Array) else type(a)
-                      for a in args)
-        fn = _entries[name] = cuda_build.entry("train_step", name, types + (ctypes.c_void_p,))
-    return fn
 
 
 def _check(sizes, theta, *tensors) -> None:
@@ -191,7 +168,7 @@ def _bce_launch(theta, m, v, X, y, idx, sizes, alive, t, lr, mask, loss):
     B = int(idx.numel())
     tiles = -(-B // ROWS)
     P = theta.numel()
-    work = _work(theta.device, tiles * P + 3 * tiles)
+    work = cuda_build.scratch("train_step", theta.device, tiles * P + 3 * tiles)
     c = adam_consts(t)
     args = (_dims(sizes), ctypes.c_int(len(sizes) - 1), cuda_build.ptr(theta),
             cuda_build.ptr(m), cuda_build.ptr(v),
@@ -202,7 +179,7 @@ def _bce_launch(theta, m, v, X, y, idx, sizes, alive, t, lr, mask, loss):
             cuda_build.ptr(work), ctypes.c_void_p(work.data_ptr() + 4 * tiles * P),
             cuda_build.ptr(loss), ctypes.c_int(ROWS), ctypes.c_int(THREADS),
             ctypes.c_longlong(step_smem(sizes, False)))
-    return _entry("bce_adam_step", args), args
+    return cuda_build.streamed_entry("train_step", "bce_adam_step", args), args
 
 
 def bce_adam_step(theta, m, v, X, y, idx, sizes, alive, t: int, lr: float, mask=None,
@@ -242,7 +219,7 @@ def _pair_launch(theta, m, v, anchor, Xs, Xps, y, idx, sizes, alive, t, lr, weig
     tiles = -(-B // ROWS)
     P = theta.numel()
     chunks = -(-P // THREADS)
-    work = _work(theta.device, tiles * P + 3 * tiles + chunks)
+    work = cuda_build.scratch("train_step", theta.device, tiles * P + 3 * tiles + chunks)
     c = adam_consts(t)
     base = work.data_ptr()
     args = (_dims(sizes), ctypes.c_int(len(sizes) - 1), cuda_build.ptr(theta),
@@ -254,7 +231,7 @@ def _pair_launch(theta, m, v, anchor, Xs, Xps, y, idx, sizes, alive, t, lr, weig
             ctypes.c_void_p(base + 4 * tiles * P),
             ctypes.c_void_p(base + 4 * (tiles * P + 3 * tiles)), cuda_build.ptr(loss),
             ctypes.c_int(ROWS), ctypes.c_int(THREADS), ctypes.c_longlong(step_smem(sizes, True)))
-    return _entry("pair_adam_step", args), args
+    return cuda_build.streamed_entry("train_step", "pair_adam_step", args), args
 
 
 def pair_adam_step(theta, m, v, anchor, Xs, Xps, y, idx, sizes, alive, t: int, lr: float,
@@ -302,12 +279,12 @@ def pair_adam_step_plain(theta, m, v, anchor, Xs, Xps, y, idx, sizes, alive, t: 
 def _inc_launch(theta, Xs, Xps, sizes, alive, out):
     n = int(Xs.shape[0])
     tiles = -(-n // ROWS)
-    work = _work(theta.device, 3 * tiles)
+    work = cuda_build.scratch("train_step", theta.device, 3 * tiles)
     args = (_dims(sizes), ctypes.c_int(len(sizes) - 1), cuda_build.ptr(theta),
             cuda_build.ptr(alive), cuda_build.ptr(Xs), cuda_build.ptr(Xps), ctypes.c_int(n),
             cuda_build.ptr(work), cuda_build.ptr(out), ctypes.c_int(ROWS),
             ctypes.c_int(THREADS), ctypes.c_longlong(step_smem(sizes, True)))
-    return _entry("pair_inconsistency", args), args
+    return cuda_build.streamed_entry("train_step", "pair_inconsistency", args), args
 
 
 def pair_inconsistency(theta, Xs, Xps, sizes, alive):

@@ -42,7 +42,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), ".build_torch")
 SOURCES = ("sim_and_bounds", "stage0_certify", "attack_flips", "parity",
            "pgd_attack", "bab_segment", "sim_rows", "sign_bound", "inter_bounds",
-           "lattice_scan", "role_bounds", "attack_logits", "train_step")
+           "lattice_scan", "role_bounds", "attack_logits", "train_step",
+           "synth_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 MAX_LAYERS = 8  # keep in sync with csrc/common.cuh
@@ -174,13 +175,43 @@ def check(name: str, err: int) -> None:
         raise CudaLaunchError(name, err)
 
 
+def arg_types(args) -> tuple:
+    """The ctypes argument types of ``args`` (``c_void_p`` pointers and
+    stream, ``c_int``/``c_float`` scalars, the host dims array)."""
+    return tuple(ctypes.POINTER(ctypes.c_int) if isinstance(a, ctypes.Array) else type(a)
+                 for a in args)
+
+
 def call(src: str, name: str, *args) -> None:
     """Call C entry point ``name`` of library ``src`` with ctypes arguments
-    (``c_void_p`` pointers and stream, ``c_int``/``c_float`` scalars, the
-    host dims array); raise if it returns a nonzero CUDA error code."""
-    types = tuple(ctypes.POINTER(ctypes.c_int) if isinstance(a, ctypes.Array) else type(a)
-                  for a in args)
-    check(name, entry(src, name, types)(*args))
+    (:func:`arg_types`); raise if it returns a nonzero CUDA error code."""
+    check(name, entry(src, name, arg_types(args))(*args))
+
+
+_streamed: Dict[tuple, object] = {}
+
+
+def streamed_entry(src: str, name: str, args: tuple):
+    """C entry point ``name`` of library ``src`` typed for ``args`` and a
+    trailing stream, looked up once per (source, name): the launch helpers
+    that build their arguments every call skip the typing."""
+    fn = _streamed.get((src, name))
+    if fn is None:
+        fn = _streamed[(src, name)] = entry(src, name, arg_types(args) + (ctypes.c_void_p,))
+    return fn
+
+
+_scratch: Dict[tuple, torch.Tensor] = {}
+
+
+def scratch(owner: str, device, n: int) -> torch.Tensor:
+    """A float32 scratch buffer of at least ``n`` floats on ``device``, one
+    per ``owner`` and device (launches on one stream reuse it in turn)."""
+    buf = _scratch.get((owner, device))
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1 << 16), dtype=torch.float32, device=device)
+        _scratch[(owner, device)] = buf
+    return buf
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -11,6 +11,7 @@
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import textwrap
@@ -52,6 +53,7 @@ def test_package_imports_with_jax_blocked():
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
+        sys.modules["h5py"] = None  # the card's machine has none
         for name in {names!r}:
             importlib.import_module(name)
         import chip_smoke
@@ -61,6 +63,9 @@ def test_package_imports_with_jax_blocked():
         from fairify_tpu_torch.ops import train_step
         from fairify_tpu_torch.models import train
         from fairify_tpu_torch.analysis import causal, experiment, hybrid, localize, repair
+        from fairify_tpu_torch.models import export, synth
+        from fairify_tpu_torch.ops import synth_step
+        from fairify_tpu_torch.scripts import synthetic_models
         for mod, names in ((mesh, ("Mesh", "make_mesh", "submesh", "pad_to_multiple",
                                    "shard_parts", "replicated", "shard_map")),
                            (sweep, ("run_sweep", "SmtDrain", "verify_model")),
@@ -77,11 +82,18 @@ def test_package_imports_with_jax_blocked():
                            (localize, ("localize", "global_index_map")),
                            (hybrid, ("route_points", "hybrid_predict", "evaluate_hybrid")),
                            (causal, ("causal_discrimination", "discrimination_search")),
-                           (experiment, ("run_experiment", "repair_success", "audit"))):
+                           (experiment, ("run_experiment", "repair_success", "audit")),
+                           (synth, ("GaussianCopula", "ColumnQuantizer", "ARColumnModel",
+                                    "bootstrap_rows", "synthesize", "GENERATORS")),
+                           (synth_step, ("Shape", "synth_step", "synth_draw", "synth_step_plain",
+                                         "synth_draw_plain", "column_keys")),
+                           (export, ("save_keras_h5",)),
+                           (synthetic_models, ("main", "SLOT_BASE", "SLOT_OFFSET"))):
             missing = [n for n in names if not hasattr(mod, n)]
             assert not missing, (mod.__name__, missing)
         assert {{"role_certify", "sim_stats", "alpha_crown", "train_step", "fit_step",
-                 "pair_step", "pair_inconsistency"}} <= set(sweep.KERNELS)
+                 "pair_step", "pair_inconsistency", "synth_step", "synth_draw"}} <= set(
+            sweep.KERNELS)
         bad = [m for m in sys.modules if m == "fairify_tpu"
                or m.startswith("fairify_tpu.") or m == "jax" and sys.modules[m]]
         assert not bad, bad
@@ -287,6 +299,24 @@ def test_pack_net_layout_and_key_bits():
     k32 = cuda_build.u32_keys(keys)
     assert k32.dtype == torch.int32
     assert ((k32.to(torch.int64) & 0xFFFFFFFF) == keys).all()
+
+
+# What the soundness rule keeps out of every CUDA source and header
+# (fairify_tpu/analysis/passes_sound.py's rules): reduced-precision types,
+# the fast-math intrinsics and approximate PTX, and tensor-core products.
+_UNSOUND = ("__half", "half2", "__nv_bfloat16", "cuda_fp16.h", "cuda_bf16.h", "__fdividef",
+            "__expf", "__exp10f", "__logf", "__log2f", "__log10f", "__powf", "__sinf",
+            "__cosf", "__tanf", "__sincosf", ".approx", "wmma", "mma.sync", "wgmma",
+            "use_fast_math", "-ftz=true")
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu"))
+                         + sorted((PKG / "csrc").glob("*.cuh")), ids=lambda p: p.name)
+def test_kernel_source_keeps_the_soundness_rule(path):
+    # the code only: a comment may name what the rule keeps out
+    src = re.sub(r"//[^\n]*|/\*.*?\*/", "", path.read_text(), flags=re.S)
+    found = [tok for tok in _UNSOUND if tok in src]
+    assert not found, (path.name, found)
 
 
 def test_kernel_sources_are_present_and_standalone():
